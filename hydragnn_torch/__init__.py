@@ -9,5 +9,6 @@ Entry points run on the CUDA device unless the caller passes
 """
 
 from hydragnn_torch.run_prediction import run_prediction
+from hydragnn_torch.run_training import run_training
 
-__all__ = ["run_prediction"]
+__all__ = ["run_prediction", "run_training"]

@@ -42,6 +42,14 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         # data, row_ptr, out, n_seg, f, stream
         "hg_segment_sum_dense_f32": (_P, _P, _P, _I, _I, _P),
     },
+    "scf_mp": {
+        # x, rbf, cm, gidx, rowid, perm, row_ptr, w0, b0, w1, b1, out,
+        # n_rows, f, g, stream
+        "hg_scf_filter_gather_f32": (_P,) * 12 + (_I,) * 3 + (_P,),
+        # h, gout, rbf, cm, send, recv, row_ptr, w0, b0, w1, w1t, b1,
+        # partial, wgrad, drbf, dcm, n_rows, f, g, n_parts, stream
+        "hg_scf_pass_p_f32": (_P,) * 16 + (_I,) * 4 + (_P,),
+    },
 }
 
 _lock = threading.Lock()

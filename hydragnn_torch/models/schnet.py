@@ -4,7 +4,9 @@ Continuous-filter convolution: Gaussian-smeared edge distances feed a
 filter MLP (shifted softplus) under a cosine cutoff envelope hard-zeroed
 beyond the radius; messages are filter-modulated linear node features,
 sum-aggregated through ``segment.gather_mul_segment`` — the fused
-gather-multiply kernel under ``HYDRAGNN_AGGR_BACKEND=fused``.  An optional
+gather-multiply kernel under ``HYDRAGNN_AGGR_BACKEND=fused`` — or, at
+``num_filters >= 256`` under ``fused``, through the fused edge pipeline
+(ops/scf_mp.py), which runs the filter MLP inside its kernels.  An optional
 E(3)-equivariant position update (coord MLP on the filter values,
 mean-aggregated displacement at the edge source) runs on all but the last
 layer.
@@ -31,9 +33,11 @@ from hydragnn_torch.models.layers import (
     dense,
     edge_geometry,
 )
-
-# the reference's fused edge-pipeline width limit (ops/scf_mp.py)
-SCF_F_LIMIT = 1024
+from hydragnn_torch.ops.scf_mp import (
+    SCF_F_LIMIT,
+    SCF_G_LIMIT,
+    scf_edge_pipeline,
+)
 
 
 def gaussian_smearing(dist, radius, num_gaussians):
@@ -49,7 +53,7 @@ def _scf_pipeline_enabled(num_filters: int, num_gaussians: int) -> bool:
     structural limits plus a width floor (``num_filters >= 256``),
     overridable with ``HYDRAGNN_SCF_FUSED=1/0`` — kept as is so dispatch
     matches the reference."""
-    if num_gaussians > 127 or num_filters > SCF_F_LIMIT:
+    if num_gaussians > SCF_G_LIMIT or num_filters > SCF_F_LIMIT:
         return False
     v = os.environ.get("HYDRAGNN_SCF_FUSED")
     if v is not None:
@@ -106,17 +110,16 @@ class SCFConv(nn.Module):
         cut = torch.where(w <= self.cutoff, cut, torch.zeros_like(cut))
 
         perm = g.extras.get("edge_perm_sender") if g.extras else None
-        if (perm is not None and not self.equivariant
-                and _scf_pipeline_enabled(self.num_filters,
-                                          self.num_gaussians)):
-            raise NotImplementedError(
-                "SchNet's fused edge-pipeline kernel (num_filters >= 256 "
-                "under HYDRAGNN_AGGR_BACKEND=fused; ops/fused_block.py "
-                "build_fused_edge_op with ops/scf_mp.py scf_edge_pipeline) "
-                "is not ported yet — ROADMAP queue B item 4")
+        fused_pipeline = (
+            perm is not None and not self.equivariant
+            and _scf_pipeline_enabled(self.num_filters, self.num_gaussians))
 
-        filt = self.nn(rbf)
-        filt = filt * cut[:, None] * g.edge_mask[:, None]
+        # the filter MLP runs inside the edge-pipeline kernels when they are
+        # on; the composed path applies the same Linears
+        filt = None
+        if not fused_pipeline:
+            filt = self.nn(rbf)
+            filt = filt * cut[:, None] * g.edge_mask[:, None]
         h = self.lin1(x)
 
         if self.equivariant:
@@ -125,7 +128,20 @@ class SCFConv(nn.Module):
             trans = torch.clamp(diff * cmlp, -100.0, 100.0)
             pos = pos + segment.segment_mean(trans, src, n, g.edge_mask)
 
-        agg = segment.gather_mul_segment(h, filt, g)
+        if fused_pipeline:
+            # filter MLP + gather + multiply + segment sum in the fused
+            # edge-pipeline kernels (ops/scf_mp.py); weights [in, out]
+            from hydragnn_torch.telemetry import pipeline
+
+            pipeline.count_fused_choice("scf_pipeline", True)
+            cm = cut * g.edge_mask
+            em = g.edge_mask.to(torch.int32)
+            f0, f1 = self.nn[0], self.nn[2]
+            agg = scf_edge_pipeline(h, rbf, cm, em, f0.weight.t(), f0.bias,
+                                    f1.weight.t(), f1.bias, g.senders,
+                                    g.receivers, perm)
+        else:
+            agg = segment.gather_mul_segment(h, filt, g)
         return self.lin2(agg), pos
 
 

@@ -17,15 +17,27 @@ out-of-window senders; collate attaches the marker only when every graph
 fits one node block, so all real senders are in the window and the card's
 global indexing gives the same answer.
 
-Each public op takes a CPU tensor to its plain PyTorch version below
-(the CPU path and the tests' oracle) and a CUDA tensor to its kernel; a
-CUDA input the kernel does not take raises — there is no fallback.  This
-slice is forward-only: a CUDA call that needs a gradient raises, because
-the backward kernels come with the training slice.
+Each public op is a ``torch.autograd.Function`` with the reference's
+custom VJP (hydragnn_tpu/ops/fused_mp.py ``_vjp_bwd``, ``_gss_bwd``,
+``_ssd_bwd``):
+
+- ``gather_mul_segment_sum``: ``dw = x[send] * g[recv]`` by plain
+  indexing (garbage on masked edges, as in the reference: the caller's
+  ``w`` premask kills it); ``dx`` reruns the same kernel on the
+  sender-sorted ordering (``sender_perm``) with the roles swapped —
+  ``dx[n] = sum_{e: send[e]=n} g[recv[e]] * w[e]``.
+- ``gather_segment_sum``: ``dx`` the same way, in the no-``w`` mode.
+- ``segment_sum_dense``: its backward is a plain gather that zeroes
+  out-of-range (and masked) ids.
+
+At the leaves, a CPU tensor takes the kernel's plain PyTorch version
+below (the CPU path and the tests' oracle) and a CUDA tensor the kernel;
+a CUDA input the kernel does not take raises — there is no fallback.
 
 ``LAUNCHES`` counts kernel launches per op (incremented only where the
-kernel is launched), so a run can show that its main path went through
-the kernels.
+kernel is launched), the backward's dx passes under their own
+``*_dx`` keys, so a run can show that its main path went through the
+kernels, forward and backward apart.
 """
 
 from __future__ import annotations
@@ -38,7 +50,9 @@ from hydragnn_torch.ops.aggregate import segment_offsets
 
 LAUNCHES: Dict[str, int] = {
     "gather_mul_segment_sum": 0,
+    "gather_mul_segment_sum_dx": 0,
     "gather_segment_sum": 0,
+    "gather_segment_sum_dx": 0,
     "segment_sum_dense": 0,
 }
 
@@ -108,15 +122,6 @@ def _require(t, name, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _no_grad_needed(*ts):
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in ts):
-        raise NotImplementedError(
-            "the CUDA fused message-passing kernels are forward-only in "
-            "this slice (backward kernels come with the training slice); "
-            "run under torch.inference_mode() or torch.no_grad()")
-
-
 def _check_rc(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what}: kernel launch failed, cudaError_t {rc}")
@@ -182,6 +187,101 @@ def launch_segment_sum_dense(data2d, row_ptr, num_segments):
 
 
 # ---------------------------------------------------------------------------
+# leaves: the kernel on a CUDA tensor, its plain version on a CPU tensor
+# ---------------------------------------------------------------------------
+
+def _gather_mul(x, w, mask, senders, receivers, edge_valid, op):
+    """``out[n] = sum_{e: receivers[e]=n, valid} x[senders[e]] * (w[e] or
+    mask[e])`` over nondecreasing ``receivers``."""
+    if not x.is_cuda:
+        return gather_mul_segment_sum_plain(
+            x, w, senders, receivers, edge_valid=edge_valid, mask=mask)
+    if w is None and mask is None:
+        mask = torch.ones(senders.shape[0], dtype=torch.float32,
+                          device=x.device)
+    row_ptr = segment_offsets(receivers, x.shape[0], edge_valid)
+    return launch_gather_mul(x, w, mask, senders, row_ptr, op=op)
+
+
+def _sender_order(senders, sender_perm):
+    if sender_perm is None:
+        sender_perm = torch.argsort(senders, stable=True)
+    return sender_perm.long()
+
+
+class _GatherMulSegmentSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, senders, receivers, sender_perm, edge_valid):
+        ctx.save_for_backward(x, w, senders, receivers, sender_perm,
+                              edge_valid)
+        return _gather_mul(x, w, None, senders, receivers, edge_valid,
+                           "gather_mul_segment_sum")
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, senders, receivers, sender_perm, edge_valid = ctx.saved_tensors
+        g = g.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[1]:
+            dw = (x[senders.long()] * g[receivers.long()]).to(w.dtype)
+        if ctx.needs_input_grad[0]:
+            p = _sender_order(senders, sender_perm)
+            dx = _gather_mul(
+                g.float(), w[p].float(), None, receivers[p], senders[p],
+                None if edge_valid is None else edge_valid[p],
+                "gather_mul_segment_sum_dx").to(x.dtype)
+        return dx, dw, None, None, None, None
+
+
+class _GatherSegmentSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, senders, receivers, sender_perm, mask):
+        ctx.save_for_backward(senders, receivers, sender_perm, mask)
+        return _gather_mul(x, None, mask, senders, receivers, mask,
+                           "gather_segment_sum")
+
+    @staticmethod
+    def backward(ctx, g):
+        senders, receivers, sender_perm, mask = ctx.saved_tensors
+        if not ctx.needs_input_grad[0]:
+            return None, None, None, None, None
+        p = _sender_order(senders, sender_perm)
+        mp = None if mask is None else mask[p]
+        dx = _gather_mul(g.contiguous().float(), None, mp, receivers[p],
+                         senders[p], mp, "gather_segment_sum_dx")
+        return dx.to(g.dtype), None, None, None, None
+
+
+class _SegmentSumDense(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data, sorted_ids, num_segments, valid):
+        ctx.num_segments = num_segments
+        ctx.shape = data.shape
+        parked = sorted_ids
+        if valid is not None:
+            parked = torch.where(valid != 0, sorted_ids.to(torch.int32),
+                                 num_segments)
+        ctx.save_for_backward(parked)
+        if not data.is_cuda:
+            return segment_sum_dense_plain(data, sorted_ids, num_segments,
+                                           valid)
+        row_ptr = segment_offsets(sorted_ids, num_segments, valid)
+        out = launch_segment_sum_dense(
+            data.reshape(data.shape[0], -1), row_ptr, num_segments)
+        return out.reshape((num_segments,) + tuple(data.shape[1:]))
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        s = ctx.num_segments
+        g2 = g.reshape(s, -1)
+        ok = (ids >= 0) & (ids < s)
+        d = g2[ids.clamp(0, s - 1).long()]
+        d = torch.where(ok[:, None], d, torch.zeros_like(d))
+        return d.reshape(ctx.shape), None, None, None
+
+
+# ---------------------------------------------------------------------------
 # public ops (the reference's names and signatures)
 # ---------------------------------------------------------------------------
 
@@ -190,44 +290,26 @@ def gather_mul_segment_sum(x, w, senders, receivers, sender_perm, window=3,
     """``out[n, f] = sum_{e: recv[e]=n} x[send[e], f] * w[e, f]``.
 
     Requires nondecreasing ``receivers`` and pre-masked ``w``; with
-    ``edge_valid`` the schedule skips masked edges, which must sort last.
-    ``sender_perm`` feeds the reference's backward and is unused by this
-    forward-only slice; ``window`` (odd) is kept for the signature."""
+    ``edge_valid`` the schedule skips masked edges, which must sort last
+    in both edge orderings.  ``sender_perm`` (collate's stable argsort of
+    ``senders``) orders the backward's dx pass; ``window`` (odd) is kept
+    for the signature.  Differentiable wrt ``x`` and ``w``; ``dw`` on
+    masked edges is garbage by contract."""
     if window % 2 != 1:
         raise ValueError("window must be odd")
-    if not x.is_cuda:
-        return gather_mul_segment_sum_plain(
-            x, w, senders, receivers, edge_valid=edge_valid)
-    _no_grad_needed(x, w)
-    row_ptr = segment_offsets(receivers, x.shape[0], edge_valid)
-    return launch_gather_mul(x, w, None, senders, row_ptr)
+    return _GatherMulSegmentSum.apply(x, w, senders, receivers, sender_perm,
+                                      edge_valid)
 
 
 def gather_segment_sum(x, senders, receivers, sender_perm, mask=None):
     """``out[n] = sum_{e: recv[e]=n} mask[e] * x[send[e]]`` — the no-``w``
     mode of the same kernel; ``mask == 0`` edges are skipped (they must
-    sort last)."""
-    if not x.is_cuda:
-        return gather_mul_segment_sum_plain(
-            x, None, senders, receivers, edge_valid=mask, mask=mask)
-    _no_grad_needed(x)
-    if mask is None:
-        mask = torch.ones(senders.shape[0], dtype=torch.float32,
-                          device=x.device)
-    row_ptr = segment_offsets(receivers, x.shape[0], mask)
-    return launch_gather_mul(x, None, mask, senders, row_ptr,
-                             op="gather_segment_sum")
+    sort last).  Differentiable wrt ``x``."""
+    return _GatherSegmentSum.apply(x, senders, receivers, sender_perm, mask)
 
 
 def segment_sum_dense(data, sorted_ids, num_segments, valid=None):
     """Exact segment sum over nondecreasing ``sorted_ids``; out-of-range
     ids and ``valid == 0`` rows (which must sort last) contribute
-    nothing."""
-    if not data.is_cuda:
-        return segment_sum_dense_plain(data, sorted_ids, num_segments, valid)
-    _no_grad_needed(data)
-    shape = data.shape
-    row_ptr = segment_offsets(sorted_ids, num_segments, valid)
-    out = launch_segment_sum_dense(
-        data.reshape(shape[0], -1), row_ptr, num_segments)
-    return out.reshape((num_segments,) + tuple(shape[1:]))
+    nothing.  Differentiable wrt ``data``."""
+    return _SegmentSumDense.apply(data, sorted_ids, num_segments, valid)

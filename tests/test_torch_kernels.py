@@ -8,6 +8,11 @@ block, sorted receivers, a masked tail of padding edges parked on node
 N-1, empty segments).  Tolerance 1e-5: both sides accumulate in float32,
 in a different order.
 
+Backward: the ops' autograd Functions against the reference's custom
+VJPs — dx of both gather ops (the kernel rerun on the sender-sorted
+ordering), dw on real edges (garbage on masked ones by contract), and the
+pool's gather backward, with a masked tail and empty segments.
+
 Also: the CSR schedule covers every valid row exactly once and no masked
 row.  The CUDA kernels against their plain versions on the card are in
 tests/test_torch_gpu.py.
@@ -17,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from hydragnn_tpu.ops import fused_mp as jfm
@@ -126,3 +132,87 @@ def test_wrappers_use_plain_version_on_cpu():
         tfm.gather_mul_segment_sum(x, w, _t(b["senders"]),
                                    _t(b["receivers"]), None, window=2)
     assert all(v == 0 for v in tfm.LAUNCHES.values())
+
+
+# --- backward: the custom VJPs against the reference's -------------------
+
+
+def _vjp_jax(fn, primals, ct):
+    _, pull = jax.vjp(fn, *primals)
+    return [np.asarray(g) for g in pull(jnp.asarray(ct))]
+
+
+def _vjp_torch(fn, primals, ct):
+    ts = [_t(p).clone().requires_grad_(True) for p in primals]
+    fn(*ts).backward(_t(ct))
+    return [t.grad.numpy() for t in ts]
+
+
+@pytest.mark.parametrize("masked", [True, False])
+def test_gather_mul_segment_sum_grads_match_jax(masked):
+    """dx (the kernel rerun on the sender-sorted ordering) and dw (plain
+    indexing) against the reference VJP; dw compared on real edges only —
+    on masked edges it is garbage by contract in both."""
+    b = _graph_batch(31)
+    n, e = len(b["node_gid"]), len(b["senders"])
+    x = b["rng"].randn(n, 24).astype(np.float32)
+    w = b["rng"].randn(e, 24).astype(np.float32) * b["edge_mask"][:, None]
+    ct = b["rng"].randn(n, 24).astype(np.float32)
+    ev = b["edge_mask"] if masked else None
+    s, r, p = b["senders"], b["receivers"], b["perm"]
+    want = _vjp_jax(
+        lambda x_, w_: jfm.gather_mul_segment_sum(
+            x_, w_, jnp.asarray(s), jnp.asarray(r), jnp.asarray(p),
+            edge_valid=None if ev is None else jnp.asarray(ev)),
+        (jnp.asarray(x), jnp.asarray(w)), ct)
+    tfm.reset_launches()
+    got = _vjp_torch(
+        lambda x_, w_: tfm.gather_mul_segment_sum(
+            x_, w_, _t(s), _t(r), _t(p),
+            edge_valid=None if ev is None else _t(ev)), (x, w), ct)
+    np.testing.assert_allclose(got[0], want[0], **TOL)
+    real = b["edge_mask"] != 0
+    np.testing.assert_allclose(got[1][real], want[1][real], **TOL)
+    assert all(v == 0 for v in tfm.LAUNCHES.values())  # CPU: plain
+
+
+def test_gather_segment_sum_grad_matches_jax():
+    b = _graph_batch(32)
+    n = len(b["node_gid"])
+    x = b["rng"].randn(n, 16).astype(np.float32)
+    ct = b["rng"].randn(n, 16).astype(np.float32)
+    s, r, p, m = b["senders"], b["receivers"], b["perm"], b["edge_mask"]
+    want = _vjp_jax(
+        lambda x_: jfm.gather_segment_sum(
+            x_, jnp.asarray(s), jnp.asarray(r), jnp.asarray(p),
+            jnp.asarray(m)), (jnp.asarray(x),), ct)
+    got = _vjp_torch(
+        lambda x_: tfm.gather_segment_sum(x_, _t(s), _t(r), _t(p), _t(m)),
+        (x,), ct)
+    np.testing.assert_allclose(got[0], want[0], **TOL)
+
+
+@pytest.mark.parametrize("over", ["receivers", "node_gid"])
+def test_segment_sum_dense_grad_matches_jax(over):
+    """The pool's backward: a gather that zeroes masked and out-of-range
+    ids, over both sorted id streams the models use."""
+    b = _graph_batch(33)
+    n = len(b["node_gid"])
+    if over == "receivers":
+        ids, segs, valid = b["receivers"], n, b["edge_mask"]
+    else:
+        ids, segs, valid = b["node_gid"], b["n_graphs"] - 1, None
+    data = b["rng"].randn(len(ids), 8).astype(np.float32)
+    ct = b["rng"].randn(segs, 8).astype(np.float32)
+    want = _vjp_jax(
+        lambda d: jfm.segment_sum_dense(
+            d, jnp.asarray(ids), segs,
+            valid=None if valid is None else jnp.asarray(valid)),
+        (jnp.asarray(data),), ct)
+    got = _vjp_torch(
+        lambda d: tfm.segment_sum_dense(
+            d, _t(ids), segs, valid=None if valid is None else _t(valid)),
+        (data,), ct)
+    np.testing.assert_allclose(got[0], want[0], **TOL)
+    if over == "node_gid":  # the padding graph's id is out of range
+        assert np.all(got[0][b["node_gid"] >= segs] == 0.0)

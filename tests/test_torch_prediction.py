@@ -7,7 +7,8 @@
 - the port's own checkpoint reads back in the JAX package;
 - ``finalize`` writes the same dict in both packages;
 - the port runs on the card by default and never imports JAX: a
-  subprocess imports every port module and finds neither ``jax`` nor
+  subprocess imports both entry points (``run_prediction``,
+  ``run_training``) and every port module and finds neither ``jax`` nor
   ``hydragnn_tpu`` in ``sys.modules``, and no port source imports them.
 """
 
@@ -177,6 +178,8 @@ def test_port_imports_neither_jax_nor_the_reference():
         "import sys, importlib\n"
         "import hydragnn_torch\n"
         "from hydragnn_torch.run_prediction import run_prediction\n"
+        "from hydragnn_torch.run_training import run_training\n"
+        "from hydragnn_torch import run_training as _rt\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules\n"

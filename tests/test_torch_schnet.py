@@ -9,9 +9,9 @@ the ``scatter`` and ``fused`` backends (the JAX side then runs the Pallas
 ops in interpret mode, the port its plain versions), with and without the
 equivariant branch.  Tolerance 1e-4 (model level, float32).
 
-Also: the weight round trip through ``tools/port_weights.port_state_dict``
-and the explicit refusal of the unported fused edge pipeline
-(``num_filters >= 256`` under ``fused``).
+Also: the weight round trip through ``tools/port_weights.port_state_dict``,
+and the wide-filter SchNet (``num_filters >= 256``, the fused edge
+pipeline under ``fused``): forward and every parameter gradient.
 """
 
 import dataclasses
@@ -160,20 +160,44 @@ def test_load_rejects_a_tree_that_does_not_match():
         load_flax_params(tm, tree)
 
 
-def test_wide_filters_under_fused_raise_not_another_path(monkeypatch):
-    """num_filters >= 256 under fused is the reference's fused edge
-    pipeline (next slice): the port refuses instead of quietly taking
-    the gather-multiply kernel; under scatter it runs."""
-    wide = (16, 1, 8, 256, 1.5, 16, 8)
-    _, tc = _cfgs(wide, False)
-    tm = t_create_model(tc)
-    raw = _samples(1.5, 16, 8, n_graphs=2)
-    for backend in ("fused", "scatter"):
-        monkeypatch.setenv("HYDRAGNN_AGGR_BACKEND", backend)
-        _, gt = _batches(raw, [("energy", "graph", 1)])
-        with torch.inference_mode():
-            if backend == "fused":
-                with pytest.raises(NotImplementedError, match="queue B"):
-                    tm(gt)
-            else:
-                assert tm(gt)[0].shape == (3, 1)
+@pytest.mark.parametrize("backend", ["fused", "scatter"])
+def test_wide_filters_forward_and_grads_match_jax(backend, monkeypatch):
+    """num_filters >= 256: under ``fused`` both packages take the fused edge
+    pipeline (the port's plain kernel versions on the CPU, the reference's
+    Pallas ops in interpret mode), under ``scatter`` the composed path;
+    forward and every parameter gradient agree at 1e-4."""
+    from hydragnn_torch.ops import fused_mp
+    from hydragnn_torch.telemetry import pipeline
+
+    wide = (16, 2, 8, 256, 1.5, 16, 8)
+    jm, variables, tm, gj, gt = _both(wide, False, monkeypatch, backend)
+    ct = np.random.RandomState(1).randn(gj.graph_mask.shape[0], 1).astype(
+        np.float32)
+
+    def jloss(params):
+        out = jm.apply({"params": params}, gj, train=False)
+        return jax.numpy.sum(out[0] * ct)
+
+    jl, jgrads = jax.value_and_grad(jloss)(variables["params"])
+    before = pipeline.dispatch_snapshot()
+    fused_mp.reset_launches()
+    out = tm(gt)[0]
+    loss = (out * torch.from_numpy(ct)).sum()
+    loss.backward()
+    counts = pipeline.dispatch_delta(before, pipeline.dispatch_snapshot())
+    if backend == "fused":
+        assert counts.get("scf_pipeline:fused") == 2
+        assert "gather_mul:fused" not in counts
+    else:
+        assert "scf_pipeline:fused" not in counts
+    np.testing.assert_allclose(float(loss.detach()), float(jl), **TOL)
+    with torch.no_grad():
+        for q in tm.parameters():
+            q.copy_(q.grad)
+    got = flax_params_from_module(tm)
+    flat_want = jax.tree_util.tree_leaves_with_path(jgrads)
+    flat_got = dict(jax.tree_util.tree_leaves_with_path(got))
+    assert len(flat_got) == len(flat_want)
+    for path, leaf in flat_want:
+        np.testing.assert_allclose(flat_got[path], np.asarray(leaf),
+                                   err_msg=jax.tree_util.keystr(path), **TOL)
