@@ -21,7 +21,11 @@ and PyTorch built for CUDA.  Phases, each of which fails the run:
    1e-5), and the three scf kernels of the wide
    SchNet (F=256, G=50: forward, pass P, pass S) through their autograd
    Function against autograd through the composed plain version (1e-5;
-   1e-4 for the weight grads, sums over ~1e5 edges in another order);
+   1e-4 for the weight grads, sums over ~1e5 edges in another order), and
+   the two poly kernels (scatter mode with all moments at F=64 and F=256,
+   gather mode with sum+cnt and with all moments at F=64: sums 1e-5,
+   max/min and count exactly equal; through their autograd Functions
+   against autograd through the plain versions on data with ties);
 4. flagship prediction: a seeded SchNet checkpoint at the flagship widths
    (hidden 64, 4 convs, 50 gaussians, 64 filters, radius 1.8,
    max_neighbours 20, graph head (2, 64, 2, (64, 64)), batch 512) through
@@ -40,7 +44,25 @@ and PyTorch built for CUDA.  Phases, each of which fails the run:
 6. wide training: the same at hidden = num_filters = 256 (the fused edge
    pipeline), capped at 2 batches per pass (``HYDRAGNN_MAX_NUM_BATCH``) so
    the CPU run stays short: 4 scf forward, 4 pass P and 4 pass S launches
-   per train step, no gather-multiply launch.
+   per train step, no gather-multiply launch;
+7. PNA training at the arch-sweep widths (hidden 64, 4 convs, the same
+   graph head, radius 1.8, max_neighbours 20, batch 512, the degree
+   histogram from ``finalize``), 3 epochs, with the checks of phase 5 (the
+   repeat runs bit-identical in every BatchNorm buffer too): 4 poly-scatter
+   and 11 sorted-segment-sum launches per train step (1 pool, 4 tie
+   counts, 6 gather backwards), 4 + 1 per eval batch.  Two correct float32
+   runs of a BatchNorm architecture drift apart under Adam (see
+   REL_TOL_LOSS_FREE_BN), so the free card and CPU runs are held to each
+   other loosely, on the train loss, and the tight check is made in
+   lockstep over the first three train batches: the card model takes the
+   CPU model's weights and statistics before each step, and loss (1e-5),
+   updated BatchNorm statistics (1e-4) and every gradient (1e-4 of the
+   largest entry) must agree; ``run_prediction`` on the run's checkpoint,
+   card vs CPU, 1e-4;
+8. GIN, SAGE and MFC training at the same widths, 2 epochs capped at 2
+   batches per pass: 4 no-``w`` gather (GIN) or 4 poly-gather (SAGE, MFC)
+   launches and 3 no-``w`` dx launches per train step, 1 pool; the same
+   lockstep and checkpoint-prediction checks.
 
 Prints JSON lines with the seconds of each phase; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -73,8 +95,24 @@ REL_TOL_KERNEL = 1e-5
 # products) in another order than the plain version's GEMMs
 REL_TOL_WGRAD = 1e-4
 REL_TOL_PATH = 1e-4
-# per-epoch losses, card vs CPU, after a few dozen AdamW steps
+# per-epoch losses, card vs CPU, after a few dozen AdamW steps (SchNet)
 REL_TOL_LOSS = 1e-4
+# The BatchNorm architectures (PNA, GIN, SAGE, MFC).  Two correct float32
+# runs of them drift apart under Adam: the weights in front of a BatchNorm
+# are scale-invariant, so their gradients are small differences of large
+# sums, and Adam turns each gradient, however small, into a step of the
+# learning rate's size.  Two CPU runs that differ only in the order of a
+# segment sum (backend fused vs scatter) part by 1e-3..1e-2 in the train
+# loss within three epochs, and by tens of percent in the eval losses while
+# the running statistics are still young.  So the free runs are held
+# loosely, on the train loss alone, and the kernels on these paths are
+# held tightly in lockstep (same weights and statistics before every
+# step): loss, gradients, updated statistics.
+REL_TOL_LOSS_FREE_BN = 5e-2
+REL_TOL_LOCKSTEP_LOSS = 1e-5
+REL_TOL_LOCKSTEP_STATS = 1e-4
+# of the model's largest gradient entry
+REL_TOL_LOCKSTEP_GRAD = 1e-4
 N_CONFIGURATIONS = 6000   # perc_train 0.1 -> 2700 test graphs, 6 batches
 BATCH = 512
 FEATURES = 64
@@ -83,6 +121,30 @@ GAUSSIANS = 50
 TRAIN_EPOCHS = 3
 WIDE_EPOCHS = 2
 WIDE_CAP = 2              # batches per pass of the wide run_training
+ARCH_EPOCHS = 2           # GIN, SAGE, MFC: capped like the wide run
+ARCH_CAP = 2
+
+# kernel launches per train step and per eval batch of each path (4 conv
+# layers; the first layer's input needs no gradient, so its dx launch and
+# PNA's first two gather backwards do not happen); counters not named are 0
+PATH_LAUNCHES = {
+    "flagship": ({"gather_mul_segment_sum": 4,
+                  "gather_mul_segment_sum_dx": 4, "segment_sum_dense": 1},
+                 {"gather_mul_segment_sum": 4, "segment_sum_dense": 1}),
+    "wide": ({"scf_edge_pipeline": 4, "scf_edge_pipeline_pass_p": 4,
+              "scf_edge_pipeline_pass_s": 4, "segment_sum_dense": 1},
+             {"scf_edge_pipeline": 4, "segment_sum_dense": 1}),
+    # per step: 1 pool + 4 tie counts + 2 gather backwards in 3 layers
+    "PNA": ({"segment_poly_dense": 4, "segment_sum_dense": 11},
+            {"segment_poly_dense": 4, "segment_sum_dense": 1}),
+    "GIN": ({"gather_segment_sum": 4, "gather_segment_sum_dx": 3,
+             "segment_sum_dense": 1},
+            {"gather_segment_sum": 4, "segment_sum_dense": 1}),
+    "SAGE": ({"gather_poly_segment": 4, "gather_segment_sum_dx": 3,
+              "segment_sum_dense": 1},
+             {"gather_poly_segment": 4, "segment_sum_dense": 1}),
+}
+PATH_LAUNCHES["MFC"] = PATH_LAUNCHES["SAGE"]
 REPEAT_STEPS = 3
 
 
@@ -103,7 +165,8 @@ def smi_line():
     return r.stdout.strip().splitlines()[0]
 
 
-def flagship_config(width=64, perc_train=0.1, epochs=1):
+def flagship_config(width=64, perc_train=0.1, epochs=1,
+                    model_type="SchNet"):
     return {
         "Verbosity": {"level": 0},
         "Dataset": {
@@ -119,7 +182,7 @@ def flagship_config(width=64, perc_train=0.1, epochs=1):
         },
         "NeuralNetwork": {
             "Architecture": {
-                "model_type": "SchNet",
+                "model_type": model_type,
                 "radius": 1.8,
                 "max_neighbours": 20,
                 "num_gaussians": 50,
@@ -153,12 +216,16 @@ def flagship_config(width=64, perc_train=0.1, epochs=1):
     }
 
 
-def time_ms(torch, fn, flush=None, reps=50, warmup=5):
+def time_ms(torch, fn, flush=None, reps=50, warmup=5, lead=False):
     """Median device milliseconds of ``fn`` over ``reps`` runs, each between
     its own CUDA events; with ``flush`` (a buffer larger than the L2 cache)
     the cache is overwritten before each run.  All runs are enqueued behind
-    a device-side sleep that outlasts the host's enqueueing, so no host
-    launch gap falls inside a timed interval."""
+    a device-side sleep meant to outlast the host's enqueueing, so that no
+    host launch gap falls inside a timed interval.  ``lead`` (for a bare
+    kernel launch, which must not wait for the device) makes that certain:
+    an event behind the sleep must still be pending when the last run has
+    been enqueued, else the runs are made again behind a sleep four times
+    as long, and the call fails if the host never stays ahead."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -169,18 +236,30 @@ def time_ms(torch, fn, flush=None, reps=50, warmup=5):
         fn()
     torch.cuda.synchronize()
     host_s = (time.perf_counter() - t0) / 3
-    torch.cuda._sleep(int(2 * reps * host_s * SLEEP_CYCLES_PER_S))
-    pairs = []
-    for _ in range(reps):
-        if flush is not None:
-            flush.zero_()
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        pairs.append((s, e))
-    torch.cuda.synchronize()
+    # 5x: on a shared host the enqueueing can run several times slower than
+    # the three runs above did
+    cycles = int(5 * reps * host_s * SLEEP_CYCLES_PER_S)
+    for _ in range(3 if lead else 1):
+        torch.cuda._sleep(cycles)
+        gate = torch.cuda.Event()
+        gate.record()
+        pairs = []
+        for _ in range(reps):
+            if flush is not None:
+                flush.zero_()
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            pairs.append((s, e))
+        led = not gate.query()
+        torch.cuda.synchronize()
+        if led:
+            break
+        cycles *= 4
+    check(led or not lead, "time_ms: the device caught up with the host "
+          "while the timed runs were being enqueued")
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
@@ -262,9 +341,9 @@ def kernel_phase(torch, g, seed):
         "replaces": "hydragnn_tpu/ops/fused_mp.py:171",
         "max_abs_err": abs_e, "max_rel_err": rel_e,
         "ms": time_ms(torch, lambda: fm.launch_gather_mul(
-            x, w, None, send, row_ptr), flush),
+            x, w, None, send, row_ptr), flush, lead=True),
         "warm_l2_ms": time_ms(torch, lambda: fm.launch_gather_mul(
-            x, w, None, send, row_ptr)),
+            x, w, None, send, row_ptr), lead=True),
         "wrapper_ms": time_ms(torch, lambda: fm.gather_mul_segment_sum(
             x, w, send, recv, perm, edge_valid=mask), flush),
         "plain_ms": time_ms(torch, lambda: fm.gather_mul_segment_sum_plain(
@@ -282,12 +361,26 @@ def kernel_phase(torch, g, seed):
     abs_e, rel_e = rel_err(torch, k, p)
     check(rel_e <= REL_TOL_KERNEL,
           f"gather_segment_sum disagrees with its plain version: {rel_e}")
-    notes["gather_segment_sum"] = {
+    # x, the real senders and mask values, receivers and mask for the
+    # schedule, the output
+    nw_ms, nw_by = bound(4 * (n * f + 2 * e_valid + 2 * e + n * f),
+                         2 * e_valid * f)
+    results.append({
+        "name": "gather_segment_sum", "route": "cuda",
+        "source": "hydragnn_torch/csrc/fused_mp.cu",
+        "replaces": "hydragnn_tpu/ops/fused_mp.py:171",
         "max_abs_err": abs_e, "max_rel_err": rel_e,
         "ms": time_ms(torch, lambda: fm.launch_gather_mul(
-            x, None, mask, send, row_ptr, op="gather_segment_sum"), flush),
+            x, None, mask, send, row_ptr, op="gather_segment_sum"), flush,
+            lead=True),
+        "warm_l2_ms": time_ms(torch, lambda: fm.launch_gather_mul(
+            x, None, mask, send, row_ptr, op="gather_segment_sum"),
+            lead=True),
         "plain_ms": time_ms(torch, lambda: fm.gather_mul_segment_sum_plain(
-            x, None, send, recv, edge_valid=mask, mask=mask), flush)}
+            x, None, send, recv, edge_valid=mask, mask=mask), flush),
+        "bound_ms": nw_ms, "bound_by": nw_by, "library_ms": None,
+        "shape": {"N": n, "E": e, "E_valid": e_valid, "F": f},
+    })
 
     # -- the dx pass of both backwards (K1), held through the code the main
     #    path runs: the ops' backward (autograd Function) against autograd
@@ -339,23 +432,31 @@ def kernel_phase(torch, g, seed):
         "max_abs_err": dx_err[0], "max_rel_err": dx_err[1],
         "ms": time_ms(torch, lambda: fm.launch_gather_mul(
             ct, w_s, None, send_s, ptr_s, op="gather_mul_segment_sum_dx"),
-            flush),
+            flush, lead=True),
         "warm_l2_ms": time_ms(torch, lambda: fm.launch_gather_mul(
-            ct, w_s, None, send_s, ptr_s, op="gather_mul_segment_sum_dx")),
+            ct, w_s, None, send_s, ptr_s, op="gather_mul_segment_sum_dx"),
+            lead=True),
         "plain_ms": time_ms(torch, lambda: fm.gather_mul_segment_sum_plain(
             ct, w_s, send_s, recv_s, edge_valid=m_s), flush),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "shape": {"N": n, "E": e, "E_valid": e_valid, "F": f},
     })
-    notes["gather_segment_sum_dx"] = {
+    results.append({
+        "name": "gather_segment_sum_dx", "route": "cuda",
+        "source": "hydragnn_torch/csrc/fused_mp.cu",
+        "replaces": "hydragnn_tpu/ops/fused_mp.py:171",
         "max_abs_err": sdx_err[0], "max_rel_err": sdx_err[1],
         "ms": time_ms(torch, lambda: fm.launch_gather_mul(
-            ct, None, m_s, send_s, ptr_s, op="gather_segment_sum_dx"), flush),
+            ct, None, m_s, send_s, ptr_s, op="gather_segment_sum_dx"), flush,
+            lead=True),
+        "warm_l2_ms": time_ms(torch, lambda: fm.launch_gather_mul(
+            ct, None, m_s, send_s, ptr_s, op="gather_segment_sum_dx"),
+            lead=True),
         "plain_ms": time_ms(torch, lambda: fm.gather_mul_segment_sum_plain(
-            ct, None, send_s, recv_s, edge_valid=m_s, mask=m_s), flush)}
-    notes["gather_segment_sum"]["bound_ms"], \
-        notes["gather_segment_sum"]["bound_by"] = bound(
-            4 * (n * f + e_valid + 2 * e + n * f), 2 * e_valid * f)
+            ct, None, send_s, recv_s, edge_valid=m_s, mask=m_s), flush),
+        "bound_ms": nw_ms, "bound_by": nw_by, "library_ms": None,
+        "shape": {"N": n, "E": e, "E_valid": e_valid, "F": f},
+    })
 
     # -- segment_sum_dense over edge rows: masked tail, empty segments
     k = fm.segment_sum_dense(w, recv, n, valid=mask)
@@ -393,9 +494,9 @@ def kernel_phase(torch, g, seed):
         "replaces": "hydragnn_tpu/ops/fused_mp.py:340",
         "max_abs_err": abs_e, "max_rel_err": rel_e,
         "ms": time_ms(torch, lambda: fm.launch_segment_sum_dense(
-            xn, pool_ptr, n_graphs), flush),
+            xn, pool_ptr, n_graphs), flush, lead=True),
         "warm_l2_ms": time_ms(torch, lambda: fm.launch_segment_sum_dense(
-            xn, pool_ptr, n_graphs)),
+            xn, pool_ptr, n_graphs), lead=True),
         "wrapper_ms": time_ms(torch, lambda: fm.segment_sum_dense(
             xn, gid, n_graphs), flush),
         "plain_ms": time_ms(torch, lambda: fm.segment_sum_dense_plain(
@@ -512,8 +613,8 @@ def scf_phase(torch, g, seed):
             "name": name, "route": "cuda",
             "source": "hydragnn_torch/csrc/scf_mp.cu", "replaces": replaces,
             "max_abs_err": errs[worst][0], "max_rel_err": errs[worst][1],
-            "ms": time_ms(torch, kern, flush),
-            "warm_l2_ms": time_ms(torch, kern),
+            "ms": time_ms(torch, kern, flush, lead=True),
+            "warm_l2_ms": time_ms(torch, kern, lead=True),
             "plain_ms": time_ms(torch, plain, flush),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "shape": {"N": n, "E": e, "E_valid": e_valid, "F": f, "G": gd},
@@ -522,11 +623,162 @@ def scf_phase(torch, g, seed):
                      for k, (a, r) in errs.items()}
 
 
+def poly_phase(torch, g, seed):
+    """The two poly kernels against their plain versions at the first train
+    batch: scatter mode with all moments at F = 64 (PNA's messages) and
+    F = 256, gather mode with sum + cnt (SAGE, MFC) and with all moments at
+    F = 64.  Forward: sums within 1e-5, max/min and the count exactly
+    equal.  Backward: the autograd Functions against autograd through the
+    plain versions, on data with ties (a coarse grid), masked rows exactly
+    zero.  Each kernel timed alone on its precomputed schedule; the library
+    call is the one that gives the sum moment (``torch.segment_reduce``
+    over the real rows; a CSR sparse product for the gather)."""
+    from hydragnn_torch.ops import fused_mp as fm
+    from hydragnn_torch.ops import poly_mp as pm
+    from hydragnn_torch.ops.aggregate import segment_offsets
+
+    dev = g.x.device
+    n, e = g.num_nodes, g.num_edges
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    send, recv, mask = g.senders, g.receivers, g.edge_mask
+    perm = g.extras["edge_perm_sender"]
+    real = mask != 0
+    e_valid = int(real.sum())
+    check(bool(real[:e_valid].all()), "masked edges do not sort last")
+    row_ptr = segment_offsets(recv, n, mask)
+    lengths = row_ptr.diff().long()
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    every = ("sum", "sq", "mxmn", "cnt")
+
+    def grid(rows, f):
+        # a coarse grid: deliberate ties within a segment
+        return (torch.randn(rows, f, device=dev, generator=gen) * 2
+                ).round() / 2
+
+    def hold(name, k, p, moments):
+        errs = {}
+        for m, a, c in zip(moments, k, p):
+            if m in ("mxmn", "cnt"):
+                check(torch.equal(a, c), f"{name}: {m} differs from the "
+                      "plain version")
+                errs[m] = (0.0, 0.0)
+            else:
+                errs[m] = rel_err(torch, a, c)
+                check(errs[m][1] <= REL_TOL_KERNEL, f"{name}: {m} disagrees "
+                      f"with its plain version: {errs[m][1]}")
+        return errs
+
+    def grads(fn, t, cts, moments):
+        t = t.detach().clone().requires_grad_(True)
+        total = 0.0
+        for m, o, c in zip(moments, fn(t), cts):
+            if m == "cnt":
+                continue
+            if m == "mxmn":  # the callers' zero-clean of empty segments
+                o = torch.where(o <= -5e8, torch.zeros_like(o), o)
+            total = total + (o * c).sum()
+        total.backward()
+        torch.cuda.synchronize()
+        return t.grad
+
+    def bytes_out(moments, f):
+        return 4 * sum({"sum": n * f, "sq": n * f, "mxmn": 2 * n * f,
+                        "cnt": n}[m] for m in moments)
+
+    def flops(moments, f):
+        return e_valid * f * sum({"sum": 1, "sq": 2, "mxmn": 3,
+                                  "cnt": 0}[m] for m in moments)
+
+    rows, notes = [], {}
+    cases = (("scatter", 64, every), ("scatter", 256, every),
+             ("gather", 64, ("sum", "cnt")), ("gather", 64, every))
+    for mode, f, moments in cases:
+        name = f"{mode}_F{f}_{'_'.join(moments)}"
+        cts = [torch.randn(n, 2 * f if m == "mxmn" else f, device=dev,
+                           generator=gen) for m in moments]
+        pm.reset_launches()
+        fm.reset_launches()
+        if mode == "scatter":
+            src = grid(e, f)   # not premasked: the schedule skips the tail
+            op = "segment_poly_dense"
+            kern = lambda t: pm.segment_poly_dense(t, recv, n, moments,
+                                                   valid=mask)
+            plain = lambda t: pm.segment_poly_dense_plain(t, recv, n,
+                                                          moments, valid=mask)
+            launch = lambda: pm.launch_poly_segment(src, None, None, row_ptr,
+                                                    n, moments, op)
+            lib = lambda: torch.segment_reduce(src[:e_valid], "sum",
+                                               lengths=lengths, axis=0)
+            nbytes = 4 * (e_valid * f + 2 * e) + bytes_out(moments, f)
+        else:
+            src = grid(n, f)
+            op = "gather_poly_segment"
+            kern = lambda t: pm.gather_poly_segment(t, send, recv, perm,
+                                                    moments, mask=mask)
+            plain = lambda t: pm.gather_poly_segment_plain(t, send, recv,
+                                                           moments, mask=mask)
+            launch = lambda: pm.launch_poly_segment(src, send, mask, row_ptr,
+                                                    n, moments, op)
+            csr = torch.sparse_csr_tensor(
+                row_ptr.long(), send[:e_valid].long(), mask[:e_valid],
+                size=(n, n))
+            lib = lambda: csr @ src
+            nbytes = 4 * (n * f + 2 * e_valid + 2 * e) + bytes_out(moments, f)
+        with torch.no_grad():
+            k, p = kern(src), plain(src)
+            torch.cuda.synchronize()
+            errs = hold(name, k, p, moments)
+            lib_err = rel_err(torch, lib(), p[0])
+            check(lib_err[1] <= REL_TOL_KERNEL,
+                  f"{name}: the library call disagrees with the plain sum")
+        gk, gp = grads(kern, src, cts, moments), grads(plain, src, cts,
+                                                       moments)
+        g_err = rel_err(torch, gk, gp)
+        check(g_err[1] <= REL_TOL_KERNEL, f"{name}: the backward disagrees "
+              f"with autograd through the plain version: {g_err[1]}")
+        if mode == "scatter":
+            check(bool((gk[~real] == 0).all()),
+                  f"{name}: a masked row has a gradient")
+        want = {op: 2}    # the forward check and the backward's forward
+        check({k_: v for k_, v in pm.LAUNCHES.items() if v} == want,
+              f"{name}: poly launches {pm.LAUNCHES}")
+        worst = max(errs.values(), key=lambda v: v[1])
+        b_ms, b_by = bound(nbytes, flops(moments, f))
+        row = {
+            "name": op, "route": "cuda",
+            "source": "hydragnn_torch/csrc/poly_mp.cu",
+            "replaces": ("hydragnn_tpu/ops/poly_mp.py:278"
+                         if mode == "scatter"
+                         else "hydragnn_tpu/ops/poly_mp.py:342"),
+            "moments": list(moments),
+            "max_abs_err": worst[0], "max_rel_err": worst[1],
+            "backward_max_rel_err": g_err[1],
+            "backward_launches": {k_: v for k_, v in fm.LAUNCHES.items()
+                                  if v},
+            "ms": time_ms(torch, launch, flush, lead=True),
+            "warm_l2_ms": time_ms(torch, launch, lead=True),
+            "wrapper_ms": time_ms(torch, lambda: kern(src), flush),
+            "plain_ms": time_ms(torch, lambda: plain(src), flush),
+            "library_ms": time_ms(torch, lib, flush),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "shape": {"N": n, "E": e, "E_valid": e_valid, "F": f},
+        }
+        # the main path's shapes go into the kernels line: PNA's messages
+        # (all moments, F = 64) and SAGE's/MFC's sum + cnt at F = 64
+        if (mode, f, moments) in (("scatter", 64, every),
+                                  ("gather", 64, ("sum", "cnt"))):
+            rows.append(row)
+        else:
+            notes[name] = row
+    return rows, notes
+
+
 def expect(launches, want, what):
-    for k, v in want.items():
-        check(launches.get(k, 0) == v,
+    """Every counter equals what the path must launch (0 where unnamed)."""
+    for k in sorted(set(launches) | set(want)):
+        check(launches.get(k, 0) == want.get(k, 0),
               f"{what}: {k} launched {launches.get(k, 0)} times, "
-              f"expected {v}")
+              f"expected {want.get(k, 0)}")
 
 
 def train_phase(torch, hydragnn_torch, config, logs, seed, cap=None):
@@ -535,12 +787,12 @@ def train_phase(torch, hydragnn_torch, config, logs, seed, cap=None):
     that its batches and kernel launches are tallied apart, train passes
     from eval passes.  Returns (card result, CPU result, launches of the
     card run, that tally, dispatch tally, card seconds, CPU seconds)."""
-    from hydragnn_torch.ops import fused_mp, scf_mp
+    from hydragnn_torch.ops import fused_mp, poly_mp, scf_mp
     from hydragnn_torch.telemetry import pipeline
     from hydragnn_torch.train import trainer
 
     def counts():
-        return {**fused_mp.LAUNCHES, **scf_mp.LAUNCHES}
+        return {**fused_mp.LAUNCHES, **scf_mp.LAUNCHES, **poly_mp.LAUNCHES}
 
     split = {"train": {"batches": 0, "launches": {}},
              "eval": {"batches": 0, "launches": {}}}
@@ -564,6 +816,7 @@ def train_phase(torch, hydragnn_torch, config, logs, seed, cap=None):
     try:
         fused_mp.reset_launches()
         scf_mp.reset_launches()
+        poly_mp.reset_launches()
         before = pipeline.dispatch_snapshot()
         trainer._run_epoch = tallied
         try:
@@ -589,11 +842,12 @@ def train_phase(torch, hydragnn_torch, config, logs, seed, cap=None):
 
 
 def check_training(name, card, cpu, launches, split, dispatch, loaders, cap,
-                   wide):
+                   path, batchnorm=False):
     """The card run's launches, train passes and eval passes apart, against
-    what the path must launch per batch, and its losses against the CPU's.
-    Returns (train steps, eval batches, per-step and per-eval-batch
-    launches, loss agreement)."""
+    what the path must launch per batch, and its losses against the CPU's
+    (``batchnorm``: the train loss to REL_TOL_LOSS_FREE_BN, the eval losses
+    reported only; see the note at that constant).  Returns (train steps,
+    eval batches, per-step and per-eval-batch launches, loss agreement)."""
     from hydragnn_torch.telemetry import pipeline
 
     _, hist, _ = card
@@ -604,22 +858,7 @@ def check_training(name, card, cpu, launches, split, dispatch, loaders, cap,
     check((steps, evals) == (epochs * lens[0], epochs * (lens[1] + lens[2])),
           f"{name}: {steps} train steps and {evals} eval batches over "
           f"{epochs} epochs of loaders {lens}")
-    if wide:
-        per_step = {"scf_edge_pipeline": 4, "scf_edge_pipeline_pass_p": 4,
-                    "scf_edge_pipeline_pass_s": 4,
-                    "gather_mul_segment_sum": 0,
-                    "gather_mul_segment_sum_dx": 0, "segment_sum_dense": 1}
-        per_eval = {"scf_edge_pipeline": 4, "scf_edge_pipeline_pass_p": 0,
-                    "scf_edge_pipeline_pass_s": 0,
-                    "gather_mul_segment_sum": 0,
-                    "gather_mul_segment_sum_dx": 0, "segment_sum_dense": 1}
-    else:
-        per_step = {"gather_mul_segment_sum": 4,
-                    "gather_mul_segment_sum_dx": 4, "segment_sum_dense": 1,
-                    "scf_edge_pipeline": 0}
-        per_eval = {"gather_mul_segment_sum": 4,
-                    "gather_mul_segment_sum_dx": 0, "segment_sum_dense": 1,
-                    "scf_edge_pipeline": 0}
+    per_step, per_eval = PATH_LAUNCHES[path]
     expect(split["train"]["launches"],
            {k: v * steps for k, v in per_step.items()}, f"{name} (train)")
     expect(split["eval"]["launches"],
@@ -642,15 +881,20 @@ def check_training(name, card, cpu, launches, split, dispatch, loaders, cap,
         a, b = hist[k], hist_cpu[k]
         check(len(a) == len(b), f"{name}: {len(a)} vs {len(b)} epochs")
         rel[k] = max(abs(x - y) / max(abs(y), 1e-30) for x, y in zip(a, b))
-        check(rel[k] <= REL_TOL_LOSS,
-              f"{name}: card and CPU {k} losses differ by {rel[k]}")
+        if not batchnorm:
+            check(rel[k] <= REL_TOL_LOSS,
+                  f"{name}: card and CPU {k} losses differ by {rel[k]}")
+        elif k == "train":
+            check(rel[k] <= REL_TOL_LOSS_FREE_BN,
+                  f"{name}: card and CPU train losses differ by {rel[k]}")
     check(hist["lr"] == hist_cpu["lr"], f"{name}: lr decisions differ")
     return steps, evals, measured, rel
 
 
 def repeat_bits(torch, cfg, batches, seed, dev):
     """Two card runs of the first REPEAT_STEPS steps from one seeded init:
-    every parameter bit-identical."""
+    every parameter and every buffer (BatchNorm running statistics)
+    bit-identical.  Returns the number of tensors compared."""
     from hydragnn_torch.models.create import create_model
     from hydragnn_torch.train.optimizer import select_optimizer
     from hydragnn_torch.train.trainer import (
@@ -667,10 +911,87 @@ def repeat_bits(torch, cfg, batches, seed, dev):
         for gb in batches:
             state, _ = step(state, gb)
         torch.cuda.synchronize()
-        runs.append([p.detach().clone() for p in model.parameters()])
+        runs.append([p.detach().clone() for p in model.parameters()]
+                    + [b.detach().clone() for b in model.buffers()])
     same = all(torch.equal(a, b) for a, b in zip(*runs))
     check(same, "two card runs of the first steps gave different bits")
     return len(runs[0])
+
+
+def lockstep(torch, cfg, batches, seed, dev):
+    """The card (kernels) against the CPU (plain versions) step by step:
+    before each step the card model takes the CPU model's parameters and
+    BatchNorm buffers, both run forward and backward in training mode on
+    the same batch, then the CPU model takes one AdamW step.  Held at each
+    step: the loss, every BatchNorm statistic the forward updated, and
+    every parameter gradient to REL_TOL_LOCKSTEP_GRAD of the largest
+    gradient entry.  Returns the largest deviations seen."""
+    from hydragnn_torch.models.base import multihead_loss
+    from hydragnn_torch.models.create import create_model
+    from hydragnn_torch.train.optimizer import select_optimizer
+    from hydragnn_torch.train.trainer import (
+        create_train_state,
+        make_train_step,
+    )
+
+    cpu_model = create_model(cfg, seed=seed)
+    card_model = create_model(cfg, seed=seed).to(dev)
+    spec = select_optimizer({"type": "AdamW", "learning_rate": 1e-3})
+    state = create_train_state(cpu_model, spec)
+    step = make_train_step(cpu_model, cfg, spec)
+
+    def loss_grads_stats(model, g):
+        kept = [b.clone() for b in model.buffers()]
+        model.train()
+        loss, _ = multihead_loss(cfg, model(g), g)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        stats = [b.detach().cpu().clone() for b in model.buffers()]
+        with torch.no_grad():
+            for b, k in zip(model.buffers(), kept):
+                b.copy_(k)
+        return float(loss.detach()), [d.cpu() for d in grads], stats
+
+    worst = {"loss": 0.0, "grad_over_largest": 0.0, "stats": 0.0}
+    for g in batches:
+        card_model.load_state_dict(cpu_model.state_dict())
+        lc, gc, sc = loss_grads_stats(cpu_model, g)
+        lg, gg, sg = loss_grads_stats(card_model, g.to(dev))
+        top = max(float(d.abs().max()) for d in gc)
+        worst["loss"] = max(worst["loss"], abs(lg - lc) / abs(lc))
+        worst["grad_over_largest"] = max(
+            worst["grad_over_largest"],
+            max(float((a - b).abs().max()) for a, b in zip(gc, gg)) / top)
+        for a, b in zip(sc, sg):
+            worst["stats"] = max(worst["stats"], float(
+                ((a - b).abs() / (a.abs() + 0.1)).max()))
+        state, _ = step(state, g)
+    what = f"{cfg.model_type} in lockstep"
+    check(worst["loss"] <= REL_TOL_LOCKSTEP_LOSS,
+          f"{what}: card and CPU losses differ by {worst['loss']}")
+    check(worst["grad_over_largest"] <= REL_TOL_LOCKSTEP_GRAD,
+          f"{what}: gradients differ by {worst['grad_over_largest']} of "
+          "the largest entry")
+    check(worst["stats"] <= REL_TOL_LOCKSTEP_STATS,
+          f"{what}: BatchNorm statistics differ by {worst['stats']}")
+    return {"steps": len(batches), **worst}
+
+
+def own_checkpoint_prediction(torch, hydragnn_torch, config, logs_dir, seed,
+                              name):
+    """``run_prediction`` on the checkpoint a card run wrote, on the card
+    and on the CPU: finite and equal to REL_TOL_PATH of the largest."""
+    p_gpu = hydragnn_torch.run_prediction(
+        copy.deepcopy(config), logs_dir=logs_dir, seed=seed, device="cuda")
+    p_cpu = hydragnn_torch.run_prediction(
+        copy.deepcopy(config), logs_dir=logs_dir, seed=seed, device="cpu")
+    scale = float(abs(p_cpu[3][0]).max())
+    rel = float(abs(p_gpu[3][0] - p_cpu[3][0]).max()) / max(scale, 1e-30)
+    check(rel <= REL_TOL_PATH and bool(
+        (abs(p_gpu[3][0]) < float("inf")).all()),
+        f"{name}: prediction from the trained checkpoint, card vs CPU {rel}")
+    return {"error_cuda": p_gpu[0], "error_cpu": p_cpu[0],
+            "pred_max_rel_err_vs_cpu": rel,
+            "graphs": int(p_gpu[3][0].shape[0])}
 
 
 def steady_epoch(torch, cfg, loader, seed, dev):
@@ -810,9 +1131,10 @@ def main():
         t0 = time.perf_counter()
         kernels, notes = kernel_phase(torch, first_train, args.seed)
         scf_kernels, scf_notes = scf_phase(torch, first_train, args.seed)
-        kernels += scf_kernels
+        poly_kernels, poly_notes = poly_phase(torch, first_train, args.seed)
+        kernels += scf_kernels + poly_kernels
         emit({"phase": "kernel_checks", "seconds": time.perf_counter() - t0,
-              **notes, "scf": scf_notes})
+              **notes, "scf": scf_notes, "poly": poly_notes})
 
         # -- 4. flagship prediction, on the card
         t_phase = time.perf_counter()
@@ -893,27 +1215,16 @@ def main():
                                    args.seed)
         steps, evals, flag_per, loss_rel = check_training(
             "flagship training", card, cpu, flag_launches, flag_split,
-            dispatch, loaders, None, wide=False)
+            dispatch, loaders, None, "flagship")
         tcfg = ModelConfig.from_config(card[2])
         train_loader.set_epoch(0)
         first3 = [b.to(dev) for _, b in zip(range(REPEAT_STEPS),
                                             train_loader)]
         n_params = repeat_bits(torch, tcfg, first3, args.seed, dev)
         steady = steady_epoch(torch, tcfg, train_loader, args.seed, dev)
-        # run_prediction on the checkpoint the card run wrote
-        cdir = os.path.join(tlogs, "cuda")
-        p_gpu = hydragnn_torch.run_prediction(
-            copy.deepcopy(train_cfg), logs_dir=cdir, seed=args.seed,
-            device="cuda")
-        p_cpu = hydragnn_torch.run_prediction(
-            copy.deepcopy(train_cfg), logs_dir=cdir, seed=args.seed,
-            device="cpu")
-        scale = float(abs(p_cpu[3][0]).max())
-        own_rel = float(abs(p_gpu[3][0] - p_cpu[3][0]).max()) / max(
-            scale, 1e-30)
-        check(own_rel <= REL_TOL_PATH and bool(
-            (abs(p_gpu[3][0]) < float("inf")).all()),
-            f"prediction from the trained checkpoint: card vs CPU {own_rel}")
+        own = own_checkpoint_prediction(
+            torch, hydragnn_torch, train_cfg, os.path.join(tlogs, "cuda"),
+            args.seed, "flagship")
         hist = card[1]
         emit({"phase": "flagship_training",
               "seconds": time.perf_counter() - t_phase,
@@ -928,10 +1239,7 @@ def main():
               "bit_identical_repeat": {"steps": REPEAT_STEPS,
                                        "parameters": n_params},
               "steady_train_epoch_cuda": steady,
-              "prediction_from_own_checkpoint": {
-                  "error_cuda": p_gpu[0], "error_cpu": p_cpu[0],
-                  "pred_max_rel_err_vs_cpu": own_rel,
-                  "graphs": int(p_gpu[3][0].shape[0])},
+              "prediction_from_own_checkpoint": own,
               "launches": flag_launches, "launches_split": flag_split,
               "dispatch": dispatch})
 
@@ -943,7 +1251,7 @@ def main():
                                    args.seed, cap=WIDE_CAP)
         wsteps, wevals, wide_per, wloss_rel = check_training(
             "wide training", card, cpu, wide_launches, wide_split,
-            dispatch, loaders, WIDE_CAP, wide=True)
+            dispatch, loaders, WIDE_CAP, "wide")
         wcfg = ModelConfig.from_config(card[2])
         n_wparams = repeat_bits(torch, wcfg, first3, args.seed, dev)
         wsteady = steady_epoch(torch, wcfg, train_loader, args.seed, dev)
@@ -963,17 +1271,102 @@ def main():
               "steady_train_epoch_cuda": wsteady,
               "launches": wide_launches, "launches_split": wide_split,
               "dispatch": dispatch})
+
+        # -- 7. PNA training at the arch-sweep widths, in full
+        t_phase = time.perf_counter()
+        pna_cfg = flagship_config(perc_train=0.5, epochs=TRAIN_EPOCHS,
+                                  model_type="PNA")
+        plogs = os.path.join(logs, "pna")
+        card, cpu, pna_launches, pna_split, dispatch, wall_card, \
+            wall_cpu = train_phase(torch, hydragnn_torch, pna_cfg, plogs,
+                                   args.seed)
+        psteps, pevals, pna_per, ploss_rel = check_training(
+            "PNA training", card, cpu, pna_launches, pna_split, dispatch,
+            loaders, None, "PNA", batchnorm=True)
+        pcfg = ModelConfig.from_config(card[2])
+        check(pcfg.pna_avg_deg_log is not None and pcfg.max_neighbours
+              == len(card[2]["NeuralNetwork"]["Architecture"]["pna_deg"]) - 1,
+              "finalize wrote no degree histogram")
+        n_pparams = repeat_bits(torch, pcfg, first3, args.seed, dev)
+        psteady = steady_epoch(torch, pcfg, train_loader, args.seed, dev)
+        train_loader.set_epoch(0)
+        first3_cpu = [b for _, b in zip(range(REPEAT_STEPS), train_loader)]
+        plock = lockstep(torch, pcfg, first3_cpu, args.seed, dev)
+        own = own_checkpoint_prediction(
+            torch, hydragnn_torch, pna_cfg, os.path.join(plogs, "cuda"),
+            args.seed, "PNA")
+        hist = card[1]
+        emit({"phase": "pna_training",
+              "seconds": time.perf_counter() - t_phase,
+              "entry": "hydragnn_torch.run_training", "backend": "fused",
+              "hidden_dim": FEATURES,
+              "pna_deg": card[2]["NeuralNetwork"]["Architecture"]["pna_deg"],
+              "epochs": len(hist["train"]), "train_steps": psteps,
+              "eval_batches": pevals, "train_loss": hist["train"],
+              "val_loss": hist["val"], "test_loss": hist["test"],
+              "train_loss_cpu": cpu[1]["train"], "lr": hist["lr"],
+              "loss_max_rel_err_vs_cpu": ploss_rel,
+              "wall_s_cuda": wall_card, "wall_s_cpu": wall_cpu,
+              "epoch_time_s_cuda": hist["epoch_time"],
+              "bit_identical_repeat": {"steps": REPEAT_STEPS,
+                                       "parameters_and_buffers": n_pparams},
+              "steady_train_epoch_cuda": psteady,
+              "lockstep_vs_cpu": plock,
+              "prediction_from_own_checkpoint": own,
+              "launches": pna_launches, "launches_split": pna_split,
+              "dispatch": dispatch})
+
+        # -- 8. GIN, SAGE and MFC training at the same widths, capped
+        arch_launches, arch_per = {}, {}
+        for arch in ("GIN", "SAGE", "MFC"):
+            t_phase = time.perf_counter()
+            acfg = flagship_config(perc_train=0.5, epochs=ARCH_EPOCHS,
+                                   model_type=arch)
+            card, cpu, arch_launches[arch], asplit, dispatch, wall_card, \
+                wall_cpu = train_phase(torch, hydragnn_torch, acfg,
+                                       os.path.join(logs, arch.lower()),
+                                       args.seed, cap=ARCH_CAP)
+            asteps, aevals, arch_per[arch], aloss_rel = check_training(
+                f"{arch} training", card, cpu, arch_launches[arch], asplit,
+                dispatch, loaders, ARCH_CAP, arch, batchnorm=True)
+            alock = lockstep(torch, ModelConfig.from_config(card[2]),
+                             first3_cpu, args.seed, dev)
+            own = own_checkpoint_prediction(
+                torch, hydragnn_torch, acfg,
+                os.path.join(logs, arch.lower(), "cuda"), args.seed, arch)
+            hist = card[1]
+            emit({"phase": f"{arch.lower()}_training",
+                  "seconds": time.perf_counter() - t_phase,
+                  "entry": "hydragnn_torch.run_training", "backend": "fused",
+                  "hidden_dim": FEATURES, "batches_per_pass": ARCH_CAP,
+                  "epochs": len(hist["train"]), "train_steps": asteps,
+                  "eval_batches": aevals, "train_loss": hist["train"],
+                  "val_loss": hist["val"], "train_loss_cpu": cpu[1]["train"],
+                  "loss_max_rel_err_vs_cpu": aloss_rel,
+                  "lockstep_vs_cpu": alock,
+                  "prediction_from_own_checkpoint": own,
+                  "wall_s_cuda": wall_card, "wall_s_cpu": wall_cpu,
+                  "launches": arch_launches[arch], "launches_split": asplit,
+                  "dispatch": dispatch})
         os.chdir(ROOT)
 
     # launches of the main path's card runs, split between train steps and
     # eval batches as counted in those runs
+    paths = {"segment_poly_dense": ("PNA", pna_launches, pna_per),
+             "gather_poly_segment": ("SAGE", arch_launches["SAGE"],
+                                     arch_per["SAGE"]),
+             "gather_segment_sum": ("GIN", arch_launches["GIN"],
+                                    arch_per["GIN"]),
+             "gather_segment_sum_dx": ("GIN", arch_launches["GIN"],
+                                       arch_per["GIN"])}
     for k in kernels:
         if k["name"].startswith("scf_"):
-            n_launch, per = wide_launches[k["name"]], wide_per[k["name"]]
-            k["path"] = "wide training"
+            path, n_by, per_by = "wide", wide_launches, wide_per
         else:
-            n_launch, per = flag_launches[k["name"]], flag_per[k["name"]]
-            k["path"] = "flagship training"
+            path, n_by, per_by = paths.get(
+                k["name"], ("flagship", flag_launches, flag_per))
+        n_launch, per = n_by[k["name"]], per_by[k["name"]]
+        k["path"] = f"{path} training"
         k["launches"] = n_launch
         k["launches_per_train_step"] = per["per_train_step"]
         k["launches_per_eval_batch"] = per["per_eval_batch"]

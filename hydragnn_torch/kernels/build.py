@@ -50,6 +50,11 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         # partial, wgrad, drbf, dcm, n_rows, f, g, n_parts, stream
         "hg_scf_pass_p_f32": (_P,) * 16 + (_I,) * 4 + (_P,),
     },
+    "poly_mp": {
+        # src, senders, mask, row_ptr, o_sum, o_sq, o_mxmn, o_cnt,
+        # n_rows, n_src, f, gather, stream
+        "hg_poly_segment_f32": (_P,) * 8 + (_I,) * 4 + (_P,),
+    },
 }
 
 _lock = threading.Lock()

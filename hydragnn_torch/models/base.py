@@ -1,15 +1,18 @@
 """Shared multi-headed GNN skeleton (port of hydragnn_tpu/models/base.py).
 
-A stack of message-passing convolutions, masked global mean pooling, and
-N decoder heads (graph-level MLP heads behind a shared MLP trunk;
-node-level MLP / per-node-MLP heads) over a padded :class:`GraphBatch`.
+A stack of message-passing convolutions with masked BatchNorm feature
+layers, masked global mean pooling, and N decoder heads (graph-level MLP
+heads behind a shared MLP trunk; node-level MLP / per-node-MLP / conv-stack
+heads) over a padded :class:`GraphBatch`.
 
 Parameters carry the reference HydraGNN checkpoint names
-(``graph_convs.{i}.*``, ``graph_shared.{2j}``, ``heads_NN.{k}.{2j}``,
+(``graph_convs.{i}.*``, ``feature_layers.{i}.module.*``,
+``graph_shared.{2j}``, ``heads_NN.{k}.{2j}``,
 ``heads_NN.{k}.mlp.{n}.{2j}``), the names ``tools/port_weights.py``
-already translates to the flax tree; utils/weights.py carries weights in
-both directions.  Conv-type node heads and BatchNorm feature layers come
-with the architectures that need them.
+already translates to the flax tree; utils/weights.py carries weights and
+BatchNorm statistics in both directions.  Conv-type node heads share one
+hidden conv stack (``convs_node_hidden``, ``batch_norms_node_hidden``)
+and end in their own output conv and BatchNorm (``heads_NN.{k}``).
 """
 
 from __future__ import annotations
@@ -23,7 +26,12 @@ import torch.nn as nn
 
 from hydragnn_torch.graph import segment
 from hydragnn_torch.graph.batch import GraphBatch
-from hydragnn_torch.models.layers import activation_module, loss_function, mlp
+from hydragnn_torch.models.layers import (
+    MaskedBatchNorm,
+    activation_module,
+    loss_function,
+    mlp,
+)
 
 
 def _validated_compute_dtype(arch) -> str:
@@ -223,8 +231,23 @@ class NodeMLPHead(nn.Module):
         return h
 
 
+class NodeConvHead(nn.Module):
+    """Output conv and BatchNorm of one conv-type node head; the hidden
+    conv stack before them is shared by all such heads and owned by
+    :class:`Base`."""
+
+    def __init__(self, conv: nn.Module, bn: nn.Module):
+        super().__init__()
+        self.conv = conv
+        self.bn = bn
+
+
 class Base(nn.Module):
     """Shared skeleton; subclasses provide ``make_conv``."""
+
+    # subclasses turn this off where the reference uses identity feature
+    # layers instead of BatchNorm (SchNet, EGNN)
+    has_batchnorm = True
 
     def __init__(self, cfg: ModelConfig, gen: Optional[torch.Generator]):
         super().__init__()
@@ -234,6 +257,18 @@ class Base(nn.Module):
         self.graph_convs = nn.ModuleList(
             self.make_conv(din, dout, i == c.num_conv_layers - 1, gen)
             for i, (din, dout) in enumerate(self.encoder_dims()))
+        self.feature_layers = nn.ModuleList(
+            MaskedBatchNorm(dout) for _, dout in self.encoder_dims()
+        ) if self.has_batchnorm else None
+        # conv-type node heads share their hidden conv stack across heads
+        self.convs_node_hidden = self.batch_norms_node_hidden = None
+        if (c.node_head is not None and c.node_head.type == "conv"
+                and "node" in c.output_type):
+            hidden, _ = self.node_conv_dims(0)
+            self.convs_node_hidden = nn.ModuleList(
+                self.make_conv(din, dout, False, gen) for din, dout in hidden)
+            self.batch_norms_node_hidden = nn.ModuleList(
+                MaskedBatchNorm(dout) for _, dout in hidden)
         self.graph_shared = None
         if c.graph_head is not None:
             gh = c.graph_head
@@ -249,15 +284,19 @@ class Base(nn.Module):
                                  c.activation, gen))
             elif head_type == "node":
                 nh = c.node_head
-                if nh.type not in ("mlp", "mlp_per_node"):
-                    if nh.type == "conv":
-                        raise NotImplementedError(
-                            "conv-type node heads are not ported yet")
+                if nh.type in ("mlp", "mlp_per_node"):
+                    heads.append(NodeMLPHead(
+                        c.hidden_dim, nh.dim_headlayers, head_dim,
+                        c.activation, gen,
+                        per_node=nh.type == "mlp_per_node",
+                        num_nodes=c.num_nodes))
+                elif nh.type == "conv":
+                    _, (odin, odout) = self.node_conv_dims(head_dim)
+                    heads.append(NodeConvHead(
+                        self.make_conv(odin, odout, True, gen),
+                        MaskedBatchNorm(odout)))
+                else:
                     raise ValueError(f"Unknown node head type: {nh.type}")
-                heads.append(NodeMLPHead(
-                    c.hidden_dim, nh.dim_headlayers, head_dim, c.activation,
-                    gen, per_node=nh.type == "mlp_per_node",
-                    num_nodes=c.num_nodes))
             else:
                 raise ValueError(f"Unknown head type: {head_type}")
         self.heads_NN = nn.ModuleList(heads)
@@ -273,11 +312,23 @@ class Base(nn.Module):
             dims.append((c.hidden_dim, c.hidden_dim))
         return dims
 
+    def node_conv_dims(self, head_dim: int):
+        """(in, out) of the hidden convs and of the output conv of a
+        conv-type node head."""
+        c = self.cfg
+        hdn = list(c.node_head.dim_headlayers)
+        hidden = [(c.hidden_dim, hdn[0])]
+        for i in range(c.node_head.num_headlayers - 1):
+            hidden.append((hdn[i], hdn[i + 1]))
+        return hidden, (hdn[-1], head_dim)
+
     def forward(self, g: GraphBatch) -> Tuple[torch.Tensor, ...]:
         c = self.cfg
         x, pos = g.x, g.pos
-        for conv in self.graph_convs:
+        for i, conv in enumerate(self.graph_convs):
             x, pos = conv(x, pos, g)
+            if self.feature_layers is not None:
+                x = self.feature_layers[i](x, g.node_mask)
             x = self.act(x)
 
         x_graph = segment.masked_mean_pool(
@@ -288,6 +339,14 @@ class Base(nn.Module):
         for head, head_type in zip(self.heads_NN, c.output_type):
             if head_type == "graph":
                 outputs.append(head(self.graph_shared(x_graph)))
+            elif isinstance(head, NodeConvHead):
+                z, zpos = x, pos
+                for conv, bn in zip(self.convs_node_hidden,
+                                    self.batch_norms_node_hidden):
+                    z, zpos = conv(z, zpos, g)
+                    z = self.act(bn(z, g.node_mask))
+                z, zpos = head.conv(z, zpos, g)
+                outputs.append(self.act(head.bn(z, g.node_mask)))
             else:
                 outputs.append(head(x, g.node_gid))
         return tuple(outputs)

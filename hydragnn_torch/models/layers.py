@@ -3,13 +3,14 @@
 Port of hydragnn_tpu/models/layers.py.  Dense layers keep the reference's
 initializer kinds (torch-default, xavier-uniform, lecun-normal, scaled
 fan-avg uniform), drawn from an explicit ``torch.Generator`` so a model is
-reproducible from a seed.  The masked BatchNorm comes with the first
-architecture that uses it (SchNet has none).
+reproducible from a seed.  :class:`MaskedBatchNorm` is the feature layer of
+every architecture but SchNet and EGNN.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Callable, Optional, Sequence
 
 import torch
@@ -83,10 +84,13 @@ def _uniform(t, bound, gen):
 
 
 def init_dense(lin: nn.Linear, kind: str, gen: Optional[torch.Generator],
-               scale: float = 1.0) -> None:
+               scale: float = 1.0, fan_in: Optional[int] = None) -> None:
     """Initialise ``lin`` in place with the reference's initializer kind.
-    ``scale`` is the variance scale of the fan-avg uniform kind."""
-    fan_out, fan_in = lin.weight.shape
+    ``scale`` is the variance scale of the fan-avg uniform kind; ``fan_in``
+    overrides the layer's own (a slice of a stacked weight bank)."""
+    fan_out = lin.weight.shape[0]
+    if fan_in is None:
+        fan_in = lin.weight.shape[1]
     if kind == TORCH_DEFAULT:
         bound = 1.0 / math.sqrt(fan_in)
         _uniform(lin.weight, bound, gen)
@@ -113,10 +117,19 @@ def init_dense(lin: nn.Linear, kind: str, gen: Optional[torch.Generator],
 
 def dense(in_dim: int, out_dim: int, kind: str,
           gen: Optional[torch.Generator], bias: bool = True,
-          scale: float = 1.0) -> nn.Linear:
+          scale: float = 1.0, fan_in: Optional[int] = None) -> nn.Linear:
     lin = nn.Linear(in_dim, out_dim, bias=bias)
-    init_dense(lin, kind, gen, scale)
+    init_dense(lin, kind, gen, scale, fan_in)
     return lin
+
+
+def dense_leaves(name: str, lin: nn.Linear):
+    """flax leaves of one dense layer, for utils/weights.py:
+    ``{(name, "kernel"): (weight, transpose), (name, "bias"): ...}``."""
+    out = {(name, "kernel"): (lin.weight, True)}
+    if lin.bias is not None:
+        out[(name, "bias")] = (lin.bias, False)
+    return out
 
 
 def mlp(in_dim: int, features: Sequence[int], activation: str,
@@ -142,3 +155,68 @@ def edge_geometry(pos, src, dst):
     radial = torch.sum(diff * diff, dim=-1, keepdim=True)
     diff = diff / (torch.sqrt(radial + 1e-12) + 1.0)
     return diff, radial
+
+
+class MaskedBatchNorm(nn.Module):
+    """BatchNorm over valid (masked) rows with running statistics.
+
+    PyG ``BatchNorm`` (momentum 0.1 in torch's convention, eps 1e-5) made
+    exact under padded batches: padded rows contribute nothing to the batch
+    statistics.  In training mode the batch mean and biased variance
+    normalise and the running statistics take the unbiased variance; in
+    eval mode the running statistics normalise and nothing is updated.
+    The masked sums are plain ``sum`` reductions, deterministic on the
+    card.  ``HYDRAGNN_BN_MOMENTUM`` overrides the momentum.  Halo-sharded
+    batches (statistics summed across shards) wait for the parallel slice.
+
+    The state sits under ``module`` with ``BatchNorm1d``'s names, the
+    reference checkpoint layout (``feature_layers.{i}.module.weight``,
+    ``...running_mean``); ``scale``/``bias``/``mean``/``var`` are the same
+    tensors under the flax leaf names.
+    """
+
+    def __init__(self, features: int, momentum: float = 0.1,
+                 eps: float = 1e-5):
+        super().__init__()
+        self.features = features
+        self.momentum = momentum
+        self.eps = eps
+        self.module = nn.Module()
+        self.module.weight = nn.Parameter(torch.ones(features))
+        self.module.bias = nn.Parameter(torch.zeros(features))
+        self.module.register_buffer("running_mean", torch.zeros(features))
+        self.module.register_buffer("running_var", torch.ones(features))
+
+    @property
+    def scale(self):
+        return self.module.weight
+
+    @property
+    def bias(self):
+        return self.module.bias
+
+    @property
+    def mean(self):
+        return self.module.running_mean
+
+    @property
+    def var(self):
+        return self.module.running_var
+
+    def forward(self, x, mask):
+        if not self.training:
+            mean, var = self.mean, self.var
+        else:
+            momentum = float(
+                os.environ.get("HYDRAGNN_BN_MOMENTUM") or self.momentum)
+            m = mask.to(x.dtype)[:, None]
+            count = torch.clamp(m.sum(), min=1.0)
+            mean = (x * m).sum(dim=0) / count
+            var = (((x - mean) ** 2) * m).sum(dim=0) / count
+            with torch.no_grad():
+                # torch tracks the unbiased variance in the running stats
+                unbiased = var * count / torch.clamp(count - 1.0, min=1.0)
+                self.mean.mul_(1.0 - momentum).add_(momentum * mean)
+                self.var.mul_(1.0 - momentum).add_(momentum * unbiased)
+        return (self.scale * (x - mean) * torch.rsqrt(var + self.eps)
+                + self.bias)

@@ -31,6 +31,7 @@ from hydragnn_torch.models.layers import (
     XAVIER_UNIFORM,
     ShiftedSoftplus,
     dense,
+    dense_leaves,
     edge_geometry,
 )
 from hydragnn_torch.ops.scf_mp import (
@@ -86,13 +87,16 @@ class SCFConv(nn.Module):
                 dense(num_filters, 1, "fan_avg_uniform", gen, bias=False,
                       scale=1e-6))
 
-    def flax_linears(self):
-        """flax param name -> Linear, for utils/weights.py."""
-        out = {"filter_0": self.nn[0], "filter_1": self.nn[2],
-               "lin1": self.lin1, "lin2": self.lin2}
+    def flax_leaves(self):
+        """flax leaf path -> (tensor, transpose?), for utils/weights.py."""
+        lins = {"filter_0": self.nn[0], "filter_1": self.nn[2],
+                "lin1": self.lin1, "lin2": self.lin2}
         if self.equivariant:
-            out["coord_mlp_0"] = self.coord_mlp[0]
-            out["coord_mlp_1"] = self.coord_mlp[2]
+            lins["coord_mlp_0"] = self.coord_mlp[0]
+            lins["coord_mlp_1"] = self.coord_mlp[2]
+        out = {}
+        for name, lin in lins.items():
+            out.update(dense_leaves(name, lin))
         return out
 
     def forward(self, x, pos, g):
@@ -146,6 +150,8 @@ class SCFConv(nn.Module):
 
 
 class SCFStack(Base):
+    has_batchnorm = False  # identity feature layers, as in the reference
+
     def make_conv(self, in_dim, out_dim, last_layer, gen):
         c = self.cfg
         if c.num_gaussians is None or c.num_filters is None:

@@ -81,14 +81,18 @@ def load_inference_state(config, logs_dir: str = "./logs/") -> InferenceState:
 
 def save_inference_checkpoint(module, log_name: str, path: str = "./logs/",
                               step: int = 0) -> str:
-    """Write ``module``'s weights as ``{step, params, batch_stats}`` to
+    """Write ``module``'s weights and BatchNorm running statistics as
+    ``{step, params, batch_stats}`` to
     ``<path>/<log_name>/<log_name>.pk``, atomically."""
-    from hydragnn_torch.utils.weights import flax_params_from_module
+    from hydragnn_torch.utils.weights import (
+        flax_batch_stats_from_module,
+        flax_params_from_module,
+    )
 
     fname = os.path.join(path, log_name, f"{log_name}.pk")
     atomic_write_pickle(fname, {
         "step": np.asarray(step, np.int32),
         "params": flax_params_from_module(module),
-        "batch_stats": {},
+        "batch_stats": flax_batch_stats_from_module(module),
     })
     return fname

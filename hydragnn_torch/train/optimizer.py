@@ -158,8 +158,9 @@ def get_learning_rate(opt_state: OptState) -> float:
 
 
 def frozen_mask(names: Sequence[str], frozen: bool) -> Optional[List[bool]]:
-    """Which updates ``freeze_conv_layers`` zeroes: the encoder's
-    (``graph_convs.*``, the reference's ``encoder_*``), decay included."""
+    """Which updates ``freeze_conv_layers`` zeroes: the encoder's convs
+    and BatchNorms (``graph_convs.*``, ``feature_layers.*``: the
+    reference's ``encoder_*``), decay included."""
     if not frozen:
         return None
-    return [n.startswith("graph_convs.") for n in names]
+    return [n.startswith(("graph_convs.", "feature_layers.")) for n in names]

@@ -95,9 +95,11 @@ def make_train_step(
     opt_spec: OptimizerSpec,
     output_names: Optional[Sequence[str]] = None,
 ) -> Callable[[TrainState, GraphBatch], Tuple[TrainState, Dict[str, Any]]]:
-    """One optimizer step per batch: forward, weighted loss, backward,
-    update (encoder updates zeroed under ``freeze_conv_layers``), applied
-    in place to the module's parameters.  Metrics stay on the device."""
+    """One optimizer step per batch: forward in training mode (BatchNorm
+    uses the batch statistics and updates its running ones, once per
+    step), weighted loss, backward, update (encoder updates zeroed under
+    ``freeze_conv_layers``), applied in place to the module's parameters.
+    Metrics stay on the device."""
     if _force_head_indices(output_names) != (-1, -1):
         raise NotImplementedError(
             "the energy-gradient force self-consistency term (total_energy "
@@ -128,7 +130,11 @@ def make_train_step(
 
 def make_eval_step(model: Base, cfg: ModelConfig
                    ) -> Callable[[GraphBatch], Dict[str, Any]]:
+    """Forward + loss in eval mode: BatchNorm normalises with its running
+    statistics and updates nothing."""
+
     def eval_step(g: GraphBatch):
+        model.eval()
         loss, (per_head, outputs) = _loss_and_metrics(model, cfg, g)
         return {
             "loss": loss,
@@ -214,17 +220,21 @@ def save_state(state: TrainState, log_name: str,
                path: str = "./logs/") -> str:
     """Single-file checkpoint ``<path>/<log_name>/<log_name>.pk`` with the
     reference's keys, written atomically.  ``params``/``batch_stats`` are
-    numpy trees in the flax layout, so both packages' ``run_prediction``
+    numpy trees in the flax layout (``batch_stats`` the BatchNorm running
+    statistics, ``{"encoder_bn_0": {"mean", "var"}, ...}``), so both packages' ``run_prediction``
     read it; ``opt_state`` is the port's own (a dict of numpy moments and
     hyperparameters, :meth:`OptState.state_dict`), not optax's."""
     from hydragnn_torch.resilience.ckpt_io import atomic_write_pickle
-    from hydragnn_torch.utils.weights import flax_params_from_module
+    from hydragnn_torch.utils.weights import (
+        flax_batch_stats_from_module,
+        flax_params_from_module,
+    )
 
     fname = os.path.join(path, log_name, f"{log_name}.pk")
     atomic_write_pickle(fname, {
         "step": np.asarray(state.step, np.int32),
         "params": flax_params_from_module(state.model),
-        "batch_stats": {},
+        "batch_stats": flax_batch_stats_from_module(state.model),
         "opt_state": state.opt_state.state_dict(),
     })
     return fname

@@ -11,8 +11,10 @@ suite).  Tolerance 1e-5 at kernel level: float32 sums, the plain
 version's ``index_add_`` adds in another order on the card; 1e-4 for the
 edge-summed weight grads and at model level.  Covered: the forward
 kernels, the backward (dx passes, the pool's gather), the three scf
-kernels through their autograd Function, the SchNet forward, and three
-training steps at the flagship width and the wide one.
+kernels through their autograd Function, the SchNet forward, three
+training steps at the flagship width and the wide one, the two poly
+kernels at every width gate (forward and, through their autograd
+Functions, backward with ties), and three PNA/GIN/SAGE/MFC training steps.
 """
 
 import numpy as np
@@ -296,3 +298,214 @@ def test_schnet_train_steps_on_card_match_cpu(cuda, monkeypatch, width):
                                    "scf_edge_pipeline_pass_p": 12,
                                    "scf_edge_pipeline_pass_s": 12}
     assert tfm.LAUNCHES["segment_sum_dense"] == 3
+
+
+def _degree_batch(n=300, lo=0, hi=20, seed=0):
+    """Rows of degree 0 (every third) and of degrees up to ``hi``, sorted
+    receivers, random senders, a masked tail parked on node n-1."""
+    rng = np.random.RandomState(seed)
+    deg = rng.randint(lo, hi + 1, n)
+    deg[::3] = 0
+    deg[1] = hi
+    deg[n - 1] = 0
+    recv = np.repeat(np.arange(n), deg)
+    e_real = len(recv)
+    e = e_real + 37
+    senders = np.full(e, n - 1, np.int32)
+    receivers = np.full(e, n - 1, np.int32)
+    senders[:e_real] = rng.randint(0, n - 1, e_real)
+    receivers[:e_real] = recv
+    mask = np.zeros(e, np.float32)
+    mask[:e_real] = 1.0
+    perm = np.argsort(senders, kind="stable").astype(np.int32)
+    return senders, receivers, mask, perm, deg
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f,moments", [
+    (64, ("sum", "sq", "mxmn", "cnt")), (256, ("sum", "sq", "mxmn", "cnt")),
+    (512, ("sum", "sq", "mxmn", "cnt")), (1024, ("sum", "sq", "cnt")),
+    (64, ("sum", "cnt")), (5, ("mxmn",)), (130, ("cnt",))])
+@pytest.mark.parametrize("all_masked", [False, True])
+def test_poly_kernels_match_plain_on_card(cuda, f, moments, all_masked):
+    """Both poly kernels against their plain versions at the widths of the
+    gates (512 with mxmn, 1024 without), on rows of degree 0 and degree 20
+    and with every edge masked: sums to 1e-5 of the largest entry, max/min
+    and the count exactly equal; then the backward through the autograd
+    Functions against autograd through the plain versions, on data with
+    ties, masked rows exactly zero."""
+    from hydragnn_torch.ops import poly_mp
+
+    n = 300
+    send, recv, mask, perm, deg = _degree_batch(n)
+    if all_masked:
+        mask = np.zeros_like(mask)
+    g = torch.Generator().manual_seed(3)
+    e = len(send)
+    # a coarse grid: ties within a segment
+    data = (torch.randn(e, f, generator=g) * 2).round().div(2).to(cuda)
+    x = (torch.randn(n, f, generator=g) * 2).round().div(2).to(cuda)
+    send, recv, mask, perm = (_t(a).to(cuda) for a in (send, recv, mask, perm))
+    order = poly_mp._norm_moments(moments)
+
+    def check(k, p):
+        for m, a, c in zip(order, k, p):
+            if m in ("mxmn", "cnt"):
+                assert torch.equal(a, c), m
+            else:
+                scale = max(float(c.abs().max()), 1.0)
+                assert float((a - c).abs().max()) <= 1e-5 * scale, m
+
+    poly_mp.reset_launches()
+    tfm.reset_launches()
+    with torch.inference_mode():
+        k = poly_mp.segment_poly_dense(data, recv, n, moments, valid=mask)
+        p = poly_mp.segment_poly_dense_plain(data, recv, n, moments,
+                                             valid=mask)
+        torch.cuda.synchronize()
+        check(k, p)
+        if "cnt" in order and not all_masked:
+            assert torch.equal(k[order.index("cnt")].cpu(),
+                               torch.from_numpy(deg).float())
+        k = poly_mp.gather_poly_segment(x, send, recv, perm, moments,
+                                        mask=mask)
+        p = poly_mp.gather_poly_segment_plain(x, send, recv, moments,
+                                              mask=mask)
+        torch.cuda.synchronize()
+        check(k, p)
+    assert poly_mp.LAUNCHES == {"segment_poly_dense": 1,
+                                "gather_poly_segment": 1}
+    if order == ("cnt",):
+        return
+
+    def loss(outs):
+        total = 0.0
+        for m, o in zip(order, outs):
+            if m == "mxmn":
+                o = torch.where(o <= -5e8, torch.zeros_like(o), o)
+            if m != "cnt":
+                total = total + (o ** 2).sum()
+        return total
+
+    def grad(fn, t):
+        t = t.detach().clone().requires_grad_(True)
+        loss(fn(t)).backward()
+        torch.cuda.synchronize()
+        return t.grad
+
+    for kern, plain, t in (
+            (lambda d: poly_mp.segment_poly_dense(d, recv, n, moments,
+                                                  valid=mask),
+             lambda d: poly_mp.segment_poly_dense_plain(d, recv, n, moments,
+                                                        valid=mask), data),
+            (lambda x_: poly_mp.gather_poly_segment(x_, send, recv, perm,
+                                                    moments, mask=mask),
+             lambda x_: poly_mp.gather_poly_segment_plain(x_, send, recv,
+                                                          moments, mask=mask),
+             x)):
+        gk, gp = grad(kern, t), grad(plain, t)
+        scale = max(float(gp.abs().max()), 1.0)
+        assert float((gk - gp).abs().max()) <= 1e-5 * scale
+    gk = grad(lambda d: poly_mp.segment_poly_dense(d, recv, n, moments,
+                                                   valid=mask), data)
+    assert bool((gk[mask == 0] == 0).all())
+
+
+@pytest.mark.gpu
+def test_poly_kernels_refuse_what_they_do_not_take(cuda):
+    from hydragnn_torch.ops import poly_mp
+
+    send, recv, mask, perm, _ = _degree_batch(40)
+    send, recv, mask = (_t(a).to(cuda) for a in (send, recv, mask))
+    data = torch.randn(len(send), 8, device=cuda)
+    with pytest.raises(TypeError):
+        poly_mp.segment_poly_dense(data.double(), recv, 40, ("sum",))
+    with pytest.raises(ValueError):
+        poly_mp.segment_poly_dense(data.t(), recv, 8, ("sum",))
+    with pytest.raises(TypeError):
+        poly_mp.gather_poly_segment(torch.randn(40, 8, device=cuda), send,
+                                    recv, None, ("sum",), mask=mask.double())
+
+
+def _arch(model_type, seed=0):
+    from hydragnn_torch.models.base import GraphHeadCfg, ModelConfig
+    from hydragnn_torch.models.create import create_model
+
+    cfg = ModelConfig(
+        model_type=model_type, input_dim=1, hidden_dim=64, output_dim=(1,),
+        output_type=("graph",), graph_head=GraphHeadCfg(2, 64, 2, (64, 64)),
+        node_head=None, task_weights=(1.0,), num_conv_layers=4, radius=1.8,
+        max_neighbours=20, max_degree=20, pna_avg_deg_log=1.8,
+        pna_avg_deg_lin=6.0)
+    return cfg, create_model(cfg, seed=seed)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model_type", ["GIN", "SAGE", "MFC", "PNA"])
+def test_arch_train_steps_on_card_match_cpu(cuda, monkeypatch, model_type):
+    """Three AdamW steps under fused, the card (kernels) and the CPU (plain
+    versions) in lockstep: before each step the card model takes the CPU
+    model's weights and BatchNorm buffers, then both step on the same
+    batch.  Held at each step: the loss (1e-5), the BatchNorm statistics
+    the forward updated (1e-4) and every parameter gradient, to 1e-3 of
+    the model's largest gradient entry — BatchNorm makes the weights in
+    front of it scale-invariant, so their gradients are small differences
+    of large cancelling float32 sums, and Adam would blow that noise up to
+    steps of the learning rate's size if the two runs went on alone.  Each
+    architecture's kernels launch once per conv layer (the first layer's
+    input needs no gradient)."""
+    from hydragnn_torch.models.base import multihead_loss
+    from hydragnn_torch.ops import poly_mp
+    from hydragnn_torch.train.optimizer import select_optimizer
+    from hydragnn_torch.train.trainer import create_train_state, make_train_step
+
+    g = _schnet_batch(monkeypatch)
+    sides = []
+    for dev in (torch.device("cpu"), cuda):
+        cfg, model = _arch(model_type, seed=1)
+        model = model.to(dev)
+        spec = select_optimizer({"type": "AdamW", "learning_rate": 1e-3})
+        sides.append([model, create_train_state(model, spec),
+                      make_train_step(model, cfg, spec), g.to(dev)])
+
+    def loss_and_grads(model, gd):
+        kept = [b.clone() for b in model.buffers()]
+        model.train()
+        loss, _ = multihead_loss(cfg, model(gd), gd)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        stats = [b.detach().cpu().clone() for b in model.buffers()]
+        with torch.no_grad():
+            for b_, k in zip(model.buffers(), kept):
+                b_.copy_(k)
+        return float(loss.detach()), [d.cpu() for d in grads], stats
+
+    counted = {}
+    for _ in range(3):
+        sides[1][0].load_state_dict(sides[0][0].state_dict())
+        (lc, gc, sc), (lg, gg, sg) = (loss_and_grads(m, gd)
+                                      for m, _, _, gd in sides)
+        assert abs(lg - lc) <= 1e-5 * abs(lc)
+        top = max(float(d.abs().max()) for d in gc)
+        for d_c, d_g in zip(gc, gg):
+            assert float((d_c - d_g).abs().max()) <= 1e-3 * top
+        for b_c, b_g in zip(sc, sg):
+            torch.testing.assert_close(b_g, b_c, rtol=1e-4, atol=1e-5)
+        tfm.reset_launches()
+        poly_mp.reset_launches()
+        for side in sides:
+            side[1], _ = side[2](side[1], side[3])
+        for k, v in {**tfm.LAUNCHES, **poly_mp.LAUNCHES}.items():
+            counted[k] = counted.get(k, 0) + v
+    want = {
+        "GIN": {"gather_segment_sum": 12, "gather_segment_sum_dx": 9,
+                "segment_sum_dense": 3},
+        "SAGE": {"gather_poly_segment": 12, "gather_segment_sum_dx": 9,
+                 "segment_sum_dense": 3},
+        "MFC": {"gather_poly_segment": 12, "gather_segment_sum_dx": 9,
+                "segment_sum_dense": 3},
+        # per step: 1 pool + 4 tie counts + 2 gathers' backward in each of
+        # the 3 layers whose input needs a gradient
+        "PNA": {"segment_poly_dense": 12, "segment_sum_dense": 3 * 11},
+    }[model_type]
+    for k, v in counted.items():
+        assert v == want.get(k, 0), (k, counted)
