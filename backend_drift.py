@@ -1,10 +1,11 @@
 """How far two correct float32 training runs drift apart, on the CPU.
 
-    python3 -m hydragnn_torch.tools.backend_drift [ARCH ...] \\
-        [--graphs N] [--batch B] [--epochs K] [--seed S]
+    python3 backend_drift.py [ARCH ...] [--graphs N] [--batch B] \\
+        [--epochs K] [--seed S]
 
-Run from the root of a checkout.  Each architecture (default: SchNet, GIN,
-SAGE, MFC, PNA) is trained twice from one seeded init on the synthetic BCC
+It stands beside ``chip_smoke.py``, whose configuration it borrows, and
+needs no GPU.  Each architecture (default: SchNet, GIN, SAGE, MFC, PNA) is
+trained twice from one seeded init on the synthetic BCC
 set of ``chip_smoke.py`` at its widths (hidden 64, 4 conv layers, AdamW
 1e-3), once under ``HYDRAGNN_AGGR_BACKEND=fused`` (the plain versions of the
 kernels: sorted-segment sums) and once under ``scatter`` (``index_add_``).
@@ -18,7 +19,7 @@ BatchNorm are scale-invariant, so their gradients are small differences of
 large sums, and Adam turns every gradient, however small, into a step of
 the learning rate's size; the eval losses, taken with young running
 statistics, part soonest.  This is why ``chip_smoke.py`` holds the card to
-the CPU in lockstep for these architectures and only loosely in free runs.
+the CPU in lockstep for these architectures and compares no free runs.
 """
 
 from __future__ import annotations
@@ -41,9 +42,6 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
-    root = os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
-    sys.path.insert(0, root)
     from chip_smoke import flagship_config
 
     import hydragnn_torch

@@ -571,3 +571,55 @@ def test_freeze_conv_layers_covers_the_batchnorms():
                    for n in frozen)
     assert all(n.startswith(("graph_shared", "heads_NN"))
                for n in set(names) - frozen)
+
+
+@pytest.mark.parametrize("wrong_leaf", [False, True], ids=["right", "wrong"])
+@pytest.mark.parametrize("model_type", ARCHS)
+def test_smoke_lockstep_holds_each_parameter_on_its_own_scale(
+        model_type, wrong_leaf, monkeypatch):
+    """``chip_smoke.lockstep`` with the CPU standing in for the card: the
+    float64 yardstick runs for every arch and passes a faithful copy; a
+    copy whose smallest non-zero gradient leaf is off by half of what the
+    model-wide tolerance (1e-4 of the largest gradient entry) lets
+    through is refused on that leaf's own scale."""
+    import chip_smoke
+    from hydragnn_torch.models import create as tcreate
+
+    monkeypatch.setenv("HYDRAGNN_AGGR_BACKEND", "fused")
+    _, tc = _cfgs(model_type)
+    raw = _samples(1.6, 10, 12, n_graphs=5, seed=3)
+    _, gt = _batches(raw, [("energy", "graph", 1)])
+    if not wrong_leaf:
+        out = chip_smoke.lockstep(torch, tc, [gt, gt], 0, torch.device("cpu"))
+        assert out["loss"] == 0.0 and out["grad_over_largest"] == 0.0
+        assert (0.0 < out["grad_over_allowed"]
+                <= 1.0 / chip_smoke.LOCKSTEP_GRAD_SLACK)
+        assert out["zero_gradient_parameters"] >= tc.num_conv_layers
+        return
+
+    # the smallest leaf with a true gradient, by the float64 run itself
+    model = t_create_model(tc, seed=0).double()
+    model.train()
+    monkeypatch.setenv("HYDRAGNN_AGGR_BACKEND", "scatter")
+    loss, _ = tbase.multihead_loss(tc, model(chip_smoke.as_double(gt)),
+                                   chip_smoke.as_double(gt))
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    monkeypatch.setenv("HYDRAGNN_AGGR_BACKEND", "fused")
+    tops = [float(d.abs().max()) for d in grads]
+    live = [i for i, t in enumerate(tops) if t > 1e-6 * max(tops)]
+    victim = min(live, key=lambda i: tops[i])
+    assert tops[victim] < 0.05 * max(tops)
+
+    made = []
+
+    def create(cfg, seed=0):
+        m = t_create_model(cfg, seed=seed)
+        made.append(m)
+        if len(made) == 2:    # lockstep's second model is the card's
+            list(m.parameters())[victim].register_hook(
+                lambda d: d + 0.5e-4 * max(tops))
+        return m
+
+    monkeypatch.setattr(tcreate, "create_model", create)
+    with pytest.raises(RuntimeError, match="from the float64 gradient, allowed"):
+        chip_smoke.lockstep(torch, tc, [gt], 0, torch.device("cpu"))

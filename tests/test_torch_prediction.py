@@ -190,8 +190,11 @@ def test_port_imports_neither_jax_nor_the_reference():
     r = subprocess.run([sys.executable, "-c", probe], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
-    # and no port source imports them (not even lazily)
-    for path, _ in _port_modules():
+    # and no port source imports them (not even lazily), nor do the
+    # scripts that drive the port from the root of the checkout
+    scripts = [os.path.join(REPO, n)
+               for n in ("chip_smoke.py", "backend_drift.py")]
+    for path in [p for p, _ in _port_modules()] + scripts:
         tree = ast.parse(open(path, encoding="utf-8").read())
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):
