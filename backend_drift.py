@@ -3,15 +3,16 @@
     python3 backend_drift.py [ARCH ...] [--graphs N] [--batch B] \\
         [--epochs K] [--seed S]
 
-It stands beside ``chip_smoke.py``, whose configuration it borrows, and
-needs no GPU.  Each architecture (default: SchNet, GIN, SAGE, MFC, PNA) is
-trained twice from one seeded init on the synthetic BCC
-set of ``chip_smoke.py`` at its widths (hidden 64, 4 conv layers, AdamW
-1e-3), once under ``HYDRAGNN_AGGR_BACKEND=fused`` (the plain versions of the
-kernels: sorted-segment sums) and once under ``scatter`` (``index_add_``).
-Both are the same function; they differ in the order of a few float32
-sums.  Prints one JSON line per architecture with the per-epoch train and
-validation losses of both runs and their relative differences.
+It stands beside ``chip_smoke.py``, whose configurations it borrows, and
+needs no GPU.  Each architecture (default: SchNet, GIN, SAGE, MFC, PNA,
+EGNN) is trained twice from one seeded init on the synthetic BCC set of
+``chip_smoke.py`` at its widths (hidden 64, 4 conv layers, AdamW 1e-3;
+EGNN at md17's, ``chip_smoke.egnn_md17_config``), once under
+``HYDRAGNN_AGGR_BACKEND=fused`` (the plain versions of the kernels:
+sorted-segment sums) and once under ``scatter`` (``index_add_``).  Both are
+the same function; they differ in the order of a few float32 sums.  Prints
+one JSON line per architecture with the per-epoch train and validation
+losses of both runs and their relative differences.
 
 What it shows: SchNet's two runs stay together, those of the BatchNorm
 architectures part within a few epochs.  The weights in front of a
@@ -20,6 +21,7 @@ large sums, and Adam turns every gradient, however small, into a step of
 the learning rate's size; the eval losses, taken with young running
 statistics, part soonest.  This is why ``chip_smoke.py`` holds the card to
 the CPU in lockstep for these architectures and compares no free runs.
+EGNN has no BatchNorm; its line decides which of the two checks it gets.
 """
 
 from __future__ import annotations
@@ -35,14 +37,14 @@ import tempfile
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("archs", nargs="*",
-                    default=["SchNet", "GIN", "SAGE", "MFC", "PNA"])
+                    default=["SchNet", "GIN", "SAGE", "MFC", "PNA", "EGNN"])
     ap.add_argument("--graphs", type=int, default=1500)
     ap.add_argument("--batch", type=int, default=128)
     ap.add_argument("--epochs", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
-    from chip_smoke import flagship_config
+    from chip_smoke import egnn_md17_config, flagship_config
 
     import hydragnn_torch
     from hydragnn_torch.data.synthetic import deterministic_graph_data
@@ -61,8 +63,12 @@ def main(argv=None) -> int:
                 hist = {}
                 for backend in ("fused", "scatter"):
                     os.environ["HYDRAGNN_AGGR_BACKEND"] = backend
-                    cfg = flagship_config(perc_train=0.5, epochs=args.epochs,
-                                          model_type=arch)
+                    if arch == "EGNN":
+                        cfg = egnn_md17_config(epochs=args.epochs)
+                    else:
+                        cfg = flagship_config(perc_train=0.5,
+                                              epochs=args.epochs,
+                                              model_type=arch)
                     cfg["NeuralNetwork"]["Training"]["batch_size"] = args.batch
                     _, hist[backend], _ = hydragnn_torch.run_training(
                         copy.deepcopy(cfg),

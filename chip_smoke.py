@@ -25,7 +25,13 @@ and PyTorch built for CUDA.  Phases, each of which fails the run:
    the two poly kernels (scatter mode with all moments at F=64 and F=256,
    gather mode with sum+cnt and with all moments at F=64: sums 1e-5,
    max/min and count exactly equal; through their autograd Functions
-   against autograd through the plain versions on data with ties);
+   against autograd through the plain versions on data with ties), and
+   the three egcl kernels (forward, pass P, pass S) at the first
+   egnn_md17 train batch in the three instantiations its path launches
+   (F = H = 48 equivariant, the last layer's block with no coordinate
+   gate, layer 0's F = 1 block with no dx and no dgeo) through their
+   autograd Function against autograd through the composed plain version
+   (1e-5; 1e-4 for the weight grads; dgeo exactly zero on masked edges);
 4. flagship prediction: a seeded SchNet checkpoint at the flagship widths
    (hidden 64, 4 convs, 50 gaussians, 64 filters, radius 1.8,
    max_neighbours 20, graph head (2, 64, 2, (64, 64)), batch 512) through
@@ -58,14 +64,22 @@ and PyTorch built for CUDA.  Phases, each of which fails the run:
    CPU model's weights and statistics before each step, and loss (1e-5),
    updated BatchNorm statistics (1e-4) and every gradient (1e-4 of the
    model's largest entry) must agree, and every parameter's gradient must
-   lie within 1e-4 of its own largest entry of a float64 CPU gradient, or
+   lie within 1e-4 of its own largest entry of a float64 CPU gradient
+   through the composed path (the batch without its sender permutation), or
    within five times the worst that the CPU's own float32 gradient does
    on any parameter) and through ``run_prediction`` on the run's
    checkpoint, card vs CPU, 1e-4;
 8. GIN, SAGE and MFC training at the same widths, 2 epochs capped at 2
    batches per pass: 4 no-``w`` gather (GIN) or 4 poly-gather (SAGE, MFC)
    launches and 3 no-``w`` dx launches per train step, 1 pool; the same
-   lockstep and checkpoint-prediction checks.
+   lockstep and checkpoint-prediction checks;
+9. EGNN training: egnn_md17 (the architecture of examples/md17, hidden
+   48, 4 convs, 3 epochs) and egnn_oc22 (that of
+   examples/open_catalyst_2022, hidden 32, 2 convs, capped as phase 8),
+   with output names that ask for no force term: 4 egcl forwards, 4 pass
+   P, 3 pass S and 1 pool per md17 train step (2, 2, 1, 1 for oc22), every
+   egcl dispatch fused; the lockstep, repeat and checkpoint-prediction
+   checks of phase 7.
 
 Prints JSON lines with the seconds of each phase (and, where float32
 itself decided a lockstep allowance, the per-parameter records behind
@@ -136,6 +150,10 @@ WIDE_EPOCHS = 2
 WIDE_CAP = 2              # batches per pass of the wide run_training
 ARCH_EPOCHS = 2           # GIN, SAGE, MFC: capped like the wide run
 ARCH_CAP = 2
+EGNN_EPOCHS = 3           # egnn_md17, in full; egnn_oc22 as GIN (capped)
+# no real edge's ReLU input within this of zero in the egcl kernel checks
+# (egcl_off_kinks): ~20x the float32 rounding of a 97-term dot product
+KINK_MARGIN = 2e-6
 
 # kernel launches per train step and per eval batch of each path (4 conv
 # layers; the first layer's input needs no gradient, so its dx launch and
@@ -158,6 +176,16 @@ PATH_LAUNCHES = {
              {"gather_poly_segment": 4, "segment_sum_dense": 1}),
 }
 PATH_LAUNCHES["MFC"] = PATH_LAUNCHES["SAGE"]
+# EGNN: one egcl forward and one pass P per conv layer, pass S where the
+# layer's input needs a gradient (not layer 0: x is data), one pool
+PATH_LAUNCHES["egnn_md17"] = (
+    {"egcl_block": 4, "egcl_block_pass_p": 4, "egcl_block_pass_s": 3,
+     "segment_sum_dense": 1},
+    {"egcl_block": 4, "segment_sum_dense": 1})
+PATH_LAUNCHES["egnn_oc22"] = (
+    {"egcl_block": 2, "egcl_block_pass_p": 2, "egcl_block_pass_s": 1,
+     "segment_sum_dense": 1},
+    {"egcl_block": 2, "segment_sum_dense": 1})
 REPEAT_STEPS = 3
 
 
@@ -227,6 +255,94 @@ def flagship_config(width=64, perc_train=0.1, epochs=1,
         },
         "Visualization": {"create_plots": False},
     }
+
+
+def egnn_md17_config(epochs=EGNN_EPOCHS, perc_train=0.5):
+    """md17's EGNN (examples/md17/md17.json:23-45: hidden 48, 4 convs,
+    equivariant, radius 2.2, max_neighbours 12, graph head (2, 48, 2, [48,
+    48]), node head mlp [48, 48], task weights [1, 10]; AdamW 1e-3, mse) on
+    the synthetic BCC set at batch 512.  Its two outputs keep their types
+    (graph, node) under other names than total_energy / atomic_forces, so
+    the energy-gradient force term (a double backward, not ported) is not
+    asked for; the node head regresses the node feature x2."""
+    cfg = flagship_config(perc_train=perc_train, epochs=epochs,
+                          model_type="EGNN")
+    nn_ = cfg["NeuralNetwork"]
+    arch = nn_["Architecture"]
+    for k in ("num_gaussians", "num_filters"):
+        del arch[k]
+    arch.update({
+        "radius": 2.2, "max_neighbours": 12, "equivariance": True,
+        "hidden_dim": 48, "num_conv_layers": 4,
+        "output_heads": {
+            "graph": {"num_sharedlayers": 2, "dim_sharedlayers": 48,
+                      "num_headlayers": 2, "dim_headlayers": [48, 48]},
+            "node": {"num_headlayers": 2, "dim_headlayers": [48, 48],
+                     "type": "mlp"}},
+        "task_weights": [1.0, 10.0]})
+    nn_["Variables_of_interest"].update({
+        "output_index": [0, 1], "type": ["graph", "node"],
+        "output_names": ["graph_energy", "node_x2"]})
+    return cfg
+
+
+def egnn_oc22_config(epochs=ARCH_EPOCHS, perc_train=0.5):
+    """The architecture and training sections of
+    examples/open_catalyst_2022/open_catalyst_2022_energy.json (EGNN,
+    hidden 32, 2 convs, equivariant, radius 4.0, max_neighbours 20, graph
+    head (2, 32, 2, [32, 16]); AdamW 1e-3, mae) on the synthetic BCC set at
+    batch 512."""
+    cfg = flagship_config(perc_train=perc_train, epochs=epochs,
+                          model_type="EGNN")
+    nn_ = cfg["NeuralNetwork"]
+    nn_["Architecture"].update({
+        "radius": 4.0, "max_neighbours": 20, "num_gaussians": 50,
+        "envelope_exponent": 5, "int_emb_size": 32, "basis_emb_size": 8,
+        "out_emb_size": 32, "num_after_skip": 1, "num_before_skip": 1,
+        "num_radial": 5, "num_spherical": 3, "num_filters": 32,
+        "hidden_dim": 32, "num_conv_layers": 2,
+        "output_heads": {"graph": {
+            "num_sharedlayers": 2, "dim_sharedlayers": 32,
+            "num_headlayers": 2, "dim_headlayers": [32, 16]}},
+        "task_weights": [1.0], "equivariance": True})
+    nn_["Training"]["loss_function_type"] = "mae"
+    return cfg
+
+
+def egcl_off_kinks(torch, equivariant, ins, send, recv, em,
+                   margin=KINK_MARGIN):
+    """The egcl op inputs ``[x, geo, w0, b0, w1, b1(, wc0, bc0, wc1)]`` with
+    the biases b0, b1 (and bc0) moved, column by column, until no real
+    edge's ReLU input lies within ``margin`` of zero (float64, on the
+    float32 values).  At such an edge two correct float32 computations that
+    sum in another order can take the two branches of the ReLU, and that
+    edge's whole gradient term appears in one and not in the other: the
+    kernels are held to their plain versions on inputs where the branch is
+    decided.  Returns (the new inputs, the number of bias entries moved)."""
+    ok = em != 0
+    s, r = send[ok].long(), recv[ok].long()
+    x, geo, w0 = (t.double() for t in ins[:3])
+    f = x.shape[1]
+    moved = 0
+
+    def clear(pre, bias):
+        nonlocal moved
+        b = bias.double()
+        for _ in range(200):
+            near = ((pre + b).abs() < margin).any(0)
+            if not bool(near.any()):
+                return b.to(bias.dtype), torch.relu(pre + b)
+            moved += int(near.sum())
+            b = torch.where(near, b + 3 * margin, b).float().double()
+        raise RuntimeError("egcl_off_kinks: a bias column stays on a kink")
+
+    out = list(ins)
+    pre = x[s] @ w0[:f] + x[r] @ w0[f:2 * f] + geo[ok][:, 3:] @ w0[2 * f:]
+    out[3], a = clear(pre, ins[3])
+    out[5], m = clear(a @ ins[4].double(), ins[5])
+    if equivariant:
+        out[7], _ = clear(m @ ins[6].double(), ins[7])
+    return out, moved
 
 
 def time_ms(torch, fn, flush=None, reps=50, warmup=5, lead=False):
@@ -797,6 +913,190 @@ def poly_phase(torch, g, seed):
     return rows, notes
 
 
+def egcl_flops(f, h, gp, equivariant, edges, nodes):
+    """Floating-point operations (a multiply-add is two) that the three egcl
+    kernels' functions need on ``edges`` real edges and ``nodes`` real
+    nodes: (forward, pass P, pass S).  The products with x factor to the
+    nodes (x[s] @ W0s = (x @ W0s)[s]; dW0s = x^T (the dt0 summed per
+    sender); dx_s = (the dt0 summed per sender) @ W0s^T), so they count
+    once per node; the rest of the chain is per edge: the geometry rows of
+    t0, W1 and, in the equivariant block, Wc0 and wc1; back to dt0 through
+    W1^T and Wc0^T; pass P's per-edge weight grads (dW1, dW0g, dWc0, dwc1)
+    and dgeo's radial and edge_attr lanes."""
+    fwd_e = 2 * gp * h + 2 * h * h
+    back_e = 2 * h * h
+    wgrad_e = 2 * h * h + 2 * gp * h
+    if equivariant:
+        fwd_e += 2 * h * h + 2 * h
+        back_e += 2 * h * h
+        wgrad_e += 2 * h * h + 2 * h
+    fwd_n = 2 * 2 * f * h  # x @ W0s, x @ W0r
+    fwd = edges * fwd_e + nodes * fwd_n
+    # pass P: + dW0s, dW0r and dx_s at the nodes; pass S: + dx_r
+    pass_p = (edges * (fwd_e + back_e + wgrad_e + 2 * gp * h)
+              + nodes * (fwd_n + 3 * 2 * f * h))
+    pass_s = edges * (fwd_e + back_e) + nodes * (fwd_n + 2 * f * h)
+    return fwd, pass_p, pass_s
+
+
+def egcl_phase(torch, g, seed):
+    """The three egcl kernels at the first egnn_md17 train batch, on the
+    batch's own geometry, in the three instantiations md17's main path
+    launches: layers 1-2 (F = H = 48, equivariant, x and geo want
+    gradients), layer 3 (F = H = 48, no coordinate gate) and layer 0 (F = 1,
+    equivariant, pass P with no dx and no dgeo, no pass S).  Each through
+    its autograd Function against autograd through the composed plain
+    version: forward 1e-5, dx and dgeo 1e-5, the edge-summed weight grads
+    1e-4 of their largest entry; dgeo exactly zero on masked edges.  Then
+    each kernel timed alone as layers 1-2 launch it (pass P with dx and
+    dgeo, and its reduction), beside its plain version."""
+    from hydragnn_torch.models.layers import edge_geometry
+    from hydragnn_torch.ops import egcl_mp as em_
+    from hydragnn_torch.ops.aggregate import segment_offsets
+
+    dev = g.x.device
+    n, e = g.num_nodes, g.num_edges
+    h = 48
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    send, recv, mask = g.senders, g.receivers, g.edge_mask
+    perm = g.extras["edge_perm_sender"]
+    em = mask.to(torch.int32)
+    real = mask != 0
+    diff, radial = edge_geometry(g.pos, send, recv)
+    geo = torch.cat([diff, radial], 1).contiguous()
+    gp = geo.shape[1] - 3
+    ca = torch.randn(n, h, device=dev, generator=gen)
+    cp = torch.randn(n, 3, device=dev, generator=gen)
+    names = ("x", "geo", "w0", "b0", "w1", "b1", "wc0", "bc0", "wc1")
+
+    def lecun(rows, cols):
+        return torch.randn(rows, cols, device=dev, generator=gen) / rows ** 0.5
+
+    def bias():
+        return torch.randn(h, device=dev, generator=gen) * 0.1
+
+    def hold(equivariant, f, data_grads):
+        """One instantiation held to its plain version; returns its
+        inputs, the errors by output and the bias entries moved."""
+        ins = [torch.randn(n, f, device=dev, generator=gen), geo,
+               lecun(2 * f + gp, h), bias(), lecun(h, h), bias()]
+        if equivariant:
+            ins += [lecun(h, h), bias(),
+                    torch.randn(h, 1, device=dev, generator=gen) * 0.5]
+        ins, moved = egcl_off_kinks(torch, equivariant, ins, send, recv,
+                                    mask)
+        what = f"egcl (equivariant={equivariant}, F={f})"
+
+        def run(fn):
+            ts = [t.detach().clone().requires_grad_(i >= 2 or data_grads)
+                  for i, t in enumerate(ins)]
+            full = ts + [None] * (9 - len(ts))
+            agg, psum = fn(equivariant, full[0], full[1], em, *full[2:],
+                           send, recv)
+            loss = (agg * ca).sum()
+            if equivariant:
+                loss = loss + (psum * cp).sum()
+            loss.backward()
+            torch.cuda.synchronize()
+            return ((agg.detach(), None if psum is None else psum.detach()),
+                    [t.grad for t in ts])
+
+        em_.reset_launches()
+        k_out, k_grads = run(lambda *a: em_.egcl_block(*a, perm))
+        check(em_.LAUNCHES == {"egcl_block": 1, "egcl_block_pass_p": 1,
+                               "egcl_block_pass_s": int(data_grads)},
+              f"{what} launches {em_.LAUNCHES}")
+        p_out, p_grads = run(em_.egcl_block_reference)
+        errs = {"agg": rel_err(torch, k_out[0], p_out[0])}
+        if equivariant:
+            errs["psum"] = rel_err(torch, k_out[1], p_out[1])
+        for name, a, c in zip(names, k_grads, p_grads):
+            if name in ("x", "geo") and not data_grads:
+                check(a is None, f"{what}: d{name} was computed")
+                continue
+            if name == "geo":
+                check(bool((a[~real] == 0).all()),
+                      f"{what}: dgeo is not zero on masked edges")
+                a, c = a[real], c[real]
+            errs["d" + name] = rel_err(torch, a, c)
+        for name, (_, rel_e) in errs.items():
+            tol = REL_TOL_KERNEL if name in ("agg", "psum", "dx", "dgeo") \
+                else REL_TOL_WGRAD
+            check(rel_e <= tol, f"{what}: {name} disagrees with the plain "
+                  f"version under autograd: {rel_e} > {tol}")
+        return ins, errs, moved
+
+    def worst_of(errs):
+        k = max(errs, key=lambda o: errs[o][1])
+        return {"worst": k, "max_abs_err": errs[k][0],
+                "max_rel_err": errs[k][1]}
+
+    f = 48
+    ins, errs, moved = hold(True, f, True)
+    _, errs_last, moved_last = hold(False, f, True)
+    _, errs_l0, moved_l0 = hold(True, 1, False)
+
+    e_valid = int(real.sum())
+    n_valid = int((g.node_mask != 0).sum())
+    x = ins[0]
+    ws = em_.kernel_weights(True, *ins[2:], f, h, dev)
+    ptr_s = segment_offsets(send[perm.long()], n, em[perm.long()])
+    ptr_r = segment_offsets(recv, n, em)
+    plain_args = (True, x, geo, em, *ins[2:], send, recv, ca, cp)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    fwd_fl, p_fl, s_fl = egcl_flops(f, h, gp, True, e_valid, n_valid)
+    wbytes = 4 * sum(t.numel() for t in ws if t is not None)
+    # read once: x, the real edges' geo rows and ids (perm, send, recv),
+    # row_ptr, the weights; cotangents dagg, dpsum for the backward
+    edge_in = 4 * (n * f + e_valid * (3 + gp) + 3 * e_valid + n + 1) + wbytes
+    cot = 4 * n * (h + 3)
+    launches = {
+        "egcl_block": (
+            lambda: em_.launch_egcl("egcl_block", True, x, geo, ws, send,
+                                    recv, perm, ptr_s),
+            lambda: em_.egcl_block_reference(True, x, geo, em, *ins[2:],
+                                             send, recv),
+            bound(edge_in + 4 * n * (h + 3), fwd_fl),
+            "hydragnn_tpu/ops/fused_block.py:495", ("agg", "psum")),
+        "egcl_block_pass_p": (
+            lambda: em_.launch_egcl("egcl_block_pass_p", True, x, geo, ws,
+                                    send, recv, perm, ptr_s, ca, cp,
+                                    want_dx=True, want_geo=True),
+            lambda: em_.egcl_pass_p_plain(*plain_args),
+            bound(edge_in + cot + 4 * (n * f + e_valid * (3 + gp))
+                  + wbytes, p_fl),
+            "hydragnn_tpu/ops/fused_block.py:561",
+            ("dw0", "db0", "dw1", "db1", "dwc0", "dbc0", "dwc1", "dgeo")),
+        "egcl_block_pass_s": (
+            lambda: em_.launch_egcl("egcl_block_pass_s", True, x, geo, ws,
+                                    send, recv, None, ptr_r, ca, cp),
+            lambda: em_.egcl_pass_s_plain(*plain_args),
+            bound(edge_in - 4 * e_valid + cot + 4 * n * f, s_fl),
+            "hydragnn_tpu/ops/fused_block.py:599", ("dx",)),
+    }
+    results = []
+    for name, (kern, plain, (b_ms, b_by), replaces, outs) in launches.items():
+        worst = max(outs, key=lambda o: errs[o][1])
+        results.append({
+            "name": name, "route": "cuda",
+            "source": "hydragnn_torch/csrc/egcl_mp.cu", "replaces": replaces,
+            "max_abs_err": errs[worst][0], "max_rel_err": errs[worst][1],
+            "ms": time_ms(torch, kern, flush, lead=True),
+            "warm_l2_ms": time_ms(torch, kern, lead=True),
+            "plain_ms": time_ms(torch, plain, flush),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "shape": {"N": n, "N_valid": n_valid, "E": e,
+                      "E_valid": e_valid, "F": f, "H": h,
+                      "geo": 3 + gp, "equivariant": True},
+        })
+    notes = {k: {"max_abs_err": a, "max_rel_err": r}
+             for k, (a, r) in errs.items()}
+    notes["last_layer_F48"] = worst_of(errs_last)
+    notes["layer0_F1"] = worst_of(errs_l0)
+    notes["bias_entries_moved_off_kinks"] = moved + moved_last + moved_l0
+    return results, notes
+
+
 def expect(launches, want, what):
     """Every counter equals what the path must launch (0 where unnamed)."""
     for k in sorted(set(launches) | set(want)):
@@ -813,12 +1113,14 @@ def train_phase(torch, hydragnn_torch, config, logs, seed, cap=None,
     apart, train passes from eval passes.  Returns (card result, CPU result
     or None, launches of the card run, that tally, dispatch tally, card
     seconds, CPU seconds or None)."""
-    from hydragnn_torch.ops import fused_mp, poly_mp, scf_mp
+    from hydragnn_torch.ops import egcl_mp, fused_mp, poly_mp, scf_mp
     from hydragnn_torch.telemetry import pipeline
     from hydragnn_torch.train import trainer
 
+    mods = (fused_mp, scf_mp, poly_mp, egcl_mp)
+
     def counts():
-        return {**fused_mp.LAUNCHES, **scf_mp.LAUNCHES, **poly_mp.LAUNCHES}
+        return {k: v for m in mods for k, v in m.LAUNCHES.items()}
 
     split = {"train": {"batches": 0, "launches": {}},
              "eval": {"batches": 0, "launches": {}}}
@@ -840,9 +1142,8 @@ def train_phase(torch, hydragnn_torch, config, logs, seed, cap=None,
     if cap is not None:
         os.environ["HYDRAGNN_MAX_NUM_BATCH"] = str(cap)
     try:
-        fused_mp.reset_launches()
-        scf_mp.reset_launches()
-        poly_mp.reset_launches()
+        for m in mods:
+            m.reset_launches()
         before = pipeline.dispatch_snapshot()
         trainer._run_epoch = tallied
         try:
@@ -946,7 +1247,9 @@ def repeat_bits(torch, cfg, batches, seed, dev):
 
 
 def as_double(g):
-    """The batch with its floating-point tensors in float64."""
+    """The batch with its floating-point tensors in float64 and without the
+    sender permutation: a model that picks a fused block from that marker
+    (EGNN's EGCL, SchNet's edge pipeline) takes its composed path."""
     def up(t):
         return t.double() if t is not None and t.is_floating_point() else t
 
@@ -954,7 +1257,9 @@ def as_double(g):
         g, x=up(g.x), pos=up(g.pos), edge_attr=up(g.edge_attr),
         node_mask=up(g.node_mask), edge_mask=up(g.edge_mask),
         graph_mask=up(g.graph_mask), labels=tuple(up(t) for t in g.labels),
-        cell=up(g.cell))
+        cell=up(g.cell),
+        extras={k: v for k, v in g.extras.items()
+                if k != "edge_perm_sender"})
 
 
 def grade_leaves(what, leaves):
@@ -999,8 +1304,9 @@ def lockstep(torch, cfg, batches, seed, dev):
     every parameter's gradient on its own scale.
 
     The yardstick of a gradient is a third run: the same weights in
-    float64 on the CPU through the composed ``scatter`` path, which shares
-    no code with the kernels or their plain versions.  Every parameter's
+    float64 on the CPU through the composed ``scatter`` path, on the batch
+    without its sender permutation (``as_double``), which shares no code
+    with the kernels or their plain versions.  Every parameter's
     card gradient must lie within REL_TOL_LOCKSTEP_GRAD of that
     parameter's own largest float64 gradient entry.  Where float32 itself
     cannot do that (a max aggregator or a ReLU switches at a rounding
@@ -1222,6 +1528,13 @@ def main():
         train_loader.set_epoch(0)
         first_train = next(iter(train_loader)).to(dev)
         n_train = len(train_loader.samples)
+        md17_cfg, oc22_cfg = egnn_md17_config(), egnn_oc22_config()
+        md17_loaders = dataset_loading_and_splitting(
+            copy.deepcopy(md17_cfg), seed=args.seed)
+        oc22_loaders = dataset_loading_and_splitting(
+            copy.deepcopy(oc22_cfg), seed=args.seed)
+        md17_loaders[0].set_epoch(0)
+        first_md17 = next(iter(md17_loaders[0])).to(dev)
         emit({"phase": "setup", "seconds": time.perf_counter() - t0,
               "data_loading_s": load_s,
               "test_batches": n_batches, "test_graphs": n_test,
@@ -1231,7 +1544,11 @@ def main():
               "first_train_batch": {
                   "nodes": first_train.num_nodes,
                   "edges": first_train.num_edges,
-                  "real_edges": int(first_train.edge_mask.sum())}})
+                  "real_edges": int(first_train.edge_mask.sum())},
+              "first_egnn_md17_train_batch": {
+                  "nodes": first_md17.num_nodes,
+                  "edges": first_md17.num_edges,
+                  "real_edges": int(first_md17.edge_mask.sum())}})
 
         # -- 3. kernels against their plain versions, at the first train
         #       batch of the main path
@@ -1239,9 +1556,11 @@ def main():
         kernels, notes = kernel_phase(torch, first_train, args.seed)
         scf_kernels, scf_notes = scf_phase(torch, first_train, args.seed)
         poly_kernels, poly_notes = poly_phase(torch, first_train, args.seed)
-        kernels += scf_kernels + poly_kernels
+        egcl_kernels, egcl_notes = egcl_phase(torch, first_md17, args.seed)
+        kernels += scf_kernels + poly_kernels + egcl_kernels
         emit({"phase": "kernel_checks", "seconds": time.perf_counter() - t0,
-              **notes, "scf": scf_notes, "poly": poly_notes})
+              **notes, "scf": scf_notes, "poly": poly_notes,
+              "egcl": egcl_notes})
 
         # -- 4. flagship prediction, on the card
         t_phase = time.perf_counter()
@@ -1451,6 +1770,57 @@ def main():
                   "wall_s_cuda": wall_card,
                   "launches": arch_launches[arch], "launches_split": asplit,
                   "dispatch": dispatch})
+
+        # -- 9. EGNN: md17's architecture in full, oc22's capped
+        egnn = {}
+        for name, ecfg, eloaders, cap in (
+                ("egnn_md17", md17_cfg, md17_loaders, None),
+                ("egnn_oc22", oc22_cfg, oc22_loaders, ARCH_CAP)):
+            t_phase = time.perf_counter()
+            elogs = os.path.join(logs, name)
+            card, _, e_launches, esplit, dispatch, wall_card, _ = \
+                train_phase(torch, hydragnn_torch, ecfg, elogs, args.seed,
+                            cap=cap, cpu_run=False)
+            esteps, eevals, e_per, _ = check_training(
+                f"{name} training", card, None, e_launches, esplit,
+                dispatch, eloaders, cap, name)
+            ecfg_m = ModelConfig.from_config(card[2])
+            eloaders[0].set_epoch(0)
+            e3_cpu = [b for _, b in zip(range(REPEAT_STEPS), eloaders[0])]
+            n_eparams = repeat_bits(torch, ecfg_m,
+                                    [b.to(dev) for b in e3_cpu], args.seed,
+                                    dev)
+            esteady = (steady_epoch(torch, ecfg_m, eloaders[0], args.seed,
+                                    dev) if cap is None else None)
+            elock = lockstep(torch, ecfg_m, e3_cpu, args.seed, dev)
+            own = own_checkpoint_prediction(
+                torch, hydragnn_torch, ecfg, os.path.join(elogs, "cuda"),
+                args.seed, name)
+            hist = card[1]
+            egnn[name] = (e_launches, e_per)
+            arch_ = card[2]["NeuralNetwork"]["Architecture"]
+            emit({"phase": f"{name}_training",
+                  "seconds": time.perf_counter() - t_phase,
+                  "entry": "hydragnn_torch.run_training", "backend": "fused",
+                  "hidden_dim": arch_["hidden_dim"],
+                  "num_conv_layers": arch_["num_conv_layers"],
+                  "radius": arch_["radius"],
+                  "max_neighbours": arch_["max_neighbours"],
+                  "output_names": card[2]["NeuralNetwork"][
+                      "Variables_of_interest"]["output_names"],
+                  "force_term": False, "batches_per_pass": cap,
+                  "epochs": len(hist["train"]), "train_steps": esteps,
+                  "eval_batches": eevals, "train_loss": hist["train"],
+                  "val_loss": hist["val"], "test_loss": hist["test"],
+                  "lr": hist["lr"], "wall_s_cuda": wall_card,
+                  "epoch_time_s_cuda": hist["epoch_time"],
+                  "bit_identical_repeat": {"steps": REPEAT_STEPS,
+                                           "parameters": n_eparams},
+                  "steady_train_epoch_cuda": esteady,
+                  "lockstep_vs_cpu": elock,
+                  "prediction_from_own_checkpoint": own,
+                  "launches": e_launches, "launches_split": esplit,
+                  "dispatch": dispatch})
         os.chdir(ROOT)
 
     # launches of the main path's card runs, split between train steps and
@@ -1465,6 +1835,8 @@ def main():
     for k in kernels:
         if k["name"].startswith("scf_"):
             path, n_by, per_by = "wide", wide_launches, wide_per
+        elif k["name"].startswith("egcl_"):
+            path, (n_by, per_by) = "egnn_md17", egnn["egnn_md17"]
         else:
             path, n_by, per_by = paths.get(
                 k["name"], ("flagship", flag_launches, flag_per))

@@ -50,6 +50,14 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         # partial, wgrad, drbf, dcm, n_rows, f, g, n_parts, stream
         "hg_scf_pass_p_f32": (_P,) * 16 + (_I,) * 4 + (_P,),
     },
+    "egcl_mp": {
+        # mode, equivariant, x, geo, send, recv, perm, row_ptr, w0s, w0r,
+        # w0g, b0, w1, b1, wc0, bc0, wc1, gagg, gpsum, out, psum, partial,
+        # wgrad, dgeo, n_rows, f, h, gp, n_parts, stream
+        "hg_egcl_f32": (_I, _I) + (_P,) * 22 + (_I,) * 5 + (_P,),
+        # f, h, gp, equivariant
+        "hg_egcl_wgrad_size": (_I,) * 4,
+    },
     "poly_mp": {
         # src, senders, mask, row_ptr, o_sum, o_sq, o_mxmn, o_cnt,
         # n_rows, n_src, f, gather, stream

@@ -1,6 +1,6 @@
 """Model factory (port of hydragnn_tpu/models/create.py).
 
-SchNet, GIN, SAGE, MFC and PNA are ported; CGCNN, EGNN, GAT and DimeNet
+SchNet, GIN, SAGE, MFC, PNA and EGNN are ported; CGCNN, GAT and DimeNet
 raise until their slices land (ROADMAP queue A4).  Parameters are initialised from an
 explicit ``torch.Generator`` seeded with ``seed``.
 """
@@ -11,6 +11,7 @@ import torch
 import torch.nn as nn
 
 from hydragnn_torch.models.base import Base, ModelConfig
+from hydragnn_torch.models.egnn import EGCLStack
 from hydragnn_torch.models.gin import GINStack
 from hydragnn_torch.models.mfc import MFCStack
 from hydragnn_torch.models.pna import PNAStack
@@ -18,7 +19,7 @@ from hydragnn_torch.models.sage import SAGEStack
 from hydragnn_torch.models.schnet import SCFStack
 
 _STACKS = {"SAGE": SAGEStack, "GIN": GINStack, "MFC": MFCStack,
-           "PNA": PNAStack, "SchNet": SCFStack}
+           "PNA": PNAStack, "SchNet": SCFStack, "EGNN": EGCLStack}
 
 # the reference's architecture list (models/create.py ALL_ARCHS)
 ALL_ARCHS = ("SAGE", "GIN", "GAT", "MFC", "PNA", "CGCNN", "SchNet",

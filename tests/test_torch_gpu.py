@@ -14,7 +14,9 @@ kernels, the backward (dx passes, the pool's gather), the three scf
 kernels through their autograd Function, the SchNet forward, three
 training steps at the flagship width and the wide one, the two poly
 kernels at every width gate (forward and, through their autograd
-Functions, backward with ties), and three PNA/GIN/SAGE/MFC training steps.
+Functions, backward with ties), three PNA/GIN/SAGE/MFC training steps,
+the three egcl kernels at every width the EGNN gate admits, and three
+EGNN training steps at md17's widths.
 """
 
 import numpy as np
@@ -509,3 +511,129 @@ def test_arch_train_steps_on_card_match_cpu(cuda, monkeypatch, model_type):
     }[model_type]
     for k, v in counted.items():
         assert v == want.get(k, 0), (k, counted)
+
+
+def _egcl_inputs(b, f, h, a, equivariant, seed):
+    """Op inputs at a lecun-normal weight scale on the collate-shaped batch:
+    geo = [diff (|diff| < 1), radial, A edge attributes]."""
+    n, e = len(b["node_gid"]), len(b["senders"])
+    g = torch.Generator().manual_seed(seed)
+    geo = torch.cat([torch.rand(e, 3, generator=g) * 1.2 - 0.6,
+                     torch.rand(e, 1 + a, generator=g) * 3.0], 1)
+    ins = [torch.randn(n, f, generator=g), geo,
+           torch.randn(2 * f + 1 + a, h, generator=g) / (2 * f + 1 + a) ** 0.5,
+           torch.randn(h, generator=g) * 0.1,
+           torch.randn(h, h, generator=g) / h ** 0.5,
+           torch.randn(h, generator=g) * 0.1]
+    if equivariant:
+        ins += [torch.randn(h, h, generator=g) / h ** 0.5,
+                torch.randn(h, generator=g) * 0.1,
+                torch.randn(h, 1, generator=g) * 0.5]
+    cts = (torch.randn(n, h, generator=g), torch.randn(n, 3, generator=g))
+    return ins, cts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("equivariant", [True, False],
+                         ids=["equivariant", "last-layer"])
+@pytest.mark.parametrize("a", [0, 3])
+@pytest.mark.parametrize("h", [32, 48, 64, 128])
+@pytest.mark.parametrize("f", [1, 48, 128])
+def test_egcl_kernels_match_plain_on_card(cuda, f, h, a, equivariant):
+    """The three egcl kernels (forward, pass P with its reduction, pass S)
+    through the autograd Function against autograd through the composed
+    plain version, at every width the gate admits that the main path and
+    the limits give: F = 1 (layer 0 on one node feature), 48 and 128; H =
+    32, 48 (not a multiple of 32), 64 and 128 (weights streamed from L2);
+    with and without edge attributes.  Forward, dx and dgeo 1e-5 of their
+    largest entry, the edge-summed weight grads 1e-4; dgeo exactly zero on
+    masked edges; a second run bit-identical.  The biases are moved off
+    the ReLU kinks first (``chip_smoke.egcl_off_kinks``): an edge whose
+    ReLU input lies within float32 rounding of zero takes either branch
+    in two correct computations."""
+    from chip_smoke import egcl_off_kinks
+    from hydragnn_torch.ops import egcl_mp
+
+    b = _graph_batch(11 + f + h + a)
+    ins, (ca, cp) = _egcl_inputs(b, f, h, a, equivariant, seed=3)
+    ins, _ = egcl_off_kinks(torch, equivariant, ins, _t(b["senders"]),
+                            _t(b["receivers"]), _t(b["edge_mask"]))
+    ins = [t.to(cuda) for t in ins]
+    ca, cp = ca.to(cuda), cp.to(cuda)
+    send, recv = _t(b["senders"]).to(cuda), _t(b["receivers"]).to(cuda)
+    perm = _t(b["perm"]).to(cuda)
+    em = _t(b["edge_mask"]).to(torch.int32).to(cuda)
+
+    def run(fn):
+        ts = [t.detach().clone().requires_grad_(True) for t in ins]
+        full = ts + [None] * (9 - len(ts))
+        agg, psum = fn(equivariant, full[0], full[1], em, *full[2:], send,
+                       recv)
+        loss = (agg * ca).sum()
+        if equivariant:
+            loss = loss + (psum * cp).sum()
+        loss.backward()
+        torch.cuda.synchronize()
+        outs = [agg.detach()] + ([psum.detach()] if equivariant else [])
+        return outs, [t.grad for t in ts]
+
+    egcl_mp.reset_launches()
+    k_out, k_grads = run(lambda *a_: egcl_mp.egcl_block(*a_, perm))
+    assert egcl_mp.LAUNCHES == {"egcl_block": 1, "egcl_block_pass_p": 1,
+                                "egcl_block_pass_s": 1}
+    again_out, again_grads = run(lambda *a_: egcl_mp.egcl_block(*a_, perm))
+    for x_, y_ in zip(k_out + k_grads, again_out + again_grads):
+        assert torch.equal(x_, y_)
+    p_out, p_grads = run(egcl_mp.egcl_block_reference)
+    for x_, y_ in zip(k_out, p_out):
+        assert float((x_ - y_).abs().max()) <= 1e-5 * float(y_.abs().max())
+    real = em.bool()
+    names = ("x", "geo", "w0", "b0", "w1", "b1", "wc0", "bc0", "wc1")
+    for name, x_, y_ in zip(names, k_grads, p_grads):
+        if name == "geo":
+            assert bool((x_[~real] == 0).all())
+            x_, y_ = x_[real], y_[real]
+        rel = 1e-5 if name in ("x", "geo") else 1e-4
+        assert float((x_ - y_).abs().max()) <= rel * float(y_.abs().max()), \
+            name
+
+
+@pytest.mark.gpu
+def test_egnn_train_steps_on_card_match_cpu(cuda, monkeypatch):
+    """md17's EGNN widths (hidden 48, 4 convs, equivariant): three AdamW
+    steps under fused from one init on the card (kernels) and on the CPU
+    (plain versions), the same losses and parameters to 1e-4; per step 4
+    forward, 4 pass P and 3 pass S launches (layer 0's input needs no
+    gradient) and 1 pool."""
+    from hydragnn_torch.models.base import GraphHeadCfg, ModelConfig
+    from hydragnn_torch.models.create import create_model
+    from hydragnn_torch.ops import egcl_mp
+    from hydragnn_torch.train.optimizer import select_optimizer
+    from hydragnn_torch.train.trainer import create_train_state, make_train_step
+
+    g = _schnet_batch(monkeypatch)
+    cfg = ModelConfig(
+        model_type="EGNN", input_dim=1, hidden_dim=48, output_dim=(1,),
+        output_type=("graph",), graph_head=GraphHeadCfg(2, 48, 2, (48, 48)),
+        node_head=None, task_weights=(1.0,), num_conv_layers=4, radius=1.8,
+        max_neighbours=20, equivariance=True)
+    runs = []
+    for dev in (torch.device("cpu"), cuda):
+        model = create_model(cfg, seed=1).to(dev)
+        spec = select_optimizer({"type": "AdamW", "learning_rate": 1e-3})
+        state = create_train_state(model, spec)
+        step = make_train_step(model, cfg, spec)
+        tfm.reset_launches()
+        egcl_mp.reset_launches()
+        losses = []
+        gd = g.to(dev)
+        for _ in range(3):
+            state, m = step(state, gd)
+            losses.append(float(m["loss"]))
+        runs.append((losses, [p.detach().cpu() for p in model.parameters()]))
+    np.testing.assert_allclose(runs[1][0], runs[0][0], rtol=1e-4, atol=1e-6)
+    for a, b in zip(runs[1][1], runs[0][1]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    assert egcl_mp.LAUNCHES == {"egcl_block": 12, "egcl_block_pass_p": 12,
+                                "egcl_block_pass_s": 9}
+    assert tfm.LAUNCHES["segment_sum_dense"] == 3
