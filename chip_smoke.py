@@ -31,7 +31,12 @@ and PyTorch built for CUDA.  Phases, each of which fails the run:
    (F = H = 48 equivariant, the last layer's block with no coordinate
    gate, layer 0's F = 1 block with no dx and no dgeo) through their
    autograd Function against autograd through the composed plain version
-   (1e-5; 1e-4 for the weight grads; dgeo exactly zero on masked edges);
+   (1e-5; 1e-4 for the weight grads; dgeo exactly zero on masked edges),
+   and the three GAT kernels (forward, pass R, pass S) at the first
+   train batch at H*F = 384 and 768, with ones and with dropout bits,
+   through their autograd Function against autograd through the plain
+   forward (1e-5; 1e-4 for d att; m equal; rows without a real edge
+   (-1e9, 0, 0) and zero gradients);
 4. flagship prediction: a seeded SchNet checkpoint at the flagship widths
    (hidden 64, 4 convs, 50 gaussians, 64 filters, radius 1.8,
    max_neighbours 20, graph head (2, 64, 2, (64, 64)), batch 512) through
@@ -79,7 +84,16 @@ and PyTorch built for CUDA.  Phases, each of which fails the run:
    with output names that ask for no force term: 4 egcl forwards, 4 pass
    P, 3 pass S and 1 pool per md17 train step (2, 2, 1, 1 for oc22), every
    egcl dispatch fused; the lockstep, repeat and checkpoint-prediction
-   checks of phase 7.
+   checks of phase 7;
+10. GAT training at the arch sweep's widths (hidden 64, 6 heads, slope
+   0.05, 4 convs, dropout 0: H*F = 384), 3 epochs, and at hidden 256 with
+   dropout 0.25 (H*F = 1536: two head groups of 768, the only phase whose
+   training draws dropout bits through the kernels), capped as phase 8:
+   4 forward, 4 pass R and 4 pass S launches and 1 pool per train step (8,
+   8, 8, 1 at hidden 256), every gat_attn dispatch fused; the lockstep
+   (the dropout bits drawn on the CPU for both sides; hidden 256 on
+   batches of 64 graphs) and repeat checks of phase 7, and at hidden 64
+   its checkpoint-prediction check.
 
 Prints JSON lines with the seconds of each phase (and, where float32
 itself decided a lockstep allowance, the per-parameter records behind
@@ -89,6 +103,7 @@ package beside it, it exits non-zero before printing any result.
 """
 
 import argparse
+import contextlib
 import copy
 import dataclasses
 import json
@@ -151,6 +166,13 @@ WIDE_CAP = 2              # batches per pass of the wide run_training
 ARCH_EPOCHS = 2           # GIN, SAGE, MFC: capped like the wide run
 ARCH_CAP = 2
 EGNN_EPOCHS = 3           # egnn_md17, in full; egnn_oc22 as GIN (capped)
+GAT_WIDE = 256            # gat_h256: H*F = 1536, two head groups of 768
+# graphs per batch of gat_h256's lockstep: at hidden 256 the CPU's float32
+# and float64 steps on a 512-graph batch cost ~1 TFLOP each (lin_l, lin_r
+# at 1536 lanes) and keep [E, 1536] float64 tensors of ~1.7 GB; at 128
+# graphs three steps took 282 s and 26 GB on an 8-core CPU
+GAT_WIDE_LOCKSTEP_BATCH = 64
+GAT_SLOPE = 0.05
 # no real edge's ReLU input within this of zero in the egcl kernel checks
 # (egcl_off_kinks): ~20x the float32 rounding of a 97-term dot product
 KINK_MARGIN = 2e-6
@@ -186,6 +208,16 @@ PATH_LAUNCHES["egnn_oc22"] = (
     {"egcl_block": 2, "egcl_block_pass_p": 2, "egcl_block_pass_s": 1,
      "segment_sum_dense": 1},
     {"egcl_block": 2, "segment_sum_dense": 1})
+# GAT: one attention forward, pass R and pass S per conv layer and head
+# group (layer 0's xl and xr need gradients for lin_l and lin_r), one pool
+PATH_LAUNCHES["gat"] = (
+    {"gat_edge_attention": 4, "gat_edge_attention_pass_r": 4,
+     "gat_edge_attention_pass_s": 4, "segment_sum_dense": 1},
+    {"gat_edge_attention": 4, "segment_sum_dense": 1})
+PATH_LAUNCHES["gat_h256"] = (
+    {"gat_edge_attention": 8, "gat_edge_attention_pass_r": 8,
+     "gat_edge_attention_pass_s": 8, "segment_sum_dense": 1},
+    {"gat_edge_attention": 8, "segment_sum_dense": 1})
 REPEAT_STEPS = 3
 
 
@@ -306,6 +338,22 @@ def egnn_oc22_config(epochs=ARCH_EPOCHS, perc_train=0.5):
             "num_headlayers": 2, "dim_headlayers": [32, 16]}},
         "task_weights": [1.0], "equivariance": True})
     nn_["Training"]["loss_function_type"] = "mae"
+    return cfg
+
+
+def gat_config(width=FEATURES, dropout=0.0, epochs=TRAIN_EPOCHS,
+               perc_train=0.5):
+    """The arch sweep's GAT (bench.py:199-230: hidden ``width``, 6 heads,
+    negative slope 0.05, 4 convs, radius 1.8, max_neighbours 20, graph head
+    (2, width, 2, (width, width))) on the synthetic BCC set at batch 512,
+    AdamW 1e-3, with attention dropout ``dropout`` (0.0: the recipe of the
+    reference's own warning at hidden * heads >= 256)."""
+    cfg = flagship_config(width, perc_train=perc_train, epochs=epochs,
+                          model_type="GAT")
+    arch = cfg["NeuralNetwork"]["Architecture"]
+    for k in ("num_gaussians", "num_filters"):
+        del arch[k]
+    arch["dropout"] = dropout
     return cfg
 
 
@@ -1097,6 +1145,200 @@ def egcl_phase(torch, g, seed):
     return results, notes
 
 
+@contextlib.contextmanager
+def cpu_dropout_bits():
+    """GAT's attention-dropout bits drawn on the CPU from the step's seeded
+    generator and moved to the batch's device: a generator on the card
+    draws other bits than one on the CPU from the same seed, so the card
+    and the CPU drop the same edges only this way.  For lockstep."""
+    import torch
+
+    from hydragnn_torch.models.gat import GATv2Conv
+
+    draw = GATv2Conv._dropout_bits
+
+    def on_cpu(self, e_count, n, device, dtype):
+        b_edge, b_self = draw(self, e_count, n, torch.device("cpu"), dtype)
+        if b_edge is None:
+            return None, None
+        return b_edge.to(device), b_self.to(device)
+
+    GATv2Conv._dropout_bits = on_cpu
+    try:
+        yield
+    finally:
+        GATv2Conv._dropout_bits = draw
+
+
+def gat_flops(hf, h, edges):
+    """Floating-point operations that the three GAT kernels' functions need
+    on ``edges`` real edges at ``hf`` = H*F lanes and ``h`` heads:
+    (forward, pass R, pass S).  Per edge and lane, the forward adds xl and
+    xr, takes the leaky ReLU, multiplies by att and adds into the logit,
+    then multiplies and adds into acc (6); each backward pass recomputes
+    the first four, adds ga * xl into q (2), forms dz (2) and adds it (1),
+    and pass R adds z_act * de into d att (2), pass S p b ga[dst] (2).  Per
+    edge and head about five (the max, the exponentials, de)."""
+    return (edges * (6 * hf + 5 * h), edges * (11 * hf + 5 * h),
+            edges * (11 * hf + 5 * h))
+
+
+def gat_phase(torch, g, seed):
+    """The three GAT kernels at the first train batch of the gat cell, on
+    its own edges, at H*F = 384 (6 heads of 64, the gat cell) and 768 (3
+    heads of 256, one head group of gat_h256), each with ones for the
+    dropout bits and with real bits (keep 0.75, scaled by 1/keep).  Each
+    through the op's autograd Function against autograd through the plain
+    forward: acc, d, dxl and dxr 1e-5 of their largest entry, d att 1e-4
+    (a sum over every edge of the batch in another order), m equal; rows
+    without a real incoming edge read m = -1e9, d = 0 and zero dxr, rows
+    without any real edge zero dxl.  Then each kernel timed alone in each
+    of the four cases, beside its plain version and its bound; the gat
+    cell's case (H*F = 384, no bits) makes the kernels line."""
+    from hydragnn_torch.ops import gat_mp as gm
+    from hydragnn_torch.ops.aggregate import segment_offsets
+
+    dev = g.x.device
+    n, e = g.num_nodes, g.num_edges
+    send, recv, mask = g.senders, g.receivers, g.edge_mask
+    perm = g.extras["edge_perm_sender"]
+    real = mask != 0
+    nodes = torch.arange(n, device=dev)
+    no_in = ~torch.isin(nodes, recv[real])
+    no_edge = no_in & ~torch.isin(nodes, send[real])
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+
+    def inputs(h, f, bits):
+        xl = torch.randn(n, h * f, device=dev, generator=gen)
+        xr = torch.randn(n, h * f, device=dev, generator=gen)
+        att = torch.randn(h, f, device=dev, generator=gen) / f ** 0.5
+        b = None
+        if bits:
+            b = (torch.rand(e, h, device=dev, generator=gen)
+                 < 0.75).float() / 0.75
+        ca = torch.randn(n, h * f, device=dev, generator=gen)
+        cd = torch.randn(n, h, device=dev, generator=gen)
+        return xl, xr, att, b, ca, cd
+
+    def hold(h, f, bits):
+        xl, xr, att, b, ca, cd = ins = inputs(h, f, bits)
+        what = f"gat (H={h}, F={f}, bits={bits})"
+
+        def run(fn):
+            ts = [t.detach().clone().requires_grad_(True)
+                  for t in (xl, xr, att)]
+            acc, m, d = fn(*ts)
+            ((acc * ca).sum() + (d * cd).sum()).backward()
+            torch.cuda.synchronize()
+            return (acc.detach(), m, d.detach()), [t.grad for t in ts]
+
+        gm.reset_launches()
+        (acc, m, d), grads = run(lambda a, c, w: gm.gat_edge_attention(
+            a, c, w, send, recv, perm, mask, b, GAT_SLOPE, f))
+        check(gm.LAUNCHES == {"gat_edge_attention": 1,
+                              "gat_edge_attention_pass_r": 1,
+                              "gat_edge_attention_pass_s": 1},
+              f"{what} launches {gm.LAUNCHES}")
+        (acc_p, m_p, d_p), grads_p = run(
+            lambda a, c, w: gm.gat_edge_attention_reference(
+                a, c, w, send, recv, mask, b, GAT_SLOPE))
+        check(torch.equal(m, m_p), f"{what}: m differs from the plain "
+              "version's")
+        check(bool((m[no_in] == -1e9).all()) and bool((d[no_in] == 0).all())
+              and bool((acc[no_in] == 0).all()),
+              f"{what}: a row without a real edge is not (-1e9, 0, 0)")
+        check(bool((grads[1][no_in] == 0).all())
+              and bool((grads[0][no_edge] == 0).all()),
+              f"{what}: a row without a real edge has a gradient")
+        errs = {"acc": rel_err(torch, acc, acc_p), "d": rel_err(torch, d, d_p)}
+        for name, a, c in zip(("dxl", "dxr", "datt"), grads, grads_p):
+            errs[name] = rel_err(torch, a, c)
+        for name, (_, rel_e) in errs.items():
+            tol = REL_TOL_WGRAD if name == "datt" else REL_TOL_KERNEL
+            check(rel_e <= tol, f"{what}: {name} disagrees with the plain "
+                  f"version under autograd: {rel_e} > {tol}")
+        return ins, errs
+
+    cases = {}
+    for h, f in ((6, 64), (3, 256)):
+        for bits in (False, True):
+            cases[(h * f, bits)] = hold(h, f, bits)
+
+    e_valid = int(real.sum())
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    ptr_r = segment_offsets(recv, n, mask)
+    ptr_s = segment_offsets(send[perm.long()], n, mask[perm.long()])
+
+    def launches(ins):
+        xl, xr, att, b, ca, cd = ins
+        h, f = att.shape
+        hf = h * f
+        _, m, _ = gm.launch_gat("gat_edge_attention", xl, xr, att, send,
+                                recv, None, ptr_r, b, GAT_SLOPE)
+        plain = (xl, xr, att, send, recv, mask, b, m, ca, cd, GAT_SLOPE)
+        fwd_fl, r_fl, s_fl = gat_flops(hf, h, e_valid)
+        # read once: node rows, att, the real edges' ids (and bits),
+        # row_ptr; written once: the outputs
+        rows, heads = 4 * n * hf, 4 * n * h
+        common = 4 * hf + 4 * e_valid + 4 * (n + 1) + (
+            0 if b is None else 4 * e_valid * h)
+        return {
+            "gat_edge_attention": (
+                lambda: gm.launch_gat("gat_edge_attention", xl, xr, att,
+                                      send, recv, None, ptr_r, b,
+                                      GAT_SLOPE),
+                lambda: gm.gat_edge_attention_reference(
+                    xl, xr, att, send, recv, mask, b, GAT_SLOPE),
+                bound(common + 3 * rows + 2 * heads, fwd_fl),
+                "hydragnn_tpu/ops/gat_mp.py:259", ("acc", "d")),
+            "gat_edge_attention_pass_r": (
+                lambda: gm.launch_gat("gat_edge_attention_pass_r", xl, xr,
+                                      att, send, recv, None, ptr_r, b,
+                                      GAT_SLOPE, m, ca, cd),
+                lambda: gm.gat_pass_r_plain(*plain),
+                bound(common + 4 * rows + 2 * heads + 4 * hf, r_fl),
+                "hydragnn_tpu/ops/gat_mp.py:543", ("dxr", "datt")),
+            "gat_edge_attention_pass_s": (
+                lambda: gm.launch_gat("gat_edge_attention_pass_s", xl, xr,
+                                      att, send, recv, perm, ptr_s, b,
+                                      GAT_SLOPE, m, ca, cd),
+                lambda: gm.gat_pass_s_plain(*plain),
+                bound(common + 4 * e_valid + 4 * rows + 2 * heads, s_fl),
+                "hydragnn_tpu/ops/gat_mp.py:594", ("dxl",)),
+        }
+
+    results = []
+    ins, errs = cases[(384, False)]
+    for name, (kern, plain, (b_ms, b_by), replaces, outs) in launches(
+            ins).items():
+        worst = max(outs, key=lambda o: errs[o][1])
+        results.append({
+            "name": name, "route": "cuda",
+            "source": "hydragnn_torch/csrc/gat_mp.cu", "replaces": replaces,
+            "max_abs_err": errs[worst][0], "max_rel_err": errs[worst][1],
+            "ms": time_ms(torch, kern, flush, lead=True),
+            "warm_l2_ms": time_ms(torch, kern, lead=True),
+            "plain_ms": time_ms(torch, plain, flush),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "shape": {"N": n, "E": e, "E_valid": e_valid, "H": 6, "F": 64,
+                      "bits": False}})
+    notes = {"rows_without_real_in_edge": int(no_in.sum())}
+    for (hf, bits), (case_ins, case_errs) in cases.items():
+        timed = results if (hf, bits) == (384, False) else [
+            {"name": name, "ms": time_ms(torch, kern, flush, lead=True),
+             "plain_ms": time_ms(torch, plain, flush, reps=10),
+             "bound_ms": b_ms, "bound_by": b_by}
+            for name, (kern, plain, (b_ms, b_by), _, _) in launches(
+                case_ins).items()]
+        notes[f"HF{hf}_{'bits' if bits else 'ones'}"] = {
+            "errors": {k: {"max_abs_err": a, "max_rel_err": r}
+                       for k, (a, r) in case_errs.items()},
+            "timing": {t["name"]: {k: t[k] for k in ("ms", "plain_ms",
+                                                     "bound_ms", "bound_by")}
+                       for t in timed}}
+    return results, notes
+
+
 def expect(launches, want, what):
     """Every counter equals what the path must launch (0 where unnamed)."""
     for k in sorted(set(launches) | set(want)):
@@ -1113,11 +1355,11 @@ def train_phase(torch, hydragnn_torch, config, logs, seed, cap=None,
     apart, train passes from eval passes.  Returns (card result, CPU result
     or None, launches of the card run, that tally, dispatch tally, card
     seconds, CPU seconds or None)."""
-    from hydragnn_torch.ops import egcl_mp, fused_mp, poly_mp, scf_mp
+    from hydragnn_torch.ops import egcl_mp, fused_mp, gat_mp, poly_mp, scf_mp
     from hydragnn_torch.telemetry import pipeline
     from hydragnn_torch.train import trainer
 
-    mods = (fused_mp, scf_mp, poly_mp, egcl_mp)
+    mods = (fused_mp, scf_mp, poly_mp, egcl_mp, gat_mp)
 
     def counts():
         return {k: v for m in mods for k, v in m.LAUNCHES.items()}
@@ -1338,10 +1580,10 @@ def lockstep(torch, cfg, batches, seed, dev):
     step = make_train_step(cpu_model, cfg, spec)
     names = [k for k, _ in cpu_model.named_parameters()]
 
-    def loss_grads_stats(model, g):
+    def loss_grads_stats(model, g, i):
         kept = [b.clone() for b in model.buffers()]
         model.train()
-        loss, _ = multihead_loss(cfg, model(g), g)
+        loss, _ = multihead_loss(cfg, model(g, dropout_seed=i), g)
         grads = torch.autograd.grad(loss, list(model.parameters()))
         stats = [b.detach().cpu().clone() for b in model.buffers()]
         with torch.no_grad():
@@ -1356,11 +1598,11 @@ def lockstep(torch, cfg, batches, seed, dev):
         weights = cpu_model.state_dict()
         card_model.load_state_dict(weights)
         ref_model.load_state_dict(weights)
-        lc, gc, sc = loss_grads_stats(cpu_model, g)
-        lg, gg, sg = loss_grads_stats(card_model, g.to(dev))
+        lc, gc, sc = loss_grads_stats(cpu_model, g, i)
+        lg, gg, sg = loss_grads_stats(card_model, g.to(dev), i)
         os.environ["HYDRAGNN_AGGR_BACKEND"] = "scatter"
         try:
-            _, gr, _ = loss_grads_stats(ref_model, as_double(g))
+            _, gr, _ = loss_grads_stats(ref_model, as_double(g), i)
         finally:
             os.environ["HYDRAGNN_AGGR_BACKEND"] = "fused"
         worst["loss"] = max(worst["loss"], abs(lg - lc) / abs(lc))
@@ -1470,6 +1712,7 @@ def main():
     sys.path.insert(0, ROOT)
     import hydragnn_torch
     from hydragnn_torch.config.config import get_log_name_config
+    from hydragnn_torch.data.dataloader import GraphDataLoader
     from hydragnn_torch.data.load_data import dataset_loading_and_splitting
     from hydragnn_torch.data.synthetic import deterministic_graph_data
     from hydragnn_torch.kernels.build import build_all
@@ -1557,10 +1800,12 @@ def main():
         scf_kernels, scf_notes = scf_phase(torch, first_train, args.seed)
         poly_kernels, poly_notes = poly_phase(torch, first_train, args.seed)
         egcl_kernels, egcl_notes = egcl_phase(torch, first_md17, args.seed)
-        kernels += scf_kernels + poly_kernels + egcl_kernels
+        # the gat cell's split and batches are the flagship training's
+        gat_kernels, gat_notes = gat_phase(torch, first_train, args.seed)
+        kernels += scf_kernels + poly_kernels + egcl_kernels + gat_kernels
         emit({"phase": "kernel_checks", "seconds": time.perf_counter() - t0,
               **notes, "scf": scf_notes, "poly": poly_notes,
-              "egcl": egcl_notes})
+              "egcl": egcl_notes, "gat": gat_notes})
 
         # -- 4. flagship prediction, on the card
         t_phase = time.perf_counter()
@@ -1821,6 +2066,75 @@ def main():
                   "prediction_from_own_checkpoint": own,
                   "launches": e_launches, "launches_split": esplit,
                   "dispatch": dispatch})
+
+        # -- 10. GAT: the arch sweep's widths in full, hidden 256 capped
+        #        (the tiled path, with dropout bits); the same split as
+        #        the flagship training
+        gat = {}
+        for name, gcfg, cap in (
+                ("gat", gat_config(), None),
+                ("gat_h256", gat_config(GAT_WIDE, dropout=0.25,
+                                        epochs=WIDE_EPOCHS), WIDE_CAP)):
+            t_phase = time.perf_counter()
+            glogs = os.path.join(logs, name)
+            card, _, g_launches, gsplit, dispatch, wall_card, _ = \
+                train_phase(torch, hydragnn_torch, gcfg, glogs, args.seed,
+                            cap=cap, cpu_run=False)
+            gsteps, gevals, g_per, _ = check_training(
+                f"{name} training", card, None, g_launches, gsplit,
+                dispatch, loaders, cap, name)
+            check(dispatch.get("gat_attn:fused", 0) > 0
+                  and "gat_attn:scatter" not in dispatch,
+                  f"{name}: a gat_attn dispatch left the kernels: {dispatch}")
+            gcfg_m = ModelConfig.from_config(card[2])
+            n_gparams = repeat_bits(torch, gcfg_m, first3, args.seed, dev)
+            gsteady = (steady_epoch(torch, gcfg_m, train_loader, args.seed,
+                                    dev) if cap is None else None)
+            lock_batches = first3_cpu
+            if cap is not None:
+                small = GraphDataLoader(
+                    train_loader.samples, train_loader.head_specs,
+                    GAT_WIDE_LOCKSTEP_BATCH,
+                    graph_feature_slices=train_loader.graph_feature_slices,
+                    node_feature_slices=train_loader.node_feature_slices)
+                lock_batches = [b for _, b in zip(range(REPEAT_STEPS),
+                                                  small)]
+            t0 = time.perf_counter()
+            with cpu_dropout_bits():
+                glock = lockstep(torch, gcfg_m, lock_batches, args.seed,
+                                 dev)
+            lock_s = time.perf_counter() - t0
+            # prediction from the checkpoint: the gat cell (a CPU
+            # run_prediction at hidden 256 would cost minutes)
+            t0 = time.perf_counter()
+            own = (own_checkpoint_prediction(
+                torch, hydragnn_torch, gcfg, os.path.join(glogs, "cuda"),
+                args.seed, name) if cap is None else None)
+            own_s = time.perf_counter() - t0
+            hist = card[1]
+            gat[name] = (g_launches, g_per)
+            emit({"phase": f"{name}_training",
+                  "seconds": time.perf_counter() - t_phase,
+                  "entry": "hydragnn_torch.run_training", "backend": "fused",
+                  "hidden_dim": gcfg_m.hidden_dim,
+                  "heads": gcfg_m.gat_heads, "dropout": gcfg_m.dropout,
+                  "batches_per_pass": cap,
+                  "epochs": len(hist["train"]), "train_steps": gsteps,
+                  "eval_batches": gevals, "train_loss": hist["train"],
+                  "val_loss": hist["val"], "test_loss": hist["test"],
+                  "lr": hist["lr"], "wall_s_cuda": wall_card,
+                  "epoch_time_s_cuda": hist["epoch_time"],
+                  "bit_identical_repeat": {"steps": REPEAT_STEPS,
+                                           "parameters_and_buffers":
+                                               n_gparams},
+                  "steady_train_epoch_cuda": gsteady,
+                  "lockstep_batch_graphs": (BATCH if cap is None
+                                            else GAT_WIDE_LOCKSTEP_BATCH),
+                  "lockstep_vs_cpu": glock, "lockstep_s": lock_s,
+                  "prediction_from_own_checkpoint": own,
+                  "prediction_s": own_s,
+                  "launches": g_launches, "launches_split": gsplit,
+                  "dispatch": dispatch})
         os.chdir(ROOT)
 
     # launches of the main path's card runs, split between train steps and
@@ -1837,6 +2151,8 @@ def main():
             path, n_by, per_by = "wide", wide_launches, wide_per
         elif k["name"].startswith("egcl_"):
             path, (n_by, per_by) = "egnn_md17", egnn["egnn_md17"]
+        elif k["name"].startswith("gat_"):
+            path, (n_by, per_by) = "gat", gat["gat"]
         else:
             path, n_by, per_by = paths.get(
                 k["name"], ("flagship", flag_launches, flag_per))

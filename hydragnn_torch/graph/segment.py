@@ -1,9 +1,9 @@
 """Segment (scatter/gather) ops — the message-passing primitives.
 
 Port of hydragnn_tpu/graph/segment.py (the sum/mean/max/min/std/count
-family, the kernel dispatch points, the multi-moment dispatchers, the
-dense-backward gathers and the pools; the segment softmax and
-``gather_perm`` come with GAT and DimeNet).  Message passing is a gather
+family, the segment softmax, the kernel dispatch points, the multi-moment
+dispatchers, the dense-backward gathers and the pools; ``gather_perm``
+comes with DimeNet).  Message passing is a gather
 (``x[senders]``) plus a segment reduce at ``receivers``; every op takes an
 optional mask (1.0 = valid) so padded rows contribute nothing.
 
@@ -147,6 +147,25 @@ def segment_std(data, segment_ids, num_segments, mask=None, eps=1e-5):
     sq_mean = segment_mean(data * data, segment_ids, num_segments, mask)
     var = torch.clamp(sq_mean - mean * mean, min=0.0)
     return torch.sqrt(var + eps)
+
+
+def segment_softmax(logits, segment_ids, num_segments, mask=None):
+    """Numerically stable softmax within segments; masked entries
+    (``mask == 0``) get zero weight and empty segments none at all."""
+    if mask is not None:
+        logits = torch.where(_bcast(mask, logits) > 0, logits,
+                             torch.full_like(logits, -_BIG))
+    seg_max = _segment_amax(logits, segment_ids, num_segments, -_BIG)
+    seg_max = torch.where(seg_max <= -_BIG * 0.5, torch.zeros_like(seg_max),
+                          seg_max)
+    ids = segment_ids.long()
+    unnorm = torch.exp(logits - seg_max[ids])
+    if mask is not None:
+        unnorm = unnorm * _bcast(mask, unnorm)
+    denom = torch.zeros((num_segments,) + tuple(unnorm.shape[1:]),
+                        dtype=unnorm.dtype,
+                        device=unnorm.device).index_add(0, ids, unnorm)
+    return unnorm / torch.clamp(denom, min=1e-16)[ids]
 
 
 def degree(receivers, num_nodes, mask=None):

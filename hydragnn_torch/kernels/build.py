@@ -30,10 +30,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 
 # source name -> {C function: argtypes}; every pointer and the stream are
-# c_void_p (ctypes would otherwise pass them as 32-bit ints), every C
-# function returns its launch's cudaError_t
+# c_void_p (ctypes would otherwise pass them as 32-bit ints), a float is
+# c_float, every C function returns its launch's cudaError_t
 SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     "fused_mp": {
         # x, w, mask, senders, row_ptr, out, n_rows, n_src, f, has_w, stream
@@ -57,6 +58,11 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         "hg_egcl_f32": (_I, _I) + (_P,) * 22 + (_I,) * 5 + (_P,),
         # f, h, gp, equivariant
         "hg_egcl_wgrad_size": (_I,) * 4,
+    },
+    "gat_mp": {
+        # mode, xl, xr, att, send, recv, perm, row_ptr, b, m, ga, gd, out,
+        # m_out, d_out, partial, datt, n_rows, hf, f, slope, n_parts, stream
+        "hg_gat_f32": (_I,) + (_P,) * 16 + (_I, _I, _I, _F, _I, _P),
     },
     "poly_mp": {
         # src, senders, mask, row_ptr, o_sum, o_sq, o_mxmn, o_cnt,

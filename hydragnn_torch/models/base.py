@@ -254,11 +254,12 @@ class Base(nn.Module):
         self.cfg = cfg
         c = cfg
         self.act = activation_module(c.activation)
+        enc = self.encoder_dims()
         self.graph_convs = nn.ModuleList(
-            self.make_conv(din, dout, i == c.num_conv_layers - 1, gen)
-            for i, (din, dout) in enumerate(self.encoder_dims()))
+            self.make_conv(din, dout, i == len(enc) - 1, gen)
+            for i, (din, dout, _) in enumerate(enc))
         self.feature_layers = nn.ModuleList(
-            MaskedBatchNorm(dout) for _, dout in self.encoder_dims()
+            MaskedBatchNorm(bnf) for _, _, bnf in enc
         ) if self.has_batchnorm else None
         # conv-type node heads share their hidden conv stack across heads
         self.convs_node_hidden = self.batch_norms_node_hidden = None
@@ -266,9 +267,10 @@ class Base(nn.Module):
                 and "node" in c.output_type):
             hidden, _ = self.node_conv_dims(0)
             self.convs_node_hidden = nn.ModuleList(
-                self.make_conv(din, dout, False, gen) for din, dout in hidden)
+                self.make_conv(din, dout, False, gen)
+                for din, dout, _ in hidden)
             self.batch_norms_node_hidden = nn.ModuleList(
-                MaskedBatchNorm(dout) for _, dout in hidden)
+                MaskedBatchNorm(bnf) for _, _, bnf in hidden)
         self.graph_shared = None
         if c.graph_head is not None:
             gh = c.graph_head
@@ -291,10 +293,10 @@ class Base(nn.Module):
                         per_node=nh.type == "mlp_per_node",
                         num_nodes=c.num_nodes))
                 elif nh.type == "conv":
-                    _, (odin, odout) = self.node_conv_dims(head_dim)
+                    _, (odin, odout, obnf) = self.node_conv_dims(head_dim)
                     heads.append(NodeConvHead(
                         self.make_conv(odin, odout, True, gen),
-                        MaskedBatchNorm(odout)))
+                        MaskedBatchNorm(obnf)))
                 else:
                     raise ValueError(f"Unknown node head type: {nh.type}")
             else:
@@ -305,24 +307,31 @@ class Base(nn.Module):
                   gen: Optional[torch.Generator]) -> nn.Module:
         raise NotImplementedError
 
-    def encoder_dims(self) -> List[Tuple[int, int]]:
+    def encoder_dims(self) -> List[Tuple[int, int, int]]:
+        """(in, out, BatchNorm features) of each encoder layer; a conv
+        whose output is wider than ``out`` (GAT's concatenated heads) says
+        so in the third entry."""
         c = self.cfg
-        dims = [(c.input_dim, c.hidden_dim)]
+        dims = [(c.input_dim, c.hidden_dim, c.hidden_dim)]
         for _ in range(c.num_conv_layers - 1):
-            dims.append((c.hidden_dim, c.hidden_dim))
+            dims.append((c.hidden_dim, c.hidden_dim, c.hidden_dim))
         return dims
 
     def node_conv_dims(self, head_dim: int):
-        """(in, out) of the hidden convs and of the output conv of a
-        conv-type node head."""
+        """(in, out, BatchNorm features) of the hidden convs and of the
+        output conv of a conv-type node head."""
         c = self.cfg
         hdn = list(c.node_head.dim_headlayers)
-        hidden = [(c.hidden_dim, hdn[0])]
+        hidden = [(c.hidden_dim, hdn[0], hdn[0])]
         for i in range(c.node_head.num_headlayers - 1):
-            hidden.append((hdn[i], hdn[i + 1]))
-        return hidden, (hdn[-1], head_dim)
+            hidden.append((hdn[i], hdn[i + 1], hdn[i + 1]))
+        return hidden, (hdn[-1], head_dim, head_dim)
 
-    def forward(self, g: GraphBatch) -> Tuple[torch.Tensor, ...]:
+    def forward(self, g: GraphBatch, dropout_seed: Optional[int] = None
+                ) -> Tuple[torch.Tensor, ...]:
+        """The heads' outputs.  ``dropout_seed`` seeds the attention-dropout
+        bits of a training step (GAT reads it; the other architectures
+        draw no random bits and ignore it)."""
         c = self.cfg
         x, pos = g.x, g.pos
         for i, conv in enumerate(self.graph_convs):

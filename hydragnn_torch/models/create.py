@@ -1,17 +1,20 @@
 """Model factory (port of hydragnn_tpu/models/create.py).
 
-SchNet, GIN, SAGE, MFC, PNA and EGNN are ported; CGCNN, GAT and DimeNet
+SchNet, GIN, SAGE, MFC, PNA, EGNN and GAT are ported; CGCNN and DimeNet
 raise until their slices land (ROADMAP queue A4).  Parameters are initialised from an
 explicit ``torch.Generator`` seeded with ``seed``.
 """
 
 from __future__ import annotations
 
+import warnings
+
 import torch
 import torch.nn as nn
 
 from hydragnn_torch.models.base import Base, ModelConfig
 from hydragnn_torch.models.egnn import EGCLStack
+from hydragnn_torch.models.gat import GATStack
 from hydragnn_torch.models.gin import GINStack
 from hydragnn_torch.models.mfc import MFCStack
 from hydragnn_torch.models.pna import PNAStack
@@ -19,7 +22,8 @@ from hydragnn_torch.models.sage import SAGEStack
 from hydragnn_torch.models.schnet import SCFStack
 
 _STACKS = {"SAGE": SAGEStack, "GIN": GINStack, "MFC": MFCStack,
-           "PNA": PNAStack, "SchNet": SCFStack, "EGNN": EGCLStack}
+           "PNA": PNAStack, "SchNet": SCFStack, "EGNN": EGCLStack,
+           "GAT": GATStack}
 
 # the reference's architecture list (models/create.py ALL_ARCHS)
 ALL_ARCHS = ("SAGE", "GIN", "GAT", "MFC", "PNA", "CGCNN", "SchNet",
@@ -34,6 +38,17 @@ def create_model(cfg: ModelConfig, seed: int = 0) -> Base:
         raise NotImplementedError(
             f"model_type {cfg.model_type!r} is not ported yet (ROADMAP "
             f"queue A4); the port has {', '.join(_STACKS)}")
+    if (cfg.model_type == "GAT" and cfg.dropout > 0
+            and cfg.hidden_dim * cfg.gat_heads >= 256):
+        # the reference's warning: at this width attention dropout makes
+        # the BatchNorm running statistics track a train-time distribution
+        # that eval mode does not see, and the eval error grows
+        warnings.warn(
+            f"GAT with attention dropout {cfg.dropout} at width "
+            f"{cfg.hidden_dim}x{cfg.gat_heads} heads diverges in eval "
+            "mode (BN running-stats mismatch; the JAX reference's finding, "
+            'docs/PERF.md round 5). Set "Architecture": {"dropout": 0.0}.',
+            stacklevel=2)
     if cfg.model_type == "PNA" and cfg.pna_avg_deg_log is None:
         raise ValueError("PNA requires degree input.")
     if cfg.model_type == "MFC" and cfg.max_degree is None:

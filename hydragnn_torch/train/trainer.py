@@ -82,9 +82,22 @@ def _force_head_indices(output_names: Optional[Sequence[str]]
     return -1, -1
 
 
-def _loss_and_metrics(model: Base, cfg: ModelConfig, g: GraphBatch):
-    """Forward + weighted loss; returns (loss, (per_head, outputs))."""
-    outputs = model(g)
+# the reference draws a step's dropout bits from fold_in(PRNGKey(0xD0),
+# step); the port seeds a generator on the batch's device from the same
+# two numbers (its bits are its own: no generator here gives threefry's)
+DROPOUT_KEY = 0xD0
+
+
+def dropout_seed(step: int) -> int:
+    """The seed of a train step's attention-dropout bits."""
+    return (DROPOUT_KEY << 32) | int(step)
+
+
+def _loss_and_metrics(model: Base, cfg: ModelConfig, g: GraphBatch,
+                      seed: Optional[int] = None):
+    """Forward + weighted loss; returns (loss, (per_head, outputs)).
+    ``seed``: the train step's dropout seed (None in eval)."""
+    outputs = model(g, dropout_seed=seed)
     total, per_head = multihead_loss(cfg, outputs, g)
     return total, (per_head, outputs)
 
@@ -97,7 +110,8 @@ def make_train_step(
 ) -> Callable[[TrainState, GraphBatch], Tuple[TrainState, Dict[str, Any]]]:
     """One optimizer step per batch: forward in training mode (BatchNorm
     uses the batch statistics and updates its running ones, once per
-    step), weighted loss, backward, update (encoder updates zeroed under
+    step; GAT's attention dropout draws its bits from the step's
+    :func:`dropout_seed`), weighted loss, backward, update (encoder updates zeroed under
     ``freeze_conv_layers``), applied in place to the module's parameters.
     Metrics stay on the device."""
     if _force_head_indices(output_names) != (-1, -1):
@@ -110,7 +124,8 @@ def make_train_step(
 
     def train_step(state: TrainState, g: GraphBatch):
         model.train()
-        loss, (per_head, _) = _loss_and_metrics(model, cfg, g)
+        loss, (per_head, _) = _loss_and_metrics(
+            model, cfg, g, dropout_seed(state.step))
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if d is None else d
                  for p, d in zip(params, grads)]

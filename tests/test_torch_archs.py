@@ -242,7 +242,7 @@ def test_mfc_bank_init_uses_the_stacked_fan_in():
     assert all(float(m.bias.abs().max()) == 0 for m in conv.lins_l)
 
 
-@pytest.mark.parametrize("model_type", ["CGCNN", "GAT", "DimeNet"])
+@pytest.mark.parametrize("model_type", ["CGCNN", "DimeNet"])
 def test_unported_archs_raise(model_type):
     _, tc = _cfgs("GIN")
     with pytest.raises(NotImplementedError, match="A4"):

@@ -15,8 +15,10 @@ kernels through their autograd Function, the SchNet forward, three
 training steps at the flagship width and the wide one, the two poly
 kernels at every width gate (forward and, through their autograd
 Functions, backward with ties), three PNA/GIN/SAGE/MFC training steps,
-the three egcl kernels at every width the EGNN gate admits, and three
-EGNN training steps at md17's widths.
+the three egcl kernels at every width the EGNN gate admits, three
+EGNN training steps at md17's widths, the three GAT kernels at H*F from 32
+to the kernel limit of 1024, with and without dropout bits, and three GAT
+training steps in lockstep.
 """
 
 import numpy as np
@@ -637,3 +639,164 @@ def test_egnn_train_steps_on_card_match_cpu(cuda, monkeypatch):
     assert egcl_mp.LAUNCHES == {"egcl_block": 12, "egcl_block_pass_p": 12,
                                 "egcl_block_pass_s": 9}
     assert tfm.LAUNCHES["segment_sum_dense"] == 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [False, True], ids=["ones", "dropout"])
+@pytest.mark.parametrize("h,f", [(4, 8), (4, 10), (40, 1), (6, 64),
+                                 (3, 256), (8, 128)],
+                         ids=["HF32", "HF40", "HF40-F1", "HF384", "HF768",
+                              "HF1024"])
+def test_gat_kernels_match_plain_on_card(cuda, h, f, bits):
+    """The three GAT kernels (forward, pass R with its partial sum, pass S)
+    through the autograd Function against autograd through the plain
+    forward, at H*F = 32, 40 (F = 10 and F = 1, widths that do not divide
+    32), 384 (hidden 64), 768 (a head group of hidden 256) and 1024 (the
+    limit), with ones and with dropout bits: acc, d, dxl and dxr within
+    1e-5 of their largest entry, d att 1e-4, m equal (both sum each
+    head's lanes in lane order); rows without a real edge read m = -1e9
+    and zero gradients; a second run bit-identical."""
+    from hydragnn_torch.ops import gat_mp
+
+    b = _graph_batch(23 + h + f)
+    n, e = len(b["node_gid"]), len(b["senders"])
+    g = torch.Generator().manual_seed(h * f)
+    xl = torch.randn(n, h * f, generator=g).to(cuda)
+    xr = torch.randn(n, h * f, generator=g).to(cuda)
+    att = (torch.randn(h, f, generator=g) / f ** 0.5).to(cuda)
+    bb = None
+    if bits:
+        bb = ((torch.rand(e, h, generator=g) < 0.75).float() / 0.75).to(cuda)
+    ca = torch.randn(n, h * f, generator=g).to(cuda)
+    cd = torch.randn(n, h, generator=g).to(cuda)
+    send, recv = _t(b["senders"]).to(cuda), _t(b["receivers"]).to(cuda)
+    perm, em = _t(b["perm"]).to(cuda), _t(b["edge_mask"]).to(cuda)
+
+    def run(fn):
+        ts = [t.detach().clone().requires_grad_(True) for t in (xl, xr, att)]
+        acc, m, d = fn(*ts)
+        ((acc * ca).sum() + (d * cd).sum()).backward()
+        torch.cuda.synchronize()
+        return [acc.detach(), m, d.detach()], [t.grad for t in ts]
+
+    gat_mp.reset_launches()
+    k_out, k_grads = run(lambda a, c, w: gat_mp.gat_edge_attention(
+        a, c, w, send, recv, perm, em, bb, 0.05, f))
+    assert gat_mp.LAUNCHES == {"gat_edge_attention": 1,
+                               "gat_edge_attention_pass_r": 1,
+                               "gat_edge_attention_pass_s": 1}
+    again = run(lambda a, c, w: gat_mp.gat_edge_attention(
+        a, c, w, send, recv, perm, em, bb, 0.05, f))
+    for x_, y_ in zip(k_out + k_grads, again[0] + again[1]):
+        assert torch.equal(x_, y_)
+    p_out, p_grads = run(lambda a, c, w: gat_mp.gat_edge_attention_reference(
+        a, c, w, send, recv, em, bb, 0.05))
+    assert torch.equal(k_out[1], p_out[1])
+    for name, x_, y_ in (("acc", k_out[0], p_out[0]), ("d", k_out[2],
+                                                       p_out[2])):
+        assert float((x_ - y_).abs().max()) <= 1e-5 * float(y_.abs().max()), \
+            name
+    for name, x_, y_ in zip(("dxl", "dxr", "datt"), k_grads, p_grads):
+        rel = 1e-4 if name == "datt" else 1e-5
+        assert float((x_ - y_).abs().max()) <= rel * float(y_.abs().max()), \
+            name
+    real = em != 0
+    nodes = torch.arange(n, device=cuda)
+    no_in = ~torch.isin(nodes, recv[real])
+    no_out = ~torch.isin(nodes, send[real])
+    assert bool(no_in.any()) and bool((no_in & no_out).any())
+    assert bool((k_out[1][no_in] == -1e9).all())
+    assert bool((k_out[2][no_in] == 0).all())
+    assert bool((k_grads[1][no_in] == 0).all())
+    assert bool((k_grads[0][no_in & no_out] == 0).all())
+
+
+@pytest.mark.gpu
+def test_gat_kernels_refuse_what_they_do_not_take(cuda):
+    from hydragnn_torch.ops import gat_mp
+
+    b = _graph_batch(3)
+    n, e = len(b["node_gid"]), len(b["senders"])
+    send, recv = _t(b["senders"]).to(cuda), _t(b["receivers"]).to(cuda)
+    row_ptr = torch.zeros(n + 1, dtype=torch.int32, device=cuda)
+    x = torch.zeros(n, 2048, device=cuda)
+    with pytest.raises(ValueError, match="H\\*F <= 1024"):
+        gat_mp.launch_gat("gat_edge_attention", x, x,
+                          torch.zeros(8, 256, device=cuda), send, recv, None,
+                          row_ptr, None, 0.05)
+    x = torch.zeros(n, 32, device=cuda, dtype=torch.float64)
+    with pytest.raises(TypeError):
+        gat_mp.launch_gat("gat_edge_attention", x, x,
+                          torch.zeros(4, 8, device=cuda), send, recv, None,
+                          row_ptr, None, 0.05)
+    assert e > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dropout", [0.0, 0.25])
+def test_gat_train_steps_on_card_match_cpu(cuda, monkeypatch, dropout):
+    """GAT at the arch-sweep widths (hidden 64, 6 heads, 4 convs): three
+    AdamW steps under fused in lockstep, card (kernels) against CPU (plain
+    versions), as for the other BatchNorm architectures; with dropout the
+    bits are drawn on the CPU for both sides
+    (``chip_smoke.cpu_dropout_bits``).  Per step 4 forward, 4 pass R and 4
+    pass S launches (layer 0's xl and xr need gradients for lin_l and
+    lin_r) and 1 pool."""
+    from chip_smoke import cpu_dropout_bits
+    from hydragnn_torch.models.base import (
+        GraphHeadCfg,
+        ModelConfig,
+        multihead_loss,
+    )
+    from hydragnn_torch.models.create import create_model
+    from hydragnn_torch.ops import gat_mp
+    from hydragnn_torch.train.optimizer import select_optimizer
+    from hydragnn_torch.train.trainer import create_train_state, make_train_step
+
+    g = _schnet_batch(monkeypatch)
+    cfg = ModelConfig(
+        model_type="GAT", input_dim=1, hidden_dim=64, output_dim=(1,),
+        output_type=("graph",), graph_head=GraphHeadCfg(2, 64, 2, (64, 64)),
+        node_head=None, task_weights=(1.0,), num_conv_layers=4,
+        dropout=dropout)
+    sides = []
+    for dev in (torch.device("cpu"), cuda):
+        model = create_model(cfg, seed=1).to(dev)
+        spec = select_optimizer({"type": "AdamW", "learning_rate": 1e-3})
+        sides.append([model, create_train_state(model, spec),
+                      make_train_step(model, cfg, spec), g.to(dev)])
+
+    def loss_and_grads(model, gd, seed):
+        kept = [b_.clone() for b_ in model.buffers()]
+        model.train()
+        loss, _ = multihead_loss(cfg, model(gd, dropout_seed=seed), gd)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        stats = [b_.detach().cpu().clone() for b_ in model.buffers()]
+        with torch.no_grad():
+            for b_, k in zip(model.buffers(), kept):
+                b_.copy_(k)
+        return float(loss.detach()), [d.cpu() for d in grads], stats
+
+    counted = {}
+    with cpu_dropout_bits():
+        for step in range(3):
+            sides[1][0].load_state_dict(sides[0][0].state_dict())
+            (lc, gc, sc), (lg, gg, sg) = (loss_and_grads(m, gd, step)
+                                          for m, _, _, gd in sides)
+            assert abs(lg - lc) <= 1e-5 * abs(lc)
+            top = max(float(d.abs().max()) for d in gc)
+            for d_c, d_g in zip(gc, gg):
+                assert float((d_c - d_g).abs().max()) <= 1e-3 * top
+            for b_c, b_g in zip(sc, sg):
+                torch.testing.assert_close(b_g, b_c, rtol=1e-4, atol=1e-5)
+            tfm.reset_launches()
+            gat_mp.reset_launches()
+            for side in sides:
+                side[1], _ = side[2](side[1], side[3])
+            for k, v in {**tfm.LAUNCHES, **gat_mp.LAUNCHES}.items():
+                counted[k] = counted.get(k, 0) + v
+    assert counted == {
+        "gather_mul_segment_sum": 0, "gather_mul_segment_sum_dx": 0,
+        "gather_segment_sum": 0, "gather_segment_sum_dx": 0,
+        "segment_sum_dense": 3, "gat_edge_attention": 12,
+        "gat_edge_attention_pass_r": 12, "gat_edge_attention_pass_s": 12}
