@@ -5,10 +5,12 @@
 
 It stands beside ``chip_smoke.py``, whose configurations it borrows, and
 needs no GPU.  Each architecture (default: SchNet, GIN, SAGE, MFC, PNA,
-EGNN, GAT) is trained twice from one seeded init on the synthetic BCC set
-of ``chip_smoke.py`` at its widths (hidden 64, 4 conv layers, AdamW 1e-3;
-EGNN at md17's, ``chip_smoke.egnn_md17_config``; GAT at the arch sweep's,
-6 heads and dropout 0, ``chip_smoke.gat_config``), once under
+EGNN, GAT, CGCNN) is trained twice from one seeded init on the synthetic
+BCC set of ``chip_smoke.py`` at its widths (hidden 64, 4 conv layers,
+AdamW 1e-3; EGNN at md17's, ``chip_smoke.egnn_md17_config``; GAT at the
+arch sweep's, 6 heads and dropout 0, ``chip_smoke.gat_config``; CGCNN at
+input = hidden = 64 on the set with its 63 extra node-feature columns,
+``chip_smoke.cgcnn_config``), once under
 ``HYDRAGNN_AGGR_BACKEND=fused`` (the plain versions of the kernels:
 sorted-segment sums) and once under ``scatter`` (``index_add_``).  Both are
 the same function; they differ in the order of a few float32 sums.  Prints
@@ -24,7 +26,8 @@ statistics, part soonest.  This is why ``chip_smoke.py`` holds the card to
 the CPU in lockstep for these architectures and compares no free runs.
 EGNN has no BatchNorm; its line decides which of the two checks it gets.
 GAT's fused path sums each head's logit in another order than its composed
-path, and has BatchNorm.
+path, and has BatchNorm.  CGCNN has BatchNorm after each conv; its fused
+path adds each edge's products in another order than its composed path.
 """
 
 from __future__ import annotations
@@ -41,14 +44,21 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("archs", nargs="*",
                     default=["SchNet", "GIN", "SAGE", "MFC", "PNA", "EGNN",
-                             "GAT"])
+                             "GAT", "CGCNN"])
     ap.add_argument("--graphs", type=int, default=1500)
     ap.add_argument("--batch", type=int, default=128)
     ap.add_argument("--epochs", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
-    from chip_smoke import egnn_md17_config, flagship_config, gat_config
+    from chip_smoke import (
+        CGCNN_DATA,
+        cgcnn_config,
+        egnn_md17_config,
+        flagship_config,
+        gat_config,
+        write_cgcnn_data,
+    )
 
     import hydragnn_torch
     from hydragnn_torch.data.synthetic import deterministic_graph_data
@@ -63,6 +73,9 @@ def main(argv=None) -> int:
                 "dataset/chip_smoke", number_configurations=args.graphs,
                 unit_cell_x_range=(2, 4), unit_cell_y_range=(2, 4),
                 unit_cell_z_range=(1, 3), seed=args.seed)
+            if "CGCNN" in args.archs:
+                write_cgcnn_data("dataset/chip_smoke", CGCNN_DATA, args.seed,
+                                 count=args.graphs)
             for arch in args.archs:
                 hist = {}
                 for backend in ("fused", "scatter"):
@@ -71,6 +84,8 @@ def main(argv=None) -> int:
                         cfg = egnn_md17_config(epochs=args.epochs)
                     elif arch == "GAT":
                         cfg = gat_config(epochs=args.epochs)
+                    elif arch == "CGCNN":
+                        cfg = cgcnn_config(epochs=args.epochs)
                     else:
                         cfg = flagship_config(perc_train=0.5,
                                               epochs=args.epochs,

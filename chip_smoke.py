@@ -36,7 +36,17 @@ and PyTorch built for CUDA.  Phases, each of which fails the run:
    train batch at H*F = 384 and 768, with ones and with dropout bits,
    through their autograd Function against autograd through the plain
    forward (1e-5; 1e-4 for d att; m equal; rows without a real edge
-   (-1e9, 0, 0) and zero gradients);
+   (-1e9, 0, 0) and zero gradients), and the three cgcnn kernels
+   (forward, pass P, pass S) at the first cgcnn train batch at F = D = 64
+   (the path's), F = 24, A = 5, D = 16 and F = D = 256 through their
+   autograd Function against autograd through the composed plain version
+   (1e-5; 1e-4 for the weight grads; d edge_attr exactly zero on masked
+   edges), and the pallas backend's two segment sums (unsorted ids with an
+   out-of-range tail; sorted receivers, pre-masked) and their VJPs (1e-5),
+   timed beside ``index_add_`` and ``torch.segment_reduce``; then a double
+   backward through ``gather_mul_segment_sum`` and ``gather_segment_sum``
+   on the card against the CPU (1e-5), and the refusal of a double
+   backward by the scf, egcl, GAT and cgcnn Functions;
 4. flagship prediction: a seeded SchNet checkpoint at the flagship widths
    (hidden 64, 4 convs, 50 gaussians, 64 filters, radius 1.8,
    max_neighbours 20, graph head (2, 64, 2, (64, 64)), batch 512) through
@@ -92,8 +102,18 @@ and PyTorch built for CUDA.  Phases, each of which fails the run:
    4 forward, 4 pass R and 4 pass S launches and 1 pool per train step (8,
    8, 8, 1 at hidden 256), every gat_attn dispatch fused; the lockstep
    (the dropout bits drawn on the CPU for both sides; hidden 256 on
-   batches of 64 graphs) and repeat checks of phase 7, and at hidden 64
-   its checkpoint-prediction check.
+   batches of 32 graphs) and repeat checks of phase 7, and at hidden 64
+   its checkpoint-prediction check;
+11. CGCNN training at the arch sweep's widths (input = hidden = 64: the
+   set's node feature and 63 seeded columns this script writes, 4 convs,
+   radius 1.8, max_neighbours 20, no edge features), 3 epochs: 4 forward,
+   4 pass P and 3 pass S launches and 1 pool per train step, every cgcnn
+   dispatch fused; the lockstep, repeat, steady-epoch and
+   checkpoint-prediction checks of phase 7;
+12. the flagship SchNet under ``HYDRAGNN_AGGR_BACKEND=pallas``, capped as
+   phase 6, on the card and on the CPU: 5 ``segment_sum_pallas`` launches
+   per train step and per eval batch (4 convs and the pool), no other
+   kernel, losses within 1e-4 relative of the CPU's.
 
 Prints JSON lines with the seconds of each phase (and, where float32
 itself decided a lockstep allowance, the per-parameter records behind
@@ -173,6 +193,12 @@ GAT_WIDE = 256            # gat_h256: H*F = 1536, two head groups of 768
 # graphs three steps took 282 s and 26 GB on an 8-core CPU
 GAT_WIDE_LOCKSTEP_BATCH = 64
 GAT_SLOPE = 0.05
+# the cgcnn cell: 63 seeded node-feature columns beside the set's own give
+# CGConv its width of 64, on the whole synthetic set (perc_train 0.5: 3000
+# train graphs, six steps of at most 512)
+CGCNN_EXTRA_COLUMNS = FEATURES - 1
+CGCNN_DATA = "dataset/chip_smoke_cgcnn"
+CGCNN_LIMIT = 256         # the cgcnn kernels' F and D limit
 # no real edge's ReLU input within this of zero in the egcl kernel checks
 # (egcl_off_kinks): ~20x the float32 rounding of a 97-term dot product
 KINK_MARGIN = 2e-6
@@ -218,6 +244,19 @@ PATH_LAUNCHES["gat_h256"] = (
     {"gat_edge_attention": 8, "gat_edge_attention_pass_r": 8,
      "gat_edge_attention_pass_s": 8, "segment_sum_dense": 1},
     {"gat_edge_attention": 8, "segment_sum_dense": 1})
+# CGCNN: one gated-sum forward and one pass P per conv layer, pass S where
+# the layer's input needs a gradient (not layer 0: x is data), one pool
+PATH_LAUNCHES["cgcnn"] = (
+    {"cgcnn_block": 4, "cgcnn_block_pass_p": 4, "cgcnn_block_pass_s": 3,
+     "segment_sum_dense": 1},
+    {"cgcnn_block": 4, "segment_sum_dense": 1})
+# the flagship SchNet under HYDRAGNN_AGGR_BACKEND=pallas: no marker, so
+# each conv's aggregation and the pool take segment_sum, that is the pallas
+# segment sum (its backward is a gather: no launch)
+PATH_LAUNCHES["pallas"] = ({"segment_sum_pallas": 5},
+                           {"segment_sum_pallas": 5})
+# kernels with no caller on any path (the reference has none either)
+OFF_PATH = ("segment_sum_sorted",)
 REPEAT_STEPS = 3
 
 
@@ -680,9 +719,9 @@ def kernel_phase(torch, g, seed):
         "source": "hydragnn_torch/csrc/fused_mp.cu",
         "replaces": "hydragnn_tpu/ops/fused_mp.py:340",
         "max_abs_err": abs_e, "max_rel_err": rel_e,
-        "ms": time_ms(torch, lambda: fm.launch_segment_sum_dense(
+        "ms": time_ms(torch, lambda: fm.launch_segment_sum_rows(
             xn, pool_ptr, n_graphs), flush, lead=True),
-        "warm_l2_ms": time_ms(torch, lambda: fm.launch_segment_sum_dense(
+        "warm_l2_ms": time_ms(torch, lambda: fm.launch_segment_sum_rows(
             xn, pool_ptr, n_graphs), lead=True),
         "wrapper_ms": time_ms(torch, lambda: fm.segment_sum_dense(
             xn, gid, n_graphs), flush),
@@ -1339,6 +1378,419 @@ def gat_phase(torch, g, seed):
     return results, notes
 
 
+def cgcnn_config(epochs=TRAIN_EPOCHS, perc_train=0.5):
+    """The arch sweep's CGCNN (bench.py:160-215: input = hidden = 64, 4
+    convs, radius 1.8, max_neighbours 20, graph head (2, 64, 2, (64, 64)),
+    no edge features) on the synthetic BCC set at batch 512, AdamW 1e-3.
+    CGConv keeps the input width, so the 64 input columns are the set's
+    node feature and CGCNN_EXTRA_COLUMNS seeded per-node columns that
+    ``write_cgcnn_data`` adds, each a node feature of width 1 selected by
+    ``input_node_features``."""
+    cfg = flagship_config(perc_train=perc_train, epochs=epochs,
+                          model_type="CGCNN")
+    ds = cfg["Dataset"]
+    ds["name"] = "chip_smoke_cgcnn"
+    ds["path"] = {"total": CGCNN_DATA}
+    extra = [f"c{i}" for i in range(CGCNN_EXTRA_COLUMNS)]
+    ds["node_features"] = {
+        "name": ["x", "x2", "x3"] + extra,
+        "dim": [1] * (3 + len(extra)),
+        "column_index": [0, 6, 7] + list(range(8, 8 + len(extra)))}
+    nn_ = cfg["NeuralNetwork"]
+    for k in ("num_gaussians", "num_filters"):
+        del nn_["Architecture"][k]
+    nn_["Variables_of_interest"]["input_node_features"] = (
+        [0] + list(range(3, 3 + len(extra))))
+    return cfg
+
+
+def write_cgcnn_data(src, dst, seed, count=None):
+    """The CGCNN cell's LSMS files: the first ``count`` (default
+    N_CONFIGURATIONS, the whole set) files of ``src`` (the synthetic BCC set) with
+    CGCNN_EXTRA_COLUMNS seeded uniform columns appended to every node row
+    (the loader reads node features by column)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed + 11)
+    os.makedirs(dst, exist_ok=True)
+    for i in range(N_CONFIGURATIONS if count is None else count):
+        name = f"output{i}.txt"
+        with open(os.path.join(src, name), encoding="utf-8") as f:
+            lines = f.read().splitlines()
+        rows = [l for l in lines[1:] if l.strip()]
+        cols = rng.rand(len(rows), CGCNN_EXTRA_COLUMNS)
+        out = [lines[0]] + [
+            r + "\t" + "\t".join(f"{v:.6f}" for v in c)
+            for r, c in zip(rows, cols)]
+        with open(os.path.join(dst, name), "w", encoding="utf-8") as f:
+            f.write("\n".join(out) + "\n")
+
+
+def cgcnn_flops(f, d, a, edges, nodes):
+    """Floating-point operations (a multiply-add is two; sigmoid, softplus
+    and their derivatives not counted) that the three cgcnn kernels'
+    functions need on ``edges`` real edges and ``nodes`` real nodes:
+    (forward, pass P, pass S).  The products with x factor to the nodes
+    (x[r] @ Wfr = (x @ Wfr)[r], four such blocks; dWfr = x^T (the dtf
+    summed per receiver); dx_r = (the dtf summed per receiver) @ Wfr^T),
+    so they count once per node; per edge: the edge-attribute products,
+    the sums that join the parts of tf and ts, sigmoid * softplus and the
+    row sum, and in the backward dtf, dts, the edge-attribute weight
+    gradients and d edge_attr."""
+    fwd_e = 2 * 2 * a * d + 4 * d + 2 * d
+    back_e = 6 * d
+    fwd_n = 4 * 2 * f * d
+    fwd = edges * fwd_e + nodes * fwd_n
+    # pass P: + the x weight grads (4 blocks) and dx_r (2 blocks) at the
+    # nodes; per edge + dWfg, dWsg, dbf, dbs and d edge_attr
+    pass_p = (edges * (fwd_e + back_e + 2 * 2 * a * d + 2 * d + 2 * 2 * a * d)
+              + nodes * (fwd_n + 4 * 2 * f * d + 2 * 2 * f * d))
+    pass_s = edges * (fwd_e + back_e) + nodes * (fwd_n + 2 * 2 * f * d)
+    return fwd, pass_p, pass_s
+
+
+def cgcnn_phase(torch, g, seed):
+    """The three cgcnn kernels at the first train batch of the cgcnn cell,
+    on its own edges, in three instantiations: the path's own (F = D = 64,
+    no edge attributes), F = 24, A = 5, D = 16 (the widths of
+    tests/test_fused_block.py:641, which catch transposed blocks) and F =
+    D = 256 (the limit: weights read from L2).  Each through the op's
+    autograd Function against autograd through the composed plain
+    version: forward, dx and d edge_attr 1e-5 of their largest entry, the
+    edge-summed weight and bias grads 1e-4; d edge_attr exactly zero on
+    masked edges.  Then each kernel timed alone as the path launches it
+    (F = D = 64), beside its plain version and its bound."""
+    from hydragnn_torch.ops import cgcnn_mp as cg
+    from hydragnn_torch.ops.aggregate import segment_offsets
+
+    dev = g.x.device
+    n, e = g.num_nodes, g.num_edges
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    send, recv, mask = g.senders, g.receivers, g.edge_mask
+    perm = g.extras["edge_perm_sender"]
+    em = mask.to(torch.int32)
+    real = mask != 0
+    names = ("x", "edge_attr", "kf", "bf", "ks", "bs")
+
+    def inputs(f, a, d):
+        def w(rows):
+            # [in, out] as the model passes it: Linear.weight.t(), a view
+            return (torch.randn(d, rows, device=dev, generator=gen)
+                    / rows ** 0.5).t()
+
+        return [torch.randn(n, f, device=dev, generator=gen),
+                (torch.randn(e, a, device=dev, generator=gen) * 0.5
+                 if a else None),
+                w(2 * f + a), torch.randn(d, device=dev, generator=gen) * 0.1,
+                w(2 * f + a), torch.randn(d, device=dev, generator=gen) * 0.1]
+
+    def hold(f, a, d):
+        ins = inputs(f, a, d)
+        ct = torch.randn(n, d, device=dev, generator=gen)
+        what = f"cgcnn (F={f}, A={a}, D={d})"
+
+        def run(fn):
+            ts = [None if t is None else t.detach().clone().requires_grad_(
+                True) for t in ins]
+            out = fn(ts[0], ts[1], em, *ts[2:], send, recv)
+            (out * ct).sum().backward()
+            torch.cuda.synchronize()
+            return out.detach(), [None if t is None else t.grad for t in ts]
+
+        cg.reset_launches()
+        k_out, k_grads = run(lambda *a_: cg.cgcnn_gated_block(*a_, perm))
+        check(cg.LAUNCHES == {"cgcnn_block": 1, "cgcnn_block_pass_p": 1,
+                              "cgcnn_block_pass_s": 1},
+              f"{what} launches {cg.LAUNCHES}")
+        p_out, p_grads = run(cg.cgcnn_block_reference)
+        errs = {"out": rel_err(torch, k_out, p_out)}
+        for name, k_, p_ in zip(names, k_grads, p_grads):
+            if k_ is None:
+                continue
+            if name == "edge_attr":
+                check(bool((k_[~real] == 0).all()),
+                      f"{what}: d edge_attr is not zero on masked edges")
+                k_, p_ = k_[real], p_[real]
+            errs["d" + name] = rel_err(torch, k_, p_)
+        for name, (_, rel_e) in errs.items():
+            tol = REL_TOL_KERNEL if name in ("out", "dx", "dedge_attr") \
+                else REL_TOL_WGRAD
+            check(rel_e <= tol, f"{what}: {name} disagrees with the plain "
+                  f"version under autograd: {rel_e} > {tol}")
+        return ins, ct, errs
+
+    def worst_of(errs):
+        k = max(errs, key=lambda o: errs[o][1])
+        return {"worst": k, "max_abs_err": errs[k][0],
+                "max_rel_err": errs[k][1]}
+
+    f = d = FEATURES
+    ins, ct, errs = hold(f, 0, d)
+    _, _, errs_small = hold(24, 5, 16)
+    _, _, errs_wide = hold(CGCNN_LIMIT, 0, CGCNN_LIMIT)
+
+    e_valid = int(real.sum())
+    n_valid = int((g.node_mask != 0).sum())
+    x = ins[0]
+    ws = cg.kernel_weights(*ins[2:], f, 0, dev)
+    p_ = perm.long()
+    ptr_r = segment_offsets(recv, n, em)
+    ptr_s = segment_offsets(send[p_], n, em[p_])
+    plain_args = (x, None, em, *ins[2:], send, recv, ct)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    fwd_fl, p_fl, s_fl = cgcnn_flops(f, d, 0, e_valid, n_valid)
+    wbytes = 4 * sum(t.numel() for t in ws if t is not None)
+    # read once: x, the real edges' ids (send, recv), row_ptr, the
+    # weights; the backward also the cotangent [N, D]
+    edge_in = 4 * (n * f + 2 * e_valid + n + 1) + wbytes
+    launches = {
+        "cgcnn_block": (
+            lambda: cg.launch_cgcnn("cgcnn_block", x, None, ws, send, recv,
+                                    None, ptr_r),
+            lambda: cg.cgcnn_block_reference(x, None, em, *ins[2:], send,
+                                             recv),
+            bound(edge_in + 4 * n * d, fwd_fl),
+            "hydragnn_tpu/ops/fused_block.py:495", ("out",)),
+        "cgcnn_block_pass_p": (
+            lambda: cg.launch_cgcnn("cgcnn_block_pass_p", x, None, ws, send,
+                                    recv, None, ptr_r, ct, want_dx=True),
+            lambda: cg.cgcnn_pass_p_plain(*plain_args),
+            bound(edge_in + 4 * n * d + 4 * n * f + wbytes, p_fl),
+            "hydragnn_tpu/ops/fused_block.py:561",
+            ("dkf", "dbf", "dks", "dbs")),
+        "cgcnn_block_pass_s": (
+            lambda: cg.launch_cgcnn("cgcnn_block_pass_s", x, None, ws, send,
+                                    recv, perm, ptr_s, ct),
+            lambda: cg.cgcnn_pass_s_plain(*plain_args),
+            bound(edge_in + 4 * e_valid + 4 * n * d + 4 * n * f, s_fl),
+            "hydragnn_tpu/ops/fused_block.py:599", ("dx",)),
+    }
+    results = []
+    for name, (kern, plain, (b_ms, b_by), replaces, outs) in launches.items():
+        worst = max(outs, key=lambda o: errs[o][1])
+        results.append({
+            "name": name, "route": "cuda",
+            "source": "hydragnn_torch/csrc/cgcnn_mp.cu", "replaces": replaces,
+            "max_abs_err": errs[worst][0], "max_rel_err": errs[worst][1],
+            "ms": time_ms(torch, kern, flush, lead=True),
+            "warm_l2_ms": time_ms(torch, kern, lead=True),
+            "plain_ms": time_ms(torch, plain, flush),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "shape": {"N": n, "N_valid": n_valid, "E": e,
+                      "E_valid": e_valid, "F": f, "D": d, "A": 0},
+        })
+    notes = {k: {"max_abs_err": a, "max_rel_err": r}
+             for k, (a, r) in errs.items()}
+    notes["F24_A5_D16"] = worst_of(errs_small)
+    notes[f"F{CGCNN_LIMIT}"] = worst_of(errs_wide)
+    return results, notes
+
+
+def segment_sum_phase(torch, g, seed):
+    """The two kernels of the ``pallas`` aggregation backend at the first
+    train batch: ``segment_sum_pallas`` on SchNet's edge messages (x[s] *
+    w, F = 64) over unsorted ids (the senders) whose masked tail lies out
+    of range, and ``segment_sum_sorted`` on the messages over the
+    receivers with the padded tail pre-masked (its cap: the batch's largest
+    real in-degree).  Each against its plain
+    version (1e-5 of the largest entry) and, through autograd, its VJP
+    (a gather, zero where the forward dropped the row) against autograd
+    through the plain version.  Then each kernel timed alone on its
+    precomputed schedule (the unsorted one's stable sort is the wrapper's,
+    timed with it as ``wrapper_ms``), beside the library call:
+    ``Tensor.index_add_`` (atomics) and ``torch.segment_reduce``."""
+    from hydragnn_torch.ops import aggregate as ag
+    from hydragnn_torch.ops import fused_mp as fm
+
+    dev = g.x.device
+    n, e = g.num_nodes, g.num_edges
+    f = FEATURES
+    gen = torch.Generator(device=dev).manual_seed(seed + 6)
+    send, recv, mask = g.senders, g.receivers, g.edge_mask
+    real = mask != 0
+    x = torch.randn(n, f, device=dev, generator=gen)
+    w = torch.randn(e, f, device=dev, generator=gen)
+    msgs = (x[send.long()] * w).contiguous()
+    # unsorted ids, the masked tail out of range (n, n + 1, n + 2)
+    ids = torch.where(real, send, n + torch.arange(
+        e, device=dev, dtype=torch.int32) % 3)
+    premasked = (msgs * mask[:, None]).contiguous()
+    # the sorted function's cap: the largest real in-degree of the batch
+    cap = int(torch.bincount(recv[real].long(), minlength=n).max())
+    ct = torch.randn(n, f, device=dev, generator=gen)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    results, notes = [], {}
+    cases = (("segment_sum_pallas", ag.segment_sum_pallas, msgs, ids,
+              "hydragnn_tpu/ops/aggregate.py:157"),
+             ("segment_sum_sorted",
+              lambda d_, i_, s_: ag.segment_sum_sorted(d_, i_, s_, cap),
+              premasked, recv, "hydragnn_tpu/ops/aggregate.py:244"))
+    for name, fn, data, seg, replaces in cases:
+        def run(op):
+            t = data.detach().clone().requires_grad_(True)
+            out = op(t, seg, n)
+            (out * ct).sum().backward()
+            torch.cuda.synchronize()
+            return out.detach(), t.grad
+
+        ag.reset_launches()
+        k_out, k_grad = run(fn)
+        check(ag.LAUNCHES[name] == 1 and sum(ag.LAUNCHES.values()) == 1,
+              f"{name} launches {ag.LAUNCHES}")
+        p_out, p_grad = run(fm.segment_sum_dense_plain)
+        fwd_err = rel_err(torch, k_out, p_out)
+        vjp_err = rel_err(torch, k_grad, p_grad)
+        check(fwd_err[1] <= REL_TOL_KERNEL and vjp_err[1] <= REL_TOL_KERNEL,
+              f"{name} disagrees with its plain version: forward "
+              f"{fwd_err[1]}, VJP {vjp_err[1]}")
+        ok = (seg >= 0) & (seg < n)
+        check(bool((k_grad[~ok] == 0).all()),
+              f"{name}: the VJP is not zero on dropped rows")
+        # the rows the function sums: in range (and, sorted, within the cap)
+        rows_in = (int(ok.sum()) if name == "segment_sum_pallas" else int(
+            torch.bincount(seg.long(), minlength=n).clamp(max=cap).sum()))
+        if name == "segment_sum_pallas":
+            perm, ptr = ag.sort_schedule(seg, n)
+            # the one PyTorch call for the same sums: index_add_ over the
+            # in-range rows (atomics; the rows and ids selected beforehand)
+            lib_data = data[ok].contiguous()
+            lib_ids = seg[ok].long()
+            lib = lambda: torch.zeros(n, f, device=dev).index_add_(
+                0, lib_ids, lib_data)
+            wrapper = lambda: ag.segment_sum_pallas(data, seg, n)
+        else:
+            perm, ptr = None, ag.segment_offsets(seg, n)
+            lengths = torch.bincount(seg.long(), minlength=n)
+            lib = lambda: torch.segment_reduce(data, "sum", lengths=lengths,
+                                               axis=0)
+            wrapper = lambda: ag.segment_sum_sorted(data, seg, n, cap)
+        check(rel_err(torch, lib(), p_out)[1] <= REL_TOL_KERNEL,
+              f"the library call disagrees with the plain {name}")
+        max_rows = cap if name == "segment_sum_sorted" else 2**31 - 1
+        kern = lambda: fm.launch_segment_sum_rows(
+            data, ptr, n, op=name, perm=perm, max_rows=max_rows,
+            launches=ag.LAUNCHES)
+        # read once: the summed rows, every id, the output written once
+        b_ms, b_by = bound(4 * (rows_in * f + e + n * f), rows_in * f)
+        results.append({
+            "name": name, "route": "cuda",
+            "source": "hydragnn_torch/csrc/fused_mp.cu",
+            "replaces": replaces,
+            "max_abs_err": fwd_err[0], "max_rel_err": fwd_err[1],
+            "ms": time_ms(torch, kern, flush, lead=True),
+            "warm_l2_ms": time_ms(torch, kern, lead=True),
+            "wrapper_ms": time_ms(torch, wrapper, flush),
+            "plain_ms": time_ms(torch, lambda: fm.segment_sum_dense_plain(
+                data, seg, n), flush),
+            "library_ms": time_ms(torch, lib, flush),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "shape": {"N": n, "E": e, "rows_summed": rows_in, "F": f},
+        })
+        notes[name] = {"vjp_max_abs_err": vjp_err[0],
+                       "vjp_max_rel_err": vjp_err[1]}
+    return results, notes
+
+
+def double_backward_phase(torch, g, seed):
+    """C1 on the card: a double backward (``create_graph=True``, then a
+    backward through the first gradients) through ``gather_mul_segment_sum``
+    and ``gather_segment_sum`` under ``fused`` at the first train batch,
+    against the same on the CPU (plain versions): every first and second
+    derivative within 1e-5 of its largest entry.  And the Functions whose
+    backward runs non-differentiable kernels (``scf_edge_pipeline``,
+    ``egcl_block``, ``gat_edge_attention``, ``cgcnn_gated_block``) raise
+    under a double backward on the card."""
+    import numpy as np
+
+    from hydragnn_torch.ops import cgcnn_mp as cg
+    from hydragnn_torch.ops import egcl_mp as ec
+    from hydragnn_torch.ops import fused_mp as fm
+    from hydragnn_torch.ops import gat_mp as gm
+    from hydragnn_torch.ops import scf_mp as sm
+
+    dev = g.x.device
+    n, e = g.num_nodes, g.num_edges
+    f = FEATURES
+    rng = np.random.RandomState(seed + 7)
+    send, recv, mask = g.senders, g.receivers, g.edge_mask
+    perm = g.extras["edge_perm_sender"]
+    em = mask.to(torch.int32)
+
+    def arr(*shape, scale=1.0):
+        return torch.from_numpy((rng.randn(*shape) * scale).astype(
+            np.float32))
+
+    x0, w0 = arr(n, f), arr(e, f) * mask.cpu()[:, None]
+    c1, c2x, c2w = arr(n, f), arr(n, f), arr(e, f) * mask.cpu()[:, None]
+
+    def second(op, device):
+        d = torch.device(device)
+        s, r, p, m = (t.to(d) for t in (send, recv, perm, mask))
+        xs = x0.to(d).requires_grad_(True)
+        if op == "gather_mul_segment_sum":
+            ws = w0.to(d).requires_grad_(True)
+            out = fm.gather_mul_segment_sum(xs, ws, s, r, p, edge_valid=m)
+            leaves, cs = (xs, ws), (c2x.to(d), c2w.to(d))
+        else:
+            out = fm.gather_segment_sum(xs, s, r, p, m)
+            leaves, cs = (xs,), (c2x.to(d),)
+        first = torch.autograd.grad((out.square() * c1.to(d)).sum(), leaves,
+                                    create_graph=True)
+        inner = sum((a * c).sum() for a, c in zip(first, cs))
+        sec = torch.autograd.grad(inner, leaves)
+        return [t.detach().cpu() for t in tuple(first) + tuple(sec)]
+
+    notes = {}
+    for op in ("gather_mul_segment_sum", "gather_segment_sum"):
+        fm.reset_launches()
+        card = second(op, "cuda")
+        torch.cuda.synchronize()
+        launched = dict(fm.LAUNCHES)
+        check(launched[f"{op}_dx"] >= 2,
+              f"{op}: the double backward launched {launched}")
+        cpu = second(op, "cpu")
+        worst = max(rel_err(torch, a, b)[1] for a, b in zip(card, cpu))
+        check(worst <= REL_TOL_KERNEL,
+              f"{op}: double backward, card vs CPU {worst}")
+        check(float(card[-1].abs().max()) > 0,
+              f"{op}: the second derivative is zero")
+        notes[op] = {"max_rel_err_vs_cpu": worst, "launches": launched}
+
+    def t(*shape, scale=0.3):
+        return (arr(*shape, scale=scale)).to(dev)
+
+    h = 48
+    raising = {
+        "scf_edge_pipeline": lambda x_: sm.scf_edge_pipeline(
+            x_, t(e, GAUSSIANS), mask, em, t(GAUSSIANS, WIDE), t(WIDE),
+            t(WIDE, WIDE), t(WIDE), send, recv, perm),
+        "egcl_block": lambda x_: ec.egcl_block(
+            False, x_, torch.cat([t(e, 3, scale=0.2), t(e, 1).abs()], 1),
+            em, t(2 * f + 1, h), t(h), t(h, h), t(h), None, None, None,
+            send, recv, perm)[0],
+        "gat_edge_attention": lambda x_: gm.gat_edge_attention(
+            x_, t(n, f), t(1, f), send, recv, perm, mask, None, GAT_SLOPE,
+            f)[0],
+        "cgcnn_gated_block": lambda x_: cg.cgcnn_gated_block(
+            x_, None, em, t(2 * f, f), t(f), t(2 * f, f), t(f), send, recv,
+            perm),
+    }
+    for name, fn in raising.items():
+        xs = t(n, WIDE if name == "scf_edge_pipeline" else f
+               ).requires_grad_(True)
+        out = fn(xs)
+        try:
+            torch.autograd.grad(out.square().sum(), (xs,),
+                                create_graph=True)
+        except RuntimeError as err:
+            check("not differentiable twice" in str(err),
+                  f"{name}: unexpected error {err}")
+            notes[name] = "raises"
+        else:
+            check(False, f"{name}: a double backward did not raise")
+    return notes
+
+
 def expect(launches, want, what):
     """Every counter equals what the path must launch (0 where unnamed)."""
     for k in sorted(set(launches) | set(want)):
@@ -1355,11 +1807,19 @@ def train_phase(torch, hydragnn_torch, config, logs, seed, cap=None,
     apart, train passes from eval passes.  Returns (card result, CPU result
     or None, launches of the card run, that tally, dispatch tally, card
     seconds, CPU seconds or None)."""
-    from hydragnn_torch.ops import egcl_mp, fused_mp, gat_mp, poly_mp, scf_mp
+    from hydragnn_torch.ops import (
+        aggregate,
+        cgcnn_mp,
+        egcl_mp,
+        fused_mp,
+        gat_mp,
+        poly_mp,
+        scf_mp,
+    )
     from hydragnn_torch.telemetry import pipeline
     from hydragnn_torch.train import trainer
 
-    mods = (fused_mp, scf_mp, poly_mp, egcl_mp, gat_mp)
+    mods = (fused_mp, scf_mp, poly_mp, egcl_mp, gat_mp, cgcnn_mp, aggregate)
 
     def counts():
         return {k: v for m in mods for k, v in m.LAUNCHES.items()}
@@ -1413,9 +1873,11 @@ def train_phase(torch, hydragnn_torch, config, logs, seed, cap=None,
 
 
 def check_training(name, card, cpu, launches, split, dispatch, loaders, cap,
-                   path):
+                   path, backend="fused"):
     """The card run's launches, train passes and eval passes apart, against
-    what the path must launch per batch, a finite falling loss, and, where
+    what the path must launch per batch, every dispatch site on the
+    backend's side (``fused``; ``scatter`` for the pallas backend, whose
+    kernel sits behind the plain dispatch), a finite falling loss, and, where
     there is a CPU run (``cpu`` is not None), its per-epoch losses and
     learning-rate decisions against the CPU's.  Returns (train steps, eval
     batches, per-step and per-eval-batch launches, loss agreement or
@@ -1441,7 +1903,8 @@ def check_training(name, card, cpu, launches, split, dispatch, loaders, cap,
     measured = {k: {"per_train_step": split["train"]["launches"][k] / steps,
                     "per_eval_batch": split["eval"]["launches"][k] / evals}
                 for k in launches}
-    check(pipeline.dispatch_summary(dispatch) == "fused",
+    side = "fused" if backend == "fused" else "scatter"
+    check(pipeline.dispatch_summary(dispatch) == side,
           f"{name}: a dispatch site left the kernels: {dispatch}")
     losses = hist["train"]
     check(all(math.isfinite(v) for v in losses + hist["val"]),
@@ -1778,6 +2241,14 @@ def main():
             copy.deepcopy(oc22_cfg), seed=args.seed)
         md17_loaders[0].set_epoch(0)
         first_md17 = next(iter(md17_loaders[0])).to(dev)
+        cgcnn_cfg = cgcnn_config()
+        write_cgcnn_data("dataset/chip_smoke", CGCNN_DATA, args.seed)
+        cgcnn_loaders = dataset_loading_and_splitting(
+            copy.deepcopy(cgcnn_cfg), seed=args.seed)
+        cgcnn_loaders[0].set_epoch(0)
+        first_cgcnn = next(iter(cgcnn_loaders[0])).to(dev)
+        check(first_cgcnn.x.shape[1] == FEATURES,
+              f"the cgcnn batch has {first_cgcnn.x.shape[1]} node features")
         emit({"phase": "setup", "seconds": time.perf_counter() - t0,
               "data_loading_s": load_s,
               "test_batches": n_batches, "test_graphs": n_test,
@@ -1791,7 +2262,12 @@ def main():
               "first_egnn_md17_train_batch": {
                   "nodes": first_md17.num_nodes,
                   "edges": first_md17.num_edges,
-                  "real_edges": int(first_md17.edge_mask.sum())}})
+                  "real_edges": int(first_md17.edge_mask.sum())},
+              "first_cgcnn_train_batch": {
+                  "nodes": first_cgcnn.num_nodes,
+                  "edges": first_cgcnn.num_edges,
+                  "real_edges": int(first_cgcnn.edge_mask.sum()),
+                  "node_features": first_cgcnn.x.shape[1]}})
 
         # -- 3. kernels against their plain versions, at the first train
         #       batch of the main path
@@ -1802,10 +2278,23 @@ def main():
         egcl_kernels, egcl_notes = egcl_phase(torch, first_md17, args.seed)
         # the gat cell's split and batches are the flagship training's
         gat_kernels, gat_notes = gat_phase(torch, first_train, args.seed)
-        kernels += scf_kernels + poly_kernels + egcl_kernels + gat_kernels
+        cgcnn_kernels, cgcnn_notes = cgcnn_phase(torch, first_cgcnn,
+                                                 args.seed)
+        seg_kernels, seg_notes = segment_sum_phase(torch, first_train,
+                                                   args.seed)
+        kernels += (scf_kernels + poly_kernels + egcl_kernels + gat_kernels
+                    + cgcnn_kernels + seg_kernels)
         emit({"phase": "kernel_checks", "seconds": time.perf_counter() - t0,
               **notes, "scf": scf_notes, "poly": poly_notes,
-              "egcl": egcl_notes, "gat": gat_notes})
+              "egcl": egcl_notes, "gat": gat_notes, "cgcnn": cgcnn_notes,
+              "segment_sum": seg_notes})
+
+        # -- 3b. a double backward through the linear Functions, card vs
+        #        CPU, and the refusal of the others
+        t0 = time.perf_counter()
+        c1_notes = double_backward_phase(torch, first_train, args.seed)
+        emit({"phase": "double_backward",
+              "seconds": time.perf_counter() - t0, **c1_notes})
 
         # -- 4. flagship prediction, on the card
         t_phase = time.perf_counter()
@@ -2135,6 +2624,80 @@ def main():
                   "prediction_s": own_s,
                   "launches": g_launches, "launches_split": gsplit,
                   "dispatch": dispatch})
+
+        # -- 11. CGCNN at the arch sweep's widths (input = hidden = 64), in
+        #        full
+        t_phase = time.perf_counter()
+        clogs = os.path.join(logs, "cgcnn")
+        card, _, c_launches, csplit, dispatch, wall_card, _ = train_phase(
+            torch, hydragnn_torch, cgcnn_cfg, clogs, args.seed,
+            cpu_run=False)
+        csteps, cevals, c_per, _ = check_training(
+            "cgcnn training", card, None, c_launches, csplit, dispatch,
+            cgcnn_loaders, None, "cgcnn")
+        check(dispatch.get("cgcnn:fused", 0) > 0
+              and "cgcnn:scatter" not in dispatch,
+              f"cgcnn: a cgcnn dispatch left the kernels: {dispatch}")
+        ccfg = ModelConfig.from_config(card[2])
+        check(ccfg.input_dim == ccfg.hidden_dim == FEATURES,
+              f"cgcnn widths {ccfg.input_dim}, {ccfg.hidden_dim}")
+        cgcnn_loaders[0].set_epoch(0)
+        c3_cpu = [b for _, b in zip(range(REPEAT_STEPS), cgcnn_loaders[0])]
+        n_cparams = repeat_bits(torch, ccfg, [b.to(dev) for b in c3_cpu],
+                                args.seed, dev)
+        csteady = steady_epoch(torch, ccfg, cgcnn_loaders[0], args.seed,
+                               dev)
+        t0 = time.perf_counter()
+        clock = lockstep(torch, ccfg, c3_cpu, args.seed, dev)
+        clock_s = time.perf_counter() - t0
+        cown = own_checkpoint_prediction(
+            torch, hydragnn_torch, cgcnn_cfg, os.path.join(clogs, "cuda"),
+            args.seed, "cgcnn")
+        hist = card[1]
+        emit({"phase": "cgcnn_training",
+              "seconds": time.perf_counter() - t_phase,
+              "entry": "hydragnn_torch.run_training", "backend": "fused",
+              "input_dim": ccfg.input_dim, "hidden_dim": ccfg.hidden_dim,
+              "epochs": len(hist["train"]), "train_steps": csteps,
+              "eval_batches": cevals, "train_loss": hist["train"],
+              "val_loss": hist["val"], "test_loss": hist["test"],
+              "lr": hist["lr"], "wall_s_cuda": wall_card,
+              "epoch_time_s_cuda": hist["epoch_time"],
+              "bit_identical_repeat": {"steps": REPEAT_STEPS,
+                                       "parameters_and_buffers": n_cparams},
+              "steady_train_epoch_cuda": csteady,
+              "lockstep_vs_cpu": clock, "lockstep_s": clock_s,
+              "prediction_from_own_checkpoint": cown,
+              "launches": c_launches, "launches_split": csplit,
+              "dispatch": dispatch})
+
+        # -- 12. the flagship SchNet under the pallas aggregation backend,
+        #        capped as the wide run, on the card and on the CPU
+        t_phase = time.perf_counter()
+        pallas_cfg = flagship_config(perc_train=0.5, epochs=WIDE_EPOCHS)
+        os.environ["HYDRAGNN_AGGR_BACKEND"] = "pallas"
+        try:
+            card, cpu, s_launches, ssplit, dispatch, wall_card, wall_cpu = \
+                train_phase(torch, hydragnn_torch, pallas_cfg,
+                            os.path.join(logs, "pallas"), args.seed,
+                            cap=WIDE_CAP)
+        finally:
+            os.environ["HYDRAGNN_AGGR_BACKEND"] = "fused"
+        ssteps, sevals, s_per, sloss_rel = check_training(
+            "pallas training", card, cpu, s_launches, ssplit, dispatch,
+            loaders, WIDE_CAP, "pallas", backend="pallas")
+        hist = card[1]
+        emit({"phase": "pallas_training",
+              "seconds": time.perf_counter() - t_phase,
+              "entry": "hydragnn_torch.run_training", "backend": "pallas",
+              "batches_per_pass": WIDE_CAP,
+              "epochs": len(hist["train"]), "train_steps": ssteps,
+              "eval_batches": sevals, "train_loss": hist["train"],
+              "val_loss": hist["val"], "train_loss_cpu": cpu[1]["train"],
+              "loss_max_rel_err_vs_cpu": sloss_rel,
+              "wall_s_cuda": wall_card, "wall_s_cpu": wall_cpu,
+              "launches": s_launches, "launches_split": ssplit,
+              "dispatch": dispatch})
         os.chdir(ROOT)
 
     # launches of the main path's card runs, split between train steps and
@@ -2153,6 +2716,10 @@ def main():
             path, (n_by, per_by) = "egnn_md17", egnn["egnn_md17"]
         elif k["name"].startswith("gat_"):
             path, (n_by, per_by) = "gat", gat["gat"]
+        elif k["name"].startswith("cgcnn_"):
+            path, n_by, per_by = "cgcnn", c_launches, c_per
+        elif k["name"] in ("segment_sum_pallas",) + OFF_PATH:
+            path, n_by, per_by = "pallas", s_launches, s_per
         else:
             path, n_by, per_by = paths.get(
                 k["name"], ("flagship", flag_launches, flag_per))
@@ -2161,6 +2728,12 @@ def main():
         k["launches"] = n_launch
         k["launches_per_train_step"] = per["per_train_step"]
         k["launches_per_eval_batch"] = per["per_eval_batch"]
+        if k["name"] in OFF_PATH:
+            # no caller on any path; its CUDA kernel is the one the pallas
+            # path launches through segment_sum_pallas
+            k["path"] = None
+            check(n_launch == 0, f"{k['name']} was launched on a path")
+            continue
         check(n_launch > 0, f"{k['name']} was not launched on its path")
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -22,11 +22,25 @@
 //   of x rows, no persistent grid (later PRs).
 //
 // segment_sum_dense_kernel
-//   out[s, f] = sum_{r in [row_ptr[s], row_ptr[s+1])} data[r, f]
+//   out[s, f] = sum_{r in [row_ptr[s], row_ptr[s+1])} data[perm[r], f]
+//   (perm null: data[r, f]), over at most the first max_rows rows of each
+//   segment (the reference's max_per_segment contract; INT_MAX otherwise).
 //   Replaces hydragnn_tpu/ops/fused_mp.py:_scatter_impl (pl.pallas_call at
 //   :340; public op segment_sum_dense :350).  Bound: bytes (read the valid
 //   rows of data once, write out once; 1 flop per 4-byte element).  Same
 //   warp-per-segment design: contiguous rows, coalesced across lanes.
+//   With a row permutation it also replaces the two kernels of the
+//   reference's `pallas` aggregation backend, both plain segment sums:
+//   hydragnn_tpu/ops/aggregate.py:_pallas_segment_sum_impl (pl.pallas_call
+//   at :157, any id order: a blocked one-hot contraction on the MXU) and
+//   :_sorted_impl (:244, nondecreasing ids).  On Hopper the one-hot tile
+//   is wasted work: the wrapper's stable sort of the ids is the schedule
+//   (perm, CSR offsets, out-of-range ids parked past the last segment) and
+//   each warp sums its segment's rows in id-then-edge order through perm.
+//   Same bound (bytes), plus the 4-byte perm entry per row.  The sorted
+//   function's cap keeps collate's padding segment (every padding edge on
+//   node N-1, pre-masked to zeros) from holding one warp for thousands of
+//   rows, as the reference's cap drops those rows.
 //
 // Contract shared with the reference kernels (collate guarantees it):
 // rows/edges are sorted by output id, so each output row owns one
@@ -99,22 +113,31 @@ gather_mul_segment_sum_kernel(const float* __restrict__ x,
   }
 }
 
+// PERM is a template parameter so that the dense sum (the pool) keeps a
+// loop whose row addresses the compiler can run ahead of: a run-time
+// "perm or not" inside the row loop halved the pool's speed on its long
+// padding segment.
+template <bool PERM>
 __global__ void __launch_bounds__(kWarp * kRowsPerBlock)
 segment_sum_dense_kernel(const float* __restrict__ data,
+                         const int* __restrict__ perm,
                          const int* __restrict__ row_ptr,
-                         float* __restrict__ out, int n_seg, int f) {
+                         float* __restrict__ out, int n_seg, int f,
+                         int max_rows) {
   const int lane = threadIdx.x % kWarp;
   const int seg = blockIdx.x * kRowsPerBlock + threadIdx.x / kWarp;
   if (seg >= n_seg) return;
   const int r0 = row_ptr[seg];
-  const int r1 = row_ptr[seg + 1];
+  int r1 = row_ptr[seg + 1];
+  if (r1 - r0 > max_rows) r1 = r0 + max_rows;
   float* out_row = out + static_cast<size_t>(seg) * f;
   for (int c0 = 0; c0 < f; c0 += kWarp * kVec) {
     float acc[kVec];
 #pragma unroll
     for (int j = 0; j < kVec; ++j) acc[j] = 0.f;
     for (int r = r0; r < r1; ++r) {
-      const float* dr = data + static_cast<size_t>(r) * f;
+      const int row = PERM ? perm[r] : r;
+      const float* dr = data + static_cast<size_t>(row) * f;
 #pragma unroll
       for (int j = 0; j < kVec; ++j) {
         const int c = c0 + j * kWarp + lane;
@@ -158,13 +181,26 @@ extern "C" int hg_gather_mul_segment_sum_f32(
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int hg_segment_sum_dense_f32(const void* data, const void* row_ptr,
-                                        void* out, int n_seg, int f,
-                                        void* stream) {
+// `perm` (may be null) maps a CSR position to its data row; each segment
+// sums at most its first `max_rows` rows.
+extern "C" int hg_segment_sum_rows_f32(const void* data, const void* perm,
+                                       const void* row_ptr, void* out,
+                                       int n_seg, int f, int max_rows,
+                                       void* stream) {
   if (n_seg <= 0 || f <= 0) return 0;
-  segment_sum_dense_kernel<<<grid_for(n_seg), dim3(kWarp * kRowsPerBlock), 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(data), static_cast<const int*>(row_ptr),
-      static_cast<float*>(out), n_seg, f);
+  if (max_rows < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 block(kWarp * kRowsPerBlock);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (perm != nullptr) {
+    segment_sum_dense_kernel<true><<<grid_for(n_seg), block, 0, st>>>(
+        static_cast<const float*>(data), static_cast<const int*>(perm),
+        static_cast<const int*>(row_ptr), static_cast<float*>(out), n_seg, f,
+        max_rows);
+  } else {
+    segment_sum_dense_kernel<false><<<grid_for(n_seg), block, 0, st>>>(
+        static_cast<const float*>(data), nullptr,
+        static_cast<const int*>(row_ptr), static_cast<float*>(out), n_seg, f,
+        max_rows);
+  }
   return static_cast<int>(cudaGetLastError());
 }

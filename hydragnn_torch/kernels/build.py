@@ -40,8 +40,8 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         # x, w, mask, senders, row_ptr, out, n_rows, n_src, f, has_w, stream
         "hg_gather_mul_segment_sum_f32":
             (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-        # data, row_ptr, out, n_seg, f, stream
-        "hg_segment_sum_dense_f32": (_P, _P, _P, _I, _I, _P),
+        # data, perm, row_ptr, out, n_seg, f, max_rows, stream
+        "hg_segment_sum_rows_f32": (_P, _P, _P, _P, _I, _I, _I, _P),
     },
     "scf_mp": {
         # x, rbf, cm, gidx, rowid, perm, row_ptr, w0, b0, w1, b1, out,
@@ -63,6 +63,14 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         # mode, xl, xr, att, send, recv, perm, row_ptr, b, m, ga, gd, out,
         # m_out, d_out, partial, datt, n_rows, hf, f, slope, n_parts, stream
         "hg_gat_f32": (_I,) + (_P,) * 16 + (_I, _I, _I, _F, _I, _P),
+    },
+    "cgcnn_mp": {
+        # mode, x, ea, send, recv, perm, row_ptr, wfr, wfs, wfg, bf, wsr,
+        # wss, wsg, bs, gout, out, partial, wgrad, dea, n_rows, f, d, a,
+        # n_parts, stream
+        "hg_cgcnn_f32": (_I,) + (_P,) * 19 + (_I,) * 5 + (_P,),
+        # f, d, a
+        "hg_cgcnn_wgrad_size": (_I,) * 3,
     },
     "poly_mp": {
         # src, senders, mask, row_ptr, o_sum, o_sq, o_mxmn, o_cnt,

@@ -1,8 +1,8 @@
 """Model factory (port of hydragnn_tpu/models/create.py).
 
-SchNet, GIN, SAGE, MFC, PNA, EGNN and GAT are ported; CGCNN and DimeNet
-raise until their slices land (ROADMAP queue A4).  Parameters are initialised from an
-explicit ``torch.Generator`` seeded with ``seed``.
+SchNet, GIN, SAGE, MFC, PNA, EGNN, GAT and CGCNN are ported; DimeNet
+raises until its slice lands (ROADMAP queue A4).  Parameters are
+initialised from an explicit ``torch.Generator`` seeded with ``seed``.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ import torch
 import torch.nn as nn
 
 from hydragnn_torch.models.base import Base, ModelConfig
+from hydragnn_torch.models.cgcnn import CGCNNStack
 from hydragnn_torch.models.egnn import EGCLStack
 from hydragnn_torch.models.gat import GATStack
 from hydragnn_torch.models.gin import GINStack
@@ -23,7 +24,7 @@ from hydragnn_torch.models.schnet import SCFStack
 
 _STACKS = {"SAGE": SAGEStack, "GIN": GINStack, "MFC": MFCStack,
            "PNA": PNAStack, "SchNet": SCFStack, "EGNN": EGCLStack,
-           "GAT": GATStack}
+           "GAT": GATStack, "CGCNN": CGCNNStack}
 
 # the reference's architecture list (models/create.py ALL_ARCHS)
 ALL_ARCHS = ("SAGE", "GIN", "GAT", "MFC", "PNA", "CGCNN", "SchNet",
@@ -37,7 +38,12 @@ def create_model(cfg: ModelConfig, seed: int = 0) -> Base:
     if cfg.model_type not in _STACKS:
         raise NotImplementedError(
             f"model_type {cfg.model_type!r} is not ported yet (ROADMAP "
-            f"queue A4); the port has {', '.join(_STACKS)}")
+            f"queue A4, DimeNet); the port has {', '.join(_STACKS)}")
+    if (cfg.model_type == "CGCNN" and cfg.node_head is not None
+            and cfg.node_head.type == "conv" and "node" in cfg.output_type):
+        raise ValueError(
+            '"conv" node decoder is not supported for CGCNN '
+            "(reference CGCNNStack.py:66-89).")
     if (cfg.model_type == "GAT" and cfg.dropout > 0
             and cfg.hidden_dim * cfg.gat_heads >= 256):
         # the reference's warning: at this width attention dropout makes

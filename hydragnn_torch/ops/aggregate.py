@@ -5,8 +5,9 @@ how message passing aggregates, read the same way as the reference:
 
 - ``scatter`` (default): plain PyTorch (``index_add_``) — the CPU path.
 - ``onehot``: one-hot matrix times messages, plain PyTorch.
-- ``pallas``: the reference's blocked one-hot kernel; not ported yet
-  (ROADMAP queue B), so the port raises rather than take another path.
+- ``pallas``: the reference's segment-sum kernel (a blocked one-hot
+  contraction on the TPU); here :func:`segment_sum_pallas`, one
+  hand-written CSR segment sum (csrc/fused_mp.cu) over a sort of the ids.
 - ``fused``: collate attaches the ``edge_perm_sender`` marker and the
   marked dispatch sites run the hand-written kernels of ops/fused_mp.py.
 
@@ -16,13 +17,26 @@ schedule becomes per-segment CSR offsets: :func:`segment_offsets` gives
 ``row_ptr[S+1]`` with one ``torch.searchsorted`` over the sorted ids, and
 each output row then owns the contiguous row range
 ``[row_ptr[s], row_ptr[s+1])``.
+
+The ``pallas`` backend's two segment sums (:func:`segment_sum_pallas`, any
+id order, and :func:`segment_sum_sorted`, nondecreasing ids) reach one
+kernel: the rows of each segment summed in float32, in order, by one warp
+(no atomics).  For unsorted ids a stable ``torch.sort`` of the ids, with
+out-of-range ids parked past the last segment, is the schedule; the sum
+through its permutation is the kernel's, launched and checked as the pool's
+(ops/fused_mp.py ``launch_segment_sum_rows``).  A CPU tensor takes the
+pool's plain version (``segment_sum_dense_plain``, ``index_add_``), a CUDA
+tensor the kernel.  Their VJP is a gather
+with zeros where the forward dropped the row (plain PyTorch, so
+differentiable in turn).  ``LAUNCHES`` counts the kernel's launches per
+function.
 """
 
 from __future__ import annotations
 
 import os
 import warnings
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -75,8 +89,82 @@ def segment_sum_onehot(data, segment_ids, num_segments):
     return out.reshape((num_segments,) + tuple(shape[1:]))
 
 
+LAUNCHES: Dict[str, int] = {"segment_sum_pallas": 0,
+                             "segment_sum_sorted": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def sort_schedule(segment_ids, num_segments):
+    """The schedule of an unsorted segment sum: ``(perm, row_ptr)`` from a
+    stable sort of the ids with out-of-range ids parked at
+    ``num_segments`` (after every segment, so no range holds them)."""
+    ids = segment_ids.to(torch.int32)
+    ok = (ids >= 0) & (ids < num_segments)
+    parked = torch.where(ok, ids, num_segments)
+    sorted_ids, perm = torch.sort(parked, stable=True)
+    return perm.to(torch.int32), segment_offsets(sorted_ids, num_segments)
+
+
+class _SegmentSumRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data2d, segment_ids, num_segments, op, max_per_segment):
+        from hydragnn_torch.ops import fused_mp
+
+        ctx.num_segments = num_segments
+        ctx.save_for_backward(segment_ids)
+        if not data2d.is_cuda:
+            return fused_mp.segment_sum_dense_plain(
+                data2d, segment_ids, num_segments,
+                max_per_segment=max_per_segment)
+        if op == "segment_sum_sorted":
+            perm, row_ptr = None, segment_offsets(segment_ids, num_segments)
+        else:
+            perm, row_ptr = sort_schedule(segment_ids, num_segments)
+        return fused_mp.launch_segment_sum_rows(
+            data2d.contiguous(), row_ptr, num_segments, op=op, perm=perm,
+            max_rows=max_per_segment, launches=LAUNCHES).to(data2d.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the reference's _gather_bwd: g[ids], zero where the forward
+        # dropped the row for its id (a bare gather would clamp it onto a
+        # segment)
+        (ids,) = ctx.saved_tensors
+        s = ctx.num_segments
+        ok = (ids >= 0) & (ids < s)
+        d = g[ids.clamp(0, max(s - 1, 0)).long()]
+        return (torch.where(ok[:, None], d, torch.zeros_like(d)), None, None,
+                None, None)
+
+
+def _segment_sum_2d(data, segment_ids, num_segments, op,
+                    max_per_segment=None):
+    shape = data.shape
+    out = _SegmentSumRows.apply(data.reshape(shape[0], -1), segment_ids,
+                                num_segments, op, max_per_segment)
+    return out.reshape((num_segments,) + tuple(shape[1:]))
+
+
 def segment_sum_pallas(data, segment_ids, num_segments):
-    raise NotImplementedError(
-        "HYDRAGNN_AGGR_BACKEND=pallas: the blocked one-hot segment-sum "
-        "kernel (ops/aggregate.py:segment_sum_pallas) is not ported yet — "
-        "ROADMAP queue B item 13")
+    """Exact segment sum over ids in any order (the reference's
+    hydragnn_tpu/ops/aggregate.py:segment_sum_pallas): ids outside ``[0,
+    num_segments)`` are dropped; float32 accumulation, in id then edge
+    order.  Differentiable wrt ``data``."""
+    return _segment_sum_2d(data, segment_ids, num_segments,
+                           "segment_sum_pallas")
+
+
+def segment_sum_sorted(data, segment_ids, num_segments, max_per_segment):
+    """Exact segment sum over NONDECREASING ``segment_ids`` with at most
+    ``max_per_segment`` REAL rows per segment (the reference's
+    segment_sum_sorted).  As there, the data must be pre-masked: collate's
+    padding rows all target node N-1, far past the cap, and the rows of a
+    segment past its first ``max_per_segment`` are dropped, which is
+    harmless only because they are zeros.  The VJP is the gather
+    (the reference's), whatever the cap dropped."""
+    return _segment_sum_2d(data, segment_ids, num_segments,
+                           "segment_sum_sorted", int(max_per_segment))

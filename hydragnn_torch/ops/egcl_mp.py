@@ -83,7 +83,9 @@ def _valid_edges(em, senders, receivers, n):
 
 
 def split_weights(w0, f):
-    """``w0 [2F+1+A, H]`` -> (sender rows, receiver rows, geometry rows)."""
+    """A concat kernel ``[2F+G, H]`` -> its row ranges ``[:F]``,
+    ``[F:2F]``, ``[2F:]``: here (sender, receiver, geometry) rows; the
+    cgcnn block's (receiver, sender, edge-attribute) rows."""
     return w0[:f], w0[f:2 * f], w0[2 * f:]
 
 

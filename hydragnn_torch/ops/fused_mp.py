@@ -25,10 +25,12 @@ custom VJP (hydragnn_tpu/ops/fused_mp.py ``_vjp_bwd``, ``_gss_bwd``,
   indexing (garbage on masked edges, as in the reference: the caller's
   ``w`` premask kills it); ``dx`` reruns the same kernel on the
   sender-sorted ordering (``sender_perm``) with the roles swapped —
-  ``dx[n] = sum_{e: send[e]=n} g[recv[e]] * w[e]``.
+  ``dx[n] = sum_{e: send[e]=n} g[recv[e]] * w[e]`` — through the same
+  autograd Function, so the backward is itself differentiable: a double
+  backward (``create_graph=True``) on the card gives the CPU's answer.
 - ``gather_segment_sum``: ``dx`` the same way, in the no-``w`` mode.
 - ``segment_sum_dense``: its backward is a plain gather that zeroes
-  out-of-range (and masked) ids.
+  out-of-range (and masked) ids (differentiable).
 
 At the leaves, a CPU tensor takes the kernel's plain PyTorch version
 below (the CPU path and the tests' oracle) and a CUDA tensor the kernel;
@@ -88,19 +90,29 @@ def gather_mul_segment_sum_plain(x, w, senders, receivers, edge_valid=None,
     return out.to(x.dtype)
 
 
-def segment_sum_dense_plain(data, sorted_ids, num_segments, valid=None):
+def segment_sum_dense_plain(data, sorted_ids, num_segments, valid=None,
+                            max_per_segment=None):
     """Segment sum over ``sorted_ids`` in float32, cast to ``data``'s type;
     rows with ``valid == 0`` or an id outside ``[0, num_segments)``
-    contribute nothing."""
+    contribute nothing, and with ``max_per_segment`` neither do the rows
+    of a segment past its first ``max_per_segment``.  Only the cap needs
+    the ids sorted, so this is also the plain version of both ``pallas``
+    backend segment sums (ops/aggregate.py)."""
     shape = data.shape
     d2 = data.reshape(shape[0], -1).float()
     ok = (sorted_ids >= 0) & (sorted_ids < num_segments)
     if valid is not None:
         ok = ok & (valid != 0)
+    if max_per_segment is not None:
+        first = segment_offsets(sorted_ids, num_segments)[
+            sorted_ids.clamp(0, num_segments).long()]
+        rank = torch.arange(shape[0], device=data.device)
+        ok = ok & (rank - first < max_per_segment)
     d2 = torch.where(ok[:, None], d2, torch.zeros_like(d2))
     out = torch.zeros((num_segments, d2.shape[1]), dtype=torch.float32,
                       device=data.device)
-    out.index_add_(0, sorted_ids.clamp(0, num_segments - 1).long(), d2)
+    out.index_add_(0, sorted_ids.clamp(0, max(num_segments - 1, 0)).long(),
+                   d2)
     return out.to(data.dtype).reshape((num_segments,) + tuple(shape[1:]))
 
 
@@ -161,14 +173,21 @@ def launch_gather_mul(x, w, mask, senders, row_ptr, op="gather_mul_segment_sum")
     return out
 
 
-def launch_segment_sum_dense(data2d, row_ptr, num_segments):
-    """Launch the segment-sum kernel on a precomputed CSR schedule.
+def launch_segment_sum_rows(data2d, row_ptr, num_segments,
+                            op="segment_sum_dense", perm=None, max_rows=None,
+                            launches=None):
+    """Launch the CSR segment-sum kernel: segment ``s`` sums the data rows
+    ``perm[r]`` (``r`` itself when ``perm`` is None) for the first at most
+    ``max_rows`` ``r`` of ``[row_ptr[s], row_ptr[s+1])``.  Counts one launch
+    under ``op`` in ``launches`` (this module's ``LAUNCHES`` unless given).
     Returns a new float32 [num_segments, F] tensor."""
     from hydragnn_torch.kernels.build import load_library
 
     dev = data2d.device
     r, f = data2d.shape
     _require(data2d, "data", torch.float32, (r, f), dev)
+    if perm is not None:
+        _require(perm, "perm", torch.int32, (r,), dev)
     _require(row_ptr, "row_ptr", torch.int32, (num_segments + 1,), dev)
     if r >= 2**31 or num_segments >= 2**31:
         raise ValueError("the kernel indexes rows and segments with int32")
@@ -178,11 +197,13 @@ def launch_segment_sum_dense(data2d, row_ptr, num_segments):
     lib = load_library("fused_mp")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.hg_segment_sum_dense_f32(
-            data2d.data_ptr(), row_ptr.data_ptr(), out.data_ptr(),
-            num_segments, f, stream)
-    _check_rc(rc, "segment_sum_dense")
-    LAUNCHES["segment_sum_dense"] += 1
+        rc = lib.hg_segment_sum_rows_f32(
+            data2d.data_ptr(), None if perm is None else perm.data_ptr(),
+            row_ptr.data_ptr(), out.data_ptr(), num_segments, f,
+            2**31 - 1 if max_rows is None else min(int(max_rows), 2**31 - 1),
+            stream)
+    _check_rc(rc, op)
+    (LAUNCHES if launches is None else launches)[op] += 1
     return out
 
 
@@ -209,13 +230,26 @@ def _sender_order(senders, sender_perm):
     return sender_perm.long()
 
 
+def _reversed_schedule(senders, receivers, sender_perm):
+    """The backward's roles swapped: ``(p, perm of the reversed call)``.
+    ``p`` orders the edges by sender; the reversed call gathers at
+    ``receivers[p]`` and sums at ``senders[p]``, so its own sender
+    permutation is the stable argsort of ``receivers[p]``.  That one is
+    needed only when the backward is itself differentiated (grad mode on
+    in the backward: ``create_graph=True``), and is computed only then."""
+    p = _sender_order(senders, sender_perm)
+    rp = None
+    if torch.is_grad_enabled():
+        rp = torch.argsort(receivers[p], stable=True).to(torch.int32)
+    return p, rp
+
+
 class _GatherMulSegmentSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, senders, receivers, sender_perm, edge_valid):
+    def forward(ctx, x, w, senders, receivers, sender_perm, edge_valid, op):
         ctx.save_for_backward(x, w, senders, receivers, sender_perm,
                               edge_valid)
-        return _gather_mul(x, w, None, senders, receivers, edge_valid,
-                           "gather_mul_segment_sum")
+        return _gather_mul(x, w, None, senders, receivers, edge_valid, op)
 
     @staticmethod
     def backward(ctx, g):
@@ -225,31 +259,32 @@ class _GatherMulSegmentSum(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             dw = (x[senders.long()] * g[receivers.long()]).to(w.dtype)
         if ctx.needs_input_grad[0]:
-            p = _sender_order(senders, sender_perm)
-            dx = _gather_mul(
-                g.float(), w[p].float(), None, receivers[p], senders[p],
+            # dx is the same linear op with the roles swapped, called
+            # through this Function so that it is differentiable in turn
+            p, rp = _reversed_schedule(senders, receivers, sender_perm)
+            dx = _GatherMulSegmentSum.apply(
+                g.float(), w[p].float(), receivers[p], senders[p], rp,
                 None if edge_valid is None else edge_valid[p],
                 "gather_mul_segment_sum_dx").to(x.dtype)
-        return dx, dw, None, None, None, None
+        return dx, dw, None, None, None, None, None
 
 
 class _GatherSegmentSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, senders, receivers, sender_perm, mask):
+    def forward(ctx, x, senders, receivers, sender_perm, mask, op):
         ctx.save_for_backward(senders, receivers, sender_perm, mask)
-        return _gather_mul(x, None, mask, senders, receivers, mask,
-                           "gather_segment_sum")
+        return _gather_mul(x, None, mask, senders, receivers, mask, op)
 
     @staticmethod
     def backward(ctx, g):
         senders, receivers, sender_perm, mask = ctx.saved_tensors
         if not ctx.needs_input_grad[0]:
-            return None, None, None, None, None
-        p = _sender_order(senders, sender_perm)
-        mp = None if mask is None else mask[p]
-        dx = _gather_mul(g.contiguous().float(), None, mp, receivers[p],
-                         senders[p], mp, "gather_segment_sum_dx")
-        return dx.to(g.dtype), None, None, None, None
+            return None, None, None, None, None, None
+        p, rp = _reversed_schedule(senders, receivers, sender_perm)
+        dx = _GatherSegmentSum.apply(
+            g.contiguous().float(), receivers[p], senders[p], rp,
+            None if mask is None else mask[p], "gather_segment_sum_dx")
+        return dx.to(g.dtype), None, None, None, None, None
 
 
 class _SegmentSumDense(torch.autograd.Function):
@@ -266,7 +301,7 @@ class _SegmentSumDense(torch.autograd.Function):
             return segment_sum_dense_plain(data, sorted_ids, num_segments,
                                            valid)
         row_ptr = segment_offsets(sorted_ids, num_segments, valid)
-        out = launch_segment_sum_dense(
+        out = launch_segment_sum_rows(
             data.reshape(data.shape[0], -1), row_ptr, num_segments)
         return out.reshape((num_segments,) + tuple(data.shape[1:]))
 
@@ -298,14 +333,15 @@ def gather_mul_segment_sum(x, w, senders, receivers, sender_perm, window=3,
     if window % 2 != 1:
         raise ValueError("window must be odd")
     return _GatherMulSegmentSum.apply(x, w, senders, receivers, sender_perm,
-                                      edge_valid)
+                                      edge_valid, "gather_mul_segment_sum")
 
 
 def gather_segment_sum(x, senders, receivers, sender_perm, mask=None):
     """``out[n] = sum_{e: recv[e]=n} mask[e] * x[send[e]]`` — the no-``w``
     mode of the same kernel; ``mask == 0`` edges are skipped (they must
     sort last).  Differentiable wrt ``x``."""
-    return _GatherSegmentSum.apply(x, senders, receivers, sender_perm, mask)
+    return _GatherSegmentSum.apply(x, senders, receivers, sender_perm, mask,
+                                   "gather_segment_sum")
 
 
 def segment_sum_dense(data, sorted_ids, num_segments, valid=None):

@@ -305,15 +305,16 @@ class _GatherPolySegment(torch.autograd.Function):
             return (torch.zeros_like(x),) + none[1:]  # cnt-only
         m = (torch.ones(senders.shape[0], dtype=torch.float32,
                         device=x.device) if mask is None else mask.float())
-        p = fused_mp._sender_order(senders, sender_perm)
         if not need_msgs:
             # sum-only (cnt has no x-grad): dx[n] = sum_{e: send=n} m_e
-            # g_sum[recv_e] — the no-w gather kernel on the sender-sorted
-            # ordering, no [E, F] intermediate
+            # g_sum[recv_e] — the no-w gather Function on the sender-sorted
+            # ordering (differentiable in turn), no [E, F] intermediate
+            p, rp = fused_mp._reversed_schedule(senders, receivers,
+                                                sender_perm)
             mp = m[p]
-            dx = fused_mp._gather_mul(
-                moms["sum"].contiguous().float(), None, mp, receivers[p],
-                senders[p], mp, "gather_segment_sum_dx")
+            dx = fused_mp._GatherSegmentSum.apply(
+                moms["sum"].contiguous().float(), receivers[p], senders[p],
+                rp, mp, "gather_segment_sum_dx")
             return (dx.to(x.dtype),) + none[1:]
 
         # sq/mxmn need the messages: recompute the gather
@@ -332,6 +333,7 @@ class _GatherPolySegment(torch.autograd.Function):
             c = c + _mxmn_term(both, ok, safe, ids, mxmn, moms["mxmn"], n, f)
         # dmsgs/dx[send] = m; sum at senders over the sorted permutation
         c = c * m[:, None]
+        p = fused_mp._sender_order(senders, sender_perm)
         dx = fused_mp.segment_sum_dense(c[p], senders[p], n, valid=m[p])
         return (dx.to(x.dtype),) + none[1:]
 

@@ -292,6 +292,12 @@ class _ScfEdgePipeline(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gout):
+        if torch.is_grad_enabled():
+            raise RuntimeError(
+                "scf_edge_pipeline is not differentiable twice: its "
+                "backward runs hand-written kernels (pass P and pass S); "
+                "the double backward of the energy-gradient force term "
+                "comes with ROADMAP queue A3")
         (h, rbf, cm, w0, b0, w1, b1, senders, receivers, em,
          sender_perm) = ctx.saved_tensors
         need = ctx.needs_input_grad
@@ -318,7 +324,8 @@ def scf_edge_pipeline(h, rbf, cm, em, w0, b0, w1, b1, senders, receivers,
     ``filt_e = (ssp(rbf_e @ w0 + b0) @ w1 + b1) * cm_e`` — the reference's
     signature and contract (hydragnn_tpu/ops/scf_mp.py).
 
-    Differentiable wrt h, rbf, cm, w0, b0, w1 and b1.  Requires
+    Differentiable once wrt h, rbf, cm, w0, b0, w1 and b1 (a double
+    backward raises).  Requires
     nondecreasing ``receivers``, ``sender_perm`` the stable argsort of
     ``senders`` (None computes it), G <= 127 and F <= 1024.  ``em`` is the
     int edge-validity mask: em == 0 edges carry cm == 0, sort last in both

@@ -244,9 +244,15 @@ def test_mfc_bank_init_uses_the_stacked_fan_in():
 
 @pytest.mark.parametrize("model_type", ["CGCNN", "DimeNet"])
 def test_unported_archs_raise(model_type):
+    """Of queue A4's two architectures only DimeNet is still unported and
+    raises; CGCNN builds (tests/test_torch_cgcnn.py holds it to JAX)."""
     _, tc = _cfgs("GIN")
+    tc = dataclasses.replace(tc, model_type=model_type)
+    if model_type == "CGCNN":
+        assert t_create_model(tc).cfg.model_type == "CGCNN"
+        return
     with pytest.raises(NotImplementedError, match="A4"):
-        t_create_model(dataclasses.replace(tc, model_type=model_type))
+        t_create_model(tc)
 
 
 def test_create_refuses_what_the_reference_asserts():

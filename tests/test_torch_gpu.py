@@ -17,8 +17,11 @@ kernels at every width gate (forward and, through their autograd
 Functions, backward with ties), three PNA/GIN/SAGE/MFC training steps,
 the three egcl kernels at every width the EGNN gate admits, three
 EGNN training steps at md17's widths, the three GAT kernels at H*F from 32
-to the kernel limit of 1024, with and without dropout bits, and three GAT
-training steps in lockstep.
+to the kernel limit of 1024, with and without dropout bits, three GAT
+training steps in lockstep, the three cgcnn kernels at F from 1 to the
+limit of 256 with and without edge attributes, three CGCNN training
+steps in lockstep at F = 64, the pallas backend's two segment sums, and a
+double backward through the linear Functions, card against CPU.
 """
 
 import numpy as np
@@ -800,3 +803,234 @@ def test_gat_train_steps_on_card_match_cpu(cuda, monkeypatch, dropout):
         "gather_segment_sum": 0, "gather_segment_sum_dx": 0,
         "segment_sum_dense": 3, "gat_edge_attention": 12,
         "gat_edge_attention_pass_r": 12, "gat_edge_attention_pass_s": 12}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("a", [0, 5], ids=["no-edge-attr", "edge-attr"])
+@pytest.mark.parametrize("f,d", [(1, 1), (24, 16), (64, 64), (256, 256)])
+def test_cgcnn_kernels_match_plain_on_card(cuda, f, d, a):
+    """The three cgcnn kernels (forward, pass P with its reduction, pass S)
+    through the autograd Function against autograd through the composed
+    plain version: F = 1 (layer 0 on one node feature), 24 with D = 16 (a
+    transposed block shows), 64 (the arch sweep's CGCNN) and the limit
+    256 (weights read from L2); with and without edge attributes.
+    Forward, dx and d edge_attr 1e-5 of their largest entry, the
+    edge-summed weight and bias grads 1e-4; d edge_attr exactly zero on
+    masked edges; a second run bit-identical."""
+    from hydragnn_torch.ops import cgcnn_mp
+
+    b = _graph_batch(31 + f + a)
+    n, e = len(b["node_gid"]), len(b["senders"])
+    g = torch.Generator().manual_seed(4)
+    ins = [torch.randn(n, f, generator=g),
+           torch.randn(e, a, generator=g) * 0.5 if a else None,
+           torch.randn(2 * f + a, d, generator=g) / (2 * f + a) ** 0.5,
+           torch.randn(d, generator=g) * 0.1,
+           torch.randn(2 * f + a, d, generator=g) / (2 * f + a) ** 0.5,
+           torch.randn(d, generator=g) * 0.1]
+    ins = [None if t is None else t.to(cuda) for t in ins]
+    ct = torch.randn(n, d, generator=g).to(cuda)
+    send, recv = _t(b["senders"]).to(cuda), _t(b["receivers"]).to(cuda)
+    perm = _t(b["perm"]).to(cuda)
+    em = _t(b["edge_mask"]).to(torch.int32).to(cuda)
+
+    def run(fn):
+        ts = [None if t is None else t.detach().clone().requires_grad_(True)
+              for t in ins]
+        out = fn(ts[0], ts[1], em, *ts[2:], send, recv)
+        (out * ct).sum().backward()
+        torch.cuda.synchronize()
+        return [out.detach()] + [None if t is None else t.grad for t in ts]
+
+    cgcnn_mp.reset_launches()
+    k = run(lambda *a_: cgcnn_mp.cgcnn_gated_block(*a_, perm))
+    assert cgcnn_mp.LAUNCHES == {"cgcnn_block": 1, "cgcnn_block_pass_p": 1,
+                                 "cgcnn_block_pass_s": 1}
+    again = run(lambda *a_: cgcnn_mp.cgcnn_gated_block(*a_, perm))
+    for x_, y_ in zip(k, again):
+        assert (x_ is None and y_ is None) or torch.equal(x_, y_)
+    p = run(cgcnn_mp.cgcnn_block_reference)
+    real = em.bool()
+    names = ("out", "x", "edge_attr", "kf", "bf", "ks", "bs")
+    for name, x_, y_ in zip(names, k, p):
+        if x_ is None:
+            assert y_ is None
+            continue
+        if name == "edge_attr":
+            assert bool((x_[~real] == 0).all())
+            x_, y_ = x_[real], y_[real]
+        rel = 1e-5 if name in ("out", "x", "edge_attr") else 1e-4
+        assert float((x_ - y_).abs().max()) <= rel * float(y_.abs().max()), \
+            name
+
+
+@pytest.mark.gpu
+def test_cgcnn_kernels_refuse_what_they_do_not_take(cuda):
+    from hydragnn_torch.ops import cgcnn_mp
+
+    b = _graph_batch(8, n_real=40, n_pad=48, e_pad=512)
+    send, recv = _t(b["senders"]).to(cuda), _t(b["receivers"]).to(cuda)
+    perm = _t(b["perm"]).to(cuda)
+    em = _t(b["edge_mask"]).to(torch.int32).to(cuda)
+    x = torch.randn(48, 257, device=cuda)
+    k = torch.randn(514, 8, device=cuda)
+    bias = torch.zeros(8, device=cuda)
+    with pytest.raises(ValueError, match="F <= 256"):
+        cgcnn_mp.cgcnn_gated_block(x, None, em, k, bias, k, bias, send, recv,
+                                   perm)
+    x = torch.randn(48, 8, device=cuda).double()
+    k = torch.randn(16, 8, device=cuda).double()
+    with pytest.raises(TypeError):
+        cgcnn_mp.cgcnn_gated_block(x, None, em, k, bias.double(), k,
+                                   bias.double(), send, recv, perm)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["pallas", "sorted"])
+def test_segment_sum_kernels_match_plain_on_card(cuda, which):
+    """The pallas backend's two segment sums on the card: unsorted ids with
+    out-of-range ones (pallas) and the receivers with a pre-masked padded
+    tail (sorted, capped at the largest real in-degree), forward and VJP
+    against the plain version, 1e-5; one launch each under its own key."""
+    from hydragnn_torch.ops import aggregate
+
+    b = _graph_batch(12)
+    n, e = len(b["node_gid"]), len(b["senders"])
+    g = torch.Generator().manual_seed(5)
+    mask = _t(b["edge_mask"])
+    data = torch.randn(e, 64, generator=g)
+    if which == "pallas":
+        ids = torch.where(mask != 0, _t(b["senders"]),
+                          n + torch.arange(e, dtype=torch.int32) % 3)
+        fn, key = aggregate.segment_sum_pallas, "segment_sum_pallas"
+    else:
+        data = data * mask[:, None]
+        ids = _t(b["receivers"])
+        cap = int(torch.bincount(ids[mask != 0].long(), minlength=n).max())
+        fn = lambda d_, i_, s_: aggregate.segment_sum_sorted(d_, i_, s_, cap)
+        key = "segment_sum_sorted"
+    ct = torch.randn(n, 64, generator=g).to(cuda)
+    data, ids = data.to(cuda), ids.to(cuda)
+    aggregate.reset_launches()
+    k = _grads(lambda d_: fn(d_, ids, n), (data,), ct)
+    kout = fn(data, ids, n)
+    p = _grads(lambda d_: tfm.segment_sum_dense_plain(d_, ids, n), (data,),
+               ct)
+    pout = tfm.segment_sum_dense_plain(data, ids, n)
+    torch.cuda.synchronize()
+    assert aggregate.LAUNCHES[key] == 2 and sum(
+        aggregate.LAUNCHES.values()) == 2
+    torch.testing.assert_close(kout, pout, **TOL)
+    torch.testing.assert_close(k[0], p[0], **TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", ["gather_mul_segment_sum",
+                                "gather_segment_sum"])
+def test_double_backward_on_card_matches_cpu(cuda, op):
+    """A double backward (create_graph, then a backward through the first
+    gradients) through the linear Functions: the card's first and second
+    derivatives equal the CPU's within 1e-5 of their largest entry, and
+    the second derivative is not zero."""
+    b = _graph_batch(13)
+    n, e = len(b["node_gid"]), len(b["senders"])
+    g = torch.Generator().manual_seed(6)
+    mask = _t(b["edge_mask"])
+    x0, w0 = torch.randn(n, 16, generator=g), torch.randn(e, 16, generator=g)
+    w0 = w0 * mask[:, None]
+    c1, c2 = torch.randn(n, 16, generator=g), torch.randn(n, 16, generator=g)
+    c3 = torch.randn(e, 16, generator=g) * mask[:, None]
+
+    def second(dev):
+        s, r = _t(b["senders"]).to(dev), _t(b["receivers"]).to(dev)
+        p, m = _t(b["perm"]).to(dev), mask.to(dev)
+        xs = x0.to(dev).requires_grad_(True)
+        if op == "gather_mul_segment_sum":
+            ws = w0.to(dev).requires_grad_(True)
+            out = tfm.gather_mul_segment_sum(xs, ws, s, r, p, edge_valid=m)
+            leaves, cs = (xs, ws), (c2.to(dev), c3.to(dev))
+        else:
+            out = tfm.gather_segment_sum(xs, s, r, p, m)
+            leaves, cs = (xs,), (c2.to(dev),)
+        first = torch.autograd.grad((out.square() * c1.to(dev)).sum(),
+                                    leaves, create_graph=True)
+        inner = sum((a_ * c_).sum() for a_, c_ in zip(first, cs))
+        return [t.detach().cpu() for t in
+                tuple(first) + tuple(torch.autograd.grad(inner, leaves))]
+
+    tfm.reset_launches()
+    card = second(cuda)
+    torch.cuda.synchronize()
+    assert tfm.LAUNCHES[f"{op}_dx"] >= 2
+    for x_, y_ in zip(card, second(torch.device("cpu"))):
+        assert float((x_ - y_).abs().max()) <= 1e-5 * float(y_.abs().max())
+    assert float(card[-1].abs().max()) > 0
+
+
+@pytest.mark.gpu
+def test_cgcnn_train_steps_on_card_match_cpu(cuda, monkeypatch):
+    """CGCNN at the arch sweep's widths (input = hidden = 64, 4 convs): three
+    AdamW steps under fused in lockstep, card (kernels) against CPU (plain
+    versions), as for the other BatchNorm architectures.  Per step 4
+    forward, 4 pass P and 3 pass S launches (layer 0's input is data) and
+    1 pool."""
+    import dataclasses
+
+    from hydragnn_torch.models.base import (
+        GraphHeadCfg,
+        ModelConfig,
+        multihead_loss,
+    )
+    from hydragnn_torch.models.create import create_model
+    from hydragnn_torch.ops import cgcnn_mp
+    from hydragnn_torch.train.optimizer import select_optimizer
+    from hydragnn_torch.train.trainer import create_train_state, make_train_step
+
+    g = _schnet_batch(monkeypatch)
+    gen = torch.Generator().manual_seed(2)
+    g = dataclasses.replace(
+        g, x=torch.rand(g.x.shape[0], 64, generator=gen) * g.node_mask[:, None])
+    cfg = ModelConfig(
+        model_type="CGCNN", input_dim=64, hidden_dim=64, output_dim=(1,),
+        output_type=("graph",), graph_head=GraphHeadCfg(2, 64, 2, (64, 64)),
+        node_head=None, task_weights=(1.0,), num_conv_layers=4, edge_dim=0)
+    sides = []
+    for dev in (torch.device("cpu"), cuda):
+        model = create_model(cfg, seed=1).to(dev)
+        spec = select_optimizer({"type": "AdamW", "learning_rate": 1e-3})
+        sides.append([model, create_train_state(model, spec),
+                      make_train_step(model, cfg, spec), g.to(dev)])
+
+    def loss_and_grads(model, gd):
+        kept = [b_.clone() for b_ in model.buffers()]
+        model.train()
+        loss, _ = multihead_loss(cfg, model(gd), gd)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        stats = [b_.detach().cpu().clone() for b_ in model.buffers()]
+        with torch.no_grad():
+            for b_, k in zip(model.buffers(), kept):
+                b_.copy_(k)
+        return float(loss.detach()), [d.cpu() for d in grads], stats
+
+    counted = {}
+    for _ in range(3):
+        sides[1][0].load_state_dict(sides[0][0].state_dict())
+        (lc, gc, sc), (lg, gg, sg) = (loss_and_grads(m, gd)
+                                      for m, _, _, gd in sides)
+        assert abs(lg - lc) <= 1e-5 * abs(lc)
+        top = max(float(d.abs().max()) for d in gc)
+        for d_c, d_g in zip(gc, gg):
+            assert float((d_c - d_g).abs().max()) <= 1e-4 * top
+        for b_c, b_g in zip(sc, sg):
+            torch.testing.assert_close(b_g, b_c, rtol=1e-4, atol=1e-5)
+        tfm.reset_launches()
+        cgcnn_mp.reset_launches()
+        for side in sides:
+            side[1], _ = side[2](side[1], side[3])
+        for k, v in {**tfm.LAUNCHES, **cgcnn_mp.LAUNCHES}.items():
+            counted[k] = counted.get(k, 0) + v
+    assert counted == {
+        "gather_mul_segment_sum": 0, "gather_mul_segment_sum_dx": 0,
+        "gather_segment_sum": 0, "gather_segment_sum_dx": 0,
+        "segment_sum_dense": 3, "cgcnn_block": 12,
+        "cgcnn_block_pass_p": 12, "cgcnn_block_pass_s": 9}

@@ -145,9 +145,10 @@ def test_onehot_backend_matches_scatter(monkeypatch):
     want = tseg.segment_sum(data, ids, 9)
     monkeypatch.setenv("HYDRAGNN_AGGR_BACKEND", "onehot")
     torch.testing.assert_close(tseg.segment_sum(data, ids, 9), want, **TOL)
+    # the pallas backend: the port's CSR segment-sum kernel (its plain
+    # version on the CPU), the same sums
     monkeypatch.setenv("HYDRAGNN_AGGR_BACKEND", "pallas")
-    with pytest.raises(NotImplementedError):
-        tseg.segment_sum(data, ids, 9)
+    torch.testing.assert_close(tseg.segment_sum(data, ids, 9), want, **TOL)
 
 
 def test_graph_batch_to_moves_every_tensor(monkeypatch):
