@@ -5,12 +5,14 @@
 
 It stands beside ``chip_smoke.py``, whose configurations it borrows, and
 needs no GPU.  Each architecture (default: SchNet, GIN, SAGE, MFC, PNA,
-EGNN, GAT, CGCNN) is trained twice from one seeded init on the synthetic
-BCC set of ``chip_smoke.py`` at its widths (hidden 64, 4 conv layers,
-AdamW 1e-3; EGNN at md17's, ``chip_smoke.egnn_md17_config``; GAT at the
-arch sweep's, 6 heads and dropout 0, ``chip_smoke.gat_config``; CGCNN at
-input = hidden = 64 on the set with its 63 extra node-feature columns,
-``chip_smoke.cgcnn_config``), once under
+EGNN, GAT, CGCNN, DimeNet) is trained twice from one seeded init on the
+synthetic BCC set of ``chip_smoke.py`` at its widths (hidden 64, 4 conv
+layers, AdamW 1e-3; EGNN at md17's, ``chip_smoke.egnn_md17_config``; GAT
+at the arch sweep's, 6 heads and dropout 0, ``chip_smoke.gat_config``;
+CGCNN at input = hidden = 64 on the set with its 63 extra node-feature
+columns, ``chip_smoke.cgcnn_config``; DimeNet at the arch sweep's widths
+on the dimenet cell's set of smaller cells, ``chip_smoke.dimenet_config``),
+once under
 ``HYDRAGNN_AGGR_BACKEND=fused`` (the plain versions of the kernels:
 sorted-segment sums) and once under ``scatter`` (``index_add_``).  Both are
 the same function; they differ in the order of a few float32 sums.  Prints
@@ -28,6 +30,9 @@ EGNN has no BatchNorm; its line decides which of the two checks it gets.
 GAT's fused path sums each head's logit in another order than its composed
 path, and has BatchNorm.  CGCNN has BatchNorm after each conv; its fused
 path adds each edge's products in another order than its composed path.
+DimeNet has no BatchNorm and only smooth activations (SiLU); its fused path
+(the factored triplet op and the row-MLP tail) sums each edge's triplets
+in another order than its composed path.
 """
 
 from __future__ import annotations
@@ -44,7 +49,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("archs", nargs="*",
                     default=["SchNet", "GIN", "SAGE", "MFC", "PNA", "EGNN",
-                             "GAT", "CGCNN"])
+                             "GAT", "CGCNN", "DimeNet"])
     ap.add_argument("--graphs", type=int, default=1500)
     ap.add_argument("--batch", type=int, default=128)
     ap.add_argument("--epochs", type=int, default=3)
@@ -54,10 +59,12 @@ def main(argv=None) -> int:
     from chip_smoke import (
         CGCNN_DATA,
         cgcnn_config,
+        dimenet_config,
         egnn_md17_config,
         flagship_config,
         gat_config,
         write_cgcnn_data,
+        write_dimenet_data,
     )
 
     import hydragnn_torch
@@ -76,6 +83,8 @@ def main(argv=None) -> int:
             if "CGCNN" in args.archs:
                 write_cgcnn_data("dataset/chip_smoke", CGCNN_DATA, args.seed,
                                  count=args.graphs)
+            if "DimeNet" in args.archs:
+                write_dimenet_data(args.seed, count=args.graphs)
             for arch in args.archs:
                 hist = {}
                 for backend in ("fused", "scatter"):
@@ -86,6 +95,8 @@ def main(argv=None) -> int:
                         cfg = gat_config(epochs=args.epochs)
                     elif arch == "CGCNN":
                         cfg = cgcnn_config(epochs=args.epochs)
+                    elif arch == "DimeNet":
+                        cfg = dimenet_config(epochs=args.epochs)
                     else:
                         cfg = flagship_config(perc_train=0.5,
                                               epochs=args.epochs,

@@ -43,10 +43,15 @@ and PyTorch built for CUDA.  Phases, each of which fails the run:
    (1e-5; 1e-4 for the weight grads; d edge_attr exactly zero on masked
    edges), and the pallas backend's two segment sums (unsorted ids with an
    out-of-range tail; sorted receivers, pre-masked) and their VJPs (1e-5),
-   timed beside ``index_add_`` and ``torch.segment_reduce``; then a double
+   timed beside ``index_add_`` and ``torch.segment_reduce``, and the four
+   DimeNet kernels at the first dimenet train batch (its own triplet table
+   and spherical basis): the triplet op forward and backward and the
+   row-MLP chain forward and backward through their autograd Functions
+   against autograd through the composed plain versions (1e-5; 1e-4 for
+   the weight grads; d cbf exactly zero on masked triplets); then a double
    backward through ``gather_mul_segment_sum`` and ``gather_segment_sum``
    on the card against the CPU (1e-5), and the refusal of a double
-   backward by the scf, egcl, GAT and cgcnn Functions;
+   backward by the scf, egcl, GAT, cgcnn, dn_tri and row_mlp Functions;
 4. flagship prediction: a seeded SchNet checkpoint at the flagship widths
    (hidden 64, 4 convs, 50 gaussians, 64 filters, radius 1.8,
    max_neighbours 20, graph head (2, 64, 2, (64, 64)), batch 512) through
@@ -113,7 +118,19 @@ and PyTorch built for CUDA.  Phases, each of which fails the run:
 12. the flagship SchNet under ``HYDRAGNN_AGGR_BACKEND=pallas``, capped as
    phase 6, on the card and on the CPU: 5 ``segment_sum_pallas`` launches
    per train step and per eval batch (4 convs and the pool), no other
-   kernel, losses within 1e-4 relative of the CPU's.
+   kernel, losses within 1e-4 relative of the CPU's;
+13. DimeNet training at the arch sweep's widths (hidden 64, 4 convs,
+   num_radial 6, num_spherical 7, basis_emb 8, int_emb = out_emb = 64,
+   one residual layer before the skip and two after) on its own set of
+   smaller BCC cells (``write_dimenet_data``: graphs of at most ~190
+   edges, so the loader's gate opens the factored-basis kernel), 3
+   epochs: 4 triplet forwards and backwards, 4 row-MLP forwards and
+   backwards and 5 sorted segment sums (4 output blocks, the pool) per
+   train step, 4 + 4 + 5 per eval batch, every dn_tri and dn_row_mlp
+   dispatch fused; repeats bit-identical, a steady epoch, prediction from
+   the run's checkpoint card vs CPU; and, as DimeNet's two CPU backends
+   stay together (``backend_drift.py DimeNet``), card and CPU free runs of
+   2 epochs capped as phase 6, losses within 1e-4 relative.
 
 Prints JSON lines with the seconds of each phase (and, where float32
 itself decided a lockstep allowance, the per-parameter records behind
@@ -199,6 +216,15 @@ GAT_SLOPE = 0.05
 CGCNN_EXTRA_COLUMNS = FEATURES - 1
 CGCNN_DATA = "dataset/chip_smoke_cgcnn"
 CGCNN_LIMIT = 256         # the cgcnn kernels' F and D limit
+# the dimenet cell's set: BCC cells of 2-3 x 2-3 x 1 unit cells (8-18
+# atoms, QM9-scale), so that at radius 1.8 every graph has at most 257
+# edges, spans at most two 128-edge blocks, and the loader's gate opens
+# the factored-basis triplet kernel (DnTriGate); the main set's cells of up
+# to 36 atoms (up to ~640 edges) would keep it shut
+DIMENET_DATA = "dataset/chip_smoke_dimenet"
+# the DimeNet card run against the CPU: free runs, capped as the wide cell
+# (backend_drift.py DimeNet decides free runs over lockstep; PERF.md)
+DIMENET_CAP = 2
 # no real edge's ReLU input within this of zero in the egcl kernel checks
 # (egcl_off_kinks): ~20x the float32 rounding of a 97-term dot product
 KINK_MARGIN = 2e-6
@@ -250,6 +276,14 @@ PATH_LAUNCHES["cgcnn"] = (
     {"cgcnn_block": 4, "cgcnn_block_pass_p": 4, "cgcnn_block_pass_s": 3,
      "segment_sum_dense": 1},
     {"cgcnn_block": 4, "segment_sum_dense": 1})
+# DimeNet: one triplet forward and backward and one row-MLP forward and
+# backward per conv layer (layer 0's inputs need gradients: lin_kj, lin_ji
+# feed them), one sorted segment sum per output block and the pool
+PATH_LAUNCHES["dimenet"] = (
+    {"dimenet_triplet_mp": 4, "dimenet_triplet_mp_bwd": 4,
+     "dimenet_post_mlp": 4, "dimenet_post_mlp_bwd": 4,
+     "segment_sum_dense": 5},
+    {"dimenet_triplet_mp": 4, "dimenet_post_mlp": 4, "segment_sum_dense": 5})
 # the flagship SchNet under HYDRAGNN_AGGR_BACKEND=pallas: no marker, so
 # each conv's aggregation and the pool take segment_sum, that is the pallas
 # segment sum (its backward is a gather: no launch)
@@ -1404,6 +1438,40 @@ def cgcnn_config(epochs=TRAIN_EPOCHS, perc_train=0.5):
     return cfg
 
 
+def dimenet_config(epochs=TRAIN_EPOCHS, perc_train=0.5):
+    """The arch sweep's DimeNet (bench.py:199-223: hidden 64, 4 convs,
+    num_radial 6, num_spherical 7, basis_emb_size 8, int_emb_size 64,
+    out_emb_size 64, one residual layer before the skip, two after,
+    envelope exponent 5, radius 1.8, max_neighbours 20, graph head (2, 64,
+    2, (64, 64))) on the dimenet cell's set (``write_dimenet_data``) at
+    batch 512, AdamW 1e-3."""
+    cfg = flagship_config(perc_train=perc_train, epochs=epochs,
+                          model_type="DimeNet")
+    ds = cfg["Dataset"]
+    ds["name"] = "chip_smoke_dimenet"
+    ds["path"] = {"total": DIMENET_DATA}
+    arch = cfg["NeuralNetwork"]["Architecture"]
+    for k in ("num_gaussians", "num_filters"):
+        del arch[k]
+    arch.update({"num_radial": 6, "num_spherical": 7, "basis_emb_size": 8,
+                 "int_emb_size": 64, "out_emb_size": 64,
+                 "num_before_skip": 1, "num_after_skip": 2,
+                 "envelope_exponent": 5})
+    return cfg
+
+
+def write_dimenet_data(seed, count=None):
+    """The dimenet cell's LSMS files: ``count`` (default N_CONFIGURATIONS)
+    BCC cells of 2-3 x 2-3 x 1 unit cells from the port's generator."""
+    from hydragnn_torch.data.synthetic import deterministic_graph_data
+
+    deterministic_graph_data(
+        DIMENET_DATA,
+        number_configurations=N_CONFIGURATIONS if count is None else count,
+        unit_cell_x_range=(2, 4), unit_cell_y_range=(2, 4),
+        unit_cell_z_range=(1, 2), seed=seed)
+
+
 def write_cgcnn_data(src, dst, seed, count=None):
     """The CGCNN cell's LSMS files: the first ``count`` (default
     N_CONFIGURATIONS, the whole set) files of ``src`` (the synthetic BCC set) with
@@ -1586,6 +1654,206 @@ def cgcnn_phase(torch, g, seed):
     return results, notes
 
 
+def dimenet_flops(s, r, b, d, din, h, n_before, n_after, triplets, rows):
+    """Floating-point operations (a multiply-add is two; silu and its
+    derivative not counted) that the four DimeNet kernels' functions need:
+    the triplet op forward and backward on ``triplets`` real triplets, the
+    row-MLP chain forward and backward on ``rows`` rows.  Per triplet the
+    forward forms sbf (S*R products), emb1 and emb2 and adds x2 * emb2; the
+    backward recomputes that, then d_emb2 and the d_x2 term, d_emb1, d_sbf,
+    both weight gradients, d_cbf and the d_radial term, and the row sums.
+    Per row the chain's L dense layers, the residual adds; the backward
+    three times the products (recompute, the input gradient, the weight
+    gradient)."""
+    sr = s * r
+    prod = 2 * sr * b + 2 * b * d
+    tri_f = triplets * (sr + prod + 2 * d)
+    tri_b = triplets * (sr + prod + 2 * d + prod + prod + 4 * sr + d + sr)
+    layers = 2 + 2 * (n_before + n_after)
+    mm = 2 * (din * h + (layers - 1) * h * h)
+    adds = h * (2 + n_before + n_after)
+    return tri_f, tri_b, rows * (mm + adds), rows * (3 * mm + 2 * adds)
+
+
+def dimenet_phase(torch, g, seed, cfg):
+    """The four DimeNet kernels at the first train batch of the dimenet
+    cell, at its widths: the triplet op (forward, backward) on the batch's
+    own triplet table and spherical basis, and the row-MLP chain (forward,
+    backward) on its edge rows.  Each through the op's autograd Function
+    against autograd through the composed plain version: outputs and the
+    per-edge and per-triplet gradients 1e-5 of their largest entry, the
+    weight and bias grads (sums over ~5e5 triplets or ~1e5 rows in another
+    order) 1e-4; d cbf exactly zero on masked triplets.  Then each kernel
+    timed alone as the path launches it, beside its plain version and its
+    bound."""
+    from hydragnn_torch.models.dimenet import (
+        distances_and_angles,
+        spherical_basis_factors,
+    )
+    from hydragnn_torch.ops import dn_tri as dt
+    from hydragnn_torch.ops import row_mlp as rm
+    from hydragnn_torch.ops.aggregate import segment_offsets
+
+    dev = g.x.device
+    ex = g.extras
+    e = g.num_edges
+    s, r = cfg.num_spherical, cfg.num_radial
+    b, d, h = cfg.basis_emb_size, cfg.int_emb_size, cfg.hidden_dim
+    nb, na = cfg.num_before_skip, cfg.num_after_skip
+    gen = torch.Generator(device=dev).manual_seed(seed + 13)
+    kj, ji, perm = ex["dn_idx_kj"], ex["dn_idx_ji"], ex["dn_perm_kj"]
+    tm = ex["dn_triplet_mask"].to(torch.int32)
+    t = kj.shape[0]
+    with torch.no_grad():
+        dist, angle = distances_and_angles(g.pos, g, cfg.radius)
+        radial, cbf = spherical_basis_factors(
+            dist / cfg.radius, angle, s, r, cfg.envelope_exponent)
+    radial, cbf = radial.contiguous(), cbf.contiguous()
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, device=dev, generator=gen) * scale
+
+    tri_ins = [radial, rnd(e, d), cbf, rnd(s * r, b, scale=(s * r) ** -0.5),
+               rnd(b, d, scale=b ** -0.5)]
+    ct = rnd(e, d)
+    real = tm != 0
+    errs = {}
+
+    def run(fn, ins):
+        ts = [x.detach().clone().requires_grad_(True) for x in ins]
+        out = fn(*ts)
+        (out * ct).sum().backward()
+        torch.cuda.synchronize()
+        return out.detach(), [x.grad for x in ts]
+
+    def hold(name, got, want, tol):
+        errs[name] = rel_err(torch, got, want)
+        check(errs[name][1] <= tol, f"dimenet: {name} disagrees with the "
+              f"plain version under autograd: {errs[name][1]} > {tol}")
+
+    dt.reset_launches()
+    k_out, k_grads = run(lambda *a: dt.dimenet_triplet_mp(
+        *a, kj, ji, tm, perm, r), tri_ins)
+    check(dt.LAUNCHES == {"dimenet_triplet_mp": 1,
+                          "dimenet_triplet_mp_bwd": 1},
+          f"dn_tri launches {dt.LAUNCHES}")
+    p_out, p_grads = run(lambda *a: dt.dimenet_triplet_reference(
+        *a, kj, ji, tm, r), tri_ins)
+    check(bool((k_grads[2][~real] == 0).all()),
+          "dimenet: d cbf is not zero on masked triplets")
+    hold("tri_out", k_out, p_out, REL_TOL_KERNEL)
+    for name, kg, pg in zip(("radial", "x2", "cbf", "w1", "w2"), k_grads,
+                            p_grads):
+        hold("tri_d" + name, kg, pg,
+             REL_TOL_KERNEL if name in ("radial", "x2", "cbf")
+             else REL_TOL_WGRAD)
+
+    wb = [rnd(d, h, scale=d ** -0.5), None]
+    for _ in range(2 * (nb + na) + 1):
+        wb += [rnd(h, h, scale=h ** -0.5), rnd(h, scale=0.1)]
+    row_ins = [rnd(e, d), rnd(e, h), rnd(e, h)]
+    ct_h = rnd(e, h)
+
+    def run_rows(fn):
+        ti = [x.detach().clone().requires_grad_(True) for x in row_ins]
+        tw = [None if w is None else w.detach().clone().requires_grad_(True)
+              for w in wb]
+        out = fn(*ti, nb, na, *tw)
+        (out * ct_h).sum().backward()
+        torch.cuda.synchronize()
+        return out.detach(), [x.grad for x in ti], [
+            w.grad for w in tw if w is not None]
+
+    rm.reset_launches()
+    k_out, k_in, k_w = run_rows(rm.dimenet_post_mlp)
+    check(rm.LAUNCHES == {"dimenet_post_mlp": 1, "dimenet_post_mlp_bwd": 1},
+          f"row_mlp launches {rm.LAUNCHES}")
+    p_out, p_in, p_w = run_rows(rm.dimenet_post_mlp_reference)
+    hold("row_out", k_out, p_out, REL_TOL_KERNEL)
+    for name, kg, pg in zip(("tri", "x_ji", "x_edge"), k_in, p_in):
+        hold("row_d" + name, kg, pg, REL_TOL_KERNEL)
+    worst_w = max(rel_err(torch, kg, pg)[1] for kg, pg in zip(k_w, p_w))
+    check(worst_w <= REL_TOL_WGRAD,
+          f"dimenet: a row-MLP weight grad disagrees: {worst_w}")
+    errs["row_dwb"] = max((rel_err(torch, kg, pg) for kg, pg in
+                           zip(k_w, p_w)), key=lambda v: v[1])
+
+    # each kernel alone on its precomputed schedule, as the path launches it
+    e_real = int((g.edge_mask != 0).sum())
+    t_real = int(real.sum())
+    n_real = int((g.node_mask != 0).sum())
+    p_ = perm.long()
+    ptr_ji = segment_offsets(ji, e, tm)
+    ptr_kj = segment_offsets(kj[p_], e, tm[p_])
+    x2, w1, w2 = tri_ins[1], tri_ins[3], tri_ins[4]
+    w_p, b_p = rm.pack_weights(wb, d, h, dev)
+    tri, xji, xe = row_ins
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    tri_f, tri_b, row_f, row_b = dimenet_flops(s, r, b, d, d, h, nb, na,
+                                               t_real, e)
+    wt = 4 * (s * r * b + b * d)
+    # read once: the real edges' radial and x2 rows, the real triplets'
+    # cbf rows and ids, row_ptr, the weights; written once: the outputs
+    tri_in = 4 * (e_real * (s * r + d) + t_real * (s + 2) + e + 1) + wt
+    row_w = 4 * (w_p.numel() + b_p.numel())
+    timed = {
+        "dimenet_triplet_mp": (
+            lambda: dt.launch_dn_tri("dimenet_triplet_mp", radial, x2, cbf,
+                                     w1, w2, kj, ji, None, ptr_ji, r),
+            lambda: dt.dimenet_triplet_reference(radial, x2, cbf, w1, w2,
+                                                 kj, ji, tm, r),
+            bound(tri_in + 4 * e * d, tri_f),
+            "hydragnn_tpu/ops/dn_tri.py:285", "dn_tri", ("tri_out",)),
+        "dimenet_triplet_mp_bwd": (
+            lambda: dt.launch_dn_tri("dimenet_triplet_mp_bwd", radial, x2,
+                                     cbf, w1, w2, kj, ji, perm, ptr_kj, r,
+                                     ct),
+            lambda: dt.dimenet_triplet_bwd_plain(radial, x2, cbf, w1, w2, kj,
+                                                 ji, tm, ct, r),
+            bound(tri_in + 4 * (t_real + e_real * d)
+                  + 4 * (e * (s * r + d) + t * s) + wt, tri_b),
+            "hydragnn_tpu/ops/dn_tri.py:358", "dn_tri",
+            ("tri_dradial", "tri_dx2", "tri_dcbf", "tri_dw1", "tri_dw2")),
+        "dimenet_post_mlp": (
+            lambda: rm.launch_row_mlp("dimenet_post_mlp", tri, xji, xe, w_p,
+                                      b_p, nb, na),
+            lambda: rm.dimenet_post_mlp_reference(tri, xji, xe, nb, na,
+                                                  *wb),
+            bound(4 * e * (d + 2 * h) + row_w + 4 * e * h, row_f),
+            "hydragnn_tpu/ops/row_mlp.py:184", "row_mlp", ("row_out",)),
+        "dimenet_post_mlp_bwd": (
+            lambda: rm.launch_row_mlp("dimenet_post_mlp_bwd", tri, xji, xe,
+                                      w_p, b_p, nb, na, ct_h),
+            lambda: rm.dimenet_post_mlp_bwd_plain(tri, xji, xe, ct_h, nb, na,
+                                                  *wb),
+            bound(4 * e * (d + 3 * h) + 2 * row_w + 4 * e * (d + 2 * h),
+                  row_b),
+            "hydragnn_tpu/ops/row_mlp.py:228", "row_mlp",
+            ("row_dtri", "row_dx_ji", "row_dx_edge", "row_dwb")),
+    }
+    results = []
+    with torch.no_grad():
+        for name, (kern, plain, (b_ms, b_by), replaces, src,
+                   outs) in timed.items():
+            worst = max(outs, key=lambda o: errs[o][1])
+            results.append({
+                "name": name, "route": "cuda",
+                "source": f"hydragnn_torch/csrc/{src}.cu",
+                "replaces": replaces,
+                "max_abs_err": errs[worst][0], "max_rel_err": errs[worst][1],
+                "ms": time_ms(torch, kern, flush, lead=True),
+                "warm_l2_ms": time_ms(torch, kern, lead=True),
+                "plain_ms": time_ms(torch, plain, flush),
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                "shape": {"N_valid": n_real, "E": e, "E_valid": e_real,
+                          "T": t, "T_valid": t_real, "S": s, "R": r, "B": b,
+                          "D": d, "H": h, "n_before": nb, "n_after": na},
+            })
+    notes = {k: {"max_abs_err": a, "max_rel_err": r_}
+             for k, (a, r_) in errs.items()}
+    return results, notes
+
+
 def segment_sum_phase(torch, g, seed):
     """The two kernels of the ``pallas`` aggregation backend at the first
     train batch: ``segment_sum_pallas`` on SchNet's edge messages (x[s] *
@@ -1699,13 +1967,16 @@ def double_backward_phase(torch, g, seed):
     derivative within 1e-5 of its largest entry.  And the Functions whose
     backward runs non-differentiable kernels (``scf_edge_pipeline``,
     ``egcl_block``, ``gat_edge_attention``, ``cgcnn_gated_block``) raise
-    under a double backward on the card."""
+    under a double backward on the card, and so do ``dimenet_triplet_mp``
+    and ``dimenet_post_mlp``."""
     import numpy as np
 
     from hydragnn_torch.ops import cgcnn_mp as cg
+    from hydragnn_torch.ops import dn_tri as dt
     from hydragnn_torch.ops import egcl_mp as ec
     from hydragnn_torch.ops import fused_mp as fm
     from hydragnn_torch.ops import gat_mp as gm
+    from hydragnn_torch.ops import row_mlp as rm
     from hydragnn_torch.ops import scf_mp as sm
 
     dev = g.x.device
@@ -1760,6 +2031,9 @@ def double_backward_phase(torch, g, seed):
         return (arr(*shape, scale=scale)).to(dev)
 
     h = 48
+    # a one-triplet-per-edge table over n rows and the chain's 8 layers
+    ids = torch.arange(n, dtype=torch.int32, device=dev)
+    chain = [t(f, f), None] + [p_ for _ in range(7) for p_ in (t(f, f), t(f))]
     raising = {
         "scf_edge_pipeline": lambda x_: sm.scf_edge_pipeline(
             x_, t(e, GAUSSIANS), mask, em, t(GAUSSIANS, WIDE), t(WIDE),
@@ -1774,6 +2048,11 @@ def double_backward_phase(torch, g, seed):
         "cgcnn_gated_block": lambda x_: cg.cgcnn_gated_block(
             x_, None, em, t(2 * f, f), t(f), t(2 * f, f), t(f), send, recv,
             perm),
+        "dimenet_triplet_mp": lambda x_: dt.dimenet_triplet_mp(
+            t(n, 42).abs(), x_, t(n, 7), t(42, 8), t(8, f), ids, ids,
+            torch.ones_like(ids), ids, 6),
+        "dimenet_post_mlp": lambda x_: rm.dimenet_post_mlp(
+            x_, t(n, f), t(n, f), 1, 2, *chain),
     }
     for name, fn in raising.items():
         xs = t(n, WIDE if name == "scf_edge_pipeline" else f
@@ -1810,16 +2089,19 @@ def train_phase(torch, hydragnn_torch, config, logs, seed, cap=None,
     from hydragnn_torch.ops import (
         aggregate,
         cgcnn_mp,
+        dn_tri,
         egcl_mp,
         fused_mp,
         gat_mp,
         poly_mp,
+        row_mlp,
         scf_mp,
     )
     from hydragnn_torch.telemetry import pipeline
     from hydragnn_torch.train import trainer
 
-    mods = (fused_mp, scf_mp, poly_mp, egcl_mp, gat_mp, cgcnn_mp, aggregate)
+    mods = (fused_mp, scf_mp, poly_mp, egcl_mp, gat_mp, cgcnn_mp, aggregate,
+            dn_tri, row_mlp)
 
     def counts():
         return {k: v for m in mods for k, v in m.LAUNCHES.items()}
@@ -2249,6 +2531,17 @@ def main():
         first_cgcnn = next(iter(cgcnn_loaders[0])).to(dev)
         check(first_cgcnn.x.shape[1] == FEATURES,
               f"the cgcnn batch has {first_cgcnn.x.shape[1]} node features")
+        dn_cfg = dimenet_config()
+        write_dimenet_data(args.seed)
+        dn_loaders = dataset_loading_and_splitting(
+            copy.deepcopy(dn_cfg), seed=args.seed)
+        dn_loaders[0].set_epoch(0)
+        first_dn = next(iter(dn_loaders[0])).to(dev)
+        check("dn_tri_ok" in first_dn.extras,
+              "the dimenet set's first batch carries no dn_tri_ok marker: "
+              "the factored-basis kernel would not run")
+        dn_model_cfg = ModelConfig.from_config(dn_loaders[3])
+        dn_real = first_dn.edge_mask != 0
         emit({"phase": "setup", "seconds": time.perf_counter() - t0,
               "data_loading_s": load_s,
               "test_batches": n_batches, "test_graphs": n_test,
@@ -2267,7 +2560,20 @@ def main():
                   "nodes": first_cgcnn.num_nodes,
                   "edges": first_cgcnn.num_edges,
                   "real_edges": int(first_cgcnn.edge_mask.sum()),
-                  "node_features": first_cgcnn.x.shape[1]}})
+                  "node_features": first_cgcnn.x.shape[1]},
+              "dimenet_set": {
+                  "train_batches": len(dn_loaders[0]),
+                  "train_graphs": len(dn_loaders[0].samples),
+                  "max_edges_per_graph": max(
+                      s_.num_edges for s_ in dn_loaders[0].samples)},
+              "first_dimenet_train_batch": {
+                  "nodes": first_dn.num_nodes,
+                  "real_nodes": int(first_dn.node_mask.sum()),
+                  "edges": first_dn.num_edges,
+                  "real_edges": int(dn_real.sum()),
+                  "triplets": int(first_dn.extras["dn_idx_kj"].shape[0]),
+                  "real_triplets": int(
+                      first_dn.extras["dn_triplet_mask"].sum())}})
 
         # -- 3. kernels against their plain versions, at the first train
         #       batch of the main path
@@ -2282,12 +2588,14 @@ def main():
                                                  args.seed)
         seg_kernels, seg_notes = segment_sum_phase(torch, first_train,
                                                    args.seed)
+        dn_kernels, dn_notes = dimenet_phase(torch, first_dn, args.seed,
+                                             dn_model_cfg)
         kernels += (scf_kernels + poly_kernels + egcl_kernels + gat_kernels
-                    + cgcnn_kernels + seg_kernels)
+                    + cgcnn_kernels + seg_kernels + dn_kernels)
         emit({"phase": "kernel_checks", "seconds": time.perf_counter() - t0,
               **notes, "scf": scf_notes, "poly": poly_notes,
               "egcl": egcl_notes, "gat": gat_notes, "cgcnn": cgcnn_notes,
-              "segment_sum": seg_notes})
+              "segment_sum": seg_notes, "dimenet": dn_notes})
 
         # -- 3b. a double backward through the linear Functions, card vs
         #        CPU, and the refusal of the others
@@ -2698,6 +3006,65 @@ def main():
               "wall_s_cuda": wall_card, "wall_s_cpu": wall_cpu,
               "launches": s_launches, "launches_split": ssplit,
               "dispatch": dispatch})
+
+        # -- 13. DimeNet at the arch sweep's widths, in full on the card;
+        #        card against CPU in free runs, capped
+        t_phase = time.perf_counter()
+        dlogs = os.path.join(logs, "dimenet")
+        card, _, dn_launches, dsplit, dispatch, wall_card, _ = train_phase(
+            torch, hydragnn_torch, dn_cfg, dlogs, args.seed, cpu_run=False)
+        dsteps, devals, dn_per, _ = check_training(
+            "dimenet training", card, None, dn_launches, dsplit, dispatch,
+            dn_loaders, None, "dimenet")
+        for op in ("dn_tri", "dn_row_mlp"):
+            check(dispatch.get(f"{op}:fused", 0) > 0
+                  and f"{op}:scatter" not in dispatch,
+                  f"dimenet: a {op} dispatch left the kernels: {dispatch}")
+        dcfg = ModelConfig.from_config(card[2])
+        dn_loaders[0].set_epoch(0)
+        d3 = [b.to(dev) for _, b in zip(range(REPEAT_STEPS), dn_loaders[0])]
+        n_dparams = repeat_bits(torch, dcfg, d3, args.seed, dev)
+        dsteady = steady_epoch(torch, dcfg, dn_loaders[0], args.seed, dev)
+        t0 = time.perf_counter()
+        vcard, vcpu, v_launches, vsplit, vdispatch, _, wall_vcpu = \
+            train_phase(torch, hydragnn_torch,
+                        dimenet_config(epochs=WIDE_EPOCHS),
+                        os.path.join(logs, "dimenet_vs_cpu"), args.seed,
+                        cap=DIMENET_CAP)
+        _, _, _, dloss_rel = check_training(
+            "dimenet vs CPU", vcard, vcpu, v_launches, vsplit, vdispatch,
+            dn_loaders, DIMENET_CAP, "dimenet")
+        vs_cpu_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        down = own_checkpoint_prediction(
+            torch, hydragnn_torch, dn_cfg, os.path.join(dlogs, "cuda"),
+            args.seed, "dimenet")
+        down_s = time.perf_counter() - t0
+        hist = card[1]
+        emit({"phase": "dimenet_training",
+              "seconds": time.perf_counter() - t_phase,
+              "entry": "hydragnn_torch.run_training", "backend": "fused",
+              "hidden_dim": dcfg.hidden_dim, "num_radial": dcfg.num_radial,
+              "num_spherical": dcfg.num_spherical,
+              "int_emb_size": dcfg.int_emb_size,
+              "epochs": len(hist["train"]), "train_steps": dsteps,
+              "eval_batches": devals, "train_loss": hist["train"],
+              "val_loss": hist["val"], "test_loss": hist["test"],
+              "lr": hist["lr"], "wall_s_cuda": wall_card,
+              "epoch_time_s_cuda": hist["epoch_time"],
+              "bit_identical_repeat": {"steps": REPEAT_STEPS,
+                                       "parameters": n_dparams},
+              "steady_train_epoch_cuda": dsteady,
+              "vs_cpu": {"batches_per_pass": DIMENET_CAP,
+                         "epochs": len(vcard[1]["train"]),
+                         "train_loss": vcard[1]["train"],
+                         "train_loss_cpu": vcpu[1]["train"],
+                         "loss_max_rel_err_vs_cpu": dloss_rel,
+                         "wall_s_cpu": wall_vcpu, "seconds": vs_cpu_s},
+              "prediction_from_own_checkpoint": down,
+              "prediction_s": down_s,
+              "launches": dn_launches, "launches_split": dsplit,
+              "dispatch": dispatch})
         os.chdir(ROOT)
 
     # launches of the main path's card runs, split between train steps and
@@ -2718,6 +3085,8 @@ def main():
             path, (n_by, per_by) = "gat", gat["gat"]
         elif k["name"].startswith("cgcnn_"):
             path, n_by, per_by = "cgcnn", c_launches, c_per
+        elif k["name"].startswith("dimenet_"):
+            path, n_by, per_by = "dimenet", dn_launches, dn_per
         elif k["name"] in ("segment_sum_pallas",) + OFF_PATH:
             path, n_by, per_by = "pallas", s_launches, s_per
         else:

@@ -107,9 +107,27 @@ def dataset_loading_and_splitting(
     head_specs = head_specs_from_config(config)
     gslices, nslices = label_slices_from_config(config)
     batch_size = int(config["NeuralNetwork"]["Training"]["batch_size"])
+    # DimeNet reads a padded triplet table per batch, sized from the
+    # worst sample, and one fused-triplet gate decided from the dataset's
+    # largest graph, so every batch of the run carries the same extras
+    post_collate = None
     if config["NeuralNetwork"]["Architecture"]["model_type"] == "DimeNet":
-        raise NotImplementedError(
-            "DimeNet's triplet tables are not ported yet — ROADMAP queue A4")
+        from hydragnn_torch.models.dimenet import (
+            DnTriGate,
+            add_dimenet_extras,
+            count_triplets,
+        )
+
+        max_per_sample = 1
+        for s in trainset + valset + testset:
+            if s.num_edges:
+                max_per_sample = max(
+                    max_per_sample, count_triplets(s.edge_index, s.num_nodes))
+        max_triplets = -(-(batch_size * max_per_sample + 1) // 8) * 8
+        tri_gate = DnTriGate(max_edges_per_graph=stats.max_edges)
+
+        def post_collate(b):
+            return add_dimenet_extras(b, max_triplets, tri_gate=tri_gate)
 
     train_l, val_l, test_l = create_dataloaders(
         trainset,
@@ -120,5 +138,6 @@ def dataset_loading_and_splitting(
         graph_feature_slices=gslices,
         node_feature_slices=nslices,
         seed=seed,
+        post_collate=post_collate,
     )
     return train_l, val_l, test_l, config

@@ -2,10 +2,9 @@
 
 Port of hydragnn_tpu/graph/segment.py (the sum/mean/max/min/std/count
 family, the segment softmax, the kernel dispatch points, the multi-moment
-dispatchers, the dense-backward gathers and the pools; ``gather_perm``
-comes with DimeNet).  Message passing is a gather
-(``x[senders]``) plus a segment reduce at ``receivers``; every op takes an
-optional mask (1.0 = valid) so padded rows contribute nothing.
+dispatchers, the dense-backward gathers and the pools).  Message passing
+is a gather (``x[senders]``) plus a segment reduce at ``receivers``; every
+op takes an optional mask (1.0 = valid) so padded rows contribute nothing.
 
 The dispatch points are the reference's: ``gather_mul_segment``,
 ``gather_segment``, ``sorted_segment_sum``, ``scatter_segment`` and
@@ -394,10 +393,21 @@ class _GatherDenseBwd(torch.autograd.Function):
         g2 = grad.reshape(grad.shape[0], -1)
         if perm is not None:
             p = perm.long()
-            g2, idx, valid = g2[p], idx[p], valid[p]
+            g2, idx = g2[p], idx[p]
+            valid = None if valid is None else valid[p]
         out = segment_sum_dense(g2.contiguous(), idx, ctx.shape[0],
                                 valid=valid)
         return out.reshape(ctx.shape), None, None, None
+
+
+def gather_perm(x, idx, perm, valid=None):
+    """``x[idx]`` for an arbitrary index vector whose backward is the
+    sorted-segment kernel through ``perm``, the stable argsort of ``idx``
+    (DimeNet's triplet-side ``idx_kj`` gathers).  The zero-cotangent
+    requirement of the other dense-backward gathers holds; ``valid`` (the
+    triplet mask, its zero rows last in ``perm`` order) leaves the padding
+    rows out of the backward's sum."""
+    return _GatherDenseBwd.apply(x, idx, perm, valid)
 
 
 def gather_receiver_sorted(x, g):

@@ -72,6 +72,22 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         # f, d, a
         "hg_cgcnn_wgrad_size": (_I,) * 3,
     },
+    "dn_tri": {
+        # mode, radial, x2, cbf, w1, w2, kj, ji, perm, row_ptr, gout, out,
+        # d_radial, d_x2, d_cbf, partial, wgrad, n_rows, s, r, b, d,
+        # n_parts, stream
+        "hg_dn_tri_f32": (_I,) + (_P,) * 16 + (_I,) * 6 + (_P,),
+        # sr, b, d
+        "hg_dn_tri_wgrad_size": (_I,) * 3,
+    },
+    "row_mlp": {
+        # mode, tri, xji, xe, w, bias, gout, out, dtri, dxji, dxe, partial,
+        # wgrad, n_rows, din, h, nb, na, n_parts, stream
+        "hg_row_mlp_f32": (_I,) + (_P,) * 12 + (_I,) * 6 + (_P,),
+        # din, h, nb, na
+        "hg_row_mlp_wgrad_size": (_I,) * 4,
+        "hg_row_mlp_bwd_rows": (_I,) * 4,
+    },
     "poly_mp": {
         # src, senders, mask, row_ptr, o_sum, o_sq, o_mxmn, o_cnt,
         # n_rows, n_src, f, gather, stream

@@ -1,7 +1,6 @@
 """Model factory (port of hydragnn_tpu/models/create.py).
 
-SchNet, GIN, SAGE, MFC, PNA, EGNN, GAT and CGCNN are ported; DimeNet
-raises until its slice lands (ROADMAP queue A4).  Parameters are
+All nine architectures of the reference are ported.  Parameters are
 initialised from an explicit ``torch.Generator`` seeded with ``seed``.
 """
 
@@ -14,6 +13,7 @@ import torch.nn as nn
 
 from hydragnn_torch.models.base import Base, ModelConfig
 from hydragnn_torch.models.cgcnn import CGCNNStack
+from hydragnn_torch.models.dimenet import DIMEStack
 from hydragnn_torch.models.egnn import EGCLStack
 from hydragnn_torch.models.gat import GATStack
 from hydragnn_torch.models.gin import GINStack
@@ -24,7 +24,7 @@ from hydragnn_torch.models.schnet import SCFStack
 
 _STACKS = {"SAGE": SAGEStack, "GIN": GINStack, "MFC": MFCStack,
            "PNA": PNAStack, "SchNet": SCFStack, "EGNN": EGCLStack,
-           "GAT": GATStack, "CGCNN": CGCNNStack}
+           "GAT": GATStack, "CGCNN": CGCNNStack, "DimeNet": DIMEStack}
 
 # the reference's architecture list (models/create.py ALL_ARCHS)
 ALL_ARCHS = ("SAGE", "GIN", "GAT", "MFC", "PNA", "CGCNN", "SchNet",
@@ -35,10 +35,6 @@ def create_model(cfg: ModelConfig, seed: int = 0) -> Base:
     """Build and initialise the module on the CPU (move it with ``.to``)."""
     if cfg.model_type not in ALL_ARCHS:
         raise ValueError(f"Unknown model_type: {cfg.model_type}")
-    if cfg.model_type not in _STACKS:
-        raise NotImplementedError(
-            f"model_type {cfg.model_type!r} is not ported yet (ROADMAP "
-            f"queue A4, DimeNet); the port has {', '.join(_STACKS)}")
     if (cfg.model_type == "CGCNN" and cfg.node_head is not None
             and cfg.node_head.type == "conv" and "node" in cfg.output_type):
         raise ValueError(
@@ -59,6 +55,12 @@ def create_model(cfg: ModelConfig, seed: int = 0) -> Base:
         raise ValueError("PNA requires degree input.")
     if cfg.model_type == "MFC" and cfg.max_degree is None:
         raise ValueError("MFC requires max_neighbours input.")
+    if cfg.model_type == "DimeNet":
+        for key in ("basis_emb_size", "envelope_exponent", "int_emb_size",
+                    "out_emb_size", "num_after_skip", "num_before_skip",
+                    "num_radial", "num_spherical", "radius"):
+            if getattr(cfg, key) is None:
+                raise ValueError(f"DimeNet requires {key} input.")
     if cfg.compute_dtype != "float32":
         raise NotImplementedError(
             "mixed precision (compute_dtype bfloat16) is not ported yet — "

@@ -1,0 +1,281 @@
+"""DimeNet++'s factored-basis triplet interaction (port of
+hydragnn_tpu/ops/dn_tri.py ``dimenet_triplet_mp``).
+
+  sbf_t  = radial[kj(t)] * expand(cbf[t])          expand: slot l*R + r <- l
+  out[e] = sum_{t: ji(t)=e, tmask(t)} x2[kj(t)] * ((sbf_t @ w1) @ w2)
+
+``radial [E, S*R]`` is the edge-space part of the spherical basis, ``cbf
+[T, S]`` the triplet-space part (models/dimenet.py
+``spherical_basis_factors``); ``x2 [E, D]`` the down-projected edge
+features; ``w1 [S*R, B]``, ``w2 [B, D]`` the ``lin_sbf1``/``lin_sbf2``
+kernels.  Limits (the reference's gate): S <= 8, S*R <= 64, B <= 64,
+D <= 64.
+
+Two kernels, hand-written in CUDA C++ for Hopper (csrc/dn_tri.cu, built by
+kernels/build.py), neither of which writes a ``[T, D]`` or ``[T, S*R]``
+tensor to device memory:
+
+- forward (the reference's ``_tri_fwd``): output rows in ``idx_ji`` order
+  (one CSR range per row), recompute sbf, emb per triplet, sum
+  ``x2[kj] * emb`` into the row;
+- backward (``_tri_vjp_bwd``): one pass in ``idx_kj`` order through
+  ``perm_kj``: each row k owns ``d_x2[k]`` and ``d_radial[k]``, ``d_cbf``
+  goes to each triplet's own slot, ``dw1``/``dw2`` sum into per-block
+  partials reduced in a fixed order.
+
+The backward written out (:func:`dimenet_triplet_bwd_plain`), with
+``g = dout[ji]``:
+
+  d_emb2 = g * x2[kj];        d_x2[kj]     += g * emb2
+  d_emb1 = d_emb2 @ w2^T;     d_sbf         = d_emb1 @ w1^T
+  dw2    = emb1^T d_emb2;     dw1           = sbf^T d_emb1
+  d_radial[kj] += d_sbf * expand(cbf);  d_cbf[t, l] = sum_r (d_sbf *
+  radial[kj])[l*R + r]
+
+Masked triplets (``tmask == 0``) sort last in both orders
+(add_dimenet_extras guarantees it); they are never visited and get exactly
+zero in every output and gradient (``d_cbf`` included).
+
+A CPU tensor takes the plain PyTorch versions (the CPU path and the tests'
+oracle), a CUDA tensor the kernels; a CUDA input the kernels do not take
+raises.  ``LAUNCHES`` counts the kernels' launches.  The op is
+differentiable once: a double backward raises (the force term, ROADMAP
+queue A3).
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from hydragnn_torch.ops.aggregate import segment_offsets
+from hydragnn_torch.ops.egcl_mp import _ptr
+from hydragnn_torch.ops.fused_mp import _check_rc, _require
+
+# the reference's gate for the factored kernel (models/dimenet.py:655-658)
+TRI_S_LIMIT = 8
+TRI_SR_LIMIT = 64
+TRI_EMB_LIMIT = 64
+
+LAUNCHES: Dict[str, int] = {"dimenet_triplet_mp": 0,
+                            "dimenet_triplet_mp_bwd": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+def _valid(tmask, idx_kj, idx_ji, e):
+    ok = ((tmask != 0) & (idx_kj >= 0) & (idx_kj < e) & (idx_ji >= 0)
+          & (idx_ji < e))
+    return (ok, idx_kj.clamp(0, max(e - 1, 0)).long(),
+            idx_ji.clamp(0, max(e - 1, 0)).long())
+
+
+def _expand(cbf, num_radial):
+    return cbf.repeat_interleave(num_radial, dim=1)
+
+
+def dimenet_triplet_reference(radial, x2, cbf, w1, w2, idx_kj, idx_ji,
+                              tmask, num_radial):
+    """The composed triplet contraction: gathers, the sbf product, the two
+    matmuls, ``index_add`` at ``idx_ji``.  Differentiable under autograd
+    in every float input; masked triplets give exactly zero for every
+    output and gradient.  The forward kernel's plain version."""
+    e, d = x2.shape
+    ok, kj, ji = _valid(tmask, idx_kj, idx_ji, e)
+    sbf = radial[kj] * _expand(cbf, num_radial)
+    msg = x2[kj] * ((sbf @ w1) @ w2)
+    msg = torch.where(ok[:, None], msg,
+                      torch.zeros((), dtype=msg.dtype, device=msg.device))
+    return torch.zeros((e, d), dtype=msg.dtype, device=x2.device).index_add(
+        0, ji, msg)
+
+
+def dimenet_triplet_bwd_plain(radial, x2, cbf, w1, w2, idx_kj, idx_ji, tmask,
+                              dout, num_radial):
+    """The backward written out: ``(d_radial, d_x2, d_cbf, dw1, dw2)``,
+    exactly zero on masked triplets.  The backward kernel's plain
+    version."""
+    e, d = x2.shape
+    t, s = cbf.shape
+    ok, kj, ji = _valid(tmask, idx_kj, idx_ji, e)
+    zero = torch.zeros((), dtype=x2.dtype, device=x2.device)
+    ce = _expand(cbf, num_radial)
+    rad = radial[kj]
+    sbf = rad * ce
+    emb1 = sbf @ w1
+    emb2 = emb1 @ w2
+    g = torch.where(ok[:, None], dout[ji], zero)
+    d_emb2 = g * x2[kj]
+    d_emb1 = d_emb2 @ w2.t()
+    d_sbf = d_emb1 @ w1.t()
+    d_cbf = (d_sbf * rad).reshape(t, s, num_radial).sum(-1)
+    d_cbf = torch.where(ok[:, None], d_cbf, zero)
+    d_radial = torch.zeros_like(radial).index_add(0, kj, d_sbf * ce)
+    d_x2 = torch.zeros_like(x2).index_add(0, kj, g * emb2)
+    return d_radial, d_x2, d_cbf, sbf.t() @ d_emb1, emb1.t() @ d_emb2
+
+
+# ---------------------------------------------------------------------------
+# kernel launches (CUDA tensors only)
+# ---------------------------------------------------------------------------
+
+def check_widths(s, sr, b, d):
+    if not (1 <= s <= TRI_S_LIMIT and s <= sr <= TRI_SR_LIMIT and sr % s == 0
+            and 1 <= b <= TRI_EMB_LIMIT and 1 <= d <= TRI_EMB_LIMIT):
+        raise ValueError(
+            f"the dn_tri kernels take S <= {TRI_S_LIMIT}, S*R <= "
+            f"{TRI_SR_LIMIT}, B <= {TRI_EMB_LIMIT} and D <= {TRI_EMB_LIMIT}, "
+            f"got S={s}, S*R={sr}, B={b}, D={d}")
+
+
+def launch_dn_tri(op, radial, x2, cbf, w1, w2, idx_kj, idx_ji, perm,
+                  row_ptr, num_radial, gout=None, want=(True,) * 4):
+    """One launch of the dn_tri kernel on a precomputed CSR schedule
+    ``row_ptr`` over positions: ``idx_ji`` order (``perm`` None) for the
+    forward ``dimenet_triplet_mp``, ``idx_kj`` order through ``perm`` for
+    the backward ``dimenet_triplet_mp_bwd``.  The forward returns ``out
+    [E, D]``; the backward ``(d_radial, d_x2, d_cbf, dw1, dw2)``, each None
+    where ``want`` (radial, x2, cbf, weights) says so."""
+    from hydragnn_torch.kernels.build import load_library
+
+    dev = x2.device
+    e, d = x2.shape
+    t, s = cbf.shape
+    sr, b = w1.shape
+    check_widths(s, sr, b, d)
+    if sr != s * num_radial:
+        raise ValueError(f"radial has {sr} lanes, expected S*R = "
+                         f"{s}*{num_radial}")
+    _require(radial, "radial", torch.float32, (e, sr), dev)
+    _require(x2, "x2", torch.float32, (e, d), dev)
+    _require(cbf, "cbf", torch.float32, (t, s), dev)
+    _require(w1, "w1", torch.float32, (sr, b), dev)
+    _require(w2, "w2", torch.float32, (b, d), dev)
+    _require(idx_kj, "idx_kj", torch.int32, (t,), dev)
+    _require(idx_ji, "idx_ji", torch.int32, (t,), dev)
+    if perm is not None:
+        _require(perm, "perm_kj", torch.int32, (t,), dev)
+    _require(row_ptr, "row_ptr", torch.int32, (e + 1,), dev)
+    if e >= 2**31 or t >= 2**31:
+        raise ValueError("the kernel indexes edges and triplets with int32")
+    lib = load_library("dn_tri")
+    fwd = op == "dimenet_triplet_mp"
+    out = d_rad = d_x2 = d_cbf = partial = wgrad = None
+    n_parts = 0
+    if fwd:
+        out = torch.empty((e, d), dtype=torch.float32, device=dev)
+    else:
+        _require(gout, "dout", torch.float32, (e, d), dev)
+        if want[0]:
+            d_rad = torch.empty((e, sr), dtype=torch.float32, device=dev)
+        if want[1]:
+            d_x2 = torch.empty((e, d), dtype=torch.float32, device=dev)
+        if want[2]:
+            d_cbf = torch.zeros((t, s), dtype=torch.float32, device=dev)
+        if want[3]:
+            size = lib.hg_dn_tri_wgrad_size(sr, b, d)
+            # four partials per SM (3.5 KB each at S*R = 42, B = 8, D =
+            # 64): one block per SM would leave the card latency-bound
+            n_parts = 4 * torch.cuda.get_device_properties(
+                dev).multi_processor_count
+            partial = torch.empty((n_parts, size), dtype=torch.float32,
+                                  device=dev)
+            wgrad = torch.empty((size,), dtype=torch.float32, device=dev)
+    if e > 0:
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = lib.hg_dn_tri_f32(
+                0 if fwd else 1, radial.data_ptr(), x2.data_ptr(),
+                cbf.data_ptr(), w1.data_ptr(), w2.data_ptr(),
+                idx_kj.data_ptr(), idx_ji.data_ptr(), _ptr(perm),
+                row_ptr.data_ptr(), _ptr(gout), _ptr(out), _ptr(d_rad),
+                _ptr(d_x2), _ptr(d_cbf), _ptr(partial), _ptr(wgrad), e, s,
+                num_radial, b, d, n_parts, stream)
+        _check_rc(rc, op)
+        LAUNCHES[op] += 1
+    elif wgrad is not None:
+        wgrad.zero_()
+    if fwd:
+        return out
+    dw1 = dw2 = None
+    if wgrad is not None:
+        dw1 = wgrad[:sr * b].view(sr, b)
+        dw2 = wgrad[sr * b:sr * b + b * d].view(b, d)
+    return d_rad, d_x2, d_cbf, dw1, dw2
+
+
+# ---------------------------------------------------------------------------
+# the op: the kernels on a CUDA tensor, the plain versions on a CPU tensor
+# ---------------------------------------------------------------------------
+
+class _DimenetTriplet(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, radial, x2, cbf, w1, w2, idx_kj, idx_ji, tmask, perm_kj,
+                num_radial):
+        ctx.num_radial = num_radial
+        ctx.save_for_backward(radial, x2, cbf, w1, w2, idx_kj, idx_ji, tmask,
+                              perm_kj)
+        if not x2.is_cuda:
+            return dimenet_triplet_reference(radial, x2, cbf, w1, w2, idx_kj,
+                                             idx_ji, tmask, num_radial)
+        e = x2.shape[0]
+        return launch_dn_tri(
+            "dimenet_triplet_mp", radial.contiguous(), x2.contiguous(),
+            cbf.contiguous(), w1.contiguous(), w2.contiguous(), idx_kj,
+            idx_ji, None, segment_offsets(idx_ji, e, tmask), num_radial)
+
+    @staticmethod
+    def backward(ctx, dout):
+        if torch.is_grad_enabled():
+            raise RuntimeError(
+                "dimenet_triplet_mp is not differentiable twice: its "
+                "backward runs a hand-written kernel; the double backward "
+                "of the energy-gradient force term comes with ROADMAP queue "
+                "A3")
+        (radial, x2, cbf, w1, w2, idx_kj, idx_ji, tmask,
+         perm_kj) = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        r = ctx.num_radial
+        dout = dout.contiguous()
+        if not x2.is_cuda:
+            grads = dimenet_triplet_bwd_plain(radial, x2, cbf, w1, w2, idx_kj,
+                                              idx_ji, tmask, dout, r)
+        else:
+            e = x2.shape[0]
+            if perm_kj is None:
+                perm_kj = torch.argsort(idx_kj, stable=True).to(torch.int32)
+            p = perm_kj.long()
+            grads = launch_dn_tri(
+                "dimenet_triplet_mp_bwd", radial.contiguous(),
+                x2.contiguous(), cbf.contiguous(), w1.contiguous(),
+                w2.contiguous(), idx_kj, idx_ji, perm_kj,
+                segment_offsets(idx_kj[p], e, tmask[p]), r, dout,
+                want=(need[0], need[1], need[2], need[3] or need[4]))
+        out = [None] * 10
+        for i, (g, like) in enumerate(zip(grads, (radial, x2, cbf, w1, w2))):
+            if need[i]:
+                out[i] = g.reshape(like.shape).to(like.dtype)
+        return tuple(out)
+
+
+def dimenet_triplet_mp(radial, x2, cbf, w1, w2, idx_kj, idx_ji, tmask,
+                       perm_kj, num_radial):
+    """The factored-basis triplet contraction — the reference's signature
+    and contract (hydragnn_tpu/ops/dn_tri.py:dimenet_triplet_mp).
+
+    ``out[e] = sum_{t: idx_ji[t]=e} x2[idx_kj[t]] * ((radial[idx_kj[t]] *
+    expand(cbf[t])) @ w1 @ w2)``.  ``tmask``: int, 1 = real triplet;
+    ``perm_kj``: the stable argsort of ``idx_kj``; ``num_radial``: R.
+    Differentiable once wrt radial, x2, cbf, w1 and w2.  Requires
+    nondecreasing ``idx_ji`` with masked triplets last in both orders and
+    the widths of :func:`check_widths` on the card (callers gate)."""
+    return _DimenetTriplet.apply(radial, x2, cbf, w1, w2, idx_kj, idx_ji,
+                                 tmask, perm_kj, num_radial)

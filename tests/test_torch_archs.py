@@ -13,8 +13,8 @@ conv-type node head at ``tests/inputs/ci_conv_head.json``'s shape and the
 PNA multihead of ``ci_multihead.json``; ``train_validate_test`` from one
 init for PNA (per-epoch losses 1e-4, identical decisions); a PNA ``.pk``
 written by each package read by both ``run_prediction``s; the weight round
-trip through ``tools/port_weights.port_state_dict``; and the four
-architectures that are not ported yet, which raise.
+trip through ``tools/port_weights.port_state_dict``; and the last two
+architectures to be ported, which build.
 """
 
 import copy
@@ -244,15 +244,17 @@ def test_mfc_bank_init_uses_the_stacked_fan_in():
 
 @pytest.mark.parametrize("model_type", ["CGCNN", "DimeNet"])
 def test_unported_archs_raise(model_type):
-    """Of queue A4's two architectures only DimeNet is still unported and
-    raises; CGCNN builds (tests/test_torch_cgcnn.py holds it to JAX)."""
+    """Queue A4's two architectures, the last to be ported, now build:
+    CGCNN (tests/test_torch_cgcnn.py holds it to JAX) and DimeNet
+    (tests/test_torch_dimenet.py), which needs its own keys."""
     _, tc = _cfgs("GIN")
     tc = dataclasses.replace(tc, model_type=model_type)
-    if model_type == "CGCNN":
-        assert t_create_model(tc).cfg.model_type == "CGCNN"
-        return
-    with pytest.raises(NotImplementedError, match="A4"):
-        t_create_model(tc)
+    if model_type == "DimeNet":
+        tc = dataclasses.replace(
+            tc, radius=1.6, envelope_exponent=5, num_before_skip=1,
+            num_after_skip=2, num_radial=6, num_spherical=7,
+            basis_emb_size=8, int_emb_size=16, out_emb_size=16)
+    assert t_create_model(tc).cfg.model_type == model_type
 
 
 def test_create_refuses_what_the_reference_asserts():

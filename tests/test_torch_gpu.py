@@ -20,8 +20,10 @@ EGNN training steps at md17's widths, the three GAT kernels at H*F from 32
 to the kernel limit of 1024, with and without dropout bits, three GAT
 training steps in lockstep, the three cgcnn kernels at F from 1 to the
 limit of 256 with and without edge attributes, three CGCNN training
-steps in lockstep at F = 64, the pallas backend's two segment sums, and a
-double backward through the linear Functions, card against CPU.
+steps in lockstep at F = 64, the pallas backend's two segment sums, a
+double backward through the linear Functions, card against CPU, the
+dn_tri and row_mlp kernels at every width their gates admit, and three
+DimeNet training steps in lockstep at the arch sweep's widths.
 """
 
 import numpy as np
@@ -1034,3 +1036,241 @@ def test_cgcnn_train_steps_on_card_match_cpu(cuda, monkeypatch):
         "gather_segment_sum": 0, "gather_segment_sum_dx": 0,
         "segment_sum_dense": 3, "cgcnn_block": 12,
         "cgcnn_block_pass_p": 12, "cgcnn_block_pass_s": 9}
+
+
+def _dimenet_tables(n_edges, n_tri, s, seed):
+    """A triplet table as add_dimenet_extras lays it out: idx_ji
+    nondecreasing, a masked tail parked on the last edge, the stable
+    argsort of idx_kj."""
+    rng = np.random.RandomState(seed)
+    real = n_tri - n_tri // 5
+    ji = np.sort(rng.randint(0, n_edges - 1, real))
+    kj = rng.randint(0, n_edges - 1, real)
+    pad = np.full(n_tri - real, n_edges - 1)
+    idx_ji = np.concatenate([ji, pad]).astype(np.int32)
+    idx_kj = np.concatenate([kj, pad]).astype(np.int32)
+    tmask = (np.arange(n_tri) < real).astype(np.int32)
+    perm = np.argsort(idx_kj, kind="stable").astype(np.int32)
+    return idx_kj, idx_ji, tmask, perm
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("all_masked", [False, True],
+                         ids=["masked-tail", "all-masked"])
+@pytest.mark.parametrize("s,r,b,d", [(7, 6, 8, 64), (7, 3, 8, 16),
+                                     (8, 8, 64, 64), (1, 1, 1, 1)])
+def test_dn_tri_kernels_match_plain_on_card(cuda, s, r, b, d, all_masked):
+    """The dn_tri forward and backward through the autograd Function
+    against autograd through the composed plain version: the arch sweep's
+    widths (S = 7, R = 6, B = 8, D = 64), the JAX test's (7, 3, 8, 16), the
+    limits (8, 8, 64, 64) and one lane each.  Forward, d radial, d x2 and
+    d cbf 1e-5 of their largest entry, the triplet-summed dW1, dW2 1e-4;
+    d cbf exactly zero on masked triplets; a second run bit-identical."""
+    from hydragnn_torch.ops import dn_tri
+
+    e, t = 700, 6000
+    kj, ji, tm, perm = (_t(a).to(cuda) for a in
+                        _dimenet_tables(e, t, s, 5 + s + b))
+    if all_masked:
+        tm = torch.zeros_like(tm)
+    g = torch.Generator().manual_seed(3)
+    ins = [torch.rand(e, s * r, generator=g),
+           torch.randn(e, d, generator=g),
+           torch.randn(t, s, generator=g) * 0.5,
+           torch.randn(s * r, b, generator=g) / (s * r) ** 0.5,
+           torch.randn(b, d, generator=g) / b ** 0.5]
+    ins = [x.to(cuda) for x in ins]
+    ct = torch.randn(e, d, generator=g).to(cuda)
+
+    def run(fn):
+        ts = [x.detach().clone().requires_grad_(True) for x in ins]
+        out = fn(*ts)
+        (out * ct).sum().backward()
+        torch.cuda.synchronize()
+        return [out.detach()] + [x.grad for x in ts]
+
+    dn_tri.reset_launches()
+    k = run(lambda *a: dn_tri.dimenet_triplet_mp(*a, kj, ji, tm, perm, r))
+    assert dn_tri.LAUNCHES == {"dimenet_triplet_mp": 1,
+                               "dimenet_triplet_mp_bwd": 1}
+    again = run(lambda *a: dn_tri.dimenet_triplet_mp(*a, kj, ji, tm, perm,
+                                                     r))
+    for x_, y_ in zip(k, again):
+        assert torch.equal(x_, y_)
+    p = run(lambda *a: dn_tri.dimenet_triplet_reference(*a, kj, ji, tm, r))
+    assert bool((k[3][tm == 0] == 0).all())
+    for name, x_, y_ in zip(("out", "radial", "x2", "cbf", "w1", "w2"), k,
+                            p):
+        if all_masked:
+            assert float(x_.abs().max()) == 0, name
+            continue
+        rel = 1e-5 if name in ("out", "radial", "x2", "cbf") else 1e-4
+        assert float((x_ - y_).abs().max()) <= rel * float(y_.abs().max()), \
+            name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("din,h,nb,na", [(64, 64, 1, 2), (16, 24, 1, 2),
+                                         (128, 128, 1, 2), (8, 8, 0, 0),
+                                         (32, 128, 3, 1)])
+def test_row_mlp_kernels_match_plain_on_card(cuda, din, h, nb, na):
+    """The row_mlp forward and backward through the autograd Function
+    against autograd through the composed chain: the arch sweep's widths
+    (64, 64, one pair before the skip, two after), the JAX test's (16,
+    24), the limit 128 (the backward on 8- or 16-row tiles), no residual
+    pairs, and Din < H with more pairs.  Forward, d tri, d x_ji, d x_edge
+    1e-5 of their largest entry, the row-summed weight and bias grads 1e-4;
+    a second run bit-identical; rows not a multiple of a tile."""
+    from hydragnn_torch.ops import row_mlp
+
+    e = 1003
+    g = torch.Generator().manual_seed(din + h)
+    ins = [torch.randn(e, din, generator=g), torch.randn(e, h, generator=g),
+           torch.randn(e, h, generator=g)]
+    wb = [torch.randn(din, h, generator=g) / din ** 0.5, None]
+    for _ in range(2 * (nb + na) + 1):
+        wb += [torch.randn(h, h, generator=g) / h ** 0.5,
+               torch.randn(h, generator=g) * 0.1]
+    ins = [x.to(cuda) for x in ins]
+    wb = [None if w is None else w.to(cuda) for w in wb]
+    ct = torch.randn(e, h, generator=g).to(cuda)
+
+    def run(fn):
+        ti = [x.detach().clone().requires_grad_(True) for x in ins]
+        tw = [None if w is None else w.detach().clone().requires_grad_(True)
+              for w in wb]
+        out = fn(*ti, nb, na, *tw)
+        (out * ct).sum().backward()
+        torch.cuda.synchronize()
+        return ([out.detach()] + [x.grad for x in ti],
+                [w.grad for w in tw if w is not None])
+
+    row_mlp.reset_launches()
+    k = run(row_mlp.dimenet_post_mlp)
+    assert row_mlp.LAUNCHES == {"dimenet_post_mlp": 1,
+                                "dimenet_post_mlp_bwd": 1}
+    again = run(row_mlp.dimenet_post_mlp)
+    for x_, y_ in zip(k[0] + k[1], again[0] + again[1]):
+        assert torch.equal(x_, y_)
+    p = run(row_mlp.dimenet_post_mlp_reference)
+    for i, (x_, y_) in enumerate(zip(k[0], p[0])):
+        assert float((x_ - y_).abs().max()) <= 1e-5 * float(
+            y_.abs().max()), i
+    for i, (x_, y_) in enumerate(zip(k[1], p[1])):
+        assert float((x_ - y_).abs().max()) <= 1e-4 * float(
+            y_.abs().max()), f"wb {i}"
+
+
+@pytest.mark.gpu
+def test_dimenet_kernels_refuse_what_they_do_not_take(cuda):
+    from hydragnn_torch.ops import dn_tri, row_mlp
+
+    kj, ji, tm, perm = (_t(a).to(cuda) for a in _dimenet_tables(50, 200, 9,
+                                                               1))
+    with pytest.raises(ValueError, match="S <= 8"):
+        dn_tri.dimenet_triplet_mp(
+            torch.rand(50, 18, device=cuda), torch.rand(50, 8, device=cuda),
+            torch.rand(200, 9, device=cuda), torch.rand(18, 4, device=cuda),
+            torch.rand(4, 8, device=cuda), kj, ji, tm, perm, 2)
+    with pytest.raises(TypeError):
+        dn_tri.dimenet_triplet_mp(
+            torch.rand(50, 6, device=cuda).double(),
+            torch.rand(50, 8, device=cuda).double(),
+            torch.rand(200, 2, device=cuda).double(),
+            torch.rand(6, 4, device=cuda).double(),
+            torch.rand(4, 8, device=cuda).double(), kj, ji, tm, perm, 3)
+    x = torch.rand(10, 129, device=cuda)
+    with pytest.raises(ValueError, match="H <= 128"):
+        row_mlp.dimenet_post_mlp(
+            x, x, x, 0, 0, torch.rand(129, 129, device=cuda), None,
+            torch.rand(129, 129, device=cuda), torch.rand(129, device=cuda))
+
+
+@pytest.mark.gpu
+def test_dimenet_train_steps_on_card_match_cpu(cuda, monkeypatch):
+    """DimeNet at the arch sweep's widths (hidden 64, 4 convs, S = 7, R =
+    6, B = 8, int_emb = out_emb = 64, one pair before the skip, two after)
+    on 16 molecule-sized graphs: three AdamW steps under fused in
+    lockstep, card (kernels) against CPU (plain versions): loss 1e-5,
+    every gradient 1e-4 of the largest.  Per step 4 dn_tri forward and
+    backward, 4 row_mlp forward and backward, 5 segment sums (4 output
+    blocks and the pool)."""
+    from hydragnn_torch.graph.batch import GraphSample, HeadSpec, PadSpec, collate
+    from hydragnn_torch.graph.neighborlist import radius_graph
+    from hydragnn_torch.models.base import (
+        GraphHeadCfg,
+        ModelConfig,
+        multihead_loss,
+    )
+    from hydragnn_torch.models.create import create_model
+    from hydragnn_torch.models.dimenet import (
+        DnTriGate,
+        add_dimenet_extras,
+        count_triplets,
+    )
+    from hydragnn_torch.ops import dn_tri, row_mlp
+    from hydragnn_torch.train.optimizer import select_optimizer
+    from hydragnn_torch.train.trainer import create_train_state, make_train_step
+
+    monkeypatch.setenv("HYDRAGNN_AGGR_BACKEND", "fused")
+    rng = np.random.RandomState(0)
+    samples = []
+    for _ in range(16):
+        pts = []
+        while len(pts) < 14:
+            q = rng.rand(3) * 3.0
+            if all(np.linalg.norm(q - o) >= 0.8 for o in pts):
+                pts.append(q)
+        pos = np.asarray(pts, np.float32)
+        samples.append(GraphSample(
+            x=rng.rand(14, 1).astype(np.float32), pos=pos,
+            edge_index=radius_graph(pos, 1.8, max_neighbours=20),
+            graph_y=rng.rand(1)))
+    max_e = max(s.num_edges for s in samples)
+    g = collate(samples, PadSpec.for_batch(16, 14, max_e),
+                [HeadSpec("energy", "graph", 1)])
+    per = max(count_triplets(s.edge_index, 14) for s in samples)
+    g = add_dimenet_extras(g, 16 * per + 8,
+                           tri_gate=DnTriGate(max_edges_per_graph=max_e))
+    assert "dn_tri_ok" in g.extras
+    cfg = ModelConfig(
+        model_type="DimeNet", input_dim=1, hidden_dim=64, output_dim=(1,),
+        output_type=("graph",), graph_head=GraphHeadCfg(2, 64, 2, (64, 64)),
+        node_head=None, task_weights=(1.0,), num_conv_layers=4, radius=1.8,
+        max_neighbours=20, envelope_exponent=5, num_before_skip=1,
+        num_after_skip=2, num_radial=6, num_spherical=7, basis_emb_size=8,
+        int_emb_size=64, out_emb_size=64)
+    sides = []
+    for dev in (torch.device("cpu"), cuda):
+        model = create_model(cfg, seed=1).to(dev)
+        spec = select_optimizer({"type": "AdamW", "learning_rate": 1e-3})
+        sides.append([model, create_train_state(model, spec),
+                      make_train_step(model, cfg, spec), g.to(dev)])
+
+    def loss_and_grads(model, gd):
+        model.train()
+        loss, _ = multihead_loss(cfg, model(gd), gd)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        return float(loss.detach()), [d_.cpu() for d_ in grads]
+
+    counted = {}
+    for _ in range(3):
+        sides[1][0].load_state_dict(sides[0][0].state_dict())
+        (lc, gc), (lg, gg) = (loss_and_grads(m, gd) for m, _, _, gd in sides)
+        assert abs(lg - lc) <= 1e-5 * abs(lc)
+        top = max(float(d_.abs().max()) for d_ in gc)
+        for d_c, d_g in zip(gc, gg):
+            assert float((d_c - d_g).abs().max()) <= 1e-4 * top
+        for m in (tfm, dn_tri, row_mlp):
+            m.reset_launches()
+        for side in sides:
+            side[1], _ = side[2](side[1], side[3])
+        for m in (tfm, dn_tri, row_mlp):
+            for k, v in m.LAUNCHES.items():
+                counted[k] = counted.get(k, 0) + v
+    assert counted == {
+        "gather_mul_segment_sum": 0, "gather_mul_segment_sum_dx": 0,
+        "gather_segment_sum": 0, "gather_segment_sum_dx": 0,
+        "segment_sum_dense": 15, "dimenet_triplet_mp": 12,
+        "dimenet_triplet_mp_bwd": 12, "dimenet_post_mlp": 12,
+        "dimenet_post_mlp_bwd": 12}
