@@ -11,8 +11,9 @@ layers, AdamW 1e-3; EGNN at md17's, ``chip_smoke.egnn_md17_config``; GAT
 at the arch sweep's, 6 heads and dropout 0, ``chip_smoke.gat_config``;
 CGCNN at input = hidden = 64 on the set with its 63 extra node-feature
 columns, ``chip_smoke.cgcnn_config``; DimeNet at the arch sweep's widths
-on the dimenet cell's set of smaller cells, ``chip_smoke.dimenet_config``),
-once under
+on the dimenet cell's set of smaller cells, ``chip_smoke.dimenet_config``;
+on request, DimeNet_wide at DimeNet++'s QM9 widths with int_emb_size 128
+on the same set, ``chip_smoke.dimenet_wide_config``), once under
 ``HYDRAGNN_AGGR_BACKEND=fused`` (the plain versions of the kernels:
 sorted-segment sums) and once under ``scatter`` (``index_add_``).  Both are
 the same function; they differ in the order of a few float32 sums.  Prints
@@ -31,8 +32,9 @@ GAT's fused path sums each head's logit in another order than its composed
 path, and has BatchNorm.  CGCNN has BatchNorm after each conv; its fused
 path adds each edge's products in another order than its composed path.
 DimeNet has no BatchNorm and only smooth activations (SiLU); its fused path
-(the factored triplet op and the row-MLP tail) sums each edge's triplets
-in another order than its composed path.
+(the factored triplet op and the row-MLP tail; at DimeNet_wide's widths the
+builder-backed triplet op) sums each edge's triplets in another order than
+its composed path.
 """
 
 from __future__ import annotations
@@ -60,6 +62,7 @@ def main(argv=None) -> int:
         CGCNN_DATA,
         cgcnn_config,
         dimenet_config,
+        dimenet_wide_config,
         egnn_md17_config,
         flagship_config,
         gat_config,
@@ -83,7 +86,7 @@ def main(argv=None) -> int:
             if "CGCNN" in args.archs:
                 write_cgcnn_data("dataset/chip_smoke", CGCNN_DATA, args.seed,
                                  count=args.graphs)
-            if "DimeNet" in args.archs:
+            if {"DimeNet", "DimeNet_wide"} & set(args.archs):
                 write_dimenet_data(args.seed, count=args.graphs)
             for arch in args.archs:
                 hist = {}
@@ -97,6 +100,8 @@ def main(argv=None) -> int:
                         cfg = cgcnn_config(epochs=args.epochs)
                     elif arch == "DimeNet":
                         cfg = dimenet_config(epochs=args.epochs)
+                    elif arch == "DimeNet_wide":
+                        cfg = dimenet_wide_config(epochs=args.epochs)
                     else:
                         cfg = flagship_config(perc_train=0.5,
                                               epochs=args.epochs,

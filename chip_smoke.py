@@ -48,10 +48,16 @@ and PyTorch built for CUDA.  Phases, each of which fails the run:
    and spherical basis): the triplet op forward and backward and the
    row-MLP chain forward and backward through their autograd Functions
    against autograd through the composed plain versions (1e-5; 1e-4 for
-   the weight grads; d cbf exactly zero on masked triplets); then a double
+   the weight grads; d cbf exactly zero on masked triplets), and the
+   builder's three kernels (forward, pass S, pass P) at the same batch's
+   triplet table and full spherical basis at dimenet_wide's widths (S*R =
+   42, B = 8, D = 128), at (70, 8, 64) and at the limits (126, 128, 128),
+   with a longer masked tail and all masked (1e-5; 1e-4 for dk1, dk2;
+   d sbf exactly zero on masked triplets); then a double
    backward through ``gather_mul_segment_sum`` and ``gather_segment_sum``
    on the card against the CPU (1e-5), and the refusal of a double
-   backward by the scf, egcl, GAT, cgcnn, dn_tri and row_mlp Functions;
+   backward by the scf, egcl, GAT, cgcnn, dn_tri, dn_tri_builder and
+   row_mlp Functions;
 4. flagship prediction: a seeded SchNet checkpoint at the flagship widths
    (hidden 64, 4 convs, 50 gaussians, 64 filters, radius 1.8,
    max_neighbours 20, graph head (2, 64, 2, (64, 64)), batch 512) through
@@ -130,7 +136,21 @@ and PyTorch built for CUDA.  Phases, each of which fails the run:
    dispatch fused; repeats bit-identical, a steady epoch, prediction from
    the run's checkpoint card vs CPU; and, as DimeNet's two CPU backends
    stay together (``backend_drift.py DimeNet``), card and CPU free runs of
-   2 epochs capped as phase 6, losses within 1e-4 relative.
+   2 epochs capped as phase 6, losses within 1e-4 relative;
+14. dimenet_wide: DimeNet++'s published QM9 widths (hidden 128, out_emb
+   256, basis_emb 8, S = 7, R = 6, 4 blocks, one residual layer before the
+   skip and two after) with int_emb_size 128, past the factored kernel's
+   gate, on the dimenet cell's set, 3 epochs: 4 builder forwards, 4 pass
+   S, 4 pass P and 5 sorted segment sums per train step, 4 + 5 per eval
+   batch, every interaction on the builder (``dn_tri_builder:fused``, no
+   dn_tri or dn_row_mlp tally); repeats bit-identical, a steady epoch,
+   prediction from the run's checkpoint card vs CPU; one train step with
+   ``HYDRAGNN_DIMENET_REMAT=1`` against one without (loss and every
+   gradient 1e-6 of the largest entry, and both steps' peak device
+   memory); as two float32 runs of this cell part within an epoch
+   (``backend_drift.py DimeNet_wide``), the lockstep of phase 7 over
+   three batches of 64 graphs (the float64 yardstick on the composed
+   path: the batch without its ``dn_tri_ok`` marker).
 
 Prints JSON lines with the seconds of each phase (and, where float32
 itself decided a lockstep allowance, the per-parameter records behind
@@ -225,6 +245,17 @@ DIMENET_DATA = "dataset/chip_smoke_dimenet"
 # the DimeNet card run against the CPU: free runs, capped as the wide cell
 # (backend_drift.py DimeNet decides free runs over lockstep; PERF.md)
 DIMENET_CAP = 2
+# graphs per batch of dimenet_wide's lockstep: two float32 runs of that
+# cell part by 6e-4 in one epoch (backend_drift.py DimeNet_wide), so it is
+# held to the CPU in lockstep, whose float32 and float64 CPU steps on a
+# 512-graph batch would form [T, 128] float64 tensors of 1 GB (T ~ 1e6)
+DIMENET_WIDE_LOCKSTEP_BATCH = 64
+# the dimenet_builder_phase's widths (S*R, B, D) besides the path's own:
+# num_radial 10, and the builder's limits (num_radial 18: S*R = 126)
+BUILDER_WIDTHS = ((70, 8, 64), (126, 128, 128))
+# loss and every gradient of one dimenet_wide train step with
+# HYDRAGNN_DIMENET_REMAT against one without, of the largest entry
+REL_TOL_REMAT = 1e-6
 # no real edge's ReLU input within this of zero in the egcl kernel checks
 # (egcl_off_kinks): ~20x the float32 rounding of a 97-term dot product
 KINK_MARGIN = 2e-6
@@ -284,6 +315,12 @@ PATH_LAUNCHES["dimenet"] = (
      "dimenet_post_mlp": 4, "dimenet_post_mlp_bwd": 4,
      "segment_sum_dense": 5},
     {"dimenet_triplet_mp": 4, "dimenet_post_mlp": 4, "segment_sum_dense": 5})
+# dimenet_wide: one builder forward, pass S and pass P per conv layer, the
+# composed tail (no row-MLP kernel), the same segment sums
+PATH_LAUNCHES["dimenet_wide"] = (
+    {"dimenet_tri_builder": 4, "dimenet_tri_builder_bwd_s": 4,
+     "dimenet_tri_builder_bwd_p": 4, "segment_sum_dense": 5},
+    {"dimenet_tri_builder": 4, "segment_sum_dense": 5})
 # the flagship SchNet under HYDRAGNN_AGGR_BACKEND=pallas: no marker, so
 # each conv's aggregation and the pool take segment_sum, that is the pallas
 # segment sum (its backward is a gather: no launch)
@@ -1460,6 +1497,21 @@ def dimenet_config(epochs=TRAIN_EPOCHS, perc_train=0.5):
     return cfg
 
 
+def dimenet_wide_config(epochs=TRAIN_EPOCHS, perc_train=0.5):
+    """DimeNet++'s published QM9 widths (Gasteiger et al. 2020; PyG's
+    ``DimeNetPlusPlus.from_qm9_pretrained``: hidden 128, out_emb_size 256,
+    basis_emb_size 8, num_spherical 7, num_radial 6, 4 blocks, one residual
+    layer before the skip and two after, envelope exponent 5) with
+    int_emb_size doubled from 64 to 128, the builder's limit
+    (TRI_EMB_LIMIT): past the factored kernel's gate, so every interaction
+    takes the builder-backed triplet op.  The dimenet cell's set, graph
+    head, radius, batch and optimizer."""
+    cfg = dimenet_config(epochs=epochs, perc_train=perc_train)
+    cfg["NeuralNetwork"]["Architecture"].update(
+        {"hidden_dim": 128, "out_emb_size": 256, "int_emb_size": 128})
+    return cfg
+
+
 def write_dimenet_data(seed, count=None):
     """The dimenet cell's LSMS files: ``count`` (default N_CONFIGURATIONS)
     BCC cells of 2-3 x 2-3 x 1 unit cells from the port's generator."""
@@ -1734,8 +1786,8 @@ def dimenet_phase(torch, g, seed, cfg):
     dt.reset_launches()
     k_out, k_grads = run(lambda *a: dt.dimenet_triplet_mp(
         *a, kj, ji, tm, perm, r), tri_ins)
-    check(dt.LAUNCHES == {"dimenet_triplet_mp": 1,
-                          "dimenet_triplet_mp_bwd": 1},
+    check({k: v for k, v in dt.LAUNCHES.items() if v}
+          == {"dimenet_triplet_mp": 1, "dimenet_triplet_mp_bwd": 1},
           f"dn_tri launches {dt.LAUNCHES}")
     p_out, p_grads = run(lambda *a: dt.dimenet_triplet_reference(
         *a, kj, ji, tm, r), tri_ins)
@@ -1854,6 +1906,258 @@ def dimenet_phase(torch, g, seed, cfg):
     return results, notes
 
 
+def dimenet_builder_flops(sr, b, d, triplets):
+    """Floating-point operations (a multiply-add is two) that the builder's
+    three kernels need on ``triplets`` real triplets, as the path launches
+    them: (forward, pass S without d_sbf, pass P).  Per triplet the forward
+    forms emb1 = sbf.K1 and emb2 = emb1.K2 and adds x_kj * emb2; pass S
+    recomputes them and adds g * emb2; pass P forms emb1, d_emb2 = g *
+    x_kj, d_emb1 = d_emb2.K2^T and both weight gradients."""
+    prod = 2 * sr * b + 2 * b * d
+    fwd = triplets * (prod + 2 * d)
+    return fwd, fwd, triplets * (2 * prod + d)
+
+
+def dimenet_builder_phase(torch, g, seed, cfg):
+    """The builder's three kernels (forward, pass S, pass P) at the first
+    train batch of the dimenet_wide cell, on its own triplet table and
+    spherical basis: at the path's widths (S*R = 42, B = 8, D = 128), at
+    (70, 8, 64) (num_radial 10) and at the limits (126, 128, 128: num_radial
+    18), each through the op's autograd Function against autograd through
+    the composed plain version: out, d x_kj and d sbf 1e-5 of their largest
+    entry, dk1 and dk2 1e-4; d sbf exactly zero on masked triplets; then at
+    the path's widths with the last third of the real triplets masked as
+    well (parked on the last edge, as add_dimenet_extras parks padding) and
+    with every triplet masked (every output and gradient exactly zero).
+    Then each kernel timed alone as the path launches it (pass S without
+    d sbf: sbf needs no gradient in training), beside its plain version
+    and its bound."""
+    from hydragnn_torch.models.dimenet import (
+        distances_and_angles,
+        spherical_basis,
+    )
+    from hydragnn_torch.ops import dn_tri as dt
+    from hydragnn_torch.ops.aggregate import segment_offsets
+
+    dev = g.x.device
+    ex = g.extras
+    e = g.num_edges
+    s = cfg.num_spherical
+    gen = torch.Generator(device=dev).manual_seed(seed + 17)
+    kj, ji, perm = ex["dn_idx_kj"], ex["dn_idx_ji"], ex["dn_perm_kj"]
+    tm = ex["dn_triplet_mask"].to(torch.int32)
+    real = tm != 0
+    t_real = int(real.sum())
+    with torch.no_grad():
+        dist, angle = distances_and_angles(g.pos, g, cfg.radius)
+
+    def basis(r):
+        with torch.no_grad():
+            return spherical_basis(
+                dist / cfg.radius, angle, kj, s, r, cfg.envelope_exponent,
+                perm_kj=perm, triplet_mask=ex["dn_triplet_mask"]
+            ).contiguous()
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, device=dev, generator=gen) * scale
+
+    def inputs(sbf, b, d):
+        sr = sbf.shape[1]
+        return [rnd(e, d), sbf, rnd(sr, b, scale=sr ** -0.5),
+                rnd(b, d, scale=b ** -0.5)], rnd(e, d)
+
+    def run(fn, ins, ct, tmask, ids):
+        ts = [x.detach().clone().requires_grad_(True) for x in ins]
+        out = fn(ts[0], ts[1], tmask, ts[2], ts[3], *ids)
+        (out * ct).sum().backward()
+        torch.cuda.synchronize()
+        return [out.detach()] + [x.grad for x in ts]
+
+    def hold(what, ins, ct, tmask=tm, ids=(kj, ji, perm)):
+        dt.reset_launches()
+        k = run(dt.dimenet_tri_builder, ins, ct, tmask, ids)
+        check({n: v for n, v in dt.LAUNCHES.items() if v}
+              == {"dimenet_tri_builder": 1, "dimenet_tri_builder_bwd_s": 1,
+                  "dimenet_tri_builder_bwd_p": 1},
+              f"{what}: launches {dt.LAUNCHES}")
+        p = run(dt.dimenet_tri_builder_reference, ins, ct, tmask, ids[:2])
+        check(bool((k[2][tmask == 0] == 0).all()),
+              f"{what}: d sbf is not zero on masked triplets")
+        errs = {}
+        for name, k_, p_ in zip(("out", "dx_kj", "dsbf", "dk1", "dk2"), k,
+                                p):
+            check(float(p_.abs().max()) > 0, f"{what}: the plain {name} is "
+                  "zero: the comparison would hold nothing")
+            errs[name] = rel_err(torch, k_, p_)
+            tol = REL_TOL_WGRAD if name in ("dk1", "dk2") else REL_TOL_KERNEL
+            check(errs[name][1] <= tol, f"{what}: {name} disagrees with the "
+                  f"plain version under autograd: {errs[name][1]} > {tol}")
+        return errs, k
+
+    def worst_of(errs):
+        k_ = max(errs, key=lambda o: errs[o][1])
+        return {"worst": k_, "max_abs_err": errs[k_][0],
+                "max_rel_err": errs[k_][1]}
+
+    r, b, d = cfg.num_radial, cfg.basis_emb_size, cfg.int_emb_size
+    sbf = basis(r)
+    sr = sbf.shape[1]
+    ins, ct = inputs(sbf, b, d)
+    errs, _ = hold(f"dn_tri_builder ({sr}, {b}, {d})", ins, ct)
+    notes = {k_: {"max_abs_err": a, "max_rel_err": r_}
+             for k_, (a, r_) in errs.items()}
+    for w_sr, w_b, w_d in BUILDER_WIDTHS:
+        w_ins, w_ct = inputs(basis(w_sr // s), w_b, w_d)
+        w_errs, _ = hold(f"dn_tri_builder ({w_sr}, {w_b}, {w_d})", w_ins,
+                         w_ct)
+        notes[f"SR{w_sr}_B{w_b}_D{w_d}"] = worst_of(w_errs)
+    # a longer masked tail, parked on the last edge, and all masked
+    tail = tm.clone()
+    tail[t_real - t_real // 3:] = 0
+    kj2, ji2 = kj.clone(), ji.clone()
+    kj2[tail == 0] = e - 1
+    ji2[tail == 0] = e - 1
+    perm2 = torch.argsort(kj2, stable=True).to(torch.int32)
+    t_errs, _ = hold("dn_tri_builder (masked tail)", ins, ct, tail,
+                     (kj2, ji2, perm2))
+    notes["masked_tail"] = worst_of(t_errs)
+    dead = torch.zeros_like(tm)
+    dt.reset_launches()
+    k = run(dt.dimenet_tri_builder, ins, ct, dead, (kj, ji, perm))
+    check(all(float(x.abs().max()) == 0 for x in k),
+          "dn_tri_builder (all masked): an output or gradient is not zero")
+    notes["all_masked"] = "zero"
+
+    # each kernel alone on its precomputed schedule, as the path launches it
+    e_real = int((g.edge_mask != 0).sum())
+    p_ = perm.long()
+    ptr_ji = segment_offsets(ji, e, tm)
+    ptr_kj = segment_offsets(kj[p_], e, tm[p_])
+    x, _, k1, k2 = ins
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    fwd_fl, s_fl, p_fl = dimenet_builder_flops(sr, b, d, t_real)
+    wt = 4 * (sr * b + b * d)
+    # read once: the real triplets' sbf rows and ids, x_kj, row_ptr, the
+    # weights; the backward also the cotangent [E, D] (pass S: perm)
+    tri_in = 4 * (t_real * (sr + 2) + e * d + e + 1) + wt
+    plain_args = (x, sbf, tm, k1, k2, kj, ji, ct)
+    timed = {
+        "dimenet_tri_builder": (
+            lambda: dt.launch_dn_tri_builder(
+                "dimenet_tri_builder", x, sbf, k1, k2, kj, ji, None, ptr_ji),
+            lambda: dt.dimenet_tri_builder_reference(x, sbf, tm, k1, k2, kj,
+                                                     ji),
+            bound(tri_in + 4 * e * d, fwd_fl),
+            "hydragnn_tpu/ops/fused_block.py:495", ("out",)),
+        "dimenet_tri_builder_bwd_s": (
+            lambda: dt.launch_dn_tri_builder(
+                "dimenet_tri_builder_bwd_s", x, sbf, k1, k2, kj, ji, perm,
+                ptr_kj, ct, want=(True, False)),
+            lambda: dt.dimenet_tri_builder_pass_s_plain(*plain_args,
+                                                        want_sbf=False),
+            bound(tri_in + 4 * (t_real + e * d) + 4 * e * d, s_fl),
+            "hydragnn_tpu/ops/fused_block.py:599", ("dx_kj", "dsbf")),
+        "dimenet_tri_builder_bwd_p": (
+            lambda: dt.launch_dn_tri_builder(
+                "dimenet_tri_builder_bwd_p", x, sbf, k1, k2, kj, ji, None,
+                ptr_ji, ct),
+            lambda: dt.dimenet_tri_builder_pass_p_plain(*plain_args),
+            bound(tri_in + 4 * e * d + wt, p_fl),
+            "hydragnn_tpu/ops/fused_block.py:561", ("dk1", "dk2")),
+    }
+    results = []
+    with torch.no_grad():
+        for name, (kern, plain, (b_ms, b_by), replaces, outs) in \
+                timed.items():
+            worst = max(outs, key=lambda o: errs[o][1])
+            results.append({
+                "name": name, "route": "cuda",
+                "source": "hydragnn_torch/csrc/dn_tri_builder.cu",
+                "replaces": replaces,
+                "max_abs_err": errs[worst][0], "max_rel_err": errs[worst][1],
+                "ms": time_ms(torch, kern, flush, lead=True),
+                "warm_l2_ms": time_ms(torch, kern, lead=True),
+                "plain_ms": time_ms(torch, plain, flush),
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                "shape": {"E": e, "E_valid": e_real,
+                          "T": int(kj.shape[0]), "T_valid": t_real,
+                          "SR": sr, "B": b, "D": d},
+            })
+    return results, notes
+
+
+def dimenet_small_batches(loader, batch, count):
+    """The first ``count`` batches of ``batch`` graphs of ``loader``'s
+    samples, each with its triplet table sized for that batch (the
+    loader's own is sized for its batch) and the same gate, so the
+    ``dn_tri_ok`` marker is the loader's."""
+    from hydragnn_torch.data.dataloader import GraphDataLoader
+    from hydragnn_torch.models.dimenet import (
+        DnTriGate,
+        add_dimenet_extras,
+        count_triplets,
+    )
+
+    samples = loader.samples
+    per = max(count_triplets(s_.edge_index, s_.num_nodes)
+              for s_ in samples if s_.num_edges)
+    max_triplets = -(-(batch * per + 1) // 8) * 8
+    gate = DnTriGate(max_edges_per_graph=max(s_.num_edges for s_ in samples))
+    small = GraphDataLoader(
+        samples, loader.head_specs, batch,
+        graph_feature_slices=loader.graph_feature_slices,
+        node_feature_slices=loader.node_feature_slices,
+        post_collate=lambda b: add_dimenet_extras(b, max_triplets,
+                                                  tri_gate=gate))
+    return [b for _, b in zip(range(count), small)]
+
+
+def remat_check(torch, cfg, g, seed, dev):
+    """One dimenet_wide train step (forward, loss, backward) with
+    HYDRAGNN_DIMENET_REMAT=1 against one without, from one seeded init on
+    the same batch: the loss and every gradient within REL_TOL_REMAT of
+    the largest entry, whether they are bit-identical, and the peak device
+    memory of each step (``torch.cuda.max_memory_allocated`` after
+    ``reset_peak_memory_stats``, and above what was allocated before the
+    step)."""
+    from hydragnn_torch.models.base import multihead_loss
+    from hydragnn_torch.models.create import create_model
+
+    res = {}
+    for remat in (False, True):
+        if remat:
+            os.environ["HYDRAGNN_DIMENET_REMAT"] = "1"
+        try:
+            model = create_model(cfg, seed=seed).to(dev)
+        finally:
+            os.environ.pop("HYDRAGNN_DIMENET_REMAT", None)
+        check(all(c.remat is remat for c in model.graph_convs),
+              "HYDRAGNN_DIMENET_REMAT was not read at model build")
+        model.train()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss, _ = multihead_loss(cfg, model(g), g)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        torch.cuda.synchronize()
+        res[remat] = (loss.detach(), grads,
+                      torch.cuda.max_memory_allocated(), base)
+        del model, loss, grads
+    (l0, g0, m0, b0), (l1, g1, m1, b1) = res[False], res[True]
+    top = max(float(x.abs().max()) for x in g0)
+    grad_err = max(float((a - c).abs().max()) for a, c in zip(g0, g1)) / top
+    loss_err = float((l0 - l1).abs() / l0.abs())
+    check(loss_err <= REL_TOL_REMAT and grad_err <= REL_TOL_REMAT,
+          f"HYDRAGNN_DIMENET_REMAT: loss {loss_err}, gradients {grad_err} "
+          "from the step without it")
+    return {"loss_rel_err": loss_err, "grad_err_over_largest": grad_err,
+            "bit_identical": bool(torch.equal(l0, l1) and all(
+                torch.equal(a, c) for a, c in zip(g0, g1))),
+            "peak_bytes": m0, "peak_bytes_remat": m1,
+            "step_peak_above_base_bytes": m0 - b0,
+            "step_peak_above_base_bytes_remat": m1 - b1}
+
+
 def segment_sum_phase(torch, g, seed):
     """The two kernels of the ``pallas`` aggregation backend at the first
     train batch: ``segment_sum_pallas`` on SchNet's edge messages (x[s] *
@@ -1967,8 +2271,8 @@ def double_backward_phase(torch, g, seed):
     derivative within 1e-5 of its largest entry.  And the Functions whose
     backward runs non-differentiable kernels (``scf_edge_pipeline``,
     ``egcl_block``, ``gat_edge_attention``, ``cgcnn_gated_block``) raise
-    under a double backward on the card, and so do ``dimenet_triplet_mp``
-    and ``dimenet_post_mlp``."""
+    under a double backward on the card, and so do ``dimenet_triplet_mp``,
+    ``dimenet_tri_builder`` and ``dimenet_post_mlp``."""
     import numpy as np
 
     from hydragnn_torch.ops import cgcnn_mp as cg
@@ -2051,6 +2355,9 @@ def double_backward_phase(torch, g, seed):
         "dimenet_triplet_mp": lambda x_: dt.dimenet_triplet_mp(
             t(n, 42).abs(), x_, t(n, 7), t(42, 8), t(8, f), ids, ids,
             torch.ones_like(ids), ids, 6),
+        "dimenet_tri_builder": lambda x_: dt.dimenet_tri_builder(
+            x_, t(n, 42), torch.ones_like(ids), t(42, 8), t(8, f), ids, ids,
+            ids),
         "dimenet_post_mlp": lambda x_: rm.dimenet_post_mlp(
             x_, t(n, f), t(n, f), 1, 2, *chain),
     }
@@ -2235,8 +2542,9 @@ def repeat_bits(torch, cfg, batches, seed, dev):
 
 def as_double(g):
     """The batch with its floating-point tensors in float64 and without the
-    sender permutation: a model that picks a fused block from that marker
-    (EGNN's EGCL, SchNet's edge pipeline) takes its composed path."""
+    sender permutation and DimeNet's triplet marker: a model that picks a
+    fused block from those markers (EGNN's EGCL, SchNet's edge pipeline,
+    DimeNet's triplet ops) takes its composed path."""
     def up(t):
         return t.double() if t is not None and t.is_floating_point() else t
 
@@ -2246,7 +2554,7 @@ def as_double(g):
         graph_mask=up(g.graph_mask), labels=tuple(up(t) for t in g.labels),
         cell=up(g.cell),
         extras={k: v for k, v in g.extras.items()
-                if k != "edge_perm_sender"})
+                if k not in ("edge_perm_sender", "dn_tri_ok")})
 
 
 def grade_leaves(what, leaves):
@@ -2539,8 +2847,12 @@ def main():
         first_dn = next(iter(dn_loaders[0])).to(dev)
         check("dn_tri_ok" in first_dn.extras,
               "the dimenet set's first batch carries no dn_tri_ok marker: "
-              "the factored-basis kernel would not run")
+              "neither the factored-basis kernel nor the builder would run")
         dn_model_cfg = ModelConfig.from_config(dn_loaders[3])
+        # dimenet_wide trains on the dimenet cell's set, split and batches
+        dnw_cfg = dimenet_wide_config()
+        dnw_model_cfg = dataclasses.replace(
+            dn_model_cfg, hidden_dim=128, out_emb_size=256, int_emb_size=128)
         dn_real = first_dn.edge_mask != 0
         emit({"phase": "setup", "seconds": time.perf_counter() - t0,
               "data_loading_s": load_s,
@@ -2590,12 +2902,15 @@ def main():
                                                    args.seed)
         dn_kernels, dn_notes = dimenet_phase(torch, first_dn, args.seed,
                                              dn_model_cfg)
+        dnw_kernels, dnw_notes = dimenet_builder_phase(
+            torch, first_dn, args.seed, dnw_model_cfg)
         kernels += (scf_kernels + poly_kernels + egcl_kernels + gat_kernels
-                    + cgcnn_kernels + seg_kernels + dn_kernels)
+                    + cgcnn_kernels + seg_kernels + dn_kernels + dnw_kernels)
         emit({"phase": "kernel_checks", "seconds": time.perf_counter() - t0,
               **notes, "scf": scf_notes, "poly": poly_notes,
               "egcl": egcl_notes, "gat": gat_notes, "cgcnn": cgcnn_notes,
-              "segment_sum": seg_notes, "dimenet": dn_notes})
+              "segment_sum": seg_notes, "dimenet": dn_notes,
+              "dimenet_builder": dnw_notes})
 
         # -- 3b. a double backward through the linear Functions, card vs
         #        CPU, and the refusal of the others
@@ -3065,6 +3380,67 @@ def main():
               "prediction_s": down_s,
               "launches": dn_launches, "launches_split": dsplit,
               "dispatch": dispatch})
+
+        # -- 14. DimeNet at DimeNet++'s QM9 widths with int_emb_size 128
+        #        (the builder branch), in full on the card; the REMAT step;
+        #        card against CPU in free runs, capped
+        t_phase = time.perf_counter()
+        wlogs = os.path.join(logs, "dimenet_wide")
+        card, _, w_launches, wsplit, dispatch, wall_card, _ = train_phase(
+            torch, hydragnn_torch, dnw_cfg, wlogs, args.seed, cpu_run=False)
+        wsteps, wevals, w_per, _ = check_training(
+            "dimenet_wide training", card, None, w_launches, wsplit,
+            dispatch, dn_loaders, None, "dimenet_wide")
+        check(dispatch.get("dn_tri_builder:fused", 0)
+              == 4 * (wsteps + wevals) and not any(
+                  k.startswith(("dn_tri:", "dn_row_mlp:")) for k in dispatch),
+              f"dimenet_wide: an interaction left the builder: {dispatch}")
+        wcfg = ModelConfig.from_config(card[2])
+        check((wcfg.hidden_dim, wcfg.int_emb_size, wcfg.out_emb_size)
+              == (128, 128, 256), f"dimenet_wide widths {wcfg}")
+        dn_loaders[0].set_epoch(0)
+        w3 = [b.to(dev) for _, b in zip(range(REPEAT_STEPS), dn_loaders[0])]
+        n_wparams = repeat_bits(torch, wcfg, w3, args.seed, dev)
+        wsteady = steady_epoch(torch, wcfg, dn_loaders[0], args.seed, dev)
+        t0 = time.perf_counter()
+        remat = remat_check(torch, wcfg, first_dn, args.seed, dev)
+        remat_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        w_lock_batches = dimenet_small_batches(
+            dn_loaders[0], DIMENET_WIDE_LOCKSTEP_BATCH, REPEAT_STEPS)
+        check(all("dn_tri_ok" in b.extras for b in w_lock_batches),
+              "dimenet_wide: a lockstep batch carries no dn_tri_ok marker")
+        wlock = lockstep(torch, wcfg, w_lock_batches, args.seed, dev)
+        wlock_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        wown = own_checkpoint_prediction(
+            torch, hydragnn_torch, dnw_cfg, os.path.join(wlogs, "cuda"),
+            args.seed, "dimenet_wide")
+        wown_s = time.perf_counter() - t0
+        hist = card[1]
+        emit({"phase": "dimenet_wide_training",
+              "seconds": time.perf_counter() - t_phase,
+              "entry": "hydragnn_torch.run_training", "backend": "fused",
+              "hidden_dim": wcfg.hidden_dim, "num_radial": wcfg.num_radial,
+              "num_spherical": wcfg.num_spherical,
+              "basis_emb_size": wcfg.basis_emb_size,
+              "int_emb_size": wcfg.int_emb_size,
+              "out_emb_size": wcfg.out_emb_size,
+              "epochs": len(hist["train"]), "train_steps": wsteps,
+              "eval_batches": wevals, "train_loss": hist["train"],
+              "val_loss": hist["val"], "test_loss": hist["test"],
+              "lr": hist["lr"], "wall_s_cuda": wall_card,
+              "epoch_time_s_cuda": hist["epoch_time"],
+              "bit_identical_repeat": {"steps": REPEAT_STEPS,
+                                       "parameters": n_wparams},
+              "steady_train_epoch_cuda": wsteady,
+              "remat": remat, "remat_s": remat_s,
+              "lockstep_batch": DIMENET_WIDE_LOCKSTEP_BATCH,
+              "lockstep_vs_cpu": wlock, "lockstep_s": wlock_s,
+              "prediction_from_own_checkpoint": wown,
+              "prediction_s": wown_s,
+              "launches": w_launches, "launches_split": wsplit,
+              "dispatch": dispatch})
         os.chdir(ROOT)
 
     # launches of the main path's card runs, split between train steps and
@@ -3085,6 +3461,8 @@ def main():
             path, (n_by, per_by) = "gat", gat["gat"]
         elif k["name"].startswith("cgcnn_"):
             path, n_by, per_by = "cgcnn", c_launches, c_per
+        elif k["name"].startswith("dimenet_tri_builder"):
+            path, n_by, per_by = "dimenet_wide", w_launches, w_per
         elif k["name"].startswith("dimenet_"):
             path, n_by, per_by = "dimenet", dn_launches, dn_per
         elif k["name"] in ("segment_sum_pallas",) + OFF_PATH:

@@ -1,0 +1,489 @@
+// Hand-written Hopper (sm_90a) kernels for DimeNet++'s triplet interaction
+// at the builder's widths (past the factored-basis kernel's gate)
+//
+//   emb_t   = (sbf_t @ K1) @ K2                  [D]
+//   out[e]  = sum_{t: ji(t) = e} x[kj(t)] * emb_t
+//
+// x [E, D], sbf [T, SR] (the full per-triplet spherical basis), K1 [SR, B],
+// K2 [B, D], all float32 row-major; SR <= 127, B <= 128, D <= 128.  Plain C
+// interface, loaded with ctypes by hydragnn_torch/kernels/build.py; the
+// wrappers, plain PyTorch versions and launch counters live in
+// hydragnn_torch/ops/dn_tri.py (dimenet_tri_builder).
+//
+// Replaces the generic fused-block builder of hydragnn_tpu/ops/fused_block.py
+// with the dn_tri_builder spec (hydragnn_tpu/ops/dn_tri.py:416-450):
+// _fused_fwd (pl.pallas_call at fused_block.py:495), _fused_bwd pass P
+// (:561) and pass S (:599).  Three kernels:
+//
+// tri_rows_kernel<kFwd> — the forward.  Rows are output edges e; the
+//   triplets are sorted by idx_ji, so each row owns one CSR range.  Each
+//   block owns kRows rows and walks their triplets TT at a time: gathers
+//   sbf[t] into a transposed tile and x[kj] into another, forms emb1 =
+//   sbf.K1 and emb2 = emb1.K2 in shared memory, and adds x[kj] * emb2 into
+//   its rows in triplet order.
+// tri_rows_kernel<kPassS> — the backward's pass S.  One pass in kj order
+//   (through perm_kj): rows are the gathered edges k.  Per triplet it
+//   recomputes emb1, emb2, takes g = dout[ji] and
+//     d_x[k]  += g * emb2                (the row's own sum, no atomics)
+//     d_emb2   = g * x[k];  d_emb1 = d_emb2.K2^T;  d_sbf[t] = d_emb1.K1^T
+//   d_sbf goes straight to the triplet's own slot (skipped when not asked
+//   for: on the training path sbf needs no gradient).
+// tri_wgrad_kernel (+ tri_reduce_partials_kernel) — the backward's pass P,
+//   the weight gradients
+//     dK2 = sum_t emb1_t^T d_emb2_t,   dK1 = sum_t sbf_t^T d_emb1_t
+//   over the real triplets in ji order.  K1, K2 and their gradients do not
+//   fit one block's shared memory together at the limits (four 64 KB
+//   blocks), so the grid's second dimension cuts B into slices of kSlice:
+//   a block holds K1[:, slice], K2[slice, :] and the gradient partials of
+//   the same entries (d_emb1[:, slice] needs only K2[slice, :]).  Each block
+//   of a persistent grid sums its tiles into one float32 partial; the
+//   reduce kernel adds the partials in block order.
+//
+// Bound on the H100 SXM: bytes (per real triplet the sbf row and ids
+// against ~2(SR*B + B*D) flops; the backward also writes d_sbf when asked).
+// Design against it, first version: no [T, D] or [T, B] tensor reaches
+// device memory (every per-triplet quantity lives in a shared-memory tile
+// of TT triplets); tiles are transposed ([k][t], row stride TT+4) so one
+// 16-byte load feeds four multiply-adds; K1 and K2 are staged once per
+// block with odd row strides (B | 1, D | 1), free of bank conflicts along a
+// row and down a column; shared memory is sized from the actual widths
+// (at the limits the forward takes 209 KB, pass P 110 KB).  Not yet:
+// tensor cores, more than a few active threads in the narrow B products.
+//
+// Contract (add_dimenet_extras guarantees it): idx_ji is nondecreasing;
+// masked triplets sort last in both orders and are parked out of every
+// range by the wrapper, so they are never read and get exactly zero in
+// every output and gradient (the wrapper zero-fills d_sbf).  Ids outside
+// [0, E) contribute nothing.  Determinism: every sum runs in a fixed order
+// (triplet order within a row; tile, then block order for dK1, dK2); no
+// atomics.  Every output row is written, rows without triplets as zeros.
+// Triplet offsets into sbf and d_sbf are 64-bit (T * SR passes 2^31).
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int TT = 32;            // triplets per tile
+constexpr int EQ = 8;             // triplets per work item
+constexpr int kGroups = TT / EQ;
+constexpr int LDT = TT + 4;       // row stride of a transposed tile
+constexpr int kRows = 16;         // output rows per chunk
+constexpr int kSlice = 32;        // B entries per pass-P block
+constexpr int kMaxSR = 127;
+constexpr int kMaxB = 128;
+constexpr int kMaxD = 128;
+
+constexpr int kFwd = 0;
+constexpr int kPassS = 1;
+constexpr int kPassP = 2;
+
+struct Params {
+  const float* x;        // [E, D]
+  const float* sbf;      // [T, SR]
+  const float* w1;       // [SR, B]
+  const float* w2;       // [B, D]
+  const int* kj;         // [T]
+  const int* ji;         // [T]
+  const int* perm;       // [T] position -> triplet, or null (identity)
+  const int* row_ptr;    // [E + 1] CSR over positions
+  const float* gout;     // [E, D] cotangent of out (backward)
+  float* out;            // forward: out [E, D]; pass S: d_x [E, D] or null
+  float* d_sbf;          // pass S: [T, SR] zero-filled, or null
+  float* partial;        // pass P: [gridDim.x, wgrad size]
+  int n_rows, sr, b, d, n_chunks;
+};
+
+__host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
+
+__host__ __device__ inline int slice_width(int b) {
+  return b < kSlice ? b : kSlice;
+}
+
+// shared-memory floats of a mode at these widths
+__host__ __device__ inline int smem_floats(int mode, int sr, int b, int d) {
+  if (mode == kPassP) {
+    const int bs = slice_width(b);
+    int n = 2 * (round4(sr * (bs | 1)) + round4(bs * (d | 1)));  // K, dK
+    n += (sr + d + 2 * bs) * LDT;      // sbf, d_emb2, emb1, d_emb1
+    return n + 2 * TT;                 // ids
+  }
+  int n = round4(sr * (b | 1)) + round4(b * (d | 1));   // K1, K2
+  n += (sr + b + 2 * d) * LDT;                          // sbf, emb1, x, emb2
+  n += kRows * d;                                       // out / d_x rows
+  return n + 4 * TT;                                    // ids
+}
+
+// acc[j] += sum_k T[k][e0 + j] * w[k * stride] over k < K
+__device__ __forceinline__ void mv(float (&acc)[EQ], const float* T, int K,
+                                   const float* w, int stride, int e0) {
+  for (int k = 0; k < K; ++k) {
+    const float wk = w[k * stride];
+    const float4 lo = *reinterpret_cast<const float4*>(T + k * LDT + e0);
+    const float4 hi = *reinterpret_cast<const float4*>(T + k * LDT + e0 + 4);
+    acc[0] += lo.x * wk;
+    acc[1] += lo.y * wk;
+    acc[2] += lo.z * wk;
+    acc[3] += lo.w * wk;
+    acc[4] += hi.x * wk;
+    acc[5] += hi.y * wk;
+    acc[6] += hi.z * wk;
+    acc[7] += hi.w * wk;
+  }
+}
+
+__device__ __forceinline__ void store8(float* dst, const float (&v)[EQ]) {
+  reinterpret_cast<float4*>(dst)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(dst)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+// out tile [n_out][LDT] = T [K][LDT] . W (W[k][c] at w[k * ld + c])
+__device__ __forceinline__ void product(float* out, int n_out, const float* T,
+                                        int K, const float* w, int ld) {
+  for (int it = threadIdx.x; it < n_out * kGroups; it += kThreads) {
+    const int c = it % n_out, e0 = (it / n_out) * EQ;
+    float acc[EQ] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    mv(acc, T, K, w + c, ld, e0);
+    store8(out + c * LDT + e0, acc);
+  }
+}
+
+// out tile [n_out][LDT] = T [K][LDT] . W^T (W[c][k] at w[c * ld + k])
+__device__ __forceinline__ void product_t(float* out, int n_out,
+                                          const float* T, int K,
+                                          const float* w, int ld) {
+  for (int it = threadIdx.x; it < n_out * kGroups; it += kThreads) {
+    const int c = it % n_out, e0 = (it / n_out) * EQ;
+    float acc[EQ] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    mv(acc, T, K, w + c * ld, 1, e0);
+    store8(out + c * LDT + e0, acc);
+  }
+}
+
+// sum_e a[e] * b[e] over the TT triplets of two transposed tile rows
+__device__ __forceinline__ float row_dot(const float* a, const float* b) {
+  float v = 0.f;
+#pragma unroll
+  for (int q = 0; q < TT / 4; ++q) {
+    const float4 x = reinterpret_cast<const float4*>(a)[q];
+    const float4 y = reinterpret_cast<const float4*>(b)[q];
+    v += x.x * y.x + x.y * y.y + x.z * y.z + x.w * y.w;
+  }
+  return v;
+}
+
+// G[k*ld + c] += sum_e A[k][e] * D[c][e] for k < K, c < n (a weight grad)
+__device__ __forceinline__ void outer_acc(float* G, int ld, const float* A,
+                                          int K, const float* D, int n) {
+  for (int it = threadIdx.x; it < K * n; it += kThreads) {
+    const int k = it / n, c = it - k * n;
+    G[k * ld + c] += row_dot(A + k * LDT, D + c * LDT);
+  }
+}
+
+// The forward and pass S: rows in CSR order, one chunk of kRows rows at a
+// time per block.
+template <int MODE>
+__global__ void __launch_bounds__(kThreads) tri_rows_kernel(const Params p) {
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const int sr = p.sr, b = p.b, d = p.d;
+  const int ld1 = b | 1, ld2 = d | 1;
+  const int tid = threadIdx.x;
+
+  float* w1s = sm; sm += round4(sr * ld1);
+  float* w2s = sm; sm += round4(b * ld2);
+  float* sbf_t = sm; sm += sr * LDT;     // sbf; pass S: then d_sbf
+  float* e1_t = sm; sm += b * LDT;       // emb1; pass S: then d_emb1
+  float* x_t = sm; sm += d * LDT;        // x[kj]; pass S: then d_emb2
+  float* e2_t = sm; sm += d * LDT;       // emb2; pass S: then g * emb2
+  float* rows = sm; sm += kRows * d;     // out rows / d_x rows
+  int* t_s = reinterpret_cast<int*>(sm);
+  int* k_s = t_s + TT;
+  int* j_s = k_s + TT;
+  int* row_s = j_s + TT;
+
+  for (int i = tid; i < sr * b; i += kThreads)
+    w1s[(i / b) * ld1 + i % b] = p.w1[i];
+  for (int i = tid; i < b * d; i += kThreads)
+    w2s[(i / d) * ld2 + i % d] = p.w2[i];
+  const bool want_dsbf = MODE == kPassS && p.d_sbf != nullptr;
+
+  for (int chunk = blockIdx.x; chunk < p.n_chunks; chunk += gridDim.x) {
+    const int r0 = chunk * kRows;
+    const int r1 = min(r0 + kRows, p.n_rows);
+    const int p_begin = p.row_ptr[r0];
+    const int p_end = p.row_ptr[r1];
+    __syncthreads();  // staging done; the previous chunk's rows written out
+    for (int i = tid; i < kRows * d; i += kThreads) rows[i] = 0.f;
+
+    for (int q = p_begin; q < p_end; q += TT) {
+      const int cnt = min(TT, p_end - q);
+      __syncthreads();  // rows zeroed; the previous tile's readers are done
+      if (tid < TT) {
+        int t = -1, k = -1, j = -1, row = 0;
+        if (tid < cnt) {
+          const int pos = q + tid;
+          t = p.perm != nullptr ? p.perm[pos] : pos;
+          k = p.kj[t];
+          j = p.ji[t];
+          const int own = MODE == kFwd ? j : k;
+          if (static_cast<unsigned>(k) >= static_cast<unsigned>(p.n_rows) ||
+              static_cast<unsigned>(j) >= static_cast<unsigned>(p.n_rows) ||
+              own < r0 || own >= r1) {
+            k = -1;
+          } else {
+            row = own - r0;
+          }
+        }
+        t_s[tid] = t;
+        k_s[tid] = k;
+        j_s[tid] = j;
+        row_s[tid] = row;
+      }
+      __syncthreads();
+      // gathers, transposed; invalid and out-of-tile triplets read zeros
+      for (int i = tid; i < TT * sr; i += kThreads) {
+        const int e = i / sr, c = i - e * sr;
+        sbf_t[c * LDT + e] = k_s[e] >= 0
+            ? p.sbf[static_cast<size_t>(t_s[e]) * sr + c] : 0.f;
+      }
+      for (int i = tid; i < TT * d; i += kThreads) {
+        const int e = i / d, c = i - e * d;
+        const int k = k_s[e];
+        x_t[c * LDT + e] = k >= 0 ? p.x[static_cast<size_t>(k) * d + c] : 0.f;
+      }
+      __syncthreads();
+      product(e1_t, b, sbf_t, sr, w1s, ld1);        // emb1 = sbf . K1
+      __syncthreads();
+      product(e2_t, d, e1_t, b, w2s, ld2);          // emb2 = emb1 . K2
+      __syncthreads();
+
+      if constexpr (MODE == kFwd) {
+        // rows += x[kj] * emb2 in triplet order
+        for (int c = tid; c < d; c += kThreads) {
+          for (int e = 0; e < cnt; ++e)
+            if (k_s[e] >= 0)
+              rows[row_s[e] * d + c] += x_t[c * LDT + e] * e2_t[c * LDT + e];
+        }
+      } else {
+        // ---- pass S: the cotangent is gathered at ji ----
+        for (int it = tid; it < d * TT; it += kThreads) {
+          const int c = it / TT, e = it - c * TT;
+          const float g = k_s[e] >= 0
+              ? p.gout[static_cast<size_t>(j_s[e]) * d + c] : 0.f;
+          x_t[c * LDT + e] *= g;       // d_emb2 = g * x[k]
+          e2_t[c * LDT + e] *= g;      // the d_x message: g * emb2
+        }
+        __syncthreads();
+        if (want_dsbf) {
+          product_t(e1_t, b, x_t, d, w2s, ld2);     // d_emb1 = d_emb2 . K2^T
+          __syncthreads();
+          product_t(sbf_t, sr, e1_t, b, w1s, ld1);  // d_sbf = d_emb1 . K1^T
+          __syncthreads();
+          for (int it = tid; it < cnt * sr; it += kThreads) {
+            const int e = it / sr, c = it - e * sr;
+            p.d_sbf[static_cast<size_t>(t_s[e]) * sr + c] =
+                sbf_t[c * LDT + e];
+          }
+        }
+        // the row's own d_x, in triplet order
+        for (int c = tid; c < d; c += kThreads) {
+          for (int e = 0; e < cnt; ++e)
+            if (k_s[e] >= 0) rows[row_s[e] * d + c] += e2_t[c * LDT + e];
+        }
+      }
+    }
+    __syncthreads();
+    if (p.out != nullptr) {
+      for (int i = tid; i < (r1 - r0) * d; i += kThreads)
+        p.out[static_cast<size_t>(r0) * d + i] = rows[i];
+    }
+  }
+}
+
+// Pass P: dK1[:, slice] and dK2[slice, :] over the real triplets (positions
+// [row_ptr[0], row_ptr[E]) in ji order), tile q handled by block q mod
+// gridDim.x; blockIdx.y picks the slice of B.
+__global__ void __launch_bounds__(kThreads) tri_wgrad_kernel(const Params p) {
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const int sr = p.sr, b = p.b, d = p.d;
+  const int bmax = slice_width(b);
+  const int j0 = blockIdx.y * kSlice;
+  const int bs = min(kSlice, b - j0);
+  const int ld1 = bmax | 1, ld2 = d | 1;
+  const int tid = threadIdx.x;
+
+  float* w1s = sm; sm += round4(sr * ld1);      // K1[:, slice]
+  float* w2s = sm; sm += round4(bmax * ld2);    // K2[slice, :]
+  float* gw1 = sm; sm += round4(sr * ld1);
+  float* gw2 = sm; sm += round4(bmax * ld2);
+  float* sbf_t = sm; sm += sr * LDT;
+  float* x_t = sm; sm += d * LDT;               // d_emb2 = g * x[kj]
+  float* e1_t = sm; sm += bmax * LDT;
+  float* de1_t = sm; sm += bmax * LDT;
+  int* k_s = reinterpret_cast<int*>(sm);
+  int* j_s = k_s + TT;
+
+  for (int i = tid; i < sr * bs; i += kThreads) {
+    const int c = i / bs, jj = i - c * bs;
+    w1s[c * ld1 + jj] = p.w1[static_cast<size_t>(c) * b + j0 + jj];
+    gw1[c * ld1 + jj] = 0.f;
+  }
+  for (int i = tid; i < bs * d; i += kThreads) {
+    const int jj = i / d, c = i - jj * d;
+    w2s[jj * ld2 + c] = p.w2[static_cast<size_t>(j0 + jj) * d + c];
+    gw2[jj * ld2 + c] = 0.f;
+  }
+  const int p0 = p.row_ptr[0];
+  const int p1 = p.row_ptr[p.n_rows];
+
+  for (int q = p0 + blockIdx.x * TT; q < p1; q += gridDim.x * TT) {
+    const int cnt = min(TT, p1 - q);
+    __syncthreads();  // staging done; the previous tile's readers are done
+    if (tid < TT) {
+      int k = -1, j = -1;
+      if (tid < cnt) {
+        k = p.kj[q + tid];
+        j = p.ji[q + tid];
+        if (static_cast<unsigned>(k) >= static_cast<unsigned>(p.n_rows) ||
+            static_cast<unsigned>(j) >= static_cast<unsigned>(p.n_rows))
+          k = -1;
+      }
+      k_s[tid] = k;
+      j_s[tid] = j;
+    }
+    __syncthreads();
+    // gathers, transposed; invalid and out-of-tile triplets read zeros
+    for (int i = tid; i < TT * sr; i += kThreads) {
+      const int e = i / sr, c = i - e * sr;
+      sbf_t[c * LDT + e] = k_s[e] >= 0
+          ? p.sbf[static_cast<size_t>(q + e) * sr + c] : 0.f;
+    }
+    for (int i = tid; i < TT * d; i += kThreads) {
+      const int e = i / d, c = i - e * d;
+      const int k = k_s[e];
+      x_t[c * LDT + e] = k >= 0
+          ? p.x[static_cast<size_t>(k) * d + c]
+                * p.gout[static_cast<size_t>(j_s[e]) * d + c]
+          : 0.f;
+    }
+    __syncthreads();
+    product(e1_t, bs, sbf_t, sr, w1s, ld1);       // emb1 = sbf . K1[:, sl]
+    product_t(de1_t, bs, x_t, d, w2s, ld2);       // d_emb1 = d_emb2 . K2[sl]^T
+    __syncthreads();
+    outer_acc(gw2, ld2, e1_t, bs, x_t, d);        // dK2[sl] += emb1^T d_emb2
+    outer_acc(gw1, ld1, sbf_t, sr, de1_t, bs);    // dK1[:, sl] += sbf^T d_emb1
+  }
+
+  // this block's partial entries of the slice: [dK1 SR*B | dK2 B*D]
+  __syncthreads();
+  const int size = round4(sr * b + b * d);
+  float* dst = p.partial + static_cast<size_t>(size) * blockIdx.x;
+  for (int i = tid; i < sr * bs; i += kThreads) {
+    const int c = i / bs, jj = i - c * bs;
+    dst[c * b + j0 + jj] = gw1[c * ld1 + jj];
+  }
+  for (int i = tid; i < bs * d; i += kThreads) {
+    const int jj = i / d, c = i - jj * d;
+    dst[sr * b + (j0 + jj) * d + c] = gw2[jj * ld2 + c];
+  }
+}
+
+__global__ void tri_reduce_partials_kernel(const float* __restrict__ partial,
+                                           float* __restrict__ out,
+                                           int n_parts, int size, int used) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= used) return;
+  float v = 0.f;
+  for (int q = 0; q < n_parts; ++q)
+    v += partial[static_cast<size_t>(q) * size + j];
+  out[j] = v;
+}
+
+template <typename Kernel>
+int launch(Kernel kernel, int mode, const Params& p, dim3 grid,
+           cudaStream_t st) {
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = sizeof(float) *
+      static_cast<size_t>(smem_floats(mode, p.sr, p.b, p.d));
+  if (smem > static_cast<size_t>(optin))
+    return static_cast<int>(cudaErrorInvalidValue);
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, kThreads, smem, st>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// The size in floats of one weight-gradient partial (and of `wgrad`):
+// [dK1 SR*B | dK2 B*D], padded to a multiple of 4.
+extern "C" int hg_dn_tri_builder_wgrad_size(int sr, int b, int d) {
+  return round4(sr * b + b * d);
+}
+
+// One builder launch; returns the cudaError_t (0 = success).  mode 0: the
+// forward (out [E, D]; rows are ji, positions in triplet order, `perm`
+// null).  mode 1: pass S (rows are kj, positions through `perm`, the stable
+// argsort of idx_kj; `out` is d_x [E, D] or null, `d_sbf` [T, SR]
+// zero-filled or null).  mode 2: pass P (`row_ptr` the ji-order CSR;
+// `partial` [n_parts, wgrad size] scratch, `wgrad` the reduced dK1, dK2;
+// the grid is n_parts / ceil(B / 32) blocks by ceil(B / 32) slices).
+// Pointers are device pointers; launches go on `stream` and do not
+// synchronise.
+extern "C" int hg_dn_tri_builder_f32(
+    int mode, const void* x, const void* sbf, const void* w1, const void* w2,
+    const void* kj, const void* ji, const void* perm, const void* row_ptr,
+    const void* gout, void* out, void* d_sbf, void* partial, void* wgrad,
+    int n_rows, int sr, int b, int d, int n_parts, void* stream) {
+  if (n_rows <= 0) return 0;
+  if (sr < 1 || sr > kMaxSR || b < 1 || b > kMaxB || d < 1 || d > kMaxD ||
+      mode < kFwd || mode > kPassP ||
+      (mode == kFwd && out == nullptr) ||
+      (mode == kPassS && (gout == nullptr || perm == nullptr ||
+                          (out == nullptr && d_sbf == nullptr))) ||
+      (mode == kPassP && (gout == nullptr || partial == nullptr ||
+                          wgrad == nullptr || n_parts < 1)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params p{};
+  p.x = static_cast<const float*>(x);
+  p.sbf = static_cast<const float*>(sbf);
+  p.w1 = static_cast<const float*>(w1);
+  p.w2 = static_cast<const float*>(w2);
+  p.kj = static_cast<const int*>(kj);
+  p.ji = static_cast<const int*>(ji);
+  p.perm = static_cast<const int*>(perm);
+  p.row_ptr = static_cast<const int*>(row_ptr);
+  p.gout = static_cast<const float*>(gout);
+  p.out = static_cast<float*>(out);
+  p.d_sbf = static_cast<float*>(d_sbf);
+  p.partial = static_cast<float*>(partial);
+  p.n_rows = n_rows;
+  p.sr = sr;
+  p.b = b;
+  p.d = d;
+  p.n_chunks = (n_rows + kRows - 1) / kRows;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (mode == kFwd)
+    return launch(tri_rows_kernel<kFwd>, kFwd, p, dim3(p.n_chunks), st);
+  if (mode == kPassS)
+    return launch(tri_rows_kernel<kPassS>, kPassS, p, dim3(p.n_chunks), st);
+  const int n_slices = (b + kSlice - 1) / kSlice;
+  const int grid_x = n_parts / n_slices > 0 ? n_parts / n_slices : 1;
+  const int rc = launch(tri_wgrad_kernel, kPassP, p, dim3(grid_x, n_slices),
+                        st);
+  if (rc != 0) return rc;
+  const int size = hg_dn_tri_builder_wgrad_size(sr, b, d);
+  tri_reduce_partials_kernel<<<(size + 255) / 256, 256, 0, st>>>(
+      p.partial, static_cast<float*>(wgrad), grid_x, size, sr * b + b * d);
+  return static_cast<int>(cudaGetLastError());
+}

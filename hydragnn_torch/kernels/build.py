@@ -80,6 +80,13 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         # sr, b, d
         "hg_dn_tri_wgrad_size": (_I,) * 3,
     },
+    "dn_tri_builder": {
+        # mode, x, sbf, w1, w2, kj, ji, perm, row_ptr, gout, out, d_sbf,
+        # partial, wgrad, n_rows, sr, b, d, n_parts, stream
+        "hg_dn_tri_builder_f32": (_I,) + (_P,) * 13 + (_I,) * 5 + (_P,),
+        # sr, b, d
+        "hg_dn_tri_builder_wgrad_size": (_I,) * 3,
+    },
     "row_mlp": {
         # mode, tri, xji, xe, w, bias, gout, out, dtri, dxji, dxe, partial,
         # wgrad, n_rows, din, h, nb, na, n_parts, stream

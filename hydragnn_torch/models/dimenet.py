@@ -15,19 +15,24 @@ The interaction's triplet contraction dispatches as the reference does
   ``hidden`` and ``int_emb_size`` are at most 128, the row-MLP tail
   (ops/row_mlp.py) — the batch carries ``dn_tri_ok`` and ``dn_perm_kj``,
   ``num_spherical <= 8``, ``S*R <= 64``, both embedding sizes <= 64;
-- ``tri_builder`` (the same marker, wider dims within one 128-lane tile):
-  not ported yet, raises (ROADMAP queue B item 11);
+- ``tri_builder`` (the same marker, wider dims: ``S*R <= 127``, both
+  embedding sizes <= 128): the builder-backed triplet op
+  (ops/dn_tri.py ``dimenet_tri_builder``) on the full per-triplet
+  spherical basis, then the composed tail (the reference runs the row-MLP
+  tail in the factored branch only);
 - ``tri_window`` (opt-in ``HYDRAGNN_DIMENET_FUSED_TRI``): the
   gather-multiply kernel of ops/fused_mp.py in edge space;
 - composed: a gather and a sorted segment sum over ``idx_ji``.
 
-Each interaction tallies ``dn_tri:fused`` (the factored kernel) or
-``dn_tri:scatter`` and, in the kernel branch, ``dn_row_mlp:fused`` or
-``:scatter``; a marker that the width gate or the edge-span gate turned
-away is tallied as ``dn_tri_fallback:<reason>`` (telemetry/pipeline.py).
-Parameter names are the flax tree's (``lin_in``, ``rbf.freq``,
-``emb_lin_rbf``, ``emb_lin``, ``interaction.*``, ``output.*``), whatever
-branch runs, so one checkpoint serves every branch in both packages.
+Each interaction tallies ``dn_tri_builder:fused`` (the builder branch),
+or else ``dn_tri:fused`` (the factored kernel) or ``dn_tri:scatter`` and,
+in the kernel branch, ``dn_row_mlp:fused`` or ``:scatter``; a marker that
+the width gate or the edge-span gate turned away is tallied as
+``dn_tri_fallback:<reason>`` (telemetry/pipeline.py).  Parameter names are
+the flax tree's (``lin_in``, ``rbf.freq``, ``emb_lin_rbf``, ``emb_lin``,
+``interaction.*``, ``output.*``), whatever branch runs and with or without
+``HYDRAGNN_DIMENET_REMAT`` (each conv recomputed in the backward, read at
+model build), so one checkpoint serves every branch in both packages.
 """
 
 from __future__ import annotations
@@ -44,13 +49,14 @@ from hydragnn_torch.graph import segment
 from hydragnn_torch.models.base import Base
 from hydragnn_torch.models.layers import LECUN_NORMAL, dense, dense_leaves
 from hydragnn_torch.ops.aggregate import NODE_BLOCK
+from hydragnn_torch.ops.dn_tri import (
+    FACTORED_EMB_LIMIT,
+    TRI_EMB_LIMIT,
+    TRI_S_LIMIT,
+    TRI_SBF_LIMIT,
+    TRI_SR_LIMIT,
+)
 from hydragnn_torch.utils.env import env_flag
-
-# the builder path's structural limits (hydragnn_tpu/ops/dn_tri.py
-# TRI_SBF_LIMIT = one 128-lane geometry tile less its bias lane,
-# TRI_EMB_LIMIT = one lane tile), kept so dispatch matches the reference
-TRI_SBF_LIMIT = 127
-TRI_EMB_LIMIT = 128
 
 
 def _note_fallback(reason: str) -> None:
@@ -465,7 +471,10 @@ class InteractionPPBlock(nn.Module):
         x_kj = x_kj * self.lin_rbf2(self.lin_rbf1(rbf))
         x_kj = F.silu(self.lin_down(x_kj))
 
-        segment._count("dn_tri", branch == "tri_kernel")
+        if branch == "tri_builder":
+            segment._count("dn_tri_builder", True)
+        else:
+            segment._count("dn_tri", branch == "tri_kernel")
         if branch == "tri_kernel":
             from hydragnn_torch.ops.dn_tri import dimenet_triplet_mp
 
@@ -488,6 +497,13 @@ class InteractionPPBlock(nn.Module):
                 return dimenet_post_mlp(
                     x_kj, x_ji, x_edge, len(self.before_skip),
                     len(self.after_skip), *wb)
+        elif branch == "tri_builder":
+            from hydragnn_torch.ops.dn_tri import dimenet_tri_builder
+
+            x_kj = dimenet_tri_builder(
+                x_kj, sbf, triplet_mask.to(torch.int32),
+                self.lin_sbf1.weight.t(), self.lin_sbf2.weight.t(), idx_kj,
+                idx_ji, perm_kj)
         elif branch == "tri_window":
             from hydragnn_torch.ops.fused_mp import gather_mul_segment_sum
 
@@ -545,8 +561,9 @@ class DimeNetConv(nn.Module):
     """One DIMEStack conv: lin -> embedding -> interaction -> output
     (reference get_conv, DIMEStack.py:79-116)."""
 
-    def __init__(self, in_dim, out_dim, cfg, gen):
+    def __init__(self, in_dim, out_dim, cfg, gen, remat=False):
         super().__init__()
+        self.remat = remat
         # the reference's quirk: the width is out_dim only for a
         # one-feature input
         hidden = out_dim if in_dim == 1 else in_dim
@@ -587,8 +604,10 @@ class DimeNetConv(nn.Module):
         marked = (ex.get("dn_tri_ok") is not None
                   and ex.get("dn_perm_kj") is not None)
         windowed = ex.get("dn_tri_window") is not None
-        if (marked and not windowed and s <= 8 and sr <= 64
-                and self.int_emb_size <= 64 and self.basis_emb_size <= 64):
+        if (marked and not windowed and s <= TRI_S_LIMIT
+                and sr <= TRI_SR_LIMIT
+                and self.int_emb_size <= FACTORED_EMB_LIMIT
+                and self.basis_emb_size <= FACTORED_EMB_LIMIT):
             return "tri_kernel"
         if (marked and not windowed and sr <= TRI_SBF_LIMIT
                 and self.basis_emb_size <= TRI_EMB_LIMIT
@@ -599,6 +618,16 @@ class DimeNetConv(nn.Module):
         return "tri_window" if windowed else "composed"
 
     def forward(self, x, pos, g):
+        if self.remat and torch.is_grad_enabled():
+            # the reference's nn.remat: keep only the conv's inputs and
+            # recompute the rest in the backward, the hand-written
+            # Functions included
+            from torch.utils.checkpoint import checkpoint
+
+            return checkpoint(self._forward, x, pos, g, use_reentrant=False)
+        return self._forward(x, pos, g)
+
+    def _forward(self, x, pos, g):
         n = x.shape[0]
         src, dst = g.senders.long(), g.receivers.long()
         ex = g.extras
@@ -606,13 +635,6 @@ class DimeNetConv(nn.Module):
         tmask = ex["dn_triplet_mask"]
         perm_kj = ex.get("dn_perm_kj")
         branch = self.branch(ex)
-        if branch == "tri_builder":
-            raise NotImplementedError(
-                f"DimeNet at S*R = {self.num_spherical * self.num_radial}, "
-                f"basis_emb_size = {self.basis_emb_size}, int_emb_size = "
-                f"{self.int_emb_size} takes the builder's dn_tri spec, not "
-                "ported yet — ROADMAP queue B item 11; set "
-                "HYDRAGNN_DN_TRI_OFF=1 for the composed path")
 
         dist, angle = distances_and_angles(pos, g, self.cutoff)
         rbf = self.rbf(dist)
@@ -648,8 +670,8 @@ class DIMEStack(Base):
     has_batchnorm = False
 
     def make_conv(self, in_dim, out_dim, last_layer, gen):
-        if env_flag("HYDRAGNN_DIMENET_REMAT"):
-            raise NotImplementedError(
-                "HYDRAGNN_DIMENET_REMAT (recomputing each conv in the "
-                "backward) is not ported yet — ROADMAP queue A5")
-        return DimeNetConv(in_dim, out_dim, self.cfg, gen)
+        # HYDRAGNN_DIMENET_REMAT=1 recomputes each conv in the backward
+        # (hydragnn_tpu/models/dimenet.py:739-751), for memory-limited
+        # configs; read at model build, as the reference does
+        return DimeNetConv(in_dim, out_dim, self.cfg, gen,
+                           remat=env_flag("HYDRAGNN_DIMENET_REMAT"))

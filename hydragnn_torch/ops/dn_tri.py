@@ -1,5 +1,8 @@
-"""DimeNet++'s factored-basis triplet interaction (port of
-hydragnn_tpu/ops/dn_tri.py ``dimenet_triplet_mp``).
+"""DimeNet++'s triplet interaction (port of hydragnn_tpu/ops/dn_tri.py):
+the factored-basis op ``dimenet_triplet_mp`` and, past its widths, the
+builder-backed op ``dimenet_tri_builder``.
+
+The factored-basis op:
 
   sbf_t  = radial[kj(t)] * expand(cbf[t])          expand: slot l*R + r <- l
   out[e] = sum_{t: ji(t)=e, tmask(t)} x2[kj(t)] * ((sbf_t @ w1) @ w2)
@@ -36,9 +39,27 @@ Masked triplets (``tmask == 0``) sort last in both orders
 (add_dimenet_extras guarantees it); they are never visited and get exactly
 zero in every output and gradient (``d_cbf`` included).
 
+The builder-backed op (the reference's fused-block builder with the
+``dn_tri_builder`` spec), for S*R <= 127 and B, D <= 128:
+
+  out[e] = sum_{t: ji(t)=e, tmask(t)} x_kj[kj(t)] * ((sbf_t @ k1) @ k2)
+
+with ``sbf [T, S*R]`` the full per-triplet spherical basis.  Three kernels
+in csrc/dn_tri_builder.cu, none of which writes a ``[T, D]`` or ``[T, B]``
+tensor to device memory: the forward in ``idx_ji`` order; pass S in
+``idx_kj`` order through ``perm_kj`` (each row k owns ``d_x_kj[k]``,
+``d_sbf`` goes to each triplet's own slot); pass P in ``idx_ji`` order
+(``dk1``, ``dk2`` in per-block partials over slices of B, reduced in a
+fixed order).  Its backward written out
+(:func:`dimenet_tri_builder_bwd_plain`), with ``g = dout[ji]``:
+
+  d_emb2 = g * x_kj[kj];     d_x_kj[kj] += g * emb2
+  d_emb1 = d_emb2 @ k2^T;    d_sbf       = d_emb1 @ k1^T
+  dk2    = emb1^T d_emb2;    dk1         = sbf^T d_emb1
+
 A CPU tensor takes the plain PyTorch versions (the CPU path and the tests'
 oracle), a CUDA tensor the kernels; a CUDA input the kernels do not take
-raises.  ``LAUNCHES`` counts the kernels' launches.  The op is
+raises.  ``LAUNCHES`` counts the kernels' launches.  Both ops are
 differentiable once: a double backward raises (the force term, ROADMAP
 queue A3).
 """
@@ -56,10 +77,18 @@ from hydragnn_torch.ops.fused_mp import _check_rc, _require
 # the reference's gate for the factored kernel (models/dimenet.py:655-658)
 TRI_S_LIMIT = 8
 TRI_SR_LIMIT = 64
-TRI_EMB_LIMIT = 64
+FACTORED_EMB_LIMIT = 64
+# the builder's limits under the reference's names (ops/dn_tri.py:404-405):
+# S*R lanes (one 128-lane geometry tile less its bias lane), and the basis
+# and interaction embedding sizes (one lane tile)
+TRI_SBF_LIMIT = 127
+TRI_EMB_LIMIT = 128
 
 LAUNCHES: Dict[str, int] = {"dimenet_triplet_mp": 0,
-                            "dimenet_triplet_mp_bwd": 0}
+                            "dimenet_triplet_mp_bwd": 0,
+                            "dimenet_tri_builder": 0,
+                            "dimenet_tri_builder_bwd_s": 0,
+                            "dimenet_tri_builder_bwd_p": 0}
 
 
 def reset_launches() -> None:
@@ -129,11 +158,12 @@ def dimenet_triplet_bwd_plain(radial, x2, cbf, w1, w2, idx_kj, idx_ji, tmask,
 
 def check_widths(s, sr, b, d):
     if not (1 <= s <= TRI_S_LIMIT and s <= sr <= TRI_SR_LIMIT and sr % s == 0
-            and 1 <= b <= TRI_EMB_LIMIT and 1 <= d <= TRI_EMB_LIMIT):
+            and 1 <= b <= FACTORED_EMB_LIMIT
+            and 1 <= d <= FACTORED_EMB_LIMIT):
         raise ValueError(
             f"the dn_tri kernels take S <= {TRI_S_LIMIT}, S*R <= "
-            f"{TRI_SR_LIMIT}, B <= {TRI_EMB_LIMIT} and D <= {TRI_EMB_LIMIT}, "
-            f"got S={s}, S*R={sr}, B={b}, D={d}")
+            f"{TRI_SR_LIMIT}, B <= {FACTORED_EMB_LIMIT} and D <= "
+            f"{FACTORED_EMB_LIMIT}, got S={s}, S*R={sr}, B={b}, D={d}")
 
 
 def launch_dn_tri(op, radial, x2, cbf, w1, w2, idx_kj, idx_ji, perm,
@@ -279,3 +309,231 @@ def dimenet_triplet_mp(radial, x2, cbf, w1, w2, idx_kj, idx_ji, tmask,
     the widths of :func:`check_widths` on the card (callers gate)."""
     return _DimenetTriplet.apply(radial, x2, cbf, w1, w2, idx_kj, idx_ji,
                                  tmask, perm_kj, num_radial)
+
+
+# ---------------------------------------------------------------------------
+# the builder-backed op (wide dims): plain versions
+# ---------------------------------------------------------------------------
+
+def dimenet_tri_builder_reference(x_kj, sbf, tmask, k1, k2, idx_kj, idx_ji):
+    """The composed wide-dims contraction: the sbf embedding's two matmuls,
+    the ``x_kj`` gather, ``index_add`` at ``idx_ji``.  Differentiable under
+    autograd in every float input; masked triplets give exactly zero for
+    every output and gradient.  The forward kernel's plain version."""
+    e, d = x_kj.shape
+    ok, kj, ji = _valid(tmask, idx_kj, idx_ji, e)
+    zero = torch.zeros((), dtype=x_kj.dtype, device=x_kj.device)
+    sbf = torch.where(ok[:, None], sbf, zero)
+    msg = torch.where(ok[:, None], x_kj[kj] * ((sbf @ k1) @ k2), zero)
+    return torch.zeros((e, d), dtype=msg.dtype, device=x_kj.device).index_add(
+        0, ji, msg)
+
+
+def _builder_parts(x_kj, sbf, tmask, k1, idx_kj, idx_ji, dout):
+    e = x_kj.shape[0]
+    ok, kj, ji = _valid(tmask, idx_kj, idx_ji, e)
+    zero = torch.zeros((), dtype=x_kj.dtype, device=x_kj.device)
+    sbf = torch.where(ok[:, None], sbf, zero)
+    g = torch.where(ok[:, None], dout[ji], zero)
+    return kj, sbf, sbf @ k1, g
+
+
+def dimenet_tri_builder_pass_s_plain(x_kj, sbf, tmask, k1, k2, idx_kj,
+                                     idx_ji, dout, want_sbf=True):
+    """Pass S written out: ``(d_x_kj, d_sbf)`` (``d_sbf`` None unless
+    ``want_sbf``), exactly zero on masked triplets."""
+    kj, _, emb1, g = _builder_parts(x_kj, sbf, tmask, k1, idx_kj, idx_ji,
+                                    dout)
+    d_x = torch.zeros_like(x_kj).index_add(0, kj, g * (emb1 @ k2))
+    if not want_sbf:
+        return d_x, None
+    return d_x, ((g * x_kj[kj]) @ k2.t()) @ k1.t()
+
+
+def dimenet_tri_builder_pass_p_plain(x_kj, sbf, tmask, k1, k2, idx_kj,
+                                     idx_ji, dout):
+    """Pass P written out: ``(dk1, dk2)``, the sums over real triplets of
+    ``sbf^T d_emb1`` and ``emb1^T d_emb2``."""
+    kj, sbf, emb1, g = _builder_parts(x_kj, sbf, tmask, k1, idx_kj, idx_ji,
+                                      dout)
+    d_emb2 = g * x_kj[kj]
+    return sbf.t() @ (d_emb2 @ k2.t()), emb1.t() @ d_emb2
+
+
+def dimenet_tri_builder_bwd_plain(x_kj, sbf, tmask, k1, k2, idx_kj, idx_ji,
+                                  dout):
+    """The backward written out: ``(d_x_kj, d_sbf, dk1, dk2)``, exactly zero
+    on masked triplets (with ``g = dout[ji]``: d_emb2 = g * x_kj[kj],
+    d_x_kj[kj] += g * emb2, d_emb1 = d_emb2 @ k2^T, d_sbf = d_emb1 @ k1^T,
+    dk2 = emb1^T d_emb2, dk1 = sbf^T d_emb1).  The backward kernels' plain
+    version."""
+    args = (x_kj, sbf, tmask, k1, k2, idx_kj, idx_ji, dout)
+    return (dimenet_tri_builder_pass_s_plain(*args)
+            + dimenet_tri_builder_pass_p_plain(*args))
+
+
+# ---------------------------------------------------------------------------
+# the builder-backed op: kernel launches (CUDA tensors only)
+# ---------------------------------------------------------------------------
+
+def check_builder_widths(sr, b, d):
+    if not (1 <= sr <= TRI_SBF_LIMIT and 1 <= b <= TRI_EMB_LIMIT
+            and 1 <= d <= TRI_EMB_LIMIT):
+        raise ValueError(
+            f"the dn_tri_builder kernels take S*R <= {TRI_SBF_LIMIT}, B <= "
+            f"{TRI_EMB_LIMIT} and D <= {TRI_EMB_LIMIT}, got S*R={sr}, B={b}, "
+            f"D={d}")
+
+
+_BUILDER_MODES = {"dimenet_tri_builder": 0, "dimenet_tri_builder_bwd_s": 1,
+                  "dimenet_tri_builder_bwd_p": 2}
+
+
+def launch_dn_tri_builder(op, x_kj, sbf, k1, k2, idx_kj, idx_ji, perm,
+                          row_ptr, gout=None, want=(True, True)):
+    """One launch of a builder kernel on a precomputed CSR schedule
+    ``row_ptr`` over positions: ``idx_ji`` order (``perm`` None) for the
+    forward ``dimenet_tri_builder`` (returns ``out [E, D]``) and for pass P
+    ``dimenet_tri_builder_bwd_p`` (returns ``(dk1, dk2)``); ``idx_kj``
+    order through ``perm`` for pass S ``dimenet_tri_builder_bwd_s``
+    (returns ``(d_x_kj, d_sbf)``, each None where ``want`` says so)."""
+    from hydragnn_torch.kernels.build import load_library
+
+    dev = x_kj.device
+    e, d = x_kj.shape
+    t, sr = sbf.shape
+    b = k1.shape[1]
+    check_builder_widths(sr, b, d)
+    mode = _BUILDER_MODES[op]
+    _require(x_kj, "x_kj", torch.float32, (e, d), dev)
+    _require(sbf, "sbf", torch.float32, (t, sr), dev)
+    _require(k1, "k1", torch.float32, (sr, b), dev)
+    _require(k2, "k2", torch.float32, (b, d), dev)
+    _require(idx_kj, "idx_kj", torch.int32, (t,), dev)
+    _require(idx_ji, "idx_ji", torch.int32, (t,), dev)
+    if mode == 1:
+        _require(perm, "perm_kj", torch.int32, (t,), dev)
+    elif perm is not None:
+        raise ValueError(f"{op} runs in idx_ji order: no permutation")
+    _require(row_ptr, "row_ptr", torch.int32, (e + 1,), dev)
+    if mode:
+        _require(gout, "dout", torch.float32, (e, d), dev)
+    if e >= 2**31 or t >= 2**31:
+        raise ValueError("the kernel indexes edges and triplets with int32")
+    lib = load_library("dn_tri_builder")
+    out = d_sbf = partial = wgrad = None
+    n_parts = 0
+    if mode == 0:
+        out = torch.empty((e, d), dtype=torch.float32, device=dev)
+    elif mode == 1:
+        if want[0]:
+            out = torch.empty((e, d), dtype=torch.float32, device=dev)
+        if want[1]:
+            d_sbf = torch.zeros((t, sr), dtype=torch.float32, device=dev)
+    else:
+        size = lib.hg_dn_tri_builder_wgrad_size(sr, b, d)
+        # four blocks per SM in all, shared between the slices of B
+        n_parts = 4 * torch.cuda.get_device_properties(
+            dev).multi_processor_count
+        partial = torch.empty((n_parts, size), dtype=torch.float32,
+                              device=dev)
+        wgrad = torch.empty((size,), dtype=torch.float32, device=dev)
+    if e > 0:
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = lib.hg_dn_tri_builder_f32(
+                mode, x_kj.data_ptr(), sbf.data_ptr(), k1.data_ptr(),
+                k2.data_ptr(), idx_kj.data_ptr(), idx_ji.data_ptr(),
+                _ptr(perm), row_ptr.data_ptr(), _ptr(gout), _ptr(out),
+                _ptr(d_sbf), _ptr(partial), _ptr(wgrad), e, sr, b, d,
+                n_parts, stream)
+        _check_rc(rc, op)
+        LAUNCHES[op] += 1
+    elif wgrad is not None:
+        wgrad.zero_()
+    if mode == 0:
+        return out
+    if mode == 1:
+        return out, d_sbf
+    return (wgrad[:sr * b].view(sr, b),
+            wgrad[sr * b:sr * b + b * d].view(b, d))
+
+
+# ---------------------------------------------------------------------------
+# the builder-backed op: the kernels on a CUDA tensor, the plain versions on
+# a CPU tensor
+# ---------------------------------------------------------------------------
+
+class _DimenetTriBuilder(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x_kj, sbf, tmask, k1, k2, idx_kj, idx_ji, perm_kj):
+        ctx.save_for_backward(x_kj, sbf, tmask, k1, k2, idx_kj, idx_ji,
+                              perm_kj)
+        if not x_kj.is_cuda:
+            return dimenet_tri_builder_reference(x_kj, sbf, tmask, k1, k2,
+                                                 idx_kj, idx_ji)
+        e = x_kj.shape[0]
+        return launch_dn_tri_builder(
+            "dimenet_tri_builder", x_kj.contiguous(), sbf.contiguous(),
+            k1.contiguous(), k2.contiguous(), idx_kj, idx_ji, None,
+            segment_offsets(idx_ji, e, tmask))
+
+    @staticmethod
+    def backward(ctx, dout):
+        if torch.is_grad_enabled():
+            raise RuntimeError(
+                "dimenet_tri_builder is not differentiable twice: its "
+                "backward runs hand-written kernels; the double backward "
+                "of the energy-gradient force term comes with ROADMAP queue "
+                "A3")
+        (x_kj, sbf, tmask, k1, k2, idx_kj, idx_ji,
+         perm_kj) = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        dout = dout.contiguous()
+        d_x = d_sbf = dk1 = dk2 = None
+        if not x_kj.is_cuda:
+            args = (x_kj, sbf, tmask, k1, k2, idx_kj, idx_ji, dout)
+            if need[0] or need[1]:
+                d_x, d_sbf = dimenet_tri_builder_pass_s_plain(
+                    *args, want_sbf=need[1])
+            if need[3] or need[4]:
+                dk1, dk2 = dimenet_tri_builder_pass_p_plain(*args)
+        else:
+            e = x_kj.shape[0]
+            x_c, sbf_c = x_kj.contiguous(), sbf.contiguous()
+            k1_c, k2_c = k1.contiguous(), k2.contiguous()
+            if need[0] or need[1]:
+                if perm_kj is None:
+                    perm_kj = torch.argsort(idx_kj, stable=True).to(
+                        torch.int32)
+                p = perm_kj.long()
+                d_x, d_sbf = launch_dn_tri_builder(
+                    "dimenet_tri_builder_bwd_s", x_c, sbf_c, k1_c, k2_c,
+                    idx_kj, idx_ji, perm_kj,
+                    segment_offsets(idx_kj[p], e, tmask[p]), dout,
+                    want=(need[0], need[1]))
+            if need[3] or need[4]:
+                dk1, dk2 = launch_dn_tri_builder(
+                    "dimenet_tri_builder_bwd_p", x_c, sbf_c, k1_c, k2_c,
+                    idx_kj, idx_ji, None, segment_offsets(idx_ji, e, tmask),
+                    dout)
+        out = [None] * 8
+        for i, g, like in ((0, d_x, x_kj), (1, d_sbf, sbf), (3, dk1, k1),
+                           (4, dk2, k2)):
+            if need[i]:
+                out[i] = g.reshape(like.shape).to(like.dtype)
+        return tuple(out)
+
+
+def dimenet_tri_builder(x_kj, sbf, tmask, k1, k2, idx_kj, idx_ji, perm_kj):
+    """The builder-backed triplet contraction — the reference's signature
+    and contract (hydragnn_tpu/ops/dn_tri.py:dimenet_tri_builder).
+
+    ``out[e] = sum_{t: ji(t)=e, tmask(t)} x_kj[kj(t)] * ((sbf_t @ k1) @
+    k2)``.  ``tmask``: int, 1 = real triplet; ``perm_kj``: the stable
+    argsort of ``idx_kj``.  Differentiable once wrt x_kj, sbf, k1 and k2.
+    Requires nondecreasing ``idx_ji`` with masked triplets last in both
+    orders, and S*R <= TRI_SBF_LIMIT, basis and interaction embedding
+    sizes <= TRI_EMB_LIMIT on the card (callers gate)."""
+    return _DimenetTriBuilder.apply(x_kj, sbf, tmask, k1, k2, idx_kj, idx_ji,
+                                    perm_kj)

@@ -22,8 +22,9 @@ do.
 
 Also: the hand-written backwards against autograd through the composed
 plain versions, the double-backward refusals, the dispatch tally, the
-builder width's refusal, and a DimeNet ``.pk`` written by each package's
-``run_training`` read by both ``run_prediction``s.
+builder width's branch (its op and REMAT against JAX:
+tests/test_torch_dn_tri_builder.py), and a DimeNet ``.pk`` written by each
+package's ``run_training`` read by both ``run_prediction``s.
 """
 
 import copy
@@ -629,27 +630,37 @@ def test_port_branches_agree_and_params_round_trip(monkeypatch):
 
 def test_builder_width_raises_and_fallbacks_are_tallied(monkeypatch):
     """Past the factored gate but within one lane tile (S*R = 70) the
-    reference takes the builder's dn_tri spec: not ported, so the port
-    raises naming B11; past the builder too, the composed path runs and
-    the width-gate fallback is tallied.  The composed path's dispatch
-    needs no marker."""
+    reference takes the builder's dn_tri spec, and so does the port: the
+    builder branch runs (tallied dn_tri_builder:fused) and gives finite
+    outputs; past the builder too (int_emb_size 160), the composed path
+    runs and the width-gate fallback is tallied.  The composed path's
+    dispatch needs no marker.  HYDRAGNN_DIMENET_REMAT builds, and runs the
+    same branches."""
     monkeypatch.setenv("HYDRAGNN_AGGR_BACKEND", "fused")
     _, gt = _both(_raw(seed=6))
-    _, tc = _cfgs(num_radial=10)
-    tm = t_create_model(tc)
-    with pytest.raises(NotImplementedError, match="queue B item 11"):
-        tm(gt)
-    _, tc = _cfgs(int_emb=160)
-    before = pipeline.dispatch_snapshot()
-    with torch.no_grad():
-        out = t_create_model(tc)(gt)[0]
-    delta = pipeline.dispatch_delta(before, pipeline.dispatch_snapshot())
-    assert torch.isfinite(out).all()
-    assert delta["dn_tri_fallback:width_gate"] == 2
-    assert delta["dn_tri:scatter"] == 2
-    monkeypatch.setenv("HYDRAGNN_DIMENET_REMAT", "1")
-    with pytest.raises(NotImplementedError, match="queue A5"):
-        t_create_model(tc)
+    for remat in (False, True):
+        if remat:
+            monkeypatch.setenv("HYDRAGNN_DIMENET_REMAT", "1")
+        _, tc = _cfgs(num_radial=10)
+        tm = t_create_model(tc)
+        assert all(c.remat is remat for c in tm.graph_convs)
+        assert tm.graph_convs[0].branch(gt.extras) == "tri_builder"
+        before = pipeline.dispatch_snapshot()
+        out = tm(gt)[0]
+        out.square().sum().backward()
+        delta = pipeline.dispatch_delta(before, pipeline.dispatch_snapshot())
+        assert torch.isfinite(out).all()
+        # under REMAT the backward runs each conv's forward again
+        assert delta["dn_tri_builder:fused"] == (4 if remat else 2)
+        assert "dn_tri:scatter" not in delta and "dn_tri:fused" not in delta
+        _, tc = _cfgs(int_emb=160)
+        before = pipeline.dispatch_snapshot()
+        with torch.no_grad():
+            out = t_create_model(tc)(gt)[0]
+        delta = pipeline.dispatch_delta(before, pipeline.dispatch_snapshot())
+        assert torch.isfinite(out).all()
+        assert delta["dn_tri_fallback:width_gate"] == 2
+        assert delta["dn_tri:scatter"] == 2
 
 
 def test_create_refuses_missing_dimenet_keys():

@@ -22,8 +22,11 @@ training steps in lockstep, the three cgcnn kernels at F from 1 to the
 limit of 256 with and without edge attributes, three CGCNN training
 steps in lockstep at F = 64, the pallas backend's two segment sums, a
 double backward through the linear Functions, card against CPU, the
-dn_tri and row_mlp kernels at every width their gates admit, and three
-DimeNet training steps in lockstep at the arch sweep's widths.
+dn_tri and row_mlp kernels at every width their gates admit, three
+DimeNet training steps in lockstep at the arch sweep's widths, the
+builder's three kernels from the dimenet_wide cell's widths to the limits,
+and three DimeNet training steps at dimenet_wide's widths in lockstep,
+with and without HYDRAGNN_DIMENET_REMAT.
 """
 
 import numpy as np
@@ -1091,8 +1094,8 @@ def test_dn_tri_kernels_match_plain_on_card(cuda, s, r, b, d, all_masked):
 
     dn_tri.reset_launches()
     k = run(lambda *a: dn_tri.dimenet_triplet_mp(*a, kj, ji, tm, perm, r))
-    assert dn_tri.LAUNCHES == {"dimenet_triplet_mp": 1,
-                               "dimenet_triplet_mp_bwd": 1}
+    assert {k_: v for k_, v in dn_tri.LAUNCHES.items() if v} == {
+        "dimenet_triplet_mp": 1, "dimenet_triplet_mp_bwd": 1}
     again = run(lambda *a: dn_tri.dimenet_triplet_mp(*a, kj, ji, tm, perm,
                                                      r))
     for x_, y_ in zip(k, again):
@@ -1187,14 +1190,93 @@ def test_dimenet_kernels_refuse_what_they_do_not_take(cuda):
 
 
 @pytest.mark.gpu
-def test_dimenet_train_steps_on_card_match_cpu(cuda, monkeypatch):
-    """DimeNet at the arch sweep's widths (hidden 64, 4 convs, S = 7, R =
-    6, B = 8, int_emb = out_emb = 64, one pair before the skip, two after)
-    on 16 molecule-sized graphs: three AdamW steps under fused in
-    lockstep, card (kernels) against CPU (plain versions): loss 1e-5,
-    every gradient 1e-4 of the largest.  Per step 4 dn_tri forward and
-    backward, 4 row_mlp forward and backward, 5 segment sums (4 output
-    blocks and the pool)."""
+@pytest.mark.parametrize("all_masked", [False, True],
+                         ids=["masked-tail", "all-masked"])
+@pytest.mark.parametrize("sr,b,d", [(42, 8, 128), (21, 8, 96), (70, 8, 64),
+                                    (126, 128, 128), (127, 33, 1)])
+def test_dn_tri_builder_kernels_match_plain_on_card(cuda, sr, b, d,
+                                                    all_masked):
+    """The builder's forward, pass S and pass P through the autograd
+    Function against autograd through the composed plain version: the
+    dimenet_wide cell's widths (S*R = 42, B = 8, D = 128), the JAX tests'
+    (21, 8, 96) and (70, 8, 64), the limits (126, 128, 128: four slices of
+    B in pass P) and a ragged slice (127, 33, 1).  Forward, d x_kj and
+    d sbf 1e-5 of their largest entry, the triplet-summed dk1, dk2 1e-4;
+    d sbf exactly zero on masked triplets; a second run bit-identical."""
+    from hydragnn_torch.ops import dn_tri
+
+    e, t = 700, 6000
+    kj, ji, tm, perm = (_t(a).to(cuda) for a in
+                        _dimenet_tables(e, t, 1, 7 + sr + b))
+    if all_masked:
+        tm = torch.zeros_like(tm)
+    g = torch.Generator().manual_seed(4)
+    ins = [torch.randn(e, d, generator=g),
+           torch.randn(t, sr, generator=g) * 0.5,
+           torch.randn(sr, b, generator=g) / sr ** 0.5,
+           torch.randn(b, d, generator=g) / b ** 0.5]
+    ins = [x.to(cuda) for x in ins]
+    ct = torch.randn(e, d, generator=g).to(cuda)
+
+    def run(fn):
+        ts = [x.detach().clone().requires_grad_(True) for x in ins]
+        out = fn(ts[0], ts[1], tm, ts[2], ts[3], kj, ji)
+        (out * ct).sum().backward()
+        torch.cuda.synchronize()
+        return [out.detach()] + [x.grad for x in ts]
+
+    def kern(*a):
+        return dn_tri.dimenet_tri_builder(*a, perm)
+
+    dn_tri.reset_launches()
+    k = run(kern)
+    assert {k_: v for k_, v in dn_tri.LAUNCHES.items() if v} == {
+        "dimenet_tri_builder": 1, "dimenet_tri_builder_bwd_s": 1,
+        "dimenet_tri_builder_bwd_p": 1}
+    again = run(kern)
+    for x_, y_ in zip(k, again):
+        assert torch.equal(x_, y_)
+    p = run(dn_tri.dimenet_tri_builder_reference)
+    assert bool((k[2][tm == 0] == 0).all())
+    for name, x_, y_ in zip(("out", "x_kj", "sbf", "k1", "k2"), k, p):
+        if all_masked:
+            assert float(x_.abs().max()) == 0, name
+            continue
+        assert float(y_.abs().max()) > 0, name
+        rel = 1e-5 if name in ("out", "x_kj", "sbf") else 1e-4
+        assert float((x_ - y_).abs().max()) <= rel * float(y_.abs().max()), \
+            name
+
+
+@pytest.mark.gpu
+def test_dn_tri_builder_refuses_what_it_does_not_take(cuda):
+    from hydragnn_torch.ops import dn_tri
+
+    kj, ji, tm, perm = (_t(a).to(cuda) for a in _dimenet_tables(50, 200, 1,
+                                                               2))
+    with pytest.raises(ValueError, match="S\\*R <= 127"):
+        dn_tri.dimenet_tri_builder(
+            torch.rand(50, 8, device=cuda), torch.rand(200, 128, device=cuda),
+            tm, torch.rand(128, 4, device=cuda),
+            torch.rand(4, 8, device=cuda), kj, ji, perm)
+    with pytest.raises(ValueError, match="D <= 128"):
+        dn_tri.dimenet_tri_builder(
+            torch.rand(50, 129, device=cuda), torch.rand(200, 42, device=cuda),
+            tm, torch.rand(42, 8, device=cuda),
+            torch.rand(8, 129, device=cuda), kj, ji, perm)
+    with pytest.raises(TypeError):
+        dn_tri.dimenet_tri_builder(
+            torch.rand(50, 8, device=cuda).double(),
+            torch.rand(200, 42, device=cuda).double(), tm,
+            torch.rand(42, 8, device=cuda).double(),
+            torch.rand(8, 8, device=cuda).double(), kj, ji, perm)
+
+
+def _dimenet_steps(cuda, monkeypatch, widths, remat=False):
+    """Three AdamW steps of DimeNet on 16 molecule-sized graphs under
+    fused, card (kernels) against CPU (plain versions) in lockstep (the
+    card takes the CPU's weights before each step): loss 1e-5, every
+    gradient 1e-4 of the largest.  Returns the launches of the steps."""
     from hydragnn_torch.graph.batch import GraphSample, HeadSpec, PadSpec, collate
     from hydragnn_torch.graph.neighborlist import radius_graph
     from hydragnn_torch.models.base import (
@@ -1213,6 +1295,8 @@ def test_dimenet_train_steps_on_card_match_cpu(cuda, monkeypatch):
     from hydragnn_torch.train.trainer import create_train_state, make_train_step
 
     monkeypatch.setenv("HYDRAGNN_AGGR_BACKEND", "fused")
+    if remat:
+        monkeypatch.setenv("HYDRAGNN_DIMENET_REMAT", "1")
     rng = np.random.RandomState(0)
     samples = []
     for _ in range(16):
@@ -1234,12 +1318,11 @@ def test_dimenet_train_steps_on_card_match_cpu(cuda, monkeypatch):
                            tri_gate=DnTriGate(max_edges_per_graph=max_e))
     assert "dn_tri_ok" in g.extras
     cfg = ModelConfig(
-        model_type="DimeNet", input_dim=1, hidden_dim=64, output_dim=(1,),
-        output_type=("graph",), graph_head=GraphHeadCfg(2, 64, 2, (64, 64)),
-        node_head=None, task_weights=(1.0,), num_conv_layers=4, radius=1.8,
-        max_neighbours=20, envelope_exponent=5, num_before_skip=1,
-        num_after_skip=2, num_radial=6, num_spherical=7, basis_emb_size=8,
-        int_emb_size=64, out_emb_size=64)
+        model_type="DimeNet", input_dim=1, output_dim=(1,),
+        output_type=("graph",), node_head=None, task_weights=(1.0,),
+        num_conv_layers=4, radius=1.8, max_neighbours=20,
+        envelope_exponent=5, num_before_skip=1, num_after_skip=2,
+        num_spherical=7, **widths)
     sides = []
     for dev in (torch.device("cpu"), cuda):
         model = create_model(cfg, seed=1).to(dev)
@@ -1268,9 +1351,47 @@ def test_dimenet_train_steps_on_card_match_cpu(cuda, monkeypatch):
         for m in (tfm, dn_tri, row_mlp):
             for k, v in m.LAUNCHES.items():
                 counted[k] = counted.get(k, 0) + v
+    return {k: v for k, v in counted.items() if v}
+
+
+@pytest.mark.gpu
+def test_dimenet_train_steps_on_card_match_cpu(cuda, monkeypatch):
+    """DimeNet at the arch sweep's widths (hidden 64, 4 convs, S = 7, R =
+    6, B = 8, int_emb = out_emb = 64, one pair before the skip, two after)
+    in lockstep.  Per step 4 dn_tri forward and backward, 4 row_mlp
+    forward and backward, 5 segment sums (4 output blocks and the pool)."""
+    counted = _dimenet_steps(cuda, monkeypatch, dict(
+        hidden_dim=64, graph_head=_dimenet_head(64), num_radial=6,
+        basis_emb_size=8, int_emb_size=64, out_emb_size=64))
     assert counted == {
-        "gather_mul_segment_sum": 0, "gather_mul_segment_sum_dx": 0,
-        "gather_segment_sum": 0, "gather_segment_sum_dx": 0,
         "segment_sum_dense": 15, "dimenet_triplet_mp": 12,
         "dimenet_triplet_mp_bwd": 12, "dimenet_post_mlp": 12,
         "dimenet_post_mlp_bwd": 12}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])
+def test_dimenet_wide_train_steps_on_card_match_cpu(cuda, monkeypatch,
+                                                     remat):
+    """DimeNet at the dimenet_wide cell's widths (DimeNet++'s QM9 model
+    with int_emb_size 128: hidden 128, out_emb 256, B = 8, S = 7, R = 6)
+    in lockstep (two float32 runs of it part within an epoch:
+    backend_drift.py DimeNet_wide), with and without
+    HYDRAGNN_DIMENET_REMAT.  Per step 4 builder forwards, 4 pass S, 4 pass
+    P, 5 segment sums (under REMAT the backward runs each conv again: 8
+    forwards, 9 sums); no factored kernel and no row tail."""
+    counted = _dimenet_steps(cuda, monkeypatch, dict(
+        hidden_dim=128, graph_head=_dimenet_head(128), num_radial=6,
+        basis_emb_size=8, int_emb_size=128, out_emb_size=256), remat=remat)
+    # under REMAT each conv's four output-block sums run again, the pool
+    # (outside the convs) does not
+    assert counted == {
+        "segment_sum_dense": 27 if remat else 15,
+        "dimenet_tri_builder": 24 if remat else 12,
+        "dimenet_tri_builder_bwd_s": 12, "dimenet_tri_builder_bwd_p": 12}
+
+
+def _dimenet_head(width):
+    from hydragnn_torch.models.base import GraphHeadCfg
+
+    return GraphHeadCfg(2, width, 2, (width, width))
