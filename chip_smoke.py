@@ -9,7 +9,10 @@ and PyTorch built for CUDA.  Phases, each of which fails the run:
 1. device: require CUDA, print the card's name and power limit, keep
    float32 matmuls in full precision;
 2. build: compile the port's CUDA kernels from csrc/ with nvcc (sm_90a),
-   one nvcc per source, all started together;
+   one nvcc per source, all started together; then the registers,
+   stack, spills and static shared memory (ptxas) of the two pass-P
+   kernels on the tensor cores (scf, cgcnn with its node table) and
+   their dynamic shared memory at the main path's widths;
 3. kernels: on the first batch of the main path (512 flagship-size graphs,
    masked tail edges, empty segments), hold each kernel to its plain
    PyTorch version and time kernel, plain version and library call (CUDA
@@ -21,8 +24,11 @@ and PyTorch built for CUDA.  Phases, each of which fails the run:
    1e-5), and the three scf kernels of the wide
    SchNet (F=256, G=50: forward, pass P, pass S) through their autograd
    Function against autograd through the composed plain version (1e-5;
-   1e-4 for the weight grads, sums over ~1e5 edges in another order), and
-   the two poly kernels (scatter mode with all moments at F=64 and F=256,
+   1e-4 for the weight grads, sums over ~1e5 edges in another order;
+   pass P, here and in cgcnn below, runs its products on the tensor cores
+   in 3xTF32, and its row carries two bounds: ``bound_ms`` at the 3xTF32
+   rate of 495 / 3 TFLOP/s, ``bound_ms_cuda_cores`` at 67), and the two
+   poly kernels (scatter mode with all moments at F=64 and F=256,
    gather mode with sum+cnt and with all moments at F=64: sums 1e-5,
    max/min and count exactly equal; through their autograd Functions
    against autograd through the plain versions on data with ties), and
@@ -178,6 +184,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # rate outside the tensor cores — the basis of every bound_ms below
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+# float32 work on the tensor cores in 3xTF32: three TF32 products (495
+# TFLOP/s dense) per float32 product — the bound of the kernels that run
+# their products there (scf and cgcnn pass P)
+TF32X3_FLOPS_PER_S = 495e12 / 3
 # torch.cuda._sleep spins for clock cycles; the H100's SM clock is at most
 # ~1.98 GHz, so this rate never sleeps shorter than intended
 SLEEP_CYCLES_PER_S = 2.0e9
@@ -574,12 +584,77 @@ def forward_profile(torch, model, g, reps=3, top=8):
     }
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, peak=F32_FLOPS_PER_S):
     """The least time for the work: bytes over the HBM rate or float32
-    operations over the peak, whichever is larger (ms, and which)."""
+    operations over the peak of the units that do them (the CUDA cores
+    unless named), whichever is larger (ms, and which)."""
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_f = flops / F32_FLOPS_PER_S * 1e3
+    t_f = flops / peak * 1e3
     return max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
+
+
+def tensor_core_bounds(nbytes, flops):
+    """A tensor-core kernel's bound (3xTF32) and, beside it, the bound of
+    the same work on the CUDA cores: (ms, by, cuda-core ms)."""
+    b_ms, b_by = bound(nbytes, flops, TF32X3_FLOPS_PER_S)
+    return b_ms, b_by, bound(nbytes, flops)[0]
+
+
+def pass_p_build_report():
+    """The registers, stack, spills and static shared memory (ptxas) of
+    the redesigned pass-P kernels and, beside them, of the forward and
+    pass S of cgcnn, whose registers their split changed; and the dynamic
+    shared memory of one pass-P block at the main path's widths (the
+    kernels' own layout).  Fails when a source's report is missing."""
+    from hydragnn_torch.kernels.build import load_library, ptxas_log
+    from hydragnn_torch.ops import scf_mp
+
+    keys = ("pass_p_kernel", "node_table_kernel", "cgcnn_kernel")
+    kernels = []
+    for src in ("scf_mp", "cgcnn_mp"):
+        rep = ptxas_report(ptxas_log(src), keys)
+        check(bool(rep) and all("registers" in k for k in rep),
+              f"ptxas: no register report for {src}.cu's kernels")
+        kernels += rep
+    cg = load_library("cgcnn_mp")
+    width = scf_mp.pass_p_plan(WIDE, GAUSSIANS, 1, 1).width
+    wp = cg.hg_cgcnn_pass_p_width(FEATURES, FEATURES, 0)
+    return {"phase": "ptxas", "kernels": kernels,
+            "dynamic_smem_bytes": {
+                f"scf_pass_p (F={WIDE}, G={GAUSSIANS}, W={width})":
+                    load_library("scf_mp").hg_scf_pass_p_smem(
+                        WIDE, GAUSSIANS, width),
+                f"cgcnn_pass_p (F=D={FEATURES}, wp={wp})":
+                    cg.hg_cgcnn_pass_p_smem(FEATURES, 0, wp)}}
+
+
+def ptxas_report(log, keys):
+    """Registers, stack, spills and static shared memory of each kernel in
+    an ``nvcc -Xptxas -v`` log whose (mangled) name holds one of ``keys``."""
+    import re
+
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = None
+            if any(k in m.group(1) for k in keys):
+                cur = {"kernel": m.group(1)}
+                out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            cur["static_smem"] = int(m.group(1)) if m else 0
+    return out
 
 
 def rel_err(torch, got, want):
@@ -885,13 +960,15 @@ def scf_phase(torch, g, seed):
                 h, rbf, cm, em, w0, b0, w1, b1, send, recv),
             bound(4 * 2 * n * f + geo + wbytes, fwd_flops),
             "hydragnn_tpu/ops/fused_block.py:495", ("out",)),
+        # as the path launches it (no drbf, dcm): t0, then u = dfilt . W1^T,
+        # dW1 and dW0 per edge; f2 = a . W1 + b1 feeds only dcm
         "scf_edge_pipeline_pass_p": (
             lambda: sm.launch_scf_pass_p(
                 h, ct, rbf, cm, w0, b0, w1, b1, send, recv, ptr_r, False),
             lambda: sm.scf_pass_p_plain(
                 h, ct, rbf, cm, em, w0, b0, w1, b1, send, recv),
-            bound(4 * 2 * n * f + geo + 3 * wbytes,
-                  2 * e_valid * (2 * gd * f + 3 * f * f)),
+            tensor_core_bounds(4 * 2 * n * f + geo + 3 * wbytes,
+                               2 * e_valid * (2 * gd * f + 2 * f * f)),
             "hydragnn_tpu/ops/fused_block.py:561",
             ("dw0", "db0", "dw1", "db1", "drbf", "dcm")),
         "scf_edge_pipeline_pass_s": (
@@ -904,7 +981,7 @@ def scf_phase(torch, g, seed):
             "hydragnn_tpu/ops/fused_block.py:599", ("dh",)),
     }
     results = []
-    for name, (kern, plain, (b_ms, b_by), replaces, outs) in launches.items():
+    for name, (kern, plain, bnd, replaces, outs) in launches.items():
         worst = max(outs, key=lambda o: errs[o][1])
         results.append({
             "name": name, "route": "cuda",
@@ -913,9 +990,11 @@ def scf_phase(torch, g, seed):
             "ms": time_ms(torch, kern, flush, lead=True),
             "warm_l2_ms": time_ms(torch, kern, lead=True),
             "plain_ms": time_ms(torch, plain, flush),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
             "shape": {"N": n, "E": e, "E_valid": e_valid, "F": f, "G": gd},
         })
+        if len(bnd) == 3:
+            results[-1]["bound_ms_cuda_cores"] = bnd[2]
     return results, {k: {"max_abs_err": a, "max_rel_err": r}
                      for k, (a, r) in errs.items()}
 
@@ -1675,7 +1754,8 @@ def cgcnn_phase(torch, g, seed):
             lambda: cg.launch_cgcnn("cgcnn_block_pass_p", x, None, ws, send,
                                     recv, None, ptr_r, ct, want_dx=True),
             lambda: cg.cgcnn_pass_p_plain(*plain_args),
-            bound(edge_in + 4 * n * d + 4 * n * f + wbytes, p_fl),
+            tensor_core_bounds(edge_in + 4 * n * d + 4 * n * f + wbytes,
+                               p_fl),
             "hydragnn_tpu/ops/fused_block.py:561",
             ("dkf", "dbf", "dks", "dbs")),
         "cgcnn_block_pass_s": (
@@ -1686,7 +1766,7 @@ def cgcnn_phase(torch, g, seed):
             "hydragnn_tpu/ops/fused_block.py:599", ("dx",)),
     }
     results = []
-    for name, (kern, plain, (b_ms, b_by), replaces, outs) in launches.items():
+    for name, (kern, plain, bnd, replaces, outs) in launches.items():
         worst = max(outs, key=lambda o: errs[o][1])
         results.append({
             "name": name, "route": "cuda",
@@ -1695,10 +1775,12 @@ def cgcnn_phase(torch, g, seed):
             "ms": time_ms(torch, kern, flush, lead=True),
             "warm_l2_ms": time_ms(torch, kern, lead=True),
             "plain_ms": time_ms(torch, plain, flush),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
             "shape": {"N": n, "N_valid": n_valid, "E": e,
                       "E_valid": e_valid, "F": f, "D": d, "A": 0},
         })
+        if len(bnd) == 3:
+            results[-1]["bound_ms_cuda_cores"] = bnd[2]
     notes = {k: {"max_abs_err": a, "max_rel_err": r}
              for k, (a, r) in errs.items()}
     notes["F24_A5_D16"] = worst_of(errs_small)
@@ -2788,6 +2870,7 @@ def main():
     libs = build_all(verbose=True)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": [os.path.basename(p) for p in libs]})
+    emit(pass_p_build_report())
 
     # the bench's backend for the card: the kernels on the path
     os.environ["HYDRAGNN_AGGR_BACKEND"] = "fused"

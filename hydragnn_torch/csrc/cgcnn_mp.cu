@@ -17,8 +17,6 @@
 // derivative is 1 above the threshold, else exp(v) / (exp(v) + 1), as in
 // PyTorch's own backward.  sigmoid(v) = 1 / (1 + exp(-v)).
 //
-// One kernel template, three modes:
-//
 // cgcnn_kernel<kFwd>   — the forward.  Replaces
 //   hydragnn_tpu/ops/fused_block.py:_fused_fwd with the cgcnn spec of
 //   hydragnn_tpu/ops/cgcnn_mp.py (pl.pallas_call at :495).  Receiver
@@ -27,40 +25,46 @@
 //   receiver rows and walks their edges TE at a time, gathers x[r], x[s]
 //   and ea into transposed shared-memory tiles, recomputes tf and ts and
 //   adds sigmoid(tf) * softplus(ts) into the block's rows in edge order.
-// cgcnn_kernel<kPassP> (+ cgcnn_reduce_partials_kernel) — backward pass P.
-//   Replaces :_fused_bwd pass P (pl.pallas_call at :561).  Receiver order
-//   again: recompute, take the cotangent dout[r] (the row's own), and
-//     dtf = dout * softplus(ts) * sigmoid(tf) (1 - sigmoid(tf))
-//     dts = dout * sigmoid(tf) * softplus'(ts)
-//   then write dx of the receiver side (dtf.Wfr^T + dts.Wsr^T summed per
-//   row), the per-edge d ea (dtf.Wfg^T + dts.Wsg^T) and the six weight
-//   blocks' and two biases' gradients: each of n_parts blocks keeps one
-//   float32 partial over all of its rows and writes it once; the reduce
-//   kernel sums the partials in block order.
 // cgcnn_kernel<kPassS> — backward pass S.  Replaces :_fused_bwd pass S
 //   (pl.pallas_call at :599).  Sender order through edge_perm_sender:
 //   recompute, gather the cotangent at the receiver, and sum dx of the
 //   sender side (dtf.Wfs^T + dts.Wss^T) per sender row.
+//   Both: bound by operations (2 * 2 * (2F + A) * D flops per real edge
+//   against ~(2F + A) * 4 bytes of gathered rows); float32 on the CUDA
+//   cores, per-edge tiles transposed ([k][e], row stride TE+4) so one
+//   16-byte broadcast load feeds four multiply-adds.  The six [rows, D]
+//   weight blocks and two biases are staged in shared memory with an odd
+//   row stride (D | 1) where they fit, else read from L2.
 //
-// Bound on the H100 SXM: operations.  Per real edge the forward does
-// 2 * 2 * (2F + A) * D flops against ~(2F + A) * 4 bytes of gathered rows
-// (F = D = 64: ~33 kFLOP per ~0.5 KB, far above the card's ~20 flop/byte
-// float32 ridge); pass P about three times the forward, pass S twice.
-// Design against it, first version: no [E, D] or [E, 2F+A] tensor reaches
-// device memory (the gathered rows, tf, ts and their cotangents live in
-// shared-memory tiles of TE edges); per-edge tiles are transposed ([k][e],
-// row stride TE+4) so one 16-byte broadcast load feeds four multiply-adds;
-// each thread computes EQ edges of one output column.  Weight staging: the
-// six [rows, D] blocks and two biases are copied once per block into
-// shared memory with an odd row stride (D | 1), so that a forward product
-// (threads along a row) and a backward product (threads down a column) are
-// both free of bank conflicts, and pass P keeps its weight-gradient
-// partial there too.  At F = D = 64 that is 2 x 67 KB beside 41 KB of
-// tiles.  Where weights (and partial) do not fit a block's 227 KB
-// (F = D = 256: the six blocks alone are 1.5 MB), the kernel reads the
-// weights from global memory (L2-resident, coalesced along D in the
-// forward) and keeps the partial in device memory: correct and slow.  Not
-// yet: tensor cores, the receiver-side product x[r].W once per row.
+// cgcnn_node_table_kernel + cgcnn_pass_p_kernel (+ the fixed-order
+// reductions) — backward pass P.  Replaces :_fused_bwd pass P
+// (pl.pallas_call at :561).  With the row's own cotangent g = dout[r]:
+//     dtf = g * softplus(ts) * sigmoid(tf) (1 - sigmoid(tf))
+//     dts = g * sigmoid(tf) * softplus'(ts)
+//   and the weight blocks' and biases' gradients, dx of the receiver side
+//   and the per-edge d ea.  Bound: operations; x's products factor to the
+//   nodes (x[r].W = (x.W)[r]; sum_e x[r]^T dtf = x[r]^T (sum over r's
+//   edges of dtf)), so the work is ~2 (F + A) * 2D multiply-adds per edge
+//   and ~8 F D per node.  Design: the node table x . [Wfr | Wsr | Wfs |
+//   Wss] ([N, 4D], L2-resident) is computed once per launch, so tf and ts
+//   are gathered sums; the grid is (part p, slice j of wp output columns),
+//   a part is a run of whole receiver rows with about n_valid / n_parts
+//   edges, walked kPR rows at a time and their edges kPE at a time.  Per
+//   edge only [dtf | dts] and the sender-side products remain:
+//   sum_e [x[s] | ea]^T [dtf | dts] (dWfs, dWss, dWfg, dWsg); per row,
+//   once, the row sums of [dtf | dts] give dWfr, dWsr (x[r]^T . sum) and
+//   dx_r (sum . [Wfr | Wsr]^T).  Every product runs on the tensor cores in
+//   3xTF32 (pass_p.cuh: each k step's products from zero, then a float32
+//   add), with the gradient sums accumulated in shared memory over the
+//   part's whole share and written once; the row sums and the biases'
+//   sums are compensated, and each tile's ids are loaded during the tile
+//   before it.  The slice width wp is the widest multiple of 16 whose tiles
+//   fit the device's shared memory (hg_cgcnn_pass_p_width: all of D up to
+//   64 at F = D = 64; 16 at F = D = 256, the slower route); with more than
+//   one slice, dx and d ea are per-slice partials summed in slice order.
+//   Block (p, j) writes its columns of the weight gradients straight into
+//   part p's partial in the packed layout of `wgrad` (the slices' columns
+//   are disjoint), and the reduce kernel sums the parts in order.
 //
 // Contract (collate guarantees it): positions are sorted by output row, so
 // each row owns one contiguous CSR range; masked edges sort last in both
@@ -68,10 +72,13 @@
 // never read and every gradient on them is exactly zero (the wrapper
 // zero-fills d ea).  Gather ids outside [0, n_rows) contribute nothing.
 // Determinism: every sum runs in a fixed order (edge order within a row;
-// tile, then block order for the weight gradients); no atomics.  Every
-// output row is written, rows without edges as zeros.
+// tile, then part, then slice order for the weight gradients and the
+// per-slice partials); no atomics.  Every output row is written, rows
+// without edges as zeros.
 
 #include <cuda_runtime.h>
+
+#include "pass_p.cuh"
 
 namespace {
 
@@ -86,7 +93,6 @@ constexpr int kMaxD = 256;
 constexpr int kMaxA = 127;
 
 constexpr int kFwd = 0;
-constexpr int kPassP = 1;
 constexpr int kPassS = 2;
 
 struct Params {
@@ -98,11 +104,9 @@ struct Params {
   const int* row_ptr;    // [N + 1] CSR over positions
   const float* w[8];     // wfr, wfs, wfg, bf, wsr, wss, wsg, bs
   const float* gout;     // [N, D] cotangent of out (backward)
-  float* out;            // fwd: out [N, D]; pass P / S: dx [N, F] or null
-  float* partial;        // pass P: [gridDim.x, wgrad size (ld = D)]
-  float* dea;            // pass P: [E, A] (zero-filled) or null
+  float* out;            // fwd: out [N, D]; pass S: dx [N, F]
   int n_rows, f, d, a, n_chunks;
-  int stage;             // 1: weights (and partials) in shared memory
+  int stage;             // 1: weights in shared memory
 };
 
 // offsets of the eight blocks in a packed layout with row stride ld:
@@ -178,37 +182,6 @@ __device__ __forceinline__ void store8(float* dst, const float (&v)[EQ]) {
   reinterpret_cast<float4*>(dst)[1] = make_float4(v[4], v[5], v[6], v[7]);
 }
 
-// sum_e A[e] * B[e] over the TE edges of two transposed tile rows
-__device__ __forceinline__ float row_dot(const float* a, const float* b) {
-  float v = 0.f;
-#pragma unroll
-  for (int q = 0; q < TE / 4; ++q) {
-    const float4 x = reinterpret_cast<const float4*>(a)[q];
-    const float4 y = reinterpret_cast<const float4*>(b)[q];
-    v += x.x * y.x + x.y * y.y + x.z * y.z + x.w * y.w;
-  }
-  return v;
-}
-
-__device__ __forceinline__ float row_sum(const float* a) {
-  float v = 0.f;
-#pragma unroll
-  for (int q = 0; q < TE / 4; ++q) {
-    const float4 x = reinterpret_cast<const float4*>(a)[q];
-    v += x.x + x.y + x.z + x.w;
-  }
-  return v;
-}
-
-// G[k*ld + c] += sum_e A[k][e] * D[c][e] for k < K, c < d (a weight grad)
-__device__ __forceinline__ void outer_acc(float* G, int ld, const float* A,
-                                          int K, const float* D, int d) {
-  for (int it = threadIdx.x; it < K * d; it += kThreads) {
-    const int k = it / d, c = it - k * d;
-    G[k * ld + c] += row_dot(A + k * LDT, D + c * LDT);
-  }
-}
-
 // out tile [D][LDT] = bias + T0.W0 + T1.W1 (+ T2.W2): thread per output
 // column c, EQ edges each
 __device__ __forceinline__ void dense_tile(float* out, int d, const float* T0,
@@ -229,15 +202,17 @@ __device__ __forceinline__ void dense_tile(float* out, int d, const float* T0,
   }
 }
 
+// At most 64 registers a thread (four blocks' worth): left to itself,
+// ptxas gives pass S 48 and a spill, and it runs ~15% slower.
 template <int MODE>
-__global__ void __launch_bounds__(kThreads) cgcnn_kernel(const Params p) {
+__global__ void __launch_bounds__(kThreads, 4) cgcnn_kernel(const Params p) {
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   const int f = p.f, d = p.d, a = p.a;
   const int n_rows = p.n_rows;
   const int tid = threadIdx.x;
 
-  float* xr_t = sm; sm += f * LDT;     // x[r]; pass P: then dx per edge
+  float* xr_t = sm; sm += f * LDT;     // x[r]
   float* xs_t = sm; sm += f * LDT;     // x[s]; pass S: then dx per edge
   float* g_t = sm; sm += a * LDT;      // edge attributes
   float* tf_t = sm; sm += d * LDT;     // tf; fwd: then the message; bwd: dtf
@@ -274,24 +249,6 @@ __global__ void __launch_bounds__(kThreads) cgcnn_kernel(const Params p) {
   }
   const float *wfr = w[0], *wfs = w[1], *wfg = w[2], *bf = w[3],
               *wsr = w[4], *wss = w[5], *wsg = w[6], *bs = w[7];
-
-  // pass P: this block's weight-gradient partial (the weights' layout),
-  // zeroed here, written once at the end
-  float* gw[8] = {nullptr};
-  if (MODE == kPassP) {
-    float* base;
-    int goff[8];
-    int gsize;
-    if (p.stage) {
-      base = sm;
-      gsize = weight_layout(f, d, a, ld, goff);
-    } else {
-      gsize = weight_layout(f, d, a, d, goff);
-      base = p.partial + static_cast<size_t>(gsize) * blockIdx.x;
-    }
-    for (int j = tid; j < gsize; j += kThreads) base[j] = 0.f;
-    for (int i = 0; i < 8; ++i) gw[i] = base + goff[i];
-  }
 
   for (int chunk = blockIdx.x; chunk < p.n_chunks; chunk += gridDim.x) {
     const int r0 = chunk * kRows;
@@ -371,87 +328,353 @@ __global__ void __launch_bounds__(kThreads) cgcnn_kernel(const Params p) {
         ts_t[c * LDT + e] = gc * sf * softplus_grad(vs);
       }
       __syncthreads();
-      if (MODE == kPassP) {
-        // dWfr, dWfs, dWfg, dbf from dtf; dWsr, dWss, dWsg, dbs from dts
-        outer_acc(gw[0], ld, xr_t, f, tf_t, d);
-        outer_acc(gw[1], ld, xs_t, f, tf_t, d);
-        outer_acc(gw[2], ld, g_t, a, tf_t, d);
-        outer_acc(gw[4], ld, xr_t, f, ts_t, d);
-        outer_acc(gw[5], ld, xs_t, f, ts_t, d);
-        outer_acc(gw[6], ld, g_t, a, ts_t, d);
-        for (int c = tid; c < d; c += kThreads) {
-          gw[3][c] += row_sum(tf_t + c * LDT);
-          gw[7][c] += row_sum(ts_t + c * LDT);
-        }
-        // d ea per edge = dtf.Wfg^T + dts.Wsg^T
-        if (p.dea != nullptr) {
-          for (int it = tid; it < a * TE; it += kThreads) {
-            const int e = it / a, k = it - e * a;
-            if (e >= cnt || s_s[e] < 0) continue;
-            float v = 0.f;
-            for (int c = 0; c < d; ++c)
-              v += tf_t[c * LDT + e] * wfg[k * ld + c] +
-                   ts_t[c * LDT + e] * wsg[k * ld + c];
-            p.dea[static_cast<size_t>(eid_s[e]) * a + k] = v;
-          }
-        }
-        __syncthreads();  // xr_t is overwritten next
-      }
-      if (p.out == nullptr) continue;
-      // dx per edge = dtf.Wf_own^T + dts.Ws_own^T into the own side's x
-      // tile, then summed per row in edge order
-      float* dx_t = MODE == kPassP ? xr_t : xs_t;
-      const float* wf_own = MODE == kPassP ? wfr : wfs;
-      const float* ws_own = MODE == kPassP ? wsr : wss;
+      // dx per edge = dtf.Wfs^T + dts.Wss^T into the sender's x tile, then
+      // summed per row in edge order
       for (int it = tid; it < f * kGroups; it += kThreads) {
         const int k = it % f, e0 = (it / f) * EQ;
         float acc[EQ];
 #pragma unroll
         for (int j = 0; j < EQ; ++j) acc[j] = 0.f;
-        mv(acc, tf_t, d, wf_own + k * ld, 1, e0);
-        mv(acc, ts_t, d, ws_own + k * ld, 1, e0);
-        store8(dx_t + k * LDT + e0, acc);
+        mv(acc, tf_t, d, wfs + k * ld, 1, e0);
+        mv(acc, ts_t, d, wss + k * ld, 1, e0);
+        store8(xs_t + k * LDT + e0, acc);
       }
       __syncthreads();
       for (int k = tid; k < f; k += kThreads) {
         for (int e = 0; e < cnt; ++e)
-          if (s_s[e] >= 0) rows_s[row_s[e] * f + k] += dx_t[k * LDT + e];
+          if (s_s[e] >= 0) rows_s[row_s[e] * f + k] += xs_t[k * LDT + e];
       }
     }
     __syncthreads();
-    if (p.out != nullptr) {
-      for (int i = tid; i < (r1 - r0) * ow; i += kThreads)
-        p.out[static_cast<size_t>(r0) * ow + i] = rows_s[i];
-    }
-  }
-
-  if (MODE == kPassP && p.stage) {
-    // the shared partial, written once in the unpadded layout (row stride d)
-    __syncthreads();
-    int goff[8];
-    const int gsize = weight_layout(f, d, a, d, goff);
-    float* dst = p.partial + static_cast<size_t>(gsize) * blockIdx.x;
-    // the alignment pad at the end stays unwritten: nothing reads it
-    for (int i = 0; i < 8; ++i) {
-      const int rows = weight_rows(i, f, a);
-      const int rld = i % 4 == 3 ? d : ld;
-      for (int j = tid; j < rows * d; j += kThreads) {
-        const int k = j / d, c = j - k * d;
-        dst[goff[i] + j] = gw[i][k * rld + c];
-      }
-    }
+    for (int i = tid; i < (r1 - r0) * ow; i += kThreads)
+      p.out[static_cast<size_t>(r0) * ow + i] = rows_s[i];
   }
 }
 
-__global__ void cgcnn_reduce_partials_kernel(const float* __restrict__ partial,
-                                             float* __restrict__ out,
-                                             int n_parts, int size) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= size) return;
-  float v = 0.f;
-  for (int b = 0; b < n_parts; ++b)
-    v += partial[static_cast<size_t>(b) * size + j];
-  out[j] = v;
+
+// ---------------------------------------------------------------------------
+// pass P
+// ---------------------------------------------------------------------------
+
+constexpr int kPThreads = 512;
+constexpr int kPWarps = kPThreads / 32;
+constexpr int kPE = 32;   // edges per tile
+constexpr int kPR = 16;   // receiver rows per chunk
+
+// x . [Wfr | Wsr | Wfs | Wss] for every node, [N, 4D], in 3xTF32: blocks
+// of 64 nodes x 64 columns, four warps of 16 nodes, depth in steps of 32
+__global__ void __launch_bounds__(128)
+cgcnn_node_table_kernel(const float* __restrict__ x,
+                        const float* __restrict__ wfr,
+                        const float* __restrict__ wsr,
+                        const float* __restrict__ wfs,
+                        const float* __restrict__ wss,
+                        float* __restrict__ table, int n, int f, int d) {
+  using namespace passp;
+  __shared__ float xs[64 * 36];   // x rows [node][k], stride 36
+  __shared__ float ws[32 * 72];   // weight columns [k][col], stride 72
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int r0 = blockIdx.x * 64, c0 = blockIdx.y * 64, w4 = 4 * d;
+  const float* wq[4] = {wfr, wsr, wfs, wss};
+  float acc[8][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) acc[nt][v] = 0.f;
+  for (int k0 = 0; k0 < f; k0 += 32) {
+    __syncthreads();
+    for (int i = tid; i < 64 * 32; i += 128) {
+      const int r = i / 32, k = i - r * 32;
+      xs[r * 36 + k] = r0 + r < n && k0 + k < f
+          ? x[static_cast<size_t>(r0 + r) * f + k0 + k] : 0.f;
+    }
+    for (int i = tid; i < 32 * 64; i += 128) {
+      const int k = i / 64, c = i - k * 64, col = c0 + c;
+      ws[k * 72 + c] = k0 + k < f && col < w4
+          ? wq[col / d][static_cast<size_t>(k0 + k) * d + col % d] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < 32; kk += 8) {
+      FragA fa;
+      load_a(fa, xs + 16 * warp * 36 + kk, 36, 1);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        FragB fb;
+        load_b(fb, ws + kk * 72 + nt * 8, 72, 1);
+        mma3(acc[nt], fa, fb);
+      }
+    }
+  }
+  const int g = lane_g(), t = lane_t();
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      const int r = r0 + 16 * warp + g + 8 * (v >> 1);
+      const int col = c0 + nt * 8 + 2 * t + (v & 1);
+      if (r < n && col < w4)
+        table[static_cast<size_t>(r) * w4 + col] = acc[nt][v];
+    }
+}
+
+// shared memory of one pass-P block, in floats, for slice width wp (N =
+// 2 wp columns: dtf's then dts's)
+struct PassPLayout {
+  int n, mz, mr, fp32;
+  int ldg, ldz, ldd, ldx, ldw, ldo;
+  int ge, gr, zs, ds, rs, xr, wr, dxs, bias, ids, floats;
+};
+
+__host__ __device__ inline PassPLayout pass_p_layout(int f, int a, int wp) {
+  PassPLayout L;
+  L.n = 2 * wp;
+  L.mz = (f + a + 15) / 16 * 16;   // rows of [x[s] | ea]
+  L.mr = (f + 15) / 16 * 16;       // rows of x[r]
+  L.fp32 = (f + 31) / 32 * 32;     // dx columns
+  L.ldg = L.n + 4;
+  L.ldz = L.mz + 8;
+  L.ldd = L.n + 8;
+  L.ldx = L.mr + 8;
+  L.ldw = L.n + 4;
+  L.ldo = L.fp32 + 4;
+  int o = 0;
+  L.ge = o; o += L.mz * L.ldg;     // sum_e [x[s] | ea]^T [dtf | dts]
+  L.gr = o; o += L.mr * L.ldg;     // sum_r x[r]^T (sum over r's edges)
+  L.zs = o; o += kPE * L.ldz;      // [x[s] | ea] per edge
+  L.ds = o; o += kPE * L.ldd;      // [dtf | dts] per edge
+  L.rs = o; o += kPR * L.ldd;      // [dtf | dts] summed per row
+  L.xr = o; o += kPR * L.ldx;      // x[r] per row
+  L.wr = o; o += L.fp32 * L.ldw;   // [Wfr | Wsr] of the slice, [k][col]
+  L.dxs = o; o += kPR * L.ldo;     // dx per row
+  L.bias = o; o += L.n;            // [bf | bs] of the slice
+  L.ids = o; o += 3 * kPE;         // senders, receivers, local rows (int)
+  L.floats = o;
+  return L;
+}
+
+struct PassPArgs {
+  const float* x;        // [N, F]
+  const float* ea;       // [E, A], or null when A = 0
+  const int* send;       // [E], receiver order
+  const int* recv;       // [E]
+  const int* row_ptr;    // [N + 1] CSR over positions
+  const float* table;    // [N, 4D]: x . [Wfr | Wsr | Wfs | Wss]
+  const float* w[8];     // wfr, wfs, wfg, bf, wsr, wss, wsg, bs
+  const float* gout;     // [N, D]
+  float* partial;        // [n_parts, 2 (2F + A + 1) D], `wgrad`'s layout
+  float* dx;             // [n_slices, N, F] or null
+  float* dea;            // [n_slices, E, A] or null
+  int n_rows, n_edges, f, d, a, wp;
+};
+
+// the first row whose edges start at or after part's share of the valid
+// edges (n_rows past the last part)
+__device__ __forceinline__ int part_row(const int* row_ptr, int n_rows,
+                                        int part, int n_parts) {
+  if (part >= n_parts) return n_rows;
+  const long long target =
+      static_cast<long long>(row_ptr[n_rows]) * part / n_parts;
+  int lo = 0, hi = n_rows;
+  while (lo < hi) {
+    const int mid = (lo + hi) / 2;
+    if (row_ptr[mid] < target)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo;
+}
+
+__global__ void __launch_bounds__(kPThreads, 1)
+cgcnn_pass_p_kernel(const PassPArgs p) {
+  using namespace passp;
+  const int f = p.f, d = p.d, a = p.a, wp = p.wp;
+  const PassPLayout L = pass_p_layout(f, a, wp);
+  const int nn = L.n;
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  float* ge = sm + L.ge;
+  float* gr = sm + L.gr;
+  float* zs = sm + L.zs;
+  float* ds = sm + L.ds;
+  float* rs = sm + L.rs;
+  float* xr = sm + L.xr;
+  float* wr = sm + L.wr;
+  float* dxs = sm + L.dxs;
+  float* bias = sm + L.bias;
+  int* s_s = reinterpret_cast<int*>(sm + L.ids);
+  int* r_s = s_s + kPE;
+  int* lr_s = r_s + kPE;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int j = blockIdx.y, d0 = j * wp;
+  const bool want_dx = p.dx != nullptr, want_ea = p.dea != nullptr;
+  const float *wfg = p.w[2], *wsg = p.w[6];
+
+  for (int i = tid; i < (L.mz + L.mr) * L.ldg; i += kPThreads) ge[i] = 0.f;
+  for (int c = tid; c < nn; c += kPThreads) {
+    const int dd = d0 + c % wp;
+    bias[c] = dd < d ? p.w[c < wp ? 3 : 7][dd] : 0.f;
+  }
+  if (want_dx) {
+    for (int i = tid; i < L.fp32 * nn; i += kPThreads) {
+      const int k = i / nn, c = i - k * nn, dd = d0 + c % wp;
+      wr[k * L.ldw + c] = k < f && dd < d
+          ? p.w[c < wp ? 0 : 4][static_cast<size_t>(k) * d + dd] : 0.f;
+    }
+  }
+  // this part's receiver rows: whole rows, about n_valid / n_parts edges
+  const int row_lo = part_row(p.row_ptr, p.n_rows, blockIdx.x, gridDim.x);
+  const int row_hi = part_row(p.row_ptr, p.n_rows, blockIdx.x + 1, gridDim.x);
+  float db = 0.f, dbc = 0.f;  // thread c < nn: column c of [dbf | dbs]
+  // each tile's ids are loaded during the tile before it (tiles run over
+  // the part's edges in order, chunk after chunk)
+  int s_n = -1, r_n = -1;
+  {
+    const int q = p.row_ptr[row_lo] + tid;
+    if (tid < kPE && q < p.n_edges) {
+      s_n = p.send[q];
+      r_n = p.recv[q];
+    }
+  }
+
+  for (int r0 = row_lo; r0 < row_hi; r0 += kPR) {
+    const int r1 = min(r0 + kPR, row_hi);
+    const int eb = p.row_ptr[r0], ee = p.row_ptr[r1];
+    __syncthreads();  // staging done; the previous chunk's readers are done
+    for (int i = tid; i < kPR * L.ldd; i += kPThreads) rs[i] = 0.f;
+    for (int i = tid; i < kPR * L.mr; i += kPThreads) {
+      const int rr = i / L.mr, k = i - rr * L.mr;
+      xr[rr * L.ldx + k] = r0 + rr < r1 && k < f
+          ? p.x[static_cast<size_t>(r0 + rr) * f + k] : 0.f;
+    }
+    if (want_dx)
+      for (int i = tid; i < kPR * L.ldo; i += kPThreads) dxs[i] = 0.f;
+
+    for (int t = eb; t < ee; t += kPE) {
+      const int cnt = min(kPE, ee - t);
+      __syncthreads();  // rows zeroed; the previous tile's readers are done
+      if (tid < kPE) {
+        const bool ok =
+            tid < cnt &&
+            static_cast<unsigned>(s_n) < static_cast<unsigned>(p.n_rows) &&
+            r_n >= r0 && r_n < r1;
+        s_s[tid] = ok ? s_n : -1;
+        r_s[tid] = ok ? r_n : -1;
+        lr_s[tid] = ok ? r_n - r0 : 0;
+        const int q = (t + kPE < ee ? t + kPE : ee) + tid;
+        if (q < p.n_edges) {
+          s_n = p.send[q];
+          r_n = p.recv[q];
+        }
+      }
+      __syncthreads();
+      // [x[s] | ea] rows and the slice's [dtf | dts]; zeros past the tile,
+      // on invalid edges and in the padding.  Every load reads a clamped,
+      // in-range address and the zeros are selected after it, so an
+      // unrolled group's loads are all in flight at once.
+#pragma unroll 4
+      for (int i = tid; i < kPE * L.mz; i += kPThreads) {
+        const int e = i / L.mz, k = i - e * L.mz;
+        const int s = s_s[e];
+        float v = p.x[static_cast<size_t>(s >= 0 ? s : 0) * f +
+                      (k < f ? k : 0)];
+        if (s >= 0 && k >= f && k < f + a)
+          v = p.ea[static_cast<size_t>(t + e) * a + k - f];
+        zs[e * L.ldz + k] = s >= 0 && k < f + a ? v : 0.f;
+      }
+#pragma unroll 4
+      for (int i = tid; i < kPE * wp; i += kPThreads) {
+        const int e = i / wp, c = i - e * wp, dd = d0 + c;
+        const int s = s_s[e];
+        const bool ok = s >= 0 && dd < d;
+        const int r = ok ? r_s[e] : 0, sn = ok ? s : 0, dc = ok ? dd : 0;
+        const float* tr = p.table + static_cast<size_t>(r) * 4 * d;
+        const float* tsn = p.table + static_cast<size_t>(sn) * 4 * d;
+        float vf = tr[dc] + tsn[2 * d + dc] + bias[c];
+        float vs = tr[d + dc] + tsn[3 * d + dc] + bias[wp + c];
+        const float gc = p.gout[static_cast<size_t>(r) * d + dc];
+        for (int q = 0; q < a; ++q) {
+          const float g = ok ? p.ea[static_cast<size_t>(t + e) * a + q] : 0.f;
+          vf += g * wfg[q * d + dc];
+          vs += g * wsg[q * d + dc];
+        }
+        const float sf = sigmoid_f(vf);
+        ds[e * L.ldd + c] = ok ? gc * softplus_f(vs) * (sf * (1.f - sf)) : 0.f;
+        ds[e * L.ldd + wp + c] = ok ? gc * sf * softplus_grad(vs) : 0.f;
+      }
+      __syncthreads();
+      // dWfs, dWss (and dWfg, dWsg) += [x[s] | ea]^T [dtf | dts]
+      gemm_smem(ge, L.ldg, zs, 1, L.ldz, ds, L.ldd, 1, L.mz, nn, kPE, warp,
+                kPWarps);
+      // the row sums, in edge order: a row's run of edges in this tile is
+      // summed in a register, then added to the row
+      if (tid < nn) {
+        int row = lr_s[0];
+        float run = 0.f, runc = 0.f;
+        for (int e = 0; e < cnt; ++e) {
+          const float v = ds[e * L.ldd + tid];
+          if (lr_s[e] != row) {
+            rs[row * L.ldd + tid] += run + runc;
+            row = lr_s[e];
+            run = runc = 0.f;
+          }
+          add_comp(run, runc, v);
+        }
+        rs[row * L.ldd + tid] += run + runc;
+      }
+      if (want_ea) {
+        // this slice's share of d ea = dtf . Wfg^T + dts . Wsg^T
+        for (int i = tid; i < cnt * a; i += kPThreads) {
+          const int e = i / a, q = i - e * a;
+          float v = 0.f;
+          for (int c = 0; c < wp && d0 + c < d; ++c)
+            v += ds[e * L.ldd + c] * wfg[q * d + d0 + c] +
+                 ds[e * L.ldd + wp + c] * wsg[q * d + d0 + c];
+          p.dea[(static_cast<size_t>(j) * p.n_edges + t + e) * a + q] = v;
+        }
+      }
+    }
+    __syncthreads();
+    // the biases' gradients: the chunk's row sums, in row order
+    if (tid < nn) {
+      for (int rr = 0; rr < r1 - r0; ++rr)
+        add_comp(db, dbc, rs[rr * L.ldd + tid]);
+    }
+    // dWfr, dWsr += x[r]^T (the row sums): once per row
+    gemm_smem(gr, L.ldg, xr, 1, L.ldx, rs, L.ldd, 1, L.mr, nn, kPR, warp,
+              kPWarps);
+    if (want_dx) {
+      // dx[r] = (sum dtf) . Wfr^T + (sum dts) . Wsr^T: once per row
+      gemm_smem(dxs, L.ldo, rs, L.ldd, 1, wr, 1, L.ldw, kPR, L.fp32, nn, warp,
+                kPWarps);
+      __syncthreads();
+      for (int i = tid; i < (r1 - r0) * f; i += kPThreads) {
+        const int rr = i / f, k = i - rr * f;
+        p.dx[(static_cast<size_t>(j) * p.n_rows + r0 + rr) * f + k] =
+            dxs[rr * L.ldo + k];
+      }
+    }
+  }
+
+  // the slice, once, into part p's partial in `wgrad`'s layout: per half
+  // (dtf's columns, then dts's) rows of D [receiver (F) | sender (F) |
+  // edge attributes (A) | bias]; ge holds the sender and edge-attribute
+  // rows, gr (after ge's padded rows, same stride) the receiver rows
+  __syncthreads();
+  const int rows = 2 * f + a + 1;
+  float* out = p.partial + static_cast<size_t>(blockIdx.x) * 2 * rows * d;
+  for (int i = tid; i < (2 * f + a) * nn; i += kPThreads) {
+    const int k = i / nn, c = i - k * nn, dd = d0 + c % wp;
+    if (dd >= d) continue;
+    const int src = k < f + a ? k : L.mz + k - f - a;
+    const int row = k < f + a ? f + k : k - f - a;
+    out[(static_cast<size_t>(c / wp) * rows + row) * d + dd] =
+        ge[src * L.ldg + c];
+  }
+  if (tid < nn && d0 + tid % wp < d)
+    out[(static_cast<size_t>(tid / wp) * rows + rows - 1) * d + d0 +
+        tid % wp] = db + dbc;
 }
 
 template <int MODE>
@@ -468,7 +691,7 @@ int launch(Params p, int grid, cudaStream_t st) {
   const size_t wts = sizeof(float) *
                      static_cast<size_t>(weight_layout(p.f, p.d, p.a, p.d | 1,
                                                        off));
-  const size_t staged = tiles + wts * (MODE == kPassP ? 2 : 1);
+  const size_t staged = tiles + wts;
   p.stage = staged <= static_cast<size_t>(optin) ? 1 : 0;
   const size_t smem = p.stage ? staged : tiles;
   if (smem > static_cast<size_t>(optin))
@@ -483,32 +706,19 @@ int launch(Params p, int grid, cudaStream_t st) {
 
 }  // namespace
 
-// The size in floats of one weight-gradient partial (and of `wgrad`):
-// [dWfr F*D | dWfs F*D | dWfg A*D | dbf D | dWsr | dWss | dWsg | dbs],
-// padded to a multiple of 4.
-extern "C" int hg_cgcnn_wgrad_size(int f, int d, int a) {
-  int off[8];
-  return weight_layout(f, d, a, d, off);
-}
-
-// One cgcnn launch; returns the cudaError_t (0 = success).  mode 0: the
-// forward (out [N, D]; rows are receivers, `perm` null); mode 1: pass P
-// (out = dx [N, F] or null, `partial` scratch [n_parts, wgrad size],
-// `wgrad` the reduced weight gradients, `dea` [E, A] zero-filled or null;
-// receiver order); mode 2: pass S (out = dx [N, F]; rows are senders,
-// `perm` the sender permutation).  Pointers are device pointers; launches
-// go on `stream` and do not synchronise.
+// One forward (mode 0: out [N, D]; rows are receivers, `perm` null) or pass
+// S (mode 2: out = dx [N, F]; rows are senders, `perm` the sender
+// permutation) launch; returns the cudaError_t (0 = success).  Pointers
+// are device pointers; launches go on `stream` and do not synchronise.
 extern "C" int hg_cgcnn_f32(
     int mode, const void* x, const void* ea, const void* send,
     const void* recv, const void* perm, const void* row_ptr, const void* wfr,
     const void* wfs, const void* wfg, const void* bf, const void* wsr,
     const void* wss, const void* wsg, const void* bs, const void* gout,
-    void* out, void* partial, void* wgrad, void* dea, int n_rows, int f,
-    int d, int a, int n_parts, void* stream) {
+    void* out, int n_rows, int f, int d, int a, void* stream) {
   if (n_rows <= 0) return 0;
   if (f < 1 || f > kMaxF || d < 1 || d > kMaxD || a < 0 || a > kMaxA ||
-      mode < kFwd || mode > kPassS || (mode == kPassP && n_parts < 1) ||
-      (a > 0 && ea == nullptr))
+      (mode != kFwd && mode != kPassS) || (a > 0 && ea == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p{};
   p.x = static_cast<const float*>(x);
@@ -521,8 +731,6 @@ extern "C" int hg_cgcnn_f32(
   for (int i = 0; i < 8; ++i) p.w[i] = static_cast<const float*>(ws[i]);
   p.gout = static_cast<const float*>(gout);
   p.out = static_cast<float*>(out);
-  p.partial = static_cast<float*>(partial);
-  p.dea = static_cast<float*>(dea);
   p.n_rows = n_rows;
   p.f = f;
   p.d = d;
@@ -530,12 +738,102 @@ extern "C" int hg_cgcnn_f32(
   p.n_chunks = (n_rows + kRows - 1) / kRows;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (mode == kFwd) return launch<kFwd>(p, p.n_chunks, st);
-  if (mode == kPassS) return launch<kPassS>(p, p.n_chunks, st);
-  const int grid = n_parts < p.n_chunks ? n_parts : p.n_chunks;
-  const int rc = launch<kPassP>(p, grid, st);
-  if (rc != 0) return rc;
-  const int size = hg_cgcnn_wgrad_size(f, d, a);
-  cgcnn_reduce_partials_kernel<<<(size + 255) / 256, 256, 0, st>>>(
-      p.partial, static_cast<float*>(wgrad), grid, size);
-  return static_cast<int>(cudaGetLastError());
+  return launch<kPassS>(p, p.n_chunks, st);
+}
+
+// Bytes of one pass-P block's shared memory at slice width `wp`.
+extern "C" int hg_cgcnn_pass_p_smem(int f, int a, int wp) {
+  return static_cast<int>(sizeof(float)) * pass_p_layout(f, a, wp).floats;
+}
+
+// The pass-P slice width: the widest multiple of 16 output columns (all of
+// D where it fits) whose block fits the current device's shared memory;
+// -1 when none does or the device cannot be asked.
+extern "C" int hg_cgcnn_pass_p_width(int f, int d, int a) {
+  int dev = 0, optin = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return -1;
+  for (int wp = (d + 15) / 16 * 16; wp >= 16; wp -= 16)
+    if (hg_cgcnn_pass_p_smem(f, a, wp) <= optin) return wp;
+  return -1;
+}
+
+// Pass P (receiver order) and its reductions; returns the cudaError_t.
+// `table` is scratch [N, 4D]; `partial` scratch [n_parts, P] for the
+// parts' sums of `wgrad` [dWfr | dWfs | dWfg | dbf | dWsr | dWss | dWsg |
+// dbs] (P = 2 (2F + A + 1) D entries); `wp` the slice width
+// (hg_cgcnn_pass_p_width).  `dx` [N, F] and `dea` [E, A] (zero-filled) may be
+// null; with more than one slice `dx_part` [n_slices, N, F] and `dea_part`
+// [n_slices, E, A] are their scratch (with one slice, the outputs
+// themselves).
+extern "C" int hg_cgcnn_pass_p_f32(
+    const void* x, const void* ea, const void* send, const void* recv,
+    const void* row_ptr, const void* wfr, const void* wfs, const void* wfg,
+    const void* bf, const void* wsr, const void* wss, const void* wsg,
+    const void* bs, const void* gout, void* table,
+    void* partial, void* wgrad, void* dx_part, void* dea_part, void* dx,
+    void* dea, int n_rows, int n_edges, int f, int d, int a, int wp,
+    int n_parts, void* stream) {
+  if (n_rows <= 0) return 0;
+  if (f < 1 || f > kMaxF || d < 1 || d > kMaxD || a < 0 || a > kMaxA ||
+      (a > 0 && ea == nullptr) || n_parts < 1 || wp < 16 || wp % 16 != 0 ||
+      2 * wp > kPThreads || (dx == nullptr) != (dx_part == nullptr) ||
+      (dea == nullptr) != (dea_part == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem =
+      sizeof(float) * static_cast<size_t>(pass_p_layout(f, a, wp).floats);
+  if (smem > static_cast<size_t>(optin))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  PassPArgs p{};
+  p.x = static_cast<const float*>(x);
+  p.ea = static_cast<const float*>(ea);
+  p.send = static_cast<const int*>(send);
+  p.recv = static_cast<const int*>(recv);
+  p.row_ptr = static_cast<const int*>(row_ptr);
+  p.table = static_cast<const float*>(table);
+  const void* ws[8] = {wfr, wfs, wfg, bf, wsr, wss, wsg, bs};
+  for (int i = 0; i < 8; ++i) p.w[i] = static_cast<const float*>(ws[i]);
+  p.gout = static_cast<const float*>(gout);
+  p.partial = static_cast<float*>(partial);
+  p.dx = static_cast<float*>(dx_part);
+  p.dea = static_cast<float*>(dea_part);
+  p.n_rows = n_rows;
+  p.n_edges = n_edges;
+  p.f = f;
+  p.d = d;
+  p.a = a;
+  p.wp = wp;
+  cgcnn_node_table_kernel<<<dim3((n_rows + 63) / 64, (4 * d + 63) / 64), 128,
+                            0, st>>>(p.x, p.w[0], p.w[4], p.w[1], p.w[5],
+                                     static_cast<float*>(table), n_rows, f, d);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(cgcnn_pass_p_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_slices = (d + wp - 1) / wp;
+  cgcnn_pass_p_kernel<<<dim3(n_parts, n_slices), kPThreads, smem, st>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = passp::launch_reduce_partials(p.partial, static_cast<float*>(wgrad),
+                                      n_parts, 2 * (2 * f + a + 1) * d, st);
+  if (err != cudaSuccess || n_slices == 1) return static_cast<int>(err);
+  if (dx != nullptr)
+    err = passp::launch_reduce_slices(p.dx, dx, nullptr, n_rows, f, n_slices,
+                                      static_cast<size_t>(n_rows) * f, st);
+  if (err == cudaSuccess && dea != nullptr)
+    err = passp::launch_reduce_slices(p.dea, dea, p.row_ptr, n_rows, a,
+                                      n_slices,
+                                      static_cast<size_t>(n_edges) * a, st);
+  return static_cast<int>(err);
 }

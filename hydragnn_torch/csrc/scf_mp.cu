@@ -21,30 +21,38 @@
 //   gidx = senders.  Pass S: positions map to edge ids through the sender
 //   permutation, rows are senders, x = the output cotangent, gidx =
 //   receivers — dh[n] = sum_{e: send[e]=n} g[recv[e]] * filt_e.
+//   Bound: operations (G*F + F*F multiply-adds per edge against ~1 KB of
+//   edge and node bytes); float32 on the CUDA cores, per-edge tiles
+//   transposed in shared memory so one 16-byte load feeds four
+//   multiply-adds.
 //
-// scf_pass_p_kernel (+ scf_reduce_partials_kernel) — backward pass P
+// scf_pass_p_kernel (+ the reductions of pass_p.cuh) — backward pass P
 //   Replaces :_fused_bwd pass P (_bwd_p_kernel, pl.pallas_call at :561).
-//   Receiver order.  Each of n_parts thread blocks takes a contiguous share
-//   of the valid edges, recomputes t0, a, f2 per tile, and with
-//   dfilt = g[recv] * h[send] derives
-//     dcm = sum_f dfilt*f2, df2 = dfilt*cm, db1 += df2, dW1 += a^T df2,
-//     dt0 = (df2 . W1^T) * sigmoid(t0), db0 += dt0, dW0 += rbf^T dt0,
+//   With dfilt = g[recv] * h[send] (zero on invalid edges), u = dfilt.W1^T:
+//     dt0 = cm * u * sigmoid(t0), db0 = sum_e dt0, dW0 = rbf^T dt0,
+//     dW1 = (cm * a)^T dfilt, db1 = sum_e cm * dfilt  (a = ssp(t0)),
+//     dcm = sum_k a*u + sum_c b1*dfilt (= sum_f dfilt * f2, f2 never formed),
 //     drbf = dt0 . W0^T.
-//   The weight grads are sums over all edges: each block accumulates its
-//   own f32 partial [dW0 | db0 | dW1 | db1] in device memory (it owns it:
-//   no atomics), and the reduce kernel sums the partials in block order.
-//
-// Bound on the H100 SXM: operations.  Per valid edge the forward does
-// G*F + F*F multiply-adds (pass S the same, pass P about three times that);
-// at F = 256, G = 50 that is ~1.6e5 flops per edge against ~1 KB of edge
-// and node bytes, far above the card's ~20 flop/byte float32 ridge, so the
-// least time is flops / 67 TFLOP/s (float32 outside the tensor cores).
-// Design against it, first version: no [E,F] tensor reaches device memory
-// (the reference's whole point); the per-edge tiles live transposed in
-// shared memory ([k][e], row stride TE+4) so that one 16-byte broadcast
-// load feeds four multiply-adds; every weight read is coalesced across the
-// threads of a warp (one thread per output column).  Not yet: tensor cores
-// (3xTF32 or bf16 wgmma), register micro-tiles, TMA staging (later PRs).
+//   Bound: operations, 2F^2 + 2GF multiply-adds per edge (~1.6e5 flops at
+//   F = 256, G = 50, against ~1 KB of edge bytes).  Design: the grid is
+//   (edge share p, slice j of W columns of t0); block (p, j) walks its share
+//   of the receiver-order edges TE at a time and computes only its slice:
+//   t0[:, j] (rbf . W0[:, j]), u[:, j] (dfilt . W1[j, :]^T), dt0[:, j], and
+//   accumulates dW1[j, :] (W x F), dW0[:, j], db0[j], db1[j] in registers
+//   over the whole share, written once at the end: no read-modify-write of
+//   a partial per tile.  The slice's W1 rows and W0 columns are staged in
+//   shared memory once per block, and each tile's ids are loaded during
+//   the tile before it.  All four products run on the tensor cores in
+//   3xTF32 (pass_p.cuh: each k step's products from zero, then a
+//   float32 add; the bias sums compensated).  W x F <= 16384 floats
+//   bounds the register accumulator: W = 64 for F <= 256, 32 for F <= 512,
+//   16 for F <= 1024; TE = W, or 32 at W = 64 when G is wide enough that
+//   the tiles would pass 227 KB.  dcm and drbf (asked only with a gradient
+//   of rbf or cm: not on the energy-only training path) are written as
+//   per-slice partials and summed in slice order.  Block (p, j) writes its
+//   columns of the weight gradients straight into part p's partial in the
+//   packed layout [dW0 | db0 | dW1 | db1] (the slices' columns are
+//   disjoint), and the reduce kernel sums the parts in order.
 //
 // Contract (collate guarantees it): positions are sorted by output row, so
 // each row owns one contiguous CSR range; masked edges sort last and are
@@ -52,10 +60,14 @@
 // every grad on them is exactly zero (the wrapper zero-fills drbf/dcm).
 // Gather ids outside [0, n_rows) contribute nothing.  Determinism: every
 // sum runs in a fixed order (edge order within a row; tile order, then
-// block order, for the weight grads); no atomics.  Every output row is
-// written, rows without edges as zeros.
+// part order, then slice order for the weight and per-edge grads); no
+// atomics.  Every output row is written, rows without edges as zeros.
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "pass_p.cuh"
 
 namespace {
 
@@ -63,7 +75,6 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxF = 1024;
 constexpr int kMaxG = 127;
-constexpr int kMaxChunks = kMaxF / kThreads;
 constexpr int kRowsPerCta = 16;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -72,8 +83,12 @@ __device__ __forceinline__ float ssp(float x) {
   return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x))) - kLn2;
 }
 
-__device__ __forceinline__ float logistic(float x) {
-  return 1.f / (1.f + expf(-x));
+// a = ssp(x) and s = sigmoid(x) from one exp(-|x|)
+__device__ __forceinline__ void ssp_logistic(float x, float& a, float& s) {
+  const float z = expf(-fabsf(x));
+  a = fmaxf(x, 0.f) + log1pf(z) - kLn2;
+  const float r = 1.f / (1.f + z);
+  s = x >= 0.f ? r : z * r;
 }
 
 // acc[e] += sum_k tile_t[k][e] * w[k*ld + c] over k < kdim: tile_t is a
@@ -95,21 +110,6 @@ __device__ __forceinline__ void tile_times_column(
       acc[4 * q + 3] += v.w * wk;
     }
   }
-}
-
-// dot of a transposed tile row with a register vector: sum_e row[e] * d[e]
-template <int TE>
-__device__ __forceinline__ float row_dot(const float* row_t,
-                                         const float (&d)[TE]) {
-  const float4* row = reinterpret_cast<const float4*>(row_t);
-  float v = 0.f;
-#pragma unroll
-  for (int q = 0; q < TE / 4; ++q) {
-    const float4 r = row[q];
-    v += r.x * d[4 * q] + r.y * d[4 * q + 1] + r.z * d[4 * q + 2] +
-         r.w * d[4 * q + 3];
-  }
-  return v;
 }
 
 template <int TE>
@@ -222,214 +222,398 @@ scf_filter_gather_kernel(const float* __restrict__ x,
     out[static_cast<size_t>(r0) * f + i] = out_s[i];
 }
 
-template <int TE>
-size_t pass_p_smem(int f, int g) {
-  return sizeof(float) * (static_cast<size_t>(g) * (TE + 4) +
-                          3 * static_cast<size_t>(f) * (TE + 4) +
-                          static_cast<size_t>(kMaxChunks) * kWarps * TE + TE) +
-         sizeof(int) * 2 * TE;
+
+// ---------------------------------------------------------------------------
+// pass P
+// ---------------------------------------------------------------------------
+
+// dW1 floats a block holds in registers: W rows of the slice x F columns
+constexpr int kAccFloats = 16384;
+
+template <int TE, int W>
+struct PassPShape {
+  static constexpr int FP = kAccFloats / W;    // largest F of this shape
+  static constexpr int LA = W + 8;             // row stride of [e][k'] tiles
+  static constexpr int NB = W / 8;             // n-tiles across the slice
+  static constexpr int T1 = (TE / 16) * NB;    // C tiles of t0 and of u
+  static constexpr int Q1 = T1 >= kWarps ? T1 / kWarps : 1;  // per warp
+  static constexpr int WPR = NB / Q1;          // warps per 16 edges in t0, u
+  static constexpr int MT4 = W / 16;           // dW1: m-tiles (slice rows)
+  static constexpr int NT4 = FP / (8 * kWarps);  // dW1: n-tiles per warp
+  static constexpr int CW = NT4 * 8;           // dW1: columns per warp
+  static_assert(T1 < kWarps || T1 % kWarps == 0, "t0 tiles per warp");
+  static_assert(NB % Q1 == 0, "a warp's t0 tiles share their 16 edges");
+  static_assert(2 * W <= kThreads, "db0 and db1 take a thread per column");
+};
+
+// shared memory of one pass-P block, in floats
+struct PassPLayout {
+  int fp;    // dfilt and W1 tile columns: F rounded up to a warp's columns
+  int ldf;   // their row stride (fp + 4: conflict-free A fragments)
+  int gk;    // the t0 product's depth: G rounded up to 8
+  int g32;   // rows of the W0 tile and columns of the rbf tile
+  int ldr;   // rbf tile row stride
+  int w1s, dfs, w0s, rbfs, as, dts, b0s, red, cms, ids, floats;
+};
+
+template <int TE, int W>
+__host__ __device__ inline PassPLayout pass_p_layout(int f, int g) {
+  using S = PassPShape<TE, W>;
+  PassPLayout L;
+  L.fp = (f + S::CW - 1) / S::CW * S::CW;
+  L.ldf = L.fp + 4;
+  L.gk = (g + 7) / 8 * 8;
+  L.g32 = (g + 31) / 32 * 32;
+  L.ldr = L.g32 + 4;
+  int o = 0;
+  L.w1s = o; o += W * L.ldf;       // W1[k0 + k'][c]
+  L.dfs = o; o += TE * L.ldf;      // dfilt[e][c]
+  L.w0s = o; o += L.g32 * S::LA;   // W0[gg][k0 + k']
+  L.rbfs = o; o += TE * L.ldr;     // rbf[e][gg]
+  L.as = o; o += TE * S::LA;       // a = ssp(t0)[e][k']
+  L.dts = o; o += TE * S::LA;      // sigmoid(t0), then dt0 [e][k']
+  L.b0s = o; o += W;
+  L.red = o; o += kWarps * TE;     // dcm terms per warp and edge
+  L.cms = o; o += TE;
+  L.ids = o; o += 2 * TE;          // senders, receivers (int)
+  L.floats = o;
+  return L;
 }
 
-template <int TE>
-__global__ void __launch_bounds__(kThreads)
-scf_pass_p_kernel(const float* __restrict__ h, const float* __restrict__ gout,
-                  const float* __restrict__ rbf, const float* __restrict__ cm,
-                  const int* __restrict__ send, const int* __restrict__ recv,
-                  const int* __restrict__ row_ptr,
-                  const float* __restrict__ w0, const float* __restrict__ b0,
-                  const float* __restrict__ w1, const float* __restrict__ w1t,
-                  const float* __restrict__ b1, float* __restrict__ partial,
-                  float* __restrict__ drbf, float* __restrict__ dcm,
-                  int n_rows, int f, int g) {
-  constexpr int LDT = TE + 4;
+struct PassPArgs {
+  const float* h;       // [N, F]
+  const float* gout;    // [N, F] cotangent of out
+  const float* rbf;     // [E, G]
+  const float* cm;      // [E]
+  const int* send;      // [E], receiver order
+  const int* recv;      // [E], nondecreasing over the valid edges
+  const int* row_ptr;   // [N + 1]
+  const float* w0;      // [G, F]
+  const float* b0;      // [F]
+  const float* w1;      // [F, F]
+  const float* b1;      // [F]
+  float* partial;       // [n_parts, G*F + F + F*F + F], packed
+  float* drbf;          // [n_slices, E, G] or null
+  float* dcm;           // [n_slices, E] or null
+  int n_rows, n_edges, f, g;
+  int vec4;             // h and gout rows are 16-byte aligned float4s
+};
+
+template <int TE, int W>
+__global__ void __launch_bounds__(kThreads, 1)
+scf_pass_p_kernel(const PassPArgs p) {
+  using S = PassPShape<TE, W>;
+  using namespace passp;
+  constexpr int LA = S::LA;
+  const int f = p.f, g = p.g;
+  const PassPLayout L = pass_p_layout<TE, W>(f, g);
+  const int ldf = L.ldf, ldr = L.ldr;
   extern __shared__ float4 smem4[];
-  float* rbf_t = reinterpret_cast<float*>(smem4);  // [g][LDT]
-  float* a_t = rbf_t + g * LDT;                     // [f][LDT] ssp(t0)
-  float* s_t = a_t + f * LDT;                       // [f][LDT] sigmoid(t0), then dt0
-  float* d_t = s_t + f * LDT;                       // [f][LDT] df2
-  float* red = d_t + f * LDT;                       // [kMaxChunks*kWarps][TE]
-  float* cm_s = red + kMaxChunks * kWarps * TE;     // [TE]
-  int* src_s = reinterpret_cast<int*>(cm_s + TE);   // [TE]
-  int* dst_s = src_s + TE;                          // [TE]
+  float* sm = reinterpret_cast<float*>(smem4);
+  float* w1s = sm + L.w1s;
+  float* dfs = sm + L.dfs;
+  float* w0s = sm + L.w0s;
+  float* rbfs = sm + L.rbfs;
+  float* as = sm + L.as;
+  float* dts = sm + L.dts;
+  float* b0s = sm + L.b0s;
+  float* red = sm + L.red;
+  float* cm_s = sm + L.cms;
+  int* send_s = reinterpret_cast<int*>(sm + L.ids);
+  int* recv_s = send_s + TE;
 
-  const size_t psize = static_cast<size_t>(g) * f + f +
-                       static_cast<size_t>(f) * f + f;
-  float* p_dw0 = partial + psize * blockIdx.x;
-  float* p_db0 = p_dw0 + static_cast<size_t>(g) * f;
-  float* p_dw1 = p_db0 + f;
-  float* p_db1 = p_dw1 + static_cast<size_t>(f) * f;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int gq = lane_g(), tq = lane_t();
+  const int j = blockIdx.y, k0 = j * W;
+  const int wk = min(W, f - k0);  // the slice's real columns
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int n_chunks = (f + kThreads - 1) / kThreads;
-  const long long n_valid = row_ptr[n_rows];
+  // the slice's weights, once: W1 rows k0.., W0 columns k0.., b0; zeros
+  // pad every product to whole tiles
+  for (int i = tid; i < W * L.fp; i += kThreads) {
+    const int r = i / L.fp, c = i - r * L.fp;
+    w1s[r * ldf + c] =
+        r < wk && c < f ? p.w1[static_cast<size_t>(k0 + r) * f + c] : 0.f;
+  }
+  for (int i = tid; i < L.g32 * W; i += kThreads) {
+    const int r = i / W, c = i - r * W;
+    w0s[r * LA + c] =
+        r < g && c < wk ? p.w0[static_cast<size_t>(r) * f + k0 + c] : 0.f;
+  }
+  for (int c = tid; c < W; c += kThreads) b0s[c] = c < wk ? p.b0[k0 + c] : 0.f;
+
+  const long long n_valid = p.row_ptr[p.n_rows];
   const int lo = static_cast<int>(n_valid * blockIdx.x / gridDim.x);
   const int hi = static_cast<int>(n_valid * (blockIdx.x + 1) / gridDim.x);
-  for (size_t i = tid; i < psize; i += kThreads) p_dw0[i] = 0.f;
+
+  // t0 and u: this warp's Q1 tiles share 16 edges (m1) and take n-tiles
+  // n1 .. n1 + Q1 - 1 of the slice
+  const int q0 = warp * S::Q1;
+  const bool p12 = q0 < S::T1;
+  const int m1 = (q0 / S::NB) * 16, n1 = q0 % S::NB;
+  // dW0: this warp's 16 rows of G; dW1: this warp's CW columns of F
+  const bool p3 = 16 * warp < g;
+  const int cb = warp * S::CW;
+  const bool p4 = cb < f;
+  // db0, db1: one thread per slice column, in the last warps
+  const int dbi = tid - (kThreads - 2 * W);
+  const int fk8 = (f + 7) / 8 * 8;
+  const bool want_dcm = p.dcm != nullptr, want_drbf = p.drbf != nullptr;
+
+  float acc1[S::MT4][S::NT4][4];  // dW1: the slice's rows, this warp's columns
+  float acc0[S::NB][4];           // dW0: this warp's rows, the slice
+#pragma unroll
+  for (int mt = 0; mt < S::MT4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < S::NT4; ++nt)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc1[mt][nt][v] = 0.f;
+#pragma unroll
+  for (int n = 0; n < S::NB; ++n)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) acc0[n][v] = 0.f;
+  float db = 0.f, dbc = 0.f;
+  // the rbf tile's padding columns stay zero
+  for (int i = tid; i < TE * (L.g32 - g); i += kThreads) {
+    const int e = i / (L.g32 - g);
+    rbfs[e * ldr + g + i - e * (L.g32 - g)] = 0.f;
+  }
+  // each tile's ids are loaded during the tile before it
+  int s_n = -1, r_n = -1;
+  float c_n = 0.f;
+  if (tid < TE && lo + tid < hi) {
+    s_n = p.send[lo + tid];
+    r_n = p.recv[lo + tid];
+    c_n = p.cm[lo + tid];
+  }
 
   for (int t = lo; t < hi; t += TE) {
     const int cnt = min(TE, hi - t);
-    __syncthreads();  // partial zeroed; the previous tile's readers are done
+    __syncthreads();  // staging done; the previous tile's readers are done
     if (tid < TE) {
-      int s = -1, r = -1;
-      float c = 0.f;
-      if (tid < cnt) {
-        s = send[t + tid];
-        r = recv[t + tid];
-        c = cm[t + tid];
-        if (static_cast<unsigned>(s) >= static_cast<unsigned>(n_rows) ||
-            static_cast<unsigned>(r) >= static_cast<unsigned>(n_rows)) {
-          s = -1;
-          r = -1;
-        }
+      const bool ok =
+          tid < cnt &&
+          static_cast<unsigned>(s_n) < static_cast<unsigned>(p.n_rows) &&
+          static_cast<unsigned>(r_n) < static_cast<unsigned>(p.n_rows);
+      send_s[tid] = ok ? s_n : -1;
+      recv_s[tid] = ok ? r_n : -1;
+      cm_s[tid] = tid < cnt ? c_n : 0.f;
+      const int q = t + TE + tid;
+      if (q < hi) {
+        s_n = p.send[q];
+        r_n = p.recv[q];
+        c_n = p.cm[q];
       }
-      src_s[tid] = s;
-      dst_s[tid] = r;
-      cm_s[tid] = c;
     }
+    __syncthreads();
+    // dfilt = g[recv] * h[send] (zero past the tile's edges, on invalid
+    // ones and in the padding columns) and the tile's rbf rows.  Every
+    // load reads a clamped, in-range address and the zeros are selected
+    // after it, so an unrolled group's loads are all in flight at once.
+    if (p.vec4) {
+      const int f4 = L.fp / 4;
+#pragma unroll 4
+      for (int i = tid; i < TE * f4; i += kThreads) {
+        const int e = i / f4, c = 4 * (i - e * f4);
+        const int s = send_s[e];
+        const bool ok = s >= 0 && c < f;
+        const size_t cc = ok ? c : 0;
+        const float4 a = *reinterpret_cast<const float4*>(
+            p.gout + static_cast<size_t>(ok ? recv_s[e] : 0) * f + cc);
+        const float4 b = *reinterpret_cast<const float4*>(
+            p.h + static_cast<size_t>(ok ? s : 0) * f + cc);
+        *reinterpret_cast<float4*>(dfs + e * ldf + c) =
+            ok ? make_float4(a.x * b.x, a.y * b.y, a.z * b.z, a.w * b.w)
+               : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    } else {
+#pragma unroll 4
+      for (int i = tid; i < TE * L.fp; i += kThreads) {
+        const int e = i / L.fp, c = i - e * L.fp;
+        const int s = send_s[e];
+        const bool ok = s >= 0 && c < f;
+        const size_t cc = ok ? c : 0;
+        const float v =
+            p.gout[static_cast<size_t>(ok ? recv_s[e] : 0) * f + cc] *
+            p.h[static_cast<size_t>(ok ? s : 0) * f + cc];
+        dfs[e * ldf + c] = ok ? v : 0.f;
+      }
+    }
+#pragma unroll 4
     for (int i = tid; i < TE * g; i += kThreads) {
-      const int e = i / g, k = i - e * g;
-      rbf_t[k * LDT + e] =
-          e < cnt ? rbf[static_cast<size_t>(t + e) * g + k] : 0.f;
+      const int e = i / g;
+      const bool ok = e < cnt;
+      const float v = p.rbf[static_cast<size_t>(t) * g + (ok ? i : 0)];
+      rbfs[e * ldr + i - e * g] = ok ? v : 0.f;
     }
     __syncthreads();
-    // (1) t0 = rbf . W0 + b0 -> a = ssp(t0), sigmoid(t0)
-    for (int c = tid; c < f; c += kThreads) {
-      float acc[TE];
-      const float bc = b0[c];
+
+    if (p12) {
+      // t0 = rbf . W0[:, slice] + b0 -> a into as, sigmoid(t0) into dts
+      float acc[S::Q1][4];
 #pragma unroll
-      for (int e = 0; e < TE; ++e) acc[e] = bc;
-      tile_times_column<TE>(acc, rbf_t, w0, g, f, c);
-      float sg[TE];
-#pragma unroll
-      for (int e = 0; e < TE; ++e) {
-        sg[e] = logistic(acc[e]);
-        acc[e] = ssp(acc[e]);
+      for (int i = 0; i < S::Q1; ++i) {
+        const int c = (n1 + i) * 8 + 2 * tq;
+        acc[i][0] = acc[i][2] = b0s[c];
+        acc[i][1] = acc[i][3] = b0s[c + 1];
       }
-      store_row<TE>(a_t + c * LDT, acc);
-      store_row<TE>(s_t + c * LDT, sg);
-    }
-    __syncthreads();
-    // (2) f2 = a . W1 + b1; dfilt = g[recv] * h[send]; df2 = dfilt * cm;
-    //     db1 += df2; the dcm terms dfilt * f2 summed over each warp
-    for (int j = 0; j < n_chunks; ++j) {
-      const int c = j * kThreads + tid;
-      const bool active = c < f;
-      float acc[TE];
+      for (int kk = 0; kk < L.gk; kk += 8) {
+        FragA fa;
+        load_a(fa, rbfs + m1 * ldr + kk, ldr, 1);
 #pragma unroll
-      for (int e = 0; e < TE; ++e) acc[e] = 0.f;
-      if (active) {
-        const float bc = b1[c];
-#pragma unroll
-        for (int e = 0; e < TE; ++e) acc[e] = bc;
-        tile_times_column<TE>(acc, a_t, w1, f, f, c);
-      }
-      float df2[TE];
-      float db1_sum = 0.f;
-#pragma unroll
-      for (int e = 0; e < TE; ++e) {
-        const int s = src_s[e], r = dst_s[e];
-        float dfilt = 0.f;
-        if (active && s >= 0)
-          dfilt = gout[static_cast<size_t>(r) * f + c] *
-                  h[static_cast<size_t>(s) * f + c];
-        df2[e] = dfilt * cm_s[e];
-        db1_sum += df2[e];
-        acc[e] = dfilt * acc[e];
-      }
-      if (active) {
-        store_row<TE>(d_t + c * LDT, df2);
-        p_db1[c] += db1_sum;
-      }
-#pragma unroll
-      for (int e = 0; e < TE; ++e) {
-        float v = acc[e];
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-        if (lane == 0) red[(j * kWarps + warp) * TE + e] = v;
-      }
-    }
-    __syncthreads();
-    if (dcm != nullptr && tid < cnt) {
-      float v = 0.f;
-      for (int w = 0; w < n_chunks * kWarps; ++w) v += red[w * TE + tid];
-      dcm[t + tid] = v;
-    }
-    // (3) dt0 = (df2 . W1^T) * sigmoid(t0), one column k per thread;
-    //     db0 += dt0; dW0[:, k] += rbf^T dt0; dt0 overwrites sigmoid(t0)
-    for (int k = tid; k < f; k += kThreads) {
-      float acc[TE];
-#pragma unroll
-      for (int e = 0; e < TE; ++e) acc[e] = 0.f;
-      tile_times_column<TE>(acc, d_t, w1t, f, f, k);
-      const float4* sk = reinterpret_cast<const float4*>(s_t + k * LDT);
-      float db0_sum = 0.f;
-#pragma unroll
-      for (int q = 0; q < TE / 4; ++q) {
-        const float4 sg = sk[q];
-        acc[4 * q + 0] *= sg.x;
-        acc[4 * q + 1] *= sg.y;
-        acc[4 * q + 2] *= sg.z;
-        acc[4 * q + 3] *= sg.w;
-        db0_sum += acc[4 * q] + acc[4 * q + 1] + acc[4 * q + 2] +
-                   acc[4 * q + 3];
-      }
-      store_row<TE>(s_t + k * LDT, acc);
-      p_db0[k] += db0_sum;
-      for (int gg = 0; gg < g; ++gg)
-        p_dw0[static_cast<size_t>(gg) * f + k] +=
-            row_dot<TE>(rbf_t + gg * LDT, acc);
-    }
-    __syncthreads();
-    // (4) dW1[k][c] += sum_e a[e][k] * df2[e][c], one column c per thread
-    for (int c = tid; c < f; c += kThreads) {
-      float dv[TE];
-      const float4* dc = reinterpret_cast<const float4*>(d_t + c * LDT);
-#pragma unroll
-      for (int q = 0; q < TE / 4; ++q) {
-        const float4 v = dc[q];
-        dv[4 * q] = v.x;
-        dv[4 * q + 1] = v.y;
-        dv[4 * q + 2] = v.z;
-        dv[4 * q + 3] = v.w;
-      }
-      for (int k = 0; k < f; ++k)
-        p_dw1[static_cast<size_t>(k) * f + c] += row_dot<TE>(a_t + k * LDT, dv);
-    }
-    // (5) drbf[e][gg] = sum_k dt0[e][k] * W0[gg][k], four edges per item
-    if (drbf != nullptr) {
-      for (int i = tid; i < g * (TE / 4); i += kThreads) {
-        const int gg = i % g, q = i / g;
-        const float* wg = w0 + static_cast<size_t>(gg) * f;
-        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        for (int k = 0; k < f; ++k) {
-          const float wk = wg[k];
-          const float4 d = reinterpret_cast<const float4*>(s_t + k * LDT)[q];
-          v.x += d.x * wk;
-          v.y += d.y * wk;
-          v.z += d.z * wk;
-          v.w += d.w * wk;
+        for (int i = 0; i < S::Q1; ++i) {
+          FragB fb;
+          load_b(fb, w0s + kk * LA + (n1 + i) * 8, LA, 1);
+          mma3(acc[i], fa, fb);
         }
-        const int e = 4 * q;
-        float* dr = drbf + static_cast<size_t>(t + e) * g + gg;
-        if (e < cnt) dr[0] = v.x;
-        if (e + 1 < cnt) dr[g] = v.y;
-        if (e + 2 < cnt) dr[2 * g] = v.z;
-        if (e + 3 < cnt) dr[3 * g] = v.w;
+      }
+#pragma unroll
+      for (int i = 0; i < S::Q1; ++i)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          const int o = (m1 + gq + 8 * (v >> 1)) * LA + (n1 + i) * 8 +
+                        2 * tq + (v & 1);
+          ssp_logistic(acc[i][v], as[o], dts[o]);
+        }
+      // u = dfilt . W1[slice, :]^T; dt0 = cm * u * sigmoid(t0) in place
+      // (each thread rereads only what it wrote above)
+#pragma unroll
+      for (int i = 0; i < S::Q1; ++i)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) acc[i][v] = 0.f;
+      for (int kk = 0; kk < fk8; kk += 8) {
+        FragA fa;
+        load_a(fa, dfs + m1 * ldf + kk, ldf, 1);
+#pragma unroll
+        for (int i = 0; i < S::Q1; ++i) {
+          FragB fb;
+          load_b(fb, w1s + (n1 + i) * 8 * ldf + kk, 1, ldf);
+          mma3(acc[i], fa, fb);
+        }
+      }
+      float dc[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < S::Q1; ++i)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          const int e = m1 + gq + 8 * (v >> 1);
+          const int o = e * LA + (n1 + i) * 8 + 2 * tq + (v & 1);
+          dts[o] = cm_s[e] * acc[i][v] * dts[o];
+          dc[v >> 1] += as[o] * acc[i][v];
+        }
+      if (want_dcm) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          dc[h] += __shfl_xor_sync(0xffffffffu, dc[h], 1);
+          dc[h] += __shfl_xor_sync(0xffffffffu, dc[h], 2);
+        }
+        if (tq == 0) {
+          red[warp * TE + m1 + gq] = dc[0];
+          red[warp * TE + m1 + gq + 8] = dc[1];
+        }
+      }
+    }
+    __syncthreads();
+
+    if (p3) {
+      // dW0[:, slice] += rbf^T dt0 over this warp's 16 rows of G
+      for (int kk = 0; kk < TE; kk += 8) {
+        FragA fa;
+        load_a(fa, rbfs + kk * ldr + 16 * warp, 1, ldr);
+#pragma unroll
+        for (int n = 0; n < S::NB; ++n) {
+          FragB fb;
+          load_b(fb, dts + kk * LA + n * 8, LA, 1);
+          mma3(acc0[n], fa, fb);
+        }
+      }
+    }
+    if (dbi >= 0) {
+      // db0 = sum_e dt0 (first W threads), db1 = sum_e cm * dfilt (next W),
+      // in edge order
+      if (dbi < W) {
+        for (int e = 0; e < cnt; ++e) add_comp(db, dbc, dts[e * LA + dbi]);
+      } else if (k0 + dbi - W < f) {
+        const int c = k0 + dbi - W;
+        for (int e = 0; e < cnt; ++e)
+          add_comp(db, dbc, cm_s[e] * dfs[e * ldf + c]);
+      }
+    }
+    if (want_dcm && tid < cnt) {
+      // the warps that hold this edge's u, in order, then the b1 term of the
+      // slice's columns
+      const int w0_ = (tid / 16) * S::WPR;
+      float v = 0.f;
+      for (int w = w0_; w < w0_ + S::WPR; ++w) v += red[w * TE + tid];
+      for (int c = 0; c < wk; ++c) v += p.b1[k0 + c] * dfs[tid * ldf + k0 + c];
+      p.dcm[static_cast<size_t>(j) * p.n_edges + t + tid] = v;
+    }
+    if (want_drbf) {
+      // this slice's share of drbf = dt0 . W0^T
+      for (int i = tid; i < cnt * g; i += kThreads) {
+        const int e = i / g, gg = i - e * g;
+        float v = 0.f;
+        for (int c = 0; c < wk; ++c) v += dts[e * LA + c] * w0s[gg * LA + c];
+        p.drbf[(static_cast<size_t>(j) * p.n_edges + t + e) * g + gg] = v;
+      }
+    }
+    if (p4) {
+      // dW1[slice, :] += (cm * a)^T dfilt over this warp's columns
+      for (int kk = 0; kk < TE; kk += 8) {
+        const float c0 = cm_s[kk + tq], c1 = cm_s[kk + tq + 4];
+        FragA fa[S::MT4];
+#pragma unroll
+        for (int mt = 0; mt < S::MT4; ++mt) {
+          const float* ap = as + kk * LA + mt * 16 + gq;
+          set_a(fa[mt], ap[tq * LA] * c0, ap[tq * LA + 8] * c0,
+                ap[(tq + 4) * LA] * c1, ap[(tq + 4) * LA + 8] * c1);
+        }
+#pragma unroll
+        for (int nt = 0; nt < S::NT4; ++nt) {
+          FragB fb;
+          load_b(fb, dfs + kk * ldf + cb + nt * 8, ldf, 1);
+#pragma unroll
+          for (int mt = 0; mt < S::MT4; ++mt) mma3(acc1[mt][nt], fa[mt], fb);
+        }
       }
     }
   }
-}
 
-__global__ void scf_reduce_partials_kernel(const float* __restrict__ partial,
-                                           float* __restrict__ out,
-                                           int n_parts, int size) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= size) return;
-  float v = 0.f;
-  for (int b = 0; b < n_parts; ++b)
-    v += partial[static_cast<size_t>(b) * size + j];
-  out[j] = v;
+  // the slice, once, into part p's partial in the packed layout [dW0 (G x
+  // F) | db0 (F) | dW1 (F x F) | db1 (F)]: columns k0.. of dW0 and db0,
+  // rows k0.. of dW1, entries k0.. of db1
+  const size_t gf = static_cast<size_t>(g) * f;
+  float* out =
+      p.partial + blockIdx.x * (gf + f + static_cast<size_t>(f) * f + f);
+  if (p3) {
+#pragma unroll
+    for (int n = 0; n < S::NB; ++n)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const int gg = 16 * warp + gq + 8 * (v >> 1);
+        const int c = n * 8 + 2 * tq + (v & 1);
+        if (gg < g && c < wk)
+          out[static_cast<size_t>(gg) * f + k0 + c] = acc0[n][v];
+      }
+  }
+  if (dbi >= 0 && (dbi < W ? dbi : dbi - W) < wk) {
+    out[dbi < W ? gf + k0 + dbi
+                : gf + f + static_cast<size_t>(f) * f + k0 + dbi - W] =
+        db + dbc;
+  }
+  if (p4) {
+    float* o1 = out + gf + f + static_cast<size_t>(k0) * f;
+#pragma unroll
+    for (int mt = 0; mt < S::MT4; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < S::NT4; ++nt)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          const int r = mt * 16 + gq + 8 * (v >> 1);
+          const int c = cb + nt * 8 + 2 * tq + (v & 1);
+          if (r < wk && c < f)
+            o1[static_cast<size_t>(r) * f + c] = acc1[mt][nt][v];
+        }
+  }
 }
 
 template <int TE>
@@ -451,21 +635,21 @@ int launch_filter_gather(const float* x, const float* rbf, const float* cm,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int TE>
-int launch_pass_p(const float* h, const float* gout, const float* rbf,
-                  const float* cm, const int* send, const int* recv,
-                  const int* row_ptr, const float* w0, const float* b0,
-                  const float* w1, const float* w1t, const float* b1,
-                  float* partial, float* drbf, float* dcm, int n_rows,
-                  int f, int g, int n_parts, cudaStream_t st) {
-  const size_t smem = pass_p_smem<TE>(f, g);
+template <int TE, int W>
+size_t pass_p_bytes(int f, int g) {
+  return sizeof(float) *
+         static_cast<size_t>(pass_p_layout<TE, W>(f, g).floats);
+}
+
+template <int TE, int W>
+int launch_pass_p(const PassPArgs& a, int n_parts, cudaStream_t st) {
+  const size_t smem = pass_p_bytes<TE, W>(a.f, a.g);
   cudaError_t err = cudaFuncSetAttribute(
-      scf_pass_p_kernel<TE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      scf_pass_p_kernel<TE, W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  scf_pass_p_kernel<TE><<<n_parts, kThreads, smem, st>>>(
-      h, gout, rbf, cm, send, recv, row_ptr, w0, b0, w1, w1t, b1, partial,
-      drbf, dcm, n_rows, f, g);
+  const dim3 grid(n_parts, (a.f + W - 1) / W);
+  scf_pass_p_kernel<TE, W><<<grid, kThreads, smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -505,51 +689,100 @@ extern "C" int hg_scf_filter_gather_f32(
                                  b1f, of, n_rows, f, g, st);
 }
 
-// Pass P and its partial reduction: `partial` is scratch [n_parts, P] and
-// `wgrad` receives [dW0 (G*F) | db0 (F) | dW1 (F*F) | db1 (F)].  `drbf`
-// [E,G] and `dcm` [E] may be null; when given they must be zero-filled
-// (masked edges are never written).
+// Bytes of shared memory of one pass-P block at F, G and slice width
+// `width` on the current device (edges per tile: `width`, or 32 where 64
+// would pass the device's limit), or -1.
+extern "C" int hg_scf_pass_p_smem(int f, int g, int width) {
+  int dev = 0, optin = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return -1;
+  size_t b = 0;
+  if (width == 64) {
+    b = pass_p_bytes<64, 64>(f, g);
+    if (b > static_cast<size_t>(optin)) b = pass_p_bytes<32, 64>(f, g);
+  } else if (width == 32) {
+    b = pass_p_bytes<32, 32>(f, g);
+  } else if (width == 16) {
+    b = pass_p_bytes<16, 16>(f, g);
+  } else {
+    return -1;
+  }
+  return static_cast<int>(b);
+}
+
+// Pass P and its reductions.  `width` is the slice width W (64 for F <= 256,
+// 32 for F <= 512, 16 for F <= 1024: scf_mp.py:pass_p_plan); `partial` is
+// scratch [n_parts, P] for the parts' sums of `wgrad` [dW0 (G*F) | db0 (F)
+// | dW1 (F*F) | db1 (F)] (P entries).  `drbf` [E,G] and `dcm` [E] may be
+// null; when given they must be zero-filled (masked edges are never
+// written), and with more than one slice `drbf_part` [n_slices, E, G] and
+// `dcm_part` [n_slices, E] are their scratch (with one slice, pass the
+// outputs themselves).
 extern "C" int hg_scf_pass_p_f32(
     const void* h, const void* gout, const void* rbf, const void* cm,
     const void* send, const void* recv, const void* row_ptr, const void* w0,
-    const void* b0, const void* w1, const void* w1t, const void* b1,
-    void* partial, void* wgrad, void* drbf, void* dcm, int n_rows, int f,
-    int g, int n_parts, void* stream) {
+    const void* b0, const void* w1, const void* b1, void* partial,
+    void* wgrad, void* drbf_part, void* dcm_part, void* drbf, void* dcm,
+    int n_rows, int n_edges, int f, int g, int width, int n_parts,
+    void* stream) {
   if (n_rows <= 0 || f <= 0) return 0;
-  if (f > kMaxF || g < 1 || g > kMaxG || n_parts < 1)
+  if (f > kMaxF || g < 1 || g > kMaxG || n_parts < 1 ||
+      (width != 64 && width != 32 && width != 16) ||
+      f > kAccFloats / width || (drbf == nullptr) != (drbf_part == nullptr) ||
+      (dcm == nullptr) != (dcm_part == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* hf = static_cast<const float*>(h);
-  const float* gf = static_cast<const float*>(gout);
-  const float* rf = static_cast<const float*>(rbf);
-  const float* cf = static_cast<const float*>(cm);
-  const int* si = static_cast<const int*>(send);
-  const int* ri = static_cast<const int*>(recv);
-  const int* rp = static_cast<const int*>(row_ptr);
-  const float* w0f = static_cast<const float*>(w0);
-  const float* b0f = static_cast<const float*>(b0);
-  const float* w1f = static_cast<const float*>(w1);
-  const float* w1tf = static_cast<const float*>(w1t);
-  const float* b1f = static_cast<const float*>(b1);
-  float* pf = static_cast<float*>(partial);
-  float* drf = static_cast<float*>(drbf);
-  float* dcf = static_cast<float*>(dcm);
+  PassPArgs a;
+  a.h = static_cast<const float*>(h);
+  a.gout = static_cast<const float*>(gout);
+  a.rbf = static_cast<const float*>(rbf);
+  a.cm = static_cast<const float*>(cm);
+  a.send = static_cast<const int*>(send);
+  a.recv = static_cast<const int*>(recv);
+  a.row_ptr = static_cast<const int*>(row_ptr);
+  a.w0 = static_cast<const float*>(w0);
+  a.b0 = static_cast<const float*>(b0);
+  a.w1 = static_cast<const float*>(w1);
+  a.b1 = static_cast<const float*>(b1);
+  a.partial = static_cast<float*>(partial);
+  a.drbf = static_cast<float*>(drbf_part);
+  a.dcm = static_cast<float*>(dcm_part);
+  a.n_rows = n_rows;
+  a.n_edges = n_edges;
+  a.f = f;
+  a.g = g;
+  a.vec4 = f % 4 == 0 &&
+           ((reinterpret_cast<uintptr_t>(h) |
+             reinterpret_cast<uintptr_t>(gout)) & 15) == 0;
   int rc;
-  if (f <= 256)
-    rc = launch_pass_p<32>(hf, gf, rf, cf, si, ri, rp, w0f, b0f, w1f, w1tf,
-                           b1f, pf, drf, dcf, n_rows, f, g, n_parts,
-                           st);
-  else if (f <= 512)
-    rc = launch_pass_p<16>(hf, gf, rf, cf, si, ri, rp, w0f, b0f, w1f, w1tf,
-                           b1f, pf, drf, dcf, n_rows, f, g, n_parts,
-                           st);
+  if (width == 64)
+    rc = pass_p_bytes<64, 64>(f, g) <= static_cast<size_t>(optin)
+             ? launch_pass_p<64, 64>(a, n_parts, st)
+             : launch_pass_p<32, 64>(a, n_parts, st);
+  else if (width == 32)
+    rc = launch_pass_p<32, 32>(a, n_parts, st);
   else
-    rc = launch_pass_p<8>(hf, gf, rf, cf, si, ri, rp, w0f, b0f, w1f, w1tf,
-                          b1f, pf, drf, dcf, n_rows, f, g, n_parts,
-                          st);
+    rc = launch_pass_p<16, 16>(a, n_parts, st);
   if (rc != 0) return rc;
-  const int size = g * f + f + f * f + f;
-  scf_reduce_partials_kernel<<<(size + 255) / 256, 256, 0, st>>>(
-      pf, static_cast<float*>(wgrad), n_parts, size);
-  return static_cast<int>(cudaGetLastError());
+  const int n_slices = (f + width - 1) / width;
+  err = passp::launch_reduce_partials(a.partial, static_cast<float*>(wgrad),
+                                      n_parts, g * f + f + f * f + f, st);
+  if (err != cudaSuccess || n_slices == 1) return static_cast<int>(err);
+  if (drbf != nullptr)
+    err = passp::launch_reduce_slices(a.drbf, drbf, a.row_ptr, n_rows, g,
+                                      n_slices,
+                                      static_cast<size_t>(n_edges) * g, st);
+  if (err == cudaSuccess && dcm != nullptr)
+    err = passp::launch_reduce_slices(a.dcm, dcm, a.row_ptr, n_rows, 1,
+                                      n_slices,
+                                      static_cast<size_t>(n_edges), st);
+  return static_cast<int>(err);
 }

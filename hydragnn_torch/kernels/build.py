@@ -47,9 +47,12 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         # x, rbf, cm, gidx, rowid, perm, row_ptr, w0, b0, w1, b1, out,
         # n_rows, f, g, stream
         "hg_scf_filter_gather_f32": (_P,) * 12 + (_I,) * 3 + (_P,),
-        # h, gout, rbf, cm, send, recv, row_ptr, w0, b0, w1, w1t, b1,
-        # partial, wgrad, drbf, dcm, n_rows, f, g, n_parts, stream
-        "hg_scf_pass_p_f32": (_P,) * 16 + (_I,) * 4 + (_P,),
+        # h, gout, rbf, cm, send, recv, row_ptr, w0, b0, w1, b1, partial,
+        # wgrad, drbf_part, dcm_part, drbf, dcm, n_rows, n_edges, f, g,
+        # width, n_parts, stream
+        "hg_scf_pass_p_f32": (_P,) * 17 + (_I,) * 6 + (_P,),
+        # f, g, width
+        "hg_scf_pass_p_smem": (_I,) * 3,
     },
     "egcl_mp": {
         # mode, equivariant, x, geo, send, recv, perm, row_ptr, w0s, w0r,
@@ -66,11 +69,16 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     },
     "cgcnn_mp": {
         # mode, x, ea, send, recv, perm, row_ptr, wfr, wfs, wfg, bf, wsr,
-        # wss, wsg, bs, gout, out, partial, wgrad, dea, n_rows, f, d, a,
-        # n_parts, stream
-        "hg_cgcnn_f32": (_I,) + (_P,) * 19 + (_I,) * 5 + (_P,),
+        # wss, wsg, bs, gout, out, n_rows, f, d, a, stream
+        "hg_cgcnn_f32": (_I,) + (_P,) * 16 + (_I,) * 4 + (_P,),
+        # x, ea, send, recv, row_ptr, wfr, wfs, wfg, bf, wsr, wss, wsg, bs,
+        # gout, table, partial, wgrad, dx_part, dea_part, dx, dea, n_rows,
+        # n_edges, f, d, a, wp, n_parts, stream
+        "hg_cgcnn_pass_p_f32": (_P,) * 21 + (_I,) * 7 + (_P,),
+        # f, a, wp
+        "hg_cgcnn_pass_p_smem": (_I,) * 3,
         # f, d, a
-        "hg_cgcnn_wgrad_size": (_I,) * 3,
+        "hg_cgcnn_pass_p_width": (_I,) * 3,
     },
     "dn_tri": {
         # mode, radial, x2, cbf, w1, w2, kj, ji, perm, row_ptr, gout, out,
@@ -104,6 +112,8 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
+# source name -> the compiler's output of its last verbose build
+BUILD_LOGS: Dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -121,8 +131,11 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
+    # the shared headers count too: an edited header rebuilds every source
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
@@ -158,10 +171,36 @@ def build_all(verbose: bool = False) -> List[Path]:
                 continue
             os.replace(tmp, out)
             if verbose and log.strip():
+                BUILD_LOGS[name] = log
                 print(f"[nvcc {name}.cu]\n{log.strip()}")
         if failed:
             raise RuntimeError("\n".join(failed))
     return [library_path(n) for n in SIGNATURES]
+
+
+def ptxas_log(name: str) -> str:
+    """The compiler's verbose output (ptxas registers, spills, shared
+    memory) for ``csrc/<name>.cu``: that of its build in this process, or,
+    when its library was already built, that of a compile of its own
+    whose output is thrown away."""
+    with _lock:
+        log = BUILD_LOGS.get(name)
+    if log is not None:
+        return log
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD_DIR / f"ptxas_{name}.tmp{os.getpid()}.so"
+    try:
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
+             str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    finally:
+        tmp.unlink(missing_ok=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc {name}.cu failed:\n{proc.stdout}")
+    with _lock:
+        BUILD_LOGS[name] = proc.stdout
+    return proc.stdout
 
 
 def load_library(name: str) -> ctypes.CDLL:

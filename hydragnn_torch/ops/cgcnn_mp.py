@@ -17,10 +17,14 @@ built by kernels/build.py), none of which writes an ``[E, D]`` or
 - forward (the reference's ``_fused_fwd``): receiver order, recompute
   ``tf``, ``ts`` per edge tile, sum ``sigmoid(tf) * softplus(ts)`` into the
   receiver rows;
-- pass P (``_bwd_p_kernel``): receiver order, recompute, backpropagate
-  the row's cotangent ``dout[r]``, write ``dx`` of the receiver side, the
-  per-edge ``d edge_attr`` and the weight gradients (one float32 partial
-  per thread block, reduced in a fixed order);
+- pass P (``_bwd_p_kernel``): receiver order, the node table ``x @ [Wfr
+  | Wsr | Wfs | Wss]`` once per launch, then per edge only ``(dtf, dts)``
+  and the sender-side weight gradients, per receiver row (once) the
+  receiver-side ones and ``dx`` of the receiver side, and the per-edge
+  ``d edge_attr``; products on the tensor cores in 3xTF32, the grid split
+  into runs of whole receiver rows and slices of the output columns
+  (:func:`pass_p_plan`), each part's partial in ``wgrad``'s packed
+  layout, the parts reduced in a fixed order;
 - pass S (``_bwd_s_kernel``): sender order through ``sender_perm``,
   recompute, ``dx`` of the sender side.
 
@@ -48,7 +52,7 @@ queue A3).
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -68,8 +72,7 @@ LAUNCHES: Dict[str, int] = {
     "cgcnn_block_pass_s": 0,
 }
 
-_MODES = {"cgcnn_block": 0, "cgcnn_block_pass_p": 1,
-          "cgcnn_block_pass_s": 2}
+_MODES = {"cgcnn_block": 0, "cgcnn_block_pass_s": 2}
 
 
 def reset_launches() -> None:
@@ -190,12 +193,31 @@ def kernel_weights(kf, bf, ks, bs, f, a, dev):
     return tuple(out)
 
 
+class PassPPlan(NamedTuple):
+    """The pass-P grid: ``n_parts`` runs of receiver rows times
+    ``n_slices`` slices of ``wp`` output columns; each part's partial
+    holds ``part_size`` floats, the layout of ``wgrad``."""
+    wp: int
+    n_slices: int
+    part_size: int
+    n_parts: int
+
+
+def pass_p_plan(f, d, a, e, sms, wp) -> PassPPlan:
+    """The grid for slices of ``wp`` output columns (the kernel's choice,
+    ``hg_cgcnn_pass_p_width``): one block per SM, fewer parts when the
+    edges are few."""
+    n_slices = -(-d // wp)
+    n_parts = max(1, min(sms // n_slices, max(e, 1)))
+    return PassPPlan(wp, n_slices, 2 * (2 * f + a + 1) * d, n_parts)
+
+
 def launch_cgcnn(op, x, edge_attr, weights, senders, receivers, perm,
                  row_ptr, gout=None, want_dx=True, want_ea=False):
-    """One launch of the cgcnn kernel in the mode ``op`` names, on a
-    precomputed CSR schedule ``row_ptr`` over positions (receiver order,
-    ``perm`` None, for the forward and pass P; sender order through
-    ``perm`` for pass S).  Returns:
+    """One launch of the cgcnn kernel ``op`` names, on a precomputed CSR
+    schedule ``row_ptr`` over positions (receiver order, ``perm`` None, for
+    the forward and pass P; sender order through ``perm`` for pass S).
+    Returns:
 
     - ``cgcnn_block``: ``out [N, D]``;
     - ``cgcnn_block_pass_p``: ``(wgrad, d edge_attr or None, dx_receiver
@@ -221,41 +243,71 @@ def launch_cgcnn(op, x, edge_attr, weights, senders, receivers, perm,
     _require(row_ptr, "row_ptr", torch.int32, (n + 1,), dev)
     if e >= 2**31 or n >= 2**31:
         raise ValueError("the kernel indexes edges and rows with int32")
-    mode = _MODES[op]
-    lib = load_library("cgcnn_mp")
-    out = partial = wgrad = dea = None
-    n_parts = 0
-    if mode == 0:
-        out = torch.empty((n, d), dtype=torch.float32, device=dev)
-    else:
+    if op != "cgcnn_block":
         _require(gout, "dout", torch.float32, (n, d), dev)
-        if want_dx:
-            out = torch.empty((n, f), dtype=torch.float32, device=dev)
-    if mode == 1:
-        size = lib.hg_cgcnn_wgrad_size(f, d, a)
-        # one partial per SM: 66 KB each at F = D = 64, 1.3 MB at 256
-        n_parts = torch.cuda.get_device_properties(dev).multi_processor_count
-        partial = torch.empty((n_parts, size), dtype=torch.float32,
-                              device=dev)
-        wgrad = torch.empty((size,), dtype=torch.float32, device=dev)
-        if want_ea and a:
-            dea = torch.zeros((e, a), dtype=torch.float32, device=dev)
+    lib = load_library("cgcnn_mp")
+    if op == "cgcnn_block_pass_p":
+        return _launch_pass_p(lib, x, edge_attr, weights, senders,
+                              receivers, row_ptr, gout, want_dx, want_ea)
+    out = torch.empty((n, d if op == "cgcnn_block" else f),
+                      dtype=torch.float32, device=dev)
     if n > 0:
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = lib.hg_cgcnn_f32(
-                mode, x.data_ptr(), _ptr(edge_attr), senders.data_ptr(),
+                _MODES[op], x.data_ptr(), _ptr(edge_attr), senders.data_ptr(),
                 receivers.data_ptr(), _ptr(perm), row_ptr.data_ptr(),
-                *(_ptr(w) for w in weights), _ptr(gout), _ptr(out),
-                _ptr(partial), _ptr(wgrad), _ptr(dea), n, f, d, a, n_parts,
-                stream)
+                *(_ptr(w) for w in weights), _ptr(gout), out.data_ptr(), n, f,
+                d, a, stream)
         _check_rc(rc, op)
         LAUNCHES[op] += 1
-    elif mode == 1:
-        wgrad.zero_()
-    if mode == 1:
-        return wgrad, dea, out
     return out
+
+
+def _launch_pass_p(lib, x, edge_attr, weights, senders, receivers, row_ptr,
+                   gout, want_dx, want_ea):
+    dev = x.device
+    n, f = x.shape
+    e = senders.shape[0]
+    d = weights[0].shape[1]
+    a = 0 if edge_attr is None else edge_attr.shape[1]
+    with torch.cuda.device(dev):
+        wp = lib.hg_cgcnn_pass_p_width(f, d, a)
+    if wp < 0:
+        raise RuntimeError(
+            f"cgcnn_block_pass_p: no slice of F={f}, D={d}, A={a} fits the "
+            f"device's shared memory")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = pass_p_plan(f, d, a, e, sms, wp)
+    wgrad = torch.empty((plan.part_size,), dtype=torch.float32, device=dev)
+    dx = dea = dx_part = dea_part = None
+    if want_dx:
+        dx = dx_part = torch.empty((n, f), dtype=torch.float32, device=dev)
+        if plan.n_slices > 1:
+            dx_part = torch.empty((plan.n_slices, n, f), dtype=torch.float32,
+                                  device=dev)
+    if want_ea and a:
+        dea = dea_part = torch.zeros((e, a), dtype=torch.float32, device=dev)
+        if plan.n_slices > 1:
+            dea_part = torch.empty((plan.n_slices, e, a), dtype=torch.float32,
+                                   device=dev)
+    if n == 0:
+        return wgrad.zero_(), dea, dx
+    table = torch.empty((n, 4 * d), dtype=torch.float32, device=dev)
+    partial = torch.empty((plan.n_parts, plan.part_size), dtype=torch.float32,
+                          device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.hg_cgcnn_pass_p_f32(
+            x.data_ptr(), _ptr(edge_attr), senders.data_ptr(),
+            receivers.data_ptr(), row_ptr.data_ptr(),
+            *(_ptr(w) for w in weights), gout.data_ptr(), table.data_ptr(),
+            partial.data_ptr(), wgrad.data_ptr(),
+            *(_ptr(t) for t in (dx_part, dea_part, dx, dea)), n, e, f, d, a,
+            plan.wp, plan.n_parts, stream)
+    _check_rc(rc, "cgcnn_block_pass_p")
+    LAUNCHES["cgcnn_block_pass_p"] += 1
+    return wgrad, dea, dx
 
 
 def unpack_wgrad(wgrad, f, d, a):

@@ -10,9 +10,13 @@ memory:
 
 - forward (the reference's ``_fused_fwd``): receiver order, recompute the
   filter MLP per edge tile, multiply by ``h[send]``, sum into the rows;
-- pass P (``_bwd_p_kernel``): receiver order, recompute, then the weight
-  grads dW0/db0/dW1/db1 (f32, summed over all edges: one partial per
-  thread block, reduced in a fixed order) and the per-edge drbf/dcm;
+- pass P (``_bwd_p_kernel``): receiver order, the grid split into edge
+  shares and slices of the filter columns (:func:`pass_p_plan`); each
+  block recomputes its slice of the filter MLP and keeps its slice of the
+  weight grads dW0/db0/dW1/db1 on chip over its whole share (products on
+  the tensor cores in 3xTF32), writes it once into its part's partial in
+  the packed layout, and a fixed-order reduction sums the parts; the
+  per-edge drbf/dcm are summed over the slices in order;
 - pass S (``_bwd_s_kernel``): sender order (``sender_perm``), recompute,
   ``dh[n] = sum_{e: send[e]=n} g[recv[e]] * filt_e``.  It is the forward
   kernel with the roles swapped.
@@ -42,7 +46,7 @@ kernels are held to.
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -54,7 +58,7 @@ from hydragnn_torch.ops.fused_mp import _check_rc, _require
 SCF_F_LIMIT = 1024
 SCF_G_LIMIT = 127
 
-# bytes the pass-P weight-grad partials (one per thread block) may take
+# bytes the pass-P weight-grad partials (one per edge share) may take
 _PARTIAL_BUDGET = 256 << 20
 
 LAUNCHES: Dict[str, int] = {
@@ -180,17 +184,33 @@ def launch_scf_filter_gather(x, rbf, cm, w0, b0, w1, b1, gidx, rowid, perm,
     return out
 
 
-def pass_p_parts(dev, f, g, e) -> int:
-    """Thread blocks of pass P: one per SM, fewer when the weight-grad
+class PassPPlan(NamedTuple):
+    """The pass-P grid (csrc/scf_mp.cu): ``n_parts`` edge shares times
+    ``n_slices`` slices of ``width`` filter columns; each part's partial
+    holds ``part_size`` floats, the packed ``[dW0 | db0 | dW1 | db1]``."""
+    width: int
+    n_slices: int
+    part_size: int
+    n_parts: int
+
+
+def pass_p_plan(f, g, e, sms) -> PassPPlan:
+    """Slices of 64 filter columns for F <= 256, 32 for F <= 512 and 16
+    for F <= 1024 (a block keeps width x F floats of dW1 in registers);
+    edge shares so that the grid is one block per SM, fewer when the
     partials would pass the budget or the edges are few."""
-    part = 4 * (g * f + f + f * f + f)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    return max(1, min(sms, _PARTIAL_BUDGET // part, max(e, 1)))
+    width = 64 if f <= 256 else 32 if f <= 512 else 16
+    n_slices = -(-f // width)
+    part_size = g * f + f + f * f + f
+    n_parts = min(max(1, sms // n_slices),
+                  max(1, _PARTIAL_BUDGET // (4 * part_size)),
+                  max(e, 1))
+    return PassPPlan(width, n_slices, part_size, n_parts)
 
 
 def launch_scf_pass_p(h, g, rbf, cm, w0, b0, w1, b1, senders, receivers,
                       row_ptr, want_geo):
-    """One pass-P launch (plus its fixed-order partial reduction) over the
+    """One pass-P launch (plus its fixed-order reductions) over the
     receiver-order CSR ``row_ptr``.  Returns ``(dw0, db0, dw1, db1, drbf,
     dcm)``; drbf/dcm are None unless ``want_geo``, zero on masked
     edges."""
@@ -208,15 +228,21 @@ def launch_scf_pass_p(h, g, rbf, cm, w0, b0, w1, b1, senders, receivers,
     _require(receivers, "receivers", torch.int32, (e,), dev)
     _require(row_ptr, "row_ptr", torch.int32, (n + 1,), dev)
     w0, b0, w1, b1 = _weights(w0, b0, w1, b1, f, gd, dev)
-    w1t = w1.t().contiguous()
-    size = gd * f + f + f * f + f
-    n_parts = pass_p_parts(dev, f, gd, e)
-    partial = torch.empty((n_parts, size), dtype=torch.float32, device=dev)
-    wgrad = torch.empty((size,), dtype=torch.float32, device=dev)
-    drbf = dcm = None
+    plan = pass_p_plan(
+        f, gd, e, torch.cuda.get_device_properties(dev).multi_processor_count)
+    partial = torch.empty((plan.n_parts, plan.part_size), dtype=torch.float32,
+                          device=dev)
+    wgrad = torch.empty((plan.part_size,), dtype=torch.float32, device=dev)
+    drbf = dcm = drbf_part = dcm_part = None
     if want_geo:
         drbf = torch.zeros((e, gd), dtype=torch.float32, device=dev)
         dcm = torch.zeros((e,), dtype=torch.float32, device=dev)
+        drbf_part, dcm_part = drbf, dcm
+        if plan.n_slices > 1:
+            drbf_part = torch.empty((plan.n_slices, e, gd),
+                                    dtype=torch.float32, device=dev)
+            dcm_part = torch.empty((plan.n_slices, e), dtype=torch.float32,
+                                   device=dev)
     if n > 0 and f > 0:
         lib = load_library("scf_mp")
         with torch.cuda.device(dev):
@@ -224,11 +250,11 @@ def launch_scf_pass_p(h, g, rbf, cm, w0, b0, w1, b1, senders, receivers,
             rc = lib.hg_scf_pass_p_f32(
                 h.data_ptr(), g.data_ptr(), rbf.data_ptr(), cm.data_ptr(),
                 senders.data_ptr(), receivers.data_ptr(), row_ptr.data_ptr(),
-                w0.data_ptr(), b0.data_ptr(), w1.data_ptr(), w1t.data_ptr(),
-                b1.data_ptr(), partial.data_ptr(), wgrad.data_ptr(),
-                None if drbf is None else drbf.data_ptr(),
-                None if dcm is None else dcm.data_ptr(),
-                n, f, gd, n_parts, stream)
+                w0.data_ptr(), b0.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+                partial.data_ptr(), wgrad.data_ptr(),
+                *(None if t is None else t.data_ptr()
+                  for t in (drbf_part, dcm_part, drbf, dcm)),
+                n, e, f, gd, plan.width, plan.n_parts, stream)
         _check_rc(rc, "scf_edge_pipeline_pass_p")
         LAUNCHES["scf_edge_pipeline_pass_p"] += 1
     else:

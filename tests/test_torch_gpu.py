@@ -38,12 +38,17 @@ from hydragnn_torch.ops import fused_mp as tfm
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 
-def _graph_batch(seed, n_real=290, n_pad=304, e_pad=2560):
+def _graph_batch(seed, n_real=290, n_pad=304, e_pad=2560, hub=0):
     """Collate-shaped arrays: contiguous graphs of <= 60 nodes (~3 node
     blocks in all), intra-graph edges sorted by receiver, some nodes with
-    no incoming edge, padding edges parked on node N-1 with mask 0."""
+    no incoming edge, padding edges parked on node N-1 with mask 0.
+    ``hub`` > 0 gives node 0 that many more incoming edges, so that its
+    row spans several edge tiles and edge shares of the kernels."""
     rng = np.random.RandomState(seed)
     send, recv, gid = [], [], []
+    if hub:
+        send.append(rng.randint(0, 5, hub))
+        recv.append(np.zeros(hub, np.int64))
     off, g = 0, 0
     while off < n_real:
         size = min(int(rng.randint(5, 61)), n_real - off)
@@ -171,21 +176,47 @@ def test_backward_on_card_matches_plain(cuda):
     assert tfm.LAUNCHES["segment_sum_dense"] == 1
 
 
+def _scf_composed(h, rbf, cm, w0, b0, w1, b1, em, send, recv):
+    """The composed edge pipeline in the inputs' dtype (the plain version
+    computes in float32): the float64 yardstick of the scf kernels."""
+    filt = ((torch.nn.functional.softplus(rbf @ w0 + b0) - np.log(2.0)) @ w1
+            + b1) * cm[:, None]
+    msgs = torch.where((em != 0)[:, None], h[send.long()] * filt,
+                       torch.zeros((), dtype=h.dtype, device=h.device))
+    return torch.zeros_like(h).index_add(0, recv.long(), msgs)
+
+
+def _float64_yardstick(name, got, plain32, plain64):
+    """The kernel's error against a float64 run of the plain version: at
+    most twice the float32 plain version's own, or 1e-6 of the largest
+    entry where that is larger (the products run in 3xTF32)."""
+    scale = float(plain64.abs().max())
+    e32 = float((plain32.double() - plain64).abs().max())
+    err = float((got.double() - plain64).abs().max())
+    assert err <= max(2 * e32, 1e-6 * scale), (name, err, e32, scale)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("f,gd", [(256, 50), (384, 127), (512, 127),
-                                  (1024, 127)])
-def test_scf_kernels_match_plain_on_card(cuda, f, gd):
+@pytest.mark.parametrize("geo", [True, False], ids=["drbf-dcm", "no-geo"])
+@pytest.mark.parametrize("f,gd", [(48, 50), (200, 50), (256, 50), (384, 127),
+                                  (512, 127), (1024, 127)])
+def test_scf_kernels_match_plain_on_card(cuda, f, gd, geo):
     """The three scf kernels (forward, pass P, pass S) through the autograd
     Function against autograd through the composed plain version, at the
-    wide SchNet's widths (F = 256, G = 50) and at each edge-tile width the
-    kernels instantiate up to the limits (F = 384 and 512: 16 edges a
-    tile, F = 384 with a partly idle column chunk; F = 1024: 8 edges a
-    tile; G = 127).  The edge-summed weight grads are held to 1e-4
-    relative to their largest entry: thousands of float32 products summed
-    in another order."""
+    wide SchNet's widths (F = 256, G = 50), at F = 48 and 200 (not whole
+    slices of pass P's 64 columns) and at each slice width pass P
+    instantiates up to the limits (F = 384 and 512: 32 columns a slice;
+    F = 1024: 16; G = 127), with drbf and dcm asked (rbf and cm need a
+    gradient) and not.  Node 0 receives 200 extra edges, so its row spans
+    several edge tiles and edge shares; other rows have none, and shares
+    end mid-tile.  The edge-summed weight grads are held to 1e-4 relative
+    to their largest entry (thousands of float32 products summed in
+    another order), the rest to 1e-5; pass P's outputs also against a
+    float64 run (:func:`_float64_yardstick`); masked edges' drbf, dcm
+    exactly zero; a second run bit-identical."""
     from hydragnn_torch.ops import scf_mp
 
-    b = _graph_batch(8)
+    b = _graph_batch(8, hub=200)
     n, e = len(b["node_gid"]), len(b["senders"])
     g = torch.Generator().manual_seed(2)
     mask = _t(b["edge_mask"])
@@ -202,23 +233,43 @@ def test_scf_kernels_match_plain_on_card(cuda, f, gd):
     send, recv = _t(b["senders"]).to(cuda), _t(b["receivers"]).to(cuda)
     perm = _t(b["perm"]).to(cuda)
     em = mask.to(torch.int32).to(cuda)
+    names = ("h", "rbf", "cm", "w0", "b0", "w1", "b1")
+
+    def run(fn, inputs):
+        ts = [t.detach().clone().requires_grad_(geo or i not in (1, 2))
+              for i, t in enumerate(inputs)]
+        fn(*ts).backward(ct.to(inputs[0].dtype))
+        torch.cuda.synchronize()
+        return [t.grad for t in ts]
+
     scf_mp.reset_launches()
-    k = _grads(lambda *a: scf_mp.scf_edge_pipeline(
-        a[0], a[1], a[2], em, *a[3:], send, recv, perm), ins, ct)
-    p = _grads(lambda *a: scf_mp.scf_edge_pipeline_plain(
-        a[0], a[1], a[2], em, *a[3:], send, recv), ins, ct)
-    torch.cuda.synchronize()
+    k = run(lambda *a: scf_mp.scf_edge_pipeline(
+        a[0], a[1], a[2], em, *a[3:], send, recv, perm), ins)
     assert scf_mp.LAUNCHES == {"scf_edge_pipeline": 1,
                                "scf_edge_pipeline_pass_p": 1,
                                "scf_edge_pipeline_pass_s": 1}
+    again = run(lambda *a: scf_mp.scf_edge_pipeline(
+        a[0], a[1], a[2], em, *a[3:], send, recv, perm), ins)
+    for name, x_, y_ in zip(names, k, again):
+        assert (x_ is None and y_ is None) or torch.equal(x_, y_), name
+
+    p = run(lambda *a: scf_mp.scf_edge_pipeline_plain(
+        a[0], a[1], a[2], em, *a[3:], send, recv), ins)
+    p64 = run(lambda *a: _scf_composed(*a, em, send, recv),
+              [t.double() for t in ins])
     real = em.bool()
-    for name, a, c in zip(("h", "rbf", "cm", "w0", "b0", "w1", "b1"), k, p):
+    for name, a, c, c64 in zip(names, k, p, p64):
+        if a is None:
+            assert not geo and c is None and name in ("rbf", "cm"), name
+            continue
         if name in ("rbf", "cm"):
             assert bool((a[~real] == 0).all()), name
-            a, c = a[real], c[real]
+            a, c, c64 = a[real], c[real], c64[real]
         scale = float(c.abs().max())
         rel = 1e-4 if name in ("w0", "b0", "w1", "b1") else 1e-5
         assert float((a - c).abs().max()) <= rel * scale, name
+        if name != "h":
+            _float64_yardstick(name, a, c, c64)
 
 
 def _schnet_batch(monkeypatch):
@@ -811,20 +862,25 @@ def test_gat_train_steps_on_card_match_cpu(cuda, monkeypatch, dropout):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("want_ea", [True, False], ids=["dea", "no-dea"])
 @pytest.mark.parametrize("a", [0, 5], ids=["no-edge-attr", "edge-attr"])
 @pytest.mark.parametrize("f,d", [(1, 1), (24, 16), (64, 64), (256, 256)])
-def test_cgcnn_kernels_match_plain_on_card(cuda, f, d, a):
-    """The three cgcnn kernels (forward, pass P with its reduction, pass S)
-    through the autograd Function against autograd through the composed
-    plain version: F = 1 (layer 0 on one node feature), 24 with D = 16 (a
-    transposed block shows), 64 (the arch sweep's CGCNN) and the limit
-    256 (weights read from L2); with and without edge attributes.
+def test_cgcnn_kernels_match_plain_on_card(cuda, f, d, a, want_ea):
+    """The three cgcnn kernels (forward, pass P with its node table and
+    reduction, pass S) through the autograd Function against autograd
+    through the composed plain version: F = 1 (layer 0 on one node
+    feature), 24 with D = 16 (a transposed block shows), 64 (the arch
+    sweep's CGCNN) and the limit 256 (sixteen slices of pass P's output
+    columns); with and without edge attributes, and their gradient asked
+    or not.  Node 0 receives 200 extra edges (a row over several edge
+    tiles, past an even share of the edges); other rows have none.
     Forward, dx and d edge_attr 1e-5 of their largest entry, the
-    edge-summed weight and bias grads 1e-4; d edge_attr exactly zero on
+    edge-summed weight and bias grads 1e-4; the gradients also against a
+    float64 run (:func:`_float64_yardstick`); d edge_attr exactly zero on
     masked edges; a second run bit-identical."""
     from hydragnn_torch.ops import cgcnn_mp
 
-    b = _graph_batch(31 + f + a)
+    b = _graph_batch(31 + f + a, hub=200)
     n, e = len(b["node_gid"]), len(b["senders"])
     g = torch.Generator().manual_seed(4)
     ins = [torch.randn(n, f, generator=g),
@@ -839,34 +895,38 @@ def test_cgcnn_kernels_match_plain_on_card(cuda, f, d, a):
     perm = _t(b["perm"]).to(cuda)
     em = _t(b["edge_mask"]).to(torch.int32).to(cuda)
 
-    def run(fn):
-        ts = [None if t is None else t.detach().clone().requires_grad_(True)
-              for t in ins]
+    def run(fn, inputs):
+        ts = [None if t is None else t.detach().clone().requires_grad_(
+            want_ea or i != 1) for i, t in enumerate(inputs)]
         out = fn(ts[0], ts[1], em, *ts[2:], send, recv)
-        (out * ct).sum().backward()
+        (out * ct.to(out.dtype)).sum().backward()
         torch.cuda.synchronize()
         return [out.detach()] + [None if t is None else t.grad for t in ts]
 
     cgcnn_mp.reset_launches()
-    k = run(lambda *a_: cgcnn_mp.cgcnn_gated_block(*a_, perm))
+    k = run(lambda *a_: cgcnn_mp.cgcnn_gated_block(*a_, perm), ins)
     assert cgcnn_mp.LAUNCHES == {"cgcnn_block": 1, "cgcnn_block_pass_p": 1,
                                  "cgcnn_block_pass_s": 1}
-    again = run(lambda *a_: cgcnn_mp.cgcnn_gated_block(*a_, perm))
+    again = run(lambda *a_: cgcnn_mp.cgcnn_gated_block(*a_, perm), ins)
     for x_, y_ in zip(k, again):
         assert (x_ is None and y_ is None) or torch.equal(x_, y_)
-    p = run(cgcnn_mp.cgcnn_block_reference)
+    p = run(cgcnn_mp.cgcnn_block_reference, ins)
+    p64 = run(cgcnn_mp.cgcnn_block_reference,
+              [None if t is None else t.double() for t in ins])
     real = em.bool()
     names = ("out", "x", "edge_attr", "kf", "bf", "ks", "bs")
-    for name, x_, y_ in zip(names, k, p):
+    for name, x_, y_, z_ in zip(names, k, p, p64):
         if x_ is None:
             assert y_ is None
             continue
         if name == "edge_attr":
             assert bool((x_[~real] == 0).all())
-            x_, y_ = x_[real], y_[real]
+            x_, y_, z_ = x_[real], y_[real], z_[real]
         rel = 1e-5 if name in ("out", "x", "edge_attr") else 1e-4
         assert float((x_ - y_).abs().max()) <= rel * float(y_.abs().max()), \
             name
+        if name != "out":
+            _float64_yardstick(name, x_, y_, z_)
 
 
 @pytest.mark.gpu
