@@ -10,9 +10,11 @@ and PyTorch built for CUDA.  Phases, each of which fails the run:
    float32 matmuls in full precision;
 2. build: compile the port's CUDA kernels from csrc/ with nvcc (sm_90a),
    one nvcc per source, all started together; then the registers,
-   stack, spills and static shared memory (ptxas) of the two pass-P
-   kernels on the tensor cores (scf, cgcnn with its node table) and
-   their dynamic shared memory at the main path's widths;
+   stack, spills and static shared memory (ptxas) of the redesigned
+   kernels (the two pass-P kernels on the tensor cores, scf and cgcnn
+   with its node table; the row_mlp backward's two routes; the dn_tri
+   backward) beside the forwards that share their sources, and the
+   pass-P kernels' dynamic shared memory at the main path's widths;
 3. kernels: on the first batch of the main path (512 flagship-size graphs,
    masked tail edges, empty segments), hold each kernel to its plain
    PyTorch version and time kernel, plain version and library call (CUDA
@@ -54,7 +56,10 @@ and PyTorch built for CUDA.  Phases, each of which fails the run:
    and spherical basis): the triplet op forward and backward and the
    row-MLP chain forward and backward through their autograd Functions
    against autograd through the composed plain versions (1e-5; 1e-4 for
-   the weight grads; d cbf exactly zero on masked triplets), and the
+   the weight grads; d cbf exactly zero on masked triplets), the triplet
+   backward also launched as the path launches it (d x2 and the weights)
+   and with all four outputs, every output against the plain version and
+   both launches timed, and the
    builder's three kernels (forward, pass S, pass P) at the same batch's
    triplet table and full spherical basis at dimenet_wide's widths (S*R =
    42, B = 8, D = 128), at (70, 8, 64) and at the limits (126, 128, 128),
@@ -158,9 +163,11 @@ and PyTorch built for CUDA.  Phases, each of which fails the run:
    three batches of 64 graphs (the float64 yardstick on the composed
    path: the batch without its ``dn_tri_ok`` marker).
 
-Prints JSON lines with the seconds of each phase (and, where float32
-itself decided a lockstep allowance, the per-parameter records behind
-it); the last line is
+Each dataset is loaded once per configuration (``memoize_dataset_loading``:
+the card and CPU runs of a configuration read the same data).  Prints JSON
+lines with the seconds of each phase and of the whole run (and, where
+float32 itself decided a lockstep allowance, the per-parameter records
+behind it); the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 package beside it, it exits non-zero before printing any result.
 """
@@ -602,17 +609,24 @@ def tensor_core_bounds(nbytes, flops):
 
 def pass_p_build_report():
     """The registers, stack, spills and static shared memory (ptxas) of
-    the redesigned pass-P kernels and, beside them, of the forward and
-    pass S of cgcnn, whose registers their split changed; and the dynamic
+    the redesigned kernels (scf and cgcnn pass P, the row_mlp backward's
+    two routes, the dn_tri backward) and, beside them, of the kernels that
+    share their sources (cgcnn's forward and pass S, whose registers the
+    pass-P split changed; the row_mlp and dn_tri forwards); and the dynamic
     shared memory of one pass-P block at the main path's widths (the
     kernels' own layout).  Fails when a source's report is missing."""
     from hydragnn_torch.kernels.build import load_library, ptxas_log
     from hydragnn_torch.ops import scf_mp
 
-    keys = ("pass_p_kernel", "node_table_kernel", "cgcnn_kernel")
+    keys = {"scf_mp": ("pass_p_kernel",),
+            "cgcnn_mp": ("pass_p_kernel", "node_table_kernel",
+                         "cgcnn_kernel"),
+            "row_mlp": ("row_mlp_fwd_kernel", "row_mlp_bwd_tc_kernel",
+                        "row_mlp_bwd_kernel"),
+            "dn_tri": ("dn_tri_fwd_kernel", "dn_tri_bwd_kernel")}
     kernels = []
-    for src in ("scf_mp", "cgcnn_mp"):
-        rep = ptxas_report(ptxas_log(src), keys)
+    for src, names in keys.items():
+        rep = ptxas_report(ptxas_log(src), names)
         check(bool(rep) and all("registers" in k for k in rep),
               f"ptxas: no register report for {src}.cu's kernels")
         kernels += rep
@@ -1790,23 +1804,41 @@ def cgcnn_phase(torch, g, seed):
 
 def dimenet_flops(s, r, b, d, din, h, n_before, n_after, triplets, rows):
     """Floating-point operations (a multiply-add is two; silu and its
-    derivative not counted) that the four DimeNet kernels' functions need:
-    the triplet op forward and backward on ``triplets`` real triplets, the
-    row-MLP chain forward and backward on ``rows`` rows.  Per triplet the
-    forward forms sbf (S*R products), emb1 and emb2 and adds x2 * emb2; the
-    backward recomputes that, then d_emb2 and the d_x2 term, d_emb1, d_sbf,
-    both weight gradients, d_cbf and the d_radial term, and the row sums.
-    Per row the chain's L dense layers, the residual adds; the backward
-    three times the products (recompute, the input gradient, the weight
-    gradient)."""
+    derivative not counted) that the DimeNet kernels' functions need: the
+    triplet op forward on ``triplets`` real triplets, the row-MLP chain
+    forward and backward on ``rows`` rows.  Per triplet the forward forms
+    sbf (S*R products), emb1 and emb2 and adds x2 * emb2.  Per row the
+    chain's L dense layers, the residual adds; the backward three times the
+    products (recompute, the input gradient, the weight gradient).  The
+    triplet backward: ``dimenet_tri_bwd_flops``."""
     sr = s * r
     prod = 2 * sr * b + 2 * b * d
     tri_f = triplets * (sr + prod + 2 * d)
-    tri_b = triplets * (sr + prod + 2 * d + prod + prod + 4 * sr + d + sr)
     layers = 2 + 2 * (n_before + n_after)
     mm = 2 * (din * h + (layers - 1) * h * h)
     adds = h * (2 + n_before + n_after)
-    return tri_f, tri_b, rows * (mm + adds), rows * (3 * mm + 2 * adds)
+    return tri_f, rows * (mm + adds), rows * (3 * mm + 2 * adds)
+
+
+def dimenet_tri_bwd_flops(s, r, b, d, triplets, rows, want):
+    """Operations of the triplet backward for the outputs ``want`` (d
+    radial, d x2, d cbf, the weights) on ``triplets`` real triplets whose
+    ``rows`` distinct kj rows hold them: (the factored work of
+    csrc/dn_tri.cu, the unfactored per-triplet work of the first design).
+    Factored: per triplet G += cbf * g (2 S D), and d_cbf = g . (x2 * Q)
+    when asked (2 S D); per row P (2 S R B), Q (2 S B D), d_x2 (2 S D), U
+    (S D), Hk (2 S D B), dW2 (2 S B D), dW1 (2 S R B), and when asked
+    x2 * Q for d_cbf (S D) and d_radial (2 S R B).  Unfactored, per
+    triplet: sbf, emb1, emb2, d_emb2 and the d_x2 term, d_emb1, d_sbf,
+    both weight gradients, d_cbf and the d_radial term."""
+    sr = s * r
+    per_t = 2 * s * d * (2 if want[2] else 1)
+    per_row = (2 * sr * b + 2 * s * b * d + 2 * s * d + s * d
+               + 2 * s * d * b + 2 * s * b * d + 2 * sr * b
+               + (s * d if want[2] else 0) + (2 * sr * b if want[0] else 0))
+    prod = 2 * sr * b + 2 * b * d
+    old = triplets * (sr + prod + 2 * d + prod + prod + 4 * sr + d + sr)
+    return triplets * per_t + rows * per_row, old
 
 
 def dimenet_phase(torch, g, seed, cfg):
@@ -1817,9 +1849,13 @@ def dimenet_phase(torch, g, seed, cfg):
     against autograd through the composed plain version: outputs and the
     per-edge and per-triplet gradients 1e-5 of their largest entry, the
     weight and bias grads (sums over ~5e5 triplets or ~1e5 rows in another
-    order) 1e-4; d cbf exactly zero on masked triplets.  Then each kernel
-    timed alone as the path launches it, beside its plain version and its
-    bound."""
+    order) 1e-4; d cbf exactly zero on masked triplets.  Then the triplet
+    backward launched alone as the path launches it (d x2 and the
+    weights: radial and cbf come from pos) and with all four outputs, each
+    output against the plain version; then each kernel timed alone as the
+    path launches it, the triplet backward also with all four outputs,
+    beside its plain version and its bound (the row_mlp backward's route
+    1 at the 3xTF32 rate, the CUDA-core bound beside it)."""
     from hydragnn_torch.models.dimenet import (
         distances_and_angles,
         spherical_basis_factors,
@@ -1916,20 +1952,60 @@ def dimenet_phase(torch, g, seed, cfg):
     e_real = int((g.edge_mask != 0).sum())
     t_real = int(real.sum())
     n_real = int((g.node_mask != 0).sum())
+    kj_rows = int(torch.unique(kj[real]).numel())
     p_ = perm.long()
     ptr_ji = segment_offsets(ji, e, tm)
     ptr_kj = segment_offsets(kj[p_], e, tm[p_])
     x2, w1, w2 = tri_ins[1], tri_ins[3], tri_ins[4]
     w_p, b_p = rm.pack_weights(wb, d, h, dev)
     tri, xji, xe = row_ins
+
+    # the triplet backward as the path launches it (radial and cbf come
+    # from pos, which needs no gradient: d x2 and the weights) and with all
+    # four outputs, each output against the plain version
+    plain_b = dt.dimenet_triplet_bwd_plain(radial, x2, cbf, w1, w2, kj, ji,
+                                           tm, ct, r)
+    tri_bwd_want = {"path": (False, True, False, True), "all": (True,) * 4}
+
+    def tri_bwd(want):
+        return dt.launch_dn_tri("dimenet_triplet_mp_bwd", radial, x2, cbf, w1,
+                                w2, kj, ji, perm, ptr_kj, r, ct, want=want)
+
+    with torch.no_grad():
+        for tag, want in tri_bwd_want.items():
+            got = tri_bwd(want)
+            torch.cuda.synchronize()
+            for o, name in enumerate(("dradial", "dx2", "dcbf", "dw1",
+                                      "dw2")):
+                if not want[min(o, 3)]:
+                    check(got[o] is None, f"dimenet: the triplet backward "
+                          f"({tag}) formed {name} unasked")
+                    continue
+                hold(f"tri_{tag}_{name}", got[o], plain_b[o],
+                     REL_TOL_WGRAD if o > 2 else REL_TOL_KERNEL)
+            if want[2]:
+                check(bool((got[2][~real] == 0).all()), "dimenet: the "
+                      "triplet backward's d cbf is not zero on masked "
+                      "triplets")
+    route = rm.bwd_route(d, h, nb, na)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-    tri_f, tri_b, row_f, row_b = dimenet_flops(s, r, b, d, d, h, nb, na,
-                                               t_real, e)
+    tri_f, row_f, row_b = dimenet_flops(s, r, b, d, d, h, nb, na, t_real, e)
+    tri_b = {tag: dimenet_tri_bwd_flops(s, r, b, d, t_real, kj_rows, want)
+             for tag, want in tri_bwd_want.items()}
     wt = 4 * (s * r * b + b * d)
     # read once: the real edges' radial and x2 rows, the real triplets'
     # cbf rows and ids, row_ptr, the weights; written once: the outputs
     tri_in = 4 * (e_real * (s * r + d) + t_real * (s + 2) + e + 1) + wt
+    # the backward also reads perm and the cotangent rows; it writes d x2
+    # and the weight gradients, and with all outputs d radial and d cbf
+    tri_b_bytes = {
+        "path": tri_in + 4 * (t_real + e_real * d) + 4 * e * d + wt,
+        "all": tri_in + 4 * (t_real + e_real * d)
+        + 4 * (e * (s * r + d) + t * s) + wt}
     row_w = 4 * (w_p.numel() + b_p.numel())
+    tri_b_outs = {tag: tuple(f"tri_{tag}_{n}" for o, n in enumerate(
+        ("dradial", "dx2", "dcbf", "dw1", "dw2")) if want[min(o, 3)])
+        for tag, want in tri_bwd_want.items()}
     timed = {
         "dimenet_triplet_mp": (
             lambda: dt.launch_dn_tri("dimenet_triplet_mp", radial, x2, cbf,
@@ -1939,15 +2015,17 @@ def dimenet_phase(torch, g, seed, cfg):
             bound(tri_in + 4 * e * d, tri_f),
             "hydragnn_tpu/ops/dn_tri.py:285", "dn_tri", ("tri_out",)),
         "dimenet_triplet_mp_bwd": (
-            lambda: dt.launch_dn_tri("dimenet_triplet_mp_bwd", radial, x2,
-                                     cbf, w1, w2, kj, ji, perm, ptr_kj, r,
-                                     ct),
+            lambda: tri_bwd(tri_bwd_want["path"]),
             lambda: dt.dimenet_triplet_bwd_plain(radial, x2, cbf, w1, w2, kj,
                                                  ji, tm, ct, r),
-            bound(tri_in + 4 * (t_real + e_real * d)
-                  + 4 * (e * (s * r + d) + t * s) + wt, tri_b),
-            "hydragnn_tpu/ops/dn_tri.py:358", "dn_tri",
-            ("tri_dradial", "tri_dx2", "tri_dcbf", "tri_dw1", "tri_dw2")),
+            bound(tri_b_bytes["path"], tri_b["path"][0]),
+            "hydragnn_tpu/ops/dn_tri.py:358", "dn_tri", tri_b_outs["path"]),
+        "dimenet_triplet_mp_bwd:all_outputs": (
+            lambda: tri_bwd(tri_bwd_want["all"]),
+            lambda: dt.dimenet_triplet_bwd_plain(radial, x2, cbf, w1, w2, kj,
+                                                 ji, tm, ct, r),
+            bound(tri_b_bytes["all"], tri_b["all"][0]),
+            "hydragnn_tpu/ops/dn_tri.py:358", "dn_tri", tri_b_outs["all"]),
         "dimenet_post_mlp": (
             lambda: rm.launch_row_mlp("dimenet_post_mlp", tri, xji, xe, w_p,
                                       b_p, nb, na),
@@ -1960,15 +2038,16 @@ def dimenet_phase(torch, g, seed, cfg):
                                       w_p, b_p, nb, na, ct_h),
             lambda: rm.dimenet_post_mlp_bwd_plain(tri, xji, xe, ct_h, nb, na,
                                                   *wb),
-            bound(4 * e * (d + 3 * h) + 2 * row_w + 4 * e * (d + 2 * h),
-                  row_b),
+            # route 1 runs its products on the tensor cores (3xTF32)
+            (tensor_core_bounds if route == 1 else bound)(
+                4 * e * (d + 3 * h) + 2 * row_w + 4 * e * (d + 2 * h),
+                row_b),
             "hydragnn_tpu/ops/row_mlp.py:228", "row_mlp",
             ("row_dtri", "row_dx_ji", "row_dx_edge", "row_dwb")),
     }
     results = []
     with torch.no_grad():
-        for name, (kern, plain, (b_ms, b_by), replaces, src,
-                   outs) in timed.items():
+        for name, (kern, plain, bnd, replaces, src, outs) in timed.items():
             worst = max(outs, key=lambda o: errs[o][1])
             results.append({
                 "name": name, "route": "cuda",
@@ -1978,13 +2057,26 @@ def dimenet_phase(torch, g, seed, cfg):
                 "ms": time_ms(torch, kern, flush, lead=True),
                 "warm_l2_ms": time_ms(torch, kern, lead=True),
                 "plain_ms": time_ms(torch, plain, flush),
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
                 "shape": {"N_valid": n_real, "E": e, "E_valid": e_real,
-                          "T": t, "T_valid": t_real, "S": s, "R": r, "B": b,
-                          "D": d, "H": h, "n_before": nb, "n_after": na},
+                          "T": t, "T_valid": t_real, "kj_rows": kj_rows,
+                          "S": s, "R": r, "B": b, "D": d, "H": h,
+                          "n_before": nb, "n_after": na},
             })
+            if len(bnd) == 3:
+                results[-1]["bound_ms_cuda_cores"] = bnd[2]
+            if name.startswith("dimenet_triplet_mp_bwd"):
+                tag = "all" if name.endswith("all_outputs") else "path"
+                results[-1].update(
+                    counter="dimenet_triplet_mp_bwd",
+                    outputs=["d_radial", "d_x2", "d_cbf", "weights"]
+                    if tag == "all" else ["d_x2", "weights"],
+                    flops=tri_b[tag][0], flops_unfactored=tri_b[tag][1])
+            if name == "dimenet_post_mlp_bwd":
+                results[-1]["backward_route"] = route
     notes = {k: {"max_abs_err": a, "max_rel_err": r_}
              for k, (a, r_) in errs.items()}
+    notes["row_mlp_bwd_route"] = route
     return results, notes
 
 
@@ -2835,7 +2927,38 @@ def steady_epoch(torch, cfg, loader, seed, dev):
                              "calls": r.count} for r in rows[:8]]}
 
 
+def memoize_dataset_loading():
+    """Load each dataset once per configuration: every ``run_training`` and
+    ``run_prediction`` call, on the card and on the CPU, and the script's
+    own loaders read the same data through
+    ``dataset_loading_and_splitting``, whose raw parse, serialization,
+    radius graphs and ``finalize`` give the same result for the same
+    configuration, seed and ``HYDRAGNN_*`` environment.  Each call gets its
+    own loaders (shallow copies: the same samples, their own epoch) and
+    its own copy of the finalized configuration."""
+    import importlib
+
+    mods = [importlib.import_module(f"hydragnn_torch.{m}") for m in (
+        "data.load_data", "run_training", "run_prediction")]
+    load = mods[0].dataset_loading_and_splitting
+    cache = {}
+
+    def cached(config, seed=0):
+        env = sorted((k, v) for k, v in os.environ.items()
+                     if k.startswith("HYDRAGNN_")
+                     or k == "SERIALIZED_DATA_PATH")
+        key = json.dumps([config, seed, env], sort_keys=True, default=str)
+        if key not in cache:
+            cache[key] = load(copy.deepcopy(config), seed=seed)
+        *loaders, cfg = cache[key]
+        return (*[copy.copy(x) for x in loaders], copy.deepcopy(cfg))
+
+    for m in mods:
+        m.dataset_loading_and_splitting = cached
+
+
 def main():
+    t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -2848,7 +2971,6 @@ def main():
     import hydragnn_torch
     from hydragnn_torch.config.config import get_log_name_config
     from hydragnn_torch.data.dataloader import GraphDataLoader
-    from hydragnn_torch.data.load_data import dataset_loading_and_splitting
     from hydragnn_torch.data.synthetic import deterministic_graph_data
     from hydragnn_torch.kernels.build import build_all
     from hydragnn_torch.models.base import ModelConfig
@@ -2863,7 +2985,11 @@ def main():
     print(smi, flush=True)
     kind = torch.cuda.get_device_name(0)
     emit({"phase": "device", "kind": kind, "nvidia_smi": smi,
-          "torch": torch.__version__, "cuda": torch.version.cuda})
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "cpu_threads": torch.get_num_threads(),
+          "cpu_count": os.cpu_count()})
+    memoize_dataset_loading()
+    from hydragnn_torch.data.load_data import dataset_loading_and_splitting
 
     # -- 2. build
     t0 = time.perf_counter()
@@ -3553,7 +3679,8 @@ def main():
         else:
             path, n_by, per_by = paths.get(
                 k["name"], ("flagship", flag_launches, flag_per))
-        n_launch, per = n_by[k["name"]], per_by[k["name"]]
+        counter = k.get("counter", k["name"])
+        n_launch, per = n_by[counter], per_by[counter]
         k["path"] = f"{path} training"
         k["launches"] = n_launch
         k["launches_per_train_step"] = per["per_train_step"]
@@ -3565,6 +3692,7 @@ def main():
             check(n_launch == 0, f"{k['name']} was launched on a path")
             continue
         check(n_launch > 0, f"{k['name']} was not launched on its path")
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -11,9 +11,7 @@
 // wrappers, plain PyTorch versions and launch counters live in
 // hydragnn_torch/ops/dn_tri.py.
 //
-// One kernel template, two modes:
-//
-// dn_tri_kernel<kFwd> — the forward.  Replaces
+// dn_tri_fwd_kernel — the forward.  Replaces
 //   hydragnn_tpu/ops/dn_tri.py:_tri_fwd (pl.pallas_call at :285).  Rows are
 //   output edges e; the triplets are sorted by idx_ji (the builder's
 //   order), so each row owns one CSR range.  Each block owns kRows rows and
@@ -21,42 +19,65 @@
 //   transposed sbf tile and x2[kj] into another, recomputes emb1 = sbf.W1
 //   and emb2 = emb1.W2 in shared memory, and adds x2[kj] * emb2 into its
 //   rows in triplet order.
-// dn_tri_kernel<kBwd> (+ dn_tri_reduce_partials_kernel) — the backward.
+// dn_tri_bwd_kernel (+ passp::reduce_partials_kernel) — the backward.
 //   Replaces :_tri_vjp_bwd (pl.pallas_call at :358).  One pass in kj order
-//   (through perm_kj): rows are the gathered edges k.  Per triplet it
-//   recomputes sbf, emb1, emb2, takes g = dout[ji], and
-//     d_emb2 = g * x2[k];   d_x2[k]     += g * emb2
-//     d_emb1 = d_emb2.W2^T; d_sbf        = d_emb1.W1^T
-//     dW2   += emb1^T d_emb2; dW1       += sbf^T d_emb1
-//     d_radial[k] += d_sbf * expand(cbf[t])
-//     d_cbf[t, l]  = sum_r d_sbf[l*R + r] * radial[k, l*R + r]
-//   Each row's d_x2 and d_radial are owned by its block (no atomics);
-//   d_cbf goes straight to the triplet's own slot, which one row visits
-//   once (the reference unpermutes a kj-sorted stream instead); dW1 and
-//   dW2 sum into one float32 partial per block of a persistent grid, and
-//   the reduce kernel adds the partials in block order.
+//   (through perm_kj): rows are the gathered edges k, and every triplet of
+//   row k shares radial[k] and x2[k], so with g_t = dout[ji(t)] the
+//   backward factors onto the rows (sbf_t[l*R + r] = radial[k, l*R + r] *
+//   cbf[t, l]):
+//     P[k, l]  = sum_r radial[k, l*R + r] W1[l*R + r]     [S, B]
+//     Q[k, l]  = P[k, l] . W2                             [S, D]
+//     G[k, l]  = sum_{t in row k} cbf[t, l] g_t           [S, D]
+//     d_x2[k]  = sum_l Q[k, l] * G[k, l]
+//     U[k, l]  = x2[k] * G[k, l];   Hk[k, l] = U[k, l] . W2^T   [S, B]
+//     dW2     += sum_l P[k, l]^T U[k, l]
+//     dW1[l*R + r] += radial[k, l*R + r] Hk[k, l]
+//     d_radial[k, l*R + r] = Hk[k, l] . W1[l*R + r]
+//     d_cbf[t, l] = g_t . (x2[k] * Q[k, l])
+//   G is the only per-triplet work of the path (S*D multiply-adds a
+//   triplet, d_cbf as many again); the rest is per row.  Each block owns
+//   chunks of NR rows (16 at S = 7, R = 6, B = 8, D = 64; fewer where the
+//   chunk's tiles would not fit): the chunk's P and Q first (d_cbf reads
+//   x2 * Q), then G kBatch triplets at a time: all threads load the
+//   batch's ids and cbf rows, then gather its cotangent rows into shared
+//   memory (every load in flight at once), then each (row, column) adds
+//   its own triplets in triplet order; then d_x2, U, Hk, dW2, dW1 and
+//   d_radial over the chunk.  Every phase over D columns gives a thread
+//   one column c (tid mod 64) and a quarter of the rows, Q reads W2's
+//   column c from registers; B pads to the kernel's instantiation (8, 16,
+//   32, 64) with zero weights so the loops over it unroll.  dW1 and dW2
+//   stay in shared memory over the block's whole share (one block per
+//   chunk slot of the card) and are written once as its partial; the
+//   partials are summed in block order, compensated.  A chunk without a
+//   triplet writes zeros and does no product.  d_cbf goes straight to the
+//   triplet's own slot, which one row visits once.
 //
 // Bound on the H100 SXM: bytes in the forward (per real triplet ~2(SR*B +
-// B*D) flops against the ids, cbf and gathered rows it reads), operations
-// in the backward (three times the forward's products).  Design against
-// it, first version: no [T, D] or [T, S*R] tensor reaches device memory
-// (every per-triplet quantity lives in a shared-memory tile of TT
-// triplets); tiles are transposed ([k][t], row stride TT+4) so one 16-byte
-// load feeds four multiply-adds; each thread computes EQ triplets of one
-// output column; W1 and W2 are staged once per block with odd row strides
-// (B | 1, D | 1) so that products along a row and down a column are both
-// free of bank conflicts.  Not yet: tensor cores, the factorisation of
-// sbf.W1 into edge-space products (emb1 = sum_l cbf[t,l] (radial[k].W1)_l).
+// B*D) flops against the ids, cbf and gathered rows it reads); the
+// backward's factored work (2*S*D flops a triplet, ~24 kFLOP a row at the
+// path's widths) is ~1.8 GFLOP against ~40 MB, at the border of the two
+// bounds, and in practice bound by the latency of the cotangent gathers.
+// Forward design, first version: no [T, D] or [T, S*R] tensor reaches
+// device memory (every per-triplet quantity lives in a shared-memory tile
+// of TT triplets); tiles are transposed ([k][t], row stride TT+4) so one
+// 16-byte load feeds four multiply-adds; each thread computes EQ triplets
+// of one output column; W1 and W2 are staged once per block with odd row
+// strides (B | 1, D | 1).  The backward's per-row products run on the CUDA
+// cores: at B = 8 they are ~1.4 GFLOP a launch (0.02 ms at the CUDA-core
+// peak), beside the gathers' latency.
 //
 // Contract (add_dimenet_extras guarantees it): idx_ji is nondecreasing;
 // masked triplets sort last in both orders and are parked out of every
 // range by the wrapper, so they are never read and get exactly zero in
 // every output and gradient (the wrapper zero-fills d_cbf).  Ids outside
 // [0, E) contribute nothing.  Determinism: every sum runs in a fixed order
-// (triplet order within a row; tile, then block order for dW1, dW2); no
-// atomics.  Every output row is written, rows without triplets as zeros.
+// (triplet order within a row; row, then chunk, then block order for dW1,
+// dW2); no atomics.  Every output row is written, rows without triplets as
+// zeros.
 
 #include <cuda_runtime.h>
+
+#include "pass_p.cuh"
 
 namespace {
 
@@ -91,22 +112,17 @@ struct Params {
   float* d_cbf;          // backward: [T, S] zero-filled, or null
   float* partial;        // backward: [gridDim.x, wgrad size] or null
   int n_rows, s, r, sr, b, d, n_chunks;
+  int rows;              // backward: rows per chunk
 };
 
 __host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
 
-// shared-memory floats of a mode at these widths
-__host__ __device__ inline int smem_floats(int mode, int s, int sr, int b,
-                                           int d) {
+// the forward's shared-memory floats at these widths
+__host__ __device__ inline int fwd_smem_floats(int sr, int b, int d) {
   int n = round4(sr * (b | 1)) + round4(b * (d | 1));   // W1, W2
   n += (sr + b + 2 * d) * LDT;                          // sbf, emb1, x2, emb2
-  n += kRows * d;                                       // fwd out / d_x2 rows
+  n += kRows * d;                                       // out rows
   n += 4 * TT;                                          // ids
-  if (mode == kBwd) {
-    n += (2 * sr + b + s) * LDT;        // radial, d_sbf, d_emb1, cbf
-    n += round4(kRows * sr);            // d_radial rows
-    n += round4(sr * (b | 1)) + round4(b * (d | 1));    // dW1, dW2 partial
-  }
   return n;
 }
 
@@ -144,41 +160,7 @@ __device__ __forceinline__ void product(float* out, int n_out, const float* T,
   }
 }
 
-// out tile [n_out][LDT] = T [K][LDT] . W^T (W[c][k] at w[c * ld + k])
-__device__ __forceinline__ void product_t(float* out, int n_out,
-                                          const float* T, int K,
-                                          const float* w, int ld) {
-  for (int it = threadIdx.x; it < n_out * kGroups; it += kThreads) {
-    const int c = it % n_out, e0 = (it / n_out) * EQ;
-    float acc[EQ] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    mv(acc, T, K, w + c * ld, 1, e0);
-    store8(out + c * LDT + e0, acc);
-  }
-}
-
-// sum_e a[e] * b[e] over the TT triplets of two transposed tile rows
-__device__ __forceinline__ float row_dot(const float* a, const float* b) {
-  float v = 0.f;
-#pragma unroll
-  for (int q = 0; q < TT / 4; ++q) {
-    const float4 x = reinterpret_cast<const float4*>(a)[q];
-    const float4 y = reinterpret_cast<const float4*>(b)[q];
-    v += x.x * y.x + x.y * y.y + x.z * y.z + x.w * y.w;
-  }
-  return v;
-}
-
-// G[k*ld + c] += sum_e A[k][e] * D[c][e] for k < K, c < n (a weight grad)
-__device__ __forceinline__ void outer_acc(float* G, int ld, const float* A,
-                                          int K, const float* D, int n) {
-  for (int it = threadIdx.x; it < K * n; it += kThreads) {
-    const int k = it / n, c = it - k * n;
-    G[k * ld + c] += row_dot(A + k * LDT, D + c * LDT);
-  }
-}
-
-template <int MODE>
-__global__ void __launch_bounds__(kThreads) dn_tri_kernel(const Params p) {
+__global__ void __launch_bounds__(kThreads) dn_tri_fwd_kernel(const Params p) {
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   const int s = p.s, r = p.r, sr = p.sr, b = p.b, d = p.d;
@@ -189,35 +171,18 @@ __global__ void __launch_bounds__(kThreads) dn_tri_kernel(const Params p) {
   float* w2s = sm; sm += round4(b * ld2);
   float* sbf_t = sm; sm += sr * LDT;     // sbf
   float* e1_t = sm; sm += b * LDT;       // emb1
-  float* x_t = sm; sm += d * LDT;        // x2[kj]; bwd: then d_emb2
-  float* e2_t = sm; sm += d * LDT;       // fwd: the message; bwd: g * emb2
-  float* rows_x = sm; sm += kRows * d;   // fwd: out rows; bwd: d_x2 rows
+  float* x_t = sm; sm += d * LDT;        // x2[kj]
+  float* e2_t = sm; sm += d * LDT;       // the message
+  float* rows_x = sm; sm += kRows * d;   // out rows
   int* t_s = reinterpret_cast<int*>(sm);
   int* k_s = t_s + TT;
   int* j_s = k_s + TT;
   int* row_s = j_s + TT;
-  sm += 4 * TT;
-  float *rad_t = nullptr, *dsbf_t = nullptr, *de1_t = nullptr,
-        *cb_t = nullptr, *rows_rad = nullptr, *gw1 = nullptr, *gw2 = nullptr;
-  if (MODE == kBwd) {
-    rad_t = sm; sm += sr * LDT;
-    dsbf_t = sm; sm += sr * LDT;
-    de1_t = sm; sm += b * LDT;
-    cb_t = sm; sm += s * LDT;
-    rows_rad = sm; sm += round4(kRows * sr);
-    gw1 = sm; sm += round4(sr * ld1);
-    gw2 = sm; sm += round4(b * ld2);
-  }
 
   for (int i = tid; i < sr * b; i += kThreads)
     w1s[(i / b) * ld1 + i % b] = p.w1[i];
   for (int i = tid; i < b * d; i += kThreads)
     w2s[(i / d) * ld2 + i % d] = p.w2[i];
-  const bool wgrad = MODE == kBwd && p.partial != nullptr;
-  if (wgrad) {
-    for (int i = tid; i < round4(sr * ld1); i += kThreads) gw1[i] = 0.f;
-    for (int i = tid; i < round4(b * ld2); i += kThreads) gw2[i] = 0.f;
-  }
 
   for (int chunk = blockIdx.x; chunk < p.n_chunks; chunk += gridDim.x) {
     const int r0 = chunk * kRows;
@@ -226,8 +191,6 @@ __global__ void __launch_bounds__(kThreads) dn_tri_kernel(const Params p) {
     const int p_end = p.row_ptr[r1];
     __syncthreads();  // staging done; the previous chunk's rows written out
     for (int i = tid; i < kRows * d; i += kThreads) rows_x[i] = 0.f;
-    if (MODE == kBwd)
-      for (int i = tid; i < kRows * sr; i += kThreads) rows_rad[i] = 0.f;
 
     for (int q = p_begin; q < p_end; q += TT) {
       const int cnt = min(TT, p_end - q);
@@ -239,13 +202,12 @@ __global__ void __launch_bounds__(kThreads) dn_tri_kernel(const Params p) {
           t = p.perm != nullptr ? p.perm[pos] : pos;
           k = p.kj[t];
           j = p.ji[t];
-          const int own = MODE == kFwd ? j : k;
           if (static_cast<unsigned>(k) >= static_cast<unsigned>(p.n_rows) ||
               static_cast<unsigned>(j) >= static_cast<unsigned>(p.n_rows) ||
-              own < r0 || own >= r1) {
+              j < r0 || j >= r1) {
             k = -1;
           } else {
-            row = own - r0;
+            row = j - r0;
           }
         }
         t_s[tid] = t;
@@ -264,132 +226,467 @@ __global__ void __launch_bounds__(kThreads) dn_tri_kernel(const Params p) {
           cb = p.cbf[static_cast<size_t>(t_s[e]) * s + c / r];
         }
         sbf_t[c * LDT + e] = rad * cb;
-        if (MODE == kBwd) rad_t[c * LDT + e] = rad;
       }
       for (int i = tid; i < TT * d; i += kThreads) {
         const int e = i / d, c = i - e * d;
         const int k = k_s[e];
         x_t[c * LDT + e] = k >= 0 ? p.x2[static_cast<size_t>(k) * d + c] : 0.f;
       }
-      if (MODE == kBwd) {
-        for (int i = tid; i < TT * s; i += kThreads) {
-          const int e = i / s, l = i - e * s;
-          cb_t[l * LDT + e] = k_s[e] >= 0
-              ? p.cbf[static_cast<size_t>(t_s[e]) * s + l] : 0.f;
-        }
-      }
       __syncthreads();
       product(e1_t, b, sbf_t, sr, w1s, ld1);        // emb1 = sbf . W1
       __syncthreads();
       product(e2_t, d, e1_t, b, w2s, ld2);          // emb2 = emb1 . W2
       __syncthreads();
-
-      if (MODE == kFwd) {
-        // rows += x2[kj] * emb2 in triplet order
-        for (int c = tid; c < d; c += kThreads) {
-          for (int e = 0; e < cnt; ++e)
-            if (k_s[e] >= 0)
-              rows_x[row_s[e] * d + c] += x_t[c * LDT + e] * e2_t[c * LDT + e];
-        }
-        continue;
-      }
-
-      // ---- backward: the cotangent is gathered at ji ----
-      for (int it = tid; it < d * TT; it += kThreads) {
-        const int c = it / TT, e = it - c * TT;
-        const float g = k_s[e] >= 0
-            ? p.gout[static_cast<size_t>(j_s[e]) * d + c] : 0.f;
-        x_t[c * LDT + e] *= g;       // d_emb2 = g * x2[k]
-        e2_t[c * LDT + e] *= g;      // the d_x2 message: g * emb2
-      }
-      __syncthreads();
-      product_t(de1_t, b, x_t, d, w2s, ld2);        // d_emb1 = d_emb2 . W2^T
-      __syncthreads();
-      product_t(dsbf_t, sr, de1_t, b, w1s, ld1);    // d_sbf = d_emb1 . W1^T
-      if (wgrad) {
-        outer_acc(gw2, ld2, e1_t, b, x_t, d);       // dW2 += emb1^T d_emb2
-        outer_acc(gw1, ld1, sbf_t, sr, de1_t, b);   // dW1 += sbf^T d_emb1
-      }
-      __syncthreads();
-      if (p.d_cbf != nullptr) {
-        // d_cbf[t, l] = sum_r d_sbf[l*R + r] * radial[k, l*R + r], written
-        // to the triplet's own slot
-        for (int it = tid; it < TT * s; it += kThreads) {
-          const int e = it / s, l = it - e * s;
-          if (e >= cnt || k_s[e] < 0) continue;
-          float v = 0.f;
-          for (int rr = 0; rr < r; ++rr)
-            v += dsbf_t[(l * r + rr) * LDT + e] * rad_t[(l * r + rr) * LDT + e];
-          p.d_cbf[static_cast<size_t>(t_s[e]) * s + l] = v;
-        }
-      }
-      // the row's own d_x2 and d_radial, in triplet order
-      if (tid < d) {
-        const int c = tid;
-        for (int e = 0; e < cnt; ++e)
-          if (k_s[e] >= 0) rows_x[row_s[e] * d + c] += e2_t[c * LDT + e];
-      } else if (tid < d + sr) {
-        const int c = tid - d, l = c / r;
+      // rows += x2[kj] * emb2 in triplet order
+      for (int c = tid; c < d; c += kThreads) {
         for (int e = 0; e < cnt; ++e)
           if (k_s[e] >= 0)
-            rows_rad[row_s[e] * sr + c] +=
-                dsbf_t[c * LDT + e] * cb_t[l * LDT + e];
+            rows_x[row_s[e] * d + c] += x_t[c * LDT + e] * e2_t[c * LDT + e];
       }
     }
     __syncthreads();
-    float* dst_x = MODE == kFwd ? p.out : p.d_x2;
-    if (dst_x != nullptr) {
-      for (int i = tid; i < (r1 - r0) * d; i += kThreads)
-        dst_x[static_cast<size_t>(r0) * d + i] = rows_x[i];
+    for (int i = tid; i < (r1 - r0) * d; i += kThreads)
+      p.out[static_cast<size_t>(r0) * d + i] = rows_x[i];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the backward, factored onto the kj rows
+// ---------------------------------------------------------------------------
+
+constexpr int kBwdThreads = 256;
+constexpr int kBwdMaxRows = 16;   // rows per chunk at most
+constexpr int kBatch = 96;        // triplets gathered at a time
+constexpr int kCols = 64;         // column lanes: c = tid mod 64 (D <= 64)
+constexpr int kColGroups = kBwdThreads / kCols;
+
+// the backward's shared memory at chunk height nr and B padded to bt, in
+// floats (each offset a multiple of 4): W1 [SR x bt|1], W2^T [D x bt], the
+// chunk's radial [nr x SR] and x2 [nr x D] rows, P [nr S x bt], Q and G
+// then U [nr S x ldq], Hk [nr S x bt], the block's dW1 [SR x B] and dW2 [B
+// x D], a batch of gathered cotangent rows [kBatch x ldq], their cbf rows
+// [kBatch x 8] and ids, the chunk's row_ptr; ldq = D rounded to 4, + 4
+// (16-byte rows; rows of different (row, l) pairs start 4 banks apart)
+struct BwdLayout {
+  int ld1, ldq, w1, w2t, rad, xs, pm, qm, um, hk, gw1, gw2, xg, cb, ids,
+      ptr, total;
+};
+
+__host__ __device__ inline BwdLayout bwd_layout(int s, int sr, int bt, int d,
+                                                int nr, int b) {
+  BwdLayout l{};
+  l.ld1 = bt | 1;
+  l.ldq = round4(d) + 4;
+  const int ns = nr * s;
+  int o = 0;
+  l.w1 = o; o += round4(sr * l.ld1);
+  l.w2t = o; o += round4(d * bt);
+  l.rad = o; o += round4(nr * sr);
+  l.xs = o; o += round4(nr * d);
+  l.pm = o; o += round4(ns * bt);
+  l.qm = o; o += round4(ns * l.ldq);
+  l.um = o; o += round4(ns * l.ldq);
+  l.hk = o; o += round4(ns * bt);
+  l.gw1 = o; o += round4(sr * b);
+  l.gw2 = o; o += round4(b * d);
+  l.xg = o; o += round4(kBatch * l.ldq);
+  l.cb = o; o += kBatch * kMaxS;
+  l.ids = o; o += 3 * kBatch;
+  l.ptr = o; o += round4(kBwdMaxRows + 1);
+  l.total = o;
+  return l;
+}
+
+// B padded to the kernel's instantiation: 8, 16, 32 or 64
+inline int bwd_bt(int b) {
+  return b <= 8 ? 8 : b <= 16 ? 16 : b <= 32 ? 32 : 64;
+}
+
+// rows per chunk: the largest of 16, 8, 4, 2, 1 whose layout fits `optin`
+// bytes, or 0
+inline int bwd_chunk_rows(int s, int sr, int b, int d, int optin) {
+  for (int nr = kBwdMaxRows; nr >= 1; nr /= 2)
+    if (sizeof(float) * static_cast<size_t>(
+            bwd_layout(s, sr, bwd_bt(b), d, nr, b).total)
+        <= static_cast<size_t>(optin))
+      return nr;
+  return 0;
+}
+
+// dst (shared) = src (global), or zero, asynchronously (cp.async: every
+// copy of a phase in flight at once, no register held until it lands)
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(d), "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::);
+}
+
+// One block per chunk slot of the card; BT: B padded (zero weights).  Each
+// thread owns column c = tid mod 64 of the D-wide phases (idle past D).
+template <int BT>
+__global__ void __launch_bounds__(kBwdThreads)
+dn_tri_bwd_kernel(const Params p) {
+  constexpr int NT = kBwdThreads;
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const int s = p.s, r = p.r, sr = p.sr, b = p.b, d = p.d, nr = p.rows;
+  const BwdLayout ly = bwd_layout(s, sr, BT, d, nr, b);
+  const int ld1 = ly.ld1, ldq = ly.ldq, ns = nr * s;
+  float* w1s = sm + ly.w1;
+  float* w2t = sm + ly.w2t;
+  float* rad = sm + ly.rad;
+  float* xs = sm + ly.xs;
+  float* pm = sm + ly.pm;
+  float* qm = sm + ly.qm;
+  float* um = sm + ly.um;
+  float* hk = sm + ly.hk;
+  float* gw1 = sm + ly.gw1;
+  float* gw2 = sm + ly.gw2;
+  float* xg = sm + ly.xg;
+  float* cbs = sm + ly.cb;
+  int* rows_s = reinterpret_cast<int*>(sm + ly.ids);
+  int* j_s = rows_s + kBatch;
+  int* t_s = j_s + kBatch;
+  int* ptr_s = reinterpret_cast<int*>(sm + ly.ptr);
+  const int tid = threadIdx.x, c = tid & (kCols - 1), cg = tid / kCols;
+  const bool col = c < d;
+  const bool wgrad = p.partial != nullptr;
+  const bool need_q = p.d_x2 != nullptr || p.d_cbf != nullptr;
+  const bool need_hk = wgrad || p.d_radial != nullptr;
+
+  for (int i = tid; i < sr * ld1; i += NT) {
+    const int row = i / ld1, bb = i - row * ld1;
+    w1s[i] = bb < b ? p.w1[row * b + bb] : 0.f;
+  }
+  for (int i = tid; i < d * BT; i += NT) {
+    const int cc = i / BT, bb = i - cc * BT;
+    w2t[i] = bb < b ? p.w2[bb * d + cc] : 0.f;
+  }
+  for (int i = tid; i < sr * b; i += NT) gw1[i] = 0.f;
+  for (int i = tid; i < b * d; i += NT) gw2[i] = 0.f;
+  __syncthreads();
+  // this thread's column of W2, for Q
+  float w2c[BT];
+#pragma unroll
+  for (int bb = 0; bb < BT; ++bb) w2c[bb] = col ? w2t[c * BT + bb] : 0.f;
+
+  for (int chunk = blockIdx.x; chunk < p.n_chunks; chunk += gridDim.x) {
+    const int r0 = chunk * nr, r1 = min(r0 + nr, p.n_rows), nrc = r1 - r0;
+    const int p_begin = p.row_ptr[r0], p_end = p.row_ptr[r1];
+    __syncthreads();  // the previous chunk's readers are done
+    if (p_begin == p_end) {
+      // no triplet in the chunk: zero rows, no product
+      if (p.d_x2 != nullptr)
+        for (int i = tid; i < nrc * d; i += NT)
+          p.d_x2[static_cast<size_t>(r0) * d + i] = 0.f;
+      if (p.d_radial != nullptr)
+        for (int i = tid; i < nrc * sr; i += NT)
+          p.d_radial[static_cast<size_t>(r0) * sr + i] = 0.f;
+      continue;
     }
-    if (MODE == kBwd && p.d_radial != nullptr) {
-      for (int i = tid; i < (r1 - r0) * sr; i += kThreads)
-        p.d_radial[static_cast<size_t>(r0) * sr + i] = rows_rad[i];
+    // the ids and cbf rows of the kBatch triplets from position base
+    auto load_ids = [&](int base, int n) {
+      if (tid >= n) return;
+      const int t = p.perm != nullptr ? p.perm[base + tid] : base + tid;
+      const int k = p.kj[t], j = p.ji[t];
+      const bool ok =
+          static_cast<unsigned>(j) < static_cast<unsigned>(p.n_rows) &&
+          k >= r0 && k < r1;
+      rows_s[tid] = ok ? k - r0 : -1;
+      j_s[tid] = ok ? j : -1;
+      t_s[tid] = t;
+#pragma unroll
+      for (int l = 0; l < kMaxS; ++l)
+        cbs[tid * kMaxS + l] =
+            ok && l < s ? p.cbf[static_cast<size_t>(t) * s + l] : 0.f;
+    };
+    // their cotangent rows, asynchronously (zero for a skipped triplet)
+    auto gather = [&](int n) {
+      if (!col) return;
+      for (int i = cg; i < n; i += kColGroups) {
+        const int j = j_s[i];
+        cp_async4(xg + i * ldq + c,
+                         p.gout + static_cast<size_t>(j >= 0 ? j : 0) * d + c,
+                         j >= 0);
+      }
+    };
+    // the chunk's radial and x2 rows (zero past the last row), its row_ptr,
+    // G zeroed, and the first batch's ids, all in flight together
+    {
+      const float* src = p.radial + static_cast<size_t>(r0) * sr;
+      for (int i = tid; i < nr * sr; i += NT)
+        cp_async4(rad + i, src + (i < nrc * sr ? i : 0), i < nrc * sr);
+      src = p.x2 + static_cast<size_t>(r0) * d;
+      for (int i = tid; i < nr * d; i += NT)
+        cp_async4(xs + i, src + (i < nrc * d ? i : 0), i < nrc * d);
+    }
+    for (int i = tid; i < ns * ldq; i += NT) um[i] = 0.f;
+    for (int i = tid; i <= nrc; i += NT) ptr_s[i] = p.row_ptr[r0 + i];
+    int base = p_begin, n = min(kBatch, p_end - p_begin);
+    load_ids(base, n);
+    cp_async_wait_all();
+    __syncthreads();
+    gather(n);   // lands while P and Q are formed
+    // P[k, l] = sum_r radial[k, l R + r] W1[l R + r]
+    for (int it = tid; it < ns * BT; it += NT) {
+      const int pr = it / BT, bb = it - pr * BT, kk = pr / s, l = pr - kk * s;
+      const float* rp = rad + kk * sr + l * r;
+      const float* wp = w1s + l * r * ld1 + bb;
+      float v = 0.f;
+      for (int q = 0; q < r; ++q) v += rp[q] * wp[q * ld1];
+      pm[it] = v;
+    }
+    __syncthreads();
+    if (need_q && col) {
+      // Q[k, l] = P[k, l] . W2, column c
+      for (int pr = cg; pr < ns; pr += kColGroups) {
+        const float4* pp = reinterpret_cast<const float4*>(pm + pr * BT);
+        float v = 0.f;
+#pragma unroll
+        for (int q = 0; q < BT / 4; ++q) {
+          const float4 x = pp[q];
+          v += x.x * w2c[4 * q] + x.y * w2c[4 * q + 1] +
+               x.z * w2c[4 * q + 2] + x.w * w2c[4 * q + 3];
+        }
+        qm[pr * ldq + c] = v;
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();
+
+    // G[k, l] = sum over row k's triplets, in triplet order, of cbf[t, l]
+    // g_t, kBatch triplets at a time: their ids and cbf rows, their
+    // cotangent rows gathered, then each (row, column) adds its own
+    while (true) {
+      if (col) {
+        for (int kk = cg; kk < nrc; kk += kColGroups) {
+          const int lo = max(ptr_s[kk], base) - base;
+          const int hi = min(ptr_s[kk + 1], base + n) - base;
+          if (lo >= hi) continue;
+          float acc[kMaxS];
+#pragma unroll
+          for (int l = 0; l < kMaxS; ++l)
+            acc[l] = l < s ? um[(kk * s + l) * ldq + c] : 0.f;
+#pragma unroll 2
+          for (int i = lo; i < hi; ++i) {
+            if (rows_s[i] != kk) continue;
+            const float x = xg[i * ldq + c];
+            const float4 c0 = reinterpret_cast<const float4*>(cbs)[2 * i];
+            const float4 c1 = reinterpret_cast<const float4*>(cbs)[2 * i + 1];
+            acc[0] += c0.x * x;
+            acc[1] += c0.y * x;
+            acc[2] += c0.z * x;
+            acc[3] += c0.w * x;
+            acc[4] += c1.x * x;
+            acc[5] += c1.y * x;
+            acc[6] += c1.z * x;
+            acc[7] += c1.w * x;
+          }
+#pragma unroll
+          for (int l = 0; l < kMaxS; ++l)
+            if (l < s) um[(kk * s + l) * ldq + c] = acc[l];
+        }
+      }
+      if (p.d_cbf != nullptr) {
+        // d_cbf[t, l] = g_t . (x2 * Q)[k, l], to the triplet's own slot
+        for (int it = tid; it < n * s; it += NT) {
+          const int i = it / s, l = it - i * s, kk = rows_s[i];
+          if (kk < 0) continue;
+          const float* xp = xg + i * ldq;
+          const float* x2p = xs + kk * d;
+          const float* qp = qm + (kk * s + l) * ldq;
+          float v = 0.f;
+          int cc = 0;
+          if ((d & 3) == 0)   // 16-byte rows of x2 too
+            for (; cc < d; cc += 4) {
+              const float4 x = *reinterpret_cast<const float4*>(xp + cc);
+              const float4 y = *reinterpret_cast<const float4*>(x2p + cc);
+              const float4 q = *reinterpret_cast<const float4*>(qp + cc);
+              v += x.x * (y.x * q.x);
+              v += x.y * (y.y * q.y);
+              v += x.z * (y.z * q.z);
+              v += x.w * (y.w * q.w);
+            }
+          for (; cc < d; ++cc) v += xp[cc] * (x2p[cc] * qp[cc]);
+          p.d_cbf[static_cast<size_t>(t_s[i]) * s + l] = v;
+        }
+      }
+      base += kBatch;
+      __syncthreads();   // the batch's readers are done
+      if (base >= p_end) break;
+      n = min(kBatch, p_end - base);
+      load_ids(base, n);
+      __syncthreads();
+      gather(n);
+      cp_async_wait_all();
+      __syncthreads();
+    }
+
+    // d_x2[k] = sum_l Q[k, l] * G[k, l]; U[k, l] = x2[k] * G[k, l] in place
+    if (col) {
+      for (int kk = cg; kk < nr; kk += kColGroups) {
+        const float x = xs[kk * d + c];
+        float v = 0.f;
+        for (int l = 0; l < s; ++l) {
+          float* gp = um + (kk * s + l) * ldq + c;
+          const float gv = *gp;
+          if (need_q) v += qm[(kk * s + l) * ldq + c] * gv;
+          *gp = x * gv;
+        }
+        if (p.d_x2 != nullptr && kk < nrc)
+          p.d_x2[static_cast<size_t>(r0 + kk) * d + c] = v;
+      }
+    }
+    if (!need_hk) continue;   // the next chunk starts with a barrier
+    __syncthreads();
+    // Hk[k, l] = U[k, l] . W2^T: thread (pair, half of B)
+    for (int it = tid; it < 2 * ns; it += NT) {
+      constexpr int H2 = BT / 2;
+      const int pr = it >> 1, b0 = (it & 1) * H2;
+      const float* up = um + pr * ldq;
+      float v[H2];
+#pragma unroll
+      for (int q = 0; q < H2; ++q) v[q] = 0.f;
+      for (int cc = 0; cc < d; ++cc) {
+        const float u = up[cc];
+        const float4* wp = reinterpret_cast<const float4*>(w2t + cc * BT + b0);
+#pragma unroll
+        for (int q = 0; q < H2 / 4; ++q) {
+          const float4 w = wp[q];
+          v[4 * q] += u * w.x;
+          v[4 * q + 1] += u * w.y;
+          v[4 * q + 2] += u * w.z;
+          v[4 * q + 3] += u * w.w;
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < H2; ++q) hk[pr * BT + b0 + q] = v[q];
+    }
+    if (wgrad && col) {
+      // dW2[b, c] += sum over the chunk's (row, l) pairs of P[., b] U[., c]:
+      // thread (c, a quarter of B)
+      constexpr int B4 = BT / 4;
+      const int b0 = cg * B4;
+      float v[B4];
+#pragma unroll
+      for (int q = 0; q < B4; ++q) v[q] = 0.f;
+      for (int pr = 0; pr < ns; ++pr) {
+        const float u = um[pr * ldq + c];
+        const float* pp = pm + pr * BT + b0;
+#pragma unroll
+        for (int q = 0; q < B4; ++q) v[q] += pp[q] * u;
+      }
+#pragma unroll
+      for (int q = 0; q < B4; ++q)
+        if (b0 + q < b) gw2[(b0 + q) * d + c] += v[q];
+    }
+    __syncthreads();
+    if (wgrad) {
+      // dW1[i] += sum_k radial[k, i] Hk[k, i / R]
+      for (int it = tid; it < sr * b; it += NT) {
+        const int i = it / b, bb = it - i * b, l = i / r;
+        float v = 0.f;
+        for (int kk = 0; kk < nr; ++kk)
+          v += rad[kk * sr + i] * hk[(kk * s + l) * BT + bb];
+        gw1[it] += v;
+      }
+    }
+    if (p.d_radial != nullptr) {
+      // d_radial[k, i] = Hk[k, i / R] . W1[i]
+      for (int it = tid; it < nrc * sr; it += NT) {
+        const int kk = it / sr, i = it - kk * sr;
+        const float* hp = hk + (kk * s + i / r) * BT;
+        const float* wp = w1s + i * ld1;
+        float v = 0.f;
+#pragma unroll
+        for (int bb = 0; bb < BT; ++bb) v += hp[bb] * wp[bb];
+        p.d_radial[static_cast<size_t>(r0) * sr + it] = v;
+      }
     }
   }
 
   if (wgrad) {
-    // this block's partial, once, unpadded: [dW1 SR*B | dW2 B*D]
+    // this block's partial, once: [dW1 SR*B | dW2 B*D], padded with zeros
     __syncthreads();
-    const int size = round4(sr * b + b * d);
+    const int n1 = sr * b, n2 = b * d, size = round4(n1 + n2);
     float* dst = p.partial + static_cast<size_t>(size) * blockIdx.x;
-    for (int i = tid; i < sr * b; i += kThreads)
-      dst[i] = gw1[(i / b) * ld1 + i % b];
-    for (int i = tid; i < b * d; i += kThreads)
-      dst[sr * b + i] = gw2[(i / d) * ld2 + i % d];
+    for (int i = tid; i < size; i += NT)
+      dst[i] = i < n1 ? gw1[i] : (i < n1 + n2 ? gw2[i - n1] : 0.f);
   }
 }
 
-__global__ void dn_tri_reduce_partials_kernel(const float* __restrict__ partial,
-                                              float* __restrict__ out,
-                                              int n_parts, int size, int used) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= used) return;
-  float v = 0.f;
-  for (int q = 0; q < n_parts; ++q)
-    v += partial[static_cast<size_t>(q) * size + j];
-  out[j] = v;
+// the opt-in shared memory of the current device (bytes), or an error
+cudaError_t optin_smem(int* optin, int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (err != cudaSuccess || sms == nullptr) return err;
+  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
 }
 
-template <int MODE>
-int launch(const Params& p, int grid, cudaStream_t st) {
-  int dev = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               dev);
+int launch_fwd(const Params& p, cudaStream_t st) {
+  int optin = 0;
+  cudaError_t err = optin_smem(&optin, nullptr);
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem =
-      sizeof(float) * static_cast<size_t>(smem_floats(MODE, p.s, p.sr, p.b,
-                                                      p.d));
+      sizeof(float) * static_cast<size_t>(fwd_smem_floats(p.sr, p.b, p.d));
   if (smem > static_cast<size_t>(optin))
     return static_cast<int>(cudaErrorInvalidValue);
-  err = cudaFuncSetAttribute(dn_tri_kernel<MODE>,
+  err = cudaFuncSetAttribute(dn_tri_fwd_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  dn_tri_kernel<MODE><<<grid, kThreads, smem, st>>>(p);
+  dn_tri_fwd_kernel<<<p.n_chunks, kThreads, smem, st>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int BT>
+int launch_bwd_bt(Params p, int n_parts, void* wgrad, int optin, int sms,
+                  cudaStream_t st) {
+  const size_t smem = sizeof(float) * static_cast<size_t>(
+      bwd_layout(p.s, p.sr, BT, p.d, p.rows, p.b).total);
+  cudaError_t err = cudaFuncSetAttribute(
+      dn_tri_bwd_kernel<BT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, dn_tri_bwd_kernel<BT>, kBwdThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int grid = per_sm > 0 ? per_sm * sms : 1;
+  if (grid > p.n_chunks) grid = p.n_chunks;
+  if (p.partial != nullptr && grid > n_parts) grid = n_parts;
+  dn_tri_bwd_kernel<BT><<<grid, kBwdThreads, smem, st>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || p.partial == nullptr)
+    return static_cast<int>(err);
+  return static_cast<int>(passp::launch_reduce_partials(
+      p.partial, static_cast<float*>(wgrad), grid,
+      round4(p.sr * p.b + p.b * p.d), st));
+}
+
+// the backward on a persistent grid: as many blocks as the card holds at
+// once, at most one per chunk and (with weight gradients) per partial
+int launch_bwd(Params p, int n_parts, void* wgrad, cudaStream_t st) {
+  int optin = 0, sms = 0;
+  const cudaError_t err = optin_smem(&optin, &sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  p.rows = bwd_chunk_rows(p.s, p.sr, p.b, p.d, optin);
+  if (p.rows == 0) return static_cast<int>(cudaErrorInvalidValue);
+  p.n_chunks = (p.n_rows + p.rows - 1) / p.rows;
+  switch (bwd_bt(p.b)) {
+    case 8: return launch_bwd_bt<8>(p, n_parts, wgrad, optin, sms, st);
+    case 16: return launch_bwd_bt<16>(p, n_parts, wgrad, optin, sms, st);
+    case 32: return launch_bwd_bt<32>(p, n_parts, wgrad, optin, sms, st);
+    default: return launch_bwd_bt<64>(p, n_parts, wgrad, optin, sms, st);
+  }
 }
 
 }  // namespace
@@ -443,15 +740,10 @@ extern "C" int hg_dn_tri_f32(
   p.sr = s * r;
   p.b = b;
   p.d = d;
-  p.n_chunks = (n_rows + kRows - 1) / kRows;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (mode == kFwd) return launch<kFwd>(p, p.n_chunks, st);
-  const int grid = (p.partial != nullptr && n_parts < p.n_chunks)
-      ? n_parts : p.n_chunks;
-  const int rc = launch<kBwd>(p, grid, st);
-  if (rc != 0 || p.partial == nullptr) return rc;
-  const int size = hg_dn_tri_wgrad_size(p.sr, b, d);
-  dn_tri_reduce_partials_kernel<<<(size + 255) / 256, 256, 0, st>>>(
-      p.partial, static_cast<float*>(wgrad), grid, size, p.sr * b + b * d);
-  return static_cast<int>(cudaGetLastError());
+  if (mode == kFwd) {
+    p.n_chunks = (n_rows + kRows - 1) / kRows;
+    return launch_fwd(p, st);
+  }
+  return launch_bwd(p, n_parts, wgrad, st);
 }

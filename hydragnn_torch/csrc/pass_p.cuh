@@ -1,6 +1,7 @@
-// Shared by the pass-P kernels of scf_mp.cu and cgcnn_mp.cu: float32
-// products on Hopper's tensor cores in 3xTF32 (sm_80+ mma.sync),
-// compensated sums, and the fixed-order reductions of their partials.
+// Shared by the kernels that run float32 products on Hopper's tensor cores
+// (scf_mp.cu, cgcnn_mp.cu pass P; row_mlp.cu's backward) and the dn_tri
+// backward: products in 3xTF32 (sm_80+ mma.sync), compensated sums, and
+// the fixed-order reductions of per-block partials.
 //
 // Each float32 operand x is split as hi = tf32(x), lo = tf32(x - hi) (x - hi
 // is exact in float32), and a*b is taken as lo_a*hi_b + hi_a*lo_b +
@@ -42,6 +43,28 @@ __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   lo = to_tf32(x - __uint_as_float(hi));
 }
 
+// split() bit for bit, with hi rounded by two integer operations in place
+// of the conversion: the bits plus 2^12 with the low 13 cleared round to
+// nearest, ties away from zero, as cvt.rna does, for every x but a NaN
+// (which may come out a zero or an infinity); lo = x - hi is then NaN and
+// goes through the conversion, which keeps it, so a NaN operand still
+// makes the product NaN
+__device__ __forceinline__ void split_ih(float x, uint32_t& hi,
+                                         uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// the split the loaders below use: IH picks split_ih
+template <bool IH>
+__device__ __forceinline__ void split_as(float x, uint32_t& hi,
+                                         uint32_t& lo) {
+  if (IH)
+    split_ih(x, hi, lo);
+  else
+    split(x, hi, lo);
+}
+
 struct FragA {
   uint32_t hi[4], lo[4];
 };
@@ -53,26 +76,29 @@ struct FragB {
 __device__ __forceinline__ int lane_g() { return (threadIdx.x & 31) >> 2; }
 __device__ __forceinline__ int lane_t() { return threadIdx.x & 3; }
 
+template <bool IH = false>
 __device__ __forceinline__ void set_a(FragA& a, float v0, float v1, float v2,
                                       float v3) {
-  split(v0, a.hi[0], a.lo[0]);
-  split(v1, a.hi[1], a.lo[1]);
-  split(v2, a.hi[2], a.lo[2]);
-  split(v3, a.hi[3], a.lo[3]);
+  split_as<IH>(v0, a.hi[0], a.lo[0]);
+  split_as<IH>(v1, a.hi[1], a.lo[1]);
+  split_as<IH>(v2, a.hi[2], a.lo[2]);
+  split_as<IH>(v3, a.hi[3], a.lo[3]);
 }
 
+template <bool IH = false>
 __device__ __forceinline__ void load_a(FragA& a, const float* p, int sm,
                                        int sk) {
   const int g = lane_g(), t = lane_t();
-  set_a(a, p[g * sm + t * sk], p[(g + 8) * sm + t * sk],
-        p[g * sm + (t + 4) * sk], p[(g + 8) * sm + (t + 4) * sk]);
+  set_a<IH>(a, p[g * sm + t * sk], p[(g + 8) * sm + t * sk],
+            p[g * sm + (t + 4) * sk], p[(g + 8) * sm + (t + 4) * sk]);
 }
 
+template <bool IH = false>
 __device__ __forceinline__ void load_b(FragB& b, const float* p, int sk,
                                        int sn) {
   const int g = lane_g(), t = lane_t();
-  split(p[t * sk + g * sn], b.hi[0], b.lo[0]);
-  split(p[(t + 4) * sk + g * sn], b.hi[1], b.lo[1]);
+  split_as<IH>(p[t * sk + g * sn], b.hi[0], b.lo[0]);
+  split_as<IH>(p[(t + 4) * sk + g * sn], b.hi[1], b.lo[1]);
 }
 
 // d = a * b from zero (not volatile: no side effect, so the compiler may

@@ -21,38 +21,67 @@
 //   ([feature][row], row stride RB + 4) and walks the L layers, staging
 //   one layer's weights at a time (from L2) beside them; only tri, x_ji
 //   and x_edge are read and out written.
-// row_mlp_bwd_kernel (+ row_mlp_reduce_partials_kernel) — the backward.
-//   Replaces :_post_vjp_bwd (pl.pallas_call at :228).  Per row tile it
-//   recomputes the chain, keeping every layer's pre-activation z_k and
-//   every residual state h that a layer reads, then walks the chain
-//   backwards: dz_k = dpost * silu'(z_k), dW_k += in_k^T dz_k,
-//   db_k += sum dz_k, d in_k = dz_k . W_k^T; it writes d tri, d x_ji (the
-//   cotangent of h after lin_up) and d x_edge (that of h after lin) per
-//   row.  dW and db sum into one float32 partial per block of a
-//   persistent grid (one block per SM: 132 x 131 KB at H = 64, in device
-//   memory, L2-resident), and the reduce kernel adds them in block order.
+// The backward replaces :_post_vjp_bwd (pl.pallas_call at :228).  Per row
+//   tile it recomputes the chain, keeping every layer's pre-activation
+//   z_k, then walks the chain backwards: dz_k = dpost * silu'(z_k), dW_k
+//   += in_k^T dz_k, db_k += sum dz_k, d in_k = dz_k . W_k^T; it writes
+//   d tri, d x_ji (the cotangent of h after lin_up) and d x_edge (that of
+//   h after lin) per row.  dW and db sum into one float32 partial per
+//   block of a persistent grid (one block per SM), and
+//   passp::reduce_partials_kernel adds the partials in block order,
+//   compensated.  Two routes, chosen by width (hg_row_mlp_bwd_route):
+//
+// row_mlp_bwd_tc_kernel<L> — route 1: Din, H <= 64 and L <= 8 (at most
+//   three residual pairs), the arch sweep's DimeNet (64, 64, L = 8)
+//   among them.  Din and H pad to 64 with zeros.  Every layer's weight and
+//   bias is staged into shared memory once per block (128 KB at L = 8) and
+//   stays there; the weight gradients stay in the tensor cores'
+//   accumulator fragments (registers) over the block's whole share of
+//   rows: each of the 16 warps owns one 16 x 16 block of every dW_k, 8
+//   floats a thread per layer; the bias gradients stay in shared memory
+//   (compensated sums).  The block writes its partial once, at the end.
+//   Tiles are 16 rows (one m16 fragment).  At a tile's start every thread
+//   loads its two elements of tri, x_ji, x_edge and dout, so no later
+//   phase waits on device memory; the block keeps the pre-activations
+//   but the last (whose backward step joins the recompute's last phase),
+//   not the residual states: each state a layer reads is rebuilt
+//   elementwise from the stored z_k and x_ji or x_edge with the
+//   operations of the recompute, so its bits are the recompute's.  Every
+//   product (the recompute h . W_k, dz . W_k^T, in_k^T . dz) runs on the
+//   tensor cores in 3xTF32 (mma.sync m16n8k8 through csrc/pass_p.cuh: each
+//   k step's three products from zero, then a float32 add).  Operands are
+//   split into hi and lo with hi rounded by integer operations
+//   (passp::split_ih); dz, which two products read and four warps share
+//   each fragment of, is split once, as it is formed, and stored as its
+//   hi and lo tiles.  A 16 x 64
+//   row product splits over the 16 warps as 4 column blocks x 4 depth
+//   quarters (each A fragment feeds two column tiles), and the
+//   elementwise pass that follows adds the quarters in order.  The
+//   weights and the tiles read as fragments have a row stride of 64 + 4
+//   (fragments taken along rows hit 32 banks, those down columns two lanes
+//   a bank), so every fragment address is a per-lane base plus a constant.
+// row_mlp_bwd_kernel — route 2: every other width up to 128.  Per tile of
+//   32, 16 or 8 rows it stages each layer's weight from L2 again, keeps
+//   every residual state a layer reads beside the pre-activations, runs
+//   its products on the CUDA cores and adds each tile's dW, db into its
+//   block's partial in device memory.
 //
 // Bound on the H100 SXM: operations.  Per row the forward does 2 (Din H +
 // (L-1) H^2) flops against 3 rows in and 1 out (H = 64: ~66 kFLOP per ~1 KB),
-// the backward about twice that again.  Design against it, first version:
+// the backward three times the products.  In the forward and in route 2
 // nothing but the inputs and outputs touches device memory per row; a
 // weight is staged once per tile with an odd row stride (H | 1), so that
 // the forward's products (threads along a row) and the backward's
 // transposed ones (threads down a column) are free of bank conflicts; one
-// 16-byte load of a transposed tile feeds four multiply-adds.  The tile
-// height RB is the largest of 32, 16, 8 whose stored states fit a block's
-// shared memory.  The backward, at one block per SM, waits mostly on L2:
-// each tile re-stages every weight and reads and writes its dW partial, so
-// it runs 16 warps, stages with 16-byte loads several in flight, and loads
-// each partial entry before the dot product it is added to.  Not yet:
-// tensor cores, keeping a layer's weight gradient in registers across
-// tiles.
+// 16-byte load of a transposed tile feeds four multiply-adds.
 //
 // silu(z) = z * sigmoid(z), silu'(z) = s (1 + z (1 - s)), s = sigmoid(z),
 // sigmoid(z) = 1 / (1 + exp(-z)).  Determinism: fixed-order sums (row
 // order within a tile, tile then block order for dW, db); no atomics.
 
 #include <cuda_runtime.h>
+
+#include "pass_p.cuh"
 
 namespace {
 
@@ -439,15 +468,354 @@ row_mlp_bwd_kernel(const Params p) {
   }
 }
 
-__global__ void row_mlp_reduce_partials_kernel(const float* __restrict__ partial,
-                                               float* __restrict__ out,
-                                               int n_parts, int size) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= size) return;
-  float v = 0.f;
-  for (int q = 0; q < n_parts; ++q)
-    v += partial[static_cast<size_t>(q) * size + j];
-  out[j] = v;
+// ---------------------------------------------------------------------------
+// route 1: weights resident, weight gradients in registers, tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kTcThreads = 512;
+constexpr int kTcRows = 16;        // rows per tile: one m16 fragment
+constexpr int kTcW = 64;           // Din and H pad to 64
+constexpr int kTcMaxLayers = 8;    // 8 accumulator floats a thread a layer
+constexpr int kTcParts = 4;        // a product's depth quarters
+// row strides: tiles read as fragments and the weights (64 + 4: a
+// fragment's 8 rows x 4 columns hit 32 banks, 4 rows x 8 columns 16), the
+// product quarters (64 + 8: the accumulator stores), tiles read only
+// elementwise (64)
+constexpr int kLdF = kTcW + 4;
+constexpr int kLdP = kTcW + 8;
+constexpr int kTileF = kTcRows * kLdF;
+constexpr int kTileP = kTcRows * kLdP;
+constexpr int kTileE = kTcRows * kTcW;
+constexpr int kLayer = kTcW * kLdF;
+
+// a layer's role in the chain
+constexpr int kUp = 0;     // lin_up: input tri
+constexpr int kA = 1;      // first layer of a residual pair: input h
+constexpr int kB = 2;      // second layer of a pair: input t = silu(z_a)
+constexpr int kLin = 3;    // lin: input h, then + x_edge
+
+// resident weights [L][64 x kLdF], biases, db sums and their compensation
+// [L x 64] each, the db column pre-sums [8 x 64]; L - 1 pre-activation
+// tiles, dH, x_ji, x_edge (elementwise), h, t, dz's hi and lo, tri
+// (fragments) and the four product quarters
+__host__ __device__ inline int tc_smem_floats(int L) {
+  return L * kLayer + 3 * L * kTcW + 8 * kTcW + (L + 2) * kTileE +
+         5 * kTileF + kTcParts * kTileP;
+}
+
+__device__ __forceinline__ int tc_role(int k, int nb) {
+  if (k == 0) return kUp;
+  if (k <= 2 * nb) return (k & 1) ? kA : kB;
+  if (k == 2 * nb + 1) return kLin;
+  return ((k - 2 * nb) & 1) ? kB : kA;
+}
+
+// the residual state that layer k (kA or kLin) reads: h^(q) after q pairs
+// before the skip, h^(nb + 1 + q) after lin and q pairs after it
+__device__ __forceinline__ int tc_state_in(int k, int nb) {
+  if (k <= 2 * nb + 1) return (k - 1) / 2;
+  return nb + 1 + (k - 2 * nb - 2) / 2;
+}
+
+// A fragment (16 x 8) of a fragment tile (row stride kLdF) whose element
+// (m, k) is T(m0 + m, k0 + k), or with TR T(k0 + k, m0 + m)
+template <bool TR>
+__device__ __forceinline__ void tc_load_a(passp::FragA& a, const float* T,
+                                          int m0, int k0) {
+  if (TR)
+    passp::load_a<true>(a, T + k0 * kLdF + m0, 1, kLdF);
+  else
+    passp::load_a<true>(a, T + m0 * kLdF + k0, kLdF, 1);
+}
+
+// B fragment (8 x 8) whose element (k, n) is W(k0 + k, n0 + n), or with TR
+// W(n0 + n, k0 + k) (row stride kLdF)
+template <bool TR>
+__device__ __forceinline__ void tc_load_b(passp::FragB& b, const float* W,
+                                          int k0, int n0) {
+  if (TR)
+    passp::load_b<true>(b, W + n0 * kLdF + k0, 1, kLdF);
+  else
+    passp::load_b<true>(b, W + k0 * kLdF + n0, kLdF, 1);
+}
+
+// fragments of a tile split in advance: hi and lo tiles of one layout
+__device__ __forceinline__ void load_a_pre(passp::FragA& a, const uint32_t* hi,
+                                           const uint32_t* lo, int sm, int sk) {
+  const int g = passp::lane_g(), t = passp::lane_t();
+  const int o0 = g * sm + t * sk, o1 = (g + 8) * sm + t * sk;
+  const int o2 = g * sm + (t + 4) * sk, o3 = (g + 8) * sm + (t + 4) * sk;
+  a.hi[0] = hi[o0]; a.hi[1] = hi[o1]; a.hi[2] = hi[o2]; a.hi[3] = hi[o3];
+  a.lo[0] = lo[o0]; a.lo[1] = lo[o1]; a.lo[2] = lo[o2]; a.lo[3] = lo[o3];
+}
+
+__device__ __forceinline__ void load_b_pre(passp::FragB& b, const uint32_t* hi,
+                                           const uint32_t* lo, int sk, int sn) {
+  const int g = passp::lane_g(), t = passp::lane_t();
+  const int o0 = t * sk + g * sn, o1 = (t + 4) * sk + g * sn;
+  b.hi[0] = hi[o0]; b.hi[1] = hi[o1];
+  b.lo[0] = lo[o0]; b.lo[1] = lo[o1];
+}
+
+// A [16 x 64] . op(W) into the four product quarters P: op(W)(i, o) =
+// W(i, o), with TR W(o, i); warp w takes the 16 columns 16 (w mod 4) over
+// the 16 rows of depth 16 (w / 4)
+template <bool TR, bool PRE = false>
+__device__ __forceinline__ void tc_chain(float* P, const float* A,
+                                         const float* W, int warp,
+                                         const uint32_t* Ah = nullptr,
+                                         const uint32_t* Al = nullptr) {
+  const int n0 = 16 * (warp & 3), k0 = 16 * (warp >> 2);
+  float c[2][4] = {};
+#pragma unroll
+  for (int kk = 0; kk < 16; kk += 8) {
+    passp::FragA a;
+    if (PRE)
+      load_a_pre(a, Ah + k0 + kk, Al + k0 + kk, kLdF, 1);
+    else
+      tc_load_a<false>(a, A, 0, k0 + kk);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      passp::FragB b;
+      tc_load_b<TR>(b, W, k0 + kk, n0 + 8 * j);
+      passp::mma3(c[j], a, b);
+    }
+  }
+  float* out = P + (warp >> 2) * kTileP + passp::lane_g() * kLdP + n0 +
+               2 * passp::lane_t();
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    out[8 * j] = c[j][0];
+    out[8 * j + 1] = c[j][1];
+    out[8 * kLdP + 8 * j] = c[j][2];
+    out[8 * kLdP + 8 * j + 1] = c[j][3];
+  }
+}
+
+// acc += In^T . dZ on the warp's 16 x 16 block (16 (w / 4), 16 (w mod 4))
+// of [64 x 64] (In, dZ [16 x 64] fragment tiles)
+__device__ __forceinline__ void tc_wgrad(float (&acc)[2][4], const float* In,
+                                         const uint32_t* dZh,
+                                         const uint32_t* dZl, int warp) {
+  const int m0 = 16 * (warp >> 2), n0 = 16 * (warp & 3);
+#pragma unroll
+  for (int kk = 0; kk < kTcRows; kk += 8) {
+    passp::FragA a;
+    tc_load_a<true>(a, In, m0, kk);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      passp::FragB b;
+      load_b_pre(b, dZh + kk * kLdF + n0 + 8 * j, dZl + kk * kLdF + n0 + 8 * j,
+                 kLdF, 1);
+      passp::mma3(acc[j], a, b);
+    }
+  }
+}
+
+// the four depth quarters of a product at element offset o (r kLdP + c),
+// in order
+__device__ __forceinline__ float tc_sum(const float* P, int o) {
+  return ((P[o] + P[kTileP + o]) + P[2 * kTileP + o]) + P[3 * kTileP + o];
+}
+
+template <int L>
+__global__ void __launch_bounds__(kTcThreads, 1)
+row_mlp_bwd_tc_kernel(const Params p) {
+  constexpr int NT = kTcThreads;
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const int din = p.din, h = p.h, nb = p.nb;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  float* ws = sm; sm += L * kLayer;        // weights [64 x kLdF]
+  float* bs = sm; sm += L * kTcW;          // biases
+  float* dbs = sm; sm += L * kTcW;         // db, compensated: dbs + dbc
+  float* dbc = sm; sm += L * kTcW;
+  float* db8 = sm; sm += 8 * kTcW;         // a tile's dz column pair sums
+  float* Z = sm; sm += (L - 1) * kTileE;   // pre-activations but the last
+  float* dH = sm; sm += kTileE;            // the cotangent of h
+  float* Xj = sm; sm += kTileE;            // the tile's x_ji, x_edge
+  float* Xe = sm; sm += kTileE;
+  float* Th = sm; sm += kTileF;            // h: running, rebuilt
+  float* Ts = sm; sm += kTileF;            // t = silu(z_a)
+  uint32_t* dZh = reinterpret_cast<uint32_t*>(sm); sm += kTileF;
+  uint32_t* dZl = reinterpret_cast<uint32_t*>(sm); sm += kTileF;
+  float* Tri = sm; sm += kTileF;           // the tile's tri
+  float* P = sm;                           // a product's depth quarters
+
+  for (int i = tid; i < L * kLayer; i += NT) {
+    const int k = i / kLayer, rr = i - k * kLayer;
+    const int r = rr / kLdF, c = rr - r * kLdF;
+    ws[i] = r < (k == 0 ? din : h) && c < h
+        ? p.w[w_offset(k, din, h) + r * h + c] : 0.f;
+  }
+  for (int i = tid; i < L * kTcW; i += NT) {
+    const int k = i / kTcW, c = i - k * kTcW;
+    bs[i] = c < h ? p.bias[k * h + c] : 0.f;
+    dbs[i] = 0.f;
+    dbc[i] = 0.f;
+  }
+  float acc[L][2][4];
+#pragma unroll
+  for (int k = 0; k < L; ++k)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[k][j][v] = 0.f;
+
+  // this thread's two elements of every tile: rows er and er + 8, column
+  // ec; their offsets in the elementwise, fragment and quarter tiles
+  const int er = tid >> 6, ec = tid & (kTcW - 1);
+  const int oe = er * kTcW + ec, of = er * kLdF + ec, op = er * kLdP + ec;
+
+  for (int tile = blockIdx.x; tile < p.n_tiles; tile += gridDim.x) {
+    const int r0 = tile * kTcRows, nr = min(kTcRows, p.n_rows - r0);
+    // element u's offset into a row-major [E, width] array, or -1 past the
+    // tile's rows or the width
+    auto off = [&](int u, int width) -> long long {
+      const int r = er + 8 * u;
+      return r < nr && ec < width
+          ? static_cast<long long>(r0 + r) * width + ec : -1;
+    };
+    // the state that layer k reads, rebuilt at element u as the recompute
+    // below builds it
+    auto rebuild = [&](int k, int u) {
+      const int s = tc_state_in(k, nb), e = oe + u * 8 * kTcW;
+      float v;
+      if (s <= nb) {
+        v = Xj[e] + silu_f(Z[e]);
+        for (int q = 0; q < s; ++q)
+          v = v + silu_f(Z[(2 + 2 * q) * kTileE + e]);
+      } else {
+        v = Xe[e] + silu_f(Z[(2 * nb + 1) * kTileE + e]);
+        for (int q = 0; q < s - nb - 1; ++q)
+          v = v + silu_f(Z[(2 * nb + 3 + 2 * q) * kTileE + e]);
+      }
+      return v;
+    };
+    // layer j ready for its products at element u: dz from the cotangent
+    // of its output and its pre-activation zj (dz split into dZh, dZl;
+    // returned for its column pair sum), its input into Ts or Th, and d
+    // x_edge, d x_ji where that cotangent is theirs
+    auto prep = [&](int j, float dpost, float zj, int u) {
+      const int role = tc_role(j, nb);
+      const int e = oe + u * 8 * kTcW, f = of + u * 8 * kLdF;
+      const long long o = off(u, h);
+      if (o >= 0 && role == kLin && p.dxe != nullptr) p.dxe[o] = dpost;
+      if (o >= 0 && j == 0 && p.dxji != nullptr) p.dxji[o] = dpost;
+      const float dz = dpost * dsilu_f(zj);
+      passp::split_ih(dz, dZh[f], dZl[f]);
+      if (role == kB) Ts[f] = silu_f(Z[(j - 1) * kTileE + e]);
+      else if (role != kUp) Th[f] = rebuild(j, u);
+      return dz;
+    };
+
+    // the tile's rows of tri, x_ji, x_edge and dout, zero-padded (the
+    // previous tile read them last before its final two barriers)
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int e = oe + u * 8 * kTcW;
+      const long long oi = off(u, din), oh = off(u, h);
+      Tri[of + u * 8 * kLdF] = oi >= 0 ? p.tri[oi] : 0.f;
+      Xj[e] = oh >= 0 ? p.xji[oh] : 0.f;
+      Xe[e] = oh >= 0 ? p.xe[oh] : 0.f;
+      dH[e] = oh >= 0 ? p.gout[oh] : 0.f;
+    }
+    __syncthreads();
+    // ---- the chain again, keeping every pre-activation ----
+#pragma unroll 1
+    for (int k = 0; k < L; ++k) {
+      const int role = tc_role(k, nb);
+      tc_chain<false>(P, role == kUp ? Tri : role == kB ? Ts : Th,
+                      ws + k * kLayer, warp);
+      __syncthreads();
+      float dzs = 0.f;   // the last layer's dz column pair sum
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int e = oe + u * 8 * kTcW, f = of + u * 8 * kLdF;
+        const float z = tc_sum(P, op + u * 8 * kLdP) + bs[k * kTcW + ec];
+        if (k == L - 1) {
+          // the chain's output is not needed: the last layer is made
+          // ready for the backward instead (dH holds dout)
+          dzs += prep(L - 1, dH[e], z, u);
+          continue;
+        }
+        Z[k * kTileE + e] = z;
+        if (role == kUp) Th[f] = Xj[e] + silu_f(z);
+        else if (role == kA) Ts[f] = silu_f(z);
+        else if (role == kB) Th[f] = Th[f] + silu_f(z);
+        else Th[f] = Xe[e] + silu_f(z);
+      }
+      if (k == L - 1) db8[oe] = dzs;
+      __syncthreads();
+    }
+    // ---- backwards through the chain ----
+#pragma unroll 1
+    for (int k = L - 1; k >= 0; --k) {
+      const int role = tc_role(k, nb);
+      const float* in = role == kUp ? Tri : role == kB ? Ts : Th;
+      // acc[k] in registers: one unrolled copy of the product per layer
+#pragma unroll
+      for (int q = 0; q < L; ++q)
+        if (q == k) tc_wgrad(acc[q], in, dZh, dZl, warp);
+      if (k > 0 && tid < h) {
+        // db_k += the tile's column sum: its pair sums, rows in order
+        float v = 0.f;
+#pragma unroll
+        for (int r = 0; r < 8; ++r) v += db8[r * kTcW + tid];
+        passp::add_comp(dbs[k * kTcW + tid], dbc[k * kTcW + tid], v);
+      }
+      if (k > 0 || p.dtri != nullptr)    // d in_k = dz . W_k^T
+        tc_chain<true, true>(P, nullptr, ws + k * kLayer, warp, dZh, dZl);
+      __syncthreads();
+      if (k == 0) {
+        if (p.dtri != nullptr)
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const long long o = off(u, din);
+            if (o >= 0) p.dtri[o] = tc_sum(P, op + u * 8 * kLdP);
+          }
+        continue;   // the next tile starts with a barrier
+      }
+      float dz = 0.f;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int e = oe + u * 8 * kTcW;
+        const float d = tc_sum(P, op + u * 8 * kLdP);
+        float dpost = d;   // kB: the cotangent of t, layer k - 1's output
+        if (role != kB) {
+          dpost = role == kA ? dH[e] + d : d;   // lin: h feeds only lin
+          dH[e] = dpost;
+        }
+        dz += prep(k - 1, dpost, Z[(k - 1) * kTileE + e], u);
+      }
+      db8[oe] = dz;
+      __syncthreads();
+    }
+  }
+
+  // this block's partial, once: [dW packed | db L*H], padded with zeros
+  __syncthreads();
+  const int gsize = wgrad_floats(din, h, L);
+  float* G = p.partial + static_cast<size_t>(gsize) * blockIdx.x;
+  const int g = passp::lane_g(), t = passp::lane_t();
+  const int m0 = 16 * (warp >> 2), n0 = 16 * (warp & 3);
+#pragma unroll
+  for (int k = 0; k < L; ++k) {
+    const int in = k == 0 ? din : h;
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const int i = m0 + g + 8 * (v >> 1), o = n0 + 8 * j + 2 * t + (v & 1);
+        if (i < in && o < h) G[w_offset(k, din, h) + i * h + o] = acc[k][j][v];
+      }
+  }
+  const int boff = w_offset(L, din, h);
+  for (int i = tid; i < gsize - boff; i += NT) {
+    const int k = i / h, o = i - k * h;
+    G[boff + i] = k > 0 && k < L ? dbs[k * kTcW + o] + dbc[k * kTcW + o]
+                                 : 0.f;
+  }
 }
 
 int set_smem(const void* fn, size_t smem) {
@@ -464,6 +832,50 @@ int set_smem(const void* fn, size_t smem) {
       static_cast<int>(smem)));
 }
 
+// route 2's row-tile height (32, 16 or 8), or 0 when even 8 rows' states
+// do not fit `optin` bytes
+int bwd_rows(int din, int h, int nb, int na, int optin) {
+  const int L = 2 + 2 * (nb + na);
+  for (int rb = 32; rb >= 8; rb /= 2) {
+    const size_t need = sizeof(float) *
+        static_cast<size_t>(bwd_smem_floats(din, h, L, nb, na, rb));
+    if (need <= static_cast<size_t>(optin)) return rb;
+  }
+  return 0;
+}
+
+// The backward's route at these widths, chosen once against the device's
+// opt-in shared memory: 1 (row_mlp_bwd_tc_kernel: Din, H <= 64, at most
+// three residual pairs), 2 (row_mlp_bwd_kernel, with its tile height in
+// *rb), or 0 when neither fits a block or the device cannot be asked.
+int bwd_plan(int din, int h, int nb, int na, int* rb) {
+  *rb = 0;
+  int dev = 0, optin = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return 0;
+  const int L = 2 + 2 * (nb + na);
+  if (din <= kTcW && h <= kTcW && L <= kTcMaxLayers &&
+      sizeof(float) * static_cast<size_t>(tc_smem_floats(L)) <=
+          static_cast<size_t>(optin)) {
+    *rb = kTcRows;
+    return 1;
+  }
+  *rb = bwd_rows(din, h, nb, na, optin);
+  return *rb > 0 ? 2 : 0;
+}
+
+template <int L>
+int launch_tc(const Params& p, int grid, cudaStream_t st) {
+  const size_t smem = sizeof(float) * static_cast<size_t>(tc_smem_floats(L));
+  const int rc = set_smem(
+      reinterpret_cast<const void*>(row_mlp_bwd_tc_kernel<L>), smem);
+  if (rc != 0) return rc;
+  row_mlp_bwd_tc_kernel<L><<<grid, kTcThreads, smem, st>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // The size in floats of the packed weights plus biases, of one
@@ -473,21 +885,11 @@ extern "C" int hg_row_mlp_wgrad_size(int din, int h, int nb, int na) {
   return wgrad_floats(din, h, 2 + 2 * (nb + na));
 }
 
-// The backward's row-tile height at these widths (32, 16 or 8), or 0 when
-// even 8 rows do not fit a block's shared memory.
-extern "C" int hg_row_mlp_bwd_rows(int din, int h, int nb, int na) {
-  int dev = 0, optin = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             dev) != cudaSuccess)
-    return 0;
-  const int L = 2 + 2 * (nb + na);
-  for (int rb = 32; rb >= 8; rb /= 2) {
-    const size_t need = sizeof(float) *
-        static_cast<size_t>(bwd_smem_floats(din, h, L, nb, na, rb));
-    if (need <= static_cast<size_t>(optin)) return rb;
-  }
-  return 0;
+// The backward's route at these widths (bwd_plan): 1, 2, or 0 when
+// neither fits a block's shared memory.
+extern "C" int hg_row_mlp_bwd_route(int din, int h, int nb, int na) {
+  int rb = 0;
+  return bwd_plan(din, h, nb, na, &rb);
 }
 
 // One row_mlp launch; returns the cudaError_t (0 = success).  mode 0: the
@@ -537,19 +939,30 @@ extern "C" int hg_row_mlp_f32(
     row_mlp_fwd_kernel<<<p.n_tiles, kFwdThreads, smem, st>>>(p);
     return static_cast<int>(cudaGetLastError());
   }
-  p.rb = hg_row_mlp_bwd_rows(din, h, nb, na);
-  if (p.rb == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int route = bwd_plan(din, h, nb, na, &p.rb);
+  if (route == 0) return static_cast<int>(cudaErrorInvalidValue);
   p.n_tiles = (n_rows + p.rb - 1) / p.rb;
   const int grid = n_parts < p.n_tiles ? n_parts : p.n_tiles;
-  const size_t smem = sizeof(float) * static_cast<size_t>(
-      bwd_smem_floats(din, h, p.L, nb, na, p.rb));
-  int rc = set_smem(reinterpret_cast<const void*>(row_mlp_bwd_kernel), smem);
+  int rc = static_cast<int>(cudaErrorInvalidValue);
+  if (route == 1) {
+    switch (p.L) {
+      case 2: rc = launch_tc<2>(p, grid, st); break;
+      case 4: rc = launch_tc<4>(p, grid, st); break;
+      case 6: rc = launch_tc<6>(p, grid, st); break;
+      case 8: rc = launch_tc<8>(p, grid, st); break;
+      default: break;
+    }
+  } else {
+    const size_t smem = sizeof(float) * static_cast<size_t>(
+        bwd_smem_floats(din, h, p.L, nb, na, p.rb));
+    rc = set_smem(reinterpret_cast<const void*>(row_mlp_bwd_kernel), smem);
+    if (rc == 0) {
+      row_mlp_bwd_kernel<<<grid, kBwdThreads, smem, st>>>(p);
+      rc = static_cast<int>(cudaGetLastError());
+    }
+  }
   if (rc != 0) return rc;
-  row_mlp_bwd_kernel<<<grid, kBwdThreads, smem, st>>>(p);
-  rc = static_cast<int>(cudaGetLastError());
-  if (rc != 0) return rc;
-  const int size = wgrad_floats(din, h, p.L);
-  row_mlp_reduce_partials_kernel<<<(size + 255) / 256, 256, 0, st>>>(
-      p.partial, static_cast<float*>(wgrad), grid, size);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(passp::launch_reduce_partials(
+      p.partial, static_cast<float*>(wgrad), grid,
+      wgrad_floats(din, h, p.L), st));
 }

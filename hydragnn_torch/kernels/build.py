@@ -101,7 +101,7 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         "hg_row_mlp_f32": (_I,) + (_P,) * 12 + (_I,) * 6 + (_P,),
         # din, h, nb, na
         "hg_row_mlp_wgrad_size": (_I,) * 4,
-        "hg_row_mlp_bwd_rows": (_I,) * 4,
+        "hg_row_mlp_bwd_route": (_I,) * 4,
     },
     "poly_mp": {
         # src, senders, mask, row_ptr, o_sum, o_sq, o_mxmn, o_cnt,

@@ -22,9 +22,13 @@ tensor to device memory:
   (one CSR range per row), recompute sbf, emb per triplet, sum
   ``x2[kj] * emb`` into the row;
 - backward (``_tri_vjp_bwd``): one pass in ``idx_kj`` order through
-  ``perm_kj``: each row k owns ``d_x2[k]`` and ``d_radial[k]``, ``d_cbf``
-  goes to each triplet's own slot, ``dw1``/``dw2`` sum into per-block
-  partials reduced in a fixed order.
+  ``perm_kj``, factored onto the rows: every triplet of row k shares
+  ``radial[k]`` and ``x2[k]``, so per triplet only ``G[k, l] += cbf[t, l]
+  * dout[ji(t)]`` (and ``d_cbf`` when asked) is left, the products with
+  ``w1``, ``w2`` run once per row; each row k owns ``d_x2[k]`` and
+  ``d_radial[k]``, ``d_cbf`` goes to each triplet's own slot, ``dw1``/``dw2``
+  sum into per-block partials reduced in a fixed order (csrc/dn_tri.cu
+  writes the factored form out).
 
 The backward written out (:func:`dimenet_triplet_bwd_plain`), with
 ``g = dout[ji]``:
@@ -212,8 +216,8 @@ def launch_dn_tri(op, radial, x2, cbf, w1, w2, idx_kj, idx_ji, perm,
             d_cbf = torch.zeros((t, s), dtype=torch.float32, device=dev)
         if want[3]:
             size = lib.hg_dn_tri_wgrad_size(sr, b, d)
-            # four partials per SM (3.5 KB each at S*R = 42, B = 8, D =
-            # 64): one block per SM would leave the card latency-bound
+            # at most four blocks per SM (3.5 KB a partial at S*R = 42,
+            # B = 8, D = 64); the kernel's grid is the card's resident count
             n_parts = 4 * torch.cuda.get_device_properties(
                 dev).multi_processor_count
             partial = torch.empty((n_parts, size), dtype=torch.float32,

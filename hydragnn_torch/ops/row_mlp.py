@@ -12,13 +12,18 @@ weights ``[in, out]`` (pass ``Linear.weight.t()``), ``b_0`` None (lin_up
 has no bias).  Rows are independent; ``tri [E, Din]``, ``x_ji``, ``x_edge
 [E, H]``, Din and H at most 128 (the reference's gate).
 
-Two kernels, hand-written in CUDA C++ for Hopper (csrc/row_mlp.cu, built
-by kernels/build.py): the forward (the reference's ``_post_fwd``) walks the
+Kernels hand-written in CUDA C++ for Hopper (csrc/row_mlp.cu, built by
+kernels/build.py): the forward (the reference's ``_post_fwd``) walks the
 L = 2 + 2 (n_before + n_after) layers on a tile of rows held in shared
 memory; the backward (``_post_vjp_bwd``) recomputes the chain per tile and
 walks it backwards, writing d tri, d x_ji and d x_edge per row and summing
 every dW and db into per-block partials of a persistent grid, reduced in a
-fixed order.  The backward written out is :func:`dimenet_post_mlp_bwd_plain`.
+fixed order.  The backward takes one of two routes by width
+(:func:`bwd_route`): at Din, H <= 64 with at most three residual pairs
+every weight stays in shared memory, the weight gradients in registers,
+and the products run on the tensor cores in 3xTF32; past that, a tile's
+weights are staged from L2 per layer and its products run on the CUDA
+cores.  The backward written out is :func:`dimenet_post_mlp_bwd_plain`.
 
 A CPU tensor takes the plain PyTorch versions (the CPU path and the tests'
 oracle), a CUDA tensor the kernels; a CUDA input the kernels do not take
@@ -149,6 +154,16 @@ def pack_weights(wb, din, h, dev):
     return w.contiguous(), b.contiguous()
 
 
+def bwd_route(din, h, n_before, n_after):
+    """The backward kernel's route at these widths on the current card: 1
+    (weights resident, tensor cores), 2 (weights staged per tile, CUDA
+    cores) or 0 (the states do not fit a block's shared memory)."""
+    from hydragnn_torch.kernels.build import load_library
+
+    return load_library("row_mlp").hg_row_mlp_bwd_route(din, h, n_before,
+                                                         n_after)
+
+
 def launch_row_mlp(op, tri, x_ji, x_edge, w, b, n_before, n_after, gout=None,
                    want=(True,) * 3):
     """One launch of the row_mlp kernel on packed weights: the forward
@@ -179,7 +194,7 @@ def launch_row_mlp(op, tri, x_ji, x_edge, w, b, n_before, n_after, gout=None,
         out = torch.empty((e, h), dtype=torch.float32, device=dev)
     else:
         _require(gout, "dout", torch.float32, (e, h), dev)
-        if lib.hg_row_mlp_bwd_rows(din, h, n_before, n_after) == 0:
+        if bwd_route(din, h, n_before, n_after) == 0:
             raise ValueError(
                 f"the row_mlp backward keeps {L} layers' states per row "
                 f"tile; at Din={din}, H={h} they do not fit a block's "
@@ -191,7 +206,8 @@ def launch_row_mlp(op, tri, x_ji, x_edge, w, b, n_before, n_after, gout=None,
         if want[2]:
             dxe = torch.empty((e, h), dtype=torch.float32, device=dev)
         size = lib.hg_row_mlp_wgrad_size(din, h, n_before, n_after)
-        # a persistent grid, one partial per SM: 131 KB each at H = 64
+        # a persistent grid, one block and one partial per SM (131 KB
+        # each at H = 64)
         n_parts = torch.cuda.get_device_properties(dev).multi_processor_count
         partial = torch.empty((n_parts, size), dtype=torch.float32,
                               device=dev)

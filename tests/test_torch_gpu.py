@@ -1101,14 +1101,29 @@ def test_cgcnn_train_steps_on_card_match_cpu(cuda, monkeypatch):
         "cgcnn_block_pass_p": 12, "cgcnn_block_pass_s": 9}
 
 
-def _dimenet_tables(n_edges, n_tri, s, seed):
+def _dimenet_tables(n_edges, n_tri, s, seed, hubs=(), gap=None):
     """A triplet table as add_dimenet_extras lays it out: idx_ji
     nondecreasing, a masked tail parked on the last edge, the stable
-    argsort of idx_kj."""
+    argsort of idx_kj.  ``gap`` (lo, hi) leaves those kj rows without a
+    triplet.  ``hubs`` lists (row, count): that kj row gets ``count`` more
+    triplets, taken from rows of the table's second half; a row given as
+    (first, position) is the row after ``first`` whose triplets begin at
+    most ``position`` triplets past those of row ``first``, and nearest to
+    it."""
     rng = np.random.RandomState(seed)
     real = n_tri - n_tri // 5
     ji = np.sort(rng.randint(0, n_edges - 1, real))
     kj = rng.randint(0, n_edges - 1, real)
+    if gap is not None:
+        inside = (kj >= gap[0]) & (kj < gap[1])
+        kj[inside] = gap[1] + (kj[inside] - gap[0]) % (n_edges - 1 - gap[1])
+    for row, count in hubs:
+        if not isinstance(row, int):
+            first, position = row
+            ends = np.cumsum(np.bincount(kj, minlength=n_edges)[first:])
+            row = first + int(np.searchsorted(ends, position, side="right"))
+        donors = np.flatnonzero(kj >= n_edges // 2)
+        kj[rng.choice(donors, count, replace=False)] = row
     pad = np.full(n_tri - real, n_edges - 1)
     idx_ji = np.concatenate([ji, pad]).astype(np.int32)
     idx_kj = np.concatenate([kj, pad]).astype(np.int32)
@@ -1126,14 +1141,26 @@ def test_dn_tri_kernels_match_plain_on_card(cuda, s, r, b, d, all_masked):
     """The dn_tri forward and backward through the autograd Function
     against autograd through the composed plain version: the arch sweep's
     widths (S = 7, R = 6, B = 8, D = 64), the JAX test's (7, 3, 8, 16), the
-    limits (8, 8, 64, 64) and one lane each.  Forward, d radial, d x2 and
-    d cbf 1e-5 of their largest entry, the triplet-summed dW1, dW2 1e-4;
-    d cbf exactly zero on masked triplets; a second run bit-identical."""
+    limits (8, 8, 64, 64) and one lane each.  The backward gathers the
+    triplets of a chunk of kj rows (16 rows, 8 at the limits) 96 at a
+    time: kj row 3 holds ~210 triplets from ~25 into its chunk (three
+    batches); a second row, the one whose triplets begin nearest to 90
+    past row 16's, holds ~210 from there (83-89 into its 16-row chunk:
+    four batches); rows 100-149 hold none (whole chunks without a
+    triplet).  Forward, d radial, d x2 and d cbf
+    1e-5 of their largest entry, the triplet-summed dW1, dW2 1e-4; every
+    gradient also within the float64 bound (:func:`_float64_yardstick`); d
+    cbf exactly zero on masked triplets; a second run bit-identical.  The
+    backward also as the DimeNet path launches it (d x2 and the weights
+    only: radial and cbf come from pos), the outputs not asked for not
+    formed."""
     from hydragnn_torch.ops import dn_tri
+    from hydragnn_torch.ops.aggregate import segment_offsets
 
     e, t = 700, 6000
-    kj, ji, tm, perm = (_t(a).to(cuda) for a in
-                        _dimenet_tables(e, t, s, 5 + s + b))
+    kj, ji, tm, perm = (_t(a).to(cuda) for a in _dimenet_tables(
+        e, t, s, 5 + s + b, hubs=((3, 200), ((16, 90), 200)),
+        gap=(100, 150)))
     if all_masked:
         tm = torch.zeros_like(tm)
     g = torch.Generator().manual_seed(3)
@@ -1145,10 +1172,10 @@ def test_dn_tri_kernels_match_plain_on_card(cuda, s, r, b, d, all_masked):
     ins = [x.to(cuda) for x in ins]
     ct = torch.randn(e, d, generator=g).to(cuda)
 
-    def run(fn):
-        ts = [x.detach().clone().requires_grad_(True) for x in ins]
+    def run(fn, inputs=ins):
+        ts = [x.detach().clone().requires_grad_(True) for x in inputs]
         out = fn(*ts)
-        (out * ct).sum().backward()
+        (out * ct.to(out.dtype)).sum().backward()
         torch.cuda.synchronize()
         return [out.detach()] + [x.grad for x in ts]
 
@@ -1161,32 +1188,65 @@ def test_dn_tri_kernels_match_plain_on_card(cuda, s, r, b, d, all_masked):
     for x_, y_ in zip(k, again):
         assert torch.equal(x_, y_)
     p = run(lambda *a: dn_tri.dimenet_triplet_reference(*a, kj, ji, tm, r))
+    p64 = run(lambda *a: dn_tri.dimenet_triplet_reference(*a, kj, ji, tm, r),
+              [x.double() for x in ins])
     assert bool((k[3][tm == 0] == 0).all())
-    for name, x_, y_ in zip(("out", "radial", "x2", "cbf", "w1", "w2"), k,
-                            p):
+    names = ("out", "radial", "x2", "cbf", "w1", "w2")
+    for name, x_, y_, z_ in zip(names, k, p, p64):
         if all_masked:
             assert float(x_.abs().max()) == 0, name
             continue
         rel = 1e-5 if name in ("out", "radial", "x2", "cbf") else 1e-4
         assert float((x_ - y_).abs().max()) <= rel * float(y_.abs().max()), \
             name
+        if name != "out":
+            _float64_yardstick(name, x_, y_, z_)
+
+    # the backward as the path launches it
+    pk = perm.long()
+    path = dn_tri.launch_dn_tri(
+        "dimenet_triplet_mp_bwd", *[x.contiguous() for x in ins], kj, ji,
+        perm, segment_offsets(kj[pk], e, tm[pk]), r, ct,
+        want=(False, True, False, True))
+    torch.cuda.synchronize()
+    assert path[0] is None and path[2] is None
+    for name, x_, y_ in zip(("x2", "w1", "w2"), (path[1], path[3], path[4]),
+                            (p[2], p[4], p[5])):
+        if all_masked:
+            assert float(x_.abs().max()) == 0, name
+            continue
+        rel = 1e-5 if name == "x2" else 1e-4
+        assert float((x_ - y_).abs().max()) <= rel * float(y_.abs().max()), \
+            name
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("din,h,nb,na", [(64, 64, 1, 2), (16, 24, 1, 2),
-                                         (128, 128, 1, 2), (8, 8, 0, 0),
-                                         (32, 128, 3, 1)])
-def test_row_mlp_kernels_match_plain_on_card(cuda, din, h, nb, na):
+@pytest.mark.parametrize("din,h,nb,na,e,route", [
+    (64, 64, 1, 2, 1003, 1), (64, 64, 1, 2, 100, 1), (16, 24, 1, 2, 1003, 1),
+    (8, 8, 0, 0, 1003, 1), (40, 33, 0, 3, 1003, 1), (64, 64, 2, 2, 1003, 2),
+    (65, 65, 1, 2, 1003, 2), (128, 128, 1, 2, 1003, 2),
+    (32, 128, 3, 1, 1003, 2)])
+def test_row_mlp_kernels_match_plain_on_card(cuda, din, h, nb, na, e, route):
     """The row_mlp forward and backward through the autograd Function
-    against autograd through the composed chain: the arch sweep's widths
-    (64, 64, one pair before the skip, two after), the JAX test's (16,
-    24), the limit 128 (the backward on 8- or 16-row tiles), no residual
-    pairs, and Din < H with more pairs.  Forward, d tri, d x_ji, d x_edge
-    1e-5 of their largest entry, the row-summed weight and bias grads 1e-4;
-    a second run bit-identical; rows not a multiple of a tile."""
+    against autograd through the composed chain, on both routes of the
+    backward and across their boundary: route 1 (weights resident, tensor
+    cores) at the arch sweep's widths (64, 64, one pair before the skip, two
+    after; also on 100 rows, fewer 16-row tiles than the card has SMs), the
+    JAX test's (16, 24), no residual pairs, and widths that pad to 64 with
+    three pairs; route 2 at H = 64 with four pairs, H = 65, the limit 128
+    (8- or 16-row tiles), and Din < H with more pairs.  Forward, d tri, d
+    x_ji, d x_edge 1e-5 of their largest entry, the row-summed weight and
+    bias grads 1e-4; on route 1 every gradient also within the float64
+    bound (:func:`_float64_yardstick`; route 2, the first design on the
+    CUDA cores, lies just past it for d x_edge at H = 128, on an H100:
+    1.04e-6 of the largest entry); a second run bit-identical;
+    rows not a multiple of a tile; then each of tri, x_ji, x_edge left
+    without a gradient in turn (the backward's ``want``), the others
+    unchanged; a NaN in the cotangent in the same gradient entries as the
+    composed chain's."""
     from hydragnn_torch.ops import row_mlp
 
-    e = 1003
+    assert row_mlp.bwd_route(din, h, nb, na) == route
     g = torch.Generator().manual_seed(din + h)
     ins = [torch.randn(e, din, generator=g), torch.randn(e, h, generator=g),
            torch.randn(e, h, generator=g)]
@@ -1198,12 +1258,13 @@ def test_row_mlp_kernels_match_plain_on_card(cuda, din, h, nb, na):
     wb = [None if w is None else w.to(cuda) for w in wb]
     ct = torch.randn(e, h, generator=g).to(cuda)
 
-    def run(fn):
-        ti = [x.detach().clone().requires_grad_(True) for x in ins]
+    def run(fn, inputs=ins, weights=wb, need=(True,) * 3):
+        ti = [x.detach().clone().requires_grad_(n)
+              for x, n in zip(inputs, need)]
         tw = [None if w is None else w.detach().clone().requires_grad_(True)
-              for w in wb]
+              for w in weights]
         out = fn(*ti, nb, na, *tw)
-        (out * ct).sum().backward()
+        (out * ct.to(out.dtype)).sum().backward()
         torch.cuda.synchronize()
         return ([out.detach()] + [x.grad for x in ti],
                 [w.grad for w in tw if w is not None])
@@ -1216,12 +1277,32 @@ def test_row_mlp_kernels_match_plain_on_card(cuda, din, h, nb, na):
     for x_, y_ in zip(k[0] + k[1], again[0] + again[1]):
         assert torch.equal(x_, y_)
     p = run(row_mlp.dimenet_post_mlp_reference)
-    for i, (x_, y_) in enumerate(zip(k[0], p[0])):
+    p64 = run(row_mlp.dimenet_post_mlp_reference, [x.double() for x in ins],
+              [None if w is None else w.double() for w in wb])
+    for i, (x_, y_, z_) in enumerate(zip(k[0], p[0], p64[0])):
         assert float((x_ - y_).abs().max()) <= 1e-5 * float(
             y_.abs().max()), i
-    for i, (x_, y_) in enumerate(zip(k[1], p[1])):
+        if i and route == 1:
+            _float64_yardstick(f"input {i}", x_, y_, z_)
+    for i, (x_, y_, z_) in enumerate(zip(k[1], p[1], p64[1])):
         assert float((x_ - y_).abs().max()) <= 1e-4 * float(
             y_.abs().max()), f"wb {i}"
+        if route == 1:
+            _float64_yardstick(f"wb {i}", x_, y_, z_)
+    for skip in range(3):
+        need = tuple(i != skip for i in range(3))
+        part = run(row_mlp.dimenet_post_mlp, need=need)
+        assert part[0][1 + skip] is None
+        for x_, y_ in zip(part[0] + part[1], k[0] + k[1]):
+            assert x_ is None or torch.equal(x_, y_)
+    # a NaN in the cotangent reaches the same gradient entries as in the
+    # composed chain: the products' hi/lo split keeps it
+    ct[e // 2, h // 3] = float("nan")
+    kn = run(row_mlp.dimenet_post_mlp)
+    pn = run(row_mlp.dimenet_post_mlp_reference)
+    for i, (x_, y_) in enumerate(zip(kn[0][1:] + kn[1], pn[0][1:] + pn[1])):
+        assert bool(torch.isnan(y_).any()), i
+        assert torch.equal(torch.isnan(x_), torch.isnan(y_)), i
 
 
 @pytest.mark.gpu
