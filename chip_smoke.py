@@ -13,7 +13,8 @@ and PyTorch built for CUDA.  Phases, each of which fails the run:
    stack, spills and static shared memory (ptxas) of the redesigned
    kernels (the two pass-P kernels on the tensor cores, scf and cgcnn
    with its node table; the row_mlp backward's two routes; the dn_tri
-   backward) beside the forwards that share their sources, and the
+   backward; the builder forward's route 1; egcl pass P's route 1)
+   beside the kernels that share their sources, and the
    pass-P kernels' dynamic shared memory at the main path's widths;
 3. kernels: on the first batch of the main path (512 flagship-size graphs,
    masked tail edges, empty segments), hold each kernel to its plain
@@ -39,7 +40,9 @@ and PyTorch built for CUDA.  Phases, each of which fails the run:
    (F = H = 48 equivariant, the last layer's block with no coordinate
    gate, layer 0's F = 1 block with no dx and no dgeo) through their
    autograd Function against autograd through the composed plain version
-   (1e-5; 1e-4 for the weight grads; dgeo exactly zero on masked edges),
+   (1e-5; 1e-4 for the weight grads; dgeo exactly zero on masked edges;
+   pass P takes its route 1 on the tensor cores in all three, the card's
+   route the plan's, and is timed in all three, with two bounds),
    and the three GAT kernels (forward, pass R, pass S) at the first
    train batch at H*F = 384 and 768, with ones and with dropout bits,
    through their autograd Function against autograd through the plain
@@ -64,7 +67,8 @@ and PyTorch built for CUDA.  Phases, each of which fails the run:
    triplet table and full spherical basis at dimenet_wide's widths (S*R =
    42, B = 8, D = 128), at (70, 8, 64) and at the limits (126, 128, 128),
    with a longer masked tail and all masked (1e-5; 1e-4 for dk1, dk2;
-   d sbf exactly zero on masked triplets); then a double
+   d sbf exactly zero on masked triplets; the forward's route at each
+   width, the card's the plan's, route 1 at the path's); then a double
    backward through ``gather_mul_segment_sum`` and ``gather_segment_sum``
    on the card against the CPU (1e-5), and the refusal of a double
    backward by the scf, egcl, GAT, cgcnn, dn_tri, dn_tri_builder and
@@ -326,17 +330,19 @@ PATH_LAUNCHES["cgcnn"] = (
     {"cgcnn_block": 4, "segment_sum_dense": 1})
 # DimeNet: one triplet forward and backward and one row-MLP forward and
 # backward per conv layer (layer 0's inputs need gradients: lin_kj, lin_ji
-# feed them), one sorted segment sum per output block and the pool
+# feed them), one sorted segment sum per output block and the pool, and in
+# a train step two more per conv layer: the backward of the embedding's
+# gathers h[dst], h[src]
 PATH_LAUNCHES["dimenet"] = (
     {"dimenet_triplet_mp": 4, "dimenet_triplet_mp_bwd": 4,
      "dimenet_post_mlp": 4, "dimenet_post_mlp_bwd": 4,
-     "segment_sum_dense": 5},
+     "segment_sum_dense": 13},
     {"dimenet_triplet_mp": 4, "dimenet_post_mlp": 4, "segment_sum_dense": 5})
 # dimenet_wide: one builder forward, pass S and pass P per conv layer, the
 # composed tail (no row-MLP kernel), the same segment sums
 PATH_LAUNCHES["dimenet_wide"] = (
     {"dimenet_tri_builder": 4, "dimenet_tri_builder_bwd_s": 4,
-     "dimenet_tri_builder_bwd_p": 4, "segment_sum_dense": 5},
+     "dimenet_tri_builder_bwd_p": 4, "segment_sum_dense": 13},
     {"dimenet_tri_builder": 4, "segment_sum_dense": 5})
 # the flagship SchNet under HYDRAGNN_AGGR_BACKEND=pallas: no marker, so
 # each conv's aggregation and the pool take segment_sum, that is the pallas
@@ -623,7 +629,10 @@ def pass_p_build_report():
                          "cgcnn_kernel"),
             "row_mlp": ("row_mlp_fwd_kernel", "row_mlp_bwd_tc_kernel",
                         "row_mlp_bwd_kernel"),
-            "dn_tri": ("dn_tri_fwd_kernel", "dn_tri_bwd_kernel")}
+            "dn_tri": ("dn_tri_fwd_kernel", "dn_tri_bwd_kernel"),
+            "dn_tri_builder": ("fwd_tc_kernel", "tri_rows_kernel",
+                               "tri_wgrad_kernel"),
+            "egcl_mp": ("pass_p_tc_kernel", "egcl_kernel")}
     kernels = []
     for src, names in keys.items():
         rep = ptxas_report(ptxas_log(src), names)
@@ -1164,7 +1173,7 @@ def poly_phase(torch, g, seed):
     return rows, notes
 
 
-def egcl_flops(f, h, gp, equivariant, edges, nodes):
+def egcl_flops(f, h, gp, equivariant, edges, nodes, dx=True, dgeo=True):
     """Floating-point operations (a multiply-add is two) that the three egcl
     kernels' functions need on ``edges`` real edges and ``nodes`` real
     nodes: (forward, pass P, pass S).  The products with x factor to the
@@ -1173,7 +1182,8 @@ def egcl_flops(f, h, gp, equivariant, edges, nodes):
     once per node; the rest of the chain is per edge: the geometry rows of
     t0, W1 and, in the equivariant block, Wc0 and wc1; back to dt0 through
     W1^T and Wc0^T; pass P's per-edge weight grads (dW1, dW0g, dWc0, dwc1)
-    and dgeo's radial and edge_attr lanes."""
+    and dgeo's radial and edge_attr lanes.  Pass P without ``dx`` or
+    ``dgeo`` (layer 0) leaves out dx_s or those lanes."""
     fwd_e = 2 * gp * h + 2 * h * h
     back_e = 2 * h * h
     wgrad_e = 2 * h * h + 2 * gp * h
@@ -1184,8 +1194,8 @@ def egcl_flops(f, h, gp, equivariant, edges, nodes):
     fwd_n = 2 * 2 * f * h  # x @ W0s, x @ W0r
     fwd = edges * fwd_e + nodes * fwd_n
     # pass P: + dW0s, dW0r and dx_s at the nodes; pass S: + dx_r
-    pass_p = (edges * (fwd_e + back_e + wgrad_e + 2 * gp * h)
-              + nodes * (fwd_n + 3 * 2 * f * h))
+    pass_p = (edges * (fwd_e + back_e + wgrad_e + 2 * gp * h * dgeo)
+              + nodes * (fwd_n + (2 + dx) * 2 * f * h))
     pass_s = edges * (fwd_e + back_e) + nodes * (fwd_n + 2 * f * h)
     return fwd, pass_p, pass_s
 
@@ -1201,6 +1211,7 @@ def egcl_phase(torch, g, seed):
     1e-4 of their largest entry; dgeo exactly zero on masked edges.  Then
     each kernel timed alone as layers 1-2 launch it (pass P with dx and
     dgeo, and its reduction), beside its plain version."""
+    from hydragnn_torch.kernels.build import load_library
     from hydragnn_torch.models.layers import edge_geometry
     from hydragnn_torch.ops import egcl_mp as em_
     from hydragnn_torch.ops.aggregate import segment_offsets
@@ -1284,8 +1295,8 @@ def egcl_phase(torch, g, seed):
 
     f = 48
     ins, errs, moved = hold(True, f, True)
-    _, errs_last, moved_last = hold(False, f, True)
-    _, errs_l0, moved_l0 = hold(True, 1, False)
+    ins_last, errs_last, moved_last = hold(False, f, True)
+    ins_l0, errs_l0, moved_l0 = hold(True, 1, False)
 
     e_valid = int(real.sum())
     n_valid = int((g.node_mask != 0).sum())
@@ -1295,12 +1306,43 @@ def egcl_phase(torch, g, seed):
     ptr_r = segment_offsets(recv, n, em)
     plain_args = (True, x, geo, em, *ins[2:], send, recv, ca, cp)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-    fwd_fl, p_fl, s_fl = egcl_flops(f, h, gp, True, e_valid, n_valid)
+    fwd_fl, _, s_fl = egcl_flops(f, h, gp, True, e_valid, n_valid)
     wbytes = 4 * sum(t.numel() for t in ws if t is not None)
     # read once: x, the real edges' geo rows and ids (perm, send, recv),
     # row_ptr, the weights; cotangents dagg, dpsum for the backward
     edge_in = 4 * (n * f + e_valid * (3 + gp) + 3 * e_valid + n + 1) + wbytes
     cot = 4 * n * (h + 3)
+
+    def pass_p(equivariant, f_, ins_, data_grads):
+        """Pass P as one instantiation launches it (layer 0: no dx, no
+        dgeo): the launch, its bounds (route 1 on the tensor cores: at
+        3xTF32, and on the CUDA cores beside it) and its route."""
+        ws_ = em_.kernel_weights(equivariant, *(ins_[2:] + [None] * (
+            9 - len(ins_))), f_, h, dev)
+        wb = 4 * sum(t_.numel() for t_ in ws_ if t_ is not None)
+        inb = (4 * (n * f_ + e_valid * (3 + gp) + 3 * e_valid + n + 1) + wb
+               + 4 * n * (h + (3 if equivariant else 0)))
+        outb = wb + data_grads * 4 * (n * f_ + e_valid * (3 + gp))
+        fl = egcl_flops(f_, h, gp, equivariant, e_valid, n_valid,
+                        dx=data_grads, dgeo=data_grads)[1]
+        route = em_.pass_p_route(f_, h, gp, equivariant)
+        bnd = (tensor_core_bounds if route == 1 else bound)(inb + outb, fl)
+
+        def kern():
+            return em_.launch_egcl(
+                "egcl_block_pass_p", equivariant, ins_[0], geo, ws_, send,
+                recv, perm, ptr_s, ca, cp if equivariant else None,
+                want_dx=data_grads, want_geo=data_grads)
+        return kern, bnd, route
+
+    lib = load_library("egcl_mp")
+    for eq_, f_ in ((True, f), (False, f), (True, 1)):
+        got = lib.hg_egcl_pass_p_route(f_, h, gp, int(eq_))
+        check(got == em_.pass_p_route(f_, h, gp, eq_) == 1,
+              f"egcl pass P (F={f_}, H={h}, equivariant={eq_}): route "
+              f"{got} on the card, {em_.pass_p_route(f_, h, gp, eq_)} "
+              "planned, the path's route is 1")
+    p_kern, p_bnd, p_route = pass_p(True, f, ins, True)
     launches = {
         "egcl_block": (
             lambda: em_.launch_egcl("egcl_block", True, x, geo, ws, send,
@@ -1310,12 +1352,7 @@ def egcl_phase(torch, g, seed):
             bound(edge_in + 4 * n * (h + 3), fwd_fl),
             "hydragnn_tpu/ops/fused_block.py:495", ("agg", "psum")),
         "egcl_block_pass_p": (
-            lambda: em_.launch_egcl("egcl_block_pass_p", True, x, geo, ws,
-                                    send, recv, perm, ptr_s, ca, cp,
-                                    want_dx=True, want_geo=True),
-            lambda: em_.egcl_pass_p_plain(*plain_args),
-            bound(edge_in + cot + 4 * (n * f + e_valid * (3 + gp))
-                  + wbytes, p_fl),
+            p_kern, lambda: em_.egcl_pass_p_plain(*plain_args), p_bnd,
             "hydragnn_tpu/ops/fused_block.py:561",
             ("dw0", "db0", "dw1", "db1", "dwc0", "dbc0", "dwc1", "dgeo")),
         "egcl_block_pass_s": (
@@ -1326,7 +1363,7 @@ def egcl_phase(torch, g, seed):
             "hydragnn_tpu/ops/fused_block.py:599", ("dx",)),
     }
     results = []
-    for name, (kern, plain, (b_ms, b_by), replaces, outs) in launches.items():
+    for name, (kern, plain, bnd, replaces, outs) in launches.items():
         worst = max(outs, key=lambda o: errs[o][1])
         results.append({
             "name": name, "route": "cuda",
@@ -1335,11 +1372,31 @@ def egcl_phase(torch, g, seed):
             "ms": time_ms(torch, kern, flush, lead=True),
             "warm_l2_ms": time_ms(torch, kern, lead=True),
             "plain_ms": time_ms(torch, plain, flush),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
             "shape": {"N": n, "N_valid": n_valid, "E": e,
                       "E_valid": e_valid, "F": f, "H": h,
                       "geo": 3 + gp, "equivariant": True},
         })
+        if len(bnd) == 3:
+            results[-1]["bound_ms_cuda_cores"] = bnd[2]
+        if name == "egcl_block_pass_p":
+            # every instantiation the path launches, each once a train
+            # step: layers 1-2 (this row's ms), layer 3, layer 0
+            by = {"layers_1_2": (results[-1]["ms"], p_bnd, p_route)}
+            for tag, (eq_, f_, ins_, dg) in (
+                    ("layer_3", (False, f, ins_last, True)),
+                    ("layer_0", (True, 1, ins_l0, False))):
+                k_, b_, r_ = pass_p(eq_, f_, ins_, dg)
+                by[tag] = (time_ms(torch, k_, flush, lead=True), b_, r_)
+            results[-1]["pass_p_route"] = p_route
+            results[-1]["by_instantiation"] = {
+                tag: {"ms": ms_, "bound_ms": b_[0], "bound_by": b_[1],
+                      "bound_ms_cuda_cores": b_[2] if len(b_) == 3
+                      else b_[0], "pass_p_route": r_}
+                for tag, (ms_, b_, r_) in by.items()}
+            results[-1]["ms_per_train_step"] = (
+                2 * by["layers_1_2"][0] + by["layer_3"][0]
+                + by["layer_0"][0])
     notes = {k: {"max_abs_err": a, "max_rel_err": r}
              for k, (a, r) in errs.items()}
     notes["last_layer_F48"] = worst_of(errs_last)
@@ -2110,6 +2167,7 @@ def dimenet_builder_phase(torch, g, seed, cfg):
         distances_and_angles,
         spherical_basis,
     )
+    from hydragnn_torch.kernels.build import load_library
     from hydragnn_torch.ops import dn_tri as dt
     from hydragnn_torch.ops.aggregate import segment_offsets
 
@@ -2176,6 +2234,17 @@ def dimenet_builder_phase(torch, g, seed, cfg):
     r, b, d = cfg.num_radial, cfg.basis_emb_size, cfg.int_emb_size
     sbf = basis(r)
     sr = sbf.shape[1]
+    # the forward's route at each width held here, the card's against the
+    # plan's (the path's widths take route 1)
+    lib = load_library("dn_tri_builder")
+    routes = {}
+    for w in ((sr, b, d),) + BUILDER_WIDTHS:
+        routes[w] = lib.hg_dn_tri_builder_fwd_route(*w)
+        check(routes[w] == dt.builder_fwd_route(*w),
+              f"dn_tri_builder forward at {w}: route {routes[w]} on the "
+              f"card, {dt.builder_fwd_route(*w)} planned")
+    check(routes[(sr, b, d)] == 1,
+          f"the path's widths {(sr, b, d)} left the forward's route 1")
     ins, ct = inputs(sbf, b, d)
     errs, _ = hold(f"dn_tri_builder ({sr}, {b}, {d})", ins, ct)
     notes = {k_: {"max_abs_err": a, "max_rel_err": r_}
@@ -2221,7 +2290,9 @@ def dimenet_builder_phase(torch, g, seed, cfg):
                 "dimenet_tri_builder", x, sbf, k1, k2, kj, ji, None, ptr_ji),
             lambda: dt.dimenet_tri_builder_reference(x, sbf, tm, k1, k2, kj,
                                                      ji),
-            bound(tri_in + 4 * e * d, fwd_fl),
+            # route 1 runs its products on the tensor cores (3xTF32)
+            (tensor_core_bounds if routes[(sr, b, d)] == 1 else bound)(
+                tri_in + 4 * e * d, fwd_fl),
             "hydragnn_tpu/ops/fused_block.py:495", ("out",)),
         "dimenet_tri_builder_bwd_s": (
             lambda: dt.launch_dn_tri_builder(
@@ -2241,8 +2312,7 @@ def dimenet_builder_phase(torch, g, seed, cfg):
     }
     results = []
     with torch.no_grad():
-        for name, (kern, plain, (b_ms, b_by), replaces, outs) in \
-                timed.items():
+        for name, (kern, plain, bnd, replaces, outs) in timed.items():
             worst = max(outs, key=lambda o: errs[o][1])
             results.append({
                 "name": name, "route": "cuda",
@@ -2252,11 +2322,17 @@ def dimenet_builder_phase(torch, g, seed, cfg):
                 "ms": time_ms(torch, kern, flush, lead=True),
                 "warm_l2_ms": time_ms(torch, kern, lead=True),
                 "plain_ms": time_ms(torch, plain, flush),
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
                 "shape": {"E": e, "E_valid": e_real,
                           "T": int(kj.shape[0]), "T_valid": t_real,
                           "SR": sr, "B": b, "D": d},
             })
+            if len(bnd) == 3:
+                results[-1]["bound_ms_cuda_cores"] = bnd[2]
+            if name == "dimenet_tri_builder":
+                results[-1]["forward_route"] = routes[(sr, b, d)]
+    notes["forward_routes"] = {f"SR{k[0]}_B{k[1]}_D{k[2]}": v
+                               for k, v in routes.items()}
     return results, notes
 
 

@@ -22,16 +22,49 @@
 //   per edge tile in shared memory and adds m (and the three translation
 //   lanes) into the block's rows in edge order.  No [E,H] tensor reaches
 //   device memory, no atomics.
-// egcl_kernel<kPassP> (+ egcl_reduce_partials_kernel) — backward pass P.
-//   Replaces :_fused_bwd pass P (pl.pallas_call at :561).  Sender order
-//   again: recompute the chain, take the cotangents dagg[s], dpsum[s],
-//   backpropagate through the coordinate gate (tanh, relu, the clip, whose
-//   mask is 1 because |diff_normed| < 1) and the two-layer edge MLP, and
-//   write dx_sender (summed per row), the per-edge dgeo stream and the
-//   weight gradients.  The weight gradients are sums over all edges: each
-//   of n_parts blocks keeps its own float32 partial in shared memory over
-//   all of its rows and writes it once; the reduce kernel sums the
-//   partials in block order.
+// Backward pass P (+ egcl_reduce_partials_kernel).  Replaces :_fused_bwd
+//   pass P (pl.pallas_call at :561).  Sender order again: recompute the
+//   chain, take the cotangents dagg[s], dpsum[s], backpropagate through
+//   the coordinate gate (tanh, relu, the clip, whose mask is 1 because
+//   |diff_normed| < 1) and the two-layer edge MLP, and write dx_sender
+//   (summed per row), the per-edge dgeo stream and the weight gradients.
+//   The weight gradients are sums over all edges: each of n_parts blocks
+//   (one per SM) keeps its own float32 partial over a share of the rows
+//   and writes it once; the reduce kernel sums the partials in block
+//   order.  Two routes, chosen by width (hg_egcl_pass_p_route):
+// tc::pass_p_tc_kernel — route 1: F, H <= 48 (padded to 16) and gp <= 15,
+//   every instantiation of md17's and oc22's paths.  Block b owns one
+//   share of the sender rows (passp::share_range: rows plus edges balanced)
+//   and walks its positions 128 at a time, one 16-edge tile (an m16
+//   fragment) per warp.  Each warp gathers its tile's x[s], x[r] and
+//   geometry rows with cp.async (zero-filled off real edges) and runs the
+//   chain on the tensor cores in 3xTF32 (csrc/pass_p.cuh), accumulators
+//   in registers from one product to the next: t0 = [x[s] | x[r] | G'] .
+//   [W0s; W0r; W0g; b0] (G' = the geometry lanes and a ones column, so b0
+//   and its gradient ride along), m, v and, back, dm = dagg[s] + du0 .
+//   Wc0^T, dt0 = (du . W1^T) (a > 0), dx = dt0 . W0s^T; the k index of
+//   each product is permuted within its 8-wide step, so an accumulator is
+//   the next product's A fragment as it stands.  c, dcp, du0, dwc1 and
+//   dgeo's lanes are elementwise or four-lane sums.  The weight gradients
+//   are edge-contracted products A^T . D over the block's eight tiles,
+//   in three phases (m^T du0 and G'^T du0; a^T du and G'^T du; x[s]^T dt0,
+//   x[r]^T dt0 and G'^T dt0, whose ones row is db0): every (product,
+//   16-row tile, half of the columns) is one job, warp w takes jobs w,
+//   w + 8, ... and keeps their accumulators in registers over the whole
+//   share (at most 4 jobs, 48 floats a lane at H = 48); dwc1 is summed
+//   per tile (shuffles) into each warp's sums in shared memory.  Six
+//   block barriers a step of 128 edges.  dx: each warp sums its tile's
+//   per-edge dx rows into their sender rows in position order and writes
+//   the rows that begin and end in the tile; the sums of its first and
+//   last rows, which may straddle tiles, are added in tile order by the
+//   last warp while the last phase runs.  Weights stay in shared memory with row
+//   stride H + 4 (16 floats at most past H), the tiles with a stride of 8
+//   or 24 mod 32, so fragment loads along rows and down columns hit 32
+//   banks (the transposed weight loads of dm, dt0 and dx meet two-way
+//   conflicts on a few lanes).
+// egcl_kernel<kPassP> — route 2, every other width up to the limits: the
+//   first design below (each block keeps its partial in shared memory
+//   beside the staged weights, or in device memory at H = 128).
 // egcl_kernel<kPassS> — backward pass S.  Replaces :_fused_bwd pass S
 //   (pl.pallas_call at :599).  Receiver order (edge ids are positions):
 //   recompute the chain and its backward up to dt0 with the cotangents
@@ -50,7 +83,8 @@
 // thread computes EQ edges of one output column.  Where the weights (and,
 // for pass P, the partials) do not fit a block's shared memory (H = 128),
 // they are read from L2 and the partial lives in device memory; that path
-// is correct and slow.  Not yet: tensor cores, register micro-tiles.
+// is correct and slow.  The forward, pass S and route 2 of pass P run on
+// the CUDA cores; route 1 of pass P on the tensor cores (above).
 //
 // Contract (collate guarantees it): positions are sorted by output row, so
 // each row owns one contiguous CSR range; masked edges sort last in both
@@ -62,6 +96,8 @@
 // Every output row is written, rows without edges as zeros.
 
 #include <cuda_runtime.h>
+
+#include "pass_p.cuh"
 
 namespace {
 
@@ -541,6 +577,764 @@ __global__ void __launch_bounds__(kThreads) egcl_kernel(const Params p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// pass P, route 1: warps on 16-edge tiles, tensor cores in 3xTF32, weight
+// gradients in registers
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int M = 16;                 // edges per warp tile: one m16 fragment
+constexpr int kStep = kWarps * M;     // positions per block step
+constexpr int kMaxW = 48;             // F and H, padded to 16, up to this
+constexpr int kGW = 16;               // G' columns: gp lanes, ones, zeros
+constexpr int kLdG = 24;              // G' row stride
+constexpr int kLdRaw = 20;            // raw geo rows (3 + gp <= 18 lanes)
+constexpr int kMaxJobs = 4;           // weight-gradient jobs a warp
+constexpr int kSlots = 5;             // XS, XR, A, M, D0
+constexpr unsigned kFull = 0xffffffffu;
+
+// slots of a warp's region: the gathered x[s], x[r]; a (then dt0); m
+// (then du); du0 (then the per-edge dx)
+constexpr int XS = 0, XR = 1, SA = 2, SM = 3, SD = 4;
+
+__host__ __device__ inline int round16(int n) { return (n + 15) & ~15; }
+
+struct Layout {
+  int fp, hp, ld, ldw;          // padded widths, slot and weight strides
+  int wst, w1, wc0, b1, bc0, wc1;  // weight offsets (floats)
+  int warps;                    // per-warp regions' offset
+  int per_warp;                 // floats a warp region
+  int total;                    // floats in all
+};
+
+// the shared layout: the weights (W0s; W0r; W0g then b0 as one stacked
+// [2 Fp + 16, Hp] matrix; W1; Wc0; b1, bc0, wc1), then per warp its five
+// slots [16][ld], its G' [16][kLdG], raw geo rows [16][kLdRaw], 32 ids,
+// its dwc1 sums [48], and the dx sums of its tile's first and last sender
+// rows [2][48] with their rows
+__host__ __device__ inline Layout layout(int f, int h, bool equiv) {
+  Layout L;
+  L.fp = round16(f);
+  L.hp = round16(h);
+  L.ld = passp::frag_ld(L.fp > L.hp ? L.fp : L.hp);
+  L.ldw = L.hp + 4;
+  int o = 0;
+  L.wst = o; o += (2 * L.fp + kGW) * L.ldw;
+  L.w1 = o; o += L.hp * L.ldw;
+  L.wc0 = o; if (equiv) o += L.hp * L.ldw;
+  L.b1 = o; o += L.hp;
+  L.bc0 = o; o += L.hp;
+  L.wc1 = o; o += L.hp;
+  L.warps = o;
+  L.per_warp =
+      kSlots * M * L.ld + M * kLdG + M * kLdRaw + 2 * M + 3 * kMaxW + 4;
+  L.total = o + kWarps * L.per_warp;   // then the block's two row bounds
+  return L;
+}
+
+// the weight-gradient products of a block step, in phases: each pairs an
+// A operand (its rows: F, H or G' columns) with a D operand (H columns),
+// contracted over the step's edges.  The jobs are (pair, m-tile, half of
+// the n-tiles) in this order; warp w takes jobs w, w + 8, w + 16, ...
+constexpr int kPairs = 7;
+// pair: phase, A slot (-1: G'), D slot
+__host__ __device__ inline void pair_info(int i, int& phase, int& a, int& dd) {
+  switch (i) {
+    case 0: phase = 0; a = SM; dd = SD; break;   // dWc0 = m^T du0
+    case 1: phase = 0; a = -1; dd = SD; break;   // dbc0 (G' ones row)
+    case 2: phase = 1; a = SA; dd = SM; break;   // dW1 = a^T du
+    case 3: phase = 1; a = -1; dd = SM; break;   // db1
+    case 4: phase = 2; a = XS; dd = SA; break;   // dW0s = x[s]^T dt0
+    case 5: phase = 2; a = XR; dd = SA; break;   // dW0r = x[r]^T dt0
+    default: phase = 2; a = -1; dd = SA; break;  // dW0g, db0
+  }
+}
+
+__host__ __device__ inline int pair_mtiles(int i, int fp, int hp,
+                                           bool equiv) {
+  if (i <= 1 && !equiv) return 0;
+  if (i == 0 || i == 2) return hp / 16;
+  if (i == 4 || i == 5) return fp / 16;
+  return 1;
+}
+
+__host__ __device__ inline int n_jobs(int fp, int hp, bool equiv) {
+  int n = 0;
+  for (int i = 0; i < kPairs; ++i) n += 2 * pair_mtiles(i, fp, hp, equiv);
+  return n;
+}
+
+// job j -> pair, m-tile, n-half; false past the last job
+__host__ __device__ inline bool job_of(int j, int fp, int hp, bool equiv,
+                                       int& pair, int& mt, int& nh) {
+  for (int i = 0; i < kPairs; ++i) {
+    const int n = 2 * pair_mtiles(i, fp, hp, equiv);
+    if (j < n) {
+      pair = i;
+      mt = j >> 1;
+      nh = j & 1;
+      return true;
+    }
+    j -= n;
+  }
+  return false;
+}
+
+// route 1 at these widths: F, H <= 48, gp <= 15 (G' holds gp lanes and the
+// ones column), the jobs <= 4 a warp and the layout in `optin` bytes
+__host__ inline bool fits(int f, int h, int gp, bool equiv, int optin) {
+  const int fp = round16(f), hp = round16(h);
+  return fp <= kMaxW && hp <= kMaxW && gp + 1 <= kGW &&
+         n_jobs(fp, hp, equiv) <= kWarps * kMaxJobs &&
+         sizeof(float) * static_cast<size_t>(layout(f, h, equiv).total + 4) <=
+             static_cast<size_t>(optin);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(a), "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(a), "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::);
+}
+
+// A fragment (k permuted: columns k0 + 2t, k0 + 2t + 1 in slots t, t + 4)
+// of a [16][ld] tile
+__device__ __forceinline__ void load_a_perm(passp::FragA& a, const float* T,
+                                            int ld, int k0) {
+  const int g = passp::lane_g(), t = passp::lane_t();
+  const float2 u0 = *reinterpret_cast<const float2*>(T + g * ld + k0 + 2 * t);
+  const float2 u1 =
+      *reinterpret_cast<const float2*>(T + (g + 8) * ld + k0 + 2 * t);
+  passp::set_a<true>(a, u0.x, u1.x, u0.y, u1.y);
+}
+
+// B fragment of W (k permuted rows k0 + 2t, k0 + 2t + 1; column n0 + g)
+__device__ __forceinline__ void load_b_perm(passp::FragB& b, const float* W,
+                                            int ldw, int k0, int n0) {
+  const int g = passp::lane_g(), t = passp::lane_t();
+  const float* w = W + (k0 + 2 * t) * ldw + n0 + g;
+  passp::split_ih(w[0], b.hi[0], b.lo[0]);
+  passp::split_ih(w[ldw], b.hi[1], b.lo[1]);
+}
+
+// B fragment of W^T (k permuted over W's columns k0 + 2t, + 1; W's row
+// n0 + g): one float2
+__device__ __forceinline__ void load_bt_perm(passp::FragB& b, const float* W,
+                                             int ldw, int k0, int n0) {
+  const int g = passp::lane_g(), t = passp::lane_t();
+  const float2 w =
+      *reinterpret_cast<const float2*>(W + (n0 + g) * ldw + k0 + 2 * t);
+  passp::split_ih(w.x, b.hi[0], b.lo[0]);
+  passp::split_ih(w.y, b.hi[1], b.lo[1]);
+}
+
+// an accumulator [NT][4] (rows g, g + 8; columns 8j + 2t, + 1) into a
+// [16][ld] tile
+template <int NT>
+__device__ __forceinline__ void store_c(float* T, int ld,
+                                        const float (&c)[NT][4]) {
+  const int g = passp::lane_g(), t = passp::lane_t();
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    *reinterpret_cast<float2*>(T + g * ld + 8 * j + 2 * t) =
+        make_float2(c[j][0], c[j][1]);
+    *reinterpret_cast<float2*>(T + (g + 8) * ld + 8 * j + 2 * t) =
+        make_float2(c[j][2], c[j][3]);
+  }
+}
+
+template <int NT>
+__device__ __forceinline__ void load_c(float (&c)[NT][4], const float* T,
+                                       int ld) {
+  const int g = passp::lane_g(), t = passp::lane_t();
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const float2 u0 =
+        *reinterpret_cast<const float2*>(T + g * ld + 8 * j + 2 * t);
+    const float2 u1 =
+        *reinterpret_cast<const float2*>(T + (g + 8) * ld + 8 * j + 2 * t);
+    c[j][0] = u0.x; c[j][1] = u0.y; c[j][2] = u1.x; c[j][3] = u1.y;
+  }
+}
+
+// c += A . B for A [16 x K] from registers (an accumulator of the previous
+// product, [KT][4], k permuted) and B = W (TR: W^T) from shared memory
+template <int NT, int KT, bool TR>
+__device__ __forceinline__ void chain_regs(float (&c)[NT][4],
+                                           const float (&a)[KT][4],
+                                           const float* W, int ldw) {
+#pragma unroll
+  for (int j = 0; j < KT; ++j) {
+    passp::FragA fa;
+    passp::set_a<true>(fa, a[j][0], a[j][2], a[j][1], a[j][3]);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      passp::FragB fb;
+      if (TR)
+        load_bt_perm(fb, W, ldw, 8 * j, 8 * n);
+      else
+        load_b_perm(fb, W, ldw, 8 * j, 8 * n);
+      passp::mma3(c[n], fa, fb);
+    }
+  }
+}
+
+// c += T . W (TR: W^T) for T [16 x 8 KS] a shared tile (row stride ld)
+template <int NT, bool TR>
+__device__ __forceinline__ void chain_smem(float (&c)[NT][4], const float* T,
+                                           int ld, int ks, const float* W,
+                                           int ldw) {
+  for (int s = 0; s < ks; ++s) {
+    passp::FragA fa;
+    load_a_perm(fa, T, ld, 8 * s);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      passp::FragB fb;
+      if (TR)
+        load_bt_perm(fb, W, ldw, 8 * s, 8 * n);
+      else
+        load_b_perm(fb, W, ldw, 8 * s, 8 * n);
+      passp::mma3(c[n], fa, fb);
+    }
+  }
+}
+
+template <bool EQUIV, int NT>
+__global__ void __launch_bounds__(kThreads, 1)
+pass_p_tc_kernel(const Params p) {
+  constexpr int HP = 8 * NT;
+  constexpr int NH = NT / 2;            // n-tiles a job
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const int f = p.f, h = p.h, gp = p.gp, geo_ld = 3 + p.gp;
+  const int n_rows = p.n_rows;
+  const Layout L = layout(f, h, EQUIV);
+  const int fp = L.fp, ld = L.ld, ldw = L.ldw;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  float* wst = sm + L.wst;
+  float* w1s = sm + L.w1;
+  float* wc0s = sm + L.wc0;
+  float* b1s = sm + L.b1;
+  float* bc0s = sm + L.bc0;
+  float* wc1s = sm + L.wc1;
+  auto region = [&](int w) { return sm + L.warps + w * L.per_warp; };
+  auto slot = [&](int w, int k) { return region(w) + k * M * ld; };
+  auto gtile = [&](int w) { return region(w) + kSlots * M * ld; };
+  float* mine = region(warp);
+  float* graw = gtile(warp) + M * kLdG;
+  int* s_ids = reinterpret_cast<int*>(graw + M * kLdRaw);   // [16] sender
+  int* e_ids = s_ids + M;                                   // [16] edge id
+  float* dwc1_s = reinterpret_cast<float*>(e_ids + M);      // [48] dwc1
+  // [2][48] dx sums of the tile's first (head) and last (tail) rows
+  float* piece = dwc1_s + kMaxW;
+  int* piece_row = reinterpret_cast<int*>(piece + 2 * kMaxW);  // [2]
+
+  // the weights, zero-padded: Wst rows [0, Fp) W0s, [Fp, 2Fp) W0r,
+  // [2Fp, 2Fp + gp) W0g, 2Fp + gp b0, then zeros
+  for (int i = tid; i < (2 * fp + kGW) * ldw; i += kThreads) {
+    const int r = i / ldw, c = i - r * ldw;
+    float v = 0.f;
+    if (c < h) {
+      if (r < fp) {
+        if (r < f) v = p.w[0][r * h + c];
+      } else if (r < 2 * fp) {
+        if (r - fp < f) v = p.w[1][(r - fp) * h + c];
+      } else if (r - 2 * fp < gp) {
+        v = p.w[2][(r - 2 * fp) * h + c];
+      } else if (r - 2 * fp == gp) {
+        v = p.w[3][c];
+      }
+    }
+    wst[i] = v;
+  }
+  for (int i = tid; i < HP * ldw; i += kThreads) {
+    const int r = i / ldw, c = i - r * ldw;
+    const bool in = r < h && c < h;
+    w1s[i] = in ? p.w[4][r * h + c] : 0.f;
+    if (EQUIV) wc0s[i] = in ? p.w[6][r * h + c] : 0.f;
+  }
+  for (int c = tid; c < HP; c += kThreads) {
+    b1s[c] = c < h ? p.w[5][c] : 0.f;
+    bc0s[c] = EQUIV && c < h ? p.w[7][c] : 0.f;
+    wc1s[c] = EQUIV && c < h ? p.w[8][c] : 0.f;
+  }
+  // this warp's region zeroed: the slots' pad columns stay zero (the
+  // gathers write columns < F only)
+  for (int i = lane; i < L.per_warp; i += 32) mine[i] = 0.f;
+  if (warp == 0) {
+    int rb, re;
+    passp::share_range(p.row_ptr, n_rows, blockIdx.x, gridDim.x, rb, re);
+    if (lane == 0) {
+      reinterpret_cast<int*>(sm + L.total)[0] = rb;
+      reinterpret_cast<int*>(sm + L.total)[1] = re;
+    }
+  }
+  __syncthreads();
+  const int r_begin = reinterpret_cast<const int*>(sm + L.total)[0];
+  const int r_end = reinterpret_cast<const int*>(sm + L.total)[1];
+  const int p_begin = __ldg(p.row_ptr + r_begin);
+  const int p_end = __ldg(p.row_ptr + r_end);
+  const int n_steps = (p_end - p_begin + kStep - 1) / kStep;
+
+  // this warp's jobs: warp + 8 k, k < kMaxJobs, their accumulators
+  float acc[kMaxJobs][NH][4];
+#pragma unroll
+  for (int k = 0; k < kMaxJobs; ++k)
+#pragma unroll
+    for (int n = 0; n < NH; ++n)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[k][n][v] = 0.f;
+
+  // the jobs of one phase over the step's eight tiles (natural edge order
+  // as k: A^T fragments and D fragments both read down columns)
+  auto run_phase = [&](int phase, int q) {
+#pragma unroll
+    for (int k = 0; k < kMaxJobs; ++k) {
+      int pair, mt, nh, ph, as, ds;
+      if (!job_of(warp + kWarps * k, fp, HP, EQUIV, pair, mt, nh)) continue;
+      pair_info(pair, ph, as, ds);
+      if (ph != phase) continue;
+      const int m0 = 16 * mt, n0 = 8 * NH * nh;
+      for (int w = 0; w < kWarps; ++w) {
+        if (q + M * w >= p_end) break;
+        const float* A = as < 0 ? gtile(w) : slot(w, as);
+        const int lda = as < 0 ? kLdG : ld;
+        const float* D = slot(w, ds);
+#pragma unroll
+        for (int kk = 0; kk < M; kk += 8) {
+          passp::FragA fa;
+          const float* ap = A + (kk + t) * lda + m0 + g;
+          passp::set_a<true>(fa, ap[0], ap[8], ap[4 * lda], ap[4 * lda + 8]);
+#pragma unroll
+          for (int n = 0; n < NH; ++n) {
+            passp::FragB fb;
+            const float* dp = D + (kk + t) * ld + n0 + 8 * n + g;
+            passp::split_ih(dp[0], fb.hi[0], fb.lo[0]);
+            passp::split_ih(dp[4 * ld], fb.hi[1], fb.lo[1]);
+            passp::mma3(acc[k][n], fa, fb);
+          }
+        }
+      }
+    }
+  };
+
+  // dx, in two steps.  Each warp sums its tile's edges' dx rows into
+  // their sender rows in position order, writes the rows that begin and
+  // end inside the tile, and leaves the sums of its first and last rows
+  // (which may go on in the tiles before and after) as pieces; the last
+  // warp, during the last phase, adds the step's pieces in tile order
+  // into the rows they belong to and writes those rows, rows without
+  // edges as zeros.
+  const bool walker = p.out != nullptr && warp == kWarps - 1;
+  int cur = r_begin;
+  float dx0 = 0.f, dx1 = 0.f;
+  auto flush = [&](int upto) {
+    float* o = p.out + static_cast<size_t>(cur) * f;
+    if (lane < f) o[lane] = dx0;
+    if (lane + 32 < f) o[lane + 32] = dx1;
+    for (int r = cur + 1; r < upto; ++r) {
+      o = p.out + static_cast<size_t>(r) * f;
+      if (lane < f) o[lane] = 0.f;
+      if (lane + 32 < f) o[lane + 32] = 0.f;
+    }
+  };
+
+  // ids of this warp's tile of step i in lanes 0..15: edge id, sender,
+  // receiver (-1 past the block's positions)
+  auto load_eid = [&](int i) {
+    const int pos = p_begin + i * kStep + warp * M + lane;
+    if (lane >= M || i >= n_steps || pos >= p_end) return -1;
+    return p.perm != nullptr ? __ldg(p.perm + pos) : pos;
+  };
+  int eid = load_eid(0);
+  int snd = eid >= 0 ? __ldg(p.send + eid) : -1;
+  int rcv = eid >= 0 ? __ldg(p.recv + eid) : -1;
+
+  for (int i = 0; i < n_steps; ++i) {
+    const int q = p_begin + i * kStep;
+    const int eid_next = load_eid(i + 1);
+    // ---- this warp's tile: ids, gathers, cotangents ----
+    const bool ok = eid >= 0 && snd >= r_begin && snd < r_end &&
+                    static_cast<unsigned>(rcv) < static_cast<unsigned>(n_rows);
+    if (lane < M) {
+      s_ids[lane] = ok ? snd : -1;
+      e_ids[lane] = eid;
+    }
+    float* xs = slot(warp, XS);
+    float* xr = slot(warp, XR);
+    const unsigned okm = __ballot_sync(kFull, ok);
+#pragma unroll 1
+    for (int e = 0; e < M; ++e) {
+      const bool ve = (okm >> e) & 1u;
+      const int se = __shfl_sync(kFull, snd, e);
+      const int re = __shfl_sync(kFull, rcv, e);
+      const int ee = __shfl_sync(kFull, eid, e);
+      const float* xsr = p.x + static_cast<size_t>(ve ? se : 0) * f;
+      const float* xrr = p.x + static_cast<size_t>(ve ? re : 0) * f;
+      if ((f & 3) == 0) {
+        for (int c = 4 * lane; c < f; c += 128) {
+          cp_async16(xs + e * ld + c, xsr + c, ve);
+          cp_async16(xr + e * ld + c, xrr + c, ve);
+        }
+      } else {
+        for (int c = lane; c < f; c += 32) {
+          cp_async4(xs + e * ld + c, xsr + c, ve);
+          cp_async4(xr + e * ld + c, xrr + c, ve);
+        }
+      }
+      const float* gr = p.geo + static_cast<size_t>(ve ? ee : 0) * geo_ld;
+      if (lane < geo_ld) cp_async4(graw + e * kLdRaw + lane, gr + lane, ve);
+    }
+    // the cotangents at this lane's rows g and g + 8, zero off real edges
+    const bool ok0 = (okm >> g) & 1u;
+    const bool ok1 = (okm >> (g + 8)) & 1u;
+    const int s0 = __shfl_sync(kFull, snd, g);
+    const int s1 = __shfl_sync(kFull, snd, g + 8);
+    float dm[NT][4];
+    auto load_dagg = [&]() {
+      const float* g0 = p.gagg + static_cast<size_t>(ok0 ? s0 : 0) * h;
+      const float* g1 = p.gagg + static_cast<size_t>(ok1 ? s1 : 0) * h;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const int c = 8 * n + 2 * t;
+        dm[n][0] = ok0 && c < h ? __ldg(g0 + c) : 0.f;
+        dm[n][1] = ok0 && c + 1 < h ? __ldg(g0 + c + 1) : 0.f;
+        dm[n][2] = ok1 && c < h ? __ldg(g1 + c) : 0.f;
+        dm[n][3] = ok1 && c + 1 < h ? __ldg(g1 + c + 1) : 0.f;
+      }
+    };
+    if (!EQUIV) load_dagg();   // in flight while t0 and m are formed
+    float dtr0[3], dtr1[3];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      dtr0[j] = EQUIV && ok0 ? __ldg(p.gpsum + static_cast<size_t>(s0) * 3 + j)
+                             : 0.f;
+      dtr1[j] = EQUIV && ok1 ? __ldg(p.gpsum + static_cast<size_t>(s1) * 3 + j)
+                             : 0.f;
+    }
+    cp_async_wait_all();
+    __syncwarp();
+    // G': the geometry lanes, the ones column (real edges), zeros
+    float* gt = gtile(warp);
+    for (int i2 = lane; i2 < M * kGW; i2 += 32) {
+      const int e = i2 >> 4, k = i2 & 15;
+      const bool ve = s_ids[e] >= 0;
+      gt[e * kLdG + k] = k < gp ? graw[e * kLdRaw + 3 + k]
+                                : (k == gp && ve ? 1.f : 0.f);
+    }
+    __syncwarp();
+
+    // ---- the chain: t0, a ----
+    float cc[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) cc[n][0] = cc[n][1] = cc[n][2] = cc[n][3] = 0.f;
+    chain_smem<NT, false>(cc, xs, ld, fp / 8, wst, ldw);
+    chain_smem<NT, false>(cc, xr, ld, fp / 8, wst + fp * ldw, ldw);
+    chain_smem<NT, false>(cc, gt, kLdG, 2, wst + 2 * fp * ldw, ldw);
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) cc[n][v] = fmaxf(cc[n][v], 0.f);
+    store_c<NT>(slot(warp, SA), ld, cc);
+    // m = relu(a . W1 + b1)
+    float mm[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const float2 bb = *reinterpret_cast<const float2*>(b1s + 8 * n + 2 * t);
+      mm[n][0] = bb.x; mm[n][1] = bb.y; mm[n][2] = bb.x; mm[n][3] = bb.y;
+    }
+    chain_regs<NT, NT, false>(mm, cc, w1s, ldw);
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) mm[n][v] = fmaxf(mm[n][v], 0.f);
+
+    if (EQUIV) {
+      store_c<NT>(slot(warp, SM), ld, mm);
+      // v = relu(m . Wc0 + bc0); c = tanh(v . wc1)
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const float2 bb =
+            *reinterpret_cast<const float2*>(bc0s + 8 * n + 2 * t);
+        cc[n][0] = bb.x; cc[n][1] = bb.y; cc[n][2] = bb.x; cc[n][3] = bb.y;
+      }
+      chain_regs<NT, NT, false>(cc, mm, wc0s, ldw);
+      float p0 = 0.f, p1 = 0.f;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const float2 wc = *reinterpret_cast<const float2*>(wc1s + 8 * n + 2 * t);
+#pragma unroll
+        for (int v = 0; v < 4; ++v) cc[n][v] = fmaxf(cc[n][v], 0.f);
+        p0 += cc[n][0] * wc.x + cc[n][1] * wc.y;
+        p1 += cc[n][2] * wc.x + cc[n][3] * wc.y;
+      }
+      p0 += __shfl_xor_sync(kFull, p0, 1);
+      p1 += __shfl_xor_sync(kFull, p1, 1);
+      p0 += __shfl_xor_sync(kFull, p0, 2);
+      p1 += __shfl_xor_sync(kFull, p1, 2);
+      const float c0 = tanhf(p0), c1 = tanhf(p1);
+      // d(clip(diff * c)): dc, the diff lanes of dgeo; dcp = dc (1 - c^2)
+      float dc0 = 0.f, dc1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const float d0 = graw[g * kLdRaw + j], d1 = graw[(g + 8) * kLdRaw + j];
+        const float tr0 = d0 * c0, tr1 = d1 * c1;
+        const bool pass0 = tr0 >= -100.f && tr0 <= 100.f;
+        const bool pass1 = tr1 >= -100.f && tr1 <= 100.f;
+        dc0 += pass0 ? dtr0[j] * d0 : 0.f;
+        dc1 += pass1 ? dtr1[j] * d1 : 0.f;
+        if (p.dgeo != nullptr && t == j) {
+          const int e0 = e_ids[g], e1 = e_ids[g + 8];
+          if (ok0)
+            p.dgeo[static_cast<size_t>(e0) * geo_ld + j] =
+                pass0 ? dtr0[j] * c0 : 0.f;
+          if (ok1)
+            p.dgeo[static_cast<size_t>(e1) * geo_ld + j] =
+                pass1 ? dtr1[j] * c1 : 0.f;
+        }
+      }
+      const float dcp0 = dc0 * (1.f - c0 * c0), dcp1 = dc1 * (1.f - c1 * c1);
+      // dwc1 += v^T dcp: the tile's column sums (this lane's two rows,
+      // then the rows g by shuffles, in a fixed order) into the warp's
+      // sums; du0 = wc1 dcp (v > 0)
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const float2 wc = *reinterpret_cast<const float2*>(wc1s + 8 * n + 2 * t);
+        float w0 = cc[n][0] * dcp0 + cc[n][2] * dcp1;
+        float w1 = cc[n][1] * dcp0 + cc[n][3] * dcp1;
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) {
+          w0 += __shfl_xor_sync(kFull, w0, o);
+          w1 += __shfl_xor_sync(kFull, w1, o);
+        }
+        if (g == 0) {
+          dwc1_s[8 * n + 2 * t] += w0;
+          dwc1_s[8 * n + 2 * t + 1] += w1;
+        }
+        cc[n][0] = cc[n][0] > 0.f ? wc.x * dcp0 : 0.f;
+        cc[n][1] = cc[n][1] > 0.f ? wc.y * dcp0 : 0.f;
+        cc[n][2] = cc[n][2] > 0.f ? wc.x * dcp1 : 0.f;
+        cc[n][3] = cc[n][3] > 0.f ? wc.y * dcp1 : 0.f;
+      }
+      store_c<NT>(slot(warp, SD), ld, cc);
+      __syncthreads();                                  // B1
+      load_dagg();   // in flight through the first phase
+      run_phase(0, q);                                  // dWc0, dbc0
+      __syncthreads();                                  // B2
+      // dm = dagg[s] + du0 . Wc0^T; du = dm (m > 0)
+      load_c<NT>(cc, slot(warp, SD), ld);
+      chain_regs<NT, NT, true>(dm, cc, wc0s, ldw);
+      load_c<NT>(mm, slot(warp, SM), ld);
+    }
+    // du = dm (m > 0), over m in its slot
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) dm[n][v] = mm[n][v] > 0.f ? dm[n][v] : 0.f;
+    store_c<NT>(slot(warp, SM), ld, dm);
+    __syncthreads();                                    // B3
+    int snd_next = -1, rcv_next = -1;
+    if (eid_next >= 0) {
+      snd_next = __ldg(p.send + eid_next);
+      rcv_next = __ldg(p.recv + eid_next);
+    }
+    run_phase(1, q);                                    // dW1, db1
+    __syncthreads();                                    // B4
+    // dt0 = (du . W1^T) (a > 0), over a in its slot
+#pragma unroll
+    for (int n = 0; n < NT; ++n) cc[n][0] = cc[n][1] = cc[n][2] = cc[n][3] = 0.f;
+    chain_regs<NT, NT, true>(cc, dm, w1s, ldw);
+    load_c<NT>(mm, slot(warp, SA), ld);
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) cc[n][v] = mm[n][v] > 0.f ? cc[n][v] : 0.f;
+    store_c<NT>(slot(warp, SA), ld, cc);
+    // the radial and edge_attr lanes of dgeo: dt0 . W0g^T
+    if (p.dgeo != nullptr) {
+      for (int k = 0; k < gp; ++k) {
+        const float* wg = wst + (2 * fp + k) * ldw;
+        float v0 = 0.f, v1 = 0.f;
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const float2 w = *reinterpret_cast<const float2*>(wg + 8 * n + 2 * t);
+          v0 += cc[n][0] * w.x + cc[n][1] * w.y;
+          v1 += cc[n][2] * w.x + cc[n][3] * w.y;
+        }
+        v0 += __shfl_xor_sync(kFull, v0, 1);
+        v1 += __shfl_xor_sync(kFull, v1, 1);
+        v0 += __shfl_xor_sync(kFull, v0, 2);
+        v1 += __shfl_xor_sync(kFull, v1, 2);
+        if (t == 0) {
+          if (ok0)
+            p.dgeo[static_cast<size_t>(e_ids[g]) * geo_ld + 3 + k] = v0;
+          if (ok1)
+            p.dgeo[static_cast<size_t>(e_ids[g + 8]) * geo_ld + 3 + k] = v1;
+        }
+      }
+    }
+    // dx per edge = dt0 . W0s^T into the D0 slot
+    if (p.out != nullptr) {
+      float* dd = slot(warp, SD);
+      for (int n = 0; n < fp / 8; ++n) {
+        float dx[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          passp::FragA fa;
+          passp::set_a<true>(fa, cc[j][0], cc[j][2], cc[j][1], cc[j][3]);
+          passp::FragB fb;
+          load_bt_perm(fb, wst, ldw, 8 * j, 8 * n);
+          passp::mma3(dx, fa, fb);
+        }
+        *reinterpret_cast<float2*>(dd + g * ld + 8 * n + 2 * t) =
+            make_float2(dx[0], dx[1]);
+        *reinterpret_cast<float2*>(dd + (g + 8) * ld + 8 * n + 2 * t) =
+            make_float2(dx[2], dx[3]);
+      }
+      __syncwarp();
+      // this tile's rows: senders and this lane's columns read first
+      int sv[M];
+      float v0[M], v1[M];
+#pragma unroll
+      for (int e = 0; e < M; ++e) {
+        sv[e] = s_ids[e];
+        v0[e] = lane < f ? dd[e * ld + lane] : 0.f;
+        v1[e] = lane + 32 < f ? dd[e * ld + lane + 32] : 0.f;
+      }
+      int first = -1, row = -1;
+      float a0 = 0.f, a1 = 0.f;
+      auto put = [&](int r, float u0, float u1) {
+        float* o = p.out + static_cast<size_t>(r) * f;
+        if (lane < f) o[lane] = u0;
+        if (lane + 32 < f) o[lane + 32] = u1;
+      };
+#pragma unroll
+      for (int e = 0; e < M; ++e) {
+        const int s = sv[e];
+        if (s < 0 || s < row) continue;   // not a real edge of these rows
+        if (s != row) {
+          if (row == first && row >= 0) {
+            if (lane < f) piece[lane] = a0;
+            if (lane + 32 < f) piece[lane + 32] = a1;
+          } else if (row >= 0) {
+            put(row, a0, a1);             // begins and ends in this tile
+          }
+          if (row >= 0)
+            for (int r = row + 1; r < s; ++r) put(r, 0.f, 0.f);
+          if (first < 0) first = s;
+          row = s;
+          a0 = a1 = 0.f;
+        }
+        a0 += v0[e];
+        a1 += v1[e];
+      }
+      if (row >= 0 && row != first) {
+        if (lane < f) piece[kMaxW + lane] = a0;
+        if (lane + 32 < f) piece[kMaxW + lane + 32] = a1;
+      } else if (row >= 0) {
+        if (lane < f) piece[lane] = a0;
+        if (lane + 32 < f) piece[lane + 32] = a1;
+      }
+      if (lane == 0) {
+        piece_row[0] = first;
+        piece_row[1] = row != first ? row : -1;
+      }
+    }
+    __syncthreads();                                    // B5
+    run_phase(2, q);                                    // dW0s, dW0r, dW0g, db0
+    if (walker) {
+      for (int w = 0; w < kWarps; ++w) {
+        if (q + M * w >= p_end) break;
+        const float* pw = piece + (w - warp) * L.per_warp;
+        const int* rw = piece_row + (w - warp) * L.per_warp;
+        const int hr = rw[0], tr = rw[1];
+        if (hr >= cur) {               // the head: the row carried on, or
+          if (hr != cur) {             // a later one (rows between: none)
+            flush(hr);
+            cur = hr;
+            dx0 = dx1 = 0.f;
+          }
+          if (lane < f) dx0 += pw[lane];
+          if (lane + 32 < f) dx1 += pw[lane + 32];
+        }
+        if (tr > cur) {                // the tail: the rows between the
+          flush(cur + 1);              // head and it are written
+          cur = tr;
+          dx0 = lane < f ? pw[kMaxW + lane] : 0.f;
+          dx1 = lane + 32 < f ? pw[kMaxW + lane + 32] : 0.f;
+        }
+      }
+    }
+    __syncthreads();                                    // B6
+    eid = eid_next;
+    snd = snd_next;
+    rcv = rcv_next;
+  }
+  if (walker && r_begin < r_end) flush(r_end);
+
+  // this block's partial: every entry of the packed layout written once
+  int goff[9];
+  const int gsize = weight_layout(f, h, gp, h, EQUIV, goff);
+  float* G = p.partial + static_cast<size_t>(gsize) * blockIdx.x;
+#pragma unroll
+  for (int k = 0; k < kMaxJobs; ++k) {
+    int pair, mt, nh;
+    if (!job_of(warp + kWarps * k, fp, HP, EQUIV, pair, mt, nh)) continue;
+    const int m0 = 16 * mt, n0 = 8 * NH * nh;
+#pragma unroll
+    for (int n = 0; n < NH; ++n)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const int r = m0 + g + 8 * (v >> 1);
+        const int c = n0 + 8 * n + 2 * t + (v & 1);
+        if (c >= h) continue;
+        const float val = acc[k][n][v];
+        switch (pair) {
+          case 0: if (r < h) G[goff[6] + r * h + c] = val; break;
+          case 1: if (r == gp) G[goff[7] + c] = val; break;
+          case 2: if (r < h) G[goff[4] + r * h + c] = val; break;
+          case 3: if (r == gp) G[goff[5] + c] = val; break;
+          case 4: if (r < f) G[goff[0] + r * h + c] = val; break;
+          case 5: if (r < f) G[goff[1] + r * h + c] = val; break;
+          default:
+            if (r < gp) G[goff[2] + r * h + c] = val;
+            else if (r == gp) G[goff[3] + c] = val;
+            break;
+        }
+      }
+  }
+  if (EQUIV) {
+    // dwc1: the warps' sums, in warp order
+    __syncthreads();
+    for (int c = tid; c < h; c += kThreads) {
+      float v = 0.f;
+      for (int w = 0; w < kWarps; ++w) {
+        const float* sw = reinterpret_cast<const float*>(
+            gtile(w) + M * kLdG + M * kLdRaw + 2 * M);
+        v += sw[c];
+      }
+      G[goff[8] + c] = v;
+    }
+  }
+}
+
+}  // namespace tc
+
 __global__ void egcl_reduce_partials_kernel(const float* __restrict__ partial,
                                             float* __restrict__ out,
                                             int n_parts, int size) {
@@ -580,6 +1374,43 @@ int launch(Params p, int grid, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool EQUIV, int NT>
+int launch_tc(const Params& p, int grid, cudaStream_t st) {
+  const size_t smem = sizeof(float) *
+      static_cast<size_t>(tc::layout(p.f, p.h, EQUIV).total + 4);
+  const cudaError_t err = cudaFuncSetAttribute(
+      tc::pass_p_tc_kernel<EQUIV, NT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  tc::pass_p_tc_kernel<EQUIV, NT><<<grid, tc::kThreads, smem, st>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// pass P's route at these widths on the current device: 1 (route 1, the
+// tensor-core kernel: F, H <= 48, gp <= 15), 2 (the first design), 0 when
+// the device cannot be asked
+int pass_p_route(int f, int h, int gp, bool equiv) {
+  int dev = 0, optin = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return 0;
+  return tc::fits(f, h, gp, equiv, optin) ? 1 : 2;
+}
+
+template <bool EQUIV>
+int launch_pass_p(const Params& p, int grid, cudaStream_t st) {
+  const int route = pass_p_route(p.f, p.h, p.gp, EQUIV);
+  if (route == 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (route == 2) return launch<kPassP, EQUIV>(p, grid, st);
+  switch (tc::round16(p.h)) {
+    case 16: return launch_tc<EQUIV, 2>(p, grid, st);
+    case 32: return launch_tc<EQUIV, 4>(p, grid, st);
+    case 48: return launch_tc<EQUIV, 6>(p, grid, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 template <int MODE>
 int launch_mode(const Params& p, bool equiv, int grid, cudaStream_t st) {
   return equiv ? launch<MODE, true>(p, grid, st)
@@ -595,6 +1426,12 @@ int launch_mode(const Params& p, bool equiv, int grid, cudaStream_t st) {
 extern "C" int hg_egcl_wgrad_size(int f, int h, int gp, int equivariant) {
   int off[9];
   return weight_layout(f, h, gp, h, equivariant != 0, off);
+}
+
+// Pass P's route at these widths (pass_p_route): 1, 2, or 0 when the
+// device cannot be asked.
+extern "C" int hg_egcl_pass_p_route(int f, int h, int gp, int equivariant) {
+  return pass_p_route(f, h, gp, equivariant != 0);
 }
 
 // One EGCL launch; returns the cudaError_t (0 = success).  mode 0: the
@@ -642,7 +1479,8 @@ extern "C" int hg_egcl_f32(
   if (mode == kFwd) return launch_mode<kFwd>(p, equiv, p.n_chunks, st);
   if (mode == kPassS) return launch_mode<kPassS>(p, equiv, p.n_chunks, st);
   const int grid = n_parts < p.n_chunks ? n_parts : p.n_chunks;
-  const int rc = launch_mode<kPassP>(p, equiv, grid, st);
+  const int rc = equiv ? launch_pass_p<true>(p, grid, st)
+                       : launch_pass_p<false>(p, grid, st);
   if (rc != 0) return rc;
   const int size = hg_egcl_wgrad_size(f, h, gp, equivariant);
   egcl_reduce_partials_kernel<<<(size + 255) / 256, 256, 0, st>>>(

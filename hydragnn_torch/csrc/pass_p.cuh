@@ -1,7 +1,9 @@
 // Shared by the kernels that run float32 products on Hopper's tensor cores
-// (scf_mp.cu, cgcnn_mp.cu pass P; row_mlp.cu's backward) and the dn_tri
-// backward: products in 3xTF32 (sm_80+ mma.sync), compensated sums, and
-// the fixed-order reductions of per-block partials.
+// (scf_mp.cu, cgcnn_mp.cu and egcl_mp.cu pass P; row_mlp.cu's backward;
+// dn_tri_builder.cu's forward) and the dn_tri backward: products in
+// 3xTF32 (sm_80+ mma.sync), compensated sums, the fixed-order reductions
+// of per-block partials, and the shares of rows that warps or blocks
+// take.
 //
 // Each float32 operand x is split as hi = tf32(x), lo = tf32(x - hi) (x - hi
 // is exact in float32), and a*b is taken as lo_a*hi_b + hi_a*lo_b +
@@ -213,6 +215,51 @@ __global__ void reduce_slices_kernel(const float* __restrict__ part,
   float v = 0.f;
   for (int s = 0; s < n_slices; ++s) v += part[s * stride + i];
   out[i] = v;
+}
+
+// The rows [begin, end) of share `part` of `n_parts` over the rows [0, n)
+// of a CSR schedule: share i begins at the least r in [0, n] with
+// row_ptr[r] + r >= floor(i * (row_ptr[n] + n) / n_parts).  Each row weighs
+// one (its output) plus its entries, so the shares balance both, and no
+// row splits; share n_parts begins at n.  Found by the whole warp (called
+// with every lane), each half-warp searching one bound with 16 probes a
+// round; every lane returns the same rows.  ops/aggregate.py:row_shares
+// writes the same plan out.
+__device__ __forceinline__ void share_range(const int* row_ptr, int n,
+                                            int part, int n_parts,
+                                            int& begin, int& end) {
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31, half = lane >> 4, hl = lane & 15;
+  const long long total = static_cast<long long>(__ldg(row_ptr + n)) + n;
+  const long long target = total * (part + half) / n_parts;
+  int lo = 0, hi = n;  // this half's row lies in [lo, hi]; key(hi) >= target
+  while (__any_sync(full, lo < hi)) {
+    const int step = (hi - lo + 15) >> 4;
+    const int r = min(lo + hl * step, hi);
+    const bool ok = static_cast<long long>(__ldg(row_ptr + r)) + r >= target;
+    const unsigned m = (__ballot_sync(full, ok) >> (16 * half)) & 0xffffu;
+    if (lo < hi) {
+      if (m == 0u) {
+        lo = min(lo + 15 * step, hi) + 1;  // past the last probe
+      } else {
+        const int j = __ffs(m) - 1;
+        const int rj = min(lo + j * step, hi);
+        lo = j == 0 ? rj : min(lo + (j - 1) * step, hi) + 1;
+        hi = rj;
+      }
+    }
+  }
+  begin = __shfl_sync(full, lo, 0);
+  end = __shfl_sync(full, lo, 16);
+}
+
+// the least row stride >= n (n a multiple of 8) that is 8 or 24 mod 32
+// floats: a fragment's float2 accesses along rows (row g, column 2t) and
+// its scalar accesses down columns (row t, column g) then hit 32
+// different banks
+__host__ __device__ inline int frag_ld(int n) {
+  const int m = n & 31;
+  return (m == 8 || m == 24) ? n : n + 8;
 }
 
 // the two reductions of a pass-P launch: the parts onto `wgrad`, and,

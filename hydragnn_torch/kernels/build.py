@@ -61,6 +61,7 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         "hg_egcl_f32": (_I, _I) + (_P,) * 22 + (_I,) * 5 + (_P,),
         # f, h, gp, equivariant
         "hg_egcl_wgrad_size": (_I,) * 4,
+        "hg_egcl_pass_p_route": (_I,) * 4,
     },
     "gat_mp": {
         # mode, xl, xr, att, send, recv, perm, row_ptr, b, m, ga, gd, out,
@@ -94,6 +95,7 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         "hg_dn_tri_builder_f32": (_I,) + (_P,) * 13 + (_I,) * 5 + (_P,),
         # sr, b, d
         "hg_dn_tri_builder_wgrad_size": (_I,) * 3,
+        "hg_dn_tri_builder_fwd_route": (_I,) * 3,
     },
     "row_mlp": {
         # mode, tri, xji, xe, w, bias, gout, out, dtri, dxji, dxe, partial,

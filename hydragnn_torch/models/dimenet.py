@@ -629,7 +629,6 @@ class DimeNetConv(nn.Module):
 
     def _forward(self, x, pos, g):
         n = x.shape[0]
-        src, dst = g.senders.long(), g.receivers.long()
         ex = g.extras
         idx_kj, idx_ji = ex["dn_idx_kj"], ex["dn_idx_ji"]
         tmask = ex["dn_triplet_mask"]
@@ -651,8 +650,12 @@ class DimeNetConv(nn.Module):
 
         h = self.lin_in(x)
         rbf_e = F.silu(self.emb_lin_rbf(rbf))
-        x_edge = F.silu(self.emb_lin(torch.cat([h[dst], h[src], rbf_e],
-                                               dim=-1)))
+        # the embedding's gathers: with collate's marker their backward is
+        # the sorted-segment kernel (receivers sorted; senders through the
+        # sender permutation), else the plain gather's
+        x_edge = F.silu(self.emb_lin(torch.cat(
+            [segment.gather_receiver_sorted(h, g),
+             segment.gather_sender(h, g), rbf_e], dim=-1)))
         sorted_hint = bool(ex and "edge_perm_sender" in ex)
         tri_w = ex.get("dn_tri_window")
         x_edge = self.interaction(

@@ -79,6 +79,25 @@ def segment_offsets(ids: torch.Tensor, num_segments: int,
     return torch.searchsorted(ids, bounds, out_int32=True)
 
 
+def row_shares(row_ptr: torch.Tensor, n_parts: int) -> torch.Tensor:
+    """The first row of each of ``n_parts`` shares of a CSR schedule's rows,
+    then ``n``: share ``i`` owns rows ``[b[i], b[i + 1])``.
+
+    Each row weighs one (its output row) plus its entries, and share ``i``
+    begins at the least row ``r`` whose weight before it, ``row_ptr[r] +
+    r``, reaches ``floor(i * (row_ptr[n] + n) / n_parts)``: the shares
+    balance entries and rows, and a row never splits.  The kernels that
+    give each warp (the builder forward) or each block (egcl pass P) one
+    share find the same rows on the card (``passp::share_range``,
+    csrc/pass_p.cuh); this is their plan written out, for the tests."""
+    n = row_ptr.shape[0] - 1
+    key = row_ptr.to(torch.int64).cpu() + torch.arange(n + 1)
+    total = int(key[-1])
+    targets = torch.tensor([total * i // n_parts for i in range(n_parts + 1)],
+                           dtype=torch.int64)
+    return torch.searchsorted(key, targets)
+
+
 def segment_sum_onehot(data, segment_ids, num_segments):
     """``onehot[e, n]^T @ data`` in full float32."""
     shape = data.shape

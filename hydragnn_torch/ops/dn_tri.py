@@ -50,7 +50,10 @@ The builder-backed op (the reference's fused-block builder with the
 
 with ``sbf [T, S*R]`` the full per-triplet spherical basis.  Three kernels
 in csrc/dn_tri_builder.cu, none of which writes a ``[T, D]`` or ``[T, B]``
-tensor to device memory: the forward in ``idx_ji`` order; pass S in
+tensor to device memory: the forward in ``idx_ji`` order (two routes by
+width, :func:`builder_fwd_route`: tensor cores with each warp on its own
+share of the rows, :func:`~hydragnn_torch.ops.aggregate.row_shares`, or
+the first design); pass S in
 ``idx_kj`` order through ``perm_kj`` (each row k owns ``d_x_kj[k]``,
 ``d_sbf`` goes to each triplet's own slot); pass P in ``idx_ji`` order
 (``dk1``, ``dk2`` in per-block partials over slices of B, reduced in a
@@ -380,6 +383,32 @@ def dimenet_tri_builder_bwd_plain(x_kj, sbf, tmask, k1, k2, idx_kj, idx_ji,
 # the builder-backed op: kernel launches (CUDA tensors only)
 # ---------------------------------------------------------------------------
 
+# the builder forward's route 1 (csrc/dn_tri_builder.cu fwd_tc_kernel):
+# B and S*R up to these, D a multiple of 8
+BUILDER_TC_B = 8
+BUILDER_TC_SR = 64
+
+
+def builder_fwd_route(sr, b, d):
+    """The builder forward's route at these widths: 1 (fwd_tc_kernel:
+    tensor cores in 3xTF32, each warp on its own share of the rows, cp.async
+    rings) at B <= 8, S*R <= 64 and D a multiple of 8, DimeNet++'s QM9
+    widths (42, 8, 128) among them; 2 (the first design, tri_rows_kernel)
+    past that.  The C side (``hg_dn_tri_builder_fwd_route``) decides on
+    the card and also checks that a block's shared memory holds route 1,
+    which an H100's does at every width this gives; a card test holds
+    the two together."""
+    if b <= BUILDER_TC_B and sr <= BUILDER_TC_SR and d % 8 == 0:
+        return 1
+    return 2
+
+
+def _aligned(t):
+    """``t``, or a copy of it on a 16-byte boundary: the kernels' cp.async
+    row copies need it (a view may start anywhere)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def check_builder_widths(sr, b, d):
     if not (1 <= sr <= TRI_SBF_LIMIT and 1 <= b <= TRI_EMB_LIMIT
             and 1 <= d <= TRI_EMB_LIMIT):
@@ -425,6 +454,7 @@ def launch_dn_tri_builder(op, x_kj, sbf, k1, k2, idx_kj, idx_ji, perm,
     if e >= 2**31 or t >= 2**31:
         raise ValueError("the kernel indexes edges and triplets with int32")
     lib = load_library("dn_tri_builder")
+    x_kj, sbf = _aligned(x_kj), _aligned(sbf)
     out = d_sbf = partial = wgrad = None
     n_parts = 0
     if mode == 0:

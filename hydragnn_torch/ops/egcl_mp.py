@@ -21,7 +21,11 @@ memory:
 - pass P (``_bwd_p_kernel``): sender order, recompute, backpropagate the
   cotangents ``dagg[s]``, ``dpsum[s]`` and write ``dx`` of the sender side,
   the per-edge ``dgeo`` and the weight gradients (one float32 partial per
-  thread block, reduced in a fixed order);
+  thread block, reduced in a fixed order).  Two routes by width
+  (:func:`pass_p_route`): the tensor cores in 3xTF32 with each block on
+  one share of the sender rows (:func:`~hydragnn_torch.ops.aggregate.
+  row_shares`) and the weight gradients in registers, job by job
+  (:func:`pass_p_jobs`), or the first design;
 - pass S (``_bwd_s_kernel``): receiver order, recompute, ``dx`` of the
   receiver side.
 
@@ -202,6 +206,57 @@ def check_widths(f, h, geo_dim):
             f"the egcl kernels take F <= {EGCL_F_LIMIT}, H <= {EGCL_H_LIMIT} "
             f"and 4 <= geo lanes <= {EGCL_GEO_LIMIT}, got F={f}, H={h}, "
             f"geo={geo_dim}")
+
+
+# pass P's route 1 (csrc/egcl_mp.cu tc::pass_p_tc_kernel): F and H, padded
+# to 16, up to this; G' holds the gp geometry lanes and a ones column
+EGCL_TC_WIDTH = 48
+EGCL_TC_GEO = 16
+EGCL_TC_WARPS = 8
+EGCL_TC_JOBS = 4
+
+
+def _round16(n):
+    return (n + 15) // 16 * 16
+
+
+def pass_p_jobs(f, h, gp, equivariant):
+    """Route 1's weight-gradient jobs, in the order the kernel numbers them
+    (warp ``w`` of a block takes jobs ``w``, ``w + 8``, ...): one per
+    (product, 16-row tile of its A operand, half of its 16-column-padded
+    H), each ``(phase, name, row0, col0, cols)``.  The products, by phase:
+    0 ``m^T du0`` (dWc0) and ``G'^T du0`` (its ones row: dbc0), only when
+    equivariant; 1 ``a^T du`` (dW1) and ``G'^T du`` (db1); 2 ``x[s]^T dt0``
+    (dW0s), ``x[r]^T dt0`` (dW0r) and ``G'^T dt0`` (its first gp rows dW0g,
+    its ones row db0).  ``G'`` has 16 columns: the gp geometry lanes, the
+    ones column, zeros."""
+    fp, hp = _round16(f), _round16(h)
+    pairs = [(0, "wc0", hp), (0, "bc0", 16), (1, "w1", hp), (1, "b1", 16),
+             (2, "w0s", fp), (2, "w0r", fp), (2, "w0g", 16)]
+    jobs = []
+    for phase, name, rows in pairs:
+        if phase == 0 and not equivariant:
+            continue
+        for mt in range(rows // 16):
+            for nh in range(2):
+                jobs.append((phase, name, 16 * mt, nh * hp // 2, hp // 2))
+    return jobs
+
+
+def pass_p_route(f, h, gp, equivariant=True):
+    """Pass P's route at these widths: 1 (the tensor-core kernel) at F, H <=
+    48 and gp <= 15 with at most 4 jobs a warp (:func:`pass_p_jobs`), every
+    instantiation md17's and oc22's paths launch; 2 (the first design)
+    past that, H = 128 among them.  The C side (``hg_egcl_pass_p_route``)
+    decides on the card and also checks that a block's shared memory holds
+    route 1 (at most 211 KiB, which an H100's does); a card test holds the
+    two together."""
+    if (_round16(f) <= EGCL_TC_WIDTH and _round16(h) <= EGCL_TC_WIDTH
+            and gp + 1 <= EGCL_TC_GEO
+            and len(pass_p_jobs(f, h, gp, equivariant))
+            <= EGCL_TC_WARPS * EGCL_TC_JOBS):
+        return 1
+    return 2
 
 
 def kernel_weights(equivariant, w0, b0, w1, b1, wc0, bc0, wc1, f, h, dev):

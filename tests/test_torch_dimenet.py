@@ -628,6 +628,49 @@ def test_port_branches_agree_and_params_round_trip(monkeypatch):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
 
 
+def test_embedding_gathers_take_the_sorted_segment_backward(monkeypatch):
+    """With collate's marker the embedding block's h[dst] and h[src] are
+    the dense-backward gathers (their backward the sorted-segment sum,
+    padding edges left out): the model's outputs and every parameter
+    gradient equal those of the plain gathers (1e-5 of each one's largest
+    entry); both gathers are taken once per conv."""
+    monkeypatch.setenv("HYDRAGNN_AGGR_BACKEND", "fused")
+    _, gt = _both(_raw(seed=9))
+    assert "edge_perm_sender" in gt.extras
+    _, tc = _cfgs(hidden=12, convs=2)
+    calls = []
+    dense_apply = tseg._GatherDenseBwd.apply
+
+    def spy(*a):
+        calls.append(a[2] is None)
+        return dense_apply(*a)
+
+    def run(plain):
+        if plain:
+            monkeypatch.setattr(tseg, "gather_receiver_sorted",
+                                lambda x, g: x[g.receivers.long()])
+            monkeypatch.setattr(tseg, "gather_sender",
+                                lambda x, g: x[g.senders.long()])
+        tm = t_create_model(tc, seed=5)
+        tm.train()
+        out = tm(gt)[0]
+        (out * torch.linspace(-1.0, 1.0, out.numel()).reshape(out.shape)
+         ).sum().backward()
+        return out.detach(), [q.grad.clone() for q in tm.parameters()]
+
+    monkeypatch.setattr(tseg._GatherDenseBwd, "apply", spy)
+    got = run(False)
+    # receivers: no permutation; senders: through it; once per conv
+    assert sorted(calls) == [False, False, True, True]
+    calls.clear()
+    want = run(True)
+    assert not calls
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
+    for a, b in zip(got[1], want[1]):
+        scale = float(b.abs().max())
+        assert float((a - b).abs().max()) <= 1e-5 * max(scale, 1e-30)
+
+
 def test_builder_width_raises_and_fallbacks_are_tallied(monkeypatch):
     """Past the factored gate but within one lane tile (S*R = 70) the
     reference takes the builder's dn_tri spec, and so does the port: the

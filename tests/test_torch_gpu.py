@@ -15,7 +15,9 @@ kernels through their autograd Function, the SchNet forward, three
 training steps at the flagship width and the wide one, the two poly
 kernels at every width gate (forward and, through their autograd
 Functions, backward with ties), three PNA/GIN/SAGE/MFC training steps,
-the three egcl kernels at every width the EGNN gate admits, three
+the three egcl kernels at every width the EGNN gate admits (both routes
+of pass P, a float64 yardstick, a NaN in the cotangent) and on an
+all-masked batch, three
 EGNN training steps at md17's widths, the three GAT kernels at H*F from 32
 to the kernel limit of 1024, with and without dropout bits, three GAT
 training steps in lockstep, the three cgcnn kernels at F from 1 to the
@@ -24,7 +26,8 @@ steps in lockstep at F = 64, the pallas backend's two segment sums, a
 double backward through the linear Functions, card against CPU, the
 dn_tri and row_mlp kernels at every width their gates admit, three
 DimeNet training steps in lockstep at the arch sweep's widths, the
-builder's three kernels from the dimenet_wide cell's widths to the limits,
+builder's three kernels from the dimenet_wide cell's widths to the limits
+(both routes of the forward, a float64 yardstick, NaNs in its inputs),
 and three DimeNet training steps at dimenet_wide's widths in lockstep,
 with and without HYDRAGNN_DIMENET_REMAT.
 """
@@ -606,15 +609,27 @@ def test_egcl_kernels_match_plain_on_card(cuda, f, h, a, equivariant):
     plain version, at every width the gate admits that the main path and
     the limits give: F = 1 (layer 0 on one node feature), 48 and 128; H =
     32, 48 (not a multiple of 32), 64 and 128 (weights streamed from L2);
-    with and without edge attributes.  Forward, dx and dgeo 1e-5 of their
-    largest entry, the edge-summed weight grads 1e-4; dgeo exactly zero on
-    masked edges; a second run bit-identical.  The biases are moved off
-    the ReLU kinks first (``chip_smoke.egcl_off_kinks``): an edge whose
-    ReLU input lies within float32 rounding of zero takes either branch
-    in two correct computations."""
+    with and without edge attributes.  Pass P takes route 1 (tensor cores)
+    at F, H <= 48 — md17's layers 0-3 and oc22's widths among them — and
+    route 2 (the first design) past that, the card's choice the plan's
+    (``pass_p_route``).  Forward, dx and dgeo 1e-5 of their largest entry,
+    against the float32 plain version and against a float64 run of it;
+    the edge-summed weight grads 1e-4; on route 1 every output and
+    gradient also within the float64 bound (:func:`_float64_yardstick`);
+    dgeo exactly zero on masked edges; a second run bit-identical; a NaN
+    in the cotangent of agg in the same output and gradient entries as in
+    the composed chain.  The biases are moved off the ReLU kinks first
+    (``chip_smoke.egcl_off_kinks``): an edge whose ReLU input lies within
+    float32 rounding of zero takes either branch in two correct
+    computations."""
     from chip_smoke import egcl_off_kinks
+    from hydragnn_torch.kernels.build import load_library
     from hydragnn_torch.ops import egcl_mp
 
+    route = egcl_mp.pass_p_route(f, h, 1 + a, equivariant)
+    assert load_library("egcl_mp").hg_egcl_pass_p_route(
+        f, h, 1 + a, int(equivariant)) == route
+    assert route == (1 if f <= 48 and h <= 48 else 2)
     b = _graph_batch(11 + f + h + a)
     ins, (ca, cp) = _egcl_inputs(b, f, h, a, equivariant, seed=3)
     ins, _ = egcl_off_kinks(torch, equivariant, ins, _t(b["senders"]),
@@ -625,14 +640,14 @@ def test_egcl_kernels_match_plain_on_card(cuda, f, h, a, equivariant):
     perm = _t(b["perm"]).to(cuda)
     em = _t(b["edge_mask"]).to(torch.int32).to(cuda)
 
-    def run(fn):
-        ts = [t.detach().clone().requires_grad_(True) for t in ins]
+    def run(fn, inputs=ins, c_agg=ca):
+        ts = [t.detach().clone().requires_grad_(True) for t in inputs]
         full = ts + [None] * (9 - len(ts))
         agg, psum = fn(equivariant, full[0], full[1], em, *full[2:], send,
                        recv)
-        loss = (agg * ca).sum()
+        loss = (agg * c_agg.to(agg.dtype)).sum()
         if equivariant:
-            loss = loss + (psum * cp).sum()
+            loss = loss + (psum * cp.to(psum.dtype)).sum()
         loss.backward()
         torch.cuda.synchronize()
         outs = [agg.detach()] + ([psum.detach()] if equivariant else [])
@@ -646,17 +661,70 @@ def test_egcl_kernels_match_plain_on_card(cuda, f, h, a, equivariant):
     for x_, y_ in zip(k_out + k_grads, again_out + again_grads):
         assert torch.equal(x_, y_)
     p_out, p_grads = run(egcl_mp.egcl_block_reference)
-    for x_, y_ in zip(k_out, p_out):
+    p64_out, p64_grads = run(egcl_mp.egcl_block_reference,
+                             [t.double() for t in ins])
+    for i, (x_, y_, z_) in enumerate(zip(k_out, p_out, p64_out)):
         assert float((x_ - y_).abs().max()) <= 1e-5 * float(y_.abs().max())
+        assert float((x_.double() - z_).abs().max()) <= 1e-5 * float(
+            z_.abs().max())
+        if route == 1:
+            _float64_yardstick(f"out {i}", x_, y_, z_)
     real = em.bool()
     names = ("x", "geo", "w0", "b0", "w1", "b1", "wc0", "bc0", "wc1")
-    for name, x_, y_ in zip(names, k_grads, p_grads):
+    for name, x_, y_, z_ in zip(names, k_grads, p_grads, p64_grads):
         if name == "geo":
             assert bool((x_[~real] == 0).all())
-            x_, y_ = x_[real], y_[real]
+            x_, y_, z_ = x_[real], y_[real], z_[real]
         rel = 1e-5 if name in ("x", "geo") else 1e-4
         assert float((x_ - y_).abs().max()) <= rel * float(y_.abs().max()), \
             name
+        if name in ("x", "geo"):
+            assert float((x_.double() - z_).abs().max()) <= 1e-5 * float(
+                z_.abs().max()), name
+        if route == 1:
+            _float64_yardstick(name, x_, y_, z_)
+    # NaNs in the cotangent (one sender's whole row, so that some of its
+    # edges pass the ReLU masks) reach the same entries as in the composed
+    # chain: the products' hi/lo split keeps them, the masks select
+    c_nan = ca.clone()
+    c_nan[int(send[0])] = float("nan")
+    kn = run(lambda *a_: egcl_mp.egcl_block(*a_, perm), c_agg=c_nan)
+    pn = run(egcl_mp.egcl_block_reference, c_agg=c_nan)
+    assert any(bool(torch.isnan(y_).any()) for y_ in pn[1])
+    for name, x_, y_ in zip(names, kn[1], pn[1]):
+        assert torch.equal(torch.isnan(x_), torch.isnan(y_)), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f,h,equivariant", [(48, 48, True), (1, 48, True),
+                                             (48, 48, False),
+                                             (128, 128, True)])
+def test_egcl_pass_p_all_masked_on_card(cuda, f, h, equivariant):
+    """Every edge masked (parked on the last node): the forward's rows and
+    pass P's and pass S's every output and gradient exactly zero, on both
+    routes of pass P."""
+    from hydragnn_torch.ops import egcl_mp
+
+    b = _graph_batch(5 + f + h)
+    ins, (ca, cp) = _egcl_inputs(b, f, h, 0, equivariant, seed=4)
+    ins = [t.to(cuda) for t in ins]
+    n = ins[0].shape[0]
+    send = torch.full_like(_t(b["senders"]), n - 1).to(cuda)
+    recv = send.clone()
+    em = torch.zeros(len(send), dtype=torch.int32, device=cuda)
+    perm = torch.arange(len(send), dtype=torch.int32, device=cuda)
+    ts = [t.detach().clone().requires_grad_(True) for t in ins]
+    full = ts + [None] * (9 - len(ts))
+    agg, psum = egcl_mp.egcl_block(equivariant, full[0], full[1], em,
+                                   *full[2:], send, recv, perm)
+    loss = (agg * ca.to(cuda)).sum()
+    if equivariant:
+        loss = loss + (psum * cp.to(cuda)).sum()
+    loss.backward()
+    torch.cuda.synchronize()
+    assert float(agg.abs().max()) == 0
+    for t in ts:
+        assert float(t.grad.abs().max()) == 0
 
 
 @pytest.mark.gpu
@@ -1333,19 +1401,32 @@ def test_dimenet_kernels_refuse_what_they_do_not_take(cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("all_masked", [False, True],
                          ids=["masked-tail", "all-masked"])
-@pytest.mark.parametrize("sr,b,d", [(42, 8, 128), (21, 8, 96), (70, 8, 64),
+@pytest.mark.parametrize("sr,b,d", [(42, 8, 128), (21, 8, 96), (43, 5, 24),
+                                    (64, 8, 8), (70, 8, 64),
                                     (126, 128, 128), (127, 33, 1)])
 def test_dn_tri_builder_kernels_match_plain_on_card(cuda, sr, b, d,
                                                     all_masked):
     """The builder's forward, pass S and pass P through the autograd
     Function against autograd through the composed plain version: the
     dimenet_wide cell's widths (S*R = 42, B = 8, D = 128), the JAX tests'
-    (21, 8, 96) and (70, 8, 64), the limits (126, 128, 128: four slices of
-    B in pass P) and a ragged slice (127, 33, 1).  Forward, d x_kj and
-    d sbf 1e-5 of their largest entry, the triplet-summed dk1, dk2 1e-4;
-    d sbf exactly zero on masked triplets; a second run bit-identical."""
+    (21, 8, 96), an odd S*R with B < 8 (43, 5, 24) and route 1's limits
+    (64, 8, 8) — the forward's route 1, tensor cores — then (70, 8, 64),
+    the limits (126, 128, 128: four slices of B in pass P) and a ragged
+    slice (127, 33, 1) on route 2, the first design; the card's route the
+    plan's (``builder_fwd_route``).  Forward, d x_kj and d sbf 1e-5 of
+    their largest entry, the triplet-summed dk1, dk2 1e-4; the forward
+    also 1e-5 against a float64 run of the plain version and, on route 1,
+    within the float64 bound (:func:`_float64_yardstick`); d sbf exactly
+    zero on masked triplets; a second run bit-identical; a NaN in x_kj and
+    one in sbf in the same output entries as in the composed forward."""
+    from hydragnn_torch.kernels.build import load_library
     from hydragnn_torch.ops import dn_tri
 
+    route = dn_tri.builder_fwd_route(sr, b, d)
+    assert load_library("dn_tri_builder").hg_dn_tri_builder_fwd_route(
+        sr, b, d) == route
+    assert route == (1 if (sr, b, d) in ((42, 8, 128), (21, 8, 96),
+                                         (43, 5, 24), (64, 8, 8)) else 2)
     e, t = 700, 6000
     kj, ji, tm, perm = (_t(a).to(cuda) for a in
                         _dimenet_tables(e, t, 1, 7 + sr + b))
@@ -1387,6 +1468,28 @@ def test_dn_tri_builder_kernels_match_plain_on_card(cuda, sr, b, d,
         rel = 1e-5 if name in ("out", "x_kj", "sbf") else 1e-4
         assert float((x_ - y_).abs().max()) <= rel * float(y_.abs().max()), \
             name
+    if all_masked:
+        return
+    with torch.no_grad():
+        p64 = dn_tri.dimenet_tri_builder_reference(
+            *(x.double() for x in ins[:2]), tm,
+            *(x.double() for x in ins[2:]), kj, ji)
+    assert float((k[0].double() - p64).abs().max()) <= 1e-5 * float(
+        p64.abs().max())
+    if route == 1:
+        _float64_yardstick("out", k[0], p[0], p64)
+    # NaNs in the inputs reach the same output entries: a gathered row's
+    # column, and a whole triplet's message through its basis row
+    real = int(tm.sum())
+    ins[0][int(kj[real // 2]), d // 2] = float("nan")
+    ins[1][real // 3, 0] = float("nan")
+    with torch.no_grad():
+        kn = kern(ins[0], ins[1], tm, ins[2], ins[3], kj, ji)
+        pn = dn_tri.dimenet_tri_builder_reference(ins[0], ins[1], tm,
+                                                  ins[2], ins[3], kj, ji)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(pn).any())
+    assert torch.equal(torch.isnan(kn), torch.isnan(pn))
 
 
 @pytest.mark.gpu
@@ -1500,12 +1603,13 @@ def test_dimenet_train_steps_on_card_match_cpu(cuda, monkeypatch):
     """DimeNet at the arch sweep's widths (hidden 64, 4 convs, S = 7, R =
     6, B = 8, int_emb = out_emb = 64, one pair before the skip, two after)
     in lockstep.  Per step 4 dn_tri forward and backward, 4 row_mlp
-    forward and backward, 5 segment sums (4 output blocks and the pool)."""
+    forward and backward, 13 segment sums (4 output blocks, the pool and
+    the backward of each conv's two embedding gathers)."""
     counted = _dimenet_steps(cuda, monkeypatch, dict(
         hidden_dim=64, graph_head=_dimenet_head(64), num_radial=6,
         basis_emb_size=8, int_emb_size=64, out_emb_size=64))
     assert counted == {
-        "segment_sum_dense": 15, "dimenet_triplet_mp": 12,
+        "segment_sum_dense": 39, "dimenet_triplet_mp": 12,
         "dimenet_triplet_mp_bwd": 12, "dimenet_post_mlp": 12,
         "dimenet_post_mlp_bwd": 12}
 
@@ -1519,15 +1623,16 @@ def test_dimenet_wide_train_steps_on_card_match_cpu(cuda, monkeypatch,
     in lockstep (two float32 runs of it part within an epoch:
     backend_drift.py DimeNet_wide), with and without
     HYDRAGNN_DIMENET_REMAT.  Per step 4 builder forwards, 4 pass S, 4 pass
-    P, 5 segment sums (under REMAT the backward runs each conv again: 8
-    forwards, 9 sums); no factored kernel and no row tail."""
+    P, 13 segment sums (output blocks, pool, the embedding gathers'
+    backward; under REMAT the backward runs each conv again: 8 forwards,
+    17 sums); no factored kernel and no row tail."""
     counted = _dimenet_steps(cuda, monkeypatch, dict(
         hidden_dim=128, graph_head=_dimenet_head(128), num_radial=6,
         basis_emb_size=8, int_emb_size=128, out_emb_size=256), remat=remat)
     # under REMAT each conv's four output-block sums run again, the pool
     # (outside the convs) does not
     assert counted == {
-        "segment_sum_dense": 27 if remat else 15,
+        "segment_sum_dense": 51 if remat else 39,
         "dimenet_tri_builder": 24 if remat else 12,
         "dimenet_tri_builder_bwd_s": 12, "dimenet_tri_builder_bwd_p": 12}
 

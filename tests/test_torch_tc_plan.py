@@ -1,0 +1,263 @@
+"""Host-side planning of the builder forward's and egcl pass P's
+tensor-core routes (hydragnn_torch/ops/dn_tri.py, ops/egcl_mp.py,
+ops/aggregate.py ``row_shares``): the route by width, the shares of rows
+that the kernels' warps (builder forward) or blocks (egcl pass P) take,
+and the weight-gradient jobs of egcl pass P.
+
+The kernels only run on the card; here each share's part is computed by
+the plain version on the rows (and their triplets or edges) the share
+gives it, and written, as the kernel writes it, at its own output rows or
+at its own entries of the part's partial in the packed layout of the
+weight gradients; the parts are then summed in order, as the reduce
+kernel sums them.  Every entry must be written exactly once per part, and
+the result must equal the plain version over the whole batch (1e-5 of the
+largest entry: the same float32 sums in another order).  Small random
+graphs on the CPU, in seconds.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from hydragnn_torch.ops import dn_tri, egcl_mp
+from hydragnn_torch.ops.aggregate import row_shares, segment_offsets
+
+
+def _close(got, want):
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-5 * max(scale, 1e-30)
+
+
+def _every_entry_once(entries, size):
+    count = torch.zeros(size, dtype=torch.long)
+    for idx in entries:
+        count.index_add_(0, idx, torch.ones_like(idx))
+    assert bool((count == 1).all())
+
+
+@pytest.mark.parametrize("sr,b,d,route", [
+    (42, 8, 128, 1), (70, 8, 64, 2), (126, 128, 128, 2), (21, 8, 96, 1),
+    (64, 8, 128, 1), (65, 8, 128, 2), (42, 9, 128, 2), (42, 8, 100, 2),
+    (127, 33, 1, 2), (1, 1, 8, 1)])
+def test_builder_forward_route_by_width(sr, b, d, route):
+    """Route 1 (tensor cores) at B <= 8, S*R <= 64 and D a multiple of 8:
+    DimeNet++'s QM9 widths (42, 8, 128) and the JAX tests' (21, 8, 96);
+    the first design past that, the limits (126, 128, 128) and (70, 8, 64)
+    among them."""
+    assert dn_tri.builder_fwd_route(sr, b, d) == route
+
+
+def _shares_ok(row_ptr, n_parts):
+    """row_shares: contiguous runs from row 0 to row n, each starting
+    where its weight (rows plus entries before it) reaches its target."""
+    b = row_shares(row_ptr, n_parts)
+    n = row_ptr.shape[0] - 1
+    assert b.shape == (n_parts + 1,)
+    assert int(b[0]) == 0 and int(b[-1]) == n
+    assert bool((b[1:] >= b[:-1]).all())
+    key = row_ptr.long() + torch.arange(n + 1)
+    total = int(key[-1])
+    for i in range(n_parts + 1):
+        target = total * i // n_parts
+        r = int(b[i])
+        assert int(key[r]) >= target
+        assert r == 0 or int(key[r - 1]) < target
+    return b
+
+
+@pytest.mark.parametrize("n_parts", [1, 3, 64, 500])
+def test_row_shares_cover_every_row_once(n_parts):
+    """Every row in exactly one share (a share may be empty), on a CSR
+    schedule with a hub row, rows without entries and padding rows last;
+    with no entries at all the rows still split evenly."""
+    rng = np.random.RandomState(n_parts)
+    counts = rng.poisson(6, 120)
+    counts[7] = 300
+    counts[50:60] = 0
+    counts[-5:] = 0
+    row_ptr = torch.from_numpy(np.concatenate([[0], np.cumsum(counts)]))
+    b = _shares_ok(row_ptr.int(), n_parts)
+    seen = torch.zeros(120, dtype=torch.long)
+    for i in range(n_parts):
+        seen[int(b[i]):int(b[i + 1])] += 1
+    assert bool((seen == 1).all())
+    empty = _shares_ok(torch.zeros(121, dtype=torch.int32), n_parts)
+    sizes = (empty[1:] - empty[:-1]).tolist()
+    assert max(sizes) - min(sizes) <= 1
+
+
+@pytest.mark.parametrize("n_parts", [1, 7, 200])
+def test_builder_forward_shares_sum_to_plain(n_parts):
+    """The forward's partition emulated with the plain version: warp i of
+    ``n_parts`` takes rows [b_i, b_{i+1}) and their triplets (ji order);
+    its rows, written once each, make up the forward over the batch."""
+    rng = np.random.RandomState(n_parts)
+    e, t, sr, b, d = 90, 700, 42, 8, 16
+    real = 600
+    ji = np.sort(rng.randint(0, e - 1, real))
+    kj = rng.randint(0, e - 1, real)
+    idx_ji = torch.from_numpy(np.concatenate([ji, np.full(t - real, e - 1)])
+                              ).int()
+    idx_kj = torch.from_numpy(np.concatenate([kj, np.full(t - real, e - 1)])
+                              ).int()
+    tm = (torch.arange(t) < real).int()
+    x = torch.from_numpy(rng.randn(e, d).astype(np.float32))
+    sbf = torch.from_numpy(rng.randn(t, sr).astype(np.float32))
+    k1 = torch.from_numpy((rng.randn(sr, b) / 6).astype(np.float32))
+    k2 = torch.from_numpy((rng.randn(b, d) / 3).astype(np.float32))
+    bounds = _shares_ok(segment_offsets(idx_ji, e, tm), n_parts)
+    out = torch.full((e, d), float("nan"))
+    written = torch.zeros(e, dtype=torch.long)
+    for i in range(n_parts):
+        r0, r1 = int(bounds[i]), int(bounds[i + 1])
+        share = tm * ((idx_ji >= r0) & (idx_ji < r1)).int()
+        part = dn_tri.dimenet_tri_builder_reference(x, sbf, share, k1, k2,
+                                                    idx_kj, idx_ji)
+        out[r0:r1] = part[r0:r1]
+        written[r0:r1] += 1
+    assert bool((written == 1).all())
+    _close(out, dn_tri.dimenet_tri_builder_reference(x, sbf, tm, k1, k2,
+                                                     idx_kj, idx_ji))
+
+
+@pytest.mark.parametrize("f,h,gp,eq,route", [
+    (48, 48, 1, True, 1), (48, 48, 1, False, 1), (1, 48, 1, True, 1),
+    (32, 32, 1, True, 1), (32, 32, 4, True, 1), (1, 32, 4, False, 1),
+    (48, 33, 1, True, 1), (8, 8, 15, True, 1), (8, 8, 16, True, 2),
+    (48, 64, 1, True, 2), (64, 48, 1, True, 2), (128, 128, 4, True, 2),
+    (128, 32, 1, True, 2)])
+def test_egcl_pass_p_route_by_width(f, h, gp, eq, route):
+    """Route 1 (tensor cores) at F, H <= 48 and gp <= 15: md17's layers
+    (48, 48, equivariant or not; F = 1) and oc22's (32, 32); the first
+    design past that, H = 64 and the limit 128 among them."""
+    assert egcl_mp.pass_p_route(f, h, gp, eq) == route
+
+
+def _egcl_offsets(f, h, gp, eq):
+    """The packed weight gradients' blocks (csrc/egcl_mp.cu weight_layout
+    at row stride H): dW0s, dW0r, dW0g, db0, dW1, db1, dWc0, dbc0, dwc1,
+    and the used size."""
+    off, o = {}, 0
+    for name, size in (("w0s", f * h), ("w0r", f * h), ("w0g", gp * h),
+                       ("b0", h), ("w1", h * h), ("b1", h)) + (
+            (("wc0", h * h), ("bc0", h), ("wc1", h)) if eq else ()):
+        off[name] = o
+        o += size
+    return off, o
+
+
+def _job_entries(job, f, h, gp, off):
+    """The packed entries one job writes (tc::pass_p_tc_kernel's last
+    switch): rows of its 16-row tile and columns of its half that fall
+    inside its block; G' products keep their gp lanes (dW0g) and their
+    ones row (db0, db1, dbc0)."""
+    _, name, r0, c0, cols = job
+    out = []
+    for r in range(r0, r0 + 16):
+        for c in range(c0, min(c0 + cols, h)):
+            if name in ("wc0", "w1") and r < h:
+                out.append(off[name] + r * h + c)
+            elif name in ("w0s", "w0r") and r < f:
+                out.append(off[name] + r * h + c)
+            elif name == "w0g" and r < gp:
+                out.append(off["w0g"] + r * h + c)
+            elif r == gp and name in ("w0g", "b1", "bc0"):
+                out.append(off["b0" if name == "w0g" else name] + c)
+    return torch.tensor(out, dtype=torch.long)
+
+
+@pytest.mark.parametrize("f,h,gp,eq", [(48, 48, 1, True), (48, 48, 1, False),
+                                       (1, 48, 1, True), (32, 32, 1, True),
+                                       (32, 32, 4, True), (48, 33, 3, False)])
+def test_egcl_pass_p_jobs_cover_the_partial_once(f, h, gp, eq):
+    """Route 1's jobs: at most four a warp of eight (warp w takes jobs w,
+    w + 8, ...), the products in three phases, and their entries plus
+    dwc1's (summed in registers) cover the packed partial exactly once."""
+    jobs = egcl_mp.pass_p_jobs(f, h, gp, eq)
+    assert len(jobs) <= egcl_mp.EGCL_TC_WARPS * egcl_mp.EGCL_TC_JOBS
+    assert [j[0] for j in jobs] == sorted(j[0] for j in jobs)
+    off, used = _egcl_offsets(f, h, gp, eq)
+    entries = [_job_entries(j, f, h, gp, off) for j in jobs]
+    if eq:
+        entries.append(off["wc1"] + torch.arange(h))
+    _every_entry_once(entries, used)
+
+
+def _egcl_batch(n, e_real, e_pad, seed):
+    """Receivers sorted over n - 1 real nodes, masked edges parked last on
+    node n - 1, a hub sender; some nodes send nothing."""
+    rng = np.random.RandomState(seed)
+    recv = np.sort(rng.randint(0, n - 4, e_real))
+    send = rng.randint(0, n - 4, e_real)
+    send[::7] = 2
+    pad = e_pad - e_real
+    senders = torch.from_numpy(np.concatenate([send, np.full(pad, n - 1)]))
+    receivers = torch.from_numpy(np.concatenate([recv, np.full(pad, n - 1)]))
+    em = (torch.arange(e_pad) < e_real).int()
+    return senders.int(), receivers.int(), em, rng
+
+
+@pytest.mark.parametrize("f,h,a,eq,n_parts", [(48, 48, 0, True, 5),
+                                              (48, 48, 0, False, 3),
+                                              (1, 48, 0, True, 9),
+                                              (32, 32, 3, True, 132)])
+def test_egcl_pass_p_shares_and_jobs_sum_to_plain(f, h, a, eq, n_parts):
+    """Pass P's partition emulated with the plain version: block i takes
+    the sender rows [b_i, b_{i+1}) of ``row_shares`` over the sender CSR
+    and their edges; its weight gradients, written at its jobs' entries
+    (and dwc1's) of its partial, summed over the blocks in order, give
+    pass P over the batch, and so do its dx rows (written once each) and
+    its edges' dgeo rows."""
+    n = 30
+    send, recv, em, rng = _egcl_batch(n, 160, 200, seed=f + h + a)
+    e = len(send)
+    gp = 1 + a
+    geo = torch.cat([torch.from_numpy(rng.rand(e, 3).astype(np.float32))
+                     * 1.2 - 0.6,
+                     torch.from_numpy(rng.rand(e, gp).astype(np.float32))], 1)
+    x = torch.from_numpy(rng.randn(n, f).astype(np.float32))
+    ws = [torch.from_numpy((rng.randn(*s) * sc).astype(np.float32))
+          for s, sc in (((2 * f + gp, h), 0.2), ((h,), 0.1), ((h, h), 0.15),
+                        ((h,), 0.1))]
+    if eq:
+        ws += [torch.from_numpy((rng.randn(*s) * sc).astype(np.float32))
+               for s, sc in (((h, h), 0.15), ((h,), 0.1), ((h, 1), 0.5))]
+    else:
+        ws += [None, None, None]
+    gagg = torch.from_numpy(rng.randn(n, h).astype(np.float32))
+    gpsum = torch.from_numpy(rng.randn(n, 3).astype(np.float32)) if eq \
+        else None
+    perm = torch.argsort(torch.where(em != 0, send, n), stable=True)
+    bounds = _shares_ok(segment_offsets(send[perm], n, em[perm]), n_parts)
+    off, used = _egcl_offsets(f, h, gp, eq)
+    jobs = egcl_mp.pass_p_jobs(f, h, gp, eq)
+    entries = [_job_entries(j, f, h, gp, off) for j in jobs]
+    if eq:
+        entries.append(off["wc1"] + torch.arange(h))
+    partial = torch.full((n_parts, used), float("nan"))
+    dx = torch.full((n, f), float("nan"))
+    dgeo = torch.zeros(e, 3 + gp)
+    for i in range(n_parts):
+        r0, r1 = int(bounds[i]), int(bounds[i + 1])
+        share = em * ((send >= r0) & (send < r1)).int()
+        out = egcl_mp.egcl_pass_p_plain(eq, x, geo, share, *ws, send, recv,
+                                        gagg, gpsum)
+        packed = torch.cat([t.reshape(-1) for t in out[:7]
+                            if t is not None])
+        for idx in entries:
+            partial[i, idx] = packed[idx]
+        dx[r0:r1] = out[8][r0:r1]
+        dgeo += out[7]
+    wgrad = partial[0]
+    for i in range(1, n_parts):
+        wgrad = wgrad + partial[i]
+    want = egcl_mp.egcl_pass_p_plain(eq, x, geo, em, *ws, send, recv, gagg,
+                                     gpsum)
+    got = egcl_mp.unpack_wgrad(eq, wgrad, f, h, gp)
+    for a_, b_ in zip(got, want[:7]):
+        if b_ is None:
+            assert a_ is None
+            continue
+        _close(a_.reshape(b_.shape), b_)
+    _close(dgeo, want[7])
+    _close(dx, want[8])
