@@ -52,8 +52,10 @@ and PyTorch built for CUDA.  Phases, each of which fails the run:
    (the path's), F = 24, A = 5, D = 16 and F = D = 256 through their
    autograd Function against autograd through the composed plain version
    (1e-5; 1e-4 for the weight grads; d edge_attr exactly zero on masked
-   edges), and the pallas backend's two segment sums (unsorted ids with an
-   out-of-range tail; sorted receivers, pre-masked) and their VJPs (1e-5),
+   edges; the forward, a node table and then a warp per receiver row, a
+   second run bit-identical), and the pallas backend's two segment sums
+   (unsorted ids with an out-of-range tail; sorted receivers, pre-masked)
+   and their VJPs (1e-5),
    timed beside ``index_add_`` and ``torch.segment_reduce``, and the four
    DimeNet kernels at the first dimenet train batch (its own triplet table
    and spherical basis): the triplet op forward and backward and the
@@ -68,7 +70,10 @@ and PyTorch built for CUDA.  Phases, each of which fails the run:
    42, B = 8, D = 128), at (70, 8, 64) and at the limits (126, 128, 128),
    with a longer masked tail and all masked (1e-5; 1e-4 for dk1, dk2;
    d sbf exactly zero on masked triplets; the forward's route at each
-   width, the card's the plan's, route 1 at the path's); then a double
+   width, the card's the plan's, route 1 at the path's), and with sbf
+   without a gradient as in training (pass S's route 1: d x_kj 1e-5 and
+   within a float64 run's bound, a second run bit-identical; pass S's
+   routes the plan's); then a double
    backward through ``gather_mul_segment_sum`` and ``gather_segment_sum``
    on the card against the CPU (1e-5), and the refusal of a double
    backward by the scf, egcl, GAT, cgcnn, dn_tri, dn_tri_builder and
@@ -118,9 +123,10 @@ and PyTorch built for CUDA.  Phases, each of which fails the run:
    48, 4 convs, 3 epochs) and egnn_oc22 (that of
    examples/open_catalyst_2022, hidden 32, 2 convs, capped as phase 8),
    with output names that ask for no force term: 4 egcl forwards, 4 pass
-   P, 3 pass S and 1 pool per md17 train step (2, 2, 1, 1 for oc22), every
-   egcl dispatch fused; the lockstep, repeat and checkpoint-prediction
-   checks of phase 7;
+   P, 3 pass S, 1 pool and 6 segment sums (the sorted-segment backward of
+   layers 1-3's two position gathers) per md17 train step (2, 2, 1, 1, 2
+   for oc22), every egcl dispatch fused; the lockstep, repeat and
+   checkpoint-prediction checks of phase 7;
 10. GAT training at the arch sweep's widths (hidden 64, 6 heads, slope
    0.05, 4 convs, dropout 0: H*F = 384), 3 epochs, and at hidden 256 with
    dropout 0.25 (H*F = 1536: two head groups of 768, the only phase whose
@@ -304,13 +310,16 @@ PATH_LAUNCHES = {
 PATH_LAUNCHES["MFC"] = PATH_LAUNCHES["SAGE"]
 # EGNN: one egcl forward and one pass P per conv layer, pass S where the
 # layer's input needs a gradient (not layer 0: x is data), one pool
+# EGNN: the pool, and in training the sorted-segment backward of the
+# positions' two gathers at every layer after the first (whose positions
+# moved in the layer before)
 PATH_LAUNCHES["egnn_md17"] = (
     {"egcl_block": 4, "egcl_block_pass_p": 4, "egcl_block_pass_s": 3,
-     "segment_sum_dense": 1},
+     "segment_sum_dense": 7},
     {"egcl_block": 4, "segment_sum_dense": 1})
 PATH_LAUNCHES["egnn_oc22"] = (
     {"egcl_block": 2, "egcl_block_pass_p": 2, "egcl_block_pass_s": 1,
-     "segment_sum_dense": 1},
+     "segment_sum_dense": 3},
     {"egcl_block": 2, "segment_sum_dense": 1})
 # GAT: one attention forward, pass R and pass S per conv layer and head
 # group (layer 0's xl and xr need gradients for lin_l and lin_r), one pool
@@ -626,7 +635,7 @@ def pass_p_build_report():
 
     keys = {"scf_mp": ("pass_p_kernel",),
             "cgcnn_mp": ("pass_p_kernel", "node_table_kernel",
-                         "cgcnn_kernel"),
+                         "cgcnn_fwd_kernel", "cgcnn_kernel"),
             "row_mlp": ("row_mlp_fwd_kernel", "row_mlp_bwd_tc_kernel",
                         "row_mlp_bwd_kernel"),
             "dn_tri": ("dn_tri_fwd_kernel", "dn_tri_bwd_kernel"),
@@ -1808,6 +1817,10 @@ def cgcnn_phase(torch, g, seed):
     ptr_s = segment_offsets(send[p_], n, em[p_])
     plain_args = (x, None, em, *ins[2:], send, recv, ct)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    with torch.no_grad():
+        once = [cg.launch_cgcnn("cgcnn_block", x, None, ws, send, recv, None,
+                                ptr_r) for _ in range(2)]
+    check(torch.equal(*once), "cgcnn forward: a second run differs")
     fwd_fl, p_fl, s_fl = cgcnn_flops(f, d, 0, e_valid, n_valid)
     wbytes = 4 * sum(t.numel() for t in ws if t is not None)
     # read once: x, the real edges' ids (send, recv), row_ptr, the
@@ -1819,7 +1832,8 @@ def cgcnn_phase(torch, g, seed):
                                     None, ptr_r),
             lambda: cg.cgcnn_block_reference(x, None, em, *ins[2:], send,
                                              recv),
-            bound(edge_in + 4 * n * d, fwd_fl),
+            # the node table's products on the tensor cores (3xTF32)
+            tensor_core_bounds(edge_in + 4 * n * d, fwd_fl),
             "hydragnn_tpu/ops/fused_block.py:495", ("out",)),
         "cgcnn_block_pass_p": (
             lambda: cg.launch_cgcnn("cgcnn_block_pass_p", x, None, ws, send,
@@ -2159,10 +2173,13 @@ def dimenet_builder_phase(torch, g, seed, cfg):
     entry, dk1 and dk2 1e-4; d sbf exactly zero on masked triplets; then at
     the path's widths with the last third of the real triplets masked as
     well (parked on the last edge, as add_dimenet_extras parks padding) and
-    with every triplet masked (every output and gradient exactly zero).
-    Then each kernel timed alone as the path launches it (pass S without
-    d sbf: sbf needs no gradient in training), beside its plain version
-    and its bound."""
+    with every triplet masked (every output and gradient exactly zero);
+    then at the path's widths with sbf without a gradient, as in training
+    (pass S's route 1): d x_kj 1e-5 and within the float64 bound (twice
+    the float32 plain version's error, or 1e-6 of the largest entry), a
+    second run bit-identical.  Then each kernel timed alone as the path
+    launches it (pass S without d sbf), beside its plain version and its
+    bound."""
     from hydragnn_torch.models.dimenet import (
         distances_and_angles,
         spherical_basis,
@@ -2198,33 +2215,37 @@ def dimenet_builder_phase(torch, g, seed, cfg):
         return [rnd(e, d), sbf, rnd(sr, b, scale=sr ** -0.5),
                 rnd(b, d, scale=b ** -0.5)], rnd(e, d)
 
-    def run(fn, ins, ct, tmask, ids):
-        ts = [x.detach().clone().requires_grad_(True) for x in ins]
+    def run(fn, ins, ct, tmask, ids, sbf_grad=True):
+        ts = [x.detach().clone().requires_grad_(sbf_grad or i != 1)
+              for i, x in enumerate(ins)]
         out = fn(ts[0], ts[1], tmask, ts[2], ts[3], *ids)
-        (out * ct).sum().backward()
+        (out * ct.to(out.dtype)).sum().backward()
         torch.cuda.synchronize()
         return [out.detach()] + [x.grad for x in ts]
 
-    def hold(what, ins, ct, tmask=tm, ids=(kj, ji, perm)):
+    def hold(what, ins, ct, tmask=tm, ids=(kj, ji, perm), sbf_grad=True):
         dt.reset_launches()
-        k = run(dt.dimenet_tri_builder, ins, ct, tmask, ids)
+        k = run(dt.dimenet_tri_builder, ins, ct, tmask, ids, sbf_grad)
         check({n: v for n, v in dt.LAUNCHES.items() if v}
               == {"dimenet_tri_builder": 1, "dimenet_tri_builder_bwd_s": 1,
                   "dimenet_tri_builder_bwd_p": 1},
               f"{what}: launches {dt.LAUNCHES}")
-        p = run(dt.dimenet_tri_builder_reference, ins, ct, tmask, ids[:2])
-        check(bool((k[2][tmask == 0] == 0).all()),
+        p = run(dt.dimenet_tri_builder_reference, ins, ct, tmask, ids[:2],
+                sbf_grad)
+        check(not sbf_grad or bool((k[2][tmask == 0] == 0).all()),
               f"{what}: d sbf is not zero on masked triplets")
         errs = {}
         for name, k_, p_ in zip(("out", "dx_kj", "dsbf", "dk1", "dk2"), k,
                                 p):
+            if p_ is None:
+                continue
             check(float(p_.abs().max()) > 0, f"{what}: the plain {name} is "
                   "zero: the comparison would hold nothing")
             errs[name] = rel_err(torch, k_, p_)
             tol = REL_TOL_WGRAD if name in ("dk1", "dk2") else REL_TOL_KERNEL
             check(errs[name][1] <= tol, f"{what}: {name} disagrees with the "
                   f"plain version under autograd: {errs[name][1]} > {tol}")
-        return errs, k
+        return errs, k, p
 
     def worst_of(errs):
         k_ = max(errs, key=lambda o: errs[o][1])
@@ -2245,14 +2266,21 @@ def dimenet_builder_phase(torch, g, seed, cfg):
               f"card, {dt.builder_fwd_route(*w)} planned")
     check(routes[(sr, b, d)] == 1,
           f"the path's widths {(sr, b, d)} left the forward's route 1")
+    # pass S's route: 1 without d sbf (the path's), 2 with it
+    s_routes = {w: lib.hg_dn_tri_builder_bwd_s_route(sr, b, d, w)
+                for w in (0, 1)}
+    check(s_routes == {w: dt.builder_bwd_s_route(sr, b, d, w)
+                       for w in (0, 1)} == {0: 1, 1: 2},
+          f"dn_tri_builder pass S at {(sr, b, d)}: routes {s_routes} on the "
+          "card (without d sbf, with it), (1, 2) planned")
     ins, ct = inputs(sbf, b, d)
-    errs, _ = hold(f"dn_tri_builder ({sr}, {b}, {d})", ins, ct)
+    errs, _, _ = hold(f"dn_tri_builder ({sr}, {b}, {d})", ins, ct)
     notes = {k_: {"max_abs_err": a, "max_rel_err": r_}
              for k_, (a, r_) in errs.items()}
     for w_sr, w_b, w_d in BUILDER_WIDTHS:
         w_ins, w_ct = inputs(basis(w_sr // s), w_b, w_d)
-        w_errs, _ = hold(f"dn_tri_builder ({w_sr}, {w_b}, {w_d})", w_ins,
-                         w_ct)
+        w_errs, _, _ = hold(f"dn_tri_builder ({w_sr}, {w_b}, {w_d})",
+                            w_ins, w_ct)
         notes[f"SR{w_sr}_B{w_b}_D{w_d}"] = worst_of(w_errs)
     # a longer masked tail, parked on the last edge, and all masked
     tail = tm.clone()
@@ -2261,9 +2289,25 @@ def dimenet_builder_phase(torch, g, seed, cfg):
     kj2[tail == 0] = e - 1
     ji2[tail == 0] = e - 1
     perm2 = torch.argsort(kj2, stable=True).to(torch.int32)
-    t_errs, _ = hold("dn_tri_builder (masked tail)", ins, ct, tail,
-                     (kj2, ji2, perm2))
+    t_errs, _, _ = hold("dn_tri_builder (masked tail)", ins, ct, tail,
+                        (kj2, ji2, perm2))
     notes["masked_tail"] = worst_of(t_errs)
+    # sbf without a gradient, as in training: pass S's route 1
+    what = f"dn_tri_builder ({sr}, {b}, {d}, sbf without a gradient)"
+    s_errs, k_s, p_s = hold(what, ins, ct, sbf_grad=False)
+    again = run(dt.dimenet_tri_builder, ins, ct, tm, (kj, ji, perm), False)
+    check(all(x is None and y is None or torch.equal(x, y)
+              for x, y in zip(k_s, again)), f"{what}: a second run differs")
+    p64 = run(dt.dimenet_tri_builder_reference, [x.double() for x in ins],
+              ct, tm, (kj, ji), False)[1]
+    e32 = float((p_s[1].double() - p64).abs().max())
+    e_k = float((k_s[1].double() - p64).abs().max())
+    allowed = max(2 * e32, 1e-6 * float(p64.abs().max()))
+    check(e_k <= allowed, f"{what}: d x_kj {e_k} from the float64 run, "
+          f"over {allowed}")
+    notes["pass_s_route1"] = {
+        **worst_of(s_errs), "dx_kj_vs_float64": e_k,
+        "plain_float32_vs_float64": e32, "float64_allowed": allowed}
     dead = torch.zeros_like(tm)
     dt.reset_launches()
     k = run(dt.dimenet_tri_builder, ins, ct, dead, (kj, ji, perm))
@@ -2300,8 +2344,13 @@ def dimenet_builder_phase(torch, g, seed, cfg):
                 ptr_kj, ct, want=(True, False)),
             lambda: dt.dimenet_tri_builder_pass_s_plain(*plain_args,
                                                         want_sbf=False),
-            bound(tri_in + 4 * (t_real + e * d) + 4 * e * d, s_fl),
-            "hydragnn_tpu/ops/fused_block.py:599", ("dx_kj", "dsbf")),
+            # route 1 on the tensor cores; without d sbf the function reads
+            # no x_kj: the sbf rows, ids, row_ptr, weights, perm and the
+            # cotangent, and writes d x_kj
+            (tensor_core_bounds if s_routes[0] == 1 else bound)(
+                tri_in - 4 * e * d + 4 * (t_real + e * d) + 4 * e * d,
+                s_fl),
+            "hydragnn_tpu/ops/fused_block.py:599", ("dx_kj",)),
         "dimenet_tri_builder_bwd_p": (
             lambda: dt.launch_dn_tri_builder(
                 "dimenet_tri_builder_bwd_p", x, sbf, k1, k2, kj, ji, None,
@@ -2313,12 +2362,15 @@ def dimenet_builder_phase(torch, g, seed, cfg):
     results = []
     with torch.no_grad():
         for name, (kern, plain, bnd, replaces, outs) in timed.items():
-            worst = max(outs, key=lambda o: errs[o][1])
+            # each row's error is that of the path's launch: pass S's of
+            # its route 1 (sbf without a gradient)
+            src = s_errs if name == "dimenet_tri_builder_bwd_s" else errs
+            worst = max(outs, key=lambda o: src[o][1])
             results.append({
                 "name": name, "route": "cuda",
                 "source": "hydragnn_torch/csrc/dn_tri_builder.cu",
                 "replaces": replaces,
-                "max_abs_err": errs[worst][0], "max_rel_err": errs[worst][1],
+                "max_abs_err": src[worst][0], "max_rel_err": src[worst][1],
                 "ms": time_ms(torch, kern, flush, lead=True),
                 "warm_l2_ms": time_ms(torch, kern, lead=True),
                 "plain_ms": time_ms(torch, plain, flush),
@@ -2331,6 +2383,8 @@ def dimenet_builder_phase(torch, g, seed, cfg):
                 results[-1]["bound_ms_cuda_cores"] = bnd[2]
             if name == "dimenet_tri_builder":
                 results[-1]["forward_route"] = routes[(sr, b, d)]
+            if name == "dimenet_tri_builder_bwd_s":
+                results[-1]["bwd_s_route"] = s_routes[0]
     notes["forward_routes"] = {f"SR{k[0]}_B{k[1]}_D{k[2]}": v
                                for k, v in routes.items()}
     return results, notes

@@ -17,24 +17,35 @@
 // derivative is 1 above the threshold, else exp(v) / (exp(v) + 1), as in
 // PyTorch's own backward.  sigmoid(v) = 1 / (1 + exp(-v)).
 //
-// cgcnn_kernel<kFwd>   — the forward.  Replaces
+// cgcnn_node_table_kernel + cgcnn_fwd_kernel — the forward.  Replaces
 //   hydragnn_tpu/ops/fused_block.py:_fused_fwd with the cgcnn spec of
-//   hydragnn_tpu/ops/cgcnn_mp.py (pl.pallas_call at :495).  Receiver
-//   order (the receiver is the primary side; collate's receivers are
-//   nondecreasing, so edge ids are CSR positions): each block owns kRows
-//   receiver rows and walks their edges TE at a time, gathers x[r], x[s]
-//   and ea into transposed shared-memory tiles, recomputes tf and ts and
-//   adds sigmoid(tf) * softplus(ts) into the block's rows in edge order.
+//   hydragnn_tpu/ops/cgcnn_mp.py (pl.pallas_call at :495).  x's products
+//   factor to the nodes (x[r].Wfr = (x.Wfr)[r]), so the node table x .
+//   [Wfr | Wsr | Wfs | Wss] ([N, 4D], 3xTF32 on the tensor cores, the
+//   kernel pass P runs) is built first; then each warp owns one receiver
+//   row (receiver order: collate's receivers are nondecreasing, so edge ids
+//   are CSR positions), holds the table's receiver half [tf_r | ts_r] plus
+//   the biases in registers, and per edge gathers the sender's half [tf_s |
+//   ts_s] (lane l its V = ceil(D / 32), rounded to a power of two,
+//   consecutive columns, one vector load each where D % V == 0), adds ea .
+//   [Wfg | Wsg] at A > 0 (weights read through L1) and sums sigmoid(tf) *
+//   softplus(ts) into the row in edge order.  The sender ids come 32 at a
+//   time, one load a lane, and are broadcast by shuffles; the gathers of
+//   16 / V edges are issued before any of them is used.  Bound: operations
+//   (the table's products, at 3xTF32, and ~4D per edge); what decides the
+//   time is the latency of the dependent loads (row_ptr, the ids, the
+//   gathered rows from L2), which the warps in flight hide.  One route:
+//   every width the op takes (F, D <= 256, A <= 127).
 // cgcnn_kernel<kPassS> — backward pass S.  Replaces :_fused_bwd pass S
 //   (pl.pallas_call at :599).  Sender order through edge_perm_sender:
 //   recompute, gather the cotangent at the receiver, and sum dx of the
-//   sender side (dtf.Wfs^T + dts.Wss^T) per sender row.
-//   Both: bound by operations (2 * 2 * (2F + A) * D flops per real edge
-//   against ~(2F + A) * 4 bytes of gathered rows); float32 on the CUDA
-//   cores, per-edge tiles transposed ([k][e], row stride TE+4) so one
-//   16-byte broadcast load feeds four multiply-adds.  The six [rows, D]
-//   weight blocks and two biases are staged in shared memory with an odd
-//   row stride (D | 1) where they fit, else read from L2.
+//   sender side (dtf.Wfs^T + dts.Wss^T) per sender row.  Bound by
+//   operations (2 * 2 * (2F + A) * D flops per real edge against ~(2F + A)
+//   * 4 bytes of gathered rows); float32 on the CUDA cores, per-edge tiles
+//   transposed ([k][e], row stride TE+4) so one 16-byte broadcast load
+//   feeds four multiply-adds.  The six [rows, D] weight blocks and two
+//   biases are staged in shared memory with an odd row stride (D | 1)
+//   where they fit, else read from L2.
 //
 // cgcnn_node_table_kernel + cgcnn_pass_p_kernel (+ the fixed-order
 // reductions) — backward pass P.  Replaces :_fused_bwd pass P
@@ -92,7 +103,6 @@ constexpr int kMaxF = 256;
 constexpr int kMaxD = 256;
 constexpr int kMaxA = 127;
 
-constexpr int kFwd = 0;
 constexpr int kPassS = 2;
 
 struct Params {
@@ -100,11 +110,11 @@ struct Params {
   const float* ea;       // [E, A], or null when A = 0
   const int* send;       // [E]
   const int* recv;       // [E]
-  const int* perm;       // [E] position -> edge id, or null (identity)
+  const int* perm;       // [E] position -> edge id
   const int* row_ptr;    // [N + 1] CSR over positions
   const float* w[8];     // wfr, wfs, wfg, bf, wsr, wss, wsg, bs
-  const float* gout;     // [N, D] cotangent of out (backward)
-  float* out;            // fwd: out [N, D]; pass S: dx [N, F]
+  const float* gout;     // [N, D] cotangent of out
+  float* out;            // dx [N, F]
   int n_rows, f, d, a, n_chunks;
   int stage;             // 1: weights in shared memory
 };
@@ -134,9 +144,9 @@ __host__ __device__ inline int weight_rows(int i, int f, int a) {
   }
 }
 
-__host__ __device__ inline int tile_floats(int mode, int f, int d, int a) {
+__host__ __device__ inline int tile_floats(int f, int d, int a) {
   int n = (2 * f + a) * LDT + 2 * d * LDT;         // x[r], x[s], ea, tf, ts
-  n += kRows * (mode == kFwd ? d : f);              // row sums
+  n += kRows * f;                                   // row sums
   n += 4 * TE;                                      // ids
   return n;
 }
@@ -203,9 +213,11 @@ __device__ __forceinline__ void dense_tile(float* out, int d, const float* T0,
 }
 
 // At most 64 registers a thread (four blocks' worth): left to itself,
-// ptxas gives pass S 48 and a spill, and it runs ~15% slower.
+// ptxas gives pass S 48 and a spill, and it runs ~15% slower.  Pass S is
+// the template's only instantiation since the forward left it.
 template <int MODE>
 __global__ void __launch_bounds__(kThreads, 4) cgcnn_kernel(const Params p) {
+  static_assert(MODE == kPassS, "pass S only");
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   const int f = p.f, d = p.d, a = p.a;
@@ -213,11 +225,11 @@ __global__ void __launch_bounds__(kThreads, 4) cgcnn_kernel(const Params p) {
   const int tid = threadIdx.x;
 
   float* xr_t = sm; sm += f * LDT;     // x[r]
-  float* xs_t = sm; sm += f * LDT;     // x[s]; pass S: then dx per edge
+  float* xs_t = sm; sm += f * LDT;     // x[s]; then dx per edge
   float* g_t = sm; sm += a * LDT;      // edge attributes
-  float* tf_t = sm; sm += d * LDT;     // tf; fwd: then the message; bwd: dtf
-  float* ts_t = sm; sm += d * LDT;     // ts; bwd: then dts
-  const int ow = MODE == kFwd ? d : f;  // width of the row sums
+  float* tf_t = sm; sm += d * LDT;     // tf; then dtf
+  float* ts_t = sm; sm += d * LDT;     // ts; then dts
+  const int ow = f;                    // width of the row sums
   float* rows_s = sm; sm += kRows * ow;
   int* eid_s = reinterpret_cast<int*>(sm);
   int* s_s = eid_s + TE;
@@ -273,7 +285,7 @@ __global__ void __launch_bounds__(kThreads, 4) cgcnn_kernel(const Params p) {
             s = -1;
             r = -1;
           } else {
-            row = (MODE == kPassS ? s : r) - r0;
+            row = s - r0;
           }
         }
         eid_s[tid] = eid;
@@ -301,22 +313,7 @@ __global__ void __launch_bounds__(kThreads, 4) cgcnn_kernel(const Params p) {
       dense_tile(ts_t, d, xr_t, wsr, xs_t, wss, f, g_t, wsg, a, bs, ld);
       __syncthreads();
 
-      if (MODE == kFwd) {
-        // the message in place of tf, then rows += message in edge order
-        for (int it = tid; it < d * TE; it += kThreads) {
-          const int c = it / TE, e = it - c * TE;
-          tf_t[c * LDT + e] = sigmoid_f(tf_t[c * LDT + e]) *
-                              softplus_f(ts_t[c * LDT + e]);
-        }
-        __syncthreads();
-        for (int c = tid; c < d; c += kThreads) {
-          for (int e = 0; e < cnt; ++e)
-            if (s_s[e] >= 0) rows_s[row_s[e] * d + c] += tf_t[c * LDT + e];
-        }
-        continue;
-      }
-
-      // ---- backward: the cotangent is gathered at the receiver ----
+      // the cotangent is gathered at the receiver
       for (int it = tid; it < d * TE; it += kThreads) {
         const int c = it / TE, e = it - c * TE;
         const int r = r_s[e];
@@ -416,6 +413,143 @@ cgcnn_node_table_kernel(const float* __restrict__ x,
       if (r < n && col < w4)
         table[static_cast<size_t>(r) * w4 + col] = acc[nt][v];
     }
+}
+
+// ---------------------------------------------------------------------------
+// the forward: the node table (above), then a gathered sum per receiver row
+// ---------------------------------------------------------------------------
+
+constexpr int kFThreads = 256;
+constexpr int kFWarps = kFThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
+
+struct FwdArgs {
+  const float* table;    // [N, 4D]: x . [Wfr | Wsr | Wfs | Wss]
+  const float* ea;       // [E, A], or null when A = 0
+  const int* send;       // [E], receiver order
+  const int* row_ptr;    // [N + 1] CSR over positions (edge ids)
+  const float *bf, *bs;  // [D]
+  const float *wfg, *wsg;  // [A, D], or null when A = 0
+  float* out;            // [N, D]
+  int n_rows, d, a;
+};
+
+// v = this lane's V columns c0 .. c0 + V - 1 of a row at `src`, zeros past
+// D: one vector load where D % V == 0 (then a lane's columns lie wholly
+// below D or wholly past it, and the address is 4V-byte aligned in a row
+// of 4D floats), else guarded scalar loads
+template <int V>
+__device__ __forceinline__ void load_cols(float (&v)[V], const float* src,
+                                          int c0, int d) {
+  if (d % V == 0) {
+    if (c0 < d) {
+      if constexpr (V == 1) {
+        v[0] = __ldg(src + c0);
+      } else if constexpr (V == 2) {
+        const float2 u = __ldg(reinterpret_cast<const float2*>(src + c0));
+        v[0] = u.x;
+        v[1] = u.y;
+      } else {
+#pragma unroll
+        for (int q = 0; q < V / 4; ++q) {
+          const float4 u =
+              __ldg(reinterpret_cast<const float4*>(src + c0) + q);
+          v[4 * q] = u.x;
+          v[4 * q + 1] = u.y;
+          v[4 * q + 2] = u.z;
+          v[4 * q + 3] = u.w;
+        }
+      }
+      return;
+    }
+#pragma unroll
+    for (int j = 0; j < V; ++j) v[j] = 0.f;
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < V; ++j) v[j] = c0 + j < d ? __ldg(src + c0 + j) : 0.f;
+}
+
+// One warp a receiver row r: out[r] = sum over r's edges e, in edge order,
+// of sigmoid(tf) * softplus(ts), with tf = (T[r, 0:D] + bf) + T[s, 2D:3D]
+// (+ ea_e . Wfg) and ts = (T[r, D:2D] + bs) + T[s, 3D:4D] (+ ea_e . Wsg).
+// Lane l owns the V columns from V l.  Every load of a group of U edges
+// reads a clamped, in-range address and is issued before the group's
+// arithmetic, so the group's gathers are in flight at once.
+template <int V>
+__global__ void __launch_bounds__(kFThreads)
+cgcnn_fwd_kernel(const FwdArgs p) {
+  constexpr int U = V >= 8 ? 2 : 16 / V;   // 32 gathered floats a lane
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * kFWarps + (threadIdx.x >> 5);
+  if (r >= p.n_rows) return;
+  const int d = p.d, a = p.a, c0 = V * lane;
+  const size_t w4 = 4 * static_cast<size_t>(d);
+  const int e_begin = __ldg(p.row_ptr + r);
+  const int e_end = __ldg(p.row_ptr + r + 1);
+  float hf[V], hs[V], acc[V];
+  {
+    const float* tr = p.table + r * w4;
+    float bb[V];
+    load_cols<V>(hf, tr, c0, d);
+    load_cols<V>(hs, tr + d, c0, d);
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      bb[j] = c0 + j < d ? __ldg(p.bf + c0 + j) : 0.f;
+      hf[j] += bb[j];
+      bb[j] = c0 + j < d ? __ldg(p.bs + c0 + j) : 0.f;
+      hs[j] += bb[j];
+      acc[j] = 0.f;
+    }
+  }
+  for (int base = e_begin; base < e_end; base += 32) {
+    const int cnt = min(32, e_end - base);
+    int s_l = lane < cnt ? __ldg(p.send + base + lane) : -1;
+    if (static_cast<unsigned>(s_l) >= static_cast<unsigned>(p.n_rows))
+      s_l = -1;
+    for (int i = 0; i < cnt; i += U) {
+      float gf[U][V], gs[U][V];
+      int sv[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        sv[u] = __shfl_sync(kFull, s_l, (i + u) & 31);
+        if (i + u >= cnt) sv[u] = -1;
+        const float* ts = p.table + (sv[u] >= 0 ? sv[u] : 0) * w4 + 2 * d;
+        load_cols<V>(gf[u], ts, c0, d);
+        load_cols<V>(gs[u], ts + d, c0, d);
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (sv[u] < 0) continue;
+        float vf[V], vs[V];
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          vf[j] = hf[j] + gf[u][j];
+          vs[j] = hs[j] + gs[u][j];
+        }
+        if (a > 0) {
+          const float* ge = p.ea + static_cast<size_t>(base + i + u) * a;
+          for (int q = 0; q < a; ++q) {
+            const float g = __ldg(ge + q);
+#pragma unroll
+            for (int j = 0; j < V; ++j) {
+              if (c0 + j < d) {
+                vf[j] += g * __ldg(p.wfg + q * d + c0 + j);
+                vs[j] += g * __ldg(p.wsg + q * d + c0 + j);
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < V; ++j)
+          acc[j] += sigmoid_f(vf[j]) * softplus_f(vs[j]);
+      }
+    }
+  }
+  float* dst = p.out + static_cast<size_t>(r) * d;
+#pragma unroll
+  for (int j = 0; j < V; ++j)
+    if (c0 + j < d) dst[c0 + j] = acc[j];
 }
 
 // shared memory of one pass-P block, in floats, for slice width wp (N =
@@ -677,8 +811,7 @@ cgcnn_pass_p_kernel(const PassPArgs p) {
         tid % wp] = db + dbc;
 }
 
-template <int MODE>
-int launch(Params p, int grid, cudaStream_t st) {
+int launch_pass_s(Params p, int grid, cudaStream_t st) {
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -687,7 +820,7 @@ int launch(Params p, int grid, cudaStream_t st) {
   if (err != cudaSuccess) return static_cast<int>(err);
   int off[8];
   const size_t tiles = sizeof(float) *
-                       static_cast<size_t>(tile_floats(MODE, p.f, p.d, p.a));
+                       static_cast<size_t>(tile_floats(p.f, p.d, p.a));
   const size_t wts = sizeof(float) *
                      static_cast<size_t>(weight_layout(p.f, p.d, p.a, p.d | 1,
                                                        off));
@@ -696,29 +829,85 @@ int launch(Params p, int grid, cudaStream_t st) {
   const size_t smem = p.stage ? staged : tiles;
   if (smem > static_cast<size_t>(optin))
     return static_cast<int>(cudaErrorInvalidValue);
-  err = cudaFuncSetAttribute(cgcnn_kernel<MODE>,
+  err = cudaFuncSetAttribute(cgcnn_kernel<kPassS>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  cgcnn_kernel<MODE><<<grid, kThreads, smem, st>>>(p);
+  cgcnn_kernel<kPassS><<<grid, kThreads, smem, st>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int V>
+int launch_fwd(const FwdArgs& p, cudaStream_t st) {
+  cgcnn_fwd_kernel<V><<<(p.n_rows + kFWarps - 1) / kFWarps, kFThreads, 0,
+                        st>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+void node_table(const float* x, const float* const (&w)[8], float* table,
+                int n_rows, int f, int d, cudaStream_t st) {
+  cgcnn_node_table_kernel<<<dim3((n_rows + 63) / 64, (4 * d + 63) / 64), 128,
+                            0, st>>>(x, w[0], w[4], w[1], w[5], table, n_rows,
+                                     f, d);
+}
+
+bool widths_ok(int f, int d, int a, const void* ea) {
+  return f >= 1 && f <= kMaxF && d >= 1 && d <= kMaxD && a >= 0 &&
+         a <= kMaxA && (a == 0 || ea != nullptr);
 }
 
 }  // namespace
 
-// One forward (mode 0: out [N, D]; rows are receivers, `perm` null) or pass
-// S (mode 2: out = dx [N, F]; rows are senders, `perm` the sender
-// permutation) launch; returns the cudaError_t (0 = success).  Pointers
-// are device pointers; launches go on `stream` and do not synchronise.
-extern "C" int hg_cgcnn_f32(
-    int mode, const void* x, const void* ea, const void* send,
-    const void* recv, const void* perm, const void* row_ptr, const void* wfr,
-    const void* wfs, const void* wfg, const void* bf, const void* wsr,
-    const void* wss, const void* wsg, const void* bs, const void* gout,
-    void* out, int n_rows, int f, int d, int a, void* stream) {
+// The forward: the node table into `table` (scratch [N, 4D]), then out [N,
+// D], rows the receivers (`row_ptr` the receiver-order CSR, positions are
+// edge ids); two launches.  Returns the cudaError_t (0 = success).
+// Pointers are device pointers; launches go on `stream` and do not
+// synchronise.
+extern "C" int hg_cgcnn_fwd_f32(
+    const void* x, const void* ea, const void* send, const void* row_ptr,
+    const void* wfr, const void* wfs, const void* wfg, const void* bf,
+    const void* wsr, const void* wss, const void* wsg, const void* bs,
+    void* table, void* out, int n_rows, int f, int d, int a, void* stream) {
   if (n_rows <= 0) return 0;
-  if (f < 1 || f > kMaxF || d < 1 || d > kMaxD || a < 0 || a > kMaxA ||
-      (mode != kFwd && mode != kPassS) || (a > 0 && ea == nullptr))
+  if (!widths_ok(f, d, a, ea)) return static_cast<int>(cudaErrorInvalidValue);
+  const void* ws[8] = {wfr, wfs, wfg, bf, wsr, wss, wsg, bs};
+  const float* w[8];
+  for (int i = 0; i < 8; ++i) w[i] = static_cast<const float*>(ws[i]);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  node_table(static_cast<const float*>(x), w, static_cast<float*>(table),
+             n_rows, f, d, st);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  FwdArgs p{};
+  p.table = static_cast<const float*>(table);
+  p.ea = static_cast<const float*>(ea);
+  p.send = static_cast<const int*>(send);
+  p.row_ptr = static_cast<const int*>(row_ptr);
+  p.bf = w[3];
+  p.bs = w[7];
+  p.wfg = w[2];
+  p.wsg = w[6];
+  p.out = static_cast<float*>(out);
+  p.n_rows = n_rows;
+  p.d = d;
+  p.a = a;
+  if (d <= 32) return launch_fwd<1>(p, st);
+  if (d <= 64) return launch_fwd<2>(p, st);
+  if (d <= 128) return launch_fwd<4>(p, st);
+  return launch_fwd<8>(p, st);
+}
+
+// Pass S: dx [N, F] of the sender side, rows the senders (`perm` the
+// sender permutation, `row_ptr` the CSR over its positions); returns the
+// cudaError_t.
+extern "C" int hg_cgcnn_pass_s_f32(
+    const void* x, const void* ea, const void* send, const void* recv,
+    const void* perm, const void* row_ptr, const void* wfr, const void* wfs,
+    const void* wfg, const void* bf, const void* wsr, const void* wss,
+    const void* wsg, const void* bs, const void* gout, void* out, int n_rows,
+    int f, int d, int a, void* stream) {
+  if (n_rows <= 0) return 0;
+  if (!widths_ok(f, d, a, ea) || perm == nullptr || gout == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p{};
   p.x = static_cast<const float*>(x);
@@ -736,9 +925,7 @@ extern "C" int hg_cgcnn_f32(
   p.d = d;
   p.a = a;
   p.n_chunks = (n_rows + kRows - 1) / kRows;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (mode == kFwd) return launch<kFwd>(p, p.n_chunks, st);
-  return launch<kPassS>(p, p.n_chunks, st);
+  return launch_pass_s(p, p.n_chunks, static_cast<cudaStream_t>(stream));
 }
 
 // Bytes of one pass-P block's shared memory at slice width `wp`.
@@ -777,8 +964,7 @@ extern "C" int hg_cgcnn_pass_p_f32(
     void* dea, int n_rows, int n_edges, int f, int d, int a, int wp,
     int n_parts, void* stream) {
   if (n_rows <= 0) return 0;
-  if (f < 1 || f > kMaxF || d < 1 || d > kMaxD || a < 0 || a > kMaxA ||
-      (a > 0 && ea == nullptr) || n_parts < 1 || wp < 16 || wp % 16 != 0 ||
+  if (!widths_ok(f, d, a, ea) || n_parts < 1 || wp < 16 || wp % 16 != 0 ||
       2 * wp > kPThreads || (dx == nullptr) != (dx_part == nullptr) ||
       (dea == nullptr) != (dea_part == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -812,9 +998,7 @@ extern "C" int hg_cgcnn_pass_p_f32(
   p.d = d;
   p.a = a;
   p.wp = wp;
-  cgcnn_node_table_kernel<<<dim3((n_rows + 63) / 64, (4 * d + 63) / 64), 128,
-                            0, st>>>(p.x, p.w[0], p.w[4], p.w[1], p.w[5],
-                                     static_cast<float*>(table), n_rows, f, d);
+  node_table(p.x, p.w, static_cast<float*>(table), n_rows, f, d, st);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaFuncSetAttribute(cgcnn_pass_p_kernel,

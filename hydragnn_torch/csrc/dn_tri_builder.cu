@@ -13,12 +13,12 @@
 // Replaces the generic fused-block builder of hydragnn_tpu/ops/fused_block.py
 // with the dn_tri_builder spec (hydragnn_tpu/ops/dn_tri.py:416-450):
 // _fused_fwd (pl.pallas_call at fused_block.py:495), _fused_bwd pass P
-// (:561) and pass S (:599).  Four kernels:
+// (:561) and pass S (:599).  Four kernels, one of them in two modes:
 //
-// fwd_tc_kernel — the forward, route 1 (hg_dn_tri_builder_fwd_route): B <=
-//   8, SR <= 64 and D a multiple of 8, DimeNet++'s QM9 widths (42, 8, 128)
-//   among them.  Warps work alone, with no block barrier after the weights
-//   are staged: each of the grid's warps owns one contiguous run of output
+// fwd_tc_kernel<kFwd> — the forward, route 1 (hg_dn_tri_builder_fwd_route):
+//   B <= 8, SR <= 64 and D a multiple of 8, DimeNet++'s QM9 widths (42, 8,
+//   128) among them.  Warps work alone, with no block barrier after the
+//   weights are staged: each of the grid's warps owns one contiguous run of output
 //   rows (passp::share_range: the runs balance rows plus triplets) and walks
 //   its triplets (positions in ji order are triplet ids) 16 at a time, one
 //   m16 tile.  A tile's sbf rows are one contiguous block of device memory,
@@ -40,13 +40,25 @@
 //   order, each lane four columns, and writes every row of its run once
 //   (rows without triplets as zeros).  Tile strides are 8 or 24 mod 32
 //   floats, so the fragments' float2 loads and stores hit 32 banks.
+// fwd_tc_kernel<kPassS> — pass S, route 1 (hg_dn_tri_builder_bwd_s_route:
+//   the forward's widths, and only when d sbf is not asked for, as on the
+//   training path): the same kernel in kj order.  Rows are kj, the CSR is
+//   over positions in kj order, and a tile's triplets are t = perm[pos]
+//   (ids loaded a stage ahead, perm first); each sbf row is its own
+//   triplet's, gathered by cp.async (8 bytes a lane at an even SR; the
+//   rows are scattered, so they come from device memory), and the x stage
+//   receives dout[ji] with 16-byte cp.async.  The products are the
+//   forward's; dout[ji] * emb2 is formed in place and each warp adds it
+//   into its own kj rows in position order (the triplet order of route 2
+//   and of the stable argsort).
 // tri_rows_kernel<kFwd> — the forward, route 2 (every other width): rows
 //   are output edges e, each block owns kRows rows and walks their
 //   triplets TT at a time: gathers sbf[t] into a transposed tile and x[kj]
 //   into another, forms emb1 = sbf.K1 and emb2 = emb1.K2 in shared memory
 //   on the CUDA cores, and adds x[kj] * emb2 into its rows in triplet
 //   order.
-// tri_rows_kernel<kPassS> — the backward's pass S.  One pass in kj order
+// tri_rows_kernel<kPassS> — the backward's pass S, route 2 (d sbf asked
+//   for, or past route 1's widths).  One pass in kj order
 //   (through perm_kj): rows are the gathered edges k.  Per triplet it
 //   recomputes emb1, emb2, takes g = dout[ji] and
 //     d_x[k]  += g * emb2                (the row's own sum, no atomics)
@@ -456,6 +468,25 @@ __host__ inline int fwd_route(int sr, int b, int d, int optin) {
   return 2;
 }
 
+// pass S takes the forward's route 1 at its widths when d sbf is not asked
+// for (the training path: sbf needs no gradient); route 2 keeps d sbf
+__host__ inline int bwd_s_route(int sr, int b, int d, bool want_sbf,
+                                int optin) {
+  return want_sbf ? 2 : fwd_route(sr, b, d, optin);
+}
+
+// the device's opt-in shared memory per block and its SM count
+__host__ inline cudaError_t device_limits(int* optin, int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(optin,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess && sms != nullptr)
+    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return err;
+}
+
 __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
   const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
@@ -488,8 +519,11 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::);
 }
 
+template <int MODE>
 __global__ void __launch_bounds__(kTcThreads, 1)
 fwd_tc_kernel(const Params p) {
+  static_assert(MODE == kFwd || MODE == kPassS, "forward or pass S");
+  constexpr bool kS = MODE == kPassS;
   extern __shared__ float4 smem4[];
   const int sr = p.sr, b = p.b, d = p.d;
   const int ks = round8(sr) / 8, nt = d / 8;
@@ -539,32 +573,40 @@ fwd_tc_kernel(const Params p) {
   const int p_end = __ldg(p.row_ptr + r_end);
   const int n_tiles = (p_end - p_begin + kTcM - 1) / kTcM;
 
-  // a tile's ids in lanes 0..15: kj and ji of position p_begin + 16 i +
-  // lane (positions are triplet ids in ji order), -1 past the run
-  auto load_ids = [&](int i, int& kj, int& ji) {
+  // a tile's ids in lanes 0..15: the triplet t of position p_begin + 16 i
+  // + lane (the forward: positions are triplet ids in ji order; pass S:
+  // through perm, in kj order), its kj and ji; -1 past the run
+  auto load_ids = [&](int i, int& tt, int& kj, int& ji) {
     const int pos = p_begin + i * kTcM + lane;
     const bool in = lane < kTcM && i < n_tiles && pos < p_end;
-    kj = in ? __ldg(p.kj + pos) : -1;
-    ji = in ? __ldg(p.ji + pos) : -1;
+    tt = in ? (kS ? __ldg(p.perm + pos) : pos) : -1;
+    kj = in ? __ldg(p.kj + tt) : -1;
+    ji = in ? __ldg(p.ji + tt) : -1;
   };
-  // a triplet is taken when both ids are edges and its row is this warp's
+  // a triplet is taken when both ids are edges and its row (the forward:
+  // ji; pass S: kj) is this warp's
   auto taken = [&](int kj, int ji) {
-    return static_cast<unsigned>(kj) < static_cast<unsigned>(p.n_rows) &&
-           ji >= r_begin && ji < r_end;
+    const int own = kS ? kj : ji, other = kS ? ji : kj;
+    return static_cast<unsigned>(other) < static_cast<unsigned>(p.n_rows) &&
+           own >= r_begin && own < r_end;
   };
-  // tile i's sbf rows and x[kj] rows into a stage, as one group of copies
-  // (SR <= 64: one 8-byte piece, or two floats, a lane a row; D <= 128:
-  // one 16-byte piece a lane a row)
-  auto fetch = [&](int i, int kj, int ji, float* st) {
+  // tile i's sbf rows and x rows (the forward: x[kj]; pass S: the
+  // cotangent at ji) into a stage, as one group of copies (SR <= 64: one
+  // 8-byte piece, or two floats, a lane a row; D <= 128: one 16-byte piece
+  // a lane a row).  The forward's sbf rows are one contiguous block, pass
+  // S's each its own triplet's.
+  auto fetch = [&](int i, int tt, int kj, int ji, float* st) {
     const int q = p_begin + i * kTcM;
     const int cnt = min(kTcM, p_end - q);
     float* xb = st + kTcM * lds;
+    const float* xs = kS ? p.gout : p.x;
 #pragma unroll
     for (int e = 0; e < kTcM; ++e) {
       const int k = __shfl_sync(kFull, kj, e);
       const int j = __shfl_sync(kFull, ji, e);
+      const int t_e = kS ? __shfl_sync(kFull, tt, e) : q + e;
       if (e < cnt) {
-        const float* src = p.sbf + static_cast<size_t>(q + e) * sr;
+        const float* src = p.sbf + static_cast<size_t>(t_e) * sr;
         if ((sr & 1) == 0) {
           if (2 * lane < sr) cp_async8(st + e * lds + 2 * lane, src + 2 * lane);
         } else {
@@ -574,7 +616,7 @@ fwd_tc_kernel(const Params p) {
         }
         if (taken(k, j) && 4 * lane < d)
           cp_async16(xb + e * ldx + 4 * lane,
-                     p.x + static_cast<size_t>(k) * d + 4 * lane);
+                     xs + static_cast<size_t>(kS ? j : k) * d + 4 * lane);
       }
     }
     cp_async_commit();
@@ -597,13 +639,13 @@ fwd_tc_kernel(const Params p) {
   // kTcStages - 1 in flight (one group of copies each, empty past the
   // run's last tile)
   constexpr int S = kTcStages;
-  int kjr[S + 1], jir[S + 1];
+  int tr[S + 1], kjr[S + 1], jir[S + 1];
 #pragma unroll
-  for (int u = 0; u <= S; ++u) load_ids(u, kjr[u], jir[u]);
+  for (int u = 0; u <= S; ++u) load_ids(u, tr[u], kjr[u], jir[u]);
 #pragma unroll
   for (int u = 0; u + 1 < S; ++u) {
     if (u < n_tiles)
-      fetch(u, kjr[u], jir[u], ring + u * stage);
+      fetch(u, tr[u], kjr[u], jir[u], ring + u * stage);
     else
       cp_async_commit();
   }
@@ -611,7 +653,8 @@ fwd_tc_kernel(const Params p) {
     float* st = ring + (i % S) * stage;
     const int ahead = i + S - 1;
     if (ahead < n_tiles)
-      fetch(ahead, kjr[S - 1], jir[S - 1], ring + (ahead % S) * stage);
+      fetch(ahead, tr[S - 1], kjr[S - 1], jir[S - 1],
+            ring + (ahead % S) * stage);
     else
       cp_async_commit();  // an empty group: tile i's stays S-th to last
     cp_async_wait<S - 1>();
@@ -637,7 +680,8 @@ fwd_tc_kernel(const Params p) {
       }
     }
     // emb2 = emb1 . K2, one k step: emb1's accumulator is its A fragment;
-    // each n-tile's x[kj] * emb2 replaces x in the stage
+    // each n-tile's x * emb2 (pass S: dout[ji] * emb2) replaces x in the
+    // stage
     passp::FragA a2;
     passp::set_a<true>(a2, e1[0], e1[2], e1[1], e1[3]);
     float* xb = st + kTcM * lds;
@@ -658,16 +702,16 @@ fwd_tc_kernel(const Params p) {
       }
     }
     __syncwarp();
-    // each triplet's row into its output row, in triplet order: the
-    // tile's rows (this lane's four columns) and ids read first, then
-    // summed
+    // each triplet's row into its output row (pass S: d x at kj), in
+    // position order: the tile's rows (this lane's four columns) and ids
+    // read first, then summed
     const int cnt = min(kTcM, p_end - (p_begin + i * kTcM));
     const unsigned use = __ballot_sync(kFull, lane < cnt && taken(kj0, ji0));
     float4 v[kTcM];
     int jv[kTcM];
 #pragma unroll
     for (int e = 0; e < kTcM; ++e) {
-      jv[e] = __shfl_sync(kFull, ji0, e);
+      jv[e] = __shfl_sync(kFull, kS ? kj0 : ji0, e);
       v[e] = c4 < d ? *reinterpret_cast<const float4*>(xb + e * ldx + c4)
                     : make_float4(0.f, 0.f, 0.f, 0.f);
     }
@@ -689,10 +733,11 @@ fwd_tc_kernel(const Params p) {
     __syncwarp();  // this stage is refilled by the next tile's fetch
 #pragma unroll
     for (int u = 0; u < S; ++u) {
+      tr[u] = tr[u + 1];
       kjr[u] = kjr[u + 1];
       jir[u] = jir[u + 1];
     }
-    load_ids(i + S + 1, kjr[S], jir[S]);
+    load_ids(i + S + 1, tr[S], kjr[S], jir[S]);
   }
   cp_async_wait_all();
   flush(r_end);
@@ -730,6 +775,27 @@ int launch(Kernel kernel, int mode, const Params& p, dim3 grid,
   return static_cast<int>(cudaGetLastError());
 }
 
+// route 1 of the forward or pass S: a persistent grid, every warp one
+// share of the rows; about one warp a row at most
+template <int MODE>
+int launch_tc(const Params& p, int sms, cudaStream_t st) {
+  const size_t smem = sizeof(float) *
+      static_cast<size_t>(tc_smem_words(p.sr, p.d));
+  int per_sm = 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      fwd_tc_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, fwd_tc_kernel<MODE>, kTcThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = (p.n_rows + kTcWarps - 1) / kTcWarps;
+  const int grid = min(sms * per_sm, blocks);
+  fwd_tc_kernel<MODE><<<grid, kTcThreads, smem, st>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // The size in floats of one weight-gradient partial (and of `wgrad`):
@@ -742,12 +808,19 @@ extern "C" int hg_dn_tri_builder_wgrad_size(int sr, int b, int d) {
 // (fwd_tc_kernel: B <= 8, SR <= 64, D a multiple of 8), 2 (the first
 // design), 0 when the device cannot be asked.
 extern "C" int hg_dn_tri_builder_fwd_route(int sr, int b, int d) {
-  int dev = 0, optin = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             dev) != cudaSuccess)
-    return 0;
+  int optin = 0;
+  if (device_limits(&optin, nullptr) != cudaSuccess) return 0;
   return fwd_route(sr, b, d, optin);
+}
+
+// Pass S's route: 1 (fwd_tc_kernel<kPassS>: the forward's route 1 in kj
+// order, at its widths, when d sbf is not asked for), 2 (the first
+// design), 0 when the device cannot be asked.
+extern "C" int hg_dn_tri_builder_bwd_s_route(int sr, int b, int d,
+                                             int want_sbf) {
+  int optin = 0;
+  if (device_limits(&optin, nullptr) != cudaSuccess) return 0;
+  return bwd_s_route(sr, b, d, want_sbf != 0, optin);
 }
 
 // One builder launch; returns the cudaError_t (0 = success).  mode 0: the
@@ -792,36 +865,18 @@ extern "C" int hg_dn_tri_builder_f32(
   p.d = d;
   p.n_chunks = (n_rows + kRows - 1) / kRows;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (mode == kFwd) {
-    int dev = 0, optin = 0, sms = 0, per_sm = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(
-          &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (mode != kPassP) {
+    int optin = 0, sms = 0;
+    const cudaError_t err = device_limits(&optin, &sms);
     if (err != cudaSuccess) return static_cast<int>(err);
-    if (fwd_route(sr, b, d, optin) == 2)
-      return launch(tri_rows_kernel<kFwd>, kFwd, p, dim3(p.n_chunks), st);
-    const size_t smem = sizeof(float) *
-        static_cast<size_t>(tc_smem_words(sr, d));
-    err = cudaFuncSetAttribute(fwd_tc_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, fwd_tc_kernel, kTcThreads, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (per_sm < 1) return static_cast<int>(cudaErrorInvalidValue);
-    // a persistent grid, every warp one share of the rows; about one warp
-    // a row at most
-    const int blocks = (n_rows + kTcWarps - 1) / kTcWarps;
-    const int grid = min(sms * per_sm, blocks);
-    fwd_tc_kernel<<<grid, kTcThreads, smem, st>>>(p);
-    return static_cast<int>(cudaGetLastError());
+    if (mode == kFwd)
+      return fwd_route(sr, b, d, optin) == 1
+          ? launch_tc<kFwd>(p, sms, st)
+          : launch(tri_rows_kernel<kFwd>, kFwd, p, dim3(p.n_chunks), st);
+    return bwd_s_route(sr, b, d, d_sbf != nullptr, optin) == 1
+        ? launch_tc<kPassS>(p, sms, st)
+        : launch(tri_rows_kernel<kPassS>, kPassS, p, dim3(p.n_chunks), st);
   }
-  if (mode == kPassS)
-    return launch(tri_rows_kernel<kPassS>, kPassS, p, dim3(p.n_chunks), st);
   const int n_slices = (b + kSlice - 1) / kSlice;
   const int grid_x = n_parts / n_slices > 0 ? n_parts / n_slices : 1;
   const int rc = launch(tri_wgrad_kernel, kPassP, p, dim3(grid_x, n_slices),

@@ -69,9 +69,12 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         "hg_gat_f32": (_I,) + (_P,) * 16 + (_I, _I, _I, _F, _I, _P),
     },
     "cgcnn_mp": {
-        # mode, x, ea, send, recv, perm, row_ptr, wfr, wfs, wfg, bf, wsr,
-        # wss, wsg, bs, gout, out, n_rows, f, d, a, stream
-        "hg_cgcnn_f32": (_I,) + (_P,) * 16 + (_I,) * 4 + (_P,),
+        # x, ea, send, row_ptr, wfr, wfs, wfg, bf, wsr, wss, wsg, bs,
+        # table, out, n_rows, f, d, a, stream
+        "hg_cgcnn_fwd_f32": (_P,) * 14 + (_I,) * 4 + (_P,),
+        # x, ea, send, recv, perm, row_ptr, wfr, wfs, wfg, bf, wsr, wss,
+        # wsg, bs, gout, out, n_rows, f, d, a, stream
+        "hg_cgcnn_pass_s_f32": (_P,) * 16 + (_I,) * 4 + (_P,),
         # x, ea, send, recv, row_ptr, wfr, wfs, wfg, bf, wsr, wss, wsg, bs,
         # gout, table, partial, wgrad, dx_part, dea_part, dx, dea, n_rows,
         # n_edges, f, d, a, wp, n_parts, stream
@@ -96,6 +99,8 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         # sr, b, d
         "hg_dn_tri_builder_wgrad_size": (_I,) * 3,
         "hg_dn_tri_builder_fwd_route": (_I,) * 3,
+        # sr, b, d, want_sbf
+        "hg_dn_tri_builder_bwd_s_route": (_I,) * 4,
     },
     "row_mlp": {
         # mode, tri, xji, xe, w, bias, gout, out, dtri, dxji, dxe, partial,

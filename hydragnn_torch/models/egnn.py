@@ -27,8 +27,12 @@ import torch.nn as nn
 
 from hydragnn_torch.graph import segment
 from hydragnn_torch.models.base import Base
-from hydragnn_torch.models.layers import LECUN_NORMAL, dense, dense_leaves, \
-    edge_geometry
+from hydragnn_torch.models.layers import (
+    LECUN_NORMAL,
+    dense,
+    dense_leaves,
+    diff_geometry,
+)
 from hydragnn_torch.ops.egcl_mp import (
     EGCL_F_LIMIT,
     EGCL_GEO_LIMIT,
@@ -101,7 +105,10 @@ class EGCL(nn.Module):
     def forward(self, x, pos, g):
         n = x.shape[0]
         src = g.senders
-        diff, radial = edge_geometry(pos, src, g.receivers)
+        # pos at both ends through the gathers whose backward is the
+        # sorted-segment kernel (with the marker; plain gathers without)
+        diff, radial = diff_geometry(segment.gather_sender(pos, g)
+                                     - segment.gather_receiver_sorted(pos, g))
         use_ea = bool(self.edge_dim) and g.edge_attr is not None
         geo_dim = 4 + (g.edge_attr.shape[-1] if use_ea else 0)
 

@@ -151,7 +151,11 @@ def mlp(in_dim: int, features: Sequence[int], activation: str,
 def edge_geometry(pos, src, dst):
     """Normalized difference vector and squared distance per edge (eps
     inside the sqrt keeps padding self-edges finite)."""
-    diff = pos[src] - pos[dst]
+    return diff_geometry(pos[src] - pos[dst])
+
+
+def diff_geometry(diff):
+    """:func:`edge_geometry` from the edges' ``pos[src] - pos[dst]``."""
     radial = torch.sum(diff * diff, dim=-1, keepdim=True)
     diff = diff / (torch.sqrt(radial + 1e-12) + 1.0)
     return diff, radial

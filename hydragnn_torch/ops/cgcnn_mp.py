@@ -14,11 +14,15 @@ Three kernels, hand-written in CUDA C++ for Hopper (csrc/cgcnn_mp.cu,
 built by kernels/build.py), none of which writes an ``[E, D]`` or
 ``[E, 2F+A]`` tensor to device memory.  The receiver is the primary side:
 
-- forward (the reference's ``_fused_fwd``): receiver order, recompute
-  ``tf``, ``ts`` per edge tile, sum ``sigmoid(tf) * softplus(ts)`` into the
-  receiver rows;
-- pass P (``_bwd_p_kernel``): receiver order, the node table ``x @ [Wfr
-  | Wsr | Wfs | Wss]`` once per launch, then per edge only ``(dtf, dts)``
+- forward (the reference's ``_fused_fwd``): the node table ``T = x @ [Wfr
+  | Wsr | Wfs | Wss]`` ``[N, 4D]`` (3xTF32 on the tensor cores, pass P's
+  table kernel), then one warp per receiver row: ``tf = T[r, :D] + bf +
+  T[s, 2D:3D]`` (+ ``edge_attr @ Wfg``), ``ts`` likewise from the next
+  blocks, ``sigmoid(tf) * softplus(ts)`` summed into the row in edge
+  order.  Two CUDA launches, counted as one in ``LAUNCHES["cgcnn_block"]``
+  (one per forward);
+- pass P (``_bwd_p_kernel``): receiver order, the node table once per
+  launch, then per edge only ``(dtf, dts)``
   and the sender-side weight gradients, per receiver row (once) the
   receiver-side ones and ``dx`` of the receiver side, and the per-edge
   ``d edge_attr``; products on the tensor cores in 3xTF32, the grid split
@@ -43,11 +47,11 @@ every output and every gradient.
 
 Each leaf takes a CPU tensor to its plain PyTorch version (the CPU path and
 the tests' oracle) and a CUDA tensor to its kernel; a CUDA input the
-kernel does not take raises.  ``LAUNCHES`` counts kernel launches per
-kernel.  :func:`cgcnn_block_reference` is the composed version under
-autograd: the reference the kernels are held to.  The op is
-differentiable once: a double backward raises (the force term, ROADMAP
-queue A3).
+kernel does not take raises.  ``LAUNCHES`` counts one per launch of each
+op (the forward's two CUDA launches count one).
+:func:`cgcnn_block_reference` is the composed version under autograd: the
+reference the kernels are held to.  The op is differentiable once: a
+double backward raises (the force term, ROADMAP queue A3).
 """
 
 from __future__ import annotations
@@ -71,8 +75,6 @@ LAUNCHES: Dict[str, int] = {
     "cgcnn_block_pass_p": 0,
     "cgcnn_block_pass_s": 0,
 }
-
-_MODES = {"cgcnn_block": 0, "cgcnn_block_pass_s": 2}
 
 
 def reset_launches() -> None:
@@ -249,16 +251,29 @@ def launch_cgcnn(op, x, edge_attr, weights, senders, receivers, perm,
     if op == "cgcnn_block_pass_p":
         return _launch_pass_p(lib, x, edge_attr, weights, senders,
                               receivers, row_ptr, gout, want_dx, want_ea)
-    out = torch.empty((n, d if op == "cgcnn_block" else f),
-                      dtype=torch.float32, device=dev)
+    fwd = op == "cgcnn_block"
+    if fwd and perm is not None:
+        raise ValueError("cgcnn_block runs in receiver order: no permutation")
+    if not fwd and perm is None:
+        raise ValueError("cgcnn_block_pass_s needs the sender permutation")
+    out = torch.empty((n, d if fwd else f), dtype=torch.float32, device=dev)
     if n > 0:
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = lib.hg_cgcnn_f32(
-                _MODES[op], x.data_ptr(), _ptr(edge_attr), senders.data_ptr(),
-                receivers.data_ptr(), _ptr(perm), row_ptr.data_ptr(),
-                *(_ptr(w) for w in weights), _ptr(gout), out.data_ptr(), n, f,
-                d, a, stream)
+            if fwd:
+                # the node table: scratch, the second launch's input
+                table = torch.empty((n, 4 * d), dtype=torch.float32,
+                                    device=dev)
+                rc = lib.hg_cgcnn_fwd_f32(
+                    x.data_ptr(), _ptr(edge_attr), senders.data_ptr(),
+                    row_ptr.data_ptr(), *(_ptr(w) for w in weights),
+                    table.data_ptr(), out.data_ptr(), n, f, d, a, stream)
+            else:
+                rc = lib.hg_cgcnn_pass_s_f32(
+                    x.data_ptr(), _ptr(edge_attr), senders.data_ptr(),
+                    receivers.data_ptr(), perm.data_ptr(),
+                    row_ptr.data_ptr(), *(_ptr(w) for w in weights),
+                    gout.data_ptr(), out.data_ptr(), n, f, d, a, stream)
         _check_rc(rc, op)
         LAUNCHES[op] += 1
     return out

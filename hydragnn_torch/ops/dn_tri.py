@@ -55,7 +55,9 @@ width, :func:`builder_fwd_route`: tensor cores with each warp on its own
 share of the rows, :func:`~hydragnn_torch.ops.aggregate.row_shares`, or
 the first design); pass S in
 ``idx_kj`` order through ``perm_kj`` (each row k owns ``d_x_kj[k]``,
-``d_sbf`` goes to each triplet's own slot); pass P in ``idx_ji`` order
+``d_sbf`` goes to each triplet's own slot; two routes,
+:func:`builder_bwd_s_route`: the forward's route 1 in kj order when
+``d_sbf`` is not asked for, or the first design); pass P in ``idx_ji`` order
 (``dk1``, ``dk2`` in per-block partials over slices of B, reduced in a
 fixed order).  Its backward written out
 (:func:`dimenet_tri_builder_bwd_plain`), with ``g = dout[ji]``:
@@ -403,6 +405,16 @@ def builder_fwd_route(sr, b, d):
     return 2
 
 
+def builder_bwd_s_route(sr, b, d, want_sbf):
+    """Pass S's route: 1 (the forward's route 1 in kj order,
+    fwd_tc_kernel<kPassS>) at the forward's route-1 widths when ``d_sbf``
+    is not asked for, as on the training path; 2 (the first design,
+    tri_rows_kernel<kPassS>) otherwise.  Mirrors
+    ``hg_dn_tri_builder_bwd_s_route``; a card test holds the two
+    together."""
+    return 2 if want_sbf else builder_fwd_route(sr, b, d)
+
+
 def _aligned(t):
     """``t``, or a copy of it on a 16-byte boundary: the kernels' cp.async
     row copies need it (a view may start anywhere)."""
@@ -455,6 +467,8 @@ def launch_dn_tri_builder(op, x_kj, sbf, k1, k2, idx_kj, idx_ji, perm,
         raise ValueError("the kernel indexes edges and triplets with int32")
     lib = load_library("dn_tri_builder")
     x_kj, sbf = _aligned(x_kj), _aligned(sbf)
+    if gout is not None:
+        gout = _aligned(gout)
     out = d_sbf = partial = wgrad = None
     n_parts = 0
     if mode == 0:

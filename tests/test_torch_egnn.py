@@ -389,6 +389,52 @@ def test_dispatch_tally_and_width_gate(monkeypatch):
     assert tally("scatter") == ({"egcl:scatter": 2}, [])
 
 
+def test_position_gathers_take_the_sorted_segment_backward(monkeypatch):
+    """With the marker, every layer gathers the positions at the senders
+    and receivers through the gathers whose backward is the sorted-segment
+    kernel (two such backwards a layer, the positions needing a gradient
+    at every layer here); against the same model with plain gathers, the
+    forward and the gradients of every parameter, of x and of the real
+    nodes' positions agree to 1e-5 of each one's largest entry."""
+    from hydragnn_torch.graph import segment
+
+    _, _, tm, _, gt = _models(monkeypatch, "fused")
+    assert "edge_perm_sender" in gt.extras
+    x = gt.x.clone().requires_grad_(True)
+    pos = gt.pos.clone().requires_grad_(True)
+    g = dataclasses.replace(gt, x=x, pos=pos)
+    rng = np.random.RandomState(4)
+    real = gt.node_mask != 0
+
+    def run():
+        out = tm(g)
+        loss = sum((o * torch.from_numpy(
+            rng.randn(*o.shape).astype(np.float32))).sum() for o in out)
+        grads = torch.autograd.grad(loss, [x, pos] + list(tm.parameters()))
+        return ([o.detach() for o in out], grads[0], grads[1][real],
+                grads[2:])
+
+    backwards = []
+    kernel_bwd = segment._GatherDenseBwd.backward
+
+    def counted(ctx, grad):
+        backwards.append(tuple(ctx.shape))
+        return kernel_bwd(ctx, grad)
+
+    monkeypatch.setattr(segment._GatherDenseBwd, "backward",
+                        staticmethod(counted))
+    got = run()
+    assert backwards.count(tuple(pos.shape)) == 2 * len(tm.graph_convs)
+    monkeypatch.setattr(segment._GatherDenseBwd, "apply", staticmethod(
+        lambda x_, idx, perm, valid: x_[idx.long()]))
+    rng = np.random.RandomState(4)
+    want = run()
+    for a, b in zip(got[0] + [got[1], got[2]] + list(got[3]),
+                    want[0] + [want[1], want[2]] + list(want[3])):
+        scale = float(b.abs().max())
+        assert float((a - b).abs().max()) <= 1e-5 * scale
+
+
 def test_energy_invariant_under_rotation(monkeypatch):
     """The graph output does not move under a rotation of every position
     (1e-5 relative); the fused path."""

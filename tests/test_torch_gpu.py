@@ -733,7 +733,8 @@ def test_egnn_train_steps_on_card_match_cpu(cuda, monkeypatch):
     steps under fused from one init on the card (kernels) and on the CPU
     (plain versions), the same losses and parameters to 1e-4; per step 4
     forward, 4 pass P and 3 pass S launches (layer 0's input needs no
-    gradient) and 1 pool."""
+    gradient), 1 pool and 6 segment sums (the backward of layers 1-3's two
+    position gathers)."""
     from hydragnn_torch.models.base import GraphHeadCfg, ModelConfig
     from hydragnn_torch.models.create import create_model
     from hydragnn_torch.ops import egcl_mp
@@ -765,7 +766,7 @@ def test_egnn_train_steps_on_card_match_cpu(cuda, monkeypatch):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
     assert egcl_mp.LAUNCHES == {"egcl_block": 12, "egcl_block_pass_p": 12,
                                 "egcl_block_pass_s": 9}
-    assert tfm.LAUNCHES["segment_sum_dense"] == 3
+    assert tfm.LAUNCHES["segment_sum_dense"] == 21
 
 
 @pytest.mark.gpu
@@ -932,20 +933,24 @@ def test_gat_train_steps_on_card_match_cpu(cuda, monkeypatch, dropout):
 @pytest.mark.gpu
 @pytest.mark.parametrize("want_ea", [True, False], ids=["dea", "no-dea"])
 @pytest.mark.parametrize("a", [0, 5], ids=["no-edge-attr", "edge-attr"])
-@pytest.mark.parametrize("f,d", [(1, 1), (24, 16), (64, 64), (256, 256)])
+@pytest.mark.parametrize("f,d", [(1, 1), (24, 16), (64, 64), (32, 96),
+                                 (40, 33), (256, 256)])
 def test_cgcnn_kernels_match_plain_on_card(cuda, f, d, a, want_ea):
-    """The three cgcnn kernels (forward, pass P with its node table and
-    reduction, pass S) through the autograd Function against autograd
-    through the composed plain version: F = 1 (layer 0 on one node
-    feature), 24 with D = 16 (a transposed block shows), 64 (the arch
-    sweep's CGCNN) and the limit 256 (sixteen slices of pass P's output
-    columns); with and without edge attributes, and their gradient asked
-    or not.  Node 0 receives 200 extra edges (a row over several edge
-    tiles, past an even share of the edges); other rows have none.
-    Forward, dx and d edge_attr 1e-5 of their largest entry, the
-    edge-summed weight and bias grads 1e-4; the gradients also against a
-    float64 run (:func:`_float64_yardstick`); d edge_attr exactly zero on
-    masked edges; a second run bit-identical."""
+    """The three cgcnn kernels (forward with its node table, pass P with
+    its node table and reduction, pass S) through the autograd Function
+    against autograd through the composed plain version: F = 1 (layer 0 on
+    one node feature), 24 with D = 16 (a transposed block shows), 64 (the
+    arch sweep's CGCNN), D = 96 and 33 (the forward's four columns a lane,
+    and its scalar loads at an odd D) and the limit 256 (the forward's
+    eight columns a lane; sixteen slices of pass P's output columns); with
+    and without edge attributes, and their gradient asked or not.  Node 0
+    receives 200 extra edges (a row over several edge tiles, past an even
+    share of the edges); other rows have none.  Forward, dx and d
+    edge_attr 1e-5 of their largest entry, the edge-summed weight and bias
+    grads 1e-4; the forward and the gradients also against a float64 run
+    (:func:`_float64_yardstick`: the forward's node table runs in 3xTF32);
+    d edge_attr exactly zero on masked edges; a second run
+    bit-identical."""
     from hydragnn_torch.ops import cgcnn_mp
 
     b = _graph_batch(31 + f + a, hub=200)
@@ -993,8 +998,7 @@ def test_cgcnn_kernels_match_plain_on_card(cuda, f, d, a, want_ea):
         rel = 1e-5 if name in ("out", "x", "edge_attr") else 1e-4
         assert float((x_ - y_).abs().max()) <= rel * float(y_.abs().max()), \
             name
-        if name != "out":
-            _float64_yardstick(name, x_, y_, z_)
+        _float64_yardstick(name, x_, y_, z_)
 
 
 @pytest.mark.gpu
@@ -1490,6 +1494,66 @@ def test_dn_tri_builder_kernels_match_plain_on_card(cuda, sr, b, d,
     torch.cuda.synchronize()
     assert bool(torch.isnan(pn).any())
     assert torch.equal(torch.isnan(kn), torch.isnan(pn))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sr,b,d", [(42, 8, 128), (21, 8, 96), (64, 8, 8)])
+def test_dn_tri_builder_pass_s_route1_on_card(cuda, sr, b, d):
+    """Pass S's route 1 (the forward's tensor-core kernel in kj order),
+    which the training path takes: sbf without a gradient, so d sbf is not
+    asked for.  The dimenet_wide cell's widths, the JAX tests' and route
+    1's limits, on a table with a masked tail and two ~210-triplet kj rows
+    (several tiles, one beginning mid-tile).  The card's routes are the
+    plan's (``builder_bwd_s_route``, also with d sbf asked, route 2);
+    d x_kj 1e-5 of its largest entry against the plain version and within
+    the float64 bound (:func:`_float64_yardstick`), dk1 and dk2 1e-4; one
+    launch of each kernel; a second run bit-identical."""
+    from hydragnn_torch.kernels.build import load_library
+    from hydragnn_torch.ops import dn_tri
+
+    lib = load_library("dn_tri_builder")
+    for want_sbf in (False, True):
+        assert lib.hg_dn_tri_builder_bwd_s_route(sr, b, d, want_sbf) == \
+            dn_tri.builder_bwd_s_route(sr, b, d, want_sbf) == \
+            (2 if want_sbf else 1)
+    e, t = 700, 6000
+    kj, ji, tm, perm = (_t(a).to(cuda) for a in _dimenet_tables(
+        e, t, 1, 11 + sr + d, hubs=((40, 210), ((300, 40), 210))))
+    g = torch.Generator().manual_seed(5)
+    ins = [torch.randn(e, d, generator=g),
+           torch.randn(t, sr, generator=g) * 0.5,
+           torch.randn(sr, b, generator=g) / sr ** 0.5,
+           torch.randn(b, d, generator=g) / b ** 0.5]
+    ins = [x.to(cuda) for x in ins]
+    ct = torch.randn(e, d, generator=g).to(cuda)
+
+    def run(fn, inputs):
+        ts = [x.detach().clone().requires_grad_(i != 1)
+              for i, x in enumerate(inputs)]
+        out = fn(ts[0], ts[1], tm, ts[2], ts[3], kj, ji)
+        (out * ct.to(out.dtype)).sum().backward()
+        torch.cuda.synchronize()
+        return [ts[0].grad, ts[2].grad, ts[3].grad]
+
+    def kern(*a):
+        return dn_tri.dimenet_tri_builder(*a, perm)
+
+    dn_tri.reset_launches()
+    k = run(kern, ins)
+    assert {k_: v for k_, v in dn_tri.LAUNCHES.items() if v} == {
+        "dimenet_tri_builder": 1, "dimenet_tri_builder_bwd_s": 1,
+        "dimenet_tri_builder_bwd_p": 1}
+    again = run(kern, ins)
+    for x_, y_ in zip(k, again):
+        assert torch.equal(x_, y_)
+    p = run(dn_tri.dimenet_tri_builder_reference, ins)
+    p64 = run(dn_tri.dimenet_tri_builder_reference, [x.double() for x in ins])
+    for name, x_, y_, z_ in zip(("x_kj", "k1", "k2"), k, p, p64):
+        assert float(y_.abs().max()) > 0, name
+        rel = 1e-5 if name == "x_kj" else 1e-4
+        assert float((x_ - y_).abs().max()) <= rel * float(y_.abs().max()), \
+            name
+    _float64_yardstick("x_kj", k[0], p[0], p64[0])
 
 
 @pytest.mark.gpu

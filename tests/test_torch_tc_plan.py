@@ -1,8 +1,10 @@
-"""Host-side planning of the builder forward's and egcl pass P's
-tensor-core routes (hydragnn_torch/ops/dn_tri.py, ops/egcl_mp.py,
+"""Host-side planning of the builder forward's and pass S's and egcl pass
+P's tensor-core routes (hydragnn_torch/ops/dn_tri.py, ops/egcl_mp.py,
 ops/aggregate.py ``row_shares``): the route by width, the shares of rows
-that the kernels' warps (builder forward) or blocks (egcl pass P) take,
-and the weight-gradient jobs of egcl pass P.
+that the kernels' warps (builder forward and pass S) or blocks (egcl pass
+P) take, and the weight-gradient jobs of egcl pass P; and the cgcnn
+forward as its kernel computes it (the node table, then each receiver
+row's sum in edge order).
 
 The kernels only run on the card; here each share's part is computed by
 the plain version on the rows (and their triplets or edges) the share
@@ -19,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from hydragnn_torch.ops import dn_tri, egcl_mp
+from hydragnn_torch.ops import cgcnn_mp, dn_tri, egcl_mp
 from hydragnn_torch.ops.aggregate import row_shares, segment_offsets
 
 
@@ -118,6 +120,137 @@ def test_builder_forward_shares_sum_to_plain(n_parts):
     assert bool((written == 1).all())
     _close(out, dn_tri.dimenet_tri_builder_reference(x, sbf, tm, k1, k2,
                                                      idx_kj, idx_ji))
+
+
+@pytest.mark.parametrize("sr,b,d,want_sbf,route", [
+    (42, 8, 128, False, 1), (42, 8, 128, True, 2), (21, 8, 96, False, 1),
+    (64, 8, 8, False, 1), (64, 8, 8, True, 2), (70, 8, 64, False, 2),
+    (42, 9, 128, False, 2), (42, 8, 100, False, 2),
+    (126, 128, 128, True, 2)])
+def test_builder_pass_s_route_by_width(sr, b, d, want_sbf, route):
+    """Pass S takes the forward's route 1 at its widths when d sbf is not
+    asked for (the training path, DimeNet++'s QM9 widths among them); the
+    first design keeps d sbf and every width past route 1's."""
+    assert dn_tri.builder_bwd_s_route(sr, b, d, want_sbf) == route
+
+
+@pytest.mark.parametrize("n_parts", [1, 7, 200])
+def test_builder_pass_s_shares_sum_to_plain(n_parts):
+    """Pass S's route-1 partition emulated with the plain version: warp i
+    of ``n_parts`` takes kj rows [b_i, b_{i+1}) of the kj-order CSR (a hub
+    row, rows without triplets, a masked tail parked on the last edge) and
+    their triplets; its rows of d x_kj, written once each, make up pass S
+    over the batch."""
+    rng = np.random.RandomState(n_parts + 3)
+    e, t, sr, b, d = 90, 700, 42, 8, 16
+    real = 600
+    ji = np.sort(rng.randint(0, e - 1, real))
+    kj = rng.randint(0, e - 1, real)
+    kj[:80] = 5
+    kj[(kj >= 30) & (kj < 40)] = 41
+    idx_ji = torch.from_numpy(np.concatenate([ji, np.full(t - real, e - 1)])
+                              ).int()
+    idx_kj = torch.from_numpy(np.concatenate([kj, np.full(t - real, e - 1)])
+                              ).int()
+    tm = (torch.arange(t) < real).int()
+    perm = torch.argsort(idx_kj, stable=True)
+    x = torch.from_numpy(rng.randn(e, d).astype(np.float32))
+    sbf = torch.from_numpy(rng.randn(t, sr).astype(np.float32))
+    k1 = torch.from_numpy((rng.randn(sr, b) / 6).astype(np.float32))
+    k2 = torch.from_numpy((rng.randn(b, d) / 3).astype(np.float32))
+    g = torch.from_numpy(rng.randn(e, d).astype(np.float32))
+    bounds = _shares_ok(segment_offsets(idx_kj[perm], e, tm[perm]), n_parts)
+    dx = torch.full((e, d), float("nan"))
+    written = torch.zeros(e, dtype=torch.long)
+    for i in range(n_parts):
+        r0, r1 = int(bounds[i]), int(bounds[i + 1])
+        share = tm * ((idx_kj >= r0) & (idx_kj < r1)).int()
+        part, none = dn_tri.dimenet_tri_builder_pass_s_plain(
+            x, sbf, share, k1, k2, idx_kj, idx_ji, g, want_sbf=False)
+        assert none is None
+        dx[r0:r1] = part[r0:r1]
+        written[r0:r1] += 1
+    assert bool((written == 1).all())
+    _close(dx, dn_tri.dimenet_tri_builder_pass_s_plain(
+        x, sbf, tm, k1, k2, idx_kj, idx_ji, g, want_sbf=False)[0])
+
+
+def _cgcnn_tabled(x, edge_attr, em, kf, bf, ks, bs, senders, receivers):
+    """The cgcnn forward as csrc/cgcnn_mp.cu computes it: the node
+    table ``T = x @ [Wfr | Wsr | Wfs | Wss]``, then per edge ``tf = (T[r,
+    :D] + bf) + T[s, 2D:3D]`` (+ ``edge_attr @ Wfg``), ``ts`` from the
+    second and fourth blocks, and each receiver row's
+    ``sigmoid(tf) * softplus(ts)`` summed over its CSR range in edge order
+    (the k-th edge of every row added in step k).  Masked edges lie in no
+    range; senders outside ``[0, N)`` add nothing."""
+    n, f = x.shape
+    d = kf.shape[1]
+    kfr, kfs, kfg = egcl_mp.split_weights(kf, f)
+    ksr, kss, ksg = egcl_mp.split_weights(ks, f)
+    table = x @ torch.cat([kfr, ksr, kfs, kss], dim=1)
+    send = senders.long()
+    ok = (send >= 0) & (send < n)
+    ts_ = table[send.clamp(0, n - 1)]
+    recv = receivers.long().clamp(0, n - 1)
+    tf = (table[recv, :d] + bf) + ts_[:, 2 * d:3 * d]
+    ts = (table[recv, d:2 * d] + bs) + ts_[:, 3 * d:]
+    if edge_attr is not None:
+        tf = tf + edge_attr @ kfg
+        ts = ts + edge_attr @ ksg
+    msg = torch.sigmoid(tf) * torch.nn.functional.softplus(ts)
+    msg = torch.where(ok[:, None], msg, torch.zeros((), dtype=x.dtype))
+    row_ptr = segment_offsets(receivers, n, em).long()
+    start, deg = row_ptr[:-1], row_ptr[1:] - row_ptr[:-1]
+    out = torch.zeros((n, d), dtype=msg.dtype)
+    for k in range(int(deg.max())):
+        rows = torch.nonzero(deg > k)[:, 0]
+        out[rows] += msg[start[rows] + k]
+    return out
+
+
+def _cgcnn_case(f, a, d, all_masked, seed=0):
+    """A receiver-sorted batch: 60 nodes, a hub row, rows without edges, a
+    sender outside [0, N), and a masked tail parked on the last node (all
+    edges masked when asked)."""
+    rng = np.random.RandomState(seed + f + a + d)
+    n, e, real = 60, 420, 360
+    recv = np.sort(rng.randint(0, n - 1, real))
+    recv[recv == 7] = 8
+    recv[:50] = 0
+    recv.sort()
+    send = rng.randint(0, n - 1, real)
+    send[real // 2] = n + 3
+    pad = np.full(e - real, n - 1)
+    em = (np.arange(e) < (0 if all_masked else real)).astype(np.int32)
+    ins = [rng.randn(n, f), rng.randn(e, a) * 0.5 if a else None,
+           rng.randn(2 * f + a, d) / (2 * f + a) ** 0.5, rng.randn(d) * 0.1,
+           rng.randn(2 * f + a, d) / (2 * f + a) ** 0.5, rng.randn(d) * 0.1]
+    ins = [None if v is None else torch.from_numpy(v.astype(np.float32))
+           for v in ins]
+    ids = [torch.from_numpy(np.concatenate([v, pad]).astype(np.int32))
+           for v in (send, recv)]
+    return ins, torch.from_numpy(em), ids
+
+
+@pytest.mark.parametrize("all_masked", [False, True],
+                         ids=["masked-tail", "all-masked"])
+@pytest.mark.parametrize("f,a,d", [(64, 0, 64), (24, 5, 16), (256, 0, 256)])
+def test_cgcnn_forward_tabled_matches_reference(f, a, d, all_masked):
+    """The cgcnn forward as its kernel computes it (the node table, then
+    each receiver row's sum in edge order) equals the composed plain
+    version at the path's widths (F = D = 64), at (24, 5, 16) and at the
+    limit 256, 1e-5 of the largest entry; rows without an edge and the
+    all-masked batch give exact zeros."""
+    ins, em, (send, recv) = _cgcnn_case(f, a, d, all_masked)
+    got = _cgcnn_tabled(ins[0], ins[1], em, *ins[2:], send, recv)
+    want = cgcnn_mp.cgcnn_block_reference(ins[0], ins[1], em, *ins[2:],
+                                          send, recv)
+    if all_masked:
+        assert float(got.abs().max()) == 0
+        return
+    assert float(want.abs().max()) > 0
+    _close(got, want)
+    assert float(got[7].abs().max()) == 0
 
 
 @pytest.mark.parametrize("f,h,gp,eq,route", [
