@@ -13,9 +13,11 @@ and PyTorch built for CUDA.  Phases, each of which fails the run:
    stack, spills and static shared memory (ptxas) of the redesigned
    kernels (the two pass-P kernels on the tensor cores, scf and cgcnn
    with its node table; the row_mlp backward's two routes; the dn_tri
-   backward; the builder forward's route 1; egcl pass P's route 1)
-   beside the kernels that share their sources, and the
-   pass-P kernels' dynamic shared memory at the main path's widths;
+   backward; the builder forward's route 1; egcl pass P's route 1; the
+   scf filter-gather kernel's and the dn_tri forward's routes 1)
+   beside the kernels that share their sources, and the dynamic shared
+   memory of the pass-P kernels and the two new routes 1 at the main
+   path's widths;
 3. kernels: on the first batch of the main path (512 flagship-size graphs,
    masked tail edges, empty segments), hold each kernel to its plain
    PyTorch version and time kernel, plain version and library call (CUDA
@@ -30,7 +32,11 @@ and PyTorch built for CUDA.  Phases, each of which fails the run:
    1e-4 for the weight grads, sums over ~1e5 edges in another order;
    pass P, here and in cgcnn below, runs its products on the tensor cores
    in 3xTF32, and its row carries two bounds: ``bound_ms`` at the 3xTF32
-   rate of 495 / 3 TFLOP/s, ``bound_ms_cuda_cores`` at 67), and the two
+   rate of 495 / 3 TFLOP/s, ``bound_ms_cuda_cores`` at 67; the forward
+   and pass S take their route 1 on the tensor cores too, the card's
+   route the plan's, each as the path launches it within a float64 run's
+   bound and bit-identical twice, the first design (route 2) held to the
+   plain version and timed beside it), and the two
    poly kernels (scatter mode with all moments at F=64 and F=256,
    gather mode with sum+cnt and with all moments at F=64: sums 1e-5,
    max/min and count exactly equal; through their autograd Functions
@@ -62,9 +68,12 @@ and PyTorch built for CUDA.  Phases, each of which fails the run:
    row-MLP chain forward and backward through their autograd Functions
    against autograd through the composed plain versions (1e-5; 1e-4 for
    the weight grads; d cbf exactly zero on masked triplets), the triplet
-   backward also launched as the path launches it (d x2 and the weights)
-   and with all four outputs, every output against the plain version and
-   both launches timed, and the
+   forward's route the plan's (route 1 on the tensor cores), as the path
+   launches it within a float64 run's bound and bit-identical twice, its
+   first design held to the plain version and timed beside it, the
+   triplet backward also launched as the path launches it (d x2 and the
+   weights) and with all four outputs, every output against the plain
+   version and both launches timed, and the
    builder's three kernels (forward, pass S, pass P) at the same batch's
    triplet table and full spherical basis at dimenet_wide's widths (S*R =
    42, B = 8, D = 128), at (70, 8, 64) and at the limits (126, 128, 128),
@@ -625,20 +634,26 @@ def tensor_core_bounds(nbytes, flops):
 def pass_p_build_report():
     """The registers, stack, spills and static shared memory (ptxas) of
     the redesigned kernels (scf and cgcnn pass P, the row_mlp backward's
-    two routes, the dn_tri backward) and, beside them, of the kernels that
-    share their sources (cgcnn's forward and pass S, whose registers the
-    pass-P split changed; the row_mlp and dn_tri forwards); and the dynamic
-    shared memory of one pass-P block at the main path's widths (the
-    kernels' own layout).  Fails when a source's report is missing."""
+    two routes, the dn_tri backward, the scf filter-gather kernel's and
+    the dn_tri forward's routes 1, the builder's) and, beside them, of the
+    kernels that share their sources (cgcnn's forward and pass S, whose
+    registers the pass-P split changed; the row_mlp forward, both first
+    designs of the filter-gather kernel and the dn_tri forward); and the
+    dynamic shared memory of one block of scf pass P, cgcnn pass P, the
+    scf filter-gather route 1 and the dn_tri forward's route 1 at the
+    main path's widths (the kernels' own layouts).  Fails when a source's
+    report is missing."""
     from hydragnn_torch.kernels.build import load_library, ptxas_log
     from hydragnn_torch.ops import scf_mp
 
-    keys = {"scf_mp": ("pass_p_kernel",),
+    keys = {"scf_mp": ("pass_p_kernel", "scf_fg_tc_kernel",
+                       "scf_filter_gather_kernel"),
             "cgcnn_mp": ("pass_p_kernel", "node_table_kernel",
                          "cgcnn_fwd_kernel", "cgcnn_kernel"),
             "row_mlp": ("row_mlp_fwd_kernel", "row_mlp_bwd_tc_kernel",
                         "row_mlp_bwd_kernel"),
-            "dn_tri": ("dn_tri_fwd_kernel", "dn_tri_bwd_kernel"),
+            "dn_tri": ("dn_tri_fwd_kernel", "dn_tri_bwd_kernel",
+                       "fwd_tc_kernel"),
             "dn_tri_builder": ("fwd_tc_kernel", "tri_rows_kernel",
                                "tri_wgrad_kernel"),
             "egcl_mp": ("pass_p_tc_kernel", "egcl_kernel")}
@@ -649,15 +664,20 @@ def pass_p_build_report():
               f"ptxas: no register report for {src}.cu's kernels")
         kernels += rep
     cg = load_library("cgcnn_mp")
+    scf = load_library("scf_mp")
     width = scf_mp.pass_p_plan(WIDE, GAUSSIANS, 1, 1).width
     wp = cg.hg_cgcnn_pass_p_width(FEATURES, FEATURES, 0)
+    # the arch sweep's DimeNet: S*R = 42, D = int_emb_size 64
     return {"phase": "ptxas", "kernels": kernels,
             "dynamic_smem_bytes": {
                 f"scf_pass_p (F={WIDE}, G={GAUSSIANS}, W={width})":
-                    load_library("scf_mp").hg_scf_pass_p_smem(
-                        WIDE, GAUSSIANS, width),
+                    scf.hg_scf_pass_p_smem(WIDE, GAUSSIANS, width),
+                f"scf_fg_tc (F={WIDE}, G={GAUSSIANS})":
+                    scf.hg_scf_fwd_smem(WIDE, GAUSSIANS),
                 f"cgcnn_pass_p (F=D={FEATURES}, wp={wp})":
-                    cg.hg_cgcnn_pass_p_smem(FEATURES, 0, wp)}}
+                    cg.hg_cgcnn_pass_p_smem(FEATURES, 0, wp),
+                "dn_tri fwd_tc (S*R=42, D=64)":
+                    load_library("dn_tri").hg_dn_tri_fwd_smem(42, 64)}}
 
 
 def ptxas_report(log, keys):
@@ -913,11 +933,51 @@ def kernel_phase(torch, g, seed):
     return results, notes
 
 
+def scf_composed64(torch, x, rbf, cm, em, w0, b0, w1, b1, gidx, rowid):
+    """The composed edge pipeline in float64 (x gathered at ``gidx``,
+    summed at ``rowid``): the yardstick of the filter-gather kernel."""
+    x, rbf, cm, w0, b0, w1, b1 = (t.double()
+                                  for t in (x, rbf, cm, w0, b0, w1, b1))
+    a = torch.nn.functional.softplus(rbf @ w0 + b0) - math.log(2.0)
+    msgs = x[gidx.long()] * ((a @ w1 + b1) * cm[:, None])
+    msgs = torch.where((em != 0)[:, None], msgs, torch.zeros_like(msgs))
+    return torch.zeros_like(x).index_add(0, rowid.long(), msgs)
+
+
+def scf_weight_bytes(torch, ptr, f, g, n_blocks):
+    """Bytes of W0 and W1 that the filter-gather kernel reads from L2 in
+    one launch over the CSR ``ptr``: (route 1, route 2).  Route 1 reads W0
+    and W1 whole once per 64-edge tile of each block's share
+    (``row_shares`` over ``n_blocks`` blocks, one a SM); route 2 (the
+    first design, 32-edge tiles at F <= 256) once per 32-edge tile of each
+    16-row block."""
+    from hydragnn_torch.ops import scf_mp as sm
+    from hydragnn_torch.ops.aggregate import row_shares
+
+    p = ptr.long().cpu()
+    per_tile = 4 * (g + f) * f
+    b = row_shares(ptr, n_blocks)
+    m = sm.SCF_TC_TILE
+    tiles1 = int(((p[b[1:]] - p[b[:-1]] + m - 1) // m).sum())
+    n = p.numel() - 1
+    blk = torch.arange(0, n + 16, 16).clamp(max=n)
+    tiles2 = int(((p[blk[1:]] - p[blk[:-1]] + 31) // 32).sum())
+    return tiles1 * per_tile, tiles2 * per_tile
+
+
 def scf_phase(torch, g, seed):
     """The three scf kernels of the wide SchNet against the composed plain
     version under autograd, at the first batch's geometry (F=256, G=50,
-    radius 1.8), and each kernel timed alone as the main path launches it
-    (pass P without drbf/dcm: energy-only training asks for neither)."""
+    radius 1.8); then the filter-gather kernel's route (the card's
+    against the plan's, route 1 at the path's widths), its forward and
+    pass S as the path launches them against a float64 run of the
+    composed op (within twice the float32 plain version's error, or 1e-6
+    of the largest entry), a second launch bit-identical, and the first
+    design (route 2) at the same inputs held to the plain version; and
+    each kernel timed alone as the main path launches it (pass P without
+    drbf/dcm: energy-only training asks for neither), the forward and
+    pass S also on route 2 (``route2_ms``)."""
+    from hydragnn_torch.kernels.build import load_library
     from hydragnn_torch.models.schnet import gaussian_smearing
     from hydragnn_torch.ops import scf_mp as sm
     from hydragnn_torch.ops.aggregate import segment_offsets
@@ -979,18 +1039,56 @@ def scf_phase(torch, g, seed):
     ptr_r = segment_offsets(recv, n, em)
     p_ = perm.long()
     ptr_s = segment_offsets(send[p_], n, em[p_])
+    route = load_library("scf_mp").hg_scf_fwd_route(f, gd)
+    check(route == sm.fwd_route(f, gd) == 1,
+          f"scf forward (F={f}, G={gd}): route {route} on the card, "
+          f"{sm.fwd_route(f, gd)} planned, the path's route is 1")
+    # the forward (x = h) and pass S (x = the cotangent, gathered at the
+    # receivers, summed at the senders) as the path launches them
+    fg_args = {"scf_edge_pipeline": (h, send, recv, None, ptr_r),
+               "scf_edge_pipeline_pass_s": (ct, recv, send, perm, ptr_s)}
+
+    def fg(op, route_=0):
+        x_, gi, ri, pm, ptr = fg_args[op]
+        return sm.launch_scf_filter_gather(x_, rbf, cm, w0, b0, w1, b1, gi,
+                                           ri, pm, ptr, op, route=route_)
+
+    yard = {}
+    with torch.no_grad():
+        for op, name in (("scf_edge_pipeline", "out"),
+                         ("scf_edge_pipeline_pass_s", "dh")):
+            x_, gi, ri = fg_args[op][:3]
+            k1, again, k2 = fg(op), fg(op), fg(op, 2)
+            torch.cuda.synchronize()
+            check(torch.equal(k1, again), f"scf {name}: a second launch "
+                  "differs")
+            p32 = sm.scf_edge_pipeline_plain(x_, rbf, cm, em, w0, b0, w1, b1,
+                                             gi, ri)
+            p64 = scf_composed64(torch, x_, rbf, cm, em, w0, b0, w1, b1, gi,
+                                 ri)
+            e32 = float((p32.double() - p64).abs().max())
+            e_k = float((k1.double() - p64).abs().max())
+            allowed = max(2 * e32, 1e-6 * float(p64.abs().max()))
+            check(e_k <= allowed, f"scf {name} (route 1): {e_k} from the "
+                  f"float64 run, over {allowed}")
+            errs[name + "_route2"] = rel_err(torch, k2, p32)
+            check(errs[name + "_route2"][1] <= REL_TOL_KERNEL,
+                  f"scf {name} (route 2): {errs[name + '_route2'][1]} from "
+                  "the plain version")
+            yard[name] = {"vs_float64": e_k, "plain_float32_vs_float64": e32,
+                          "float64_allowed": allowed}
+            del p32, p64
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     wbytes = 4 * (gd * f + f * f + 2 * f)
     geo = 4 * e_valid * (gd + 1 + 2)   # rbf rows, cm, two ids
     fwd_flops = 2 * e_valid * (gd * f + f * f)
     launches = {
+        # route 1 runs its products on the tensor cores (3xTF32)
         "scf_edge_pipeline": (
-            lambda: sm.launch_scf_filter_gather(
-                h, rbf, cm, w0, b0, w1, b1, send, recv, None, ptr_r,
-                "scf_edge_pipeline"),
+            lambda: fg("scf_edge_pipeline"),
             lambda: sm.scf_edge_pipeline_plain(
                 h, rbf, cm, em, w0, b0, w1, b1, send, recv),
-            bound(4 * 2 * n * f + geo + wbytes, fwd_flops),
+            tensor_core_bounds(4 * 2 * n * f + geo + wbytes, fwd_flops),
             "hydragnn_tpu/ops/fused_block.py:495", ("out",)),
         # as the path launches it (no drbf, dcm): t0, then u = dfilt . W1^T,
         # dW1 and dW0 per edge; f2 = a . W1 + b1 feeds only dcm
@@ -1004,12 +1102,11 @@ def scf_phase(torch, g, seed):
             "hydragnn_tpu/ops/fused_block.py:561",
             ("dw0", "db0", "dw1", "db1", "drbf", "dcm")),
         "scf_edge_pipeline_pass_s": (
-            lambda: sm.launch_scf_filter_gather(
-                ct, rbf, cm, w0, b0, w1, b1, recv, send, perm, ptr_s,
-                "scf_edge_pipeline_pass_s"),
+            lambda: fg("scf_edge_pipeline_pass_s"),
             lambda: sm.scf_edge_pipeline_plain(
                 ct, rbf, cm, em, w0, b0, w1, b1, recv, send),
-            bound(4 * 2 * n * f + geo + 4 * e_valid + wbytes, fwd_flops),
+            tensor_core_bounds(4 * 2 * n * f + geo + 4 * e_valid + wbytes,
+                               fwd_flops),
             "hydragnn_tpu/ops/fused_block.py:599", ("dh",)),
     }
     results = []
@@ -1027,8 +1124,20 @@ def scf_phase(torch, g, seed):
         })
         if len(bnd) == 3:
             results[-1]["bound_ms_cuda_cores"] = bnd[2]
-    return results, {k: {"max_abs_err": a, "max_rel_err": r}
-                     for k, (a, r) in errs.items()}
+        if name in fg_args:
+            w1b, w2b = scf_weight_bytes(
+                torch, fg_args[name][4], f, gd,
+                torch.cuda.get_device_properties(dev).multi_processor_count)
+            results[-1].update(
+                forward_route=route, weight_l2_bytes=w1b,
+                route2_weight_l2_bytes=w2b,
+                route2_ms=time_ms(torch, lambda: fg(name, 2), flush,
+                                  lead=True))
+    notes = {k: {"max_abs_err": a, "max_rel_err": r}
+             for k, (a, r) in errs.items()}
+    notes["forward_route"] = route
+    notes["route1_vs_float64"] = yard
+    return results, notes
 
 
 def poly_phase(torch, g, seed):
@@ -1926,7 +2035,14 @@ def dimenet_phase(torch, g, seed, cfg):
     output against the plain version; then each kernel timed alone as the
     path launches it, the triplet backward also with all four outputs,
     beside its plain version and its bound (the row_mlp backward's route
-    1 at the 3xTF32 rate, the CUDA-core bound beside it)."""
+    1 and the triplet forward's at the 3xTF32 rate, the CUDA-core bound
+    beside them).  The triplet forward's route is the card's and the
+    plan's (route 1 at the path's widths); as the path launches it, its
+    output lies within twice the float32 plain version's error of a
+    float64 run (or 1e-6 of the largest entry), a second launch is
+    bit-identical, and the first design (route 2) is held to the plain
+    version and timed beside it (``route2_ms``)."""
+    from hydragnn_torch.kernels.build import load_library
     from hydragnn_torch.models.dimenet import (
         distances_and_angles,
         spherical_basis_factors,
@@ -2058,6 +2174,37 @@ def dimenet_phase(torch, g, seed, cfg):
                 check(bool((got[2][~real] == 0).all()), "dimenet: the "
                       "triplet backward's d cbf is not zero on masked "
                       "triplets")
+    # the triplet forward's route, its float64 yardstick and repeat, and
+    # its first design at the path's inputs
+    fwd_route = load_library("dn_tri").hg_dn_tri_fwd_route(s, s * r, b, d)
+    check(fwd_route == dt.fwd_route(s, s * r, b, d) == 1,
+          f"dn_tri forward at {(s, s * r, b, d)}: route {fwd_route} on the "
+          f"card, {dt.fwd_route(s, s * r, b, d)} planned, the path's route "
+          "is 1")
+
+    def tri_fwd(route_=0):
+        return dt.launch_dn_tri("dimenet_triplet_mp", radial, x2, cbf, w1,
+                                w2, kj, ji, None, ptr_ji, r, route=route_)
+
+    with torch.no_grad():
+        k1, again, k2 = tri_fwd(), tri_fwd(), tri_fwd(2)
+        torch.cuda.synchronize()
+        check(torch.equal(k1, again), "dimenet: a second launch of the "
+              "triplet forward differs")
+        p32 = dt.dimenet_triplet_reference(radial, x2, cbf, w1, w2, kj, ji,
+                                           tm, r)
+        p64 = dt.dimenet_triplet_reference(
+            radial.double(), x2.double(), cbf.double(), w1.double(),
+            w2.double(), kj, ji, tm, r)
+        e32 = float((p32.double() - p64).abs().max())
+        e_k = float((k1.double() - p64).abs().max())
+        allowed = max(2 * e32, 1e-6 * float(p64.abs().max()))
+        check(e_k <= allowed, f"dimenet: the triplet forward (route 1) is "
+              f"{e_k} from the float64 run, over {allowed}")
+        hold("tri_out_route2", k2, p32, REL_TOL_KERNEL)
+        tri_yard = {"vs_float64": e_k, "plain_float32_vs_float64": e32,
+                    "float64_allowed": allowed}
+        del p32, p64
     route = rm.bwd_route(d, h, nb, na)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     tri_f, row_f, row_b = dimenet_flops(s, r, b, d, d, h, nb, na, t_real, e)
@@ -2078,12 +2225,12 @@ def dimenet_phase(torch, g, seed, cfg):
         ("dradial", "dx2", "dcbf", "dw1", "dw2")) if want[min(o, 3)])
         for tag, want in tri_bwd_want.items()}
     timed = {
+        # route 1 runs its products on the tensor cores (3xTF32)
         "dimenet_triplet_mp": (
-            lambda: dt.launch_dn_tri("dimenet_triplet_mp", radial, x2, cbf,
-                                     w1, w2, kj, ji, None, ptr_ji, r),
+            tri_fwd,
             lambda: dt.dimenet_triplet_reference(radial, x2, cbf, w1, w2,
                                                  kj, ji, tm, r),
-            bound(tri_in + 4 * e * d, tri_f),
+            tensor_core_bounds(tri_in + 4 * e * d, tri_f),
             "hydragnn_tpu/ops/dn_tri.py:285", "dn_tri", ("tri_out",)),
         "dimenet_triplet_mp_bwd": (
             lambda: tri_bwd(tri_bwd_want["path"]),
@@ -2145,9 +2292,15 @@ def dimenet_phase(torch, g, seed, cfg):
                     flops=tri_b[tag][0], flops_unfactored=tri_b[tag][1])
             if name == "dimenet_post_mlp_bwd":
                 results[-1]["backward_route"] = route
+            if name == "dimenet_triplet_mp":
+                results[-1]["forward_route"] = fwd_route
+                results[-1]["route2_ms"] = time_ms(
+                    torch, lambda: tri_fwd(2), flush, lead=True)
     notes = {k: {"max_abs_err": a, "max_rel_err": r_}
              for k, (a, r_) in errs.items()}
     notes["row_mlp_bwd_route"] = route
+    notes["tri_forward_route"] = fwd_route
+    notes["tri_route1_vs_float64"] = tri_yard
     return results, notes
 
 

@@ -11,14 +11,26 @@
 // wrappers, plain PyTorch versions and launch counters live in
 // hydragnn_torch/ops/dn_tri.py.
 //
-// dn_tri_fwd_kernel — the forward.  Replaces
-//   hydragnn_tpu/ops/dn_tri.py:_tri_fwd (pl.pallas_call at :285).  Rows are
-//   output edges e; the triplets are sorted by idx_ji (the builder's
-//   order), so each row owns one CSR range.  Each block owns kRows rows and
-//   walks their triplets TT at a time: gathers radial[kj] and cbf into a
-//   transposed sbf tile and x2[kj] into another, recomputes emb1 = sbf.W1
-//   and emb2 = emb1.W2 in shared memory, and adds x2[kj] * emb2 into its
-//   rows in triplet order.
+// The forward replaces hydragnn_tpu/ops/dn_tri.py:_tri_fwd (pl.pallas_call
+//   at :285).  Rows are output edges e; the triplets are sorted by idx_ji
+//   (the builder's order), so each row owns one CSR range.  Two routes by
+//   width (hg_dn_tri_fwd_route):
+// fwd_tc_kernel<kFwd, FactoredRows> — route 1, B <= 8 and D a multiple of
+//   8 (the arch sweep's S = 7, R = 6, B = 8, D = 64): the builder
+//   forward's route-1 kernel (csrc/tri_tc.cuh: each warp on its own share
+//   of the rows, 16-triplet tiles through a two-stage cp.async ring, both
+//   products on the tensor cores in 3xTF32 with a permuted k index,
+//   x2[kj] * emb2 formed in place and summed into the warp's rows in
+//   triplet order) with the A operand formed as it is loaded: the stage
+//   holds each taken triplet's radial[kj] row (8-byte cp.async, 168 B at
+//   S*R = 42) and the tile's cbf rows, one contiguous block in ji order,
+//   and a fragment's sbf[t, c] = radial[kj, c] * cbf[t, c / R].  No sbf
+//   row reaches device memory.
+// dn_tri_fwd_kernel — route 2, every other width (the first design): each
+//   block owns kRows rows and walks their triplets TT at a time: gathers
+//   radial[kj] and cbf into a transposed sbf tile and x2[kj] into another,
+//   recomputes emb1 = sbf.W1 and emb2 = emb1.W2 in shared memory, and adds
+//   x2[kj] * emb2 into its rows in triplet order.
 // dn_tri_bwd_kernel (+ passp::reduce_partials_kernel) — the backward.
 //   Replaces :_tri_vjp_bwd (pl.pallas_call at :358).  One pass in kj order
 //   (through perm_kj): rows are the gathered edges k, and every triplet of
@@ -53,11 +65,12 @@
 //   triplet's own slot, which one row visits once.
 //
 // Bound on the H100 SXM: bytes in the forward (per real triplet ~2(SR*B +
-// B*D) flops against the ids, cbf and gathered rows it reads); the
+// B*D) flops against the ids, cbf and gathered rows it reads; route 1 is
+// latency-bound at 8 warps a SM, as the builder's forward is); the
 // backward's factored work (2*S*D flops a triplet, ~24 kFLOP a row at the
 // path's widths) is ~1.8 GFLOP against ~40 MB, at the border of the two
 // bounds, and in practice bound by the latency of the cotangent gathers.
-// Forward design, first version: no [T, D] or [T, S*R] tensor reaches
+// Forward design, route 2: no [T, D] or [T, S*R] tensor reaches
 // device memory (every per-triplet quantity lives in a shared-memory tile
 // of TT triplets); tiles are transposed ([k][t], row stride TT+4) so one
 // 16-byte load feeds four multiply-adds; each thread computes EQ triplets
@@ -78,6 +91,7 @@
 #include <cuda_runtime.h>
 
 #include "pass_p.cuh"
+#include "tri_tc.cuh"
 
 namespace {
 
@@ -248,6 +262,77 @@ __global__ void __launch_bounds__(kThreads) dn_tri_fwd_kernel(const Params p) {
     for (int i = tid; i < (r1 - r0) * d; i += kThreads)
       p.out[static_cast<size_t>(r0) * d + i] = rows_x[i];
   }
+}
+
+// ---------------------------------------------------------------------------
+// the forward, route 1: tri_tc.cuh's kernel with the factored A operand
+// ---------------------------------------------------------------------------
+
+// The loader of tritc::fwd_tc_kernel for the factored basis: a stage holds
+// each taken triplet's radial[kj] row [16][frag_ld(round8(SR))] (8-byte
+// cp.async at an even SR, 4-byte at an odd one; zero columns past SR) and
+// the tile's cbf rows [16][S], one contiguous block in ji order (8-byte
+// pieces at an even S, 4-byte at an odd one).  Step q's A fragment is
+// sbf[t, c] = radial[kj(t), c] * cbf[t, c / R] at the permuted columns c =
+// 8q + 2t and 8q + 2t + 1, formed as it is loaded (c / R clamped to S - 1:
+// past SR the radial columns are zero).
+struct FactoredRows {
+  const float* radial;   // [E, SR]
+  const float* cbf;      // [T, S]
+  int s, r, lds;
+  int l0[tritc::kMaxSR / 8], l1[tritc::kMaxSR / 8];  // this lane's c / R
+
+  __host__ __device__ static int floats(int sr) {
+    return tritc::kM * (passp::frag_ld(tritc::round8(sr)) + kMaxS);
+  }
+  __device__ void init(int sr, int lane) {
+    lds = passp::frag_ld(tritc::round8(sr));
+    const int t = lane & 3;
+#pragma unroll
+    for (int q = 0; q < tritc::kMaxSR / 8; ++q) {
+      l0[q] = min((8 * q + 2 * t) / r, s - 1);
+      l1[q] = min((8 * q + 2 * t + 1) / r, s - 1);
+    }
+  }
+  __device__ void zero(float* st, int sr, int lane) const {
+    const int pad = tritc::round8(sr) - sr;
+    for (int i = lane; i < tritc::kM * pad; i += 32)
+      st[(i / pad) * lds + sr + i % pad] = 0.f;
+  }
+  __device__ void row(float* st, int sr, int, int e, int, int k, bool take,
+                      int lane) const {
+    if (take)
+      tritc::copy_row(st + e * lds, radial + static_cast<size_t>(k) * sr,
+                      sr, lane);
+  }
+  __device__ void tile(float* st, int q, int cnt, int lane) const {
+    float* cb = st + tritc::kM * lds;
+    const float* src = cbf + static_cast<size_t>(q) * s;
+    if ((s & 1) == 0) {
+      for (int i = 2 * lane; i < cnt * s; i += 64)
+        tritc::cp_async8(cb + i, src + i);
+    } else {
+      for (int i = lane; i < cnt * s; i += 32) tritc::cp_async4(cb + i, src + i);
+    }
+  }
+  __device__ void frag(passp::FragA& a, const float* st, int q, int g,
+                       int t) const {
+    const float2 u0 =
+        *reinterpret_cast<const float2*>(st + g * lds + 8 * q + 2 * t);
+    const float2 u1 =
+        *reinterpret_cast<const float2*>(st + (g + 8) * lds + 8 * q + 2 * t);
+    const float* c0 = st + tritc::kM * lds + g * s;
+    const float* c1 = c0 + 8 * s;
+    passp::set_a<true>(a, u0.x * c0[l0[q]], u1.x * c1[l0[q]],
+                       u0.y * c0[l1[q]], u1.y * c1[l1[q]]);
+  }
+};
+
+// the forward's route: 1 (fwd_tc_kernel<kFwd, FactoredRows>) at B <= 8 and
+// D a multiple of 8 when a block's shared memory (optin bytes) holds it,
+// 2 (dn_tri_fwd_kernel) otherwise
+inline int fwd_route(int sr, int b, int d, int optin) {
+  return tritc::route<FactoredRows>(sr, b, d, optin);
 }
 
 // ---------------------------------------------------------------------------
@@ -631,10 +716,36 @@ cudaError_t optin_smem(int* optin, int* sms) {
   return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
 }
 
-int launch_fwd(const Params& p, cudaStream_t st) {
-  int optin = 0;
-  cudaError_t err = optin_smem(&optin, nullptr);
+// the forward on `route`: 0 the widths' own (fwd_route), 1 or 2 that one
+// (1 only at widths it takes)
+int launch_fwd(const Params& p, int route, cudaStream_t st) {
+  int optin = 0, sms = 0;
+  cudaError_t err = optin_smem(&optin, &sms);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const int own = fwd_route(p.sr, p.b, p.d, optin);
+  if (route == 0) route = own;
+  if ((route == 1 && own != 1) || route < 1 || route > 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (route == 1) {
+    tritc::Args a{};
+    a.x = p.x2;
+    a.w1 = p.w1;
+    a.w2 = p.w2;
+    a.kj = p.kj;
+    a.ji = p.ji;
+    a.row_ptr = p.row_ptr;
+    a.out = p.out;
+    a.n_rows = p.n_rows;
+    a.sr = p.sr;
+    a.b = p.b;
+    a.d = p.d;
+    FactoredRows src{};
+    src.radial = p.radial;
+    src.cbf = p.cbf;
+    src.s = p.s;
+    src.r = p.r;
+    return tritc::launch<tritc::kFwd>(a, src, sms, st);
+  }
   const size_t smem =
       sizeof(float) * static_cast<size_t>(fwd_smem_floats(p.sr, p.b, p.d));
   if (smem > static_cast<size_t>(optin))
@@ -697,9 +808,31 @@ extern "C" int hg_dn_tri_wgrad_size(int sr, int b, int d) {
   return round4(sr * b + b * d);
 }
 
+// The forward's route at these widths on the current device: 1
+// (fwd_tc_kernel<kFwd, FactoredRows>: B <= 8, D a multiple of 8), 2
+// (dn_tri_fwd_kernel, the first design), 0 when the device cannot be asked
+// or the op does not take the widths.
+extern "C" int hg_dn_tri_fwd_route(int s, int sr, int b, int d) {
+  int optin = 0;
+  if (s < 1 || s > kMaxS || sr < s || sr > kMaxSR || sr % s != 0 || b < 1 ||
+      b > kMaxB || d < 1 || d > kMaxD ||
+      optin_smem(&optin, nullptr) != cudaSuccess)
+    return 0;
+  return fwd_route(sr, b, d, optin);
+}
+
+// Bytes of dynamic shared memory of one route-1 block of the forward at
+// S*R and D.
+extern "C" int hg_dn_tri_fwd_smem(int sr, int d) {
+  return static_cast<int>(
+      sizeof(float) *
+      static_cast<size_t>(tritc::smem_words<FactoredRows>(sr, d)));
+}
+
 // One dn_tri launch; returns the cudaError_t (0 = success).  mode 0: the
 // forward (out [E, D]; rows are ji, positions in triplet order, `perm`
-// null); mode 1: the backward (rows are kj, positions through `perm`, the
+// null; `route` 0 takes the widths' own, hg_dn_tri_fwd_route, 1 or 2 that
+// one where the widths admit it); mode 1: the backward (rows are kj, positions through `perm`, the
 // stable argsort of idx_kj; d_radial, d_x2 or null; d_cbf zero-filled or
 // null; `partial` [n_parts, wgrad size] scratch and `wgrad` the reduced
 // weight gradients, or both null).  Pointers are device pointers;
@@ -709,7 +842,8 @@ extern "C" int hg_dn_tri_f32(
     const void* w1, const void* w2, const void* kj, const void* ji,
     const void* perm, const void* row_ptr, const void* gout, void* out,
     void* d_radial, void* d_x2, void* d_cbf, void* partial, void* wgrad,
-    int n_rows, int s, int r, int b, int d, int n_parts, void* stream) {
+    int n_rows, int s, int r, int b, int d, int n_parts, int route,
+    void* stream) {
   if (n_rows <= 0) return 0;
   if (s < 1 || s > kMaxS || r < 1 || s * r > kMaxSR || b < 1 || b > kMaxB ||
       d < 1 || d > kMaxD || mode < kFwd || mode > kBwd ||
@@ -743,7 +877,7 @@ extern "C" int hg_dn_tri_f32(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (mode == kFwd) {
     p.n_chunks = (n_rows + kRows - 1) / kRows;
-    return launch_fwd(p, st);
+    return launch_fwd(p, route, st);
   }
   return launch_bwd(p, n_parts, wgrad, st);
 }

@@ -15,32 +15,21 @@
 // _fused_fwd (pl.pallas_call at fused_block.py:495), _fused_bwd pass P
 // (:561) and pass S (:599).  Four kernels, one of them in two modes:
 //
-// fwd_tc_kernel<kFwd> — the forward, route 1 (hg_dn_tri_builder_fwd_route):
-//   B <= 8, SR <= 64 and D a multiple of 8, DimeNet++'s QM9 widths (42, 8,
-//   128) among them.  Warps work alone, with no block barrier after the
-//   weights are staged: each of the grid's warps owns one contiguous run of output
-//   rows (passp::share_range: the runs balance rows plus triplets) and walks
-//   its triplets (positions in ji order are triplet ids) 16 at a time, one
-//   m16 tile.  A tile's sbf rows are one contiguous block of device memory,
-//   brought in row by row with 8-byte cp.async (4-byte at an odd SR); its
-//   x[kj] rows with 16-byte cp.async, 512 B a row at D = 128; both land in
-//   the warp's own ring of kTcStages stages, so the next tiles' copies are
-//   in flight while this tile's products run, and the ids a stage further
-//   ahead are loaded into registers.  Both products run on the tensor cores
-//   in 3xTF32 (csrc/pass_p.cuh: each k step's three products from zero, then
-//   a float32 add): emb1 = sbf.K1 as [16 x SR (padded to 8)] . [8 x B
-//   (padded to 8)], one n-tile; emb2 = emb1.K2 as one k step over D / 8
-//   n-tiles. The k index of each product is permuted within its 8-wide step
-//   (A's column 2t and 2t + 1 in the fragment's slots t and t + 4, B's rows
-//   to match), so that emb1's accumulator fragment is already emb2's A
-//   fragment and an A fragment of sbf is two float2 loads.  K1's and K2's
-//   fragments are split into hi and lo once per block and read as one
-//   16-byte load a lane.  x[kj] * emb2 goes back into the x stage in place;
-//   the warp then adds each triplet's row into its output row in triplet
-//   order, each lane four columns, and writes every row of its run once
-//   (rows without triplets as zeros).  Tile strides are 8 or 24 mod 32
-//   floats, so the fragments' float2 loads and stores hit 32 banks.
-// fwd_tc_kernel<kPassS> — pass S, route 1 (hg_dn_tri_builder_bwd_s_route:
+// fwd_tc_kernel<kFwd, SbfRows> — the forward, route 1
+//   (hg_dn_tri_builder_fwd_route): B <= 8, SR <= 64 and D a multiple of 8,
+//   DimeNet++'s QM9 widths (42, 8, 128) among them.  The kernel lives in
+//   csrc/tri_tc.cuh, shared with the factored forward of dn_tri.cu: each
+//   warp owns one run of output rows (passp::share_range) and walks its
+//   triplets (positions in ji order are triplet ids) 16 at a time through
+//   its own two-stage cp.async ring, both products on the tensor cores in
+//   3xTF32 with a permuted k index, x[kj] * emb2 formed in place and added
+//   into the warp's rows in triplet order.  Its A-operand loader here,
+//   tritc::SbfRows, copies each triplet's stored sbf row: a tile's rows are
+//   one contiguous block of device memory, brought in row by row with
+//   8-byte cp.async (4-byte at an odd SR); the x[kj] rows with 16-byte
+//   cp.async, 512 B a row at D = 128.
+// fwd_tc_kernel<kPassS, SbfRows> — pass S, route 1
+//   (hg_dn_tri_builder_bwd_s_route:
 //   the forward's widths, and only when d sbf is not asked for, as on the
 //   training path): the same kernel in kj order.  Rows are kj, the CSR is
 //   over positions in kj order, and a tile's triplets are t = perm[pos]
@@ -99,6 +88,7 @@
 #include <cuda_runtime.h>
 
 #include "pass_p.cuh"
+#include "tri_tc.cuh"
 
 namespace {
 
@@ -430,42 +420,11 @@ __global__ void __launch_bounds__(kThreads) tri_wgrad_kernel(const Params p) {
   }
 }
 
-// ---------------------------------------------------------------------------
-// the forward, route 1: warps on their own rows, cp.async rings, tensor
-// cores in 3xTF32
-// ---------------------------------------------------------------------------
-
-constexpr int kTcWarps = 8;
-constexpr int kTcThreads = 32 * kTcWarps;
-constexpr int kTcStages = 2;      // each warp's ring of tiles in flight
-constexpr int kTcM = 16;          // triplets per warp tile: one m16 fragment
-constexpr int kTcMaxSR = 64;
-constexpr int kTcMaxB = 8;
-constexpr unsigned kFull = 0xffffffffu;
-
-__host__ __device__ inline int round8(int n) { return (n + 7) & ~7; }
-
-// one stage of a warp's ring: the sbf tile [16][frag_ld(round8(SR))], then
-// the x tile [16][frag_ld(D)]
-__host__ __device__ inline int tc_stage_floats(int sr, int d) {
-  return kTcM * (passp::frag_ld(round8(sr)) + passp::frag_ld(d));
-}
-
-// shared 32-bit words of route 1: K1's and K2's split fragments (one uint4
-// a lane a k step or n-tile), then each warp's stages
-__host__ __device__ inline int tc_smem_words(int sr, int d) {
-  return 4 * 32 * (round8(sr) / 8 + d / 8) +
-         kTcWarps * kTcStages * tc_stage_floats(sr, d);
-}
-
-// route 1 at these widths, when a block's shared memory (optin bytes)
-// holds it; 2 otherwise
+// the forward's route 1 (tri_tc.cuh's fwd_tc_kernel with the stored sbf
+// rows) at these widths, when a block's shared memory (optin bytes) holds
+// it; 2 otherwise
 __host__ inline int fwd_route(int sr, int b, int d, int optin) {
-  if (b <= kTcMaxB && sr <= kTcMaxSR && d % 8 == 0 &&
-      sizeof(float) * static_cast<size_t>(tc_smem_words(sr, d)) <=
-          static_cast<size_t>(optin))
-    return 1;
-  return 2;
+  return tritc::route<tritc::SbfRows>(sr, b, d, optin);
 }
 
 // pass S takes the forward's route 1 at its widths when d sbf is not asked
@@ -485,262 +444,6 @@ __host__ inline cudaError_t device_limits(int* optin, int* sms) {
   if (err == cudaSuccess && sms != nullptr)
     err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
   return err;
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :: "r"(a), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async8(float* dst, const float* src) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n"
-               :: "r"(a), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
-               :: "r"(a), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// wait until at most N groups of this thread's copies are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::);
-}
-
-template <int MODE>
-__global__ void __launch_bounds__(kTcThreads, 1)
-fwd_tc_kernel(const Params p) {
-  static_assert(MODE == kFwd || MODE == kPassS, "forward or pass S");
-  constexpr bool kS = MODE == kPassS;
-  extern __shared__ float4 smem4[];
-  const int sr = p.sr, b = p.b, d = p.d;
-  const int ks = round8(sr) / 8, nt = d / 8;
-  const int lds = passp::frag_ld(round8(sr)), ldx = passp::frag_ld(d);
-  const int stage = tc_stage_floats(sr, d);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  uint4* k1f = reinterpret_cast<uint4*>(smem4);     // [ks][32]
-  uint4* k2f = k1f + ks * 32;                        // [nt][32]
-  float* ring =
-      reinterpret_cast<float*>(k2f + nt * 32) + warp * kTcStages * stage;
-
-  // K1's fragments, k permuted within each step: lane (g, t) of step s
-  // holds K1[8s + 2t][g] and K1[8s + 2t + 1][g] (zero past SR or B), split
-  for (int i = tid; i < ks * 32; i += kTcThreads) {
-    const int s = i >> 5, l = i & 31, lg = l >> 2, r = 8 * s + 2 * (l & 3);
-    const float v0 = r < sr && lg < b ? p.w1[r * b + lg] : 0.f;
-    const float v1 = r + 1 < sr && lg < b ? p.w1[(r + 1) * b + lg] : 0.f;
-    uint4 f;
-    passp::split_ih(v0, f.x, f.z);
-    passp::split_ih(v1, f.y, f.w);
-    k1f[i] = f;
-  }
-  // K2's, the same permutation of its B rows: K2[2t][8j + g], K2[2t+1][..]
-  for (int i = tid; i < nt * 32; i += kTcThreads) {
-    const int j = i >> 5, l = i & 31, r = 2 * (l & 3), c = 8 * j + (l >> 2);
-    const float v0 = r < b ? p.w2[r * d + c] : 0.f;
-    const float v1 = r + 1 < b ? p.w2[(r + 1) * d + c] : 0.f;
-    uint4 f;
-    passp::split_ih(v0, f.x, f.z);
-    passp::split_ih(v1, f.y, f.w);
-    k2f[i] = f;
-  }
-  // the sbf tiles' columns [SR, round8(SR)): zero, never written again
-  const int pad = round8(sr) - sr;
-  for (int i = lane; i < kTcStages * kTcM * pad; i += 32) {
-    const int st = i / (kTcM * pad), rr = i - st * kTcM * pad;
-    ring[st * stage + (rr / pad) * lds + sr + rr % pad] = 0.f;
-  }
-  __syncthreads();  // the only block barrier
-
-  int r_begin, r_end;
-  passp::share_range(p.row_ptr, p.n_rows, blockIdx.x * kTcWarps + warp,
-              gridDim.x * kTcWarps, r_begin, r_end);
-  if (r_begin >= r_end) return;
-  const int p_begin = __ldg(p.row_ptr + r_begin);
-  const int p_end = __ldg(p.row_ptr + r_end);
-  const int n_tiles = (p_end - p_begin + kTcM - 1) / kTcM;
-
-  // a tile's ids in lanes 0..15: the triplet t of position p_begin + 16 i
-  // + lane (the forward: positions are triplet ids in ji order; pass S:
-  // through perm, in kj order), its kj and ji; -1 past the run
-  auto load_ids = [&](int i, int& tt, int& kj, int& ji) {
-    const int pos = p_begin + i * kTcM + lane;
-    const bool in = lane < kTcM && i < n_tiles && pos < p_end;
-    tt = in ? (kS ? __ldg(p.perm + pos) : pos) : -1;
-    kj = in ? __ldg(p.kj + tt) : -1;
-    ji = in ? __ldg(p.ji + tt) : -1;
-  };
-  // a triplet is taken when both ids are edges and its row (the forward:
-  // ji; pass S: kj) is this warp's
-  auto taken = [&](int kj, int ji) {
-    const int own = kS ? kj : ji, other = kS ? ji : kj;
-    return static_cast<unsigned>(other) < static_cast<unsigned>(p.n_rows) &&
-           own >= r_begin && own < r_end;
-  };
-  // tile i's sbf rows and x rows (the forward: x[kj]; pass S: the
-  // cotangent at ji) into a stage, as one group of copies (SR <= 64: one
-  // 8-byte piece, or two floats, a lane a row; D <= 128: one 16-byte piece
-  // a lane a row).  The forward's sbf rows are one contiguous block, pass
-  // S's each its own triplet's.
-  auto fetch = [&](int i, int tt, int kj, int ji, float* st) {
-    const int q = p_begin + i * kTcM;
-    const int cnt = min(kTcM, p_end - q);
-    float* xb = st + kTcM * lds;
-    const float* xs = kS ? p.gout : p.x;
-#pragma unroll
-    for (int e = 0; e < kTcM; ++e) {
-      const int k = __shfl_sync(kFull, kj, e);
-      const int j = __shfl_sync(kFull, ji, e);
-      const int t_e = kS ? __shfl_sync(kFull, tt, e) : q + e;
-      if (e < cnt) {
-        const float* src = p.sbf + static_cast<size_t>(t_e) * sr;
-        if ((sr & 1) == 0) {
-          if (2 * lane < sr) cp_async8(st + e * lds + 2 * lane, src + 2 * lane);
-        } else {
-          if (lane < sr) cp_async4(st + e * lds + lane, src + lane);
-          if (lane + 32 < sr)
-            cp_async4(st + e * lds + lane + 32, src + lane + 32);
-        }
-        if (taken(k, j) && 4 * lane < d)
-          cp_async16(xb + e * ldx + 4 * lane,
-                     xs + static_cast<size_t>(kS ? j : k) * d + 4 * lane);
-      }
-    }
-    cp_async_commit();
-  };
-
-  int cur = r_begin;            // the row being summed
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  const int c4 = 4 * lane;      // this lane's four columns of the sums
-  auto flush = [&](int upto) {  // write row cur, then zero rows to upto
-    if (c4 < d) {
-      *reinterpret_cast<float4*>(p.out + static_cast<size_t>(cur) * d + c4) =
-          acc;
-      for (int r = cur + 1; r < upto; ++r)
-        *reinterpret_cast<float4*>(p.out + static_cast<size_t>(r) * d + c4) =
-            make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-  };
-
-  // ids of tiles i .. i + kTcStages in registers; tiles i .. i +
-  // kTcStages - 1 in flight (one group of copies each, empty past the
-  // run's last tile)
-  constexpr int S = kTcStages;
-  int tr[S + 1], kjr[S + 1], jir[S + 1];
-#pragma unroll
-  for (int u = 0; u <= S; ++u) load_ids(u, tr[u], kjr[u], jir[u]);
-#pragma unroll
-  for (int u = 0; u + 1 < S; ++u) {
-    if (u < n_tiles)
-      fetch(u, tr[u], kjr[u], jir[u], ring + u * stage);
-    else
-      cp_async_commit();
-  }
-  for (int i = 0; i < n_tiles; ++i) {
-    float* st = ring + (i % S) * stage;
-    const int ahead = i + S - 1;
-    if (ahead < n_tiles)
-      fetch(ahead, tr[S - 1], kjr[S - 1], jir[S - 1],
-            ring + (ahead % S) * stage);
-    else
-      cp_async_commit();  // an empty group: tile i's stays S-th to last
-    cp_async_wait<S - 1>();
-    __syncwarp();
-    const int kj0 = kjr[0], ji0 = jir[0];
-
-    // emb1 = sbf . K1 over the k steps (at most 8): one m16 x n8
-    // accumulator
-    float e1[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int s = 0; s < kTcMaxSR / 8; ++s) {
-      if (s < ks) {
-        const float2 u0 =
-            *reinterpret_cast<const float2*>(st + g * lds + 8 * s + 2 * t);
-        const float2 u1 = *reinterpret_cast<const float2*>(
-            st + (g + 8) * lds + 8 * s + 2 * t);
-        passp::FragA a;
-        passp::set_a<true>(a, u0.x, u1.x, u0.y, u1.y);
-        const uint4 f = k1f[s * 32 + lane];
-        passp::FragB bf;
-        bf.hi[0] = f.x; bf.hi[1] = f.y; bf.lo[0] = f.z; bf.lo[1] = f.w;
-        passp::mma3(e1, a, bf);
-      }
-    }
-    // emb2 = emb1 . K2, one k step: emb1's accumulator is its A fragment;
-    // each n-tile's x * emb2 (pass S: dout[ji] * emb2) replaces x in the
-    // stage
-    passp::FragA a2;
-    passp::set_a<true>(a2, e1[0], e1[2], e1[1], e1[3]);
-    float* xb = st + kTcM * lds;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      if (8 * j < d) {
-        const uint4 f = k2f[j * 32 + lane];
-        passp::FragB bf;
-        bf.hi[0] = f.x; bf.hi[1] = f.y; bf.lo[0] = f.z; bf.lo[1] = f.w;
-        float c[4] = {0.f, 0.f, 0.f, 0.f};
-        passp::mma3(c, a2, bf);
-        float2* x0 = reinterpret_cast<float2*>(xb + g * ldx + 8 * j + 2 * t);
-        float2* x1 =
-            reinterpret_cast<float2*>(xb + (g + 8) * ldx + 8 * j + 2 * t);
-        const float2 v0 = *x0, v1 = *x1;
-        *x0 = make_float2(v0.x * c[0], v0.y * c[1]);
-        *x1 = make_float2(v1.x * c[2], v1.y * c[3]);
-      }
-    }
-    __syncwarp();
-    // each triplet's row into its output row (pass S: d x at kj), in
-    // position order: the tile's rows (this lane's four columns) and ids
-    // read first, then summed
-    const int cnt = min(kTcM, p_end - (p_begin + i * kTcM));
-    const unsigned use = __ballot_sync(kFull, lane < cnt && taken(kj0, ji0));
-    float4 v[kTcM];
-    int jv[kTcM];
-#pragma unroll
-    for (int e = 0; e < kTcM; ++e) {
-      jv[e] = __shfl_sync(kFull, kS ? kj0 : ji0, e);
-      v[e] = c4 < d ? *reinterpret_cast<const float4*>(xb + e * ldx + c4)
-                    : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-#pragma unroll
-    for (int e = 0; e < kTcM; ++e) {
-      const int j = jv[e];
-      if (((use >> e) & 1u) && j >= cur) {
-        if (j != cur) {
-          flush(j);
-          cur = j;
-          acc = make_float4(0.f, 0.f, 0.f, 0.f);
-        }
-        acc.x += v[e].x;
-        acc.y += v[e].y;
-        acc.z += v[e].z;
-        acc.w += v[e].w;
-      }
-    }
-    __syncwarp();  // this stage is refilled by the next tile's fetch
-#pragma unroll
-    for (int u = 0; u < S; ++u) {
-      tr[u] = tr[u + 1];
-      kjr[u] = kjr[u + 1];
-      jir[u] = jir[u + 1];
-    }
-    load_ids(i + S + 1, tr[S], kjr[S], jir[S]);
-  }
-  cp_async_wait_all();
-  flush(r_end);
 }
 
 __global__ void tri_reduce_partials_kernel(const float* __restrict__ partial,
@@ -775,25 +478,28 @@ int launch(Kernel kernel, int mode, const Params& p, dim3 grid,
   return static_cast<int>(cudaGetLastError());
 }
 
-// route 1 of the forward or pass S: a persistent grid, every warp one
-// share of the rows; about one warp a row at most
+// route 1 of the forward or pass S: tri_tc.cuh's kernel on the stored sbf
+// rows
 template <int MODE>
 int launch_tc(const Params& p, int sms, cudaStream_t st) {
-  const size_t smem = sizeof(float) *
-      static_cast<size_t>(tc_smem_words(p.sr, p.d));
-  int per_sm = 0;
-  cudaError_t err = cudaFuncSetAttribute(
-      fwd_tc_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, fwd_tc_kernel<MODE>, kTcThreads, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = (p.n_rows + kTcWarps - 1) / kTcWarps;
-  const int grid = min(sms * per_sm, blocks);
-  fwd_tc_kernel<MODE><<<grid, kTcThreads, smem, st>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  tritc::Args a;
+  a.x = p.x;
+  a.gout = p.gout;
+  a.w1 = p.w1;
+  a.w2 = p.w2;
+  a.kj = p.kj;
+  a.ji = p.ji;
+  a.perm = p.perm;
+  a.row_ptr = p.row_ptr;
+  a.out = p.out;
+  a.n_rows = p.n_rows;
+  a.sr = p.sr;
+  a.b = p.b;
+  a.d = p.d;
+  tritc::SbfRows src;
+  src.sbf = p.sbf;
+  src.lds = 0;
+  return tritc::launch<MODE>(a, src, sms, st);
 }
 
 }  // namespace

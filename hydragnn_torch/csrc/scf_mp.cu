@@ -8,23 +8,44 @@
 // hydragnn_torch/ops/scf_mp.py.  Float32 throughout; W0 [G,F] and W1 [F,F]
 // are [in, out].
 //
-// scf_filter_gather_kernel — the forward AND pass S
+// The forward AND pass S — one kernel in two modes, two routes by width
 //   Replaces hydragnn_tpu/ops/fused_block.py:_fused_fwd with the scf spec
 //   (pl.pallas_call at :495) and :_fused_bwd pass S (_bwd_s_kernel,
-//   pl.pallas_call at :599).  One thread block owns kRowsPerCta output rows
-//   and walks their CSR range of edge positions in order, TE edges at a
-//   time: it recomputes t0 = rbf.W0 + b0 and a = ssp(t0) into shared
-//   memory, then f2 = a.W1 + b1 (W1 streamed column by column from L2: at
-//   F = 256 it is 256 KB, more than a block's 227 KB of shared memory), and
-//   adds f2 * cm * x[gidx[e]] into the block's rows in shared memory, in
-//   edge order.  Forward: positions are edge ids in receiver order, x = h,
-//   gidx = senders.  Pass S: positions map to edge ids through the sender
-//   permutation, rows are senders, x = the output cotangent, gidx =
-//   receivers — dh[n] = sum_{e: send[e]=n} g[recv[e]] * filt_e.
+//   pl.pallas_call at :599).  Forward: positions are edge ids in receiver
+//   order, x = h, gidx = senders.  Pass S: positions map to edge ids
+//   through the sender permutation, rows are senders, x = the output
+//   cotangent, gidx = receivers — dh[n] = sum_{e: send[e]=n} g[recv[e]] *
+//   filt_e.  hg_scf_fwd_route picks the route.
 //   Bound: operations (G*F + F*F multiply-adds per edge against ~1 KB of
-//   edge and node bytes); float32 on the CUDA cores, per-edge tiles
-//   transposed in shared memory so one 16-byte load feeds four
-//   multiply-adds.
+//   edge and node bytes): 2 E (G F + F^2) flops, 20.6 GFLOP at the wide
+//   SchNet's first batch.
+// scf_fg_tc_kernel — route 1: F a multiple of 8 up to 256, G <= 64 (the
+//   wide SchNet's 256, 50).  A persistent grid, one block per SM, each on
+//   a share of the rows (passp::share_range: rows plus edges balanced, no
+//   second partial wave), walking its positions 64 edges at a time.  Both
+//   products run on the tensor cores in 3xTF32 (pass_p.cuh's fragments
+//   and mma3; the lo half of each operand passed untruncated, split_tc):
+//   t0 = rbf.W0 + b0, a = ssp(t0) into shared memory, f2 = a.W1 + b1, the
+//   accumulators in registers (8 warps, each all 64 rows by 32 columns).
+//   W1 (256 KB at F = 256) does not fit a block, so W0 and W1
+//   stream through a two-stage cp.async ring of 32-row chunks, the same
+//   stream every tile: the weights are read from L2 once per 64 edges, not
+//   per 32, ~0.67 GB a launch at the wide cell's first batch (the first
+//   design read ~1.3 GB).  Each tile's x[gidx] rows (16-byte cp.async) are
+//   copied when it begins and the next tile's rbf rows when its t0 is
+//   done, each in the group of a weight chunk; the ids wait one tile ahead
+//   in shared memory and two in registers.  After the last chunk each
+//   accumulator's owner forms x[gidx] * (f2 * cm) in place of a, and
+//   thread c adds column c of the messages into the current row in edge
+//   order, writing each row once (rows without edges as zeros).
+// scf_filter_gather_kernel — route 2 (the first design; every other width
+//   up to F = 1024, G = 127).  One thread block owns kRowsPerCta output
+//   rows and walks their CSR range of edge positions in order, TE edges at
+//   a time: it recomputes t0 = rbf.W0 + b0 and a = ssp(t0) into shared
+//   memory, then f2 = a.W1 + b1 (W1 streamed column by column from L2),
+//   and adds f2 * cm * x[gidx[e]] into the block's rows in shared memory,
+//   in edge order; float32 on the CUDA cores, per-edge tiles transposed in
+//   shared memory so one 16-byte load feeds four multiply-adds.
 //
 // scf_pass_p_kernel (+ the reductions of pass_p.cuh) — backward pass P
 //   Replaces :_fused_bwd pass P (_bwd_p_kernel, pl.pallas_call at :561).
@@ -220,6 +241,431 @@ scf_filter_gather_kernel(const float* __restrict__ x,
   __syncthreads();
   for (int i = tid; i < (r1 - r0) * f; i += kThreads)
     out[static_cast<size_t>(r0) * f + i] = out_s[i];
+}
+
+
+// ---------------------------------------------------------------------------
+// the forward and pass S, route 1: tensor cores, a ring of weight chunks, a
+// persistent grid balanced by rows plus edges
+// ---------------------------------------------------------------------------
+
+constexpr int kTcM = 64;        // edges per tile
+constexpr int kTcKC = 32;       // weight rows per ring stage: four k steps
+constexpr int kTcStages = 2;    // ring stages
+constexpr int kTcMaxF = 256;    // route 1: F a multiple of 8 up to 256
+                                //   (8 warps x 32 columns), G <= 64
+constexpr int kTcMaxG = 64;
+
+// x = hi + lo for the tensor cores: hi rounded to tf32 by two integer
+// operations (passp::split_ih), lo = x - hi (exact) passed as it is: the
+// tensor cores read a tf32 operand's top 19 bits, so lo is truncated where
+// passp::split rounds it (both near 2^-22 of x), without the conversion's
+// instruction sequence
+__device__ __forceinline__ void split_tc(float x, uint32_t& hi,
+                                        uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// dst (shared) = 16 bytes of src (global), or zeros when !valid
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(a), "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async8(float* dst, const float* src) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n"
+               :: "r"(a), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(a), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most N groups of this thread's copies are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::);
+}
+
+// shared memory of a route-1 block, in floats
+struct FgLayout {
+  int g8;     // the t0 product's depth: G rounded up to 8
+  int lda;    // row stride of the a and x tiles: frag_ld(F)
+  int ldr;    // row stride of the rbf tile: frag_ld(g8)
+  int ldw;    // row stride of a weight chunk: F + 4, so that a B
+              // fragment's rows 2t and 2t + 1 fall on 32 banks
+  int c0, c1;  // chunks of W0 (rows zero past G) and of W1 in a tile
+  int as, xs, rs, ring, b0s, b1s, ids, floats;
+};
+
+__host__ __device__ inline FgLayout fg_layout(int f, int g) {
+  FgLayout L;
+  L.g8 = (g + 7) / 8 * 8;
+  L.lda = passp::frag_ld(f);
+  L.ldr = passp::frag_ld(L.g8);
+  L.ldw = f + 4;
+  L.c0 = (L.g8 + kTcKC - 1) / kTcKC;
+  L.c1 = (f + kTcKC - 1) / kTcKC;
+  int o = 0;
+  L.as = o; o += kTcM * L.lda;                   // a = ssp(t0), then msg
+  L.xs = o; o += kTcM * L.lda;                   // x[gidx] rows
+  L.rs = o; o += kTcM * L.ldr;                   // rbf rows
+  L.ring = o; o += kTcStages * kTcKC * L.ldw;    // weight chunks
+  L.b0s = o; o += f;
+  L.b1s = o; o += f;
+  L.ids = o; o += 2 * 4 * kTcM;                  // two tiles' ids
+  L.floats = o;
+  return L;
+}
+
+// route 1 (scf_fg_tc_kernel) at these widths when a block's shared memory
+// (optin bytes) holds it, 2 (scf_filter_gather_kernel) otherwise
+inline int fwd_route(int f, int g, int optin) {
+  return f % 8 == 0 && f <= kTcMaxF && g >= 1 &&
+                 g <= kTcMaxG &&
+                 sizeof(float) * static_cast<size_t>(fg_layout(f, g).floats)
+                     <= static_cast<size_t>(optin)
+             ? 1
+             : 2;
+}
+
+struct FgArgs {
+  const float* x;       // [N, F] forward: h; pass S: the cotangent
+  const float* rbf;     // [E, G]
+  const float* cm;      // [E]
+  const int* gidx;      // [E] gathered rows
+  const int* rowid;     // [E] output rows
+  const int* perm;      // [E] position -> edge, or null (identity)
+  const int* row_ptr;   // [N + 1] CSR over positions
+  const float* w0;      // [G, F]
+  const float* b0;      // [F]
+  const float* w1;      // [F, F]
+  const float* b1;      // [F]
+  float* out;           // [N, F]
+  int n_rows, f, g;
+};
+
+// The grid is one block per SM; block b owns the rows of share b
+// (passp::share_range over the CSR: rows plus edges balanced) and walks
+// their positions kTcM at a time.  Per tile, t0 = rbf . W0 + b0 and then
+// f2 = ssp(t0) . W1 + b1 run as [64 x K] . [K x F] products on the tensor
+// cores in 3xTF32, warp w owning columns 32w .. 32w + 31 (a 4 x 4 grid of
+// m16n8 accumulators); the weights stream through a ring of kTcStages
+// chunks of kTcKC rows (W0's chunks, then W1's, the same stream every
+// tile), one barrier a chunk.  A's and B's k index is permuted within each
+// 8-wide step (the A fragment's slots t, t + 4 hold columns 2t, 2t + 1:
+// one float2 load a row), both split hi/lo as they are loaded (split_tc).
+// After the last chunk each accumulator's owner forms x[gidx] * (f2 * cm)
+// into the a tile, and each thread c < F adds its column of the messages
+// into the current row in edge order, writing a row when the next begins
+// (rows without edges as zeros).  The ids of tile i +
+// 1 wait in shared memory and those of tile i + 2 in registers; tile i's
+// x[gidx] rows are copied when it begins and tile i + 1's rbf rows when
+// tile i's t0 is done, each in the group of a weight chunk.
+__global__ void __launch_bounds__(kThreads, 1)
+scf_fg_tc_kernel(const FgArgs p) {
+  using namespace passp;
+  constexpr int M = kTcM, KC = kTcKC, S = kTcStages;
+  const int f = p.f, g = p.g;
+  const FgLayout L = fg_layout(f, g);
+  const int lda = L.lda, ldr = L.ldr, ldw = L.ldw;
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  float* as = sm + L.as;
+  float* xs = sm + L.xs;
+  float* rs = sm + L.rs;
+  float* ring = sm + L.ring;
+  float* b0s = sm + L.b0s;
+  float* b1s = sm + L.b1s;
+  // slot (i & 1) holds tile i's edge ids, gathered rows, output rows (-1
+  // where the gathered row is out of range), cm
+  int* ids = reinterpret_cast<int*>(sm + L.ids);
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int gq = lane_g(), tq = lane_t();
+  const int n0 = 32 * warp;     // this warp's first column
+
+  int r_begin, r_end;           // every warp finds the block's share
+  share_range(p.row_ptr, p.n_rows, blockIdx.x, gridDim.x, r_begin, r_end);
+  if (r_begin >= r_end) return;
+  const int p_begin = __ldg(p.row_ptr + r_begin);
+  const int p_end = __ldg(p.row_ptr + r_end);
+  const int n_tiles = (p_end - p_begin + M - 1) / M;
+  const int cpt = L.c0 + L.c1;
+  const int n_chunks = n_tiles * cpt;
+  const int f4 = f / 4;
+
+  for (int i = tid; i < f; i += kThreads) {
+    b0s[i] = p.b0[i];
+    b1s[i] = p.b1[i];
+  }
+  // the rbf tile's columns [G, g8): zero, never written again
+  for (int i = tid; i < M * (L.g8 - g); i += kThreads) {
+    const int e = i / (L.g8 - g);
+    rs[e * ldr + g + i - e * (L.g8 - g)] = 0.f;
+  }
+
+  // ids of one tile in threads tid < M: position p_begin + M i + tid ->
+  // the edge, its gathered row and its output row (both -1 when the
+  // gathered row is out of range), cm
+  int eid_n = -1, src_n = -1, row_n = -1;
+  float cm_n = 0.f;
+  auto load_ids = [&](int i) {
+    const int pos = p_begin + i * M + tid;
+    const bool in = tid < M && i < n_tiles && pos < p_end;
+    eid_n = in ? (p.perm != nullptr ? __ldg(p.perm + pos) : pos) : -1;
+    const int s = in ? __ldg(p.gidx + eid_n) : -1;
+    src_n = static_cast<unsigned>(s) < static_cast<unsigned>(p.n_rows) ? s
+                                                                       : -1;
+    row_n = src_n >= 0 ? __ldg(p.rowid + eid_n) : -1;
+    cm_n = in ? __ldg(p.cm + eid_n) : 0.f;
+  };
+  auto store_ids = [&](int i) {
+    if (tid < M) {
+      int* sl = ids + (i & 1) * 4 * M;
+      sl[tid] = eid_n;
+      sl[M + tid] = src_n;
+      sl[2 * M + tid] = row_n;
+      reinterpret_cast<float*>(sl)[3 * M + tid] = cm_n;
+    }
+  };
+  auto tile_edges = [&](int i) { return min(M, p_end - (p_begin + i * M)); };
+  // chunk q of the weight stream into its stage: W0's rows (zeros past G,
+  // which meet the rbf tile's zero columns), then W1's
+  auto fetch_chunk = [&](int q) {
+    const int c = q % cpt;
+    const bool first = c < L.c0;
+    const float* w = first ? p.w0 : p.w1;
+    const int r0 = (first ? c : c - L.c0) * KC, rows = first ? g : f;
+    float* st = ring + (q % S) * KC * ldw;
+    for (int i = tid; i < KC * f4; i += kThreads) {
+      const int r = i / f4, c4 = 4 * (i - r * f4);
+      const bool ok = r0 + r < rows;
+      cp_async16(st + r * ldw + c4,
+                 w + static_cast<size_t>(ok ? r0 + r : 0) * f + c4, ok);
+    }
+  };
+  // tile i's x[gidx] rows (none for a gathered row out of range: never
+  // read)
+  auto fetch_x = [&](int i) {
+    const int* sl = ids + (i & 1) * 4 * M;
+    for (int k = tid; k < tile_edges(i) * f4; k += kThreads) {
+      const int e = k / f4, c4 = 4 * (k - e * f4);
+      const int s = sl[M + e];
+      if (s >= 0)
+        cp_async16(xs + e * lda + c4, p.x + static_cast<size_t>(s) * f + c4,
+                   true);
+    }
+  };
+  // tile i's rbf rows (the forward: one contiguous block; pass S: each
+  // edge's own), 8-byte pieces at an even G
+  auto fetch_rbf = [&](int i) {
+    const int* sl = ids + (i & 1) * 4 * M;
+    const int cnt = tile_edges(i);
+    if ((g & 1) == 0) {
+      const int g2 = g / 2;
+      for (int k = tid; k < cnt * g2; k += kThreads) {
+        const int e = k / g2, c = 2 * (k - e * g2);
+        cp_async8(rs + e * ldr + c, p.rbf + static_cast<size_t>(sl[e]) * g + c);
+      }
+    } else {
+      for (int k = tid; k < cnt * g; k += kThreads) {
+        const int e = k / g, c = k - e * g;
+        cp_async4(rs + e * ldr + c, p.rbf + static_cast<size_t>(sl[e]) * g + c);
+      }
+    }
+  };
+
+  int cur = r_begin;            // the row being summed, column tid
+  float racc = 0.f;
+  auto flush = [&](int upto) {  // write row cur, then zero rows to upto
+    if (tid < f) {
+      p.out[static_cast<size_t>(cur) * f + tid] = racc;
+      for (int r = cur + 1; r < upto; ++r)
+        p.out[static_cast<size_t>(r) * f + tid] = 0.f;
+    }
+  };
+
+  if (n_tiles > 0) {
+    load_ids(0);
+    store_ids(0);
+    load_ids(1);
+    __syncthreads();
+    fetch_rbf(0);
+  }
+  for (int u = 0; u + 1 < S; ++u) {
+    if (u < n_chunks) fetch_chunk(u);
+    cp_async_commit();
+  }
+  float acc[4][4][4];
+  for (int q = 0; q < n_chunks; ++q) {
+    const int i = q / cpt, c = q - i * cpt;
+    cp_async_wait<S - 2>();
+    __syncthreads();  // chunk q landed; every reader of chunk q - 1 is done
+    if (c == 0) {
+      // tile i begins: ids of tile i + 1 to their slot, tile i + 2's into
+      // registers, tile i's x rows; t0's accumulators start from b0
+      store_ids(i + 1);
+      load_ids(i + 2);
+      fetch_x(i);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int col = min(n0 + 8 * nt + 2 * tq, f - 2);
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) {
+          acc[mt][nt][0] = acc[mt][nt][2] = b0s[col];
+          acc[mt][nt][1] = acc[mt][nt][3] = b0s[col + 1];
+        }
+      }
+    }
+    if (c == L.c0 && i + 1 < n_tiles) fetch_rbf(i + 1);
+    if (q + S - 1 < n_chunks) fetch_chunk(q + S - 1);
+    cp_async_commit();
+
+    const bool first = c < L.c0;
+    const float* w = ring + (q % S) * KC * ldw;
+    const int kb = (first ? c : c - L.c0) * KC;
+    const int kend = first ? L.g8 : f;
+    const float* a_t = first ? rs : as;
+    const int ld = first ? ldr : lda;
+    if (n0 < f) {
+#pragma unroll
+      for (int j = 0; j < KC / 8; ++j) {
+        if (kb + 8 * j < kend) {
+          FragA fa[4];
+#pragma unroll
+          for (int mt = 0; mt < 4; ++mt) {
+            const float* ap = a_t + (16 * mt + gq) * ld + kb + 8 * j + 2 * tq;
+            const float2 u0 = *reinterpret_cast<const float2*>(ap);
+            const float2 u1 = *reinterpret_cast<const float2*>(ap + 8 * ld);
+            split_tc(u0.x, fa[mt].hi[0], fa[mt].lo[0]);
+            split_tc(u1.x, fa[mt].hi[1], fa[mt].lo[1]);
+            split_tc(u0.y, fa[mt].hi[2], fa[mt].lo[2]);
+            split_tc(u1.y, fa[mt].hi[3], fa[mt].lo[3]);
+          }
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            if (n0 + 8 * nt < f) {
+              const float* wp = w + (8 * j + 2 * tq) * ldw + n0 + 8 * nt + gq;
+              FragB fb;
+              split_tc(wp[0], fb.hi[0], fb.lo[0]);
+              split_tc(wp[ldw], fb.hi[1], fb.lo[1]);
+#pragma unroll
+              for (int mt = 0; mt < 4; ++mt) mma3(acc[mt][nt], fa[mt], fb);
+            }
+          }
+        }
+      }
+    }
+
+    if (c == L.c0 - 1 && n0 < f) {
+      // a = ssp(t0) into the a tile; f2's accumulators start from b1
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        if (n0 + 8 * nt < f) {
+          const int col = n0 + 8 * nt + 2 * tq;
+#pragma unroll
+          for (int mt = 0; mt < 4; ++mt) {
+            float* o = as + (16 * mt + gq) * lda + col;
+            *reinterpret_cast<float2*>(o) =
+                make_float2(ssp(acc[mt][nt][0]), ssp(acc[mt][nt][1]));
+            *reinterpret_cast<float2*>(o + 8 * lda) =
+                make_float2(ssp(acc[mt][nt][2]), ssp(acc[mt][nt][3]));
+            acc[mt][nt][0] = acc[mt][nt][2] = b1s[col];
+            acc[mt][nt][1] = acc[mt][nt][3] = b1s[col + 1];
+          }
+        }
+      }
+    }
+    if (c == cpt - 1) {
+      __syncthreads();  // every warp's reads of the a tile are done
+      const float* cms =
+          reinterpret_cast<const float*>(ids + (i & 1) * 4 * M + 3 * M);
+      if (n0 < f) {
+        // msg = x[gidx] * (f2 * cm) at this thread's accumulators, into
+        // the a tile (rows past the tile or without a gathered row hold
+        // what they hold: never summed)
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) {
+          const float c_lo = cms[16 * mt + gq], c_hi = cms[16 * mt + gq + 8];
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            if (n0 + 8 * nt < f) {
+              const int o = (16 * mt + gq) * lda + n0 + 8 * nt + 2 * tq;
+              const float2 x0 = *reinterpret_cast<const float2*>(xs + o);
+              const float2 x1 =
+                  *reinterpret_cast<const float2*>(xs + o + 8 * lda);
+              *reinterpret_cast<float2*>(as + o) =
+                  make_float2(x0.x * (acc[mt][nt][0] * c_lo),
+                              x0.y * (acc[mt][nt][1] * c_lo));
+              *reinterpret_cast<float2*>(as + o + 8 * lda) =
+                  make_float2(x1.x * (acc[mt][nt][2] * c_hi),
+                              x1.y * (acc[mt][nt][3] * c_hi));
+            }
+          }
+        }
+      }
+      __syncthreads();  // the messages are in place
+      if (tid < f) {
+        // column tid of the messages into the current row, in edge order,
+        // eight edges' loads at a time
+        const int* rows = ids + (i & 1) * 4 * M + 2 * M;
+        const int cnt = tile_edges(i);
+        for (int e0 = 0; e0 < cnt; e0 += 8) {
+          float v[8];
+          int jr[8];
+#pragma unroll
+          for (int k = 0; k < 8; ++k) {
+            v[k] = as[(e0 + k) * lda + tid];
+            jr[k] = e0 + k < cnt ? rows[e0 + k] : -1;
+          }
+#pragma unroll
+          for (int k = 0; k < 8; ++k) {
+            const int j = jr[k];
+            if (j < cur || j >= r_end) continue;
+            if (j != cur) {
+              flush(j);
+              cur = j;
+              racc = 0.f;
+            }
+            racc += v[k];
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait_all();
+  flush(r_end);
+}
+
+int launch_fg_tc(const FgArgs& a, int sms, cudaStream_t st) {
+  const size_t smem =
+      sizeof(float) * static_cast<size_t>(fg_layout(a.f, a.g).floats);
+  int per_sm = 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      scf_fg_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, scf_fg_tc_kernel, kThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int grid = min(sms * per_sm, a.n_rows);
+  scf_fg_tc_kernel<<<grid, kThreads, smem, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 
@@ -653,18 +1099,56 @@ int launch_pass_p(const PassPArgs& a, int n_parts, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// the opt-in shared memory per block and the SM count of the current
+// device
+cudaError_t device_limits(int* optin, int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(optin,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess && sms != nullptr)
+    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return err;
+}
+
 }  // namespace
 
+// The forward's and pass S's route at these widths on the current device:
+// 1 (scf_fg_tc_kernel: F a multiple of 8 up to 256, G <= 64), 2
+// (scf_filter_gather_kernel, the first design, up to F = 1024 and G =
+// 127), 0 when the device cannot be asked.
+extern "C" int hg_scf_fwd_route(int f, int g) {
+  int optin = 0;
+  if (device_limits(&optin, nullptr) != cudaSuccess) return 0;
+  return fwd_route(f, g, optin);
+}
+
+// Bytes of dynamic shared memory of one route-1 block (scf_fg_tc_kernel)
+// at F and G.
+extern "C" int hg_scf_fwd_smem(int f, int g) {
+  return static_cast<int>(sizeof(float) *
+                          static_cast<size_t>(fg_layout(f, g).floats));
+}
+
 // Returns the cudaError_t of the launch (0 = success).  Pointers are device
-// pointers; `perm` may be null (identity); launches go on `stream` and do
-// not synchronise.
+// pointers; `perm` may be null (identity); `route` 0 takes the widths' own
+// (hg_scf_fwd_route), 1 or 2 that one where the widths admit it; launches
+// go on `stream` and do not synchronise.
 extern "C" int hg_scf_filter_gather_f32(
     const void* x, const void* rbf, const void* cm, const void* gidx,
     const void* rowid, const void* perm, const void* row_ptr, const void* w0,
     const void* b0, const void* w1, const void* b1, void* out, int n_rows,
-    int f, int g, void* stream) {
+    int f, int g, int route, void* stream) {
   if (n_rows <= 0 || f <= 0) return 0;
   if (f > kMaxF || g < 1 || g > kMaxG)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int optin = 0, sms = 0;
+  const cudaError_t err = device_limits(&optin, &sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int own = fwd_route(f, g, optin);
+  if (route == 0) route = own;
+  if ((route == 1 && own != 1) || route < 1 || route > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* xf = static_cast<const float*>(x);
@@ -679,6 +1163,16 @@ extern "C" int hg_scf_filter_gather_f32(
   const float* w1f = static_cast<const float*>(w1);
   const float* b1f = static_cast<const float*>(b1);
   float* of = static_cast<float*>(out);
+  if (route == 1) {
+    // 16-byte rows of x and the weights, 8-byte rbf rows at an even G
+    if (((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w0) |
+          reinterpret_cast<uintptr_t>(w1)) & 15) != 0 ||
+        (reinterpret_cast<uintptr_t>(rbf) & 7) != 0)
+      return static_cast<int>(cudaErrorMisalignedAddress);
+    const FgArgs a{xf, rf, cf, gi, ri, pi, rp, w0f, b0f, w1f, b1f, of,
+                   n_rows, f, g};
+    return launch_fg_tc(a, sms, st);
+  }
   if (f <= 256)
     return launch_filter_gather<32>(xf, rf, cf, gi, ri, pi, rp, w0f, b0f, w1f,
                                     b1f, of, n_rows, f, g, st);

@@ -45,8 +45,11 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     },
     "scf_mp": {
         # x, rbf, cm, gidx, rowid, perm, row_ptr, w0, b0, w1, b1, out,
-        # n_rows, f, g, stream
-        "hg_scf_filter_gather_f32": (_P,) * 12 + (_I,) * 3 + (_P,),
+        # n_rows, f, g, route, stream
+        "hg_scf_filter_gather_f32": (_P,) * 12 + (_I,) * 4 + (_P,),
+        # f, g
+        "hg_scf_fwd_route": (_I,) * 2,
+        "hg_scf_fwd_smem": (_I,) * 2,
         # h, gout, rbf, cm, send, recv, row_ptr, w0, b0, w1, b1, partial,
         # wgrad, drbf_part, dcm_part, drbf, dcm, n_rows, n_edges, f, g,
         # width, n_parts, stream
@@ -87,10 +90,14 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     "dn_tri": {
         # mode, radial, x2, cbf, w1, w2, kj, ji, perm, row_ptr, gout, out,
         # d_radial, d_x2, d_cbf, partial, wgrad, n_rows, s, r, b, d,
-        # n_parts, stream
-        "hg_dn_tri_f32": (_I,) + (_P,) * 16 + (_I,) * 6 + (_P,),
+        # n_parts, route, stream
+        "hg_dn_tri_f32": (_I,) + (_P,) * 16 + (_I,) * 7 + (_P,),
         # sr, b, d
         "hg_dn_tri_wgrad_size": (_I,) * 3,
+        # s, sr, b, d
+        "hg_dn_tri_fwd_route": (_I,) * 4,
+        # sr, d
+        "hg_dn_tri_fwd_smem": (_I,) * 2,
     },
     "dn_tri_builder": {
         # mode, x, sbf, w1, w2, kj, ji, perm, row_ptr, gout, out, d_sbf,

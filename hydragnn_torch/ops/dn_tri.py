@@ -20,7 +20,12 @@ tensor to device memory:
 
 - forward (the reference's ``_tri_fwd``): output rows in ``idx_ji`` order
   (one CSR range per row), recompute sbf, emb per triplet, sum
-  ``x2[kj] * emb`` into the row;
+  ``x2[kj] * emb`` into the row.  Two routes by width (:func:`fwd_route`):
+  route 1 (B <= 8, D a multiple of 8, the arch sweep's widths) is the
+  builder forward's route-1 kernel (csrc/tri_tc.cuh: each warp on its own
+  share of the rows, ``cp.async`` rings, tensor cores in 3xTF32) with the
+  sbf operand formed from the gathered ``radial[kj]`` row and the
+  triplet's ``cbf`` row as it is loaded; route 2 is the first design;
 - backward (``_tri_vjp_bwd``): one pass in ``idx_kj`` order through
   ``perm_kj``, factored onto the rows: every triplet of row k shares
   ``radial[k]`` and ``x2[k]``, so per triplet only ``G[k, l] += cbf[t, l]
@@ -81,7 +86,7 @@ import torch
 
 from hydragnn_torch.ops.aggregate import segment_offsets
 from hydragnn_torch.ops.egcl_mp import _ptr
-from hydragnn_torch.ops.fused_mp import _check_rc, _require
+from hydragnn_torch.ops.fused_mp import _aligned, _check_rc, _require
 
 # the reference's gate for the factored kernel (models/dimenet.py:655-658)
 TRI_S_LIMIT = 8
@@ -175,14 +180,36 @@ def check_widths(s, sr, b, d):
             f"{FACTORED_EMB_LIMIT}, got S={s}, S*R={sr}, B={b}, D={d}")
 
 
+# the factored forward's route 1 (csrc/dn_tri.cu: tri_tc.cuh's kernel with
+# the factored A operand): B up to this, D a multiple of 8
+TRI_TC_B = 8
+
+
+def fwd_route(s, sr, b, d):
+    """The factored forward's route at these widths (inside
+    :func:`check_widths`): 1 (the builder forward's route-1 kernel,
+    csrc/tri_tc.cuh, with an A operand formed from the gathered radial row
+    and the triplet's cbf row: tensor cores in 3xTF32, each warp on its
+    own share of the rows, cp.async rings) at B <= 8 and D a multiple of 8,
+    the arch sweep's (7, 42, 8, 64) among them; 2 (the first design,
+    dn_tri_fwd_kernel) otherwise.  Mirrors ``hg_dn_tri_fwd_route``, which
+    also checks that a block's shared memory holds route 1 (an H100's does
+    at every width the op takes); a card test holds the two together."""
+    del s, sr  # every S and S*R the op takes fit route 1
+    return 1 if b <= TRI_TC_B and d % 8 == 0 else 2
+
+
 def launch_dn_tri(op, radial, x2, cbf, w1, w2, idx_kj, idx_ji, perm,
-                  row_ptr, num_radial, gout=None, want=(True,) * 4):
+                  row_ptr, num_radial, gout=None, want=(True,) * 4, route=0):
     """One launch of the dn_tri kernel on a precomputed CSR schedule
     ``row_ptr`` over positions: ``idx_ji`` order (``perm`` None) for the
     forward ``dimenet_triplet_mp``, ``idx_kj`` order through ``perm`` for
     the backward ``dimenet_triplet_mp_bwd``.  The forward returns ``out
     [E, D]``; the backward ``(d_radial, d_x2, d_cbf, dw1, dw2)``, each None
-    where ``want`` (radial, x2, cbf, weights) says so."""
+    where ``want`` (radial, x2, cbf, weights) says so.  The forward's
+    ``route`` 0 takes the widths' own (:func:`fwd_route`); 1 or 2 asks
+    for that one (the card checks time both), which the kernel refuses
+    where the widths do not admit it."""
     from hydragnn_torch.kernels.build import load_library
 
     dev = x2.device
@@ -206,6 +233,7 @@ def launch_dn_tri(op, radial, x2, cbf, w1, w2, idx_kj, idx_ji, perm,
     if e >= 2**31 or t >= 2**31:
         raise ValueError("the kernel indexes edges and triplets with int32")
     lib = load_library("dn_tri")
+    radial, x2, cbf = _aligned(radial), _aligned(x2), _aligned(cbf)
     fwd = op == "dimenet_triplet_mp"
     out = d_rad = d_x2 = d_cbf = partial = wgrad = None
     n_parts = 0
@@ -237,7 +265,7 @@ def launch_dn_tri(op, radial, x2, cbf, w1, w2, idx_kj, idx_ji, perm,
                 idx_kj.data_ptr(), idx_ji.data_ptr(), _ptr(perm),
                 row_ptr.data_ptr(), _ptr(gout), _ptr(out), _ptr(d_rad),
                 _ptr(d_x2), _ptr(d_cbf), _ptr(partial), _ptr(wgrad), e, s,
-                num_radial, b, d, n_parts, stream)
+                num_radial, b, d, n_parts, route, stream)
         _check_rc(rc, op)
         LAUNCHES[op] += 1
     elif wgrad is not None:
@@ -413,12 +441,6 @@ def builder_bwd_s_route(sr, b, d, want_sbf):
     ``hg_dn_tri_builder_bwd_s_route``; a card test holds the two
     together."""
     return 2 if want_sbf else builder_fwd_route(sr, b, d)
-
-
-def _aligned(t):
-    """``t``, or a copy of it on a 16-byte boundary: the kernels' cp.async
-    row copies need it (a view may start anywhere)."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def check_builder_widths(sr, b, d):

@@ -134,6 +134,12 @@ def _require(t, name, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
+def _aligned(t):
+    """``t``, or a copy of it on a 16-byte boundary: the kernels' cp.async
+    row copies need it (a view may start anywhere)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _check_rc(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what}: kernel launch failed, cudaError_t {rc}")

@@ -9,7 +9,13 @@ by kernels/build.py), none of which writes an ``[E, F]`` tensor to device
 memory:
 
 - forward (the reference's ``_fused_fwd``): receiver order, recompute the
-  filter MLP per edge tile, multiply by ``h[send]``, sum into the rows;
+  filter MLP per edge tile, multiply by ``h[send]``, sum into the rows.
+  Two routes by width (:func:`fwd_route`): route 1 (F a multiple of 8 up
+  to 256, G <= 64, the wide SchNet's among them) runs one block per SM on
+  a share of the rows (:func:`~hydragnn_torch.ops.aggregate.row_shares`),
+  64-edge tiles, both products on the tensor cores in 3xTF32 and the
+  weights streamed through a ring of 32-row chunks; route 2 is the first
+  design (CUDA cores, W1 read column by column per 32-edge tile);
 - pass P (``_bwd_p_kernel``): receiver order, the grid split into edge
   shares and slices of the filter columns (:func:`pass_p_plan`); each
   block recomputes its slice of the filter MLP and keeps its slice of the
@@ -19,7 +25,7 @@ memory:
   per-edge drbf/dcm are summed over the slices in order;
 - pass S (``_bwd_s_kernel``): sender order (``sender_perm``), recompute,
   ``dh[n] = sum_{e: send[e]=n} g[recv[e]] * filt_e``.  It is the forward
-  kernel with the roles swapped.
+  kernel, either route, with the roles swapped.
 
 The reference derives its backward with ``jax.vjp`` inside the kernel;
 here it is written out by hand (see :func:`scf_pass_p_plain`):
@@ -52,11 +58,19 @@ import torch
 import torch.nn.functional as F
 
 from hydragnn_torch.ops.aggregate import segment_offsets
-from hydragnn_torch.ops.fused_mp import _check_rc, _require
+from hydragnn_torch.ops.fused_mp import _aligned, _check_rc, _require
 
 # the reference's structural limits (ops/scf_mp.py, models/schnet.py gate)
 SCF_F_LIMIT = 1024
 SCF_G_LIMIT = 127
+
+# the forward's and pass S's route 1 (csrc/scf_mp.cu scf_fg_tc_kernel): F a
+# multiple of 8 up to SCF_TC_F, G up to SCF_TC_G; its edges per tile and
+# weight rows per ring chunk (kTcM, kTcKC)
+SCF_TC_F = 256
+SCF_TC_G = 64
+SCF_TC_TILE = 64
+SCF_TC_CHUNK = 32
 
 # bytes the pass-P weight-grad partials (one per edge share) may take
 _PARTIAL_BUDGET = 256 << 20
@@ -146,13 +160,30 @@ def _weights(w0, b0, w1, b1, f, g, dev):
     return w0, b0, w1, b1
 
 
+def fwd_route(f, g):
+    """The forward's and pass S's route at these widths: 1
+    (scf_fg_tc_kernel: products on the tensor cores in 3xTF32, the weights
+    streamed through a ring of 32-row chunks, one block per SM on a share
+    of the rows, :func:`~hydragnn_torch.ops.aggregate.row_shares`) at F a
+    multiple of 8 up to 256 and G <= 64, the wide SchNet's (256, 50)
+    among them; 2 (the first design, scf_filter_gather_kernel) past that,
+    up to the op's limits.  The C side (``hg_scf_fwd_route``) decides on
+    the card and also checks that a block's shared memory holds route 1,
+    which an H100's does at every width this gives; a card test holds the
+    two together."""
+    return 1 if f % 8 == 0 and f <= SCF_TC_F and 1 <= g <= SCF_TC_G else 2
+
+
 def launch_scf_filter_gather(x, rbf, cm, w0, b0, w1, b1, gidx, rowid, perm,
-                             row_ptr, op):
+                             row_ptr, op, route=0):
     """One launch of the filter-gather kernel: ``out[r] = sum over the CSR
     range of row r (positions, mapped to edge ids through ``perm`` when
     given) of x[gidx[e]] * filt_e``.  The forward is (x=h, gidx=senders,
     rowid=receivers, no perm); pass S is (x=g, gidx=receivers,
-    rowid=senders, perm=sender_perm).  Returns a new float32 [N, F]."""
+    rowid=senders, perm=sender_perm).  ``route`` 0 takes the widths' own
+    (:func:`fwd_route`); 1 or 2 asks for that one (the card checks time
+    both), which the kernel refuses where the widths do not admit it.
+    Returns a new float32 [N, F]."""
     from hydragnn_torch.kernels.build import load_library
 
     dev = x.device
@@ -168,6 +199,7 @@ def launch_scf_filter_gather(x, rbf, cm, w0, b0, w1, b1, gidx, rowid, perm,
         _require(perm, "sender_perm", torch.int32, (e,), dev)
     _require(row_ptr, "row_ptr", torch.int32, (n + 1,), dev)
     w0, b0, w1, b1 = _weights(w0, b0, w1, b1, f, g, dev)
+    x, rbf, w0, w1 = (_aligned(t) for t in (x, rbf, w0, w1))
     out = torch.empty((n, f), dtype=torch.float32, device=dev)
     if n == 0 or f == 0:
         return out
@@ -178,7 +210,7 @@ def launch_scf_filter_gather(x, rbf, cm, w0, b0, w1, b1, gidx, rowid, perm,
             x.data_ptr(), rbf.data_ptr(), cm.data_ptr(), gidx.data_ptr(),
             rowid.data_ptr(), None if perm is None else perm.data_ptr(),
             row_ptr.data_ptr(), w0.data_ptr(), b0.data_ptr(), w1.data_ptr(),
-            b1.data_ptr(), out.data_ptr(), n, f, g, stream)
+            b1.data_ptr(), out.data_ptr(), n, f, g, route, stream)
     _check_rc(rc, op)
     LAUNCHES[op] += 1
     return out

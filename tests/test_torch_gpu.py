@@ -11,7 +11,8 @@ suite).  Tolerance 1e-5 at kernel level: float32 sums, the plain
 version's ``index_add_`` adds in another order on the card; 1e-4 for the
 edge-summed weight grads and at model level.  Covered: the forward
 kernels, the backward (dx passes, the pool's gather), the three scf
-kernels through their autograd Function, the SchNet forward, three
+kernels through their autograd Function (the forward's and pass S's two
+routes, route 1 against a float64 run), the SchNet forward, three
 training steps at the flagship width and the wide one, the two poly
 kernels at every width gate (forward and, through their autograd
 Functions, backward with ties), three PNA/GIN/SAGE/MFC training steps,
@@ -24,7 +25,8 @@ training steps in lockstep, the three cgcnn kernels at F from 1 to the
 limit of 256 with and without edge attributes, three CGCNN training
 steps in lockstep at F = 64, the pallas backend's two segment sums, a
 double backward through the linear Functions, card against CPU, the
-dn_tri and row_mlp kernels at every width their gates admit, three
+dn_tri and row_mlp kernels at every width their gates admit (the dn_tri
+forward's two routes), three
 DimeNet training steps in lockstep at the arch sweep's widths, the
 builder's three kernels from the dimenet_wide cell's widths to the limits
 (both routes of the forward, a float64 yardstick, NaNs in its inputs),
@@ -216,8 +218,19 @@ def test_scf_kernels_match_plain_on_card(cuda, f, gd, geo):
     to their largest entry (thousands of float32 products summed in
     another order), the rest to 1e-5; pass P's outputs also against a
     float64 run (:func:`_float64_yardstick`); masked edges' drbf, dcm
-    exactly zero; a second run bit-identical."""
+    exactly zero; a second run bit-identical.  The forward's and pass S's
+    route on the card is the plan's (``scf_mp.fwd_route``: route 1 up to
+    F = 256); at route 1's widths the forward and pass S, launched as the
+    path launches them, lie within the float64 bound and repeat bit for
+    bit, and route 2 (the first design) at the same inputs is held to the
+    plain version at 1e-5."""
+    from hydragnn_torch.kernels.build import load_library
     from hydragnn_torch.ops import scf_mp
+    from hydragnn_torch.ops.aggregate import segment_offsets
+
+    route = scf_mp.fwd_route(f, gd)
+    assert load_library("scf_mp").hg_scf_fwd_route(f, gd) == route
+    assert route == (1 if f <= 256 else 2)
 
     b = _graph_batch(8, hub=200)
     n, e = len(b["node_gid"]), len(b["senders"])
@@ -273,6 +286,29 @@ def test_scf_kernels_match_plain_on_card(cuda, f, gd, geo):
         assert float((a - c).abs().max()) <= rel * scale, name
         if name != "h":
             _float64_yardstick(name, a, c, c64)
+    if route != 1:
+        return
+    # the forward and pass S as the path launches them, both routes
+    ptr_r = segment_offsets(recv, n, em)
+    pk = perm.long()
+    ptr_s = segment_offsets(send[pk], n, em[pk])
+    with torch.no_grad():
+        for op, x_, gi, ri, pm, ptr in (
+                ("scf_edge_pipeline", ins[0], send, recv, None, ptr_r),
+                ("scf_edge_pipeline_pass_s", ct, recv, send, perm, ptr_s)):
+            def launch(r_):
+                return scf_mp.launch_scf_filter_gather(
+                    x_, *ins[1:], gi, ri, pm, ptr, op, route=r_)
+            k1, k1b, k2 = launch(1), launch(1), launch(2)
+            torch.cuda.synchronize()
+            assert torch.equal(k1, k1b), op
+            c = scf_mp.scf_edge_pipeline_plain(x_, *ins[1:3], em, *ins[3:],
+                                               gi, ri)
+            c64 = _scf_composed(*(t.double() for t in [x_] + ins[1:]), em,
+                                gi, ri)
+            _float64_yardstick(op, k1, c, c64)
+            assert float((k2 - c).abs().max()) <= 1e-5 * float(
+                c.abs().max()), op
 
 
 def _schnet_batch(monkeypatch):
@@ -1225,10 +1261,20 @@ def test_dn_tri_kernels_match_plain_on_card(cuda, s, r, b, d, all_masked):
     cbf exactly zero on masked triplets; a second run bit-identical.  The
     backward also as the DimeNet path launches it (d x2 and the weights
     only: radial and cbf come from pos), the outputs not asked for not
-    formed."""
+    formed.  The forward's route on the card is the plan's
+    (``dn_tri.fwd_route``): route 1 at (7, 6, 8, 64) and (7, 3, 8, 16),
+    its output also within the float64 bound and the first design (route
+    2) at the same inputs held to the plain version at 1e-5; route 2 at
+    the limits and at one lane."""
+    from hydragnn_torch.kernels.build import load_library
     from hydragnn_torch.ops import dn_tri
     from hydragnn_torch.ops.aggregate import segment_offsets
 
+    route = dn_tri.fwd_route(s, s * r, b, d)
+    assert load_library("dn_tri").hg_dn_tri_fwd_route(s, s * r, b,
+                                                      d) == route
+    assert route == (1 if (s, r, b, d) in ((7, 6, 8, 64), (7, 3, 8, 16))
+                     else 2)
     e, t = 700, 6000
     kj, ji, tm, perm = (_t(a).to(cuda) for a in _dimenet_tables(
         e, t, s, 5 + s + b, hubs=((3, 200), ((16, 90), 200)),
@@ -1271,8 +1317,17 @@ def test_dn_tri_kernels_match_plain_on_card(cuda, s, r, b, d, all_masked):
         rel = 1e-5 if name in ("out", "radial", "x2", "cbf") else 1e-4
         assert float((x_ - y_).abs().max()) <= rel * float(y_.abs().max()), \
             name
-        if name != "out":
+        if name != "out" or route == 1:
             _float64_yardstick(name, x_, y_, z_)
+    if route == 1 and not all_masked:
+        # the first design at route 1's widths, as the path would launch it
+        with torch.no_grad():
+            k2 = dn_tri.launch_dn_tri(
+                "dimenet_triplet_mp", *[x.contiguous() for x in ins], kj, ji,
+                None, segment_offsets(ji, e, tm), r, route=2)
+        torch.cuda.synchronize()
+        assert float((k2 - p[0]).abs().max()) <= 1e-5 * float(
+            p[0].abs().max())
 
     # the backward as the path launches it
     pk = perm.long()

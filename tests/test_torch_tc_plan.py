@@ -2,9 +2,13 @@
 P's tensor-core routes (hydragnn_torch/ops/dn_tri.py, ops/egcl_mp.py,
 ops/aggregate.py ``row_shares``): the route by width, the shares of rows
 that the kernels' warps (builder forward and pass S) or blocks (egcl pass
-P) take, and the weight-gradient jobs of egcl pass P; and the cgcnn
-forward as its kernel computes it (the node table, then each receiver
-row's sum in edge order).
+P) take, and the weight-gradient jobs of egcl pass P; the cgcnn forward as
+its kernel computes it (the node table, then each receiver row's sum in
+edge order); and the routes 1 of the scf filter-gather kernel (forward
+and pass S: the blocks' shares, 64-edge tiles, the weights' k steps, each
+row's sum in position order) and of the factored dn_tri forward (the A
+operand formed from radial and cbf under the permuted k index, the
+warps' shares), each written out in torch.
 
 The kernels only run on the card; here each share's part is computed by
 the plain version on the rows (and their triplets or edges) the share
@@ -21,7 +25,7 @@ import numpy as np
 import pytest
 import torch
 
-from hydragnn_torch.ops import cgcnn_mp, dn_tri, egcl_mp
+from hydragnn_torch.ops import cgcnn_mp, dn_tri, egcl_mp, scf_mp
 from hydragnn_torch.ops.aggregate import row_shares, segment_offsets
 
 
@@ -394,3 +398,241 @@ def test_egcl_pass_p_shares_and_jobs_sum_to_plain(f, h, a, eq, n_parts):
         _close(a_.reshape(b_.shape), b_)
     _close(dgeo, want[7])
     _close(dx, want[8])
+
+
+@pytest.mark.parametrize("f,g,route", [
+    (256, 50, 1), (48, 50, 1), (200, 50, 1), (40, 7, 1), (256, 64, 1),
+    (16, 50, 1), (8, 1, 1), (12, 50, 2), (252, 50, 2), (260, 50, 2),
+    (256, 65, 2), (384, 127, 2), (1024, 127, 2)])
+def test_scf_forward_route_by_width(f, g, route):
+    """The scf forward's and pass S's route 1 (tensor cores, a ring of
+    weight chunks) at F a multiple of 8 up to 256 and G <= 64: the wide
+    SchNet's (256, 50) among them; the first design past that, up to the
+    op's limits (1024, 127)."""
+    assert scf_mp.fwd_route(f, g) == route
+
+
+@pytest.mark.parametrize("s,sr,b,d,route", [
+    (7, 42, 8, 64, 1), (7, 21, 8, 16, 1), (5, 25, 8, 24, 1),
+    (8, 64, 8, 64, 1), (4, 16, 6, 40, 1), (8, 64, 64, 64, 2),
+    (1, 1, 1, 1, 2), (7, 42, 9, 64, 2), (7, 42, 8, 60, 2)])
+def test_dn_tri_forward_route_by_width(s, sr, b, d, route):
+    """The factored forward's route 1 (the builder forward's kernel with
+    the A operand formed from radial and cbf) at B <= 8 and D a multiple
+    of 8, the arch sweep's (7, 42, 8, 64) and the JAX test's (7, 21, 8,
+    16) among them; the first design keeps the rest, the limits (8, 64,
+    64, 64) among them."""
+    assert dn_tri.fwd_route(s, sr, b, d) == route
+
+
+def _scf_case(f, g, all_masked, seed):
+    """A receiver-sorted batch: 120 nodes, a hub row of 200 edges (four
+    64-edge tiles), rows without edges, a sender outside [0, N), and a
+    masked tail parked on the last node (all edges masked when asked)."""
+    rng = np.random.RandomState(seed + f + g)
+    n, e, real = 120, 1100, 900
+    recv = np.sort(rng.randint(0, n - 3, real))
+    recv[recv == 9] = 10
+    recv[:200] = 3
+    recv.sort()
+    send = rng.randint(0, n - 1, real)
+    send[real // 3] = n + 5
+    pad = np.full(e - real, n - 1)
+    em = (np.arange(e) < (0 if all_masked else real)).astype(np.int32)
+    cm = rng.rand(e) * em
+    ins = [rng.randn(n, f), rng.rand(e, g), cm, rng.randn(g, f) / g ** 0.5,
+           rng.randn(f) * 0.1, rng.randn(f, f) / f ** 0.5,
+           rng.randn(f) * 0.1]
+    ins = [torch.from_numpy(v.astype(np.float32)) for v in ins]
+    send, recv = (torch.from_numpy(np.concatenate([v, pad]).astype(np.int32))
+                  for v in (send, recv))
+    return ins, torch.from_numpy(em), send, recv
+
+
+def _scf_route1(x, rbf, cm, em, w0, b0, w1, b1, gidx, rowid, perm, n_parts):
+    """The scf forward (pass S: x the cotangent, gathered at the
+    receivers, rows the senders, positions through ``perm``) as
+    csrc/scf_mp.cu's route 1 computes it: block i of ``n_parts`` takes the
+    rows [b_i, b_{i+1}) of ``row_shares`` over the CSR and walks their
+    positions 64 at a time; per tile t0 = b0 + the k steps (8 wide) of rbf
+    . W0 (W0's rows zero past G), a = ssp(t0), f2 = b1 + the k steps of a .
+    W1, each step added to the sum in order, as the weights stream through
+    32-row chunks; then x[gidx] * (f2 * cm) added into the current row in
+    position order, each row written once when the next begins (rows
+    without edges as zeros)."""
+    n, f = x.shape
+    g = rbf.shape[1]
+    m, kc = scf_mp.SCF_TC_TILE, scf_mp.SCF_TC_CHUNK
+    order = perm.long() if perm is not None else torch.arange(len(gidx))
+    row_ptr = segment_offsets(rowid[order], n, em[order])
+    bounds = _shares_ok(row_ptr, n_parts)
+    g8 = -(-g // 8) * 8
+    gk = -(-g8 // kc) * kc
+    w0p = torch.zeros(gk, f)
+    w0p[:g] = w0
+    out = torch.full((n, f), float("nan"))
+    written = torch.zeros(n, dtype=torch.long)
+    for i in range(n_parts):
+        r0, r1 = int(bounds[i]), int(bounds[i + 1])
+        if r0 >= r1:
+            continue
+        p0, p1 = int(row_ptr[r0]), int(row_ptr[r1])
+        cur, acc = r0, torch.zeros(f)
+
+        def flush(upto):
+            out[cur] = acc
+            out[cur + 1:upto] = 0.0
+            written[cur:upto] += 1
+
+        for q in range(p0, p1, m):
+            eid = order[q:min(q + m, p1)]
+            rp = torch.zeros(len(eid), gk)
+            rp[:, :g] = rbf[eid]
+            t0 = b0.expand(len(eid), f)
+            for k in range(0, g8, 8):
+                t0 = t0 + rp[:, k:k + 8] @ w0p[k:k + 8]
+            a = scf_mp._ssp(t0)
+            f2 = b1.expand(len(eid), f)
+            for k in range(0, f, 8):
+                f2 = f2 + a[:, k:k + 8] @ w1[k:k + 8]
+            for j, ed in enumerate(eid.tolist()):
+                s, r = int(gidx[ed]), int(rowid[ed])
+                if not 0 <= s < n or r < cur or r >= r1:
+                    continue
+                if r != cur:
+                    flush(r)
+                    cur, acc = r, torch.zeros(f)
+                acc = acc + x[s] * (f2[j] * cm[ed])
+        flush(r1)
+    assert bool((written == 1).all())
+    return out
+
+
+@pytest.mark.parametrize("mode", ["forward", "pass_s"])
+@pytest.mark.parametrize("all_masked", [False, True],
+                         ids=["masked-tail", "all-masked"])
+@pytest.mark.parametrize("f,g", [(256, 50), (48, 50), (200, 50)])
+def test_scf_route1_order_matches_plain(f, g, all_masked, mode):
+    """The scf forward and pass S as route 1 computes them (the block
+    shares, 64-edge tiles, the k steps of the weight chunks, each row's
+    sum in position order) equal scf_edge_pipeline_plain, 1e-5 of the
+    largest entry, at the wide SchNet's widths and at F = 48 and 200 (not
+    whole warps of 32 columns); every row written once, the all-masked
+    batch exact zeros."""
+    ins, em, send, recv = _scf_case(f, g, all_masked, seed=11)
+    x, rbf, cm, w0, b0, w1, b1 = ins
+    if mode == "forward":
+        got = _scf_route1(x, rbf, cm, em, w0, b0, w1, b1, send, recv, None,
+                          n_parts=5)
+        want = scf_mp.scf_edge_pipeline_plain(x, rbf, cm, em, w0, b0, w1,
+                                              b1, send, recv)
+    else:
+        perm = torch.argsort(send, stable=True)
+        got = _scf_route1(x, rbf, cm, em, w0, b0, w1, b1, recv, send, perm,
+                          n_parts=7)
+        want = scf_mp.scf_edge_pipeline_plain(x, rbf, cm, em, w0, b0, w1,
+                                              b1, recv, send)
+    if all_masked:
+        assert float(got.abs().max()) == 0
+        return
+    assert float(want.abs().max()) > 0
+    _close(got, want)
+
+
+def _tri_route1(radial, x2, cbf, w1, w2, idx_kj, idx_ji, tmask, r, n_parts):
+    """The factored forward as route 1 computes it: warp i of ``n_parts``
+    takes the ji rows [b_i, b_{i+1}) of ``row_shares`` and walks their
+    triplets 16 at a time; the A operand is formed under the builder's
+    permuted k index (a step's slots t and t + 4 hold its columns 2t and
+    2t + 1) as radial[kj, c] * cbf[t, min(c // R, S - 1)], radial zero past
+    S*R; emb1 = the k steps of A . W1 (rows permuted alike, B padded to 8),
+    emb2 = emb1 . W2, and x2[kj] * emb2 added into the current row in
+    triplet order, each row written once."""
+    e, d = x2.shape
+    t, s = cbf.shape
+    sr, b = w1.shape
+    ks = -(-sr // 8)
+    cols = torch.tensor([8 * q + 2 * tt + h for q in range(ks)
+                         for h in (0, 1) for tt in range(4)])
+    lidx = torch.clamp(cols // r, max=s - 1)
+    rad = torch.zeros(e, 8 * ks)
+    rad[:, :sr] = radial
+    w1p = torch.zeros(8 * ks, 8)
+    w1p[:sr, :b] = w1
+    w2p = torch.zeros(8, d)
+    w2p[:b] = w2
+    row_ptr = segment_offsets(idx_ji, e, tmask)
+    bounds = _shares_ok(row_ptr, n_parts)
+    out = torch.full((e, d), float("nan"))
+    written = torch.zeros(e, dtype=torch.long)
+    kj_all, ji_all = idx_kj.long(), idx_ji.long()
+    for i in range(n_parts):
+        r0, r1 = int(bounds[i]), int(bounds[i + 1])
+        if r0 >= r1:
+            continue
+        p0, p1 = int(row_ptr[r0]), int(row_ptr[r1])
+        cur, acc = r0, torch.zeros(d)
+
+        def flush(upto):
+            out[cur] = acc
+            out[cur + 1:upto] = 0.0
+            written[cur:upto] += 1
+
+        for q in range(p0, p1, 16):
+            tt = torch.arange(q, min(q + 16, p1))
+            kj = kj_all[tt].clamp(0, e - 1)
+            a = rad[kj][:, cols] * cbf[tt][:, lidx]
+            emb1 = torch.zeros(len(tt), 8)
+            for k in range(0, 8 * ks, 8):
+                emb1 = emb1 + a[:, k:k + 8] @ w1p[cols[k:k + 8]]
+            msg = x2[kj] * (emb1 @ w2p)
+            for j, tr in enumerate(tt.tolist()):
+                k_, row = int(kj_all[tr]), int(ji_all[tr])
+                if not 0 <= k_ < e or row < cur or row >= r1:
+                    continue
+                if row != cur:
+                    flush(row)
+                    cur, acc = row, torch.zeros(d)
+                acc = acc + msg[j]
+        flush(r1)
+    assert bool((written == 1).all())
+    return out
+
+
+@pytest.mark.parametrize("all_masked", [False, True],
+                         ids=["masked-tail", "all-masked"])
+@pytest.mark.parametrize("s,r,b,d", [(7, 6, 8, 64), (7, 3, 8, 16)])
+@pytest.mark.parametrize("n_parts", [3, 40])
+def test_dn_tri_route1_factored_operand_matches_reference(s, r, b, d,
+                                                          all_masked,
+                                                          n_parts):
+    """The factored A operand formed under the permuted k index, the
+    products by k step and the rows summed over the warps' shares equal
+    dimenet_triplet_reference, 1e-5 of the largest entry, at the arch
+    sweep's widths (7, 6, 8, 64) and the JAX test's (7, 3, 8, 16); every
+    row written once, the all-masked table exact zeros."""
+    rng = np.random.RandomState(s * r + b + d + n_parts)
+    e, t, real = 90, 700, 0 if all_masked else 600
+    ji = np.sort(rng.randint(0, e - 1, real))
+    kj = rng.randint(0, e - 1, real)
+    kj[:5] = e + 4
+    idx_ji = torch.from_numpy(np.concatenate([ji, np.full(t - real, e - 1)])
+                              ).int()
+    idx_kj = torch.from_numpy(np.concatenate([kj, np.full(t - real, e - 1)])
+                              ).int()
+    tm = (torch.arange(t) < real).int()
+    radial = torch.from_numpy(rng.rand(e, s * r).astype(np.float32))
+    x2 = torch.from_numpy(rng.randn(e, d).astype(np.float32))
+    cbf = torch.from_numpy((rng.randn(t, s) * 0.5).astype(np.float32))
+    w1 = torch.from_numpy((rng.randn(s * r, b) / (s * r) ** 0.5
+                           ).astype(np.float32))
+    w2 = torch.from_numpy((rng.randn(b, d) / b ** 0.5).astype(np.float32))
+    got = _tri_route1(radial, x2, cbf, w1, w2, idx_kj, idx_ji, tm, r,
+                      n_parts)
+    want = dn_tri.dimenet_triplet_reference(radial, x2, cbf, w1, w2, idx_kj,
+                                            idx_ji, tm, r)
+    if all_masked:
+        assert float(got.abs().max()) == 0
+        return
+    assert float(want.abs().max()) > 0
+    _close(got, want)
