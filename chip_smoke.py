@@ -53,13 +53,19 @@ and PyTorch built for CUDA.  Phases, each of which fails the run:
    train batch at H*F = 384 and 768, with ones and with dropout bits,
    through their autograd Function against autograd through the plain
    forward (1e-5; 1e-4 for d att; m equal; rows without a real edge
-   (-1e9, 0, 0) and zero gradients), and the three cgcnn kernels
+   (-1e9, 0, 0) and zero gradients; pass S's route the plan's, route 1
+   alone at each case 1e-5, bit-identical twice and zero on rows that
+   send no real edge, its first design (route 2) held and timed beside
+   it), and the three cgcnn kernels
    (forward, pass P, pass S) at the first cgcnn train batch at F = D = 64
    (the path's), F = 24, A = 5, D = 16 and F = D = 256 through their
    autograd Function against autograd through the composed plain version
    (1e-5; 1e-4 for the weight grads; d edge_attr exactly zero on masked
    edges; the forward, a node table and then a warp per receiver row, a
-   second run bit-identical), and the pallas backend's two segment sums
+   second run bit-identical; pass S alone on pass P's node table
+   (gathered sums per sender row, then one row product in 3xTF32) 1e-5,
+   within a float64 run's bound and bit-identical twice), and the pallas
+   backend's two segment sums
    (unsorted ids with an out-of-range tail; sorted receivers, pre-masked)
    and their VJPs (1e-5),
    timed beside ``index_add_`` and ``torch.segment_reduce``, and the four
@@ -635,10 +641,11 @@ def pass_p_build_report():
     """The registers, stack, spills and static shared memory (ptxas) of
     the redesigned kernels (scf and cgcnn pass P, the row_mlp backward's
     two routes, the dn_tri backward, the scf filter-gather kernel's and
-    the dn_tri forward's routes 1, the builder's) and, beside them, of the
-    kernels that share their sources (cgcnn's forward and pass S, whose
-    registers the pass-P split changed; the row_mlp forward, both first
-    designs of the filter-gather kernel and the dn_tri forward); and the
+    the dn_tri forward's routes 1, the builder's, cgcnn pass S and GAT
+    pass S's route 1) and, beside them, of the kernels that share their
+    sources (cgcnn's forward; GAT pass S's first design; the row_mlp
+    forward, both first designs of the filter-gather kernel and the dn_tri
+    forward); and the
     dynamic shared memory of one block of scf pass P, cgcnn pass P, the
     scf filter-gather route 1 and the dn_tri forward's route 1 at the
     main path's widths (the kernels' own layouts).  Fails when a source's
@@ -649,7 +656,10 @@ def pass_p_build_report():
     keys = {"scf_mp": ("pass_p_kernel", "scf_fg_tc_kernel",
                        "scf_filter_gather_kernel"),
             "cgcnn_mp": ("pass_p_kernel", "node_table_kernel",
-                         "cgcnn_fwd_kernel", "cgcnn_kernel"),
+                         "cgcnn_fwd_kernel", "pass_s_sums_kernel",
+                         "row_product_kernel"),
+            # pass S: route 1 and the first design's instantiations
+            "gat_mp": ("gat_pass_s_kernel", "gat_kernelILi2E"),
             "row_mlp": ("row_mlp_fwd_kernel", "row_mlp_bwd_tc_kernel",
                         "row_mlp_bwd_kernel"),
             "dn_tri": ("dn_tri_fwd_kernel", "dn_tri_bwd_kernel",
@@ -1570,9 +1580,15 @@ def gat_phase(torch, g, seed):
     forward: acc, d, dxl and dxr 1e-5 of their largest entry, d att 1e-4
     (a sum over every edge of the batch in another order), m equal; rows
     without a real incoming edge read m = -1e9, d = 0 and zero dxr, rows
-    without any real edge zero dxl.  Then each kernel timed alone in each
-    of the four cases, beside its plain version and its bound; the gat
-    cell's case (H*F = 384, no bits) makes the kernels line."""
+    without any real edge zero dxl.  Pass S alone in each case: its route
+    the plan's, route 1 (head sums across lanes, edges in flight) and
+    route 2 (the first design) 1e-5 of the plain version's largest entry,
+    route 1 bit-identical twice and zero on rows that send no real edge.
+    Then each kernel timed alone in each of the four cases, beside its
+    plain version and its bound, pass S's first design beside it
+    (``route2_ms``); the gat cell's case (H*F = 384, no bits) makes the
+    kernels line."""
+    from hydragnn_torch.kernels.build import load_library
     from hydragnn_torch.ops import gat_mp as gm
     from hydragnn_torch.ops.aggregate import segment_offsets
 
@@ -1583,8 +1599,41 @@ def gat_phase(torch, g, seed):
     real = mask != 0
     nodes = torch.arange(n, device=dev)
     no_in = ~torch.isin(nodes, recv[real])
-    no_edge = no_in & ~torch.isin(nodes, send[real])
+    no_out = ~torch.isin(nodes, send[real])
+    no_edge = no_in & no_out
     gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    ptr_s = segment_offsets(send[perm.long()], n, mask[perm.long()])
+    lib = load_library("gat_mp")
+
+    def hold_pass_s(ins, what):
+        """Pass S alone on the forward's m: both routes against the plain
+        version, route 1 twice."""
+        xl, xr, att, b, ca, cd = ins
+        h, f = att.shape
+        check(lib.hg_gat_pass_s_route(h * f, f) == gm.pass_s_route(h * f, f)
+              == 1, f"{what}: pass S's route on the card is not the "
+              "plan's route 1")
+        with torch.no_grad():
+            _, m, _ = gm.gat_edge_attention_reference(
+                xl, xr, att, send, recv, mask, b, GAT_SLOPE)
+            runs = [gm.launch_gat("gat_edge_attention_pass_s", xl, xr, att,
+                                  send, recv, perm, ptr_s, b, GAT_SLOPE, m,
+                                  ca, cd, route=r) for r in (1, 1, 2)]
+            plain = gm.gat_pass_s_plain(xl, xr, att, send, recv, mask, b, m,
+                                        ca, cd, GAT_SLOPE)
+        torch.cuda.synchronize()
+        check(torch.equal(runs[0], runs[1]),
+              f"{what}: pass S (route 1) differs on a second run")
+        check(bool((runs[0][no_out] == 0).all()),
+              f"{what}: pass S (route 1) wrote a row that sends no real edge")
+        out = {}
+        for route, got in ((1, runs[0]), (2, runs[2])):
+            err = rel_err(torch, got, plain)
+            check(err[1] <= REL_TOL_KERNEL, f"{what}: pass S (route {route}) "
+                  f"disagrees with its plain version: {err[1]}")
+            out[f"route{route}"] = {"max_abs_err": err[0],
+                                    "max_rel_err": err[1]}
+        return out
 
     def inputs(h, f, bits):
         xl = torch.randn(n, h * f, device=dev, generator=gen)
@@ -1635,6 +1684,7 @@ def gat_phase(torch, g, seed):
             tol = REL_TOL_WGRAD if name == "datt" else REL_TOL_KERNEL
             check(rel_e <= tol, f"{what}: {name} disagrees with the plain "
                   f"version under autograd: {rel_e} > {tol}")
+        errs["pass_s"] = hold_pass_s(ins, what)
         return ins, errs
 
     cases = {}
@@ -1645,7 +1695,6 @@ def gat_phase(torch, g, seed):
     e_valid = int(real.sum())
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     ptr_r = segment_offsets(recv, n, mask)
-    ptr_s = segment_offsets(send[perm.long()], n, mask[perm.long()])
 
     def launches(ins):
         xl, xr, att, b, ca, cd = ins
@@ -1685,6 +1734,14 @@ def gat_phase(torch, g, seed):
                 "hydragnn_tpu/ops/gat_mp.py:594", ("dxl",)),
         }
 
+    def pass_s_route2(ins):
+        xl, xr, att, b, ca, cd = ins
+        _, m, _ = gm.launch_gat("gat_edge_attention", xl, xr, att, send,
+                                recv, None, ptr_r, b, GAT_SLOPE)
+        return lambda: gm.launch_gat("gat_edge_attention_pass_s", xl, xr,
+                                     att, send, recv, perm, ptr_s, b,
+                                     GAT_SLOPE, m, ca, cd, route=2)
+
     results = []
     ins, errs = cases[(384, False)]
     for name, (kern, plain, (b_ms, b_by), replaces, outs) in launches(
@@ -1700,7 +1757,11 @@ def gat_phase(torch, g, seed):
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "shape": {"N": n, "E": e, "E_valid": e_valid, "H": 6, "F": 64,
                       "bits": False}})
-    notes = {"rows_without_real_in_edge": int(no_in.sum())}
+        if name == "gat_edge_attention_pass_s":
+            results[-1]["route2_ms"] = time_ms(torch, pass_s_route2(ins),
+                                               flush, lead=True)
+    notes = {"rows_without_real_in_edge": int(no_in.sum()),
+             "rows_without_real_out_edge": int(no_out.sum())}
     for (hf, bits), (case_ins, case_errs) in cases.items():
         timed = results if (hf, bits) == (384, False) else [
             {"name": name, "ms": time_ms(torch, kern, flush, lead=True),
@@ -1708,12 +1769,18 @@ def gat_phase(torch, g, seed):
              "bound_ms": b_ms, "bound_by": b_by}
             for name, (kern, plain, (b_ms, b_by), _, _) in launches(
                 case_ins).items()]
+        if (hf, bits) != (384, False):
+            timed[-1]["route2_ms"] = time_ms(torch, pass_s_route2(case_ins),
+                                             flush, lead=True)
+        case_errs = dict(case_errs)
+        pass_s = case_errs.pop("pass_s")
         notes[f"HF{hf}_{'bits' if bits else 'ones'}"] = {
             "errors": {k: {"max_abs_err": a, "max_rel_err": r}
                        for k, (a, r) in case_errs.items()},
-            "timing": {t["name"]: {k: t[k] for k in ("ms", "plain_ms",
-                                                     "bound_ms", "bound_by")}
-                       for t in timed}}
+            "pass_s_routes": pass_s,
+            "timing": {t["name"]: {k: t[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "route2_ms")
+                if k in t} for t in timed}}
     return results, notes
 
 
@@ -1824,7 +1891,10 @@ def cgcnn_flops(f, d, a, edges, nodes):
     so they count once per node; per edge: the edge-attribute products,
     the sums that join the parts of tf and ts, sigmoid * softplus and the
     row sum, and in the backward dtf, dts, the edge-attribute weight
-    gradients and d edge_attr."""
+    gradients and d edge_attr.  Pass S reads pass P's node table (the
+    backward hands it over), so its count holds the per-edge work and the
+    row product ``[sum dtf | sum dts] @ [Wfs | Wss]^T`` per node, not the
+    table's products."""
     fwd_e = 2 * 2 * a * d + 4 * d + 2 * d
     back_e = 6 * d
     fwd_n = 4 * 2 * f * d
@@ -1833,7 +1903,7 @@ def cgcnn_flops(f, d, a, edges, nodes):
     # nodes; per edge + dWfg, dWsg, dbf, dbs and d edge_attr
     pass_p = (edges * (fwd_e + back_e + 2 * 2 * a * d + 2 * d + 2 * 2 * a * d)
               + nodes * (fwd_n + 4 * 2 * f * d + 2 * 2 * f * d))
-    pass_s = edges * (fwd_e + back_e) + nodes * (fwd_n + 2 * 2 * f * d)
+    pass_s = edges * (fwd_e + back_e) + nodes * 2 * 2 * f * d
     return fwd, pass_p, pass_s
 
 
@@ -1846,8 +1916,11 @@ def cgcnn_phase(torch, g, seed):
     autograd Function against autograd through the composed plain
     version: forward, dx and d edge_attr 1e-5 of their largest entry, the
     edge-summed weight and bias grads 1e-4; d edge_attr exactly zero on
-    masked edges.  Then each kernel timed alone as the path launches it
-    (F = D = 64), beside its plain version and its bound."""
+    masked edges.  Pass S alone in each, on pass P's node table: 1e-5 of
+    the plain version's largest entry, within a float64 run's bound and
+    bit-identical twice.  Then each kernel timed alone as the path
+    launches it (F = D = 64; pass S on the table pass P wrote), beside its
+    plain version and its bound."""
     from hydragnn_torch.ops import cgcnn_mp as cg
     from hydragnn_torch.ops.aggregate import segment_offsets
 
@@ -1859,6 +1932,49 @@ def cgcnn_phase(torch, g, seed):
     em = mask.to(torch.int32)
     real = mask != 0
     names = ("x", "edge_attr", "kf", "bf", "ks", "bs")
+    p_ = perm.long()
+    ptr_r = segment_offsets(recv, n, em)
+    ptr_s = segment_offsets(send[p_], n, em[p_])
+
+    def pass_s_table(f, a, ins, ct):
+        """The kernel weights and the node table a pass-P launch writes,
+        as the backward hands it to pass S."""
+        d = ins[2].shape[1]
+        ws = cg.kernel_weights(*ins[2:], f, a, dev)
+        table = torch.empty((n, 4 * d), device=dev)
+        with torch.no_grad():
+            cg.launch_cgcnn("cgcnn_block_pass_p", ins[0], ins[1], ws, send,
+                            recv, None, ptr_r, ct, want_dx=False,
+                            table=table)
+        return ws, table
+
+    def hold_pass_s(f, a, ins, ct, what):
+        """Pass S alone, twice, against the plain version (1e-5) and a
+        float64 run of it."""
+        ws, table = pass_s_table(f, a, ins, ct)
+        with torch.no_grad():
+            runs = [cg.launch_cgcnn("cgcnn_block_pass_s", ins[0], ins[1], ws,
+                                    send, recv, perm, ptr_s, ct, table=table)
+                    for _ in range(2)]
+            p32 = cg.cgcnn_pass_s_plain(ins[0], ins[1], em, *ins[2:], send,
+                                        recv, ct)
+            p64 = cg.cgcnn_pass_s_plain(
+                *(None if t is None else t.double() for t in ins[:2]), em,
+                *(t.double() for t in ins[2:]), send, recv, ct.double())
+        torch.cuda.synchronize()
+        check(torch.equal(runs[0], runs[1]),
+              f"{what}: pass S differs on a second run")
+        err = rel_err(torch, runs[0], p32)
+        check(err[1] <= REL_TOL_KERNEL, f"{what}: pass S disagrees with its "
+              f"plain version: {err[1]}")
+        e32 = float((p32.double() - p64).abs().max())
+        e_k = float((runs[0].double() - p64).abs().max())
+        allowed = max(2 * e32, 1e-6 * float(p64.abs().max()))
+        check(e_k <= allowed, f"{what}: pass S is {e_k} from the float64 "
+              f"run, over {allowed}")
+        return {"max_abs_err": err[0], "max_rel_err": err[1],
+                "vs_float64": e_k, "plain_float32_vs_float64": e32,
+                "float64_allowed": allowed}
 
     def inputs(f, a, d):
         def w(rows):
@@ -1905,6 +2021,7 @@ def cgcnn_phase(torch, g, seed):
                 else REL_TOL_WGRAD
             check(rel_e <= tol, f"{what}: {name} disagrees with the plain "
                   f"version under autograd: {rel_e} > {tol}")
+        pass_s_notes[f"F{f}_A{a}_D{d}"] = hold_pass_s(f, a, ins, ct, what)
         return ins, ct, errs
 
     def worst_of(errs):
@@ -1913,6 +2030,7 @@ def cgcnn_phase(torch, g, seed):
                 "max_rel_err": errs[k][1]}
 
     f = d = FEATURES
+    pass_s_notes = {}
     ins, ct, errs = hold(f, 0, d)
     _, _, errs_small = hold(24, 5, 16)
     _, _, errs_wide = hold(CGCNN_LIMIT, 0, CGCNN_LIMIT)
@@ -1920,10 +2038,7 @@ def cgcnn_phase(torch, g, seed):
     e_valid = int(real.sum())
     n_valid = int((g.node_mask != 0).sum())
     x = ins[0]
-    ws = cg.kernel_weights(*ins[2:], f, 0, dev)
-    p_ = perm.long()
-    ptr_r = segment_offsets(recv, n, em)
-    ptr_s = segment_offsets(send[p_], n, em[p_])
+    ws, table = pass_s_table(f, 0, ins, ct)
     plain_args = (x, None, em, *ins[2:], send, recv, ct)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     with torch.no_grad():
@@ -1935,6 +2050,10 @@ def cgcnn_phase(torch, g, seed):
     # read once: x, the real edges' ids (send, recv), row_ptr, the
     # weights; the backward also the cotangent [N, D]
     edge_in = 4 * (n * f + 2 * e_valid + n + 1) + wbytes
+    # pass S reads the node table, the cotangent, the real edges' ids
+    # (perm, recv), row_ptr, the biases, Wfs and Wss, and writes dx
+    s_in = 4 * (n * 4 * d + n * d + 2 * e_valid + n + 1 + 2 * d
+                + 2 * f * d)
     launches = {
         "cgcnn_block": (
             lambda: cg.launch_cgcnn("cgcnn_block", x, None, ws, send, recv,
@@ -1954,9 +2073,10 @@ def cgcnn_phase(torch, g, seed):
             ("dkf", "dbf", "dks", "dbs")),
         "cgcnn_block_pass_s": (
             lambda: cg.launch_cgcnn("cgcnn_block_pass_s", x, None, ws, send,
-                                    recv, perm, ptr_s, ct),
+                                    recv, perm, ptr_s, ct, table=table),
             lambda: cg.cgcnn_pass_s_plain(*plain_args),
-            bound(edge_in + 4 * e_valid + 4 * n * d + 4 * n * f, s_fl),
+            # the row product on the tensor cores (3xTF32)
+            tensor_core_bounds(s_in + 4 * n * f, s_fl),
             "hydragnn_tpu/ops/fused_block.py:599", ("dx",)),
     }
     results = []
@@ -1979,6 +2099,7 @@ def cgcnn_phase(torch, g, seed):
              for k, (a, r) in errs.items()}
     notes["F24_A5_D16"] = worst_of(errs_small)
     notes[f"F{CGCNN_LIMIT}"] = worst_of(errs_wide)
+    notes["pass_s"] = pass_s_notes
     return results, notes
 
 

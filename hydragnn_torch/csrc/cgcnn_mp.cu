@@ -36,16 +36,27 @@
 //   time is the latency of the dependent loads (row_ptr, the ids, the
 //   gathered rows from L2), which the warps in flight hide.  One route:
 //   every width the op takes (F, D <= 256, A <= 127).
-// cgcnn_kernel<kPassS> — backward pass S.  Replaces :_fused_bwd pass S
-//   (pl.pallas_call at :599).  Sender order through edge_perm_sender:
-//   recompute, gather the cotangent at the receiver, and sum dx of the
-//   sender side (dtf.Wfs^T + dts.Wss^T) per sender row.  Bound by
-//   operations (2 * 2 * (2F + A) * D flops per real edge against ~(2F + A)
-//   * 4 bytes of gathered rows); float32 on the CUDA cores, per-edge tiles
-//   transposed ([k][e], row stride TE+4) so one 16-byte broadcast load
-//   feeds four multiply-adds.  The six [rows, D] weight blocks and two
-//   biases are staged in shared memory with an odd row stride (D | 1)
-//   where they fit, else read from L2.
+// cgcnn_pass_s_sums_kernel + cgcnn_row_product_kernel — backward pass S,
+//   every width the op takes.  Replaces :_fused_bwd pass S
+//   (pl.pallas_call at :599).  dx of the sender side is sum over s's edges
+//   of dtf.Wfs^T + dts.Wss^T = [sum dtf | sum dts] . [Wfs | Wss]^T, and tf,
+//   ts are gathered sums from pass P's node table (the same backward hands
+//   it over; nothing builds it twice).  So: one warp per sender row, walked
+//   in sender-position order through edge_perm_sender, holds its own
+//   [T[s, 2D:3D] + bf | T[s, 3D:4D] + bs] in registers (lane l its V
+//   columns, as the forward), per edge gathers the receiver's T[r, 0:2D]
+//   and dout[r] (the edge ids and receiver ids 32 at a time, one load a
+//   lane, broadcast by shuffles; the gathers of a group of max(1, 4 / V)
+//   edges issued before any of them is used), adds ea . [Wfg | Wsg] at
+//   A > 0, forms dtf, dts and sums them into the row in position order:
+//   [N, 2D] sums, no [E, .] tensor.  Then dx = sums . [Wfs | Wss]^T, one
+//   [2D] . [2D, F] product a row, in 3xTF32 on the tensor cores (blocks of
+//   64 rows x 64 columns, as the node table's).  Bound: bytes at the
+//   path's widths (the table, dout and the ids read once; ~12 D flops an
+//   edge and the row product's 4 D F a node lie below them); what decides
+//   the time is the latency of the dependent loads (the ids, then the
+//   gathered rows from L2), which the warps a SM holds hide: fewer edges
+//   in flight a warp and so more warps were faster on the card.
 //
 // cgcnn_node_table_kernel + cgcnn_pass_p_kernel (+ the fixed-order
 // reductions) — backward pass P.  Replaces :_fused_bwd pass P
@@ -57,10 +68,11 @@
 //   nodes (x[r].W = (x.W)[r]; sum_e x[r]^T dtf = x[r]^T (sum over r's
 //   edges of dtf)), so the work is ~2 (F + A) * 2D multiply-adds per edge
 //   and ~8 F D per node.  Design: the node table x . [Wfr | Wsr | Wfs |
-//   Wss] ([N, 4D], L2-resident) is computed once per launch, so tf and ts
-//   are gathered sums; the grid is (part p, slice j of wp output columns),
-//   a part is a run of whole receiver rows with about n_valid / n_parts
-//   edges, walked kPR rows at a time and their edges kPE at a time.  Per
+//   Wss] ([N, 4D], L2-resident) is computed once per launch (and left for
+//   pass S), so tf and ts are gathered sums; the grid is (part p, slice j
+//   of wp output columns), a part is a run of whole receiver rows with
+//   about n_valid / n_parts edges, walked kPR rows at a time and their
+//   edges kPE at a time.  Per
 //   edge only [dtf | dts] and the sender-side products remain:
 //   sum_e [x[s] | ea]^T [dtf | dts] (dWfs, dWss, dWfg, dWsg); per row,
 //   once, the row sums of [dtf | dts] give dWfr, dWsr (x[r]^T . sum) and
@@ -93,63 +105,9 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int TE = 32;           // edges per tile
-constexpr int EQ = 8;            // edges per work item
-constexpr int kGroups = TE / EQ;
-constexpr int LDT = TE + 4;      // row stride of a transposed tile
-constexpr int kRows = 16;        // output rows per chunk
 constexpr int kMaxF = 256;
 constexpr int kMaxD = 256;
 constexpr int kMaxA = 127;
-
-constexpr int kPassS = 2;
-
-struct Params {
-  const float* x;        // [N, F]
-  const float* ea;       // [E, A], or null when A = 0
-  const int* send;       // [E]
-  const int* recv;       // [E]
-  const int* perm;       // [E] position -> edge id
-  const int* row_ptr;    // [N + 1] CSR over positions
-  const float* w[8];     // wfr, wfs, wfg, bf, wsr, wss, wsg, bs
-  const float* gout;     // [N, D] cotangent of out
-  float* out;            // dx [N, F]
-  int n_rows, f, d, a, n_chunks;
-  int stage;             // 1: weights in shared memory
-};
-
-// offsets of the eight blocks in a packed layout with row stride ld:
-// [wfr F | wfs F | wfg A | bf 1 | wsr F | wss F | wsg A | bs 1] rows of D;
-// with ld = D the first 2F+A rows are dkf [2F+A, D] as the concat kernel
-// lays it out.  Returns the total, rounded up to keep the next region
-// 16-byte aligned.
-__host__ __device__ inline int weight_layout(int f, int d, int a, int ld,
-                                             int* off) {
-  int o = 0;
-  for (int half = 0; half < 2; ++half) {
-    off[4 * half + 0] = o; o += f * ld;
-    off[4 * half + 1] = o; o += f * ld;
-    off[4 * half + 2] = o; o += a * ld;
-    off[4 * half + 3] = o; o += d;
-  }
-  return (o + 3) & ~3;
-}
-
-__host__ __device__ inline int weight_rows(int i, int f, int a) {
-  switch (i % 4) {
-    case 0: case 1: return f;
-    case 2: return a;
-    default: return 1;
-  }
-}
-
-__host__ __device__ inline int tile_floats(int f, int d, int a) {
-  int n = (2 * f + a) * LDT + 2 * d * LDT;         // x[r], x[s], ea, tf, ts
-  n += kRows * f;                                   // row sums
-  n += 4 * TE;                                      // ids
-  return n;
-}
 
 __device__ __forceinline__ float sigmoid_f(float v) {
   return 1.f / (1.f + expf(-v));
@@ -166,188 +124,6 @@ __device__ __forceinline__ float softplus_grad(float v) {
   const float z = expf(v);
   return z / (z + 1.f);
 }
-
-// acc[j] += sum_k T[k][e0 + j] * w[k * stride] over k < K: T is a transposed
-// [K][LDT] shared tile; w walks a weight column (stride = row stride) or a
-// weight row (stride = 1)
-__device__ __forceinline__ void mv(float (&acc)[EQ], const float* T, int K,
-                                   const float* w, int stride, int e0) {
-  for (int k = 0; k < K; ++k) {
-    const float wk = w[k * stride];
-    const float4 lo = *reinterpret_cast<const float4*>(T + k * LDT + e0);
-    const float4 hi = *reinterpret_cast<const float4*>(T + k * LDT + e0 + 4);
-    acc[0] += lo.x * wk;
-    acc[1] += lo.y * wk;
-    acc[2] += lo.z * wk;
-    acc[3] += lo.w * wk;
-    acc[4] += hi.x * wk;
-    acc[5] += hi.y * wk;
-    acc[6] += hi.z * wk;
-    acc[7] += hi.w * wk;
-  }
-}
-
-__device__ __forceinline__ void store8(float* dst, const float (&v)[EQ]) {
-  reinterpret_cast<float4*>(dst)[0] = make_float4(v[0], v[1], v[2], v[3]);
-  reinterpret_cast<float4*>(dst)[1] = make_float4(v[4], v[5], v[6], v[7]);
-}
-
-// out tile [D][LDT] = bias + T0.W0 + T1.W1 (+ T2.W2): thread per output
-// column c, EQ edges each
-__device__ __forceinline__ void dense_tile(float* out, int d, const float* T0,
-                                           const float* W0, const float* T1,
-                                           const float* W1, int K01,
-                                           const float* T2, const float* W2,
-                                           int K2, const float* bias, int ld) {
-  for (int it = threadIdx.x; it < d * kGroups; it += kThreads) {
-    const int c = it % d, e0 = (it / d) * EQ;
-    float acc[EQ];
-    const float b = bias[c];
-#pragma unroll
-    for (int j = 0; j < EQ; ++j) acc[j] = b;
-    mv(acc, T0, K01, W0 + c, ld, e0);
-    mv(acc, T1, K01, W1 + c, ld, e0);
-    if (K2 > 0) mv(acc, T2, K2, W2 + c, ld, e0);
-    store8(out + c * LDT + e0, acc);
-  }
-}
-
-// At most 64 registers a thread (four blocks' worth): left to itself,
-// ptxas gives pass S 48 and a spill, and it runs ~15% slower.  Pass S is
-// the template's only instantiation since the forward left it.
-template <int MODE>
-__global__ void __launch_bounds__(kThreads, 4) cgcnn_kernel(const Params p) {
-  static_assert(MODE == kPassS, "pass S only");
-  extern __shared__ float4 smem4[];
-  float* sm = reinterpret_cast<float*>(smem4);
-  const int f = p.f, d = p.d, a = p.a;
-  const int n_rows = p.n_rows;
-  const int tid = threadIdx.x;
-
-  float* xr_t = sm; sm += f * LDT;     // x[r]
-  float* xs_t = sm; sm += f * LDT;     // x[s]; then dx per edge
-  float* g_t = sm; sm += a * LDT;      // edge attributes
-  float* tf_t = sm; sm += d * LDT;     // tf; then dtf
-  float* ts_t = sm; sm += d * LDT;     // ts; then dts
-  const int ow = f;                    // width of the row sums
-  float* rows_s = sm; sm += kRows * ow;
-  int* eid_s = reinterpret_cast<int*>(sm);
-  int* s_s = eid_s + TE;
-  int* r_s = s_s + TE;
-  int* row_s = r_s + TE;
-  sm += 4 * TE;
-
-  // weights: staged in shared memory with row stride d | 1, or read from
-  // global memory (row stride d) when they do not fit
-  int off[8];
-  const float* w[8];
-  int ld = d;
-  if (p.stage) {
-    ld = d | 1;
-    const int wsize = weight_layout(f, d, a, ld, off);
-    for (int i = 0; i < 8; ++i) {
-      const int rows = weight_rows(i, f, a);
-      float* dst = sm + off[i];
-      const int rld = i % 4 == 3 ? d : ld;
-      for (int j = tid; j < rows * d; j += kThreads) {
-        const int k = j / d, c = j - k * d;
-        dst[k * rld + c] = p.w[i][j];
-      }
-      w[i] = dst;
-    }
-    sm += wsize;
-  } else {
-    for (int i = 0; i < 8; ++i) w[i] = p.w[i];
-  }
-  const float *wfr = w[0], *wfs = w[1], *wfg = w[2], *bf = w[3],
-              *wsr = w[4], *wss = w[5], *wsg = w[6], *bs = w[7];
-
-  for (int chunk = blockIdx.x; chunk < p.n_chunks; chunk += gridDim.x) {
-    const int r0 = chunk * kRows;
-    const int r1 = min(r0 + kRows, n_rows);
-    const int e_begin = p.row_ptr[r0];
-    const int e_end = p.row_ptr[r1];
-    __syncthreads();  // staging done; the previous chunk's rows written out
-    for (int i = tid; i < kRows * ow; i += kThreads) rows_s[i] = 0.f;
-
-    for (int t = e_begin; t < e_end; t += TE) {
-      const int cnt = min(TE, e_end - t);
-      __syncthreads();  // rows zeroed; the previous tile's readers are done
-      if (tid < TE) {
-        int eid = -1, s = -1, r = -1, row = 0;
-        if (tid < cnt) {
-          const int pos = t + tid;
-          eid = p.perm != nullptr ? p.perm[pos] : pos;
-          s = p.send[eid];
-          r = p.recv[eid];
-          if (static_cast<unsigned>(s) >= static_cast<unsigned>(n_rows) ||
-              static_cast<unsigned>(r) >= static_cast<unsigned>(n_rows)) {
-            s = -1;
-            r = -1;
-          } else {
-            row = s - r0;
-          }
-        }
-        eid_s[tid] = eid;
-        s_s[tid] = s;
-        r_s[tid] = r;
-        row_s[tid] = row;
-      }
-      __syncthreads();
-      // gather x[r], x[s] and the edge attributes, transposed; invalid and
-      // out-of-tile edges read zeros
-      for (int i = tid; i < TE * f; i += kThreads) {
-        const int e = i / f, k = i - e * f;
-        const int s = s_s[e], r = r_s[e];
-        xr_t[k * LDT + e] = r >= 0 ? p.x[static_cast<size_t>(r) * f + k] : 0.f;
-        xs_t[k * LDT + e] = s >= 0 ? p.x[static_cast<size_t>(s) * f + k] : 0.f;
-      }
-      for (int i = tid; i < TE * a; i += kThreads) {
-        const int e = i / a, k = i - e * a;
-        g_t[k * LDT + e] = s_s[e] >= 0
-            ? p.ea[static_cast<size_t>(eid_s[e]) * a + k] : 0.f;
-      }
-      __syncthreads();
-      // tf = bf + x[r].Wfr + x[s].Wfs + ea.Wfg; ts likewise
-      dense_tile(tf_t, d, xr_t, wfr, xs_t, wfs, f, g_t, wfg, a, bf, ld);
-      dense_tile(ts_t, d, xr_t, wsr, xs_t, wss, f, g_t, wsg, a, bs, ld);
-      __syncthreads();
-
-      // the cotangent is gathered at the receiver
-      for (int it = tid; it < d * TE; it += kThreads) {
-        const int c = it / TE, e = it - c * TE;
-        const int r = r_s[e];
-        const float gc = (e < cnt && r >= 0)
-            ? p.gout[static_cast<size_t>(r) * d + c] : 0.f;
-        const float vf = tf_t[c * LDT + e], vs = ts_t[c * LDT + e];
-        const float sf = sigmoid_f(vf);
-        tf_t[c * LDT + e] = gc * softplus_f(vs) * (sf * (1.f - sf));
-        ts_t[c * LDT + e] = gc * sf * softplus_grad(vs);
-      }
-      __syncthreads();
-      // dx per edge = dtf.Wfs^T + dts.Wss^T into the sender's x tile, then
-      // summed per row in edge order
-      for (int it = tid; it < f * kGroups; it += kThreads) {
-        const int k = it % f, e0 = (it / f) * EQ;
-        float acc[EQ];
-#pragma unroll
-        for (int j = 0; j < EQ; ++j) acc[j] = 0.f;
-        mv(acc, tf_t, d, wfs + k * ld, 1, e0);
-        mv(acc, ts_t, d, wss + k * ld, 1, e0);
-        store8(xs_t + k * LDT + e0, acc);
-      }
-      __syncthreads();
-      for (int k = tid; k < f; k += kThreads) {
-        for (int e = 0; e < cnt; ++e)
-          if (s_s[e] >= 0) rows_s[row_s[e] * f + k] += xs_t[k * LDT + e];
-      }
-    }
-    __syncthreads();
-    for (int i = tid; i < (r1 - r0) * ow; i += kThreads)
-      p.out[static_cast<size_t>(r0) * ow + i] = rows_s[i];
-  }
-}
-
 
 // ---------------------------------------------------------------------------
 // pass P
@@ -550,6 +326,175 @@ cgcnn_fwd_kernel(const FwdArgs p) {
 #pragma unroll
   for (int j = 0; j < V; ++j)
     if (c0 + j < d) dst[c0 + j] = acc[j];
+}
+
+// ---------------------------------------------------------------------------
+// pass S, route 1: the node table's gathered sums per sender row, then one
+// row product per sender
+// ---------------------------------------------------------------------------
+
+struct PassSArgs {
+  const float* table;    // [N, 4D]: x . [Wfr | Wsr | Wfs | Wss]
+  const float* ea;       // [E, A] by edge id, or null when A = 0
+  const int* recv;       // [E]
+  const int* perm;       // [E] sender position -> edge id
+  const int* row_ptr;    // [N + 1] CSR over sender positions
+  const float *bf, *bs;  // [D]
+  const float *wfg, *wsg;  // [A, D], or null when A = 0
+  const float* gout;     // [N, D]
+  float* sums;           // [N, 2D]: [sum dtf | sum dts] per sender row
+  int n_rows, d, a;
+};
+
+// One warp a sender row s: sums[s] = [sum dtf | sum dts] over s's edges e
+// = (r -> s) in sender-position order, with tf = (T[s, 2D:3D] + bf) +
+// T[r, 0:D] (+ ea_e . Wfg), ts = (T[s, 3D:4D] + bs) + T[r, D:2D] (+ ea_e .
+// Wsg) and g = dout[r].  Lane l owns the V columns from V l of each half.
+// Every load of a group of U edges reads a clamped, in-range address and
+// is issued before the group's arithmetic.
+template <int V>
+__global__ void __launch_bounds__(kFThreads)
+cgcnn_pass_s_sums_kernel(const PassSArgs p) {
+  // 12 gathered floats a lane (24 at V = 8): more edges in flight cost
+  // registers, and the warps a SM holds hide the latency better
+  constexpr int U = V >= 4 ? 1 : 4 / V;
+  const int lane = threadIdx.x & 31;
+  const int s = blockIdx.x * kFWarps + (threadIdx.x >> 5);
+  if (s >= p.n_rows) return;
+  const int d = p.d, a = p.a, c0 = V * lane;
+  const size_t w4 = 4 * static_cast<size_t>(d);
+  const int e_begin = __ldg(p.row_ptr + s);
+  const int e_end = __ldg(p.row_ptr + s + 1);
+  float hf[V], hs[V], sum_f[V], sum_s[V];
+  {
+    const float* ts = p.table + s * w4 + 2 * d;
+    float bb[V];
+    load_cols<V>(hf, ts, c0, d);
+    load_cols<V>(hs, ts + d, c0, d);
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      bb[j] = c0 + j < d ? __ldg(p.bf + c0 + j) : 0.f;
+      hf[j] += bb[j];
+      bb[j] = c0 + j < d ? __ldg(p.bs + c0 + j) : 0.f;
+      hs[j] += bb[j];
+      sum_f[j] = 0.f;
+      sum_s[j] = 0.f;
+    }
+  }
+  for (int base = e_begin; base < e_end; base += 32) {
+    const int cnt = min(32, e_end - base);
+    const int e_l = lane < cnt ? __ldg(p.perm + base + lane) : 0;
+    int r_l = lane < cnt ? __ldg(p.recv + e_l) : -1;
+    if (static_cast<unsigned>(r_l) >= static_cast<unsigned>(p.n_rows))
+      r_l = -1;
+    for (int i = 0; i < cnt; i += U) {
+      float gf[U][V], gs[U][V], gg[U][V];
+      int rv[U], ev[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        rv[u] = __shfl_sync(kFull, r_l, (i + u) & 31);
+        ev[u] = __shfl_sync(kFull, e_l, (i + u) & 31);
+        if (i + u >= cnt) rv[u] = -1;
+        const int r = rv[u] >= 0 ? rv[u] : 0;
+        const float* tr = p.table + r * w4;
+        load_cols<V>(gf[u], tr, c0, d);
+        load_cols<V>(gs[u], tr + d, c0, d);
+        load_cols<V>(gg[u], p.gout + static_cast<size_t>(r) * d, c0, d);
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (rv[u] < 0) continue;
+        float vf[V], vs[V];
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          vf[j] = hf[j] + gf[u][j];
+          vs[j] = hs[j] + gs[u][j];
+        }
+        if (a > 0) {
+          const float* ge = p.ea + static_cast<size_t>(ev[u]) * a;
+          for (int q = 0; q < a; ++q) {
+            const float g = __ldg(ge + q);
+#pragma unroll
+            for (int j = 0; j < V; ++j) {
+              if (c0 + j < d) {
+                vf[j] += g * __ldg(p.wfg + q * d + c0 + j);
+                vs[j] += g * __ldg(p.wsg + q * d + c0 + j);
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          const float sg = sigmoid_f(vf[j]);
+          sum_f[j] += gg[u][j] * softplus_f(vs[j]) * (sg * (1.f - sg));
+          sum_s[j] += gg[u][j] * sg * softplus_grad(vs[j]);
+        }
+      }
+    }
+  }
+  float* dst = p.sums + s * (2 * static_cast<size_t>(d));
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    if (c0 + j < d) {
+      dst[c0 + j] = sum_f[j];
+      dst[d + c0 + j] = sum_s[j];
+    }
+  }
+}
+
+// dx [N, F] = sums [N, 2D] . [Wfs | Wss]^T in 3xTF32: blocks of 64 rows x
+// 64 columns, four warps of 16 rows, depth in steps of 32.  B is staged
+// transposed ([column][k], stride 36), so that both the global reads
+// (along a weight row) and the fragments' reads are conflict-free.
+__global__ void __launch_bounds__(128)
+cgcnn_row_product_kernel(const float* __restrict__ sums,
+                         const float* __restrict__ wfs,
+                         const float* __restrict__ wss,
+                         float* __restrict__ out, int n, int f, int d) {
+  using namespace passp;
+  __shared__ float as[64 * 36];   // sums rows [row][k], stride 36
+  __shared__ float bt[64 * 36];   // [Wfs | Wss] rows [column][k], stride 36
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int r0 = blockIdx.x * 64, c0 = blockIdx.y * 64, k2 = 2 * d;
+  float acc[8][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) acc[nt][v] = 0.f;
+  for (int k0 = 0; k0 < k2; k0 += 32) {
+    __syncthreads();
+    for (int i = tid; i < 64 * 32; i += 128) {
+      const int r = i / 32, k = i - r * 32, kk = k0 + k, col = c0 + r;
+      as[r * 36 + k] = r0 + r < n && kk < k2
+          ? sums[static_cast<size_t>(r0 + r) * k2 + kk] : 0.f;
+      float w = 0.f;
+      if (col < f && kk < k2)
+        w = kk < d ? wfs[static_cast<size_t>(col) * d + kk]
+                   : wss[static_cast<size_t>(col) * d + kk - d];
+      bt[r * 36 + k] = w;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < 32; kk += 8) {
+      FragA fa;
+      load_a(fa, as + 16 * warp * 36 + kk, 36, 1);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        FragB fb;
+        load_b(fb, bt + nt * 8 * 36 + kk, 1, 36);
+        mma3(acc[nt], fa, fb);
+      }
+    }
+  }
+  const int g = lane_g(), t = lane_t();
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      const int r = r0 + 16 * warp + g + 8 * (v >> 1);
+      const int col = c0 + nt * 8 + 2 * t + (v & 1);
+      if (r < n && col < f) out[static_cast<size_t>(r) * f + col] = acc[nt][v];
+    }
 }
 
 // shared memory of one pass-P block, in floats, for slice width wp (N =
@@ -811,36 +756,17 @@ cgcnn_pass_p_kernel(const PassPArgs p) {
         tid % wp] = db + dbc;
 }
 
-int launch_pass_s(Params p, int grid, cudaStream_t st) {
-  int dev = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int off[8];
-  const size_t tiles = sizeof(float) *
-                       static_cast<size_t>(tile_floats(p.f, p.d, p.a));
-  const size_t wts = sizeof(float) *
-                     static_cast<size_t>(weight_layout(p.f, p.d, p.a, p.d | 1,
-                                                       off));
-  const size_t staged = tiles + wts;
-  p.stage = staged <= static_cast<size_t>(optin) ? 1 : 0;
-  const size_t smem = p.stage ? staged : tiles;
-  if (smem > static_cast<size_t>(optin))
-    return static_cast<int>(cudaErrorInvalidValue);
-  err = cudaFuncSetAttribute(cgcnn_kernel<kPassS>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cgcnn_kernel<kPassS><<<grid, kThreads, smem, st>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <int V>
 int launch_fwd(const FwdArgs& p, cudaStream_t st) {
   cgcnn_fwd_kernel<V><<<(p.n_rows + kFWarps - 1) / kFWarps, kFThreads, 0,
                         st>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int V>
+int launch_pass_s_sums(const PassSArgs& p, cudaStream_t st) {
+  cgcnn_pass_s_sums_kernel<V><<<(p.n_rows + kFWarps - 1) / kFWarps,
+                                kFThreads, 0, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -898,34 +824,44 @@ extern "C" int hg_cgcnn_fwd_f32(
 }
 
 // Pass S: dx [N, F] of the sender side, rows the senders (`perm` the
-// sender permutation, `row_ptr` the CSR over its positions); returns the
-// cudaError_t.
+// sender permutation, `row_ptr` the CSR over its positions), from
+// `table` [N, 4D], the node table pass P wrote; `sums` [N, 2D] is scratch.
+// Two launches; returns the cudaError_t.
 extern "C" int hg_cgcnn_pass_s_f32(
-    const void* x, const void* ea, const void* send, const void* recv,
-    const void* perm, const void* row_ptr, const void* wfr, const void* wfs,
-    const void* wfg, const void* bf, const void* wsr, const void* wss,
-    const void* wsg, const void* bs, const void* gout, void* out, int n_rows,
-    int f, int d, int a, void* stream) {
+    const void* ea, const void* recv, const void* perm, const void* row_ptr,
+    const void* wfs, const void* wfg, const void* bf, const void* wss,
+    const void* wsg, const void* bs, const void* gout, const void* table,
+    void* sums, void* out, int n_rows, int f, int d, int a, void* stream) {
   if (n_rows <= 0) return 0;
-  if (!widths_ok(f, d, a, ea) || perm == nullptr || gout == nullptr)
+  if (!widths_ok(f, d, a, ea) || perm == nullptr || gout == nullptr ||
+      table == nullptr || sums == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  Params p{};
-  p.x = static_cast<const float*>(x);
-  p.ea = static_cast<const float*>(ea);
-  p.send = static_cast<const int*>(send);
-  p.recv = static_cast<const int*>(recv);
-  p.perm = static_cast<const int*>(perm);
-  p.row_ptr = static_cast<const int*>(row_ptr);
-  const void* ws[8] = {wfr, wfs, wfg, bf, wsr, wss, wsg, bs};
-  for (int i = 0; i < 8; ++i) p.w[i] = static_cast<const float*>(ws[i]);
-  p.gout = static_cast<const float*>(gout);
-  p.out = static_cast<float*>(out);
-  p.n_rows = n_rows;
-  p.f = f;
-  p.d = d;
-  p.a = a;
-  p.n_chunks = (n_rows + kRows - 1) / kRows;
-  return launch_pass_s(p, p.n_chunks, static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  PassSArgs q{};
+  q.table = static_cast<const float*>(table);
+  q.ea = static_cast<const float*>(ea);
+  q.recv = static_cast<const int*>(recv);
+  q.perm = static_cast<const int*>(perm);
+  q.row_ptr = static_cast<const int*>(row_ptr);
+  q.bf = static_cast<const float*>(bf);
+  q.bs = static_cast<const float*>(bs);
+  q.wfg = static_cast<const float*>(wfg);
+  q.wsg = static_cast<const float*>(wsg);
+  q.gout = static_cast<const float*>(gout);
+  q.sums = static_cast<float*>(sums);
+  q.n_rows = n_rows;
+  q.d = d;
+  q.a = a;
+  const int err = d <= 32   ? launch_pass_s_sums<1>(q, st)
+                  : d <= 64  ? launch_pass_s_sums<2>(q, st)
+                  : d <= 128 ? launch_pass_s_sums<4>(q, st)
+                             : launch_pass_s_sums<8>(q, st);
+  if (err != 0) return err;
+  cgcnn_row_product_kernel<<<dim3((n_rows + 63) / 64, (f + 63) / 64), 128, 0,
+                             st>>>(
+      static_cast<const float*>(sums), static_cast<const float*>(wfs),
+      static_cast<const float*>(wss), static_cast<float*>(out), n_rows, f, d);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Bytes of one pass-P block's shared memory at slice width `wp`.
@@ -948,7 +884,8 @@ extern "C" int hg_cgcnn_pass_p_width(int f, int d, int a) {
 }
 
 // Pass P (receiver order) and its reductions; returns the cudaError_t.
-// `table` is scratch [N, 4D]; `partial` scratch [n_parts, P] for the
+// `table` [N, 4D] receives the node table (pass S's route 1 reads it in the
+// same backward); `partial` scratch [n_parts, P] for the
 // parts' sums of `wgrad` [dWfr | dWfs | dWfg | dbf | dWsr | dWss | dWsg |
 // dbs] (P = 2 (2F + A + 1) D entries); `wp` the slice width
 // (hg_cgcnn_pass_p_width).  `dx` [N, F] and `dea` [E, A] (zero-filled) may be

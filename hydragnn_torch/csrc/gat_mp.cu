@@ -28,11 +28,37 @@
 //   all of its rows and sums them in warp order into one partial of HF
 //   floats, written once; the reduction kernel sums the partials in block
 //   order.
-// gat_kernel<kPassS> — backward pass S.  Replaces :_gea_bwd's sender-side
-//   pass (pl.pallas_call at :594).  One warp per sender row walks the
-//   row's range of sender-sorted positions (edge ids through
+// gat_pass_s_kernel — backward pass S, route 1.  Replaces :_gea_bwd's
+//   sender-side pass (pl.pallas_call at :594).  One warp per sender row
+//   walks the row's range of sender-sorted positions (edge ids through
 //   edge_perm_sender), recomputes as pass R and sums p b ga[dst] + dz into
-//   the dxl row.
+//   the dxl row.  What held the first design back was latency: per edge a
+//   chain of dependent loads (perm, recv, then the rows), products staged
+//   in shared memory, each head's logit and q summed by one lane, F adds
+//   one after another, three __syncwarp()s, and no edge's loads in flight
+//   while another edge was computed.  Route 1 loads the group's edge ids
+//   and receiver ids 32 at a time (one load a lane, broadcast by
+//   shuffles), issues an edge's xr[dst] and ga[dst] rows and m, gd and b
+//   scalars together before its arithmetic (two edges' at NJ <= 8 slots
+//   a lane), and sums each head's
+//   logit e and q = <ga[dst], xl[src]>_h across lanes: lane l holds
+//   columns h F + 32 i + l of head h (i < S = ceil(F / 32), the head's
+//   slots) and adds its S products in slot order; then the fixed
+//   butterfly of __shfl_xor_sync over offsets 16, 8, 4, 2, 1, done as a
+//   reduce-scatter (a lane holding c values keeps the half its offset bit
+//   picks and adds its partner's partials of those: c / 2 shuffles a
+//   step, 30 an edge at 6 heads where a butterfly per value takes 60,
+//   the same sums bit for bit); lane h gathers head h's e and q, holds
+//   its m, gd and b, forms p = exp(e - m), p b and de, and shuffles them
+//   back to the head's slots.  No shared memory and no barrier.  e is
+//   summed in another order than the forward's (lane order), so p sees e
+//   rounded differently: the kernel is held to the plain version at the
+//   first design's tolerance (1e-5 of dxl's largest entry).  Route 1
+//   takes S <= 8 (F <= 256), H S <= 32 slots a lane and H <= 16 heads,
+//   every path's width among them (6 x 64, 3 x 256 a group).
+// gat_kernel<kPassS> — pass S, route 2: the first design, for the other
+//   widths (many narrow heads, or F > 256); the card checks also ask for
+//   it by route to time it beside route 1.
 //
 // Bound on the H100 SXM: bytes at these widths.  Per real edge the forward
 // reads one xl row (4 HF bytes) and does ~8 HF flops plus ~5 per head, i.e.
@@ -282,6 +308,167 @@ __global__ void __launch_bounds__(kThreads) gat_kernel(Params p) {
   }
 }
 
+constexpr unsigned kFull = 0xffffffffu;
+
+// Pass S, route 1 (see the note above): slot j of lane l is column (j / S)
+// F + 32 (j % S) + l, of head j / S, where the head exists (j / S < H) and
+// the column lies in it (32 (j % S) + l < F); NJ >= H S slots a lane.  U
+// edges' loads are in flight together.
+template <int NJ, int S>
+__global__ void __launch_bounds__(kThreads) gat_pass_s_kernel(Params p) {
+  static_assert(NJ % S == 0 && NJ <= 32 && NJ / S <= 16,
+                "slots: whole heads, at most 32 and 16 heads");
+  // edges whose loads are in flight together: more cost registers, and
+  // the warps a SM holds hide the latency better
+  constexpr int U = NJ <= 8 ? 2 : 1;
+  // the values a lane sums across the warp: e and q of NJ / S heads,
+  // padded to a power of two
+  constexpr int P = 2 * NJ / S <= 2 ? 2 : 2 * NJ / S <= 4 ? 4
+                    : 2 * NJ / S <= 8 ? 8 : 2 * NJ / S <= 16 ? 16 : 32;
+  constexpr int LOG_P = P == 2 ? 1 : P == 4 ? 2 : P == 8 ? 3 : P == 16 ? 4 : 5;
+  const int lane = threadIdx.x % kWarp;
+  const int row = blockIdx.x * kWarps + threadIdx.x / kWarp;
+  if (row >= p.n_rows) return;
+  const int hf = p.hf, f = p.f, h = p.h;
+  const float slope = p.slope;
+  // after the reduce-scatter, the lane whose offset bits 16, 8, ... (the
+  // first LOG_P of them) spell value v holds v's sum: e of head t is
+  // value 2t, q value 2t + 1 (one more lowest bit: offset 16 >> (LOG_P -
+  // 1))
+  int src_e = 0;
+#pragma unroll
+  for (int b = 0; b < LOG_P; ++b)
+    if ((2 * lane >> (LOG_P - 1 - b)) & 1) src_e |= 16 >> b;
+  const int src_q = 16 >> (LOG_P - 1);
+  unsigned ok = 0u;   // bit j: slot j holds a column
+  float own[NJ], attv[NJ], sum[NJ];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int in_head = 32 * (j % S) + lane;
+    const bool v = j / S < h && in_head < f;
+    const int c = (j / S) * f + in_head;
+    ok |= v ? 1u << j : 0u;
+    own[j] = v ? __ldg(p.xl + static_cast<size_t>(row) * hf + c) : 0.f;
+    attv[j] = v ? __ldg(p.att + c) : 0.f;
+    sum[j] = 0.f;
+  }
+  const int e0 = __ldg(p.row_ptr + row);
+  const int e1 = __ldg(p.row_ptr + row + 1);
+  for (int base = e0; base < e1; base += kWarp) {
+    const int cnt = min(kWarp, e1 - base);
+    const int e_l = lane < cnt ? __ldg(p.perm + base + lane) : 0;
+    int d_l = lane < cnt ? __ldg(p.recv + e_l) : -1;
+    if (static_cast<unsigned>(d_l) >= static_cast<unsigned>(p.n_rows))
+      d_l = -1;
+    for (int i = 0; i < cnt; i += U) {
+      // the group's loads: every address clamped in range, all issued
+      // before the arithmetic
+      float xo[U][NJ], go[U][NJ], mh[U], gdh[U], bh[U];
+      int dv[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        dv[u] = __shfl_sync(kFull, d_l, (i + u) & 31);
+        const int ev = __shfl_sync(kFull, e_l, (i + u) & 31);
+        if (i + u >= cnt) dv[u] = -1;
+        const int dst = dv[u] >= 0 ? dv[u] : 0;
+        const float* xr_row = p.xr + static_cast<size_t>(dst) * hf;
+        const float* ga_row = p.ga + static_cast<size_t>(dst) * hf;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const bool v = (ok >> j) & 1u;
+          const int c = (j / S) * f + 32 * (j % S) + lane;
+          xo[u][j] = v ? __ldg(xr_row + c) : 0.f;
+          go[u][j] = v ? __ldg(ga_row + c) : 0.f;
+        }
+        // lane t < H: head t's scalars
+        const int t = lane < h ? lane : 0;
+        mh[u] = __ldg(p.m + static_cast<size_t>(dst) * h + t);
+        gdh[u] = __ldg(p.gd + static_cast<size_t>(dst) * h + t);
+        bh[u] = p.b ? __ldg(p.b + static_cast<size_t>(ev) * h + t) : 1.f;
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (dv[u] < 0) continue;
+        // the lane's partials: value 2h the logit e of head h, 2h + 1 its
+        // q, each its S slots in order (zeros past the heads)
+        float val[P];
+#pragma unroll
+        for (int v = 0; v < P; ++v) val[v] = 0.f;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const float z = __fadd_rn(own[j], xo[u][j]);
+          xo[u][j] = z;
+          const float pe = __fmul_rn(leaky(z, slope), attv[j]);
+          const float pq = __fmul_rn(go[u][j], own[j]);
+          const int v = 2 * (j / S);
+          val[v] = j % S == 0 ? pe : __fadd_rn(val[v], pe);
+          val[v + 1] = j % S == 0 ? pq : __fadd_rn(val[v + 1], pq);
+        }
+        // the butterfly over offsets 16, 8, 4, 2, 1, as a reduce-scatter:
+        // while a lane holds c > 1 values, it keeps the half its offset
+        // bit picks and adds the partner's partials of those; the sums
+        // are those of the full butterfly, bit for bit
+        int c = P;
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) {
+          if (c > 1) {
+            const bool upper = (lane & o) != 0;
+#pragma unroll
+            for (int k = 0; k < P / 2; ++k) {
+              if (k < c / 2) {
+                const float send = upper ? val[k] : val[k + c / 2];
+                const float keep = upper ? val[k + c / 2] : val[k];
+                val[k] = __fadd_rn(keep, __shfl_xor_sync(kFull, send, o));
+              }
+            }
+            c /= 2;
+          } else {
+            val[0] = __fadd_rn(val[0], __shfl_xor_sync(kFull, val[0], o));
+          }
+        }
+        // lane t < H: head t's e and q from the lanes that hold them, its
+        // p b and de; zeros on the other lanes
+        const float e_mine = __shfl_sync(kFull, val[0], src_e);
+        const float q_mine = __shfl_sync(kFull, val[0], src_e + src_q);
+        float pb = 0.f, de = 0.f;
+        if (lane < h) {
+          const float pt = expf(e_mine - mh[u]);
+          pb = pt * bh[u];
+          de = pt * (bh[u] * q_mine + gdh[u]);
+        }
+        float cpb = 0.f, cde = 0.f;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          if (j % S == 0) {
+            cpb = __shfl_sync(kFull, pb, j / S);
+            cde = __shfl_sync(kFull, de, j / S);
+          }
+          const float dz = cde * attv[j] * (xo[u][j] > 0.f ? 1.f : slope);
+          sum[j] += cpb * go[u][j] + dz;
+        }
+      }
+    }
+  }
+  float* out_row = p.out + static_cast<size_t>(row) * hf;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+    if ((ok >> j) & 1u) out_row[(j / S) * f + 32 * (j % S) + lane] = sum[j];
+}
+
+// slots of a head in route 1: ceil(F / 32) rounded up to 1, 2, 4 or 8 (0
+// past 8: route 2)
+__host__ inline int head_slots(int f) {
+  const int s = (f + 31) / 32;
+  return s <= 1 ? 1 : s <= 2 ? 2 : s <= 4 ? 4 : s <= 8 ? 8 : 0;
+}
+
+// pass S's route at these widths: 1 where a head takes at most 8 slots,
+// the heads at most 32 and there are at most 16 heads, else 2
+__host__ inline int pass_s_route(int hf, int f) {
+  const int s = head_slots(f), h = hf / f;
+  return s > 0 && h * s <= 32 && h <= 16 ? 1 : 2;
+}
+
 __global__ void gat_sum_partials_kernel(const float* __restrict__ partial,
                                         float* __restrict__ datt, int n_parts,
                                         int hf) {
@@ -318,26 +505,83 @@ int launch_width(const Params& p, int grid, cudaStream_t st) {
   return launch<MODE, 32>(p, grid, st);
 }
 
+template <int NJ, int S>
+int launch_pass_s1(const Params& p, int grid, cudaStream_t st) {
+  gat_pass_s_kernel<NJ, S><<<grid, kThreads, 0, st>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// NJ = the smallest instantiated count >= H S (route 1: H <= 16 heads):
+// 4, 8, 16 at S = 1; 4, 12 (6 heads of 64), 16, 32 at S = 2; 4, 8, 16, 32
+// at S = 4; 8, 24 (3 heads of 256), 32 at S = 8.  A count rounded up
+// leaves slots empty, at the cost of registers only.
+template <int S>
+int launch_pass_s1_width(const Params& p, int grid, cudaStream_t st) {
+  const int nj = p.h * S;
+  if constexpr (S == 1) {
+    if (nj <= 4) return launch_pass_s1<4, 1>(p, grid, st);
+    if (nj <= 8) return launch_pass_s1<8, 1>(p, grid, st);
+    return launch_pass_s1<16, 1>(p, grid, st);
+  } else if constexpr (S == 2) {
+    if (nj <= 4) return launch_pass_s1<4, 2>(p, grid, st);
+    if (nj <= 12) return launch_pass_s1<12, 2>(p, grid, st);
+    if (nj <= 16) return launch_pass_s1<16, 2>(p, grid, st);
+    return launch_pass_s1<32, 2>(p, grid, st);
+  } else if constexpr (S == 4) {
+    if (nj <= 4) return launch_pass_s1<4, 4>(p, grid, st);
+    if (nj <= 8) return launch_pass_s1<8, 4>(p, grid, st);
+    if (nj <= 16) return launch_pass_s1<16, 4>(p, grid, st);
+    return launch_pass_s1<32, 4>(p, grid, st);
+  } else {
+    if (nj <= 8) return launch_pass_s1<8, 8>(p, grid, st);
+    if (nj <= 24) return launch_pass_s1<24, 8>(p, grid, st);
+    return launch_pass_s1<32, 8>(p, grid, st);
+  }
+}
+
+int launch_pass_s_route1(const Params& p, int grid, cudaStream_t st) {
+  switch (head_slots(p.f)) {
+    case 1: return launch_pass_s1_width<1>(p, grid, st);
+    case 2: return launch_pass_s1_width<2>(p, grid, st);
+    case 4: return launch_pass_s1_width<4>(p, grid, st);
+    default: return launch_pass_s1_width<8>(p, grid, st);
+  }
+}
+
 }  // namespace
+
+// Pass S's route at these widths (1 or 2; 0 for widths no kernel takes).
+extern "C" int hg_gat_pass_s_route(int hf, int f) {
+  if (f < 1 || hf < f || hf > kMaxHF || hf % f != 0) return 0;
+  return pass_s_route(hf, f);
+}
 
 // One GAT launch; returns the cudaError_t (0 = success).  mode 0: the
 // forward (out = acc, m_out, d_out; rows are receivers, row_ptr over edge
 // ids); mode 1: pass R (out = dxr; `partial` scratch [n_parts, HF], `datt`
 // [HF] the reduced attention gradient; rows are receivers); mode 2: pass S
 // (out = dxl; rows are senders, row_ptr over sender-sorted positions and
-// `perm` the sender permutation).  Pointers are device pointers; launches
-// go on `stream` and do not synchronise.
+// `perm` the sender permutation; `route` 0 takes the widths' own
+// (hg_gat_pass_s_route), 1 or 2 that one where the widths admit it; the
+// other modes take route 0).  Pointers are device pointers; launches go on
+// `stream` and do not synchronise.
 extern "C" int hg_gat_f32(int mode, const void* xl, const void* xr,
                           const void* att, const void* send, const void* recv,
                           const void* perm, const void* row_ptr,
                           const void* b, const void* m, const void* ga,
                           const void* gd, void* out, void* m_out, void* d_out,
                           void* partial, void* datt, int n_rows, int hf,
-                          int f, float slope, int n_parts, void* stream) {
+                          int f, float slope, int n_parts, int route,
+                          void* stream) {
   if (n_rows <= 0) return 0;
   if (f < 1 || hf < f || hf > kMaxHF || hf % f != 0 || mode < kFwd ||
       mode > kPassS || (mode == kPassR && n_parts < 1) ||
-      (mode == kPassS && perm == nullptr))
+      (mode == kPassS && perm == nullptr) || route < 0 || route > 2 ||
+      (mode != kPassS && route != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int own = pass_s_route(hf, f);
+  if (route == 0) route = own;
+  if (mode == kPassS && route == 1 && own != 1)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p{};
   p.xl = static_cast<const float*>(xl);
@@ -364,7 +608,9 @@ extern "C" int hg_gat_f32(int mode, const void* xl, const void* xr,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int blocks = (n_rows + kWarps - 1) / kWarps;
   if (mode == kFwd) return launch_width<kFwd>(p, blocks, st);
-  if (mode == kPassS) return launch_width<kPassS>(p, blocks, st);
+  if (mode == kPassS)
+    return route == 1 ? launch_pass_s_route1(p, blocks, st)
+                      : launch_width<kPassS>(p, blocks, st);
   const int grid = n_parts < blocks ? n_parts : blocks;
   const int rc = launch_width<kPassR>(p, grid, st);
   if (rc != 0) return rc;

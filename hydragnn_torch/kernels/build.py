@@ -68,16 +68,19 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     },
     "gat_mp": {
         # mode, xl, xr, att, send, recv, perm, row_ptr, b, m, ga, gd, out,
-        # m_out, d_out, partial, datt, n_rows, hf, f, slope, n_parts, stream
-        "hg_gat_f32": (_I,) + (_P,) * 16 + (_I, _I, _I, _F, _I, _P),
+        # m_out, d_out, partial, datt, n_rows, hf, f, slope, n_parts, route,
+        # stream
+        "hg_gat_f32": (_I,) + (_P,) * 16 + (_I, _I, _I, _F, _I, _I, _P),
+        # hf, f
+        "hg_gat_pass_s_route": (_I,) * 2,
     },
     "cgcnn_mp": {
         # x, ea, send, row_ptr, wfr, wfs, wfg, bf, wsr, wss, wsg, bs,
         # table, out, n_rows, f, d, a, stream
         "hg_cgcnn_fwd_f32": (_P,) * 14 + (_I,) * 4 + (_P,),
-        # x, ea, send, recv, perm, row_ptr, wfr, wfs, wfg, bf, wsr, wss,
-        # wsg, bs, gout, out, n_rows, f, d, a, stream
-        "hg_cgcnn_pass_s_f32": (_P,) * 16 + (_I,) * 4 + (_P,),
+        # ea, recv, perm, row_ptr, wfs, wfg, bf, wss, wsg, bs, gout, table,
+        # sums, out, n_rows, f, d, a, stream
+        "hg_cgcnn_pass_s_f32": (_P,) * 14 + (_I,) * 4 + (_P,),
         # x, ea, send, recv, row_ptr, wfr, wfs, wfg, bf, wsr, wss, wsg, bs,
         # gout, table, partial, wgrad, dx_part, dea_part, dx, dea, n_rows,
         # n_edges, f, d, a, wp, n_parts, stream

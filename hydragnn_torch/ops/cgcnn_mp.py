@@ -29,8 +29,13 @@ built by kernels/build.py), none of which writes an ``[E, D]`` or
   into runs of whole receiver rows and slices of the output columns
   (:func:`pass_p_plan`), each part's partial in ``wgrad``'s packed
   layout, the parts reduced in a fixed order;
-- pass S (``_bwd_s_kernel``): sender order through ``sender_perm``,
-  recompute, ``dx`` of the sender side.
+- pass S (``_bwd_s_kernel``): sender order through ``sender_perm``; one
+  warp per sender row gathers the receivers' half-rows of pass P's node
+  table (the backward hands it over) and ``dout[r]``, forms ``(dtf,
+  dts)`` and sums them into the row in position order (``[N, 2D]``), then
+  ``dx = [sum dtf | sum dts] @ [Wfs | Wss]^T``, one row product per
+  sender, in 3xTF32 on the tensor cores: two CUDA launches, counted as one
+  in ``LAUNCHES["cgcnn_block_pass_s"]``.
 
 The backward written out (see :func:`cgcnn_pass_p_plain`,
 :func:`cgcnn_pass_s_plain`), with ``g = dout[recv_e]``:
@@ -48,7 +53,7 @@ every output and every gradient.
 Each leaf takes a CPU tensor to its plain PyTorch version (the CPU path and
 the tests' oracle) and a CUDA tensor to its kernel; a CUDA input the
 kernel does not take raises.  ``LAUNCHES`` counts one per launch of each
-op (the forward's two CUDA launches count one).
+op (the forward's and pass S's two CUDA launches count one).
 :func:`cgcnn_block_reference` is the composed version under autograd: the
 reference the kernels are held to.  The op is differentiable once: a
 double backward raises (the force term, ROADMAP queue A3).
@@ -215,11 +220,12 @@ def pass_p_plan(f, d, a, e, sms, wp) -> PassPPlan:
 
 
 def launch_cgcnn(op, x, edge_attr, weights, senders, receivers, perm,
-                 row_ptr, gout=None, want_dx=True, want_ea=False):
+                 row_ptr, gout=None, want_dx=True, want_ea=False, table=None):
     """One launch of the cgcnn kernel ``op`` names, on a precomputed CSR
     schedule ``row_ptr`` over positions (receiver order, ``perm`` None, for
     the forward and pass P; sender order through ``perm`` for pass S).
-    Returns:
+    ``table [N, 4D]``: pass P writes the node table into it when given;
+    pass S reads it there and needs it.  Returns:
 
     - ``cgcnn_block``: ``out [N, D]``;
     - ``cgcnn_block_pass_p``: ``(wgrad, d edge_attr or None, dx_receiver
@@ -247,15 +253,21 @@ def launch_cgcnn(op, x, edge_attr, weights, senders, receivers, perm,
         raise ValueError("the kernel indexes edges and rows with int32")
     if op != "cgcnn_block":
         _require(gout, "dout", torch.float32, (n, d), dev)
+    if table is not None:
+        _require(table, "table", torch.float32, (n, 4 * d), dev)
     lib = load_library("cgcnn_mp")
     if op == "cgcnn_block_pass_p":
         return _launch_pass_p(lib, x, edge_attr, weights, senders,
-                              receivers, row_ptr, gout, want_dx, want_ea)
+                              receivers, row_ptr, gout, want_dx, want_ea,
+                              table)
     fwd = op == "cgcnn_block"
     if fwd and perm is not None:
         raise ValueError("cgcnn_block runs in receiver order: no permutation")
     if not fwd and perm is None:
         raise ValueError("cgcnn_block_pass_s needs the sender permutation")
+    if not fwd and table is None:
+        raise ValueError("cgcnn_block_pass_s reads pass P's node table: "
+                         "pass table")
     out = torch.empty((n, d if fwd else f), dtype=torch.float32, device=dev)
     if n > 0:
         with torch.cuda.device(dev):
@@ -269,18 +281,23 @@ def launch_cgcnn(op, x, edge_attr, weights, senders, receivers, perm,
                     row_ptr.data_ptr(), *(_ptr(w) for w in weights),
                     table.data_ptr(), out.data_ptr(), n, f, d, a, stream)
             else:
+                # the per-sender [sum dtf | sum dts]: scratch
+                sums = torch.empty((n, 2 * d), dtype=torch.float32,
+                                   device=dev)
+                _, wfs, wfg, bf, _, wss, wsg, bs = weights
                 rc = lib.hg_cgcnn_pass_s_f32(
-                    x.data_ptr(), _ptr(edge_attr), senders.data_ptr(),
-                    receivers.data_ptr(), perm.data_ptr(),
-                    row_ptr.data_ptr(), *(_ptr(w) for w in weights),
-                    gout.data_ptr(), out.data_ptr(), n, f, d, a, stream)
+                    _ptr(edge_attr), receivers.data_ptr(), perm.data_ptr(),
+                    row_ptr.data_ptr(),
+                    *(_ptr(w) for w in (wfs, wfg, bf, wss, wsg, bs)),
+                    gout.data_ptr(), table.data_ptr(), sums.data_ptr(),
+                    out.data_ptr(), n, f, d, a, stream)
         _check_rc(rc, op)
         LAUNCHES[op] += 1
     return out
 
 
 def _launch_pass_p(lib, x, edge_attr, weights, senders, receivers, row_ptr,
-                   gout, want_dx, want_ea):
+                   gout, want_dx, want_ea, table):
     dev = x.device
     n, f = x.shape
     e = senders.shape[0]
@@ -308,7 +325,8 @@ def _launch_pass_p(lib, x, edge_attr, weights, senders, receivers, row_ptr,
                                    device=dev)
     if n == 0:
         return wgrad.zero_(), dea, dx
-    table = torch.empty((n, 4 * d), dtype=torch.float32, device=dev)
+    if table is None:
+        table = torch.empty((n, 4 * d), dtype=torch.float32, device=dev)
     partial = torch.empty((plan.n_parts, plan.part_size), dtype=torch.float32,
                           device=dev)
     with torch.cuda.device(dev):
@@ -382,17 +400,21 @@ class _CgcnnBlock(torch.autograd.Function):
             ws = kernel_weights(kf, bf, ks, bs, f, a, x.device)
             xc = x.contiguous()
             ec = None if edge_attr is None else edge_attr.contiguous()
+            # the node table: pass P writes it, pass S reads it
+            table = torch.empty((n, 4 * kf.shape[1]), dtype=torch.float32,
+                                device=x.device)
             wgrad, dea, dx_r = launch_cgcnn(
                 "cgcnn_block_pass_p", xc, ec, ws, senders, receivers, None,
                 segment_offsets(receivers, n, em), gout, want_dx=want_dx,
-                want_ea=want_ea)
+                want_ea=want_ea, table=table)
             dkf, dbf, dks, dbs = unpack_wgrad(wgrad, f, kf.shape[1], a)
             dx = None
             if want_dx:
                 p = sender_perm.long()
                 dx_s = launch_cgcnn(
                     "cgcnn_block_pass_s", xc, ec, ws, senders, receivers,
-                    sender_perm, segment_offsets(senders[p], n, em[p]), gout)
+                    sender_perm, segment_offsets(senders[p], n, em[p]), gout,
+                    table=table)
                 dx = dx_r + dx_s
         for i, dt, like in ((0, dx, x), (1, dea, edge_attr), (2, dkf, kf),
                             (3, dbf, bf), (4, dks, ks), (5, dbs, bs)):

@@ -897,6 +897,72 @@ def test_gat_kernels_refuse_what_they_do_not_take(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("bits", [False, True], ids=["ones", "dropout"])
+@pytest.mark.parametrize("h,f", [(6, 64), (3, 256), (4, 8), (3, 12),
+                                 (8, 128), (16, 32), (1, 96), (24, 16),
+                                 (40, 1)],
+                         ids=["HF384", "HF768", "HF32", "HF36", "HF1024",
+                              "HF512-H16", "HF96-H1", "HF384-F16",
+                              "HF40-F1"])
+def test_gat_pass_s_routes_on_card(cuda, h, f, bits):
+    """GAT pass S alone on the forward's m, as the backward launches it:
+    its route the plan's (``hg_gat_pass_s_route`` equals
+    ``gat_mp.pass_s_route``); route 1 (head sums across lanes, edges in
+    flight) where the widths take it, bit-identical twice; both routes
+    within 1e-5 of the plain version's largest entry (route 1 sums the
+    logits in another order than the forward, which moves p = exp(e - m)
+    by a rounding of e); rows that send no real edge exactly zero; route 1
+    refused where the widths do not take it.  Node 0 receives 200 extra
+    edges from nodes 0-4, so those send over 32 edges each."""
+    from hydragnn_torch.kernels.build import load_library
+    from hydragnn_torch.ops import gat_mp
+    from hydragnn_torch.ops.aggregate import segment_offsets
+
+    b = _graph_batch(57 + h + f, hub=200)
+    n, e = len(b["node_gid"]), len(b["senders"])
+    g = torch.Generator().manual_seed(h + f)
+    xl, xr, ga = (torch.randn(n, h * f, generator=g).to(cuda)
+                  for _ in range(3))
+    att = (torch.randn(h, f, generator=g) / f ** 0.5).to(cuda)
+    gd = torch.randn(n, h, generator=g).to(cuda)
+    bb = None
+    if bits:
+        bb = ((torch.rand(e, h, generator=g) < 0.75).float() / 0.75).to(cuda)
+    send, recv = _t(b["senders"]).to(cuda), _t(b["receivers"]).to(cuda)
+    perm, em = _t(b["perm"]).to(cuda), _t(b["edge_mask"]).to(cuda)
+    p_ = perm.long()
+    ptr_s = segment_offsets(send[p_], n, em[p_])
+    own = gat_mp.pass_s_route(h * f, f)
+    assert load_library("gat_mp").hg_gat_pass_s_route(h * f, f) == own
+    with torch.no_grad():
+        _, m, _ = gat_mp.gat_edge_attention_reference(xl, xr, att, send,
+                                                      recv, em, bb, 0.05)
+
+        def launch(route):
+            return gat_mp.launch_gat("gat_edge_attention_pass_s", xl, xr, att,
+                                     send, recv, perm, ptr_s, bb, 0.05, m,
+                                     ga, gd, route=route)
+
+        plain = gat_mp.gat_pass_s_plain(xl, xr, att, send, recv, em, bb, m,
+                                        ga, gd, 0.05)
+        routes = [2] + ([1] if own == 1 else [])
+        if own == 2:
+            with pytest.raises(ValueError, match="route"):
+                launch(1)
+        no_out = ~torch.isin(torch.arange(n, device=cuda), send[em != 0])
+        assert bool(no_out.any())
+        scale = float(plain.abs().max())
+        for route in routes:
+            got = launch(route)
+            again = launch(route)
+            torch.cuda.synchronize()
+            assert torch.equal(got, again), route
+            assert float((got - plain).abs().max()) <= 1e-5 * scale, route
+            assert bool((got[no_out] == 0).all()), route
+        assert torch.equal(launch(0), launch(own))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dropout", [0.0, 0.25])
 def test_gat_train_steps_on_card_match_cpu(cuda, monkeypatch, dropout):
     """GAT at the arch-sweep widths (hidden 64, 6 heads, 4 convs): three
@@ -1038,6 +1104,60 @@ def test_cgcnn_kernels_match_plain_on_card(cuda, f, d, a, want_ea):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("a", [0, 5], ids=["no-edge-attr", "edge-attr"])
+@pytest.mark.parametrize("f,d", [(64, 64), (24, 16), (256, 256), (1, 1),
+                                 (40, 33), (32, 96)])
+def test_cgcnn_pass_s_on_card(cuda, f, d, a):
+    """cgcnn pass S alone, as the backward launches it, on the node table
+    that a pass-P launch wrote (gathered sums per sender row, then one row
+    product in 3xTF32): within 1e-5 of the plain version's largest entry,
+    within a float64 run's bound (:func:`_float64_yardstick`) and
+    bit-identical twice; rows that send no real edge exactly zero.  Nodes
+    0-4 send the 200 extra edges of node 0 (over 32 ids a row: several
+    groups of loads)."""
+    from hydragnn_torch.ops import cgcnn_mp
+    from hydragnn_torch.ops.aggregate import segment_offsets
+
+    b = _graph_batch(71 + f + a, hub=200)
+    n, e = len(b["node_gid"]), len(b["senders"])
+    g = torch.Generator().manual_seed(5)
+    ins = [torch.randn(n, f, generator=g),
+           torch.randn(e, a, generator=g) * 0.5 if a else None,
+           torch.randn(2 * f + a, d, generator=g) / (2 * f + a) ** 0.5,
+           torch.randn(d, generator=g) * 0.1,
+           torch.randn(2 * f + a, d, generator=g) / (2 * f + a) ** 0.5,
+           torch.randn(d, generator=g) * 0.1]
+    ins = [None if t is None else t.to(cuda) for t in ins]
+    ct = torch.randn(n, d, generator=g).to(cuda)
+    send, recv = _t(b["senders"]).to(cuda), _t(b["receivers"]).to(cuda)
+    perm = _t(b["perm"]).to(cuda)
+    em = _t(b["edge_mask"]).to(torch.int32).to(cuda)
+    p_ = perm.long()
+    ptr_r = segment_offsets(recv, n, em)
+    ptr_s = segment_offsets(send[p_], n, em[p_])
+    ws = cgcnn_mp.kernel_weights(*ins[2:], f, a, ins[0].device)
+    table = torch.empty((n, 4 * d), device=cuda)
+    with torch.no_grad():
+        cgcnn_mp.launch_cgcnn("cgcnn_block_pass_p", ins[0], ins[1], ws, send,
+                              recv, None, ptr_r, ct, want_dx=False,
+                              table=table)
+        k, again = (cgcnn_mp.launch_cgcnn(
+            "cgcnn_block_pass_s", ins[0], ins[1], ws, send, recv, perm, ptr_s,
+            ct, table=table) for _ in range(2))
+        p32 = cgcnn_mp.cgcnn_pass_s_plain(ins[0], ins[1], em, *ins[2:], send,
+                                          recv, ct)
+        p64 = cgcnn_mp.cgcnn_pass_s_plain(
+            *(None if t is None else t.double() for t in ins[:2]), em,
+            *(t.double() for t in ins[2:]), send, recv, ct.double())
+    torch.cuda.synchronize()
+    assert torch.equal(k, again)
+    assert float((k - p32).abs().max()) <= 1e-5 * float(p32.abs().max())
+    _float64_yardstick("dx_sender", k, p32, p64)
+    no_out = ~torch.isin(torch.arange(n, device=cuda), send[em != 0])
+    assert bool(no_out.any()) and bool((k[no_out] == 0).all())
+
+
+@pytest.mark.gpu
 def test_cgcnn_kernels_refuse_what_they_do_not_take(cuda):
     from hydragnn_torch.ops import cgcnn_mp
 
@@ -1056,6 +1176,15 @@ def test_cgcnn_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(TypeError):
         cgcnn_mp.cgcnn_gated_block(x, None, em, k, bias.double(), k,
                                    bias.double(), send, recv, perm)
+    # pass S's route 1 reads pass P's node table: it does not run without
+    x = torch.randn(48, 8, device=cuda)
+    ws = cgcnn_mp.kernel_weights(torch.randn(16, 8, device=cuda), bias,
+                                 torch.randn(16, 8, device=cuda), bias, 8, 0,
+                                 x.device)
+    row_ptr = torch.zeros(49, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="node table"):
+        cgcnn_mp.launch_cgcnn("cgcnn_block_pass_s", x, None, ws, send, recv,
+                              perm, row_ptr, torch.zeros(48, 8, device=cuda))
 
 
 @pytest.mark.gpu
