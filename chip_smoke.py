@@ -12,9 +12,10 @@ and PyTorch built for CUDA.  Phases, each of which fails the run:
    one nvcc per source, all started together; then the registers,
    stack, spills and static shared memory (ptxas) of the redesigned
    kernels (the two pass-P kernels on the tensor cores, scf and cgcnn
-   with its node table; the row_mlp backward's two routes; the dn_tri
-   backward; the builder forward's route 1; egcl pass P's route 1; the
-   scf filter-gather kernel's and the dn_tri forward's routes 1)
+   with its node table; the row_mlp forward's and backward's two routes;
+   the dn_tri backward; the builder forward's route 1; egcl pass P's
+   route 1; the scf filter-gather kernel's and the dn_tri forward's
+   routes 1; GAT pass R's and pass S's two routes)
    beside the kernels that share their sources, and the dynamic shared
    memory of the pass-P kernels and the two new routes 1 at the main
    path's widths;
@@ -56,7 +57,8 @@ and PyTorch built for CUDA.  Phases, each of which fails the run:
    (-1e9, 0, 0) and zero gradients; pass S's route the plan's, route 1
    alone at each case 1e-5, bit-identical twice and zero on rows that
    send no real edge, its first design (route 2) held and timed beside
-   it), and the three cgcnn kernels
+   it; pass R's likewise, d att at 1e-4, dxr zero on rows without a real
+   incoming edge), and the three cgcnn kernels
    (forward, pass P, pass S) at the first cgcnn train batch at F = D = 64
    (the path's), F = 24, A = 5, D = 16 and F = D = 256 through their
    autograd Function against autograd through the composed plain version
@@ -76,7 +78,10 @@ and PyTorch built for CUDA.  Phases, each of which fails the run:
    the weight grads; d cbf exactly zero on masked triplets), the triplet
    forward's route the plan's (route 1 on the tensor cores), as the path
    launches it within a float64 run's bound and bit-identical twice, its
-   first design held to the plain version and timed beside it, the
+   first design held to the plain version and timed beside it, and the
+   row-MLP forward's route likewise (route 1 on the tensor cores, a
+   float64 run's bound, bit-identical twice, the first design held and
+   timed beside it), the
    triplet backward also launched as the path launches it (d x2 and the
    weights) and with all four outputs, every output against the plain
    version and both launches timed, and the
@@ -639,13 +644,13 @@ def tensor_core_bounds(nbytes, flops):
 
 def pass_p_build_report():
     """The registers, stack, spills and static shared memory (ptxas) of
-    the redesigned kernels (scf and cgcnn pass P, the row_mlp backward's
-    two routes, the dn_tri backward, the scf filter-gather kernel's and
-    the dn_tri forward's routes 1, the builder's, cgcnn pass S and GAT
-    pass S's route 1) and, beside them, of the kernels that share their
-    sources (cgcnn's forward; GAT pass S's first design; the row_mlp
-    forward, both first designs of the filter-gather kernel and the dn_tri
-    forward); and the
+    the redesigned kernels (scf and cgcnn pass P, the row_mlp forward's
+    and backward's two routes, the dn_tri backward, the scf filter-gather
+    kernel's and the dn_tri forward's routes 1, the builder's, cgcnn pass
+    S and GAT pass R's and pass S's routes 1) and, beside them, of the
+    kernels that share their sources (cgcnn's forward; the first designs
+    of GAT pass R and pass S; both first designs of the filter-gather
+    kernel and the dn_tri forward); and the
     dynamic shared memory of one block of scf pass P, cgcnn pass P, the
     scf filter-gather route 1 and the dn_tri forward's route 1 at the
     main path's widths (the kernels' own layouts).  Fails when a source's
@@ -658,10 +663,12 @@ def pass_p_build_report():
             "cgcnn_mp": ("pass_p_kernel", "node_table_kernel",
                          "cgcnn_fwd_kernel", "pass_s_sums_kernel",
                          "row_product_kernel"),
-            # pass S: route 1 and the first design's instantiations
-            "gat_mp": ("gat_pass_s_kernel", "gat_kernelILi2E"),
-            "row_mlp": ("row_mlp_fwd_kernel", "row_mlp_bwd_tc_kernel",
-                        "row_mlp_bwd_kernel"),
+            # passes R and S: the routes 1 and the first design's
+            # instantiations
+            "gat_mp": ("gat_pass_r_kernel", "gat_pass_s_kernel",
+                       "gat_kernelILi1E", "gat_kernelILi2E"),
+            "row_mlp": ("row_mlp_fwd_tc_kernel", "row_mlp_fwd_kernel",
+                        "row_mlp_bwd_tc_kernel", "row_mlp_bwd_kernel"),
             "dn_tri": ("dn_tri_fwd_kernel", "dn_tri_bwd_kernel",
                        "fwd_tc_kernel"),
             "dn_tri_builder": ("fwd_tc_kernel", "tri_rows_kernel",
@@ -1584,10 +1591,14 @@ def gat_phase(torch, g, seed):
     the plan's, route 1 (head sums across lanes, edges in flight) and
     route 2 (the first design) 1e-5 of the plain version's largest entry,
     route 1 bit-identical twice and zero on rows that send no real edge.
-    Then each kernel timed alone in each of the four cases, beside its
-    plain version and its bound, pass S's first design beside it
-    (``route2_ms``); the gat cell's case (H*F = 384, no bits) makes the
-    kernels line."""
+    Pass R alone in each case likewise: its route the plan's, route 1
+    (head sums across lanes, edges in flight, d att partials in registers)
+    and route 2 within 1e-5 (dxr) and 1e-4 (d att) of the plain version's
+    largest entry, route 1 bit-identical twice and dxr zero on rows without
+    a real incoming edge.  Then each kernel timed alone in each of the four
+    cases, beside its plain version and its bound, the first designs of
+    pass R and pass S beside them (``route2_ms``); the gat cell's case
+    (H*F = 384, no bits) makes the kernels line."""
     from hydragnn_torch.kernels.build import load_library
     from hydragnn_torch.ops import gat_mp as gm
     from hydragnn_torch.ops.aggregate import segment_offsets
@@ -1603,6 +1614,7 @@ def gat_phase(torch, g, seed):
     no_edge = no_in & no_out
     gen = torch.Generator(device=dev).manual_seed(seed + 5)
     ptr_s = segment_offsets(send[perm.long()], n, mask[perm.long()])
+    ptr_r = segment_offsets(recv, n, mask)
     lib = load_library("gat_mp")
 
     def hold_pass_s(ins, what):
@@ -1633,6 +1645,39 @@ def gat_phase(torch, g, seed):
                   f"disagrees with its plain version: {err[1]}")
             out[f"route{route}"] = {"max_abs_err": err[0],
                                     "max_rel_err": err[1]}
+        return out
+
+    def hold_pass_r(ins, what):
+        """Pass R alone on the forward's m: both routes against the plain
+        version, route 1 twice."""
+        xl, xr, att, b, ca, cd = ins
+        h, f = att.shape
+        check(lib.hg_gat_pass_r_route(h * f, f) == gm.pass_r_route(h * f, f)
+              == 1, f"{what}: pass R's route on the card is not the "
+              "plan's route 1")
+        with torch.no_grad():
+            _, m, _ = gm.gat_edge_attention_reference(
+                xl, xr, att, send, recv, mask, b, GAT_SLOPE)
+            runs = [gm.launch_gat("gat_edge_attention_pass_r", xl, xr, att,
+                                  send, recv, None, ptr_r, b, GAT_SLOPE, m,
+                                  ca, cd, route=r) for r in (1, 1, 2)]
+            plain = gm.gat_pass_r_plain(xl, xr, att, send, recv, mask, b, m,
+                                        ca, cd, GAT_SLOPE)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, c) for a, c in zip(runs[0], runs[1])),
+              f"{what}: pass R (route 1) differs on a second run")
+        check(bool((runs[0][0][no_in] == 0).all()),
+              f"{what}: pass R (route 1) wrote a row without a real "
+              "incoming edge")
+        out = {}
+        for route, got in ((1, runs[0]), (2, runs[2])):
+            for name, k, pl, tol in zip(("dxr", "datt"), got, plain,
+                                        (REL_TOL_KERNEL, REL_TOL_WGRAD)):
+                err = rel_err(torch, k, pl)
+                check(err[1] <= tol, f"{what}: pass R (route {route}) "
+                      f"{name} disagrees with its plain version: {err[1]}")
+                out[f"route{route}_{name}"] = {"max_abs_err": err[0],
+                                               "max_rel_err": err[1]}
         return out
 
     def inputs(h, f, bits):
@@ -1685,6 +1730,7 @@ def gat_phase(torch, g, seed):
             check(rel_e <= tol, f"{what}: {name} disagrees with the plain "
                   f"version under autograd: {rel_e} > {tol}")
         errs["pass_s"] = hold_pass_s(ins, what)
+        errs["pass_r"] = hold_pass_r(ins, what)
         return ins, errs
 
     cases = {}
@@ -1694,7 +1740,6 @@ def gat_phase(torch, g, seed):
 
     e_valid = int(real.sum())
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-    ptr_r = segment_offsets(recv, n, mask)
 
     def launches(ins):
         xl, xr, att, b, ca, cd = ins
@@ -1734,13 +1779,16 @@ def gat_phase(torch, g, seed):
                 "hydragnn_tpu/ops/gat_mp.py:594", ("dxl",)),
         }
 
-    def pass_s_route2(ins):
+    def route2(ins, op):
+        """The first design of pass R or pass S (``op``) at these inputs."""
         xl, xr, att, b, ca, cd = ins
         _, m, _ = gm.launch_gat("gat_edge_attention", xl, xr, att, send,
                                 recv, None, ptr_r, b, GAT_SLOPE)
-        return lambda: gm.launch_gat("gat_edge_attention_pass_s", xl, xr,
-                                     att, send, recv, perm, ptr_s, b,
-                                     GAT_SLOPE, m, ca, cd, route=2)
+        s_ = op == "gat_edge_attention_pass_s"
+        return lambda: gm.launch_gat(op, xl, xr, att, send, recv,
+                                     perm if s_ else None,
+                                     ptr_s if s_ else ptr_r, b, GAT_SLOPE, m,
+                                     ca, cd, route=2)
 
     results = []
     ins, errs = cases[(384, False)]
@@ -1757,8 +1805,9 @@ def gat_phase(torch, g, seed):
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "shape": {"N": n, "E": e, "E_valid": e_valid, "H": 6, "F": 64,
                       "bits": False}})
-        if name == "gat_edge_attention_pass_s":
-            results[-1]["route2_ms"] = time_ms(torch, pass_s_route2(ins),
+        if name != "gat_edge_attention":
+            results[-1]["kernel_route"] = gm.lane_route(384, 64)
+            results[-1]["route2_ms"] = time_ms(torch, route2(ins, name),
                                                flush, lead=True)
     notes = {"rows_without_real_in_edge": int(no_in.sum()),
              "rows_without_real_out_edge": int(no_out.sum())}
@@ -1770,14 +1819,17 @@ def gat_phase(torch, g, seed):
             for name, (kern, plain, (b_ms, b_by), _, _) in launches(
                 case_ins).items()]
         if (hf, bits) != (384, False):
-            timed[-1]["route2_ms"] = time_ms(torch, pass_s_route2(case_ins),
-                                             flush, lead=True)
+            for t_ in timed[1:]:
+                t_["route2_ms"] = time_ms(torch, route2(case_ins, t_["name"]),
+                                          flush, lead=True)
         case_errs = dict(case_errs)
         pass_s = case_errs.pop("pass_s")
+        pass_r = case_errs.pop("pass_r")
         notes[f"HF{hf}_{'bits' if bits else 'ones'}"] = {
             "errors": {k: {"max_abs_err": a, "max_rel_err": r}
                        for k, (a, r) in case_errs.items()},
             "pass_s_routes": pass_s,
+            "pass_r_routes": pass_r,
             "timing": {t["name"]: {k: t[k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "route2_ms")
                 if k in t} for t in timed}}
@@ -2162,7 +2214,13 @@ def dimenet_phase(torch, g, seed, cfg):
     output lies within twice the float32 plain version's error of a
     float64 run (or 1e-6 of the largest entry), a second launch is
     bit-identical, and the first design (route 2) is held to the plain
-    version and timed beside it (``route2_ms``)."""
+    version and timed beside it (``route2_ms``).  The row_mlp forward
+    likewise: its route the card's and the plan's (route 1 on the tensor
+    cores at the path's widths), as the path launches it within twice the
+    float32 plain version's error of a float64 run (or 1e-6 of the largest
+    entry) and bit-identical on a second launch, its first design held to
+    the plain version and timed beside it (``route2_ms``); its row carries
+    the 3xTF32 bound and the CUDA-core bound beside it."""
     from hydragnn_torch.kernels.build import load_library
     from hydragnn_torch.models.dimenet import (
         distances_and_angles,
@@ -2326,6 +2384,37 @@ def dimenet_phase(torch, g, seed, cfg):
         tri_yard = {"vs_float64": e_k, "plain_float32_vs_float64": e32,
                     "float64_allowed": allowed}
         del p32, p64
+    # the row_mlp forward's route, its float64 yardstick and repeat, and
+    # its first design at the path's inputs
+    row_fwd_route = load_library("row_mlp").hg_row_mlp_fwd_route(d, h, nb, na)
+    check(row_fwd_route == rm.fwd_route(d, h, nb, na) == 1,
+          f"row_mlp forward at {(d, h, nb, na)}: route {row_fwd_route} on "
+          f"the card, {rm.fwd_route(d, h, nb, na)} planned, the path's route "
+          "is 1")
+
+    def row_fwd(route_=0):
+        return rm.launch_row_mlp("dimenet_post_mlp", tri, xji, xe, w_p, b_p,
+                                 nb, na, route=route_)
+
+    with torch.no_grad():
+        k1, again, k2 = row_fwd(), row_fwd(), row_fwd(2)
+        torch.cuda.synchronize()
+        check(torch.equal(k1, again), "dimenet: a second launch of the "
+              "row_mlp forward differs")
+        p32 = rm.dimenet_post_mlp_reference(tri, xji, xe, nb, na, *wb)
+        p64 = rm.dimenet_post_mlp_reference(
+            tri.double(), xji.double(), xe.double(), nb, na,
+            *[None if w is None else w.double() for w in wb])
+        e32 = float((p32.double() - p64).abs().max())
+        e_k = float((k1.double() - p64).abs().max())
+        allowed = max(2 * e32, 1e-6 * float(p64.abs().max()))
+        check(e_k <= allowed, f"dimenet: the row_mlp forward (route 1) is "
+              f"{e_k} from the float64 run, over {allowed}")
+        hold("row_out_route1", k1, p32, REL_TOL_KERNEL)
+        hold("row_out_route2", k2, p32, REL_TOL_KERNEL)
+        row_yard = {"vs_float64": e_k, "plain_float32_vs_float64": e32,
+                    "float64_allowed": allowed}
+        del p32, p64
     route = rm.bwd_route(d, h, nb, na)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     tri_f, row_f, row_b = dimenet_flops(s, r, b, d, d, h, nb, na, t_real, e)
@@ -2365,12 +2454,13 @@ def dimenet_phase(torch, g, seed, cfg):
                                                  ji, tm, ct, r),
             bound(tri_b_bytes["all"], tri_b["all"][0]),
             "hydragnn_tpu/ops/dn_tri.py:358", "dn_tri", tri_b_outs["all"]),
+        # route 1 runs its products on the tensor cores (3xTF32)
         "dimenet_post_mlp": (
-            lambda: rm.launch_row_mlp("dimenet_post_mlp", tri, xji, xe, w_p,
-                                      b_p, nb, na),
+            row_fwd,
             lambda: rm.dimenet_post_mlp_reference(tri, xji, xe, nb, na,
                                                   *wb),
-            bound(4 * e * (d + 2 * h) + row_w + 4 * e * h, row_f),
+            tensor_core_bounds(4 * e * (d + 2 * h) + row_w + 4 * e * h,
+                               row_f),
             "hydragnn_tpu/ops/row_mlp.py:184", "row_mlp", ("row_out",)),
         "dimenet_post_mlp_bwd": (
             lambda: rm.launch_row_mlp("dimenet_post_mlp_bwd", tri, xji, xe,
@@ -2413,6 +2503,10 @@ def dimenet_phase(torch, g, seed, cfg):
                     flops=tri_b[tag][0], flops_unfactored=tri_b[tag][1])
             if name == "dimenet_post_mlp_bwd":
                 results[-1]["backward_route"] = route
+            if name == "dimenet_post_mlp":
+                results[-1]["forward_route"] = row_fwd_route
+                results[-1]["route2_ms"] = time_ms(
+                    torch, lambda: row_fwd(2), flush, lead=True)
             if name == "dimenet_triplet_mp":
                 results[-1]["forward_route"] = fwd_route
                 results[-1]["route2_ms"] = time_ms(
@@ -2422,6 +2516,8 @@ def dimenet_phase(torch, g, seed, cfg):
     notes["row_mlp_bwd_route"] = route
     notes["tri_forward_route"] = fwd_route
     notes["tri_route1_vs_float64"] = tri_yard
+    notes["row_mlp_fwd_route"] = row_fwd_route
+    notes["row_mlp_fwd_route1_vs_float64"] = row_yard
     return results, notes
 
 

@@ -19,15 +19,34 @@
 //   online-softmax state (m, d per head in shared memory, acc in registers)
 //   is rescaled per edge, as in flash attention.  No atomics and no
 //   [E, HF] tensor in device memory.
-// gat_kernel<kPassR> (+ gat_sum_partials_kernel) — backward pass R.
-//   Replaces :_gea_bwd's receiver-side pass (pl.pallas_call at :543).
+// gat_pass_r_kernel (+ gat_sum_partials_kernel) — backward pass R, route
+//   1.  Replaces :_gea_bwd's receiver-side pass (pl.pallas_call at :543).
 //   Receiver order again: recompute z, e and p = exp(e - m[dst]) (m
 //   frozen), de = p (b <ga[dst], xl[src]>_h + gd[dst]), dz = de * att *
-//   leaky_relu'(z); sum dz into the dxr row, and z_act * de into the warp's
-//   d att partial in shared memory.  A block keeps its warps' partials over
-//   all of its rows and sums them in warp order into one partial of HF
-//   floats, written once; the reduction kernel sums the partials in block
-//   order.
+//   leaky_relu'(z); sum dz into the dxr row, and z_act * de into d att.
+//   Pass S's route 1 with pass R's roles: one warp per receiver row, lane
+//   l holding column h F + 32 i + l of each head (slot i < S), the row's
+//   own xr, ga and att slots in registers once per row and lane t < H
+//   holding head t's m[dst] and gd[dst]; the row's sender ids loaded 32
+//   at a time (one a lane, broadcast by shuffles), U edges' xl[src] rows
+//   and b scalars issued before their arithmetic; each head's e and q
+//   summed across lanes by the same reduce-scatter butterfly, lane h
+//   forming head h's de and shuffling it back to the head's slots; dxr
+//   summed in registers in edge order.  Each lane keeps its d att slots in
+//   registers across all of its warp's rows; at the end the block's warps
+//   add theirs in warp order through shared memory and the block writes
+//   one partial of HF floats; gat_sum_partials_kernel sums the partials
+//   in block order.  The grid is min(n_parts, row blocks), so a block's
+//   rows are fixed and d att is deterministic.  What held the first
+//   design back (gat_kernel<kPassR>, route 2) was pass S's old shape: a
+//   dependent load of send[k] before the xl[src] row, no other edge's
+//   loads in flight, both products staged in shared memory, one lane a
+//   head adding F logit products and then F q products one after another,
+//   and d att read-modify-written in shared memory between __syncwarp()s.
+// gat_kernel<kPassR> — pass R, route 2: the first design, for the widths
+//   route 1 does not take (as pass S's route 2); the card checks also ask
+//   for it by route to time it beside route 1.  Its warps keep their d att
+//   partials in shared memory and the block sums them in warp order.
 // gat_pass_s_kernel — backward pass S, route 1.  Replaces :_gea_bwd's
 //   sender-side pass (pl.pallas_call at :594).  One warp per sender row
 //   walks the row's range of sender-sorted positions (edge ids through
@@ -55,7 +74,8 @@
 //   rounded differently: the kernel is held to the plain version at the
 //   first design's tolerance (1e-5 of dxl's largest entry).  Route 1
 //   takes S <= 8 (F <= 256), H S <= 32 slots a lane and H <= 16 heads,
-//   every path's width among them (6 x 64, 3 x 256 a group).
+//   every path's width among them (6 x 64, 3 x 256 a group); pass R's
+//   route 1 takes the same widths (lane_route).
 // gat_kernel<kPassS> — pass S, route 2: the first design, for the other
 //   widths (many narrow heads, or F > 256); the card checks also ask for
 //   it by route to time it beside route 1.
@@ -310,6 +330,59 @@ __global__ void __launch_bounds__(kThreads) gat_kernel(Params p) {
 
 constexpr unsigned kFull = 0xffffffffu;
 
+// Route 1 of passes R and S: the values a lane sums across the warp, e and
+// q of NJ / S heads, padded to a power of two
+template <int NJ, int S>
+__host__ __device__ constexpr int lane_values() {
+  return 2 * NJ / S <= 2 ? 2 : 2 * NJ / S <= 4 ? 4
+         : 2 * NJ / S <= 8 ? 8 : 2 * NJ / S <= 16 ? 16 : 32;
+}
+
+template <int P>
+__host__ __device__ constexpr int log2_of() {
+  return P == 2 ? 1 : P == 4 ? 2 : P == 8 ? 3 : P == 16 ? 4 : 5;
+}
+
+// The butterfly over offsets 16, 8, 4, 2, 1 as a reduce-scatter: while a
+// lane holds c > 1 values, it keeps the half its offset bit picks and adds
+// the partner's partials of those; the sums are those of the full
+// butterfly, bit for bit.  After it the lane whose offset bits 16, 8, ...
+// (the first log2 P of them) spell value v holds v's sum in val[0].
+template <int P>
+__device__ __forceinline__ void lane_sums(float (&val)[P], int lane) {
+  int c = P;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    if (c > 1) {
+      const bool upper = (lane & o) != 0;
+#pragma unroll
+      for (int k = 0; k < P / 2; ++k) {
+        if (k < c / 2) {
+          const float send = upper ? val[k] : val[k + c / 2];
+          const float keep = upper ? val[k + c / 2] : val[k];
+          val[k] = __fadd_rn(keep, __shfl_xor_sync(kFull, send, o));
+        }
+      }
+      c /= 2;
+    } else {
+      val[0] = __fadd_rn(val[0], __shfl_xor_sync(kFull, val[0], o));
+    }
+  }
+}
+
+// The lane that holds value 2 t (e of head t) after lane_sums, for lane t;
+// value 2 t + 1 (its q) sits one more lowest bit on: lane_of_sum + (16 >>
+// (log2 P - 1))
+template <int P>
+__device__ __forceinline__ int lane_of_sum(int t) {
+  constexpr int LOG_P = log2_of<P>();
+  int src = 0;
+#pragma unroll
+  for (int b = 0; b < LOG_P; ++b)
+    if ((2 * t >> (LOG_P - 1 - b)) & 1) src |= 16 >> b;
+  return src;
+}
+
 // Pass S, route 1 (see the note above): slot j of lane l is column (j / S)
 // F + 32 (j % S) + l, of head j / S, where the head exists (j / S < H) and
 // the column lies in it (32 (j % S) + l < F); NJ >= H S slots a lane.  U
@@ -321,25 +394,15 @@ __global__ void __launch_bounds__(kThreads) gat_pass_s_kernel(Params p) {
   // edges whose loads are in flight together: more cost registers, and
   // the warps a SM holds hide the latency better
   constexpr int U = NJ <= 8 ? 2 : 1;
-  // the values a lane sums across the warp: e and q of NJ / S heads,
-  // padded to a power of two
-  constexpr int P = 2 * NJ / S <= 2 ? 2 : 2 * NJ / S <= 4 ? 4
-                    : 2 * NJ / S <= 8 ? 8 : 2 * NJ / S <= 16 ? 16 : 32;
-  constexpr int LOG_P = P == 2 ? 1 : P == 4 ? 2 : P == 8 ? 3 : P == 16 ? 4 : 5;
+  constexpr int P = lane_values<NJ, S>();
   const int lane = threadIdx.x % kWarp;
   const int row = blockIdx.x * kWarps + threadIdx.x / kWarp;
   if (row >= p.n_rows) return;
   const int hf = p.hf, f = p.f, h = p.h;
   const float slope = p.slope;
-  // after the reduce-scatter, the lane whose offset bits 16, 8, ... (the
-  // first LOG_P of them) spell value v holds v's sum: e of head t is
-  // value 2t, q value 2t + 1 (one more lowest bit: offset 16 >> (LOG_P -
-  // 1))
-  int src_e = 0;
-#pragma unroll
-  for (int b = 0; b < LOG_P; ++b)
-    if ((2 * lane >> (LOG_P - 1 - b)) & 1) src_e |= 16 >> b;
-  const int src_q = 16 >> (LOG_P - 1);
+  // lane t < H: the lanes that hold head t's e and q after lane_sums
+  const int src_e = lane_of_sum<P>(lane);
+  const int src_q = 16 >> (log2_of<P>() - 1);
   unsigned ok = 0u;   // bit j: slot j holds a column
   float own[NJ], attv[NJ], sum[NJ];
 #pragma unroll
@@ -404,28 +467,7 @@ __global__ void __launch_bounds__(kThreads) gat_pass_s_kernel(Params p) {
           val[v] = j % S == 0 ? pe : __fadd_rn(val[v], pe);
           val[v + 1] = j % S == 0 ? pq : __fadd_rn(val[v + 1], pq);
         }
-        // the butterfly over offsets 16, 8, 4, 2, 1, as a reduce-scatter:
-        // while a lane holds c > 1 values, it keeps the half its offset
-        // bit picks and adds the partner's partials of those; the sums
-        // are those of the full butterfly, bit for bit
-        int c = P;
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) {
-          if (c > 1) {
-            const bool upper = (lane & o) != 0;
-#pragma unroll
-            for (int k = 0; k < P / 2; ++k) {
-              if (k < c / 2) {
-                const float send = upper ? val[k] : val[k + c / 2];
-                const float keep = upper ? val[k + c / 2] : val[k];
-                val[k] = __fadd_rn(keep, __shfl_xor_sync(kFull, send, o));
-              }
-            }
-            c /= 2;
-          } else {
-            val[0] = __fadd_rn(val[0], __shfl_xor_sync(kFull, val[0], o));
-          }
-        }
+        lane_sums(val, lane);
         // lane t < H: head t's e and q from the lanes that hold them, its
         // p b and de; zeros on the other lanes
         const float e_mine = __shfl_sync(kFull, val[0], src_e);
@@ -455,6 +497,134 @@ __global__ void __launch_bounds__(kThreads) gat_pass_s_kernel(Params p) {
     if ((ok >> j) & 1u) out_row[(j / S) * f + 32 * (j % S) + lane] = sum[j];
 }
 
+// Pass R, route 1 (see the note above): the slots of pass S's route 1.
+// Warp w of block b takes the receiver rows b kWarps + w + i gridDim.x
+// kWarps, in that order; U edges' loads are in flight together.  The
+// block's d att partial: its warps' register partials added in warp order.
+template <int NJ, int S>
+__global__ void __launch_bounds__(kThreads) gat_pass_r_kernel(Params p) {
+  static_assert(NJ % S == 0 && NJ <= 32 && NJ / S <= 16,
+                "slots: whole heads, at most 32 and 16 heads");
+  // one row gathered an edge (pass S gathers two): two edges in flight up
+  // to 12 slots a lane
+  constexpr int U = NJ <= 12 ? 2 : 1;
+  constexpr int P = lane_values<NJ, S>();
+  __shared__ float datt_w[kWarps][NJ * kWarp];
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  const int hf = p.hf, f = p.f, h = p.h;
+  const float slope = p.slope;
+  // lane t < H: the lanes that hold head t's e and q after lane_sums
+  const int src_e = lane_of_sum<P>(lane);
+  const int src_q = 16 >> (log2_of<P>() - 1);
+  const int t = lane < h ? lane : 0;   // lane t < H: head t's scalars
+  unsigned ok = 0u;   // bit j: slot j holds a column
+  float attv[NJ], datt[NJ];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int in_head = 32 * (j % S) + lane;
+    const bool v = j / S < h && in_head < f;
+    ok |= v ? 1u << j : 0u;
+    attv[j] = v ? __ldg(p.att + (j / S) * f + in_head) : 0.f;
+    datt[j] = 0.f;
+  }
+  const int stride = gridDim.x * kWarps;
+  for (int row = blockIdx.x * kWarps + warp; row < p.n_rows; row += stride) {
+    const float* xr_row = p.xr + static_cast<size_t>(row) * hf;
+    const float* ga_row = p.ga + static_cast<size_t>(row) * hf;
+    float own[NJ], gar[NJ], sum[NJ];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const bool v = (ok >> j) & 1u;
+      const int c = (j / S) * f + 32 * (j % S) + lane;
+      own[j] = v ? __ldg(xr_row + c) : 0.f;
+      gar[j] = v ? __ldg(ga_row + c) : 0.f;
+      sum[j] = 0.f;
+    }
+    const float mh = __ldg(p.m + static_cast<size_t>(row) * h + t);
+    const float gdh = __ldg(p.gd + static_cast<size_t>(row) * h + t);
+    const int e0 = __ldg(p.row_ptr + row);
+    const int e1 = __ldg(p.row_ptr + row + 1);
+    for (int base = e0; base < e1; base += kWarp) {
+      const int cnt = min(kWarp, e1 - base);
+      int s_l = lane < cnt ? __ldg(p.send + base + lane) : -1;
+      if (static_cast<unsigned>(s_l) >= static_cast<unsigned>(p.n_rows))
+        s_l = -1;
+      for (int i = 0; i < cnt; i += U) {
+        // the group's loads: every address clamped in range, all issued
+        // before the arithmetic
+        float xo[U][NJ], bh[U];
+        int sv[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          sv[u] = __shfl_sync(kFull, s_l, (i + u) & 31);
+          if (i + u >= cnt) sv[u] = -1;
+          const float* xl_row =
+              p.xl + static_cast<size_t>(sv[u] >= 0 ? sv[u] : 0) * hf;
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) {
+            const bool v = (ok >> j) & 1u;
+            xo[u][j] = v ? __ldg(xl_row + (j / S) * f + 32 * (j % S) + lane)
+                         : 0.f;
+          }
+          const int ev = min(base + i + u, e1 - 1);
+          bh[u] = p.b ? __ldg(p.b + static_cast<size_t>(ev) * h + t) : 1.f;
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          if (sv[u] < 0) continue;
+          // the lane's partials: value 2h the logit e of head h, 2h + 1
+          // its q, each its S slots in order (zeros past the heads)
+          float val[P];
+          unsigned pos = 0u;
+#pragma unroll
+          for (int v = 0; v < P; ++v) val[v] = 0.f;
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) {
+            const float z = __fadd_rn(xo[u][j], own[j]);
+            const float pq = __fmul_rn(gar[j], xo[u][j]);
+            const float zl = leaky(z, slope);
+            xo[u][j] = zl;
+            pos |= z > 0.f ? 1u << j : 0u;
+            const float pe = __fmul_rn(zl, attv[j]);
+            const int v = 2 * (j / S);
+            val[v] = j % S == 0 ? pe : __fadd_rn(val[v], pe);
+            val[v + 1] = j % S == 0 ? pq : __fadd_rn(val[v + 1], pq);
+          }
+          lane_sums(val, lane);
+          // lane t < H: head t's de; zeros on the other lanes
+          const float e_mine = __shfl_sync(kFull, val[0], src_e);
+          const float q_mine = __shfl_sync(kFull, val[0], src_e + src_q);
+          float de = 0.f;
+          if (lane < h) de = expf(e_mine - mh) * (bh[u] * q_mine + gdh);
+          float cde = 0.f;
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) {
+            if (j % S == 0) cde = __shfl_sync(kFull, de, j / S);
+            sum[j] += cde * attv[j] * ((pos >> j) & 1u ? 1.f : slope);
+            datt[j] += xo[u][j] * cde;
+          }
+        }
+      }
+    }
+    float* out_row = p.out + static_cast<size_t>(row) * hf;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      if ((ok >> j) & 1u) out_row[(j / S) * f + 32 * (j % S) + lane] = sum[j];
+  }
+  // the block's partial: its warps' d att slots added in warp order
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) datt_w[warp][j * kWarp + lane] = datt[j];
+  __syncthreads();
+  for (int c = threadIdx.x; c < hf; c += kThreads) {
+    const int hh = c / f, in_head = c - hh * f;
+    const int slot = (hh * S + in_head / kWarp) * kWarp + in_head % kWarp;
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) s += datt_w[w][slot];
+    p.partial[static_cast<size_t>(blockIdx.x) * hf + c] = s;
+  }
+}
+
 // slots of a head in route 1: ceil(F / 32) rounded up to 1, 2, 4 or 8 (0
 // past 8: route 2)
 __host__ inline int head_slots(int f) {
@@ -462,9 +632,9 @@ __host__ inline int head_slots(int f) {
   return s <= 1 ? 1 : s <= 2 ? 2 : s <= 4 ? 4 : s <= 8 ? 8 : 0;
 }
 
-// pass S's route at these widths: 1 where a head takes at most 8 slots,
-// the heads at most 32 and there are at most 16 heads, else 2
-__host__ inline int pass_s_route(int hf, int f) {
+// the route of pass R and pass S at these widths: 1 where a head takes at
+// most 8 slots, the heads at most 32 and there are at most 16 heads, else 2
+__host__ inline int lane_route(int hf, int f) {
   const int s = head_slots(f), h = hf / f;
   return s > 0 && h * s <= 32 && h <= 16 ? 1 : 2;
 }
@@ -505,9 +675,12 @@ int launch_width(const Params& p, int grid, cudaStream_t st) {
   return launch<MODE, 32>(p, grid, st);
 }
 
-template <int NJ, int S>
-int launch_pass_s1(const Params& p, int grid, cudaStream_t st) {
-  gat_pass_s_kernel<NJ, S><<<grid, kThreads, 0, st>>>(p);
+template <int MODE, int NJ, int S>
+int launch_route1(const Params& p, int grid, cudaStream_t st) {
+  if constexpr (MODE == kPassR)
+    gat_pass_r_kernel<NJ, S><<<grid, kThreads, 0, st>>>(p);
+  else
+    gat_pass_s_kernel<NJ, S><<<grid, kThreads, 0, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -515,36 +688,38 @@ int launch_pass_s1(const Params& p, int grid, cudaStream_t st) {
 // 4, 8, 16 at S = 1; 4, 12 (6 heads of 64), 16, 32 at S = 2; 4, 8, 16, 32
 // at S = 4; 8, 24 (3 heads of 256), 32 at S = 8.  A count rounded up
 // leaves slots empty, at the cost of registers only.
-template <int S>
-int launch_pass_s1_width(const Params& p, int grid, cudaStream_t st) {
+template <int MODE, int S>
+int launch_route1_width(const Params& p, int grid, cudaStream_t st) {
   const int nj = p.h * S;
   if constexpr (S == 1) {
-    if (nj <= 4) return launch_pass_s1<4, 1>(p, grid, st);
-    if (nj <= 8) return launch_pass_s1<8, 1>(p, grid, st);
-    return launch_pass_s1<16, 1>(p, grid, st);
+    if (nj <= 4) return launch_route1<MODE, 4, 1>(p, grid, st);
+    if (nj <= 8) return launch_route1<MODE, 8, 1>(p, grid, st);
+    return launch_route1<MODE, 16, 1>(p, grid, st);
   } else if constexpr (S == 2) {
-    if (nj <= 4) return launch_pass_s1<4, 2>(p, grid, st);
-    if (nj <= 12) return launch_pass_s1<12, 2>(p, grid, st);
-    if (nj <= 16) return launch_pass_s1<16, 2>(p, grid, st);
-    return launch_pass_s1<32, 2>(p, grid, st);
+    if (nj <= 4) return launch_route1<MODE, 4, 2>(p, grid, st);
+    if (nj <= 12) return launch_route1<MODE, 12, 2>(p, grid, st);
+    if (nj <= 16) return launch_route1<MODE, 16, 2>(p, grid, st);
+    return launch_route1<MODE, 32, 2>(p, grid, st);
   } else if constexpr (S == 4) {
-    if (nj <= 4) return launch_pass_s1<4, 4>(p, grid, st);
-    if (nj <= 8) return launch_pass_s1<8, 4>(p, grid, st);
-    if (nj <= 16) return launch_pass_s1<16, 4>(p, grid, st);
-    return launch_pass_s1<32, 4>(p, grid, st);
+    if (nj <= 4) return launch_route1<MODE, 4, 4>(p, grid, st);
+    if (nj <= 8) return launch_route1<MODE, 8, 4>(p, grid, st);
+    if (nj <= 16) return launch_route1<MODE, 16, 4>(p, grid, st);
+    return launch_route1<MODE, 32, 4>(p, grid, st);
   } else {
-    if (nj <= 8) return launch_pass_s1<8, 8>(p, grid, st);
-    if (nj <= 24) return launch_pass_s1<24, 8>(p, grid, st);
-    return launch_pass_s1<32, 8>(p, grid, st);
+    if (nj <= 8) return launch_route1<MODE, 8, 8>(p, grid, st);
+    if (nj <= 24) return launch_route1<MODE, 24, 8>(p, grid, st);
+    return launch_route1<MODE, 32, 8>(p, grid, st);
   }
 }
 
-int launch_pass_s_route1(const Params& p, int grid, cudaStream_t st) {
+// pass R's or pass S's route 1 (MODE) at the slots of the head width
+template <int MODE>
+int launch_route1_slots(const Params& p, int grid, cudaStream_t st) {
   switch (head_slots(p.f)) {
-    case 1: return launch_pass_s1_width<1>(p, grid, st);
-    case 2: return launch_pass_s1_width<2>(p, grid, st);
-    case 4: return launch_pass_s1_width<4>(p, grid, st);
-    default: return launch_pass_s1_width<8>(p, grid, st);
+    case 1: return launch_route1_width<MODE, 1>(p, grid, st);
+    case 2: return launch_route1_width<MODE, 2>(p, grid, st);
+    case 4: return launch_route1_width<MODE, 4>(p, grid, st);
+    default: return launch_route1_width<MODE, 8>(p, grid, st);
   }
 }
 
@@ -553,7 +728,14 @@ int launch_pass_s_route1(const Params& p, int grid, cudaStream_t st) {
 // Pass S's route at these widths (1 or 2; 0 for widths no kernel takes).
 extern "C" int hg_gat_pass_s_route(int hf, int f) {
   if (f < 1 || hf < f || hf > kMaxHF || hf % f != 0) return 0;
-  return pass_s_route(hf, f);
+  return lane_route(hf, f);
+}
+
+// Pass R's route at these widths: pass S's rule (1 or 2; 0 for widths no
+// kernel takes).
+extern "C" int hg_gat_pass_r_route(int hf, int f) {
+  if (f < 1 || hf < f || hf > kMaxHF || hf % f != 0) return 0;
+  return lane_route(hf, f);
 }
 
 // One GAT launch; returns the cudaError_t (0 = success).  mode 0: the
@@ -561,10 +743,10 @@ extern "C" int hg_gat_pass_s_route(int hf, int f) {
 // ids); mode 1: pass R (out = dxr; `partial` scratch [n_parts, HF], `datt`
 // [HF] the reduced attention gradient; rows are receivers); mode 2: pass S
 // (out = dxl; rows are senders, row_ptr over sender-sorted positions and
-// `perm` the sender permutation; `route` 0 takes the widths' own
-// (hg_gat_pass_s_route), 1 or 2 that one where the widths admit it; the
-// other modes take route 0).  Pointers are device pointers; launches go on
-// `stream` and do not synchronise.
+// `perm` the sender permutation).  `route` (passes R and S): 0 takes the
+// widths' own (hg_gat_pass_r_route, hg_gat_pass_s_route), 1 or 2 that one
+// where the widths admit it; the forward takes route 0.  Pointers are
+// device pointers; launches go on `stream` and do not synchronise.
 extern "C" int hg_gat_f32(int mode, const void* xl, const void* xr,
                           const void* att, const void* send, const void* recv,
                           const void* perm, const void* row_ptr,
@@ -577,11 +759,11 @@ extern "C" int hg_gat_f32(int mode, const void* xl, const void* xr,
   if (f < 1 || hf < f || hf > kMaxHF || hf % f != 0 || mode < kFwd ||
       mode > kPassS || (mode == kPassR && n_parts < 1) ||
       (mode == kPassS && perm == nullptr) || route < 0 || route > 2 ||
-      (mode != kPassS && route != 0))
+      (mode == kFwd && route != 0))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int own = pass_s_route(hf, f);
+  const int own = lane_route(hf, f);
   if (route == 0) route = own;
-  if (mode == kPassS && route == 1 && own != 1)
+  if (mode != kFwd && route == 1 && own != 1)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p{};
   p.xl = static_cast<const float*>(xl);
@@ -609,10 +791,11 @@ extern "C" int hg_gat_f32(int mode, const void* xl, const void* xr,
   const int blocks = (n_rows + kWarps - 1) / kWarps;
   if (mode == kFwd) return launch_width<kFwd>(p, blocks, st);
   if (mode == kPassS)
-    return route == 1 ? launch_pass_s_route1(p, blocks, st)
+    return route == 1 ? launch_route1_slots<kPassS>(p, blocks, st)
                       : launch_width<kPassS>(p, blocks, st);
   const int grid = n_parts < blocks ? n_parts : blocks;
-  const int rc = launch_width<kPassR>(p, grid, st);
+  const int rc = route == 1 ? launch_route1_slots<kPassR>(p, grid, st)
+                            : launch_width<kPassR>(p, grid, st);
   if (rc != 0) return rc;
   gat_sum_partials_kernel<<<(hf + 255) / 256, 256, 0, st>>>(
       p.partial, static_cast<float*>(datt), grid, hf);

@@ -1,5 +1,5 @@
 // Shared by the kernels that run float32 products on Hopper's tensor cores
-// (scf_mp.cu, cgcnn_mp.cu and egcl_mp.cu pass P; row_mlp.cu's backward;
+// (scf_mp.cu, cgcnn_mp.cu and egcl_mp.cu pass P; row_mlp.cu's routes 1;
 // dn_tri_builder.cu's forward) and the dn_tri backward: products in
 // 3xTF32 (sm_80+ mma.sync), compensated sums, the fixed-order reductions
 // of per-block partials, and the shares of rows that warps or blocks
@@ -55,6 +55,17 @@ __device__ __forceinline__ void split_ih(float x, uint32_t& hi,
                                          uint32_t& lo) {
   hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
   lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// x = hi + lo for the tensor cores: hi rounded to tf32 by two integer
+// operations (as split_ih), lo = x - hi (exact) passed as it is: the
+// tensor cores read a tf32 operand's top 19 bits, so lo is truncated where
+// split rounds it (both near 2^-22 of x), without the conversion's
+// instruction sequence
+__device__ __forceinline__ void split_tc(float x, uint32_t& hi,
+                                         uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
 // the split the loaders below use: IH picks split_ih

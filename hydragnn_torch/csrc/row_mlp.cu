@@ -15,12 +15,38 @@
 // wrappers, plain PyTorch versions and launch counters live in
 // hydragnn_torch/ops/row_mlp.py.
 //
-// row_mlp_fwd_kernel — the forward.  Replaces
-//   hydragnn_tpu/ops/row_mlp.py:_post_fwd (pl.pallas_call at :184).  Each
-//   block takes RB rows at a time, holds them transposed in shared memory
-//   ([feature][row], row stride RB + 4) and walks the L layers, staging
-//   one layer's weights at a time (from L2) beside them; only tri, x_ji
-//   and x_edge are read and out written.
+// The forward replaces hydragnn_tpu/ops/row_mlp.py:_post_fwd
+//   (pl.pallas_call at :184).  Two routes, chosen by width
+//   (hg_row_mlp_fwd_route):
+//
+// row_mlp_fwd_tc_kernel<L> — route 1: the backward's route-1 widths (Din,
+//   H <= 64, L <= 8), the arch sweep's DimeNet (64, 64, L = 8) among them.
+//   A persistent grid (one block per SM at most, 16 warps); every layer's
+//   weight, zero-padded to 64 x 64, and bias is staged once per block (130
+//   KB at L = 8) and stays.  Then each warp takes its own 16-row tiles with
+//   no block barrier, and a tile's rows never pass through shared memory
+//   between layers: with the 64 columns of every layer's output permuted
+//   (fwd_physical), a layer's tensor-core accumulators are, value for value
+//   and lane for lane, the next layer's A fragments, so the layer's input
+//   (tri, h or t = silu(z_a)) stays in registers, and each lane's values of
+//   a row are float4s of it in memory.  The running h waits in the lane's
+//   own float4 slots of shared memory (64 KB for 16 warps), where x_ji, at
+//   the tile's start, and x_edge, when lin begins (h being lin's input),
+//   are copied asynchronously.  Every product [16 x 64] . [64 x 64] runs in
+//   3xTF32 (mma.sync m16n8k8 through csrc/pass_p.cuh, each k step's three
+//   products from zero, then a float32 add; hi rounded by integer
+//   operations, lo passed untruncated; one float4 load gives a B
+//   fragment's two k steps); bias and silu are applied to the accumulators;
+//   the last layer writes out, once.  What held the first design back was
+//   the weight stage: per 32-row tile and per layer, a 16 KB weight copied
+//   from L2 between two block barriers (~240 MB a launch at the dimenet
+//   cell's first batch, four times the rows' own bytes), and products on
+//   the CUDA cores.
+// row_mlp_fwd_kernel — route 2: the first design, for every other width up
+//   to 128.  Each block takes RB rows at a time, holds them transposed in
+//   shared memory ([feature][row], row stride RB + 4) and walks the L
+//   layers, staging one layer's weights at a time (from L2) beside them;
+//   only tri, x_ji and x_edge are read and out written.
 // The backward replaces :_post_vjp_bwd (pl.pallas_call at :228).  Per row
 //   tile it recomputes the chain, keeping every layer's pre-activation
 //   z_k, then walks the chain backwards: dz_k = dpost * silu'(z_k), dW_k
@@ -68,9 +94,11 @@
 //
 // Bound on the H100 SXM: operations.  Per row the forward does 2 (Din H +
 // (L-1) H^2) flops against 3 rows in and 1 out (H = 64: ~66 kFLOP per ~1 KB),
-// the backward three times the products.  In the forward and in route 2
-// nothing but the inputs and outputs touches device memory per row; a
-// weight is staged once per tile with an odd row stride (H | 1), so that
+// the backward three times the products; at 3xTF32 on the tensor cores
+// (the routes 1) the bound is a third of the tensor cores' TF32 rate.  In
+// the forward and in route 2 of the backward nothing but the inputs and
+// outputs touches device memory per row; in the first designs a weight is
+// staged once per tile with an odd row stride (H | 1), so that
 // the forward's products (threads along a row) and the backward's
 // transposed ones (threads down a column) are free of bank conflicts; one
 // 16-byte load of a transposed tile feeds four multiply-adds.
@@ -107,6 +135,9 @@ struct Params {
   float* dxe;            // backward: [E, H] or null
   float* partial;        // backward: [gridDim.x, wgrad size]
   int n_rows, din, h, nb, na, L, rb, n_tiles;
+  // the forward's route 1: tri (vec_d) and x_ji, x_edge and out (vec_h)
+  // have a width that is a multiple of 4 and 16-byte aligned rows
+  bool vec_d, vec_h;
 };
 
 __host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
@@ -818,6 +849,264 @@ row_mlp_bwd_tc_kernel(const Params p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// the forward's route 1: weights resident, each warp on its own row tiles,
+// tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kFwdTcWarps = 16;
+constexpr int kFwdTcThreads = kFwdTcWarps * 32;
+constexpr int kFwdTcRows = 16;       // rows a warp's tile: one m16 fragment
+constexpr int kFwdLayer = kTcW * kTcW;
+// a warp's running h in float4s: each lane's 8 groups (below), group q of
+// lane l at q * 32 + l (no lane reads another's)
+constexpr int kFwdH = 8 * 32;
+
+// Column order.  A layer's accumulators are the next layer's A operand with
+// no data movement, and every row's values a lane holds are float4s in
+// memory, when the 64 columns of every layer's output are permuted: the C
+// fragment's column 2t + u of n-tile j = 2m + s (m < 4) is logical column
+// 16 m + 4 t + 2 s + u, and the k index of an A fragment's step j follows
+// the same order (slot t: 16 m + 4 t + 2 s, slot t + 4: that + 1).  So lane
+// (g, t) holds, of rows g and g + 8, the logical columns 16 m + 4 t .. + 3:
+// group (m, r) = (x[2m][2r], x[2m][2r + 1], x[2m + 1][2r], x[2m + 1][2r +
+// 1]) is one float4 of row g + 8 r.  Physical column p = 8 j + g of a B
+// fragment is logical column 16 (j >> 1) + 4 (g >> 1) + 2 (j & 1) + (g &
+// 1); fwd_physical maps a logical column n back to p.
+__device__ __forceinline__ int fwd_physical(int n) {
+  return 16 * (n >> 4) + 8 * ((n >> 1) & 1) + 2 * ((n >> 2) & 3) + (n & 1);
+}
+
+// The weights sit transposed, row p (physical output column) holding
+// column n of W_k (p = fwd_physical(n)) over k, 16 float4 chunks a row;
+// chunk c at c ^
+// fwd_swz(p), so that a B load (rows 8j + g, chunks 4m + t) and a staging
+// store (eight consecutive logical columns, one chunk) each hit every bank
+// once a quarter-warp
+__device__ __forceinline__ int fwd_swz(int p) {
+  return ((p & 1) << 2) | ((p >> 1) & 1) | ((p >> 2) & 2);
+}
+
+// weights [L][64 x 64] (transposed, swizzled), biases [L x 64] in logical
+// order, each warp's running h
+__host__ __device__ inline int fwd_tc_smem_floats(int L) {
+  return L * (kFwdLayer + kTcW) + kFwdTcWarps * kFwdH * 4;
+}
+
+// dst (shared) = BYTES of src (global), zero-filled past `valid` bytes,
+// asynchronously
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const float* src,
+                                         int valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(d), "l"(src), "r"(valid));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(d), "l"(src), "r"(valid));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// visit(m, r, ptr, n) for each group of the lane's values of a row-major
+// [E, width] array (the tile's rows from r0, nr of them): ptr the group's
+// first entry (the array's first where n == 0), n its valid entries
+// (columns inside the width, 0 past the tile's rows); a width that is a
+// multiple of 4 gives whole groups
+template <class T, class F>
+__device__ __forceinline__ void fwd_tc_visit(T* a, int width, int r0, int nr,
+                                             F visit) {
+  const int g = passp::lane_g(), t = passp::lane_t();
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool row_ok = g + 8 * r < nr;
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const int c = 16 * m + 4 * t;
+      const int n = row_ok ? min(max(width - c, 0), 4) : 0;
+      visit(m, r,
+            n > 0 ? a + static_cast<size_t>(r0 + g + 8 * r) * width + c : a,
+            n);
+    }
+  }
+}
+
+// c's n-tiles 4 HALF .. 4 HALF + 3 = X . W's columns of them (W transposed
+// and swizzled in shared memory) in 3xTF32: each k step's three products
+// from zero, then a float32 add; one float4 load gives a B fragment's two
+// k steps.  A layer's product comes in two halves so that the first half's
+// silu can run beside the second half's products.
+template <int HALF>
+__device__ __forceinline__ void fwd_tc_product(float (&c)[8][4],
+                                               const float (&x)[8][4],
+                                               const float* W) {
+  const int g = passp::lane_g(), t = passp::lane_t();
+#pragma unroll
+  for (int j = 4 * HALF; j < 4 * HALF + 4; ++j)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) c[j][v] = 0.f;
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    passp::FragA a[2];
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      passp::split_tc(x[2 * m + s][0], a[s].hi[0], a[s].lo[0]);   // (g, t)
+      passp::split_tc(x[2 * m + s][2], a[s].hi[1], a[s].lo[1]);   // (g + 8, t)
+      passp::split_tc(x[2 * m + s][1], a[s].hi[2], a[s].lo[2]);   // (g, t + 4)
+      passp::split_tc(x[2 * m + s][3], a[s].hi[3], a[s].lo[3]);
+    }
+#pragma unroll
+    for (int j = 4 * HALF; j < 4 * HALF + 4; ++j) {
+      const int p = 8 * j + g;
+      const float4 w = *reinterpret_cast<const float4*>(
+          W + p * kTcW + 4 * ((4 * m + t) ^ fwd_swz(p)));
+      passp::FragB b;
+      passp::split_tc(w.x, b.hi[0], b.lo[0]);   // step 2m: (slot t, n = g)
+      passp::split_tc(w.y, b.hi[1], b.lo[1]);   // (slot t + 4, g)
+      passp::mma3(c[j], a[0], b);
+      passp::split_tc(w.z, b.hi[0], b.lo[0]);   // step 2m + 1
+      passp::split_tc(w.w, b.hi[1], b.lo[1]);
+      passp::mma3(c[j], a[1], b);
+    }
+  }
+}
+
+// The forward, route 1: a persistent grid of one block per SM (at most);
+// every layer's weight (zero-padded to 64 x 64) and bias is staged once per
+// block and stays; then each warp takes its own 16-row tiles, tile w
+// gridDim.x + blockIdx.x of warp w and every kFwdTcWarps gridDim.x after
+// it, with no block barrier.  The layer's input (tri, h or t = silu(z_a))
+// stays in registers in the accumulator layout; the running h waits in the
+// lane's own float4 slots of shared memory, where x_ji (at the tile's
+// start) and x_edge (when lin begins, h being lin's input) are copied
+// asynchronously; the last layer writes out, once.
+template <int L>
+__global__ void __launch_bounds__(kFwdTcThreads, 1)
+row_mlp_fwd_tc_kernel(const Params p) {
+  extern __shared__ float4 smem4[];
+  float* wt = reinterpret_cast<float*>(smem4);   // [L][64 x 64]
+  float* bs = wt + L * kFwdLayer;                // [L x 64]
+  const int din = p.din, h = p.h, nb = p.nb;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // group (m, r) of the lane's running h at hs[32 (2 m + r)]
+  float4* hs = reinterpret_cast<float4*>(bs + L * kTcW) + warp * kFwdH + lane;
+  // the weights: each warp transposes 32 x 32 blocks, lane l reading
+  // column n0 + l of 32 rows (all loads in flight), then writing its
+  // column's 32 entries as 8 float4s of row fwd_physical(n0 + l)
+  for (int blk = warp; blk < L * 4; blk += kFwdTcWarps) {
+    const int k = blk >> 2, r0 = 32 * ((blk >> 1) & 1);
+    const int n = 32 * (blk & 1) + lane;
+    const int in = k == 0 ? din : h;
+    const float* src = p.w + w_offset(k, din, h);
+    float v[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      v[i] = r0 + i < in && n < h ? __ldg(src + (r0 + i) * h + n) : 0.f;
+    const int row = fwd_physical(n);
+    float4* dst = reinterpret_cast<float4*>(wt + k * kFwdLayer + row * kTcW);
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+      dst[(r0 / 4 + c) ^ fwd_swz(row)] =
+          make_float4(v[4 * c], v[4 * c + 1], v[4 * c + 2], v[4 * c + 3]);
+  }
+  for (int i = tid; i < L * kTcW; i += kFwdTcThreads) {
+    const int k = i / kTcW, c = i - k * kTcW;
+    bs[i] = c < h ? p.bias[k * h + c] : 0.f;
+  }
+  __syncthreads();
+
+  const bool h4 = p.vec_h, d4 = p.vec_d;
+  const int t = passp::lane_t();
+  const int step = gridDim.x * kFwdTcWarps;
+  // a [E, h] array's rows of the tile into the lane's h slots
+  auto copy_h = [&](const float* src, int r0, int nr) {
+    fwd_tc_visit(src, h, r0, nr, [&](int m, int r, const float* a, int n) {
+      float4* d = hs + 32 * (2 * m + r);
+      if (h4) {
+        cp_async<16>(d, a, 4 * n);
+      } else {
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          cp_async<4>(reinterpret_cast<float*>(d) + u, a + (u < n ? u : 0),
+                      u < n ? 4 : 0);
+      }
+    });
+  };
+  for (int tile = warp * gridDim.x + blockIdx.x; tile < p.n_tiles;
+       tile += step) {
+    const int r0 = tile * kFwdTcRows, nr = min(kFwdTcRows, p.n_rows - r0);
+    copy_h(p.xji, r0, nr);
+    float x[8][4], c[8][4];   // the layer's input and output
+    fwd_tc_visit(p.tri, din, r0, nr, [&](int m, int r, const float* a, int n) {
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (d4 && n == 4) {
+        v = __ldg(reinterpret_cast<const float4*>(a));
+      } else {
+        v.x = n > 0 ? __ldg(a) : 0.f;
+        v.y = n > 1 ? __ldg(a + 1) : 0.f;
+        v.z = n > 2 ? __ldg(a + 2) : 0.f;
+        v.w = n > 3 ? __ldg(a + 3) : 0.f;
+      }
+      x[2 * m][2 * r] = v.x;
+      x[2 * m][2 * r + 1] = v.y;
+      x[2 * m + 1][2 * r] = v.z;
+      x[2 * m + 1][2 * r + 1] = v.w;
+    });
+    // layer k: out = silu(in . W_k + b_k), plus the running h except at
+    // kA (whose output t is the next input): h's slots take the sum too
+    auto layer = [&](int k, const float (&in)[8][4], float (&out)[8][4]) {
+      const bool is_a = tc_role(k, nb) == kA;
+      if (tc_role(k, nb) == kLin) copy_h(p.xe, r0, nr);   // h is in `in`
+      fwd_tc_product<0>(out, in, wt + k * kFwdLayer);
+      fwd_tc_product<1>(out, in, wt + k * kFwdLayer);
+      cp_async_wait_all();
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const float4 bb =
+            *reinterpret_cast<const float4*>(bs + k * kTcW + 16 * m + 4 * t);
+        const float bv[4] = {bb.x, bb.y, bb.z, bb.w};
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float4 hv = hs[32 * (2 * m + r)];
+          float* hp = reinterpret_cast<float*>(&hv);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            // value q of group (m, r): out[2m + (q >> 1)][2r + (q & 1)]
+            float& o = out[2 * m + (q >> 1)][2 * r + (q & 1)];
+            const float sv = silu_f(o + bv[q]);
+            o = is_a ? sv : hp[q] + sv;
+            hp[q] = o;
+          }
+          if (!is_a) hs[32 * (2 * m + r)] = hv;
+        }
+      }
+    };
+    // L is even: the layers in pairs, x and c taking turns as input
+#pragma unroll 1
+    for (int k = 0; k < L; k += 2) {
+      layer(k, x, c);
+      layer(k + 1, c, x);
+    }
+    // the last layer (kB or lin) left the output in x
+    fwd_tc_visit(p.out, h, r0, nr, [&](int m, int r, float* a, int n) {
+      const float4 v = make_float4(x[2 * m][2 * r], x[2 * m][2 * r + 1],
+                                   x[2 * m + 1][2 * r],
+                                   x[2 * m + 1][2 * r + 1]);
+      if (h4 && n == 4) {
+        *reinterpret_cast<float4*>(a) = v;
+      } else {
+        if (n > 0) a[0] = v.x;
+        if (n > 1) a[1] = v.y;
+        if (n > 2) a[2] = v.z;
+        if (n > 3) a[3] = v.w;
+      }
+    });
+  }
+}
+
 int set_smem(const void* fn, size_t smem) {
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -866,6 +1155,34 @@ int bwd_plan(int din, int h, int nb, int na, int* rb) {
   return *rb > 0 ? 2 : 0;
 }
 
+// The forward's route at these widths: 1 (row_mlp_fwd_tc_kernel: Din, H
+// <= 64, at most three residual pairs, where its shared memory fits the
+// device's opt-in limit: 194 KB at L = 8 of the H100's 227), 2
+// (row_mlp_fwd_kernel), or 0 when the device cannot be asked.
+int fwd_plan(int din, int h, int nb, int na) {
+  int dev = 0, optin = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return 0;
+  const int L = 2 + 2 * (nb + na);
+  return din <= kTcW && h <= kTcW && L <= kTcMaxLayers &&
+                 sizeof(float) * static_cast<size_t>(fwd_tc_smem_floats(L)) <=
+                     static_cast<size_t>(optin)
+             ? 1 : 2;
+}
+
+template <int L>
+int launch_fwd_tc(const Params& p, int grid, cudaStream_t st) {
+  const size_t smem =
+      sizeof(float) * static_cast<size_t>(fwd_tc_smem_floats(L));
+  const int rc = set_smem(
+      reinterpret_cast<const void*>(row_mlp_fwd_tc_kernel<L>), smem);
+  if (rc != 0) return rc;
+  row_mlp_fwd_tc_kernel<L><<<grid, kFwdTcThreads, smem, st>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int L>
 int launch_tc(const Params& p, int grid, cudaStream_t st) {
   const size_t smem = sizeof(float) * static_cast<size_t>(tc_smem_floats(L));
@@ -892,22 +1209,31 @@ extern "C" int hg_row_mlp_bwd_route(int din, int h, int nb, int na) {
   return bwd_plan(din, h, nb, na, &rb);
 }
 
+// The forward's route at these widths (fwd_plan): 1, 2, or 0 when the
+// device cannot be asked.
+extern "C" int hg_row_mlp_fwd_route(int din, int h, int nb, int na) {
+  return fwd_plan(din, h, nb, na);
+}
+
 // One row_mlp launch; returns the cudaError_t (0 = success).  mode 0: the
-// forward (out [E, H]); mode 1: the backward (dtri [E, Din], dxji, dxe
-// [E, H], each or null; `partial` [n_parts, wgrad size] scratch, `wgrad`
-// the reduced [dW | db]).  Pointers are device pointers; launches go on
-// `stream` and do not synchronise.
+// forward (out [E, H]; route 1's grid is min(n_parts, 16-row tiles)
+// blocks; `route` 0 takes the widths' own, hg_row_mlp_fwd_route, 1 or 2
+// that one where the widths admit it); mode 1: the backward (dtri [E,
+// Din], dxji, dxe [E, H], each or null; `partial` [n_parts, wgrad size]
+// scratch, `wgrad` the reduced [dW | db]; route 0, the widths' own).
+// Pointers are device pointers; launches go on `stream` and do not
+// synchronise.
 extern "C" int hg_row_mlp_f32(
     int mode, const void* tri, const void* xji, const void* xe,
     const void* w, const void* bias, const void* gout, void* out, void* dtri,
     void* dxji, void* dxe, void* partial, void* wgrad, int n_rows, int din,
-    int h, int nb, int na, int n_parts, void* stream) {
+    int h, int nb, int na, int n_parts, int route, void* stream) {
   if (n_rows <= 0) return 0;
   if (din < 1 || din > kMaxH || h < 1 || h > kMaxH || nb < 0 || na < 0 ||
-      mode < 0 || mode > 1 ||
+      mode < 0 || mode > 1 || n_parts < 1 || route < 0 || route > 2 ||
       (mode == 0 && out == nullptr) ||
       (mode == 1 && (gout == nullptr || partial == nullptr ||
-                     wgrad == nullptr || n_parts < 1)))
+                     wgrad == nullptr || route != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p{};
   p.tri = static_cast<const float*>(tri);
@@ -929,6 +1255,26 @@ extern "C" int hg_row_mlp_f32(
   p.L = 2 + 2 * (nb + na);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (mode == 0) {
+    const int own = fwd_plan(din, h, nb, na);
+    if (own == 0 || (route == 1 && own != 1))
+      return static_cast<int>(cudaErrorInvalidValue);
+    if ((route == 0 ? own : route) == 1) {
+      p.rb = kFwdTcRows;
+      p.n_tiles = (n_rows + kFwdTcRows - 1) / kFwdTcRows;
+      const auto a16 = [](const void* q) {
+        return reinterpret_cast<uintptr_t>(q) % 16 == 0;
+      };
+      p.vec_d = din % 4 == 0 && a16(tri);
+      p.vec_h = h % 4 == 0 && a16(xji) && a16(xe) && a16(out);
+      const int grid = n_parts < p.n_tiles ? n_parts : p.n_tiles;
+      switch (p.L) {
+        case 2: return launch_fwd_tc<2>(p, grid, st);
+        case 4: return launch_fwd_tc<4>(p, grid, st);
+        case 6: return launch_fwd_tc<6>(p, grid, st);
+        case 8: return launch_fwd_tc<8>(p, grid, st);
+        default: return static_cast<int>(cudaErrorInvalidValue);
+      }
+    }
     p.rb = kFwdRows;
     p.n_tiles = (n_rows + p.rb - 1) / p.rb;
     const size_t smem = sizeof(float) *
@@ -939,12 +1285,12 @@ extern "C" int hg_row_mlp_f32(
     row_mlp_fwd_kernel<<<p.n_tiles, kFwdThreads, smem, st>>>(p);
     return static_cast<int>(cudaGetLastError());
   }
-  const int route = bwd_plan(din, h, nb, na, &p.rb);
-  if (route == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int bwd = bwd_plan(din, h, nb, na, &p.rb);
+  if (bwd == 0) return static_cast<int>(cudaErrorInvalidValue);
   p.n_tiles = (n_rows + p.rb - 1) / p.rb;
   const int grid = n_parts < p.n_tiles ? n_parts : p.n_tiles;
   int rc = static_cast<int>(cudaErrorInvalidValue);
-  if (route == 1) {
+  if (bwd == 1) {
     switch (p.L) {
       case 2: rc = launch_tc<2>(p, grid, st); break;
       case 4: rc = launch_tc<4>(p, grid, st); break;

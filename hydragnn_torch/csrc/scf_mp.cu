@@ -256,17 +256,6 @@ constexpr int kTcMaxF = 256;    // route 1: F a multiple of 8 up to 256
                                 //   (8 warps x 32 columns), G <= 64
 constexpr int kTcMaxG = 64;
 
-// x = hi + lo for the tensor cores: hi rounded to tf32 by two integer
-// operations (passp::split_ih), lo = x - hi (exact) passed as it is: the
-// tensor cores read a tf32 operand's top 19 bits, so lo is truncated where
-// passp::split rounds it (both near 2^-22 of x), without the conversion's
-// instruction sequence
-__device__ __forceinline__ void split_tc(float x, uint32_t& hi,
-                                        uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
 // dst (shared) = 16 bytes of src (global), or zeros when !valid
 __device__ __forceinline__ void cp_async16(float* dst, const float* src,
                                            bool valid) {

@@ -73,6 +73,7 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         "hg_gat_f32": (_I,) + (_P,) * 16 + (_I, _I, _I, _F, _I, _I, _P),
         # hf, f
         "hg_gat_pass_s_route": (_I,) * 2,
+        "hg_gat_pass_r_route": (_I,) * 2,
     },
     "cgcnn_mp": {
         # x, ea, send, row_ptr, wfr, wfs, wfg, bf, wsr, wss, wsg, bs,
@@ -114,11 +115,12 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     },
     "row_mlp": {
         # mode, tri, xji, xe, w, bias, gout, out, dtri, dxji, dxe, partial,
-        # wgrad, n_rows, din, h, nb, na, n_parts, stream
-        "hg_row_mlp_f32": (_I,) + (_P,) * 12 + (_I,) * 6 + (_P,),
+        # wgrad, n_rows, din, h, nb, na, n_parts, route, stream
+        "hg_row_mlp_f32": (_I,) + (_P,) * 12 + (_I,) * 7 + (_P,),
         # din, h, nb, na
         "hg_row_mlp_wgrad_size": (_I,) * 4,
         "hg_row_mlp_bwd_route": (_I,) * 4,
+        "hg_row_mlp_fwd_route": (_I,) * 4,
     },
     "poly_mp": {
         # src, senders, mask, row_ptr, o_sum, o_sq, o_mxmn, o_cnt,

@@ -28,15 +28,16 @@ Backward, with ``m`` frozen and ``p = exp(e - m[dst])`` recomputed per edge:
 
 Three kernels, hand-written in CUDA C++ for Hopper (csrc/gat_mp.cu, built
 by kernels/build.py): the forward, pass R (with its block-order partial
-sum of ``d att``) and pass S.  The forward and pass R sum every logit over
-its head's lanes in lane order, as :func:`edge_logits` does, so the
-kernels' ``m`` equals the plain version's bit for bit.  Pass S has two
-routes by width (:func:`pass_s_route`): route 1 (every path's widths)
-sums each head's logit and ``q`` across the warp's lanes, each lane's
-slots of the head in order, then a fixed butterfly (offsets 16, 8, 4, 2,
-1, done as a reduce-scatter), several edges' loads in flight; route 2 is
-the first design.  Pass S
-only reads ``m`` (``p = exp(e - m)``), so its other order moves ``p`` by
+sum of ``d att``) and pass S.  The forward sums every logit over its
+head's lanes in lane order, as :func:`edge_logits` does, so the kernel's
+``m`` equals the plain version's bit for bit.  Pass R and pass S have two
+routes each, chosen by width alike (:func:`lane_route`): route 1 (every
+path's widths) sums each head's logit and ``q`` across the warp's lanes,
+each lane's slots of the head in order, then a fixed butterfly (offsets
+16, 8, 4, 2, 1, done as a reduce-scatter), several edges' loads in
+flight (pass R also keeps each lane's ``d att`` slots in registers over
+its warp's rows); route 2 is the first design.  The backward passes only
+read ``m`` (``p = exp(e - m)``), so route 1's other order moves ``p`` by
 a rounding of ``e``, within the kernels' tolerance.
 
 Each leaf takes a CPU tensor to its plain PyTorch version (the CPU path and
@@ -214,28 +215,33 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-# pass S's route 1: at most 8 slots of 32 lanes a head (F <= 256), 32
-# slots a lane in all and 16 heads
-PASS_S_MAX_SLOTS = 32
-PASS_S_MAX_HEADS = 16
+# route 1 of pass R and pass S: at most 8 slots of 32 lanes a head (F <=
+# 256), 32 slots a lane in all and 16 heads
+ROUTE1_MAX_SLOTS = 32
+ROUTE1_MAX_HEADS = 16
 
 
 def head_slots(f):
-    """Slots of 32 columns that pass S's route 1 gives a head of width
-    ``f``: ``ceil(f / 32)`` rounded up to 1, 2, 4 or 8; 0 past 8."""
+    """Slots of 32 columns that route 1 gives a head of width ``f``:
+    ``ceil(f / 32)`` rounded up to 1, 2, 4 or 8; 0 past 8."""
     s = -(-f // 32)
     return next((t for t in (1, 2, 4, 8) if s <= t), 0)
 
 
-def pass_s_route(hf, f):
-    """Pass S's route at these widths, as ``hg_gat_pass_s_route`` decides
-    it on the card: 1 where a head takes at most 8 slots, the ``hf / f``
-    heads at most 32 and there are at most 16 heads (the gat cell's 6 x 64
-    and gat_h256's head groups of 3 x 256 among them), else 2 (the first
+def lane_route(hf, f):
+    """The route of pass R and of pass S at these widths, as
+    ``hg_gat_pass_r_route`` and ``hg_gat_pass_s_route`` decide it on the
+    card: 1 where a head takes at most 8 slots, the ``hf / f`` heads at
+    most 32 and there are at most 16 heads (the gat cell's 6 x 64 and
+    gat_h256's head groups of 3 x 256 among them), else 2 (the first
     design)."""
     s, h = head_slots(f), hf // f
-    return 1 if (s and h * s <= PASS_S_MAX_SLOTS
-                 and h <= PASS_S_MAX_HEADS) else 2
+    return 1 if (s and h * s <= ROUTE1_MAX_SLOTS
+                 and h <= ROUTE1_MAX_HEADS) else 2
+
+
+# the two passes share the rule
+pass_r_route = pass_s_route = lane_route
 
 
 def launch_gat(op, xl, xr, att, senders, receivers, perm, row_ptr, b_edge,
@@ -243,7 +249,7 @@ def launch_gat(op, xl, xr, att, senders, receivers, perm, row_ptr, b_edge,
     """One launch of the GAT kernel in the mode ``op`` names, on a
     precomputed CSR schedule ``row_ptr`` (receiver order for the forward
     and pass R; sender order through ``perm`` for pass S).  ``route``
-    (pass S only): 0 takes the widths' own (:func:`pass_s_route`), 1 or 2
+    (passes R and S): 0 takes the widths' own (:func:`lane_route`), 1 or 2
     asks for that one (the card checks time the first design beside route
     1).  Returns:
 
@@ -290,12 +296,12 @@ def launch_gat(op, xl, xr, att, senders, receivers, perm, row_ptr, b_edge,
         datt = torch.zeros((h, f), dtype=torch.float32, device=dev)
     if mode == 2:
         _require(perm, "sender_perm", torch.int32, (e,), dev)
-        if route not in (0, 1, 2) or (route == 1
-                                      and pass_s_route(hf, f) != 1):
-            raise ValueError(f"gat pass S takes route 0, 2, or 1 at its "
-                             f"widths; got {route} at H*F={hf}, F={f}")
-    elif route != 0:
-        raise ValueError(f"{op} has one route")
+    if mode == 0:
+        if route != 0:
+            raise ValueError(f"{op} has one route")
+    elif route not in (0, 1, 2) or (route == 1 and lane_route(hf, f) != 1):
+        raise ValueError(f"{op} takes route 0, 2, or 1 at its widths; got "
+                         f"{route} at H*F={hf}, F={f}")
     if n > 0:
         lib = load_library("gat_mp")
         with torch.cuda.device(dev):

@@ -14,11 +14,16 @@ has no bias).  Rows are independent; ``tri [E, Din]``, ``x_ji``, ``x_edge
 
 Kernels hand-written in CUDA C++ for Hopper (csrc/row_mlp.cu, built by
 kernels/build.py): the forward (the reference's ``_post_fwd``) walks the
-L = 2 + 2 (n_before + n_after) layers on a tile of rows held in shared
-memory; the backward (``_post_vjp_bwd``) recomputes the chain per tile and
-walks it backwards, writing d tri, d x_ji and d x_edge per row and summing
-every dW and db into per-block partials of a persistent grid, reduced in a
-fixed order.  The backward takes one of two routes by width
+L = 2 + 2 (n_before + n_after) layers on a tile of rows, by one of two
+routes (:func:`fwd_route`): at Din, H <= 64 with at most three residual
+pairs every weight stays in shared memory, each warp walks its own 16-row
+tiles (:func:`fwd_tiles`) and the products run on the tensor cores in
+3xTF32; past that, a block's tile of 32 rows is held in shared memory
+and each layer's weight staged from L2 per tile, the products on the
+CUDA cores.  The backward (``_post_vjp_bwd``) recomputes the chain per
+tile and walks it backwards, writing d tri, d x_ji and d x_edge per row
+and summing every dW and db into per-block partials of a persistent grid,
+reduced in a fixed order.  The backward takes one of two routes by width
 (:func:`bwd_route`): at Din, H <= 64 with at most three residual pairs
 every weight stays in shared memory, the weight gradients in registers,
 and the products run on the tensor cores in 3xTF32; past that, a tile's
@@ -154,6 +159,44 @@ def pack_weights(wb, din, h, dev):
     return w.contiguous(), b.contiguous()
 
 
+# the forward's route 1 (row_mlp_fwd_tc_kernel): Din, H up to this width,
+# at most this many layers; 16 warps a block, each on its own 16-row tiles
+TC_WIDTH = 64
+TC_MAX_LAYERS = 8
+FWD_TC_WARPS = 16
+FWD_TC_ROWS = 16
+
+
+def fwd_route(din, h, n_before, n_after):
+    """The forward kernel's route at these widths, as
+    ``hg_row_mlp_fwd_route`` decides it on the card: 1 (weights resident,
+    each warp on its own 16-row tiles, tensor cores in 3xTF32) at Din, H <=
+    64 with at most 8 layers (three residual pairs), the arch sweep's
+    DimeNet (64, 64, 1, 2) among them; 2 (the first design) otherwise.
+    Needs no library: it assumes the card's opt-in shared memory holds
+    route 1's weights and its warps' running h (194 KB at 8 layers; the
+    H100 opts in to 227 KB), which the C side also checks."""
+    return 1 if (din <= TC_WIDTH and h <= TC_WIDTH
+                 and n_dense(n_before, n_after) <= TC_MAX_LAYERS) else 2
+
+
+def fwd_tiles(n_rows, n_parts):
+    """Route 1's plan on ``n_rows`` rows with ``n_parts`` blocks at most
+    (the launch passes the card's SM count): ``(grid, tiles)``, the grid
+    ``min(n_parts, ceil(n_rows / 16))`` and ``tiles[(block, warp)]`` the
+    ``(first row, rows)`` of each of that warp's 16-row tiles in the order
+    it walks them: tile ``warp * grid + block``, then every ``16 * grid``
+    after it, as ``row_mlp_fwd_tc_kernel`` takes them."""
+    n_tiles = -(-n_rows // FWD_TC_ROWS)
+    grid = min(n_parts, n_tiles)
+    step = grid * FWD_TC_WARPS
+    tiles = {(blk, w): [(t * FWD_TC_ROWS,
+                         min(FWD_TC_ROWS, n_rows - t * FWD_TC_ROWS))
+                        for t in range(w * grid + blk, n_tiles, step)]
+             for blk in range(grid) for w in range(FWD_TC_WARPS)}
+    return grid, tiles
+
+
 def bwd_route(din, h, n_before, n_after):
     """The backward kernel's route at these widths on the current card: 1
     (weights resident, tensor cores), 2 (weights staged per tile, CUDA
@@ -165,12 +208,14 @@ def bwd_route(din, h, n_before, n_after):
 
 
 def launch_row_mlp(op, tri, x_ji, x_edge, w, b, n_before, n_after, gout=None,
-                   want=(True,) * 3):
+                   want=(True,) * 3, route=0):
     """One launch of the row_mlp kernel on packed weights: the forward
     ``dimenet_post_mlp`` returns ``out [E, H]``; the backward
     ``dimenet_post_mlp_bwd`` ``(d tri, d x_ji, d x_edge, wgrad)``, the first
     three None where ``want`` says so, ``wgrad`` the reduced ``[dW packed |
-    db L*H]``."""
+    db L*H]``.  ``route`` (the forward only): 0 takes the widths' own
+    (:func:`fwd_route`), 1 or 2 asks for that one (the card checks time
+    the first design beside route 1)."""
     from hydragnn_torch.kernels.build import load_library
 
     dev = x_edge.device
@@ -189,10 +234,18 @@ def launch_row_mlp(op, tri, x_ji, x_edge, w, b, n_before, n_after, gout=None,
     lib = load_library("row_mlp")
     fwd = op == "dimenet_post_mlp"
     out = dtri = dxji = dxe = partial = wgrad = None
-    n_parts = 0
+    # the forward's route-1 grid and the backward's: one block per SM
+    n_parts = torch.cuda.get_device_properties(dev).multi_processor_count
     if fwd:
+        if route not in (0, 1, 2) or (
+                route == 1 and fwd_route(din, h, n_before, n_after) != 1):
+            raise ValueError(f"the row_mlp forward takes route 0, 2, or 1 "
+                             f"at its widths; got {route} at Din={din}, "
+                             f"H={h}, {L} layers")
         out = torch.empty((e, h), dtype=torch.float32, device=dev)
     else:
+        if route != 0:
+            raise ValueError(f"{op} takes route 0")
         _require(gout, "dout", torch.float32, (e, h), dev)
         if bwd_route(din, h, n_before, n_after) == 0:
             raise ValueError(
@@ -206,9 +259,7 @@ def launch_row_mlp(op, tri, x_ji, x_edge, w, b, n_before, n_after, gout=None,
         if want[2]:
             dxe = torch.empty((e, h), dtype=torch.float32, device=dev)
         size = lib.hg_row_mlp_wgrad_size(din, h, n_before, n_after)
-        # a persistent grid, one block and one partial per SM (131 KB
-        # each at H = 64)
-        n_parts = torch.cuda.get_device_properties(dev).multi_processor_count
+        # a persistent grid, one partial per block (131 KB each at H = 64)
         partial = torch.empty((n_parts, size), dtype=torch.float32,
                               device=dev)
         wgrad = torch.empty((size,), dtype=torch.float32, device=dev)
@@ -219,7 +270,8 @@ def launch_row_mlp(op, tri, x_ji, x_edge, w, b, n_before, n_after, gout=None,
                 0 if fwd else 1, tri.data_ptr(), x_ji.data_ptr(),
                 x_edge.data_ptr(), w.data_ptr(), b.data_ptr(), _ptr(gout),
                 _ptr(out), _ptr(dtri), _ptr(dxji), _ptr(dxe), _ptr(partial),
-                _ptr(wgrad), e, din, h, n_before, n_after, n_parts, stream)
+                _ptr(wgrad), e, din, h, n_before, n_after, n_parts, route,
+                stream)
         _check_rc(rc, op)
         LAUNCHES[op] += 1
     elif wgrad is not None:

@@ -20,13 +20,14 @@ the three egcl kernels at every width the EGNN gate admits (both routes
 of pass P, a float64 yardstick, a NaN in the cotangent) and on an
 all-masked batch, three
 EGNN training steps at md17's widths, the three GAT kernels at H*F from 32
-to the kernel limit of 1024, with and without dropout bits, three GAT
+to the kernel limit of 1024, with and without dropout bits (pass R's and
+pass S's two routes alone), three GAT
 training steps in lockstep, the three cgcnn kernels at F from 1 to the
 limit of 256 with and without edge attributes, three CGCNN training
 steps in lockstep at F = 64, the pallas backend's two segment sums, a
 double backward through the linear Functions, card against CPU, the
 dn_tri and row_mlp kernels at every width their gates admit (the dn_tri
-forward's two routes), three
+and row_mlp forwards' two routes), three
 DimeNet training steps in lockstep at the arch sweep's widths, the
 builder's three kernels from the dimenet_wide cell's widths to the limits
 (both routes of the forward, a float64 yardstick, NaNs in its inputs),
@@ -963,6 +964,76 @@ def test_gat_pass_s_routes_on_card(cuda, h, f, bits):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("bits", [False, True], ids=["ones", "dropout"])
+@pytest.mark.parametrize("h,f", [(6, 64), (3, 256), (4, 8), (3, 12),
+                                 (8, 128), (16, 32), (1, 96), (24, 16),
+                                 (40, 1)],
+                         ids=["HF384", "HF768", "HF32", "HF36", "HF1024",
+                              "HF512-H16", "HF96-H1", "HF384-F16",
+                              "HF40-F1"])
+def test_gat_pass_r_routes_on_card(cuda, h, f, bits):
+    """GAT pass R alone on the forward's m, as the backward launches it:
+    its route the plan's (``hg_gat_pass_r_route`` equals
+    ``gat_mp.pass_r_route``, pass S's rule); route 1 (head sums across
+    lanes, edges in flight, d att partials in registers) where the widths
+    take it; both routes within 1e-5 (dxr) and 1e-4 (d att, a sum over
+    every edge in another order) of the plain version's largest entry,
+    bit-identical twice; rows without a real incoming edge exactly zero;
+    route 1 refused where the widths do not take it.  Node 0 receives 200
+    extra edges, so its row spans seven groups of 32 sender ids."""
+    from hydragnn_torch.kernels.build import load_library
+    from hydragnn_torch.ops import gat_mp
+    from hydragnn_torch.ops.aggregate import segment_offsets
+
+    b = _graph_batch(61 + h + f, hub=200)
+    n = len(b["node_gid"])
+    e = len(b["senders"])
+    g = torch.Generator().manual_seed(2 * h + f)
+    xl, xr, ga = (torch.randn(n, h * f, generator=g).to(cuda)
+                  for _ in range(3))
+    att = (torch.randn(h, f, generator=g) / f ** 0.5).to(cuda)
+    gd = torch.randn(n, h, generator=g).to(cuda)
+    bb = None
+    if bits:
+        bb = ((torch.rand(e, h, generator=g) < 0.75).float() / 0.75).to(cuda)
+    send, recv = _t(b["senders"]).to(cuda), _t(b["receivers"]).to(cuda)
+    em = _t(b["edge_mask"]).to(cuda)
+    ptr_r = segment_offsets(recv, n, em)
+    own = gat_mp.pass_r_route(h * f, f)
+    assert own == gat_mp.pass_s_route(h * f, f)
+    assert load_library("gat_mp").hg_gat_pass_r_route(h * f, f) == own
+    with torch.no_grad():
+        _, m, _ = gat_mp.gat_edge_attention_reference(xl, xr, att, send,
+                                                      recv, em, bb, 0.05)
+
+        def launch(route):
+            return gat_mp.launch_gat("gat_edge_attention_pass_r", xl, xr, att,
+                                     send, recv, None, ptr_r, bb, 0.05, m,
+                                     ga, gd, route=route)
+
+        plain = gat_mp.gat_pass_r_plain(xl, xr, att, send, recv, em, bb, m,
+                                        ga, gd, 0.05)
+        routes = [2] + ([1] if own == 1 else [])
+        if own == 2:
+            with pytest.raises(ValueError, match="route"):
+                launch(1)
+        no_in = ~torch.isin(torch.arange(n, device=cuda), recv[em != 0])
+        assert bool(no_in.any())
+        for route in routes:
+            got = launch(route)
+            again = launch(route)
+            torch.cuda.synchronize()
+            for name, x_, y_, z_, tol in zip(("dxr", "datt"), got, again,
+                                             plain, (1e-5, 1e-4)):
+                assert torch.equal(x_, y_), (route, name)
+                assert float((x_ - z_).abs().max()) <= tol * float(
+                    z_.abs().max()), (route, name)
+            assert bool((got[0][no_in] == 0).all()), route
+        for x_, y_ in zip(launch(0), launch(own)):
+            assert torch.equal(x_, y_)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dropout", [0.0, 0.25])
 def test_gat_train_steps_on_card_match_cpu(cuda, monkeypatch, dropout):
     """GAT at the arch-sweep widths (hidden 64, 6 heads, 4 convs): three
@@ -1477,12 +1548,14 @@ def test_dn_tri_kernels_match_plain_on_card(cuda, s, r, b, d, all_masked):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("fwd", [1, 2], ids=["fwd-route1", "fwd-route2"])
 @pytest.mark.parametrize("din,h,nb,na,e,route", [
     (64, 64, 1, 2, 1003, 1), (64, 64, 1, 2, 100, 1), (16, 24, 1, 2, 1003, 1),
     (8, 8, 0, 0, 1003, 1), (40, 33, 0, 3, 1003, 1), (64, 64, 2, 2, 1003, 2),
     (65, 65, 1, 2, 1003, 2), (128, 128, 1, 2, 1003, 2),
     (32, 128, 3, 1, 1003, 2)])
-def test_row_mlp_kernels_match_plain_on_card(cuda, din, h, nb, na, e, route):
+def test_row_mlp_kernels_match_plain_on_card(cuda, din, h, nb, na, e, route,
+                                             fwd):
     """The row_mlp forward and backward through the autograd Function
     against autograd through the composed chain, on both routes of the
     backward and across their boundary: route 1 (weights resident, tensor
@@ -1490,19 +1563,28 @@ def test_row_mlp_kernels_match_plain_on_card(cuda, din, h, nb, na, e, route):
     after; also on 100 rows, fewer 16-row tiles than the card has SMs), the
     JAX test's (16, 24), no residual pairs, and widths that pad to 64 with
     three pairs; route 2 at H = 64 with four pairs, H = 65, the limit 128
-    (8- or 16-row tiles), and Din < H with more pairs.  Forward, d tri, d
-    x_ji, d x_edge 1e-5 of their largest entry, the row-summed weight and
-    bias grads 1e-4; on route 1 every gradient also within the float64
-    bound (:func:`_float64_yardstick`; route 2, the first design on the
-    CUDA cores, lies just past it for d x_edge at H = 128, on an H100:
-    1.04e-6 of the largest entry); a second run bit-identical;
-    rows not a multiple of a tile; then each of tri, x_ji, x_edge left
-    without a gradient in turn (the backward's ``want``), the others
-    unchanged; a NaN in the cotangent in the same gradient entries as the
-    composed chain's."""
+    (8- or 16-row tiles), and Din < H with more pairs.  The forward's
+    route is the backward's at each of these widths, on the card
+    (``hg_row_mlp_fwd_route``) as in the plan (``row_mlp.fwd_route``).
+    Forward, d tri, d x_ji, d x_edge 1e-5 of their largest entry, the
+    row-summed weight and bias grads 1e-4; on route 1 every output also
+    within the float64 bound (:func:`_float64_yardstick`; route 2, the
+    first design on the CUDA cores, lies just past it for d x_edge at H =
+    128, on an H100: 1.04e-6 of the largest entry); a second run
+    bit-identical; rows not a multiple of a tile; the forward also
+    launched alone on the route ``fwd`` asks for (route 1 refused where
+    the widths do not take it): 1e-5, bit-identical twice, route 1 within
+    the float64 bound; then each of tri, x_ji, x_edge left without a
+    gradient in turn (the backward's ``want``), the others unchanged; a
+    NaN in the cotangent in the same gradient entries as the composed
+    chain's."""
+    from hydragnn_torch.kernels.build import load_library
     from hydragnn_torch.ops import row_mlp
 
     assert row_mlp.bwd_route(din, h, nb, na) == route
+    assert row_mlp.fwd_route(din, h, nb, na) == route
+    assert load_library("row_mlp").hg_row_mlp_fwd_route(din, h, nb,
+                                                        na) == route
     g = torch.Generator().manual_seed(din + h)
     ins = [torch.randn(e, din, generator=g), torch.randn(e, h, generator=g),
            torch.randn(e, h, generator=g)]
@@ -1538,8 +1620,28 @@ def test_row_mlp_kernels_match_plain_on_card(cuda, din, h, nb, na, e, route):
     for i, (x_, y_, z_) in enumerate(zip(k[0], p[0], p64[0])):
         assert float((x_ - y_).abs().max()) <= 1e-5 * float(
             y_.abs().max()), i
-        if i and route == 1:
-            _float64_yardstick(f"input {i}", x_, y_, z_)
+        if route == 1:
+            _float64_yardstick(f"output {i}", x_, y_, z_)
+    # the forward alone on the route asked for
+    w_p, b_p = row_mlp.pack_weights(wb, din, h, cuda)
+
+    def forward(route_):
+        return row_mlp.launch_row_mlp("dimenet_post_mlp", *ins, w_p, b_p, nb,
+                                      na, route=route_)
+
+    if fwd == 1 and route != 1:
+        with pytest.raises(ValueError, match="route"):
+            forward(1)
+    else:
+        with torch.no_grad():
+            got, again = forward(fwd), forward(fwd)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        assert float((got - p[0][0]).abs().max()) <= 1e-5 * float(
+            p[0][0].abs().max())
+        if fwd == 1:
+            _float64_yardstick("forward, route 1", got, p[0][0], p64[0][0])
+            assert torch.equal(got, k[0][0])
     for i, (x_, y_, z_) in enumerate(zip(k[1], p[1], p64[1])):
         assert float((x_ - y_).abs().max()) <= 1e-4 * float(
             y_.abs().max()), f"wb {i}"

@@ -1,9 +1,11 @@
 """Host-side planning of the builder forward's and pass S's and egcl pass
 P's tensor-core routes (hydragnn_torch/ops/dn_tri.py, ops/egcl_mp.py,
-ops/aggregate.py ``row_shares``): the route by width, the shares of rows
-that the kernels' warps (builder forward and pass S) or blocks (egcl pass
-P) take, and the weight-gradient jobs of egcl pass P; the cgcnn forward as
-its kernel computes it (the node table, then each receiver row's sum in
+ops/aggregate.py ``row_shares``) and of the row_mlp forward's
+(ops/row_mlp.py ``fwd_route``, ``fwd_tiles``): the route by width, the
+shares of rows that the kernels' warps (builder forward and pass S, the
+row_mlp forward's 16-row tiles) or blocks (egcl pass P) take, and the
+weight-gradient jobs of egcl pass P; the cgcnn forward as its kernel
+computes it (the node table, then each receiver row's sum in
 edge order); and the routes 1 of the scf filter-gather kernel (forward
 and pass S: the blocks' shares, 64-edge tiles, the weights' k steps, each
 row's sum in position order) and of the factored dn_tri forward (the A
@@ -25,7 +27,7 @@ import numpy as np
 import pytest
 import torch
 
-from hydragnn_torch.ops import cgcnn_mp, dn_tri, egcl_mp, scf_mp
+from hydragnn_torch.ops import cgcnn_mp, dn_tri, egcl_mp, row_mlp, scf_mp
 from hydragnn_torch.ops.aggregate import row_shares, segment_offsets
 
 
@@ -423,6 +425,47 @@ def test_dn_tri_forward_route_by_width(s, sr, b, d, route):
     16) among them; the first design keeps the rest, the limits (8, 64,
     64, 64) among them."""
     assert dn_tri.fwd_route(s, sr, b, d) == route
+
+
+@pytest.mark.parametrize("din,h,nb,na,route", [
+    (64, 64, 1, 2, 1), (16, 24, 1, 2, 1), (8, 8, 0, 0, 1), (40, 33, 0, 3, 1),
+    (1, 1, 3, 0, 1), (64, 65, 1, 2, 2), (65, 64, 1, 2, 2),
+    (128, 128, 1, 2, 2), (64, 64, 2, 2, 2), (64, 64, 4, 0, 2),
+    (64, 64, 0, 4, 2), (16, 24, 3, 1, 2)])
+def test_row_mlp_forward_route_by_width(din, h, nb, na, route):
+    """The row_mlp forward's route 1 (weights resident, each warp on its
+    own 16-row tiles, tensor cores) at the backward's route-1 widths: Din,
+    H <= 64 with at most three residual pairs (8 layers), the arch sweep's
+    DimeNet (64, 64, 1, 2) and the JAX test's (16, 24, 1, 2) among them;
+    the first design at H or Din = 65, H = 128 and four pairs."""
+    assert row_mlp.fwd_route(din, h, nb, na) == route
+
+
+@pytest.mark.parametrize("n_rows,n_parts", [
+    (1, 132), (15, 132), (100, 132), (1003, 132), (2111, 132), (4093, 132),
+    (57776, 132), (1003, 7), (33, 1)])
+def test_row_mlp_forward_tiles_cover_every_row_once(n_rows, n_parts):
+    """Route 1's plan: a grid of min(n_parts, 16-row tiles) blocks, each of
+    16 warps walking tiles w * grid + b, then every 16 * grid: every row in
+    exactly one tile of one warp, each tile 16 rows but the last, a warp's
+    tiles in increasing order; at row counts that are not a multiple of 16,
+    below the SM count (100 rows: 7 tiles, 7 blocks), around one and two
+    rounds of the card's 132 x 16 warps, the dimenet cell's 57776 rows, and
+    with fewer parts than tiles."""
+    grid, tiles = row_mlp.fwd_tiles(n_rows, n_parts)
+    n_tiles = -(-n_rows // 16)
+    assert grid == min(n_parts, n_tiles)
+    assert set(tiles) == {(b, w) for b in range(grid) for w in range(16)}
+    seen = torch.zeros(n_rows, dtype=torch.long)
+    for walk in tiles.values():
+        starts = [r0 for r0, _ in walk]
+        assert starts == sorted(starts)
+        for r0, nr in walk:
+            assert r0 % 16 == 0 and nr == min(16, n_rows - r0) and nr > 0
+            seen[r0:r0 + nr] += 1
+    assert bool((seen == 1).all())
+    counts = [len(w) for w in tiles.values()]
+    assert max(counts) - min(counts) <= 1
 
 
 def _scf_case(f, g, all_masked, seed):
