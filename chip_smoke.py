@@ -647,10 +647,11 @@ def pass_p_build_report():
     the redesigned kernels (scf and cgcnn pass P, the row_mlp forward's
     and backward's two routes, the dn_tri backward, the scf filter-gather
     kernel's and the dn_tri forward's routes 1, the builder's, cgcnn pass
-    S and GAT pass R's and pass S's routes 1) and, beside them, of the
-    kernels that share their sources (cgcnn's forward; the first designs
-    of GAT pass R and pass S; both first designs of the filter-gather
-    kernel and the dn_tri forward); and the
+    S, the GAT forward's, pass R's and pass S's routes 1 and egcl pass P's
+    and pass S's routes 1) and, beside them, of the kernels that share
+    their sources (cgcnn's forward; the first designs of the three GAT
+    kernels and of egcl's; both first designs of the filter-gather kernel
+    and the dn_tri forward); and the
     dynamic shared memory of one block of scf pass P, cgcnn pass P, the
     scf filter-gather route 1 and the dn_tri forward's route 1 at the
     main path's widths (the kernels' own layouts).  Fails when a source's
@@ -663,9 +664,10 @@ def pass_p_build_report():
             "cgcnn_mp": ("pass_p_kernel", "node_table_kernel",
                          "cgcnn_fwd_kernel", "pass_s_sums_kernel",
                          "row_product_kernel"),
-            # passes R and S: the routes 1 and the first design's
-            # instantiations
-            "gat_mp": ("gat_pass_r_kernel", "gat_pass_s_kernel",
+            # the forward, passes R and S: the routes 1 and the first
+            # design's instantiations
+            "gat_mp": ("gat_fwd_kernel", "gat_pass_r_kernel",
+                       "gat_pass_s_kernel", "gat_kernelILi0E",
                        "gat_kernelILi1E", "gat_kernelILi2E"),
             "row_mlp": ("row_mlp_fwd_tc_kernel", "row_mlp_fwd_kernel",
                         "row_mlp_bwd_tc_kernel", "row_mlp_bwd_kernel"),
@@ -673,7 +675,8 @@ def pass_p_build_report():
                        "fwd_tc_kernel"),
             "dn_tri_builder": ("fwd_tc_kernel", "tri_rows_kernel",
                                "tri_wgrad_kernel"),
-            "egcl_mp": ("pass_p_tc_kernel", "egcl_kernel")}
+            "egcl_mp": ("pass_p_tc_kernel", "pass_s_tc_kernel",
+                        "egcl_kernel")}
     kernels = []
     for src, names in keys.items():
         rep = ptxas_report(ptxas_log(src), names)
@@ -1343,9 +1346,15 @@ def egcl_phase(torch, g, seed):
     equivariant, pass P with no dx and no dgeo, no pass S).  Each through
     its autograd Function against autograd through the composed plain
     version: forward 1e-5, dx and dgeo 1e-5, the edge-summed weight grads
-    1e-4 of their largest entry; dgeo exactly zero on masked edges.  Then
-    each kernel timed alone as layers 1-2 launch it (pass P with dx and
-    dgeo, and its reduction), beside its plain version."""
+    1e-4 of their largest entry; dgeo exactly zero on masked edges.  Pass S
+    alone at layers 1-2 and layer 3: its route the plan's, route 1 (pass
+    P's tensor-core chain in receiver order) and route 2 (the first
+    design) within 1e-5 of the plain version's largest entry, route 1
+    bit-identical twice and zero on rows without a real incoming edge.
+    Then each kernel timed alone as layers 1-2 launch it (pass P with dx
+    and dgeo, and its reduction), beside its plain version; pass P and
+    pass S also as layer 3 (and pass P layer 0) launches them, pass S's
+    first design beside its route 1 (``route2_ms``)."""
     from hydragnn_torch.kernels.build import load_library
     from hydragnn_torch.models.layers import edge_geometry
     from hydragnn_torch.ops import egcl_mp as em_
@@ -1432,21 +1441,61 @@ def egcl_phase(torch, g, seed):
     ins, errs, moved = hold(True, f, True)
     ins_last, errs_last, moved_last = hold(False, f, True)
     ins_l0, errs_l0, moved_l0 = hold(True, 1, False)
+    ptr_r = segment_offsets(recv, n, em)
+    nodes = torch.arange(n, device=dev)
+    no_in = ~torch.isin(nodes, recv[real])
+    lib = load_library("egcl_mp")
+
+    def pass_s_launch(equivariant, ins_, route):
+        ws_ = em_.kernel_weights(equivariant, *(ins_[2:] + [None] * (
+            9 - len(ins_))), f, h, dev)
+        return lambda: em_.launch_egcl(
+            "egcl_block_pass_s", equivariant, ins_[0], geo, ws_, send, recv,
+            None, ptr_r, ca, cp if equivariant else None, route=route)
+
+    def hold_pass_s(equivariant, ins_):
+        """Pass S alone: both routes against the plain version, route 1
+        twice."""
+        what = f"egcl pass S (equivariant={equivariant}, F={f})"
+        got = lib.hg_egcl_pass_s_route(f, h, gp, int(equivariant))
+        check(got == em_.pass_s_route(f, h, gp, equivariant) == 1,
+              f"{what}: route {got} on the card, the plan's and the path's "
+              "is 1")
+        full = ins_ + [None] * (9 - len(ins_))
+        with torch.no_grad():
+            runs = [pass_s_launch(equivariant, ins_, r)() for r in (1, 1, 2)]
+            plain = em_.egcl_pass_s_plain(
+                equivariant, ins_[0], geo, em, *full[2:], send, recv, ca,
+                cp if equivariant else None)
+        torch.cuda.synchronize()
+        check(torch.equal(runs[0], runs[1]),
+              f"{what}: route 1 differs on a second run")
+        check(bool((runs[0][no_in] == 0).all()),
+              f"{what}: route 1 wrote a row without a real incoming edge")
+        out = {}
+        for route, k in ((1, runs[0]), (2, runs[2])):
+            err = rel_err(torch, k, plain)
+            check(err[1] <= REL_TOL_KERNEL, f"{what}: route {route} "
+                  f"disagrees with its plain version: {err[1]}")
+            out[f"route{route}"] = {"max_abs_err": err[0],
+                                    "max_rel_err": err[1]}
+        return out
+
+    pass_s_errs = {"layers_1_2": hold_pass_s(True, ins),
+                   "layer_3": hold_pass_s(False, ins_last)}
 
     e_valid = int(real.sum())
     n_valid = int((g.node_mask != 0).sum())
     x = ins[0]
     ws = em_.kernel_weights(True, *ins[2:], f, h, dev)
     ptr_s = segment_offsets(send[perm.long()], n, em[perm.long()])
-    ptr_r = segment_offsets(recv, n, em)
     plain_args = (True, x, geo, em, *ins[2:], send, recv, ca, cp)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-    fwd_fl, _, s_fl = egcl_flops(f, h, gp, True, e_valid, n_valid)
+    fwd_fl = egcl_flops(f, h, gp, True, e_valid, n_valid)[0]
     wbytes = 4 * sum(t.numel() for t in ws if t is not None)
     # read once: x, the real edges' geo rows and ids (perm, send, recv),
     # row_ptr, the weights; cotangents dagg, dpsum for the backward
     edge_in = 4 * (n * f + e_valid * (3 + gp) + 3 * e_valid + n + 1) + wbytes
-    cot = 4 * n * (h + 3)
 
     def pass_p(equivariant, f_, ins_, data_grads):
         """Pass P as one instantiation launches it (layer 0: no dx, no
@@ -1470,7 +1519,6 @@ def egcl_phase(torch, g, seed):
                 want_dx=data_grads, want_geo=data_grads)
         return kern, bnd, route
 
-    lib = load_library("egcl_mp")
     for eq_, f_ in ((True, f), (False, f), (True, 1)):
         got = lib.hg_egcl_pass_p_route(f_, h, gp, int(eq_))
         check(got == em_.pass_p_route(f_, h, gp, eq_) == 1,
@@ -1478,6 +1526,19 @@ def egcl_phase(torch, g, seed):
               f"{got} on the card, {em_.pass_p_route(f_, h, gp, eq_)} "
               "planned, the path's route is 1")
     p_kern, p_bnd, p_route = pass_p(True, f, ins, True)
+
+    def pass_s_bound(equivariant, ins_):
+        """Pass S's bounds as its route 1 runs it: at 3xTF32, and on the
+        CUDA cores beside it.  Read once: x, the real edges' geo rows and
+        ids (send, recv), row_ptr, the weights, the cotangents dagg (and
+        dpsum); written once: dx."""
+        ws_ = em_.kernel_weights(equivariant, *(ins_[2:] + [None] * (
+            9 - len(ins_))), f, h, dev)
+        inb = (4 * (n * f + e_valid * (3 + gp) + 2 * e_valid + n + 1)
+               + 4 * sum(t_.numel() for t_ in ws_ if t_ is not None)
+               + 4 * n * (h + (3 if equivariant else 0)))
+        fl = egcl_flops(f, h, gp, equivariant, e_valid, n_valid)[2]
+        return tensor_core_bounds(inb + 4 * n * f, fl)
     launches = {
         "egcl_block": (
             lambda: em_.launch_egcl("egcl_block", True, x, geo, ws, send,
@@ -1491,10 +1552,9 @@ def egcl_phase(torch, g, seed):
             "hydragnn_tpu/ops/fused_block.py:561",
             ("dw0", "db0", "dw1", "db1", "dwc0", "dbc0", "dwc1", "dgeo")),
         "egcl_block_pass_s": (
-            lambda: em_.launch_egcl("egcl_block_pass_s", True, x, geo, ws,
-                                    send, recv, None, ptr_r, ca, cp),
+            pass_s_launch(True, ins, 0),
             lambda: em_.egcl_pass_s_plain(*plain_args),
-            bound(edge_in - 4 * e_valid + cot + 4 * n * f, s_fl),
+            pass_s_bound(True, ins),
             "hydragnn_tpu/ops/fused_block.py:599", ("dx",)),
     }
     results = []
@@ -1532,10 +1592,32 @@ def egcl_phase(torch, g, seed):
             results[-1]["ms_per_train_step"] = (
                 2 * by["layers_1_2"][0] + by["layer_3"][0]
                 + by["layer_0"][0])
+        if name == "egcl_block_pass_s":
+            # route 1 and the first design, at layers 1-2 (this row's ms)
+            # and layer 3, each once a train step
+            results[-1]["pass_s_route"] = em_.pass_s_route(f, h, gp, True)
+            results[-1]["route2_ms"] = time_ms(
+                torch, pass_s_launch(True, ins, 2), flush, lead=True)
+            b3 = pass_s_bound(False, ins_last)
+            results[-1]["by_instantiation"] = {
+                "layers_1_2": {
+                    "ms": results[-1]["ms"],
+                    "route2_ms": results[-1]["route2_ms"],
+                    "bound_ms": bnd[0], "bound_by": bnd[1],
+                    "bound_ms_cuda_cores": bnd[2]},
+                "layer_3": {
+                    "ms": time_ms(torch, pass_s_launch(False, ins_last, 0),
+                                  flush, lead=True),
+                    "route2_ms": time_ms(
+                        torch, pass_s_launch(False, ins_last, 2), flush,
+                        lead=True),
+                    "bound_ms": b3[0], "bound_by": b3[1],
+                    "bound_ms_cuda_cores": b3[2]}}
     notes = {k: {"max_abs_err": a, "max_rel_err": r}
              for k, (a, r) in errs.items()}
     notes["last_layer_F48"] = worst_of(errs_last)
     notes["layer0_F1"] = worst_of(errs_l0)
+    notes["pass_s_routes"] = pass_s_errs
     notes["bias_entries_moved_off_kinks"] = moved + moved_last + moved_l0
     return results, notes
 
@@ -1587,7 +1669,12 @@ def gat_phase(torch, g, seed):
     forward: acc, d, dxl and dxr 1e-5 of their largest entry, d att 1e-4
     (a sum over every edge of the batch in another order), m equal; rows
     without a real incoming edge read m = -1e9, d = 0 and zero dxr, rows
-    without any real edge zero dxl.  Pass S alone in each case: its route
+    without any real edge zero dxl.  The forward alone in each case: its
+    route and group U the plan's, route 1 (lane-order logits of U edges in
+    flight, one rescale a group) and route 2 (the first design) with m
+    equal to the plain version's and acc, d within 1e-5, route 1
+    bit-identical twice and (-1e9, 0, 0) on rows without a real incoming
+    edge.  Pass S alone in each case: its route
     the plan's, route 1 (head sums across lanes, edges in flight) and
     route 2 (the first design) 1e-5 of the plain version's largest entry,
     route 1 bit-identical twice and zero on rows that send no real edge.
@@ -1597,8 +1684,8 @@ def gat_phase(torch, g, seed):
     largest entry, route 1 bit-identical twice and dxr zero on rows without
     a real incoming edge.  Then each kernel timed alone in each of the four
     cases, beside its plain version and its bound, the first designs of
-    pass R and pass S beside them (``route2_ms``); the gat cell's case
-    (H*F = 384, no bits) makes the kernels line."""
+    the three beside them (``route2_ms``); the gat cell's case (H*F = 384,
+    no bits) makes the kernels line."""
     from hydragnn_torch.kernels.build import load_library
     from hydragnn_torch.ops import gat_mp as gm
     from hydragnn_torch.ops.aggregate import segment_offsets
@@ -1616,6 +1703,43 @@ def gat_phase(torch, g, seed):
     ptr_s = segment_offsets(send[perm.long()], n, mask[perm.long()])
     ptr_r = segment_offsets(recv, n, mask)
     lib = load_library("gat_mp")
+
+    def hold_fwd(ins, what):
+        """The forward alone: both routes against the plain version (m
+        equal), route 1 twice."""
+        xl, xr, att, b, _, _ = ins
+        h, f = att.shape
+        check(lib.hg_gat_fwd_route(h * f, f) == gm.fwd_route(h * f, f) == 1
+              and lib.hg_gat_fwd_group(h * f, f) == gm.fwd_group(h * f, f),
+              f"{what}: the forward's route or group on the card is not "
+              "the plan's route 1")
+        with torch.no_grad():
+            plain = gm.gat_edge_attention_reference(
+                xl, xr, att, send, recv, mask, b, GAT_SLOPE)
+            runs = [gm.launch_gat("gat_edge_attention", xl, xr, att, send,
+                                  recv, None, ptr_r, b, GAT_SLOPE, route=r)
+                    for r in (1, 1, 2)]
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, c) for a, c in zip(runs[0], runs[1])),
+              f"{what}: the forward (route 1) differs on a second run")
+        acc1, m1, d1 = runs[0]
+        check(bool((m1[no_in] == -1e9).all()) and bool((d1[no_in] == 0).all())
+              and bool((acc1[no_in] == 0).all()),
+              f"{what}: the forward (route 1) on a row without a real "
+              "incoming edge is not (-1e9, 0, 0)")
+        out = {"group": gm.fwd_group(h * f, f)}
+        for route, got in ((1, runs[0]), (2, runs[2])):
+            check(torch.equal(got[1], plain[1]), f"{what}: the forward "
+                  f"(route {route}) has another m than the plain version")
+            for name, k, pl in (("acc", got[0], plain[0]),
+                                ("d", got[2], plain[2])):
+                err = rel_err(torch, k, pl)
+                check(err[1] <= REL_TOL_KERNEL, f"{what}: the forward (route "
+                      f"{route}) {name} disagrees with its plain version: "
+                      f"{err[1]}")
+                out[f"route{route}_{name}"] = {"max_abs_err": err[0],
+                                               "max_rel_err": err[1]}
+        return out
 
     def hold_pass_s(ins, what):
         """Pass S alone on the forward's m: both routes against the plain
@@ -1729,6 +1853,7 @@ def gat_phase(torch, g, seed):
             tol = REL_TOL_WGRAD if name == "datt" else REL_TOL_KERNEL
             check(rel_e <= tol, f"{what}: {name} disagrees with the plain "
                   f"version under autograd: {rel_e} > {tol}")
+        errs["fwd"] = hold_fwd(ins, what)
         errs["pass_s"] = hold_pass_s(ins, what)
         errs["pass_r"] = hold_pass_r(ins, what)
         return ins, errs
@@ -1780,8 +1905,12 @@ def gat_phase(torch, g, seed):
         }
 
     def route2(ins, op):
-        """The first design of pass R or pass S (``op``) at these inputs."""
+        """The first design of the forward, pass R or pass S (``op``) at
+        these inputs."""
         xl, xr, att, b, ca, cd = ins
+        if op == "gat_edge_attention":
+            return lambda: gm.launch_gat(op, xl, xr, att, send, recv, None,
+                                         ptr_r, b, GAT_SLOPE, route=2)
         _, m, _ = gm.launch_gat("gat_edge_attention", xl, xr, att, send,
                                 recv, None, ptr_r, b, GAT_SLOPE)
         s_ = op == "gat_edge_attention_pass_s"
@@ -1805,10 +1934,11 @@ def gat_phase(torch, g, seed):
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "shape": {"N": n, "E": e, "E_valid": e_valid, "H": 6, "F": 64,
                       "bits": False}})
-        if name != "gat_edge_attention":
-            results[-1]["kernel_route"] = gm.lane_route(384, 64)
-            results[-1]["route2_ms"] = time_ms(torch, route2(ins, name),
-                                               flush, lead=True)
+        results[-1]["kernel_route"] = gm.lane_route(384, 64)
+        results[-1]["route2_ms"] = time_ms(torch, route2(ins, name), flush,
+                                           lead=True)
+        if name == "gat_edge_attention":
+            results[-1]["fwd_group"] = gm.fwd_group(384, 64)
     notes = {"rows_without_real_in_edge": int(no_in.sum()),
              "rows_without_real_out_edge": int(no_out.sum())}
     for (hf, bits), (case_ins, case_errs) in cases.items():
@@ -1819,15 +1949,17 @@ def gat_phase(torch, g, seed):
             for name, (kern, plain, (b_ms, b_by), _, _) in launches(
                 case_ins).items()]
         if (hf, bits) != (384, False):
-            for t_ in timed[1:]:
+            for t_ in timed:
                 t_["route2_ms"] = time_ms(torch, route2(case_ins, t_["name"]),
                                           flush, lead=True)
         case_errs = dict(case_errs)
+        fwd = case_errs.pop("fwd")
         pass_s = case_errs.pop("pass_s")
         pass_r = case_errs.pop("pass_r")
         notes[f"HF{hf}_{'bits' if bits else 'ones'}"] = {
             "errors": {k: {"max_abs_err": a, "max_rel_err": r}
                        for k, (a, r) in case_errs.items()},
+            "fwd_routes": fwd,
             "pass_s_routes": pass_s,
             "pass_r_routes": pass_r,
             "timing": {t["name"]: {k: t[k] for k in (

@@ -65,10 +65,30 @@
 // egcl_kernel<kPassP> — route 2, every other width up to the limits: the
 //   first design below (each block keeps its partial in shared memory
 //   beside the staged weights, or in device memory at H = 128).
-// egcl_kernel<kPassS> — backward pass S.  Replaces :_fused_bwd pass S
-//   (pl.pallas_call at :599).  Receiver order (edge ids are positions):
-//   recompute the chain and its backward up to dt0 with the cotangents
-//   gathered at the sender, and sum dx_receiver = dt0 . W0r^T per row.
+// Backward pass S.  Replaces :_fused_bwd pass S (pl.pallas_call at :599).
+//   Receiver order (edge ids are positions): recompute the chain and its
+//   backward up to dt0 with the cotangents gathered at the sender, and sum
+//   dx_receiver = dt0 . W0r^T per row.  Two routes, chosen by width
+//   (hg_egcl_pass_s_route):
+// tc::pass_s_tc_kernel — route 1: pass P's route-1 widths (F, H <= 48,
+//   gp <= 15: md17's and oc22's layers), pass P's machinery with pass S's
+//   roles.  Each of a block's 12 warps (one block per SM) owns one share
+//   of the receiver rows (passp::share_range over all the warps: rows
+//   plus edges balanced) and walks its positions in 16-edge tiles: it
+//   gathers the tile's x[s], x[r], geometry rows and the cotangents
+//   dagg[s], dpsum[s] with cp.async (zero-filled off real edges) and runs
+//   the chain on the tensor cores in 3xTF32, each product's accumulators
+//   the next one's A fragments: t0, a (kept as its signs), m, and when
+//   equivariant v, c, dcp and du0; dm = dagg[s] + du0 . Wc0^T, du, dt0 and
+//   dx = dt0 . W0r^T.  The per-edge dx rows are summed into their receiver
+//   rows in position order, a row's sum carried from one tile into the
+//   next (the rows of a share never leave its warp), and every row of the
+//   share is written once.  No weight-gradient jobs and no dgeo, so no
+//   block barrier after the weights are staged.  What held the first
+//   design back: CUDA cores, five block barriers a 32-edge tile, and the
+//   row sums added by one thread per column.
+// egcl_kernel<kPassS> — route 2, every other width up to the limits: the
+//   first design below.
 //
 // Bound on the H100 SXM: operations.  At md17's widths (F = H = 48) the
 // forward does ~19 kFLOP per real edge against ~0.4 KB of edge and node
@@ -83,8 +103,9 @@
 // thread computes EQ edges of one output column.  Where the weights (and,
 // for pass P, the partials) do not fit a block's shared memory (H = 128),
 // they are read from L2 and the partial lives in device memory; that path
-// is correct and slow.  The forward, pass S and route 2 of pass P run on
-// the CUDA cores; route 1 of pass P on the tensor cores (above).
+// is correct and slow.  The forward and the routes 2 of pass P and pass S
+// run on the CUDA cores; the routes 1 of pass P and pass S on the tensor
+// cores (above).
 //
 // Contract (collate guarantees it): positions are sorted by output row, so
 // each row owns one contiguous CSR range; masked edges sort last in both
@@ -813,6 +834,43 @@ __device__ __forceinline__ void chain_smem(float (&c)[NT][4], const float* T,
   }
 }
 
+// the weights into a block's shared memory (layout()), zero-padded: Wst
+// rows [0, Fp) W0s, [Fp, 2Fp) W0r, [2Fp, 2Fp + gp) W0g, 2Fp + gp b0, then
+// zeros; W1 and Wc0 [HP][ldw]; b1, bc0, wc1 [HP].  No barrier inside.
+template <bool EQUIV, int HP, int THREADS>
+__device__ __forceinline__ void stage_weights(const Params& p,
+                                              const Layout& L, float* sm) {
+  const int f = p.f, h = p.h, gp = p.gp, fp = L.fp, ldw = L.ldw;
+  float* wst = sm + L.wst;
+  for (int i = threadIdx.x; i < (2 * fp + kGW) * ldw; i += THREADS) {
+    const int r = i / ldw, c = i - r * ldw;
+    float v = 0.f;
+    if (c < h) {
+      if (r < fp) {
+        if (r < f) v = p.w[0][r * h + c];
+      } else if (r < 2 * fp) {
+        if (r - fp < f) v = p.w[1][(r - fp) * h + c];
+      } else if (r - 2 * fp < gp) {
+        v = p.w[2][(r - 2 * fp) * h + c];
+      } else if (r - 2 * fp == gp) {
+        v = p.w[3][c];
+      }
+    }
+    wst[i] = v;
+  }
+  for (int i = threadIdx.x; i < HP * ldw; i += THREADS) {
+    const int r = i / ldw, c = i - r * ldw;
+    const bool in = r < h && c < h;
+    sm[L.w1 + i] = in ? p.w[4][r * h + c] : 0.f;
+    if (EQUIV) sm[L.wc0 + i] = in ? p.w[6][r * h + c] : 0.f;
+  }
+  for (int c = threadIdx.x; c < HP; c += THREADS) {
+    sm[L.b1 + c] = c < h ? p.w[5][c] : 0.f;
+    sm[L.bc0 + c] = EQUIV && c < h ? p.w[7][c] : 0.f;
+    sm[L.wc1 + c] = EQUIV && c < h ? p.w[8][c] : 0.f;
+  }
+}
+
 template <bool EQUIV, int NT>
 __global__ void __launch_bounds__(kThreads, 1)
 pass_p_tc_kernel(const Params p) {
@@ -844,35 +902,7 @@ pass_p_tc_kernel(const Params p) {
   float* piece = dwc1_s + kMaxW;
   int* piece_row = reinterpret_cast<int*>(piece + 2 * kMaxW);  // [2]
 
-  // the weights, zero-padded: Wst rows [0, Fp) W0s, [Fp, 2Fp) W0r,
-  // [2Fp, 2Fp + gp) W0g, 2Fp + gp b0, then zeros
-  for (int i = tid; i < (2 * fp + kGW) * ldw; i += kThreads) {
-    const int r = i / ldw, c = i - r * ldw;
-    float v = 0.f;
-    if (c < h) {
-      if (r < fp) {
-        if (r < f) v = p.w[0][r * h + c];
-      } else if (r < 2 * fp) {
-        if (r - fp < f) v = p.w[1][(r - fp) * h + c];
-      } else if (r - 2 * fp < gp) {
-        v = p.w[2][(r - 2 * fp) * h + c];
-      } else if (r - 2 * fp == gp) {
-        v = p.w[3][c];
-      }
-    }
-    wst[i] = v;
-  }
-  for (int i = tid; i < HP * ldw; i += kThreads) {
-    const int r = i / ldw, c = i - r * ldw;
-    const bool in = r < h && c < h;
-    w1s[i] = in ? p.w[4][r * h + c] : 0.f;
-    if (EQUIV) wc0s[i] = in ? p.w[6][r * h + c] : 0.f;
-  }
-  for (int c = tid; c < HP; c += kThreads) {
-    b1s[c] = c < h ? p.w[5][c] : 0.f;
-    bc0s[c] = EQUIV && c < h ? p.w[7][c] : 0.f;
-    wc1s[c] = EQUIV && c < h ? p.w[8][c] : 0.f;
-  }
+  stage_weights<EQUIV, HP, kThreads>(p, L, sm);
   // this warp's region zeroed: the slots' pad columns stay zero (the
   // gathers write columns < F only)
   for (int i = lane; i < L.per_warp; i += 32) mine[i] = 0.f;
@@ -1333,6 +1363,304 @@ pass_p_tc_kernel(const Params p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// pass S, route 1: pass P's chain in receiver order, each warp on its own
+// share of the rows
+// ---------------------------------------------------------------------------
+
+constexpr int kWarpsS = 12;             // warps a block of pass S
+constexpr int kThreadsS = 32 * kWarpsS;
+
+// pass S's shared layout: the weights as layout() stages them, then per
+// warp the gathered x[s], x[r] and a slot for dagg[s] (then the per-edge
+// dx), its G' [16][kLdG], raw geo rows [16][kLdRaw], dpsum[s] [16][4] and
+// the receivers [16]
+__host__ __device__ inline Layout layout_s(int f, int h, bool equiv) {
+  Layout L = layout(f, h, equiv);
+  L.per_warp = 3 * M * L.ld + M * kLdG + M * kLdRaw + 4 * M + M;
+  L.total = L.warps + kWarpsS * L.per_warp;
+  return L;
+}
+
+// pass S's route 1 at these widths: pass P's F, H <= 48 and gp <= 15 (no
+// weight-gradient jobs), the layout in `optin` bytes
+__host__ inline bool fits_s(int f, int h, int gp, bool equiv, int optin) {
+  return round16(f) <= kMaxW && round16(h) <= kMaxW && gp + 1 <= kGW &&
+         sizeof(float) * static_cast<size_t>(layout_s(f, h, equiv).total) <=
+             static_cast<size_t>(optin);
+}
+
+// async copy of n floats from src to dst (16-byte pieces when n and both
+// ends allow), zero-filled when !valid; the warp's lanes share the pieces
+template <bool WIDE>
+__device__ __forceinline__ void cp_row(float* dst, const float* src, int n,
+                                       bool valid, int lane) {
+  if (WIDE) {
+    for (int c = 4 * lane; c < n; c += 128) cp_async16(dst + c, src + c, valid);
+  } else {
+    for (int c = lane; c < n; c += 32) cp_async4(dst + c, src + c, valid);
+  }
+}
+
+template <bool EQUIV, int NT>
+__global__ void __launch_bounds__(kThreadsS, 1)
+pass_s_tc_kernel(const Params p) {
+  constexpr int HP = 8 * NT;
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const int f = p.f, h = p.h, gp = p.gp, geo_ld = 3 + p.gp;
+  const int n_rows = p.n_rows;
+  const Layout L = layout_s(f, h, EQUIV);
+  const int fp = L.fp, ld = L.ld, ldw = L.ldw;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const float* wst = sm + L.wst;
+  const float* w1s = sm + L.w1;
+  const float* wc0s = sm + L.wc0;
+  const float* b1s = sm + L.b1;
+  const float* bc0s = sm + L.bc0;
+  const float* wc1s = sm + L.wc1;
+  float* xs = sm + L.warps + warp * L.per_warp;
+  float* xr = xs + M * ld;
+  float* sd = xr + M * ld;               // dagg[s], then the per-edge dx
+  float* gt = sd + M * ld;
+  float* graw = gt + M * kLdG;
+  float* dps = graw + M * kLdRaw;        // dpsum[s]: [16][4]
+  int* r_ids = reinterpret_cast<int*>(dps + 4 * M);
+
+  stage_weights<EQUIV, HP, kThreadsS>(p, L, sm);
+  // this warp's region zeroed: the slots' pad columns stay zero (the
+  // gathers write columns < F, or < H, only)
+  for (int i = lane; i < L.per_warp; i += 32) xs[i] = 0.f;
+  // this warp's share of the receiver rows (rows plus edges balanced)
+  int rb, re;
+  passp::share_range(p.row_ptr, n_rows, blockIdx.x * kWarpsS + warp,
+                     gridDim.x * kWarpsS, rb, re);
+  __syncthreads();
+  const int p_begin = __ldg(p.row_ptr + rb);
+  const int p_end = __ldg(p.row_ptr + re);
+
+  // dx: each row's per-edge rows summed in position order (a row goes on
+  // from one tile into the next), lane holding columns lane and lane + 32;
+  // every row of the share written once, rows without edges as zeros
+  int row = -1, next = rb;
+  float a0 = 0.f, a1 = 0.f;
+  auto put = [&](int r, float u0, float u1) {
+    float* o = p.out + static_cast<size_t>(r) * f;
+    if (lane < f) o[lane] = u0;
+    if (lane + 32 < f) o[lane + 32] = u1;
+  };
+
+  // lanes 0..15: the tile's edge ids (positions) and their ends
+  auto load_eid = [&](int q) {
+    return lane < M && q + lane < p_end ? q + lane : -1;
+  };
+  int eid = load_eid(p_begin);
+  int snd = eid >= 0 ? __ldg(p.send + eid) : -1;
+  int rcv = eid >= 0 ? __ldg(p.recv + eid) : -1;
+
+  for (int q = p_begin; q < p_end; q += M) {
+    const bool ok = eid >= 0 &&
+                    static_cast<unsigned>(snd) < static_cast<unsigned>(n_rows) &&
+                    rcv >= rb && rcv < re;
+    if (lane < M) r_ids[lane] = ok ? rcv : -1;
+    const unsigned okm = __ballot_sync(kFull, ok);
+    // the gathers: x[s], x[r], the geometry, dagg[s] and dpsum[s], zeros
+    // off real edges
+#pragma unroll 1
+    for (int e = 0; e < M; ++e) {
+      const bool ve = (okm >> e) & 1u;
+      const int se = ve ? __shfl_sync(kFull, snd, e) : 0;
+      const int rr = ve ? __shfl_sync(kFull, rcv, e) : 0;
+      const int ee = ve ? __shfl_sync(kFull, eid, e) : 0;
+      if ((f & 3) == 0) {
+        cp_row<true>(xs + e * ld, p.x + static_cast<size_t>(se) * f, f, ve,
+                     lane);
+        cp_row<true>(xr + e * ld, p.x + static_cast<size_t>(rr) * f, f, ve,
+                     lane);
+      } else {
+        cp_row<false>(xs + e * ld, p.x + static_cast<size_t>(se) * f, f, ve,
+                      lane);
+        cp_row<false>(xr + e * ld, p.x + static_cast<size_t>(rr) * f, f, ve,
+                      lane);
+      }
+      if ((h & 3) == 0)
+        cp_row<true>(sd + e * ld, p.gagg + static_cast<size_t>(se) * h, h,
+                     ve, lane);
+      else
+        cp_row<false>(sd + e * ld, p.gagg + static_cast<size_t>(se) * h, h,
+                      ve, lane);
+      if (lane < geo_ld)
+        cp_async4(graw + e * kLdRaw + lane,
+                  p.geo + static_cast<size_t>(ee) * geo_ld + lane, ve);
+      if (EQUIV && lane < 3)
+        cp_async4(dps + 4 * e + lane,
+                  p.gpsum + static_cast<size_t>(se) * 3 + lane, ve);
+    }
+    // the next tile's ids, in flight while this one is computed
+    const int eid_next = load_eid(q + M);
+    const int snd_next = eid_next >= 0 ? __ldg(p.send + eid_next) : -1;
+    const int rcv_next = eid_next >= 0 ? __ldg(p.recv + eid_next) : -1;
+    cp_async_wait_all();
+    __syncwarp();
+    // G': the geometry lanes, the ones column (real edges), zeros
+    for (int i2 = lane; i2 < M * kGW; i2 += 32) {
+      const int e = i2 >> 4, k = i2 & 15;
+      gt[e * kLdG + k] = k < gp ? graw[e * kLdRaw + 3 + k]
+                                : (k == gp && r_ids[e] >= 0 ? 1.f : 0.f);
+    }
+    __syncwarp();
+
+    // ---- the chain: t0, a (kept as its signs) ----
+    float cc[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) cc[n][0] = cc[n][1] = cc[n][2] = cc[n][3] = 0.f;
+    chain_smem<NT, false>(cc, xs, ld, fp / 8, wst, ldw);
+    chain_smem<NT, false>(cc, xr, ld, fp / 8, wst + fp * ldw, ldw);
+    chain_smem<NT, false>(cc, gt, kLdG, 2, wst + 2 * fp * ldw, ldw);
+    unsigned a_pos = 0u, m_pos = 0u;   // bit 4 n + v: a > 0, m > 0
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        cc[n][v] = fmaxf(cc[n][v], 0.f);
+        a_pos |= cc[n][v] > 0.f ? 1u << (4 * n + v) : 0u;
+      }
+    // m = relu(a . W1 + b1)
+    float mm[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const float2 bb = *reinterpret_cast<const float2*>(b1s + 8 * n + 2 * t);
+      mm[n][0] = bb.x; mm[n][1] = bb.y; mm[n][2] = bb.x; mm[n][3] = bb.y;
+    }
+    chain_regs<NT, NT, false>(mm, cc, w1s, ldw);
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        mm[n][v] = fmaxf(mm[n][v], 0.f);
+        m_pos |= mm[n][v] > 0.f ? 1u << (4 * n + v) : 0u;
+      }
+    // dm = dagg[s] (columns < H of the slot)
+    float dm[NT][4];
+    {
+      const float* d0 = sd + g * ld;
+      const float* d1 = sd + (g + 8) * ld;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const int c = 8 * n + 2 * t;
+        dm[n][0] = c < h ? d0[c] : 0.f;
+        dm[n][1] = c + 1 < h ? d0[c + 1] : 0.f;
+        dm[n][2] = c < h ? d1[c] : 0.f;
+        dm[n][3] = c + 1 < h ? d1[c + 1] : 0.f;
+      }
+    }
+    if (EQUIV) {
+      // v = relu(m . Wc0 + bc0); c = tanh(v . wc1)
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const float2 bb =
+            *reinterpret_cast<const float2*>(bc0s + 8 * n + 2 * t);
+        cc[n][0] = bb.x; cc[n][1] = bb.y; cc[n][2] = bb.x; cc[n][3] = bb.y;
+      }
+      chain_regs<NT, NT, false>(cc, mm, wc0s, ldw);
+      float p0 = 0.f, p1 = 0.f;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const float2 wc = *reinterpret_cast<const float2*>(wc1s + 8 * n + 2 * t);
+#pragma unroll
+        for (int v = 0; v < 4; ++v) cc[n][v] = fmaxf(cc[n][v], 0.f);
+        p0 += cc[n][0] * wc.x + cc[n][1] * wc.y;
+        p1 += cc[n][2] * wc.x + cc[n][3] * wc.y;
+      }
+      p0 += __shfl_xor_sync(kFull, p0, 1);
+      p1 += __shfl_xor_sync(kFull, p1, 1);
+      p0 += __shfl_xor_sync(kFull, p0, 2);
+      p1 += __shfl_xor_sync(kFull, p1, 2);
+      const float c0 = tanhf(p0), c1 = tanhf(p1);
+      // d(clip(diff * c)) -> dc; dcp = dc (1 - c^2)
+      float dc0 = 0.f, dc1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const float d0 = graw[g * kLdRaw + j], d1 = graw[(g + 8) * kLdRaw + j];
+        const float tr0 = d0 * c0, tr1 = d1 * c1;
+        dc0 += tr0 >= -100.f && tr0 <= 100.f ? dps[4 * g + j] * d0 : 0.f;
+        dc1 += tr1 >= -100.f && tr1 <= 100.f ? dps[4 * (g + 8) + j] * d1
+                                             : 0.f;
+      }
+      const float dcp0 = dc0 * (1.f - c0 * c0), dcp1 = dc1 * (1.f - c1 * c1);
+      // du0 = wc1 dcp (v > 0); dm += du0 . Wc0^T
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const float2 wc = *reinterpret_cast<const float2*>(wc1s + 8 * n + 2 * t);
+        cc[n][0] = cc[n][0] > 0.f ? wc.x * dcp0 : 0.f;
+        cc[n][1] = cc[n][1] > 0.f ? wc.y * dcp0 : 0.f;
+        cc[n][2] = cc[n][2] > 0.f ? wc.x * dcp1 : 0.f;
+        cc[n][3] = cc[n][3] > 0.f ? wc.y * dcp1 : 0.f;
+      }
+      chain_regs<NT, NT, true>(dm, cc, wc0s, ldw);
+    }
+    // du = dm (m > 0); dt0 = (du . W1^T) (a > 0)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        if (!((m_pos >> (4 * n + v)) & 1u)) dm[n][v] = 0.f;
+        cc[n][v] = 0.f;
+      }
+    chain_regs<NT, NT, true>(cc, dm, w1s, ldw);
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int v = 0; v < 4; ++v)
+        if (!((a_pos >> (4 * n + v)) & 1u)) cc[n][v] = 0.f;
+    __syncwarp();   // every lane has read dagg from the slot
+    // dx per edge = dt0 . W0r^T into the slot
+    for (int n = 0; n < fp / 8; ++n) {
+      float dx[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        passp::FragA fa;
+        passp::set_a<true>(fa, cc[j][0], cc[j][2], cc[j][1], cc[j][3]);
+        passp::FragB fb;
+        load_bt_perm(fb, wst + fp * ldw, ldw, 8 * j, 8 * n);
+        passp::mma3(dx, fa, fb);
+      }
+      *reinterpret_cast<float2*>(sd + g * ld + 8 * n + 2 * t) =
+          make_float2(dx[0], dx[1]);
+      *reinterpret_cast<float2*>(sd + (g + 8) * ld + 8 * n + 2 * t) =
+          make_float2(dx[2], dx[3]);
+    }
+    __syncwarp();
+    // the tile's edges into their rows, in position order
+#pragma unroll 1
+    for (int e = 0; e < M; ++e) {
+      const int r = r_ids[e];
+      if (r < 0) continue;
+      if (r != row) {
+        if (row >= 0) {
+          put(row, a0, a1);
+          next = row + 1;
+        }
+        for (int z = next; z < r; ++z) put(z, 0.f, 0.f);
+        row = r;
+        a0 = a1 = 0.f;
+      }
+      if (lane < f) a0 += sd[e * ld + lane];
+      if (lane + 32 < f) a1 += sd[e * ld + lane + 32];
+    }
+    __syncwarp();   // the slots are gathered into next
+    eid = eid_next;
+    snd = snd_next;
+    rcv = rcv_next;
+  }
+  if (row >= 0) {
+    put(row, a0, a1);
+    next = row + 1;
+  }
+  for (int z = next; z < re; ++z) put(z, 0.f, 0.f);
+}
+
 }  // namespace tc
 
 __global__ void egcl_reduce_partials_kernel(const float* __restrict__ partial,
@@ -1398,6 +1726,53 @@ int pass_p_route(int f, int h, int gp, bool equiv) {
   return tc::fits(f, h, gp, equiv, optin) ? 1 : 2;
 }
 
+// pass S's route at these widths on the current device: 1 (route 1, the
+// tensor-core kernel in receiver order: F, H <= 48, gp <= 15), 2 (the
+// first design), 0 when the device cannot be asked
+int pass_s_route(int f, int h, int gp, bool equiv) {
+  int dev = 0, optin = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return 0;
+  return tc::fits_s(f, h, gp, equiv, optin) ? 1 : 2;
+}
+
+template <bool EQUIV, int NT>
+int launch_tc_s(const Params& p, cudaStream_t st) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = sizeof(float) *
+      static_cast<size_t>(tc::layout_s(p.f, p.h, EQUIV).total);
+  err = cudaFuncSetAttribute(tc::pass_s_tc_kernel<EQUIV, NT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // one block a SM, each warp on its own share of the rows
+  tc::pass_s_tc_kernel<EQUIV, NT><<<sms, tc::kThreadsS, smem, st>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// pass S on `route` (0: the widths' own); route 1 where the widths do not
+// take it is refused
+template <bool EQUIV>
+int launch_pass_s(const Params& p, int route, int grid, cudaStream_t st) {
+  const int own = pass_s_route(p.f, p.h, p.gp, EQUIV);
+  if (own == 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (route == 0) route = own;
+  if (route == 1 && own != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (route == 2) return launch<kPassS, EQUIV>(p, grid, st);
+  switch (tc::round16(p.h)) {
+    case 16: return launch_tc_s<EQUIV, 2>(p, st);
+    case 32: return launch_tc_s<EQUIV, 4>(p, st);
+    case 48: return launch_tc_s<EQUIV, 6>(p, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 template <bool EQUIV>
 int launch_pass_p(const Params& p, int grid, cudaStream_t st) {
   const int route = pass_p_route(p.f, p.h, p.gp, EQUIV);
@@ -1409,12 +1784,6 @@ int launch_pass_p(const Params& p, int grid, cudaStream_t st) {
     case 48: return launch_tc<EQUIV, 6>(p, grid, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-}
-
-template <int MODE>
-int launch_mode(const Params& p, bool equiv, int grid, cudaStream_t st) {
-  return equiv ? launch<MODE, true>(p, grid, st)
-               : launch<MODE, false>(p, grid, st);
 }
 
 }  // namespace
@@ -1434,14 +1803,22 @@ extern "C" int hg_egcl_pass_p_route(int f, int h, int gp, int equivariant) {
   return pass_p_route(f, h, gp, equivariant != 0);
 }
 
+// Pass S's route at these widths (pass_s_route): 1, 2, or 0 when the
+// device cannot be asked.
+extern "C" int hg_egcl_pass_s_route(int f, int h, int gp, int equivariant) {
+  return pass_s_route(f, h, gp, equivariant != 0);
+}
+
 // One EGCL launch; returns the cudaError_t (0 = success).  mode 0: the
 // forward (out = agg [N,H], psum [N,3] when equivariant; rows are senders,
 // `perm` the sender permutation); mode 1: pass P (out = dx [N,F] or null,
 // `partial` scratch [n_parts, wgrad size], `wgrad` the reduced weight
 // gradients, `dgeo` [E,3+gp] zero-filled or null; same order as the
 // forward); mode 2: pass S (out = dx [N,F]; rows are receivers, `perm`
-// null).  Pointers are device pointers; launches go on `stream` and do not
-// synchronise.
+// null).  `route` (pass S): 0 takes the widths' own (hg_egcl_pass_s_route),
+// 1 or 2 that one where the widths admit it; the forward and pass P take
+// route 0.  Pointers are device pointers; launches go on `stream` and do
+// not synchronise.
 extern "C" int hg_egcl_f32(
     int mode, int equivariant, const void* x, const void* geo,
     const void* send, const void* recv, const void* perm, const void* row_ptr,
@@ -1449,10 +1826,11 @@ extern "C" int hg_egcl_f32(
     const void* w1, const void* b1, const void* wc0, const void* bc0,
     const void* wc1, const void* gagg, const void* gpsum, void* out,
     void* psum, void* partial, void* wgrad, void* dgeo, int n_rows, int f,
-    int h, int gp, int n_parts, void* stream) {
+    int h, int gp, int n_parts, int route, void* stream) {
   if (n_rows <= 0 || h <= 0) return 0;
   if (f < 1 || f > kMaxF || h > kMaxH || gp < 1 || gp > kMaxGp ||
-      mode < kFwd || mode > kPassS || (mode == kPassP && n_parts < 1))
+      mode < kFwd || mode > kPassS || (mode == kPassP && n_parts < 1) ||
+      route < 0 || route > 2 || (mode != kPassS && route != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   const bool equiv = equivariant != 0;
   Params p{};
@@ -1476,8 +1854,12 @@ extern "C" int hg_egcl_f32(
   p.gp = gp;
   p.n_chunks = (n_rows + kRows - 1) / kRows;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (mode == kFwd) return launch_mode<kFwd>(p, equiv, p.n_chunks, st);
-  if (mode == kPassS) return launch_mode<kPassS>(p, equiv, p.n_chunks, st);
+  if (mode == kFwd)
+    return equiv ? launch<kFwd, true>(p, p.n_chunks, st)
+                 : launch<kFwd, false>(p, p.n_chunks, st);
+  if (mode == kPassS)
+    return equiv ? launch_pass_s<true>(p, route, p.n_chunks, st)
+                 : launch_pass_s<false>(p, route, p.n_chunks, st);
   const int grid = n_parts < p.n_chunks ? n_parts : p.n_chunks;
   const int rc = equiv ? launch_pass_p<true>(p, grid, st)
                        : launch_pass_p<false>(p, grid, st);

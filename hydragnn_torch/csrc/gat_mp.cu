@@ -11,14 +11,41 @@
 // dxr are [N, HF] row-major, m, d, gd are [N, H], b is [E, H] (or null for
 // ones), att is [H, F].  Lane c belongs to head c / F.
 //
-// One kernel template, three modes, and a reduction:
+// Route 1 of each pass (three kernels), the first designs as one template
+// in three modes (route 2), and a reduction:
 //
-// gat_kernel<kFwd>   — the forward.  Replaces
+// gat_fwd_kernel — the forward, route 1.  Replaces
 //   hydragnn_tpu/ops/gat_mp.py:_fwd_impl (pl.pallas_call at :259).  One
-//   warp per receiver row walks the row's CSR range in edge order; the
-//   online-softmax state (m, d per head in shared memory, acc in registers)
-//   is rescaled per edge, as in flash attention.  No atomics and no
-//   [E, HF] tensor in device memory.
+//   warp per receiver row walks the row's CSR range in edge order, lane l
+//   holding the acc slots of column h F + 32 i + l of each head (slot i <
+//   S), as passes R and S (route 1, below) hold theirs; lane u < U loads
+//   the sender id of a group's edge u, two groups ahead, and lane t < H
+//   head t's b scalars, one group ahead.
+//   The logits stay in lane order, so that m equals the plain version's
+//   bit for bit.  The xl rows of a group of U edges are copied with
+//   cp.async into a ring of two groups in the warp's shared memory (the
+//   next group's in flight while this one is computed, no register held
+//   for them), beside the row's own xr and the block's att, each head at a
+//   stride hs = 4 q floats (q = ceil(F / 4) made odd): lane u H + h forms
+//   head h's F products z * att of edge u from float4 reads at word hs (u
+//   H + h) + k, which fall in distinct banks, and adds them one after
+//   another, U H chains at once where the first design ran H.  Lane t < H
+//   then folds the group's U logits of head t into the online softmax (no
+//   [E, HF] tensor, as in flash attention): one max, one rescale, then
+//   each edge's p and p b in edge order; the acc slots are rescaled and
+//   updated once a group from the staged rows.  m is a max, so the
+//   grouping leaves it exact; d and acc move by roundings only.  U
+//   (fwd_group_of) is the most edges whose U H chains take a lane each and
+//   whose two groups' rows fit the warp's part of a block's stage sized
+//   for four blocks a SM: 3 at 6 x 64, 1 at 3 x 256.  What held the first
+//   design back: one edge at a time, a dependent load of
+//   send[k] before the xl[src] row, the products staged with three
+//   __syncwarp()s an edge, one lane a head adding F products in series
+//   and no other edge's loads in flight.  Route 1 takes the widths of
+//   passes R and S (lane_route); gat_kernel<kFwd> (route 2, the first
+//   design: per edge in edge order, the online-softmax state rescaled per
+//   edge in shared memory, acc in registers) the others, and the card
+//   checks ask for it by route to time it beside route 1.
 // gat_pass_r_kernel (+ gat_sum_partials_kernel) — backward pass R, route
 //   1.  Replaces :_gea_bwd's receiver-side pass (pl.pallas_call at :543).
 //   Receiver order again: recompute z, e and p = exp(e - m[dst]) (m
@@ -86,14 +113,15 @@
 // backward passes read two or three rows and do ~3x the forward's flops.
 // The rows gathered per edge are what the bound counts once per node (a
 // node's xl row is read by each of its ~10 out-edges, from L2).  Design,
-// first version: lanes of a warp span the HF columns (each xl, xr, ga row
-// access is one coalesced 128-byte line per 32 columns); each head's logit
-// is summed in lane order by one lane from the per-lane products staged in
-// shared memory (head stride F | 1, conflict-free across heads), so the
-// logits, and with them m, are bit-identical to the plain version's
-// sequential sum; the multiply and the adds of that sum are __fmul_rn /
-// __fadd_rn so that no contraction changes them.  Not yet: edge tiles per
-// warp, several rows per warp for small HF, tensor cores.
+// first version (route 2): lanes of a warp span the HF columns (each xl,
+// xr, ga row access is one coalesced 128-byte line per 32 columns); each
+// head's logit is summed in lane order by one lane from the per-lane
+// products staged in shared memory (head stride F | 1, conflict-free
+// across heads), so the logits, and with them m, are bit-identical to the
+// plain version's sequential sum; in both forwards the multiply and the
+// adds of that sum are __fmul_rn / __fadd_rn so that no contraction
+// changes them.  Not yet: several rows per warp for small HF, tensor
+// cores.
 //
 // Contract (collate guarantees it): edges are sorted by receiver, so each
 // receiver row owns one contiguous CSR range; masked edges sort last in
@@ -625,6 +653,257 @@ __global__ void __launch_bounds__(kThreads) gat_pass_r_kernel(Params p) {
   }
 }
 
+// The forward's staged head stride: 4 q floats, q = ceil(F / 4) made odd,
+// so that lanes u H + h, reading word hs (u H + h) + k as float4s, fall in
+// distinct banks
+__host__ __device__ inline int fwd_head_stride(int f) {
+  return 4 * (((f + 3) / 4) | 1);
+}
+
+// The forward's route 1: the floats of a warp's stage at most (two groups'
+// xl rows and the row's own xr, each H heads of hs floats), so that four
+// blocks of four warps fit a SM
+constexpr int kFwdWarpFloats = 3456;
+
+// U, the edges of a group at NJ slots of S a head (see the note above):
+// the U H chains take a lane each (H <= NJ / S), and 2 U + 1 staged rows of
+// NJ / S heads of the instantiation's widest head stride (32 S + 4) fit
+// kFwdWarpFloats
+__host__ __device__ constexpr int fwd_group_of(int nj, int s) {
+  const int by_smem = (kFwdWarpFloats / ((nj / s) * (32 * s + 4)) - 1) / 2;
+  const int by_lanes = 32 / (nj / s);
+  return by_smem < 1 ? 1 : by_smem < by_lanes ? by_smem : by_lanes;
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(a), "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(a), "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most one committed group is in flight
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+// A row of H F floats into the stage, head hh at dst[hh hs + k]: the warp's
+// lanes share the 16-byte pieces (4-byte ones when F % 4 != 0); zeros when
+// !valid
+__device__ __forceinline__ void stage_row(float* dst, const float* src,
+                                          bool valid, int hf, int f, int hs,
+                                          int lane) {
+  if ((f & 3) == 0) {
+    for (int c = 4 * lane; c < hf; c += 4 * kWarp) {
+      const int hh = c / f;
+      cp_async16(dst + hh * hs + c - hh * f, src + c, valid);
+    }
+  } else {
+    for (int c = lane; c < hf; c += kWarp) {
+      const int hh = c / f;
+      cp_async4(dst + hh * hs + c - hh * f, src + c, valid);
+    }
+  }
+}
+
+__device__ __forceinline__ float fwd_product(float x, float o, float a,
+                                             float slope) {
+  return __fmul_rn(leaky(__fadd_rn(x, o), slope), a);
+}
+
+// One head's logit from its staged xl[src] (x), xr[dst] (o) and att (a)
+// columns: the F products z * att added in lane order (((p0 + p1) + p2)
+// + ...), read as float4s (16-byte aligned)
+__device__ __forceinline__ float head_chain(const float* x, const float* o,
+                                            const float* a, int f,
+                                            float slope) {
+  const int f4 = f & ~3;
+  float v;
+  int k;
+  if (f4 > 0) {
+    const float4 X = *reinterpret_cast<const float4*>(x);
+    const float4 O = *reinterpret_cast<const float4*>(o);
+    const float4 A = *reinterpret_cast<const float4*>(a);
+    v = fwd_product(X.x, O.x, A.x, slope);
+    v = __fadd_rn(v, fwd_product(X.y, O.y, A.y, slope));
+    v = __fadd_rn(v, fwd_product(X.z, O.z, A.z, slope));
+    v = __fadd_rn(v, fwd_product(X.w, O.w, A.w, slope));
+    k = 4;
+  } else {
+    v = fwd_product(x[0], o[0], a[0], slope);
+    k = 1;
+  }
+  for (; k < f4; k += 4) {
+    const float4 X = *reinterpret_cast<const float4*>(x + k);
+    const float4 O = *reinterpret_cast<const float4*>(o + k);
+    const float4 A = *reinterpret_cast<const float4*>(a + k);
+    v = __fadd_rn(v, fwd_product(X.x, O.x, A.x, slope));
+    v = __fadd_rn(v, fwd_product(X.y, O.y, A.y, slope));
+    v = __fadd_rn(v, fwd_product(X.z, O.z, A.z, slope));
+    v = __fadd_rn(v, fwd_product(X.w, O.w, A.w, slope));
+  }
+  for (; k < f; ++k) v = __fadd_rn(v, fwd_product(x[k], o[k], a[k], slope));
+  return v;
+}
+
+// Forward, route 1 (see the note above): one warp per receiver row, groups
+// of U edges.  Dynamic shared memory: att [H][hs] for the block, then per
+// warp its row's xr [H][hs] and a ring of two groups' xl rows [2][U][H][hs].
+template <int NJ, int S>
+__global__ void __launch_bounds__(kThreads) gat_fwd_kernel(Params p) {
+  static_assert(NJ % S == 0 && NJ <= 32 && NJ / S <= 16,
+                "slots: whole heads, at most 32 and 16 heads");
+  constexpr int U = fwd_group_of(NJ, S);
+  static_assert(U >= 1 && U * (NJ / S) <= kWarp, "a logit a lane");
+  extern __shared__ float4 fwd_smem4[];
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  const int hf = p.hf, f = p.f, h = p.h;
+  const int hs = fwd_head_stride(f), rs = h * hs;   // a staged row
+  float* att_s = reinterpret_cast<float*>(fwd_smem4);
+  float* own_s = att_s + rs + warp * (2 * U + 1) * rs;
+  float* ring = own_s + rs;
+  for (int c = threadIdx.x; c < hf; c += kThreads) {
+    const int hh = c / f;
+    att_s[hh * hs + c - hh * f] = __ldg(p.att + c);
+  }
+  __syncthreads();
+  const int row = blockIdx.x * kWarps + warp;
+  if (row >= p.n_rows) return;   // no block barrier follows
+  const float slope = p.slope;
+  const int e0 = __ldg(p.row_ptr + row);
+  const int e1 = __ldg(p.row_ptr + row + 1);
+  const int n_groups = (e1 - e0 + U - 1) / U;
+  unsigned ok = 0u;   // bit j: slot j holds a column
+  float acc[NJ];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    ok |= j / S < h && 32 * (j % S) + lane < f ? 1u << j : 0u;
+    acc[j] = 0.f;
+  }
+  // lane t < H: head t's running max and denominator
+  const int t = lane < h ? lane : 0;
+  float m_run = kNeg, d_run = 0.f;
+  // lane u H + hh < U H: the logit of head hh of the group's edge u
+  const bool summer = lane < U * h;
+  const int lh = summer ? lane % h : 0;
+  // lane u < U: the sender of the group's edge u (-1: none)
+  auto sender = [&](int grp) {
+    const int k = e0 + grp * U + lane;
+    const int sv = lane < U && k < e1 ? __ldg(p.send + k) : -1;
+    return static_cast<unsigned>(sv) < static_cast<unsigned>(p.n_rows) ? sv
+                                                                       : -1;
+  };
+  // lane t < H: head t's dropout bits of the group's edges
+  auto bits = [&](int grp, float (&bh)[U]) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int k = min(e0 + grp * U + u, e1 - 1);
+      bh[u] = p.b ? __ldg(p.b + static_cast<size_t>(k) * h + t) : 1.f;
+    }
+  };
+  // the group's xl rows into its half of the ring, one commit group
+  auto issue = [&](int grp, int s_l) {
+    float* dst = ring + (grp & 1) * U * rs;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int sv = __shfl_sync(kFull, s_l, u);
+      stage_row(dst + u * rs, p.xl + static_cast<size_t>(sv >= 0 ? sv : 0) * hf,
+                sv >= 0, hf, f, hs, lane);
+    }
+    cp_async_commit();
+  };
+  int s_cur = -1, s_next = -1;
+  float b_cur[U], b_next[U];
+  if (n_groups > 0) {
+    stage_row(own_s, p.xr + static_cast<size_t>(row) * hf, true, hf, f, hs,
+              lane);
+    s_cur = sender(0);
+    issue(0, s_cur);
+    if (n_groups > 1) s_next = sender(1);
+    bits(0, b_cur);
+  }
+  for (int grp = 0; grp < n_groups; ++grp) {
+    // the next group's rows in flight while this one is computed
+    if (grp + 1 < n_groups) {
+      issue(grp + 1, s_next);
+      bits(grp + 1, b_next);
+    } else {
+      cp_async_commit();
+    }
+    const int s_after = grp + 2 < n_groups ? sender(grp + 2) : -1;
+    cp_async_wait_one();
+    __syncwarp();
+    const float* xs = ring + (grp & 1) * U * rs;
+    const unsigned real = __ballot_sync(kFull, s_cur >= 0);
+    const float e = summer ? head_chain(xs + lane * hs, own_s + lh * hs,
+                                        att_s + lh * hs, f, slope)
+                           : 0.f;
+    // lane t < H: head t's logits of the group, one max, one rescale,
+    // then each edge's p (and p b) in edge order
+    float pb[U];
+    float mn = m_run;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      pb[u] = __shfl_sync(kFull, e, u * h + t);
+      if ((real >> u) & 1u) mn = fmaxf(mn, pb[u]);
+    }
+    const float r = expf(m_run - mn);
+    d_run *= r;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const float pe = (real >> u) & 1u ? expf(pb[u] - mn) : 0.f;
+      d_run += pe;
+      pb[u] = pe * b_cur[u];
+    }
+    m_run = mn;
+    // every slot: acc = acc r + sum over the group, in edge order, of
+    // p b xl[src]
+    float cr = 0.f, cpb[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) cpb[u] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      if (j % S == 0) {
+        cr = __shfl_sync(kFull, r, j / S);
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+          cpb[u] = __shfl_sync(kFull, pb[u], j / S);
+      }
+      if ((ok >> j) & 1u) {
+        const float* xc = xs + (j / S) * hs + 32 * (j % S) + lane;
+        float a = acc[j] * cr;
+#pragma unroll
+        for (int u = 0; u < U; ++u) a += cpb[u] * xc[u * rs];
+        acc[j] = a;
+      }
+    }
+    __syncwarp();   // this half of the ring is refilled two groups on
+    s_cur = s_next;
+    s_next = s_after;
+#pragma unroll
+    for (int u = 0; u < U; ++u) b_cur[u] = b_next[u];
+  }
+  float* out_row = p.out + static_cast<size_t>(row) * hf;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+    if ((ok >> j) & 1u) out_row[(j / S) * f + 32 * (j % S) + lane] = acc[j];
+  if (lane < h) {
+    p.m_out[static_cast<size_t>(row) * h + lane] = m_run;
+    p.d_out[static_cast<size_t>(row) * h + lane] = d_run;
+  }
+}
+
 // slots of a head in route 1: ceil(F / 32) rounded up to 1, 2, 4 or 8 (0
 // past 8: route 2)
 __host__ inline int head_slots(int f) {
@@ -675,12 +954,29 @@ int launch_width(const Params& p, int grid, cudaStream_t st) {
   return launch<MODE, 32>(p, grid, st);
 }
 
+// the forward's route-1 stage: att, then kWarps warps of 2 U + 1 rows, each
+// H heads of hs floats
+template <int NJ, int S>
+size_t fwd_smem(const Params& p) {
+  const int rows = 1 + kWarps * (2 * fwd_group_of(NJ, S) + 1);
+  return sizeof(float) * static_cast<size_t>(rows) * p.h *
+         fwd_head_stride(p.f);
+}
+
 template <int MODE, int NJ, int S>
 int launch_route1(const Params& p, int grid, cudaStream_t st) {
-  if constexpr (MODE == kPassR)
+  if constexpr (MODE == kFwd) {
+    const size_t smem = fwd_smem<NJ, S>(p);
+    const cudaError_t err = cudaFuncSetAttribute(
+        gat_fwd_kernel<NJ, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    gat_fwd_kernel<NJ, S><<<grid, kThreads, smem, st>>>(p);
+  } else if constexpr (MODE == kPassR) {
     gat_pass_r_kernel<NJ, S><<<grid, kThreads, 0, st>>>(p);
-  else
+  } else {
     gat_pass_s_kernel<NJ, S><<<grid, kThreads, 0, st>>>(p);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -712,7 +1008,19 @@ int launch_route1_width(const Params& p, int grid, cudaStream_t st) {
   }
 }
 
-// pass R's or pass S's route 1 (MODE) at the slots of the head width
+// the count route 1 instantiates for H heads of S slots: launch_route1_width
+// written out (0 past route 1's widths)
+__host__ inline int route1_nj(int h, int s) {
+  static constexpr int kCounts[4][4] = {
+      {4, 8, 16, 0}, {4, 12, 16, 32}, {4, 8, 16, 32}, {8, 24, 32, 0}};
+  const int* counts = kCounts[s == 1 ? 0 : s == 2 ? 1 : s == 4 ? 2 : 3];
+  for (int k = 0; k < 4; ++k)
+    if (counts[k] >= h * s) return counts[k];
+  return 0;
+}
+
+// the forward's, pass R's or pass S's route 1 (MODE) at the slots of the
+// head width
 template <int MODE>
 int launch_route1_slots(const Params& p, int grid, cudaStream_t st) {
   switch (head_slots(p.f)) {
@@ -724,6 +1032,21 @@ int launch_route1_slots(const Params& p, int grid, cudaStream_t st) {
 }
 
 }  // namespace
+
+// The forward's route at these widths: the rule of passes R and S (1 or 2;
+// 0 for widths no kernel takes).
+extern "C" int hg_gat_fwd_route(int hf, int f) {
+  if (f < 1 || hf < f || hf > kMaxHF || hf % f != 0) return 0;
+  return lane_route(hf, f);
+}
+
+// The forward's route-1 group U at these widths (0 where the forward takes
+// route 2 or no kernel takes them).
+extern "C" int hg_gat_fwd_group(int hf, int f) {
+  if (hg_gat_fwd_route(hf, f) != 1) return 0;
+  const int s = head_slots(f);
+  return fwd_group_of(route1_nj(hf / f, s), s);
+}
 
 // Pass S's route at these widths (1 or 2; 0 for widths no kernel takes).
 extern "C" int hg_gat_pass_s_route(int hf, int f) {
@@ -743,10 +1066,10 @@ extern "C" int hg_gat_pass_r_route(int hf, int f) {
 // ids); mode 1: pass R (out = dxr; `partial` scratch [n_parts, HF], `datt`
 // [HF] the reduced attention gradient; rows are receivers); mode 2: pass S
 // (out = dxl; rows are senders, row_ptr over sender-sorted positions and
-// `perm` the sender permutation).  `route` (passes R and S): 0 takes the
-// widths' own (hg_gat_pass_r_route, hg_gat_pass_s_route), 1 or 2 that one
-// where the widths admit it; the forward takes route 0.  Pointers are
-// device pointers; launches go on `stream` and do not synchronise.
+// `perm` the sender permutation).  `route`: 0 takes the widths' own
+// (hg_gat_fwd_route, hg_gat_pass_r_route, hg_gat_pass_s_route), 1 or 2
+// that one where the widths admit it.  Pointers are device pointers;
+// launches go on `stream` and do not synchronise.
 extern "C" int hg_gat_f32(int mode, const void* xl, const void* xr,
                           const void* att, const void* send, const void* recv,
                           const void* perm, const void* row_ptr,
@@ -758,13 +1081,11 @@ extern "C" int hg_gat_f32(int mode, const void* xl, const void* xr,
   if (n_rows <= 0) return 0;
   if (f < 1 || hf < f || hf > kMaxHF || hf % f != 0 || mode < kFwd ||
       mode > kPassS || (mode == kPassR && n_parts < 1) ||
-      (mode == kPassS && perm == nullptr) || route < 0 || route > 2 ||
-      (mode == kFwd && route != 0))
+      (mode == kPassS && perm == nullptr) || route < 0 || route > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   const int own = lane_route(hf, f);
   if (route == 0) route = own;
-  if (mode != kFwd && route == 1 && own != 1)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (route == 1 && own != 1) return static_cast<int>(cudaErrorInvalidValue);
   Params p{};
   p.xl = static_cast<const float*>(xl);
   p.xr = static_cast<const float*>(xr);
@@ -789,7 +1110,9 @@ extern "C" int hg_gat_f32(int mode, const void* xl, const void* xr,
   p.slope = slope;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int blocks = (n_rows + kWarps - 1) / kWarps;
-  if (mode == kFwd) return launch_width<kFwd>(p, blocks, st);
+  if (mode == kFwd)
+    return route == 1 ? launch_route1_slots<kFwd>(p, blocks, st)
+                      : launch_width<kFwd>(p, blocks, st);
   if (mode == kPassS)
     return route == 1 ? launch_route1_slots<kPassS>(p, blocks, st)
                       : launch_width<kPassS>(p, blocks, st);

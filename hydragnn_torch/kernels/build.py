@@ -60,11 +60,12 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     "egcl_mp": {
         # mode, equivariant, x, geo, send, recv, perm, row_ptr, w0s, w0r,
         # w0g, b0, w1, b1, wc0, bc0, wc1, gagg, gpsum, out, psum, partial,
-        # wgrad, dgeo, n_rows, f, h, gp, n_parts, stream
-        "hg_egcl_f32": (_I, _I) + (_P,) * 22 + (_I,) * 5 + (_P,),
+        # wgrad, dgeo, n_rows, f, h, gp, n_parts, route, stream
+        "hg_egcl_f32": (_I, _I) + (_P,) * 22 + (_I,) * 6 + (_P,),
         # f, h, gp, equivariant
         "hg_egcl_wgrad_size": (_I,) * 4,
         "hg_egcl_pass_p_route": (_I,) * 4,
+        "hg_egcl_pass_s_route": (_I,) * 4,
     },
     "gat_mp": {
         # mode, xl, xr, att, send, recv, perm, row_ptr, b, m, ga, gd, out,
@@ -72,6 +73,8 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         # stream
         "hg_gat_f32": (_I,) + (_P,) * 16 + (_I, _I, _I, _F, _I, _I, _P),
         # hf, f
+        "hg_gat_fwd_route": (_I,) * 2,
+        "hg_gat_fwd_group": (_I,) * 2,
         "hg_gat_pass_s_route": (_I,) * 2,
         "hg_gat_pass_r_route": (_I,) * 2,
     },

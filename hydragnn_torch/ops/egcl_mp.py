@@ -27,7 +27,9 @@ memory:
   row_shares`) and the weight gradients in registers, job by job
   (:func:`pass_p_jobs`), or the first design;
 - pass S (``_bwd_s_kernel``): receiver order, recompute, ``dx`` of the
-  receiver side.
+  receiver side.  Two routes by width (:func:`pass_s_route`): pass P's
+  tensor-core chain with each warp on one share of the receiver rows and
+  16-edge tiles (:func:`pass_s_tiles`), or the first design.
 
 The backward is written out by hand (see :func:`egcl_pass_p_plain`,
 :func:`egcl_pass_s_plain`):
@@ -259,6 +261,43 @@ def pass_p_route(f, h, gp, equivariant=True):
     return 2
 
 
+def pass_s_route(f, h, gp, equivariant=True):
+    """Pass S's route at these widths: 1 (pass P's tensor-core chain in
+    receiver order) at pass P's route-1 widths, F, H <= 48 and gp <= 15,
+    every instantiation md17's and oc22's paths launch; 2 (the first
+    design) past that.  The C side (``hg_egcl_pass_s_route``) decides on
+    the card and also checks that a block's shared memory holds route 1;
+    a card test holds the two together.  ``equivariant`` moves only that
+    shared memory."""
+    if (_round16(f) <= EGCL_TC_WIDTH and _round16(h) <= EGCL_TC_WIDTH
+            and gp + 1 <= EGCL_TC_GEO):
+        return 1
+    return 2
+
+
+# pass S's route 1: warps a block (one block per SM) and edges a tile
+EGCL_PASS_S_WARPS = 12
+EGCL_PASS_S_TILE = 16
+
+
+def pass_s_tiles(row_ptr, n_warps):
+    """Pass S's route-1 plan over a receiver CSR: warp ``w`` of the
+    ``n_warps`` (blocks times 12) owns the rows ``[b[w], b[w + 1])`` of
+    :func:`~hydragnn_torch.ops.aggregate.row_shares` and walks their
+    positions in 16-edge tiles.  Returns ``(bounds, tiles)``, ``tiles`` a
+    list per warp of ``(begin, end)`` position ranges in walking order."""
+    from hydragnn_torch.ops.aggregate import row_shares
+
+    bounds = row_shares(row_ptr, n_warps)
+    ptr = row_ptr.long().cpu()
+    tiles = []
+    for w in range(n_warps):
+        p0, p1 = int(ptr[int(bounds[w])]), int(ptr[int(bounds[w + 1])])
+        tiles.append([(q, min(q + EGCL_PASS_S_TILE, p1))
+                      for q in range(p0, p1, EGCL_PASS_S_TILE)])
+    return bounds, tiles
+
+
 def kernel_weights(equivariant, w0, b0, w1, b1, wc0, bc0, wc1, f, h, dev):
     """The nine contiguous float32 weight blocks the kernels take:
     ``(w0s, w0r, w0g, b0, w1, b1, wc0, bc0, wc1)`` (the last three None
@@ -284,11 +323,13 @@ def _ptr(t):
 
 def launch_egcl(op, equivariant, x, geo, weights, senders, receivers, perm,
                 row_ptr, gagg=None, gpsum=None, want_dx=True,
-                want_geo=False):
+                want_geo=False, route=0):
     """One launch of the EGCL kernel in the mode ``op`` names, on a
     precomputed CSR schedule ``row_ptr`` over positions (sender order
     through ``perm`` for the forward and pass P; receiver order, ``perm``
-    None, for pass S).  Returns:
+    None, for pass S).  ``route`` (pass S): 0 takes the widths' own
+    (:func:`pass_s_route`), 1 or 2 asks for that one (the card checks time
+    the first design beside route 1).  Returns:
 
     - ``egcl_block``: ``(agg [N, H], psum [N, 3] or None)``;
     - ``egcl_block_pass_p``: ``(wgrad, dgeo or None, dx_sender or None)``,
@@ -312,6 +353,10 @@ def launch_egcl(op, equivariant, x, geo, weights, senders, receivers, perm,
         _require(perm, "sender_perm", torch.int32, (e,), dev)
     _require(row_ptr, "row_ptr", torch.int32, (n + 1,), dev)
     mode = _MODES[op]
+    if route not in (0, 1, 2) or (route and mode != 2) or (
+            route == 1 and pass_s_route(f, h, gp, equivariant) != 1):
+        raise ValueError(f"{op} takes route 0, or for pass S 2, or 1 at its "
+                         f"widths; got {route} at F={f}, H={h}, gp={gp}")
     lib = load_library("egcl_mp")
     agg = psum = partial = wgrad = dgeo = out = None
     n_parts = 0
@@ -343,7 +388,7 @@ def launch_egcl(op, equivariant, x, geo, weights, senders, receivers, perm,
                 row_ptr.data_ptr(), *(_ptr(w) for w in weights),
                 _ptr(gagg), _ptr(gpsum), _ptr(out), _ptr(psum),
                 _ptr(partial), _ptr(wgrad), _ptr(dgeo), n, f, h, gp,
-                n_parts, stream)
+                n_parts, route, stream)
         _check_rc(rc, op)
         LAUNCHES[op] += 1
     elif mode == 1:

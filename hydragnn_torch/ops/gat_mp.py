@@ -28,17 +28,21 @@ Backward, with ``m`` frozen and ``p = exp(e - m[dst])`` recomputed per edge:
 
 Three kernels, hand-written in CUDA C++ for Hopper (csrc/gat_mp.cu, built
 by kernels/build.py): the forward, pass R (with its block-order partial
-sum of ``d att``) and pass S.  The forward sums every logit over its
-head's lanes in lane order, as :func:`edge_logits` does, so the kernel's
-``m`` equals the plain version's bit for bit.  Pass R and pass S have two
-routes each, chosen by width alike (:func:`lane_route`): route 1 (every
-path's widths) sums each head's logit and ``q`` across the warp's lanes,
+sum of ``d att``) and pass S, each with two routes chosen by width alike
+(:func:`lane_route`); route 1 takes every path's widths, route 2 is the
+first design.  Both forwards sum every logit over its head's lanes in
+lane order, as :func:`edge_logits` does, so the kernel's ``m`` equals the
+plain version's bit for bit; route 1 of the forward stages the xl rows of
+``U`` edges (:func:`fwd_group`) with the next group's in flight, sums
+their ``U * H`` logits on as many lanes at once, then folds the group
+into the online softmax with one max and one rescale.  Route 1 of pass R
+and pass S sums each head's logit and ``q`` across the warp's lanes,
 each lane's slots of the head in order, then a fixed butterfly (offsets
 16, 8, 4, 2, 1, done as a reduce-scatter), several edges' loads in
 flight (pass R also keeps each lane's ``d att`` slots in registers over
-its warp's rows); route 2 is the first design.  The backward passes only
-read ``m`` (``p = exp(e - m)``), so route 1's other order moves ``p`` by
-a rounding of ``e``, within the kernels' tolerance.
+its warp's rows).  The backward passes only read ``m`` (``p = exp(e -
+m)``), so that other order moves ``p`` by a rounding of ``e``, within the
+kernels' tolerance.
 
 Each leaf takes a CPU tensor to its plain PyTorch version (the CPU path and
 the tests' oracle) and a CUDA tensor to its kernel; a CUDA input the
@@ -240,18 +244,50 @@ def lane_route(hf, f):
                  and h <= ROUTE1_MAX_HEADS) else 2
 
 
-# the two passes share the rule
-pass_r_route = pass_s_route = lane_route
+# the three kernels share the rule
+fwd_route = pass_r_route = pass_s_route = lane_route
+
+# route 1's slots a lane for H heads of S slots: the counts the kernels
+# are instantiated at (csrc/gat_mp.cu route1_nj), by S
+_ROUTE1_NJ = {1: (4, 8, 16), 2: (4, 12, 16, 32), 4: (4, 8, 16, 32),
+              8: (8, 24, 32)}
+
+# the forward's route 1: the floats of a warp's stage at most (two groups'
+# xl rows and the row's xr, H heads of the instantiation's widest head
+# stride each; csrc/gat_mp.cu kFwdWarpFloats), so that four blocks of four
+# warps fit a SM
+FWD_WARP_FLOATS = 3456
+
+
+def route1_nj(h, s):
+    """The slots a lane that route 1 gives ``h`` heads of ``s`` slots: the
+    smallest instantiated count >= ``h * s`` (0 past route 1)."""
+    return next((c for c in _ROUTE1_NJ.get(s, ()) if c >= h * s), 0)
+
+
+def fwd_group(hf, f):
+    """U, the edges a group of the forward's route 1 takes, as
+    ``hg_gat_fwd_group`` decides it: the most whose ``U * H`` logit chains
+    take a lane each (H up to the instantiation's ``NJ / S`` heads) and
+    whose two groups' staged xl rows, with the row's xr, fit
+    ``FWD_WARP_FLOATS`` at the instantiation's widest head stride; 0 where
+    the forward takes route 2.  3 at the gat cell's 6 x 64, 1 at
+    gat_h256's 3 x 256."""
+    if fwd_route(hf, f) != 1:
+        return 0
+    s = head_slots(f)
+    heads = route1_nj(hf // f, s) // s
+    by_smem = (FWD_WARP_FLOATS // (heads * (32 * s + 4)) - 1) // 2
+    return max(1, min(by_smem, 32 // heads))
 
 
 def launch_gat(op, xl, xr, att, senders, receivers, perm, row_ptr, b_edge,
                slope, m=None, ga=None, gd=None, route=0):
     """One launch of the GAT kernel in the mode ``op`` names, on a
     precomputed CSR schedule ``row_ptr`` (receiver order for the forward
-    and pass R; sender order through ``perm`` for pass S).  ``route``
-    (passes R and S): 0 takes the widths' own (:func:`lane_route`), 1 or 2
-    asks for that one (the card checks time the first design beside route
-    1).  Returns:
+    and pass R; sender order through ``perm`` for pass S).  ``route``: 0
+    takes the widths' own (:func:`lane_route`), 1 or 2 asks for that one
+    (the card checks time the first design beside route 1).  Returns:
 
     - ``gat_edge_attention``: ``(acc [N, H*F], m [N, H], d [N, H])``;
     - ``gat_edge_attention_pass_r``: ``(dxr [N, H*F], d att [H, F])``;
@@ -296,10 +332,7 @@ def launch_gat(op, xl, xr, att, senders, receivers, perm, row_ptr, b_edge,
         datt = torch.zeros((h, f), dtype=torch.float32, device=dev)
     if mode == 2:
         _require(perm, "sender_perm", torch.int32, (e,), dev)
-    if mode == 0:
-        if route != 0:
-            raise ValueError(f"{op} has one route")
-    elif route not in (0, 1, 2) or (route == 1 and lane_route(hf, f) != 1):
+    if route not in (0, 1, 2) or (route == 1 and lane_route(hf, f) != 1):
         raise ValueError(f"{op} takes route 0, 2, or 1 at its widths; got "
                          f"{route} at H*F={hf}, F={f}")
     if n > 0:

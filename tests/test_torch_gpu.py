@@ -19,9 +19,10 @@ Functions, backward with ties), three PNA/GIN/SAGE/MFC training steps,
 the three egcl kernels at every width the EGNN gate admits (both routes
 of pass P, a float64 yardstick, a NaN in the cotangent) and on an
 all-masked batch, three
-EGNN training steps at md17's widths, the three GAT kernels at H*F from 32
-to the kernel limit of 1024, with and without dropout bits (pass R's and
-pass S's two routes alone), three GAT
+EGNN training steps at md17's widths (pass S's two routes alone), the
+three GAT kernels at H*F from 32 to the kernel limit of 1024, with and
+without dropout bits (the forward's, pass R's and pass S's two routes
+alone), three GAT
 training steps in lockstep, the three cgcnn kernels at F from 1 to the
 limit of 256 with and without edge attributes, three CGCNN training
 steps in lockstep at F = 64, the pallas backend's two segment sums, a
@@ -765,6 +766,68 @@ def test_egcl_pass_p_all_masked_on_card(cuda, f, h, equivariant):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("f,h,equivariant", [(48, 48, True), (48, 48, False),
+                                             (32, 32, False), (64, 48, True)],
+                         ids=["md17-layers-1-2", "md17-layer-3",
+                              "oc22-layer-1", "past-route-1"])
+def test_egcl_pass_s_routes_on_card(cuda, f, h, equivariant):
+    """egcl pass S alone, as the backward launches it: its route the plan's
+    (``hg_egcl_pass_s_route`` equals ``egcl_mp.pass_s_route``); route 1
+    (pass P's tensor-core chain in receiver order, a warp per share of the
+    rows, 16-edge tiles) at md17's and oc22's instantiations that launch
+    it; both routes within 1e-5 of the plain version's largest entry after
+    the biases are moved off the ReLU kinks (``chip_smoke.egcl_off_kinks``),
+    bit-identical twice; rows without a real incoming edge exactly zero;
+    route 1 refused past its widths.  Node 0 receives 200 extra edges, so
+    its row straddles thirteen 16-edge tiles."""
+    from chip_smoke import egcl_off_kinks
+    from hydragnn_torch.kernels.build import load_library
+    from hydragnn_torch.ops import egcl_mp
+    from hydragnn_torch.ops.aggregate import segment_offsets
+
+    own = egcl_mp.pass_s_route(f, h, 1, equivariant)
+    assert load_library("egcl_mp").hg_egcl_pass_s_route(
+        f, h, 1, int(equivariant)) == own
+    assert own == (1 if f <= 48 and h <= 48 else 2)
+    b = _graph_batch(29 + f + h, hub=200)
+    ins, (ca, cp) = _egcl_inputs(b, f, h, 0, equivariant, seed=6)
+    send, recv = _t(b["senders"]), _t(b["receivers"])
+    em = _t(b["edge_mask"]).to(torch.int32)
+    ins, _ = egcl_off_kinks(torch, equivariant, ins, send, recv, em)
+    ins = [t.to(cuda) for t in ins]
+    full = ins + [None] * (9 - len(ins))
+    ca = ca.to(cuda)
+    cp = cp.to(cuda) if equivariant else None
+    send, recv, em = send.to(cuda), recv.to(cuda), em.to(cuda)
+    n = ins[0].shape[0]
+    ws = egcl_mp.kernel_weights(equivariant, *full[2:], f, h, ins[0].device)
+    ptr_r = segment_offsets(recv, n, em)
+    with torch.no_grad():
+        def launch(route):
+            return egcl_mp.launch_egcl("egcl_block_pass_s", equivariant,
+                                       ins[0], ins[1], ws, send, recv, None,
+                                       ptr_r, ca, cp, route=route)
+
+        plain = egcl_mp.egcl_pass_s_plain(equivariant, ins[0], ins[1], em,
+                                          *full[2:], send, recv, ca, cp)
+        routes = [2] + ([1] if own == 1 else [])
+        if own == 2:
+            with pytest.raises(ValueError, match="route"):
+                launch(1)
+        no_in = ~torch.isin(torch.arange(n, device=cuda), recv[em != 0])
+        assert bool(no_in.any())
+        scale = float(plain.abs().max())
+        for route in routes:
+            got = launch(route)
+            again = launch(route)
+            torch.cuda.synchronize()
+            assert torch.equal(got, again), route
+            assert float((got - plain).abs().max()) <= 1e-5 * scale, route
+            assert bool((got[no_in] == 0).all()), route
+        assert torch.equal(launch(0), launch(own))
+
+
+@pytest.mark.gpu
 def test_egnn_train_steps_on_card_match_cpu(cuda, monkeypatch):
     """md17's EGNN widths (hidden 48, 4 convs, equivariant): three AdamW
     steps under fused from one init on the card (kernels) and on the CPU
@@ -1028,6 +1091,74 @@ def test_gat_pass_r_routes_on_card(cuda, h, f, bits):
                 assert torch.equal(x_, y_), (route, name)
                 assert float((x_ - z_).abs().max()) <= tol * float(
                     z_.abs().max()), (route, name)
+            assert bool((got[0][no_in] == 0).all()), route
+        for x_, y_ in zip(launch(0), launch(own)):
+            assert torch.equal(x_, y_)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [False, True], ids=["ones", "dropout"])
+@pytest.mark.parametrize("h,f", [(6, 64), (3, 256), (4, 8), (3, 12),
+                                 (8, 128), (16, 32), (1, 96), (24, 16),
+                                 (40, 1)],
+                         ids=["HF384", "HF768", "HF32", "HF36", "HF1024",
+                              "HF512-H16", "HF96-H1", "HF384-F16",
+                              "HF40-F1"])
+def test_gat_fwd_routes_on_card(cuda, h, f, bits):
+    """The GAT forward alone, as the op launches it: its route the plan's
+    (``hg_gat_fwd_route`` equals ``gat_mp.fwd_route``, and its group U
+    ``gat_mp.fwd_group``); route 1 (lane-order logits of U edges in
+    flight, one rescale a group) where the widths take it; on both routes
+    m equal to the plain version's (both sum each head's lanes in lane
+    order), acc and d within 1e-5 of their largest entry, bit-identical
+    twice; rows without a real incoming edge read m = -1e9, d = 0 and acc
+    = 0; route 1 refused where the widths do not take it.  Node 0 receives
+    200 extra edges, so its row spans seven groups of 32 sender ids."""
+    from hydragnn_torch.kernels.build import load_library
+    from hydragnn_torch.ops import gat_mp
+    from hydragnn_torch.ops.aggregate import segment_offsets
+
+    b = _graph_batch(67 + h + f, hub=200)
+    n, e = len(b["node_gid"]), len(b["senders"])
+    g = torch.Generator().manual_seed(3 * h + f)
+    xl, xr = (torch.randn(n, h * f, generator=g).to(cuda) for _ in range(2))
+    att = (torch.randn(h, f, generator=g) / f ** 0.5).to(cuda)
+    bb = None
+    if bits:
+        bb = ((torch.rand(e, h, generator=g) < 0.75).float() / 0.75).to(cuda)
+    send, recv = _t(b["senders"]).to(cuda), _t(b["receivers"]).to(cuda)
+    em = _t(b["edge_mask"]).to(cuda)
+    ptr_r = segment_offsets(recv, n, em)
+    own = gat_mp.fwd_route(h * f, f)
+    lib = load_library("gat_mp")
+    assert lib.hg_gat_fwd_route(h * f, f) == own
+    assert lib.hg_gat_fwd_group(h * f, f) == gat_mp.fwd_group(h * f, f)
+    with torch.no_grad():
+        def launch(route):
+            return gat_mp.launch_gat("gat_edge_attention", xl, xr, att, send,
+                                     recv, None, ptr_r, bb, 0.05,
+                                     route=route)
+
+        plain = gat_mp.gat_edge_attention_reference(xl, xr, att, send, recv,
+                                                    em, bb, 0.05)
+        routes = [2] + ([1] if own == 1 else [])
+        if own == 2:
+            with pytest.raises(ValueError, match="route"):
+                launch(1)
+        no_in = ~torch.isin(torch.arange(n, device=cuda), recv[em != 0])
+        assert bool(no_in.any())
+        for route in routes:
+            got = launch(route)
+            again = launch(route)
+            torch.cuda.synchronize()
+            for x_, y_ in zip(got, again):
+                assert torch.equal(x_, y_), route
+            assert torch.equal(got[1], plain[1]), route
+            for name, i in (("acc", 0), ("d", 2)):
+                assert float((got[i] - plain[i]).abs().max()) <= 1e-5 * float(
+                    plain[i].abs().max()), (route, name)
+            assert bool((got[1][no_in] == -1e9).all()), route
+            assert bool((got[2][no_in] == 0).all()), route
             assert bool((got[0][no_in] == 0).all()), route
         for x_, y_ in zip(launch(0), launch(own)):
             assert torch.equal(x_, y_)
