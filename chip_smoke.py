@@ -13,9 +13,9 @@ and PyTorch built for CUDA.  Phases, each of which fails the run:
    stack, spills and static shared memory (ptxas) of the redesigned
    kernels (the two pass-P kernels on the tensor cores, scf and cgcnn
    with its node table; the row_mlp forward's and backward's two routes;
-   the dn_tri backward; the builder forward's route 1; egcl pass P's
-   route 1; the scf filter-gather kernel's and the dn_tri forward's
-   routes 1; GAT pass R's and pass S's two routes)
+   the dn_tri backward; the builder forward's and pass P's routes 1;
+   egcl's three routes 1; the scf filter-gather kernel's and the dn_tri
+   forward's routes 1; GAT pass R's and pass S's two routes)
    beside the kernels that share their sources, and the dynamic shared
    memory of the pass-P kernels and the two new routes 1 at the main
    path's widths;
@@ -48,8 +48,10 @@ and PyTorch built for CUDA.  Phases, each of which fails the run:
    gate, layer 0's F = 1 block with no dx and no dgeo) through their
    autograd Function against autograd through the composed plain version
    (1e-5; 1e-4 for the weight grads; dgeo exactly zero on masked edges;
-   pass P takes its route 1 on the tensor cores in all three, the card's
-   route the plan's, and is timed in all three, with two bounds),
+   the forward and pass P take their routes 1 on the tensor cores in all
+   three, the card's routes the plan's, and are timed in all three, with
+   two bounds; the forward alone on both routes 1e-5, route 1
+   bit-identical twice, its first design timed beside it),
    and the three GAT kernels (forward, pass R, pass S) at the first
    train batch at H*F = 384 and 768, with ones and with dropout bits,
    through their autograd Function against autograd through the plain
@@ -93,7 +95,11 @@ and PyTorch built for CUDA.  Phases, each of which fails the run:
    width, the card's the plan's, route 1 at the path's), and with sbf
    without a gradient as in training (pass S's route 1: d x_kj 1e-5 and
    within a float64 run's bound, a second run bit-identical; pass S's
-   routes the plan's); then a double
+   routes the plan's), and pass P alone at the path's widths (route 1,
+   dk1 and dk2 in registers on the forward's ring: 1e-4 and within a
+   float64 run's bound, bit-identical twice, zero when all is masked; the
+   first design held at 1e-4 and timed beside it; the routes at each
+   width the plan's); then a double
    backward through ``gather_mul_segment_sum`` and ``gather_segment_sum``
    on the card against the CPU (1e-5), and the refusal of a double
    backward by the scf, egcl, GAT, cgcnn, dn_tri, dn_tri_builder and
@@ -647,8 +653,8 @@ def pass_p_build_report():
     the redesigned kernels (scf and cgcnn pass P, the row_mlp forward's
     and backward's two routes, the dn_tri backward, the scf filter-gather
     kernel's and the dn_tri forward's routes 1, the builder's, cgcnn pass
-    S, the GAT forward's, pass R's and pass S's routes 1 and egcl pass P's
-    and pass S's routes 1) and, beside them, of the kernels that share
+    S, the GAT forward's, pass R's and pass S's routes 1, egcl's three
+    routes 1 and the builder's pass P's route 1) and, beside them, of the kernels that share
     their sources (cgcnn's forward; the first designs of the three GAT
     kernels and of egcl's; both first designs of the filter-gather kernel
     and the dn_tri forward); and the
@@ -673,10 +679,10 @@ def pass_p_build_report():
                         "row_mlp_bwd_tc_kernel", "row_mlp_bwd_kernel"),
             "dn_tri": ("dn_tri_fwd_kernel", "dn_tri_bwd_kernel",
                        "fwd_tc_kernel"),
-            "dn_tri_builder": ("fwd_tc_kernel", "tri_rows_kernel",
-                               "tri_wgrad_kernel"),
+            "dn_tri_builder": ("fwd_tc_kernel", "wgrad_tc_kernel",
+                               "tri_rows_kernel", "tri_wgrad_kernel"),
             "egcl_mp": ("pass_p_tc_kernel", "pass_s_tc_kernel",
-                        "egcl_kernel")}
+                        "fwd_tc_kernel", "egcl_kernel")}
     kernels = []
     for src, names in keys.items():
         rep = ptxas_report(ptxas_log(src), names)
@@ -1351,10 +1357,17 @@ def egcl_phase(torch, g, seed):
     P's tensor-core chain in receiver order) and route 2 (the first
     design) within 1e-5 of the plain version's largest entry, route 1
     bit-identical twice and zero on rows without a real incoming edge.
+    The forward alone at layers 1-2, layer 3 and layer 0: its route the
+    plan's, route 1 (the front of pass P's chain in sender order, a warp
+    per share of the sender rows) and route 2 (the first design) within
+    1e-5 of the plain version's largest entry (agg and psum), route 1
+    bit-identical twice and zero on rows without a real outgoing edge.
     Then each kernel timed alone as layers 1-2 launch it (pass P with dx
-    and dgeo, and its reduction), beside its plain version; pass P and
-    pass S also as layer 3 (and pass P layer 0) launches them, pass S's
-    first design beside its route 1 (``route2_ms``)."""
+    and dgeo, and its reduction), beside its plain version; every kernel
+    also as layer 3 and, except pass S, layer 0 launch it; the first
+    designs of the forward and pass S beside their routes 1
+    (``route2_ms``); the forward's bound at 3xTF32 with the CUDA-core
+    bound beside it."""
     from hydragnn_torch.kernels.build import load_library
     from hydragnn_torch.models.layers import edge_geometry
     from hydragnn_torch.ops import egcl_mp as em_
@@ -1483,19 +1496,70 @@ def egcl_phase(torch, g, seed):
 
     pass_s_errs = {"layers_1_2": hold_pass_s(True, ins),
                    "layer_3": hold_pass_s(False, ins_last)}
+    ptr_s = segment_offsets(send[perm.long()], n, em[perm.long()])
+    no_out = ~torch.isin(nodes, send[real])
+
+    def fwd_launch(equivariant, f_, ins_, route):
+        ws_ = em_.kernel_weights(equivariant, *(ins_[2:] + [None] * (
+            9 - len(ins_))), f_, h, dev)
+        return lambda: em_.launch_egcl(
+            "egcl_block", equivariant, ins_[0], geo, ws_, send, recv, perm,
+            ptr_s, route=route)
+
+    def hold_fwd(equivariant, f_, ins_):
+        """The forward alone: both routes against the plain version,
+        route 1 twice."""
+        what = f"egcl forward (equivariant={equivariant}, F={f_})"
+        got = lib.hg_egcl_fwd_route(f_, h, gp, int(equivariant))
+        check(got == em_.fwd_route(f_, h, gp, equivariant) == 1,
+              f"{what}: route {got} on the card, the plan's and the path's "
+              "is 1")
+        full = ins_ + [None] * (9 - len(ins_))
+        with torch.no_grad():
+            runs = [fwd_launch(equivariant, f_, ins_, r)() for r in (1, 1, 2)]
+            plain = em_.egcl_block_reference(
+                equivariant, ins_[0], geo, em, *full[2:], send, recv)
+        torch.cuda.synchronize()
+        outs = ("agg", "psum") if equivariant else ("agg",)
+        for i, name in enumerate(outs):
+            check(torch.equal(runs[0][i], runs[1][i]),
+                  f"{what}: route 1's {name} differs on a second run")
+            check(bool((runs[0][i][no_out] == 0).all()),
+                  f"{what}: route 1 wrote {name} on a row without a real "
+                  "outgoing edge")
+        out = {}
+        for route, k in ((1, runs[0]), (2, runs[2])):
+            errs_ = {name: rel_err(torch, k[i], plain[i])
+                     for i, name in enumerate(outs)}
+            for name, (_, rel_e) in errs_.items():
+                check(rel_e <= REL_TOL_KERNEL, f"{what}: route {route}'s "
+                      f"{name} disagrees with its plain version: {rel_e}")
+            out[f"route{route}"] = worst_of(errs_)
+        return out
+
+    fwd_errs = {"layers_1_2": hold_fwd(True, f, ins),
+                "layer_3": hold_fwd(False, f, ins_last),
+                "layer_0": hold_fwd(True, 1, ins_l0)}
 
     e_valid = int(real.sum())
     n_valid = int((g.node_mask != 0).sum())
     x = ins[0]
     ws = em_.kernel_weights(True, *ins[2:], f, h, dev)
-    ptr_s = segment_offsets(send[perm.long()], n, em[perm.long()])
     plain_args = (True, x, geo, em, *ins[2:], send, recv, ca, cp)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-    fwd_fl = egcl_flops(f, h, gp, True, e_valid, n_valid)[0]
-    wbytes = 4 * sum(t.numel() for t in ws if t is not None)
-    # read once: x, the real edges' geo rows and ids (perm, send, recv),
-    # row_ptr, the weights; cotangents dagg, dpsum for the backward
-    edge_in = 4 * (n * f + e_valid * (3 + gp) + 3 * e_valid + n + 1) + wbytes
+
+    def fwd_bound(equivariant, f_, ins_):
+        """The forward's bounds as its route 1 runs it: at 3xTF32, and on
+        the CUDA cores beside it.  Read once: x, the real edges' geo rows
+        and ids (perm, send, recv), row_ptr, the weights; written once: agg
+        (and psum)."""
+        ws_ = em_.kernel_weights(equivariant, *(ins_[2:] + [None] * (
+            9 - len(ins_))), f_, h, dev)
+        inb = (4 * (n * f_ + e_valid * (3 + gp) + 3 * e_valid + n + 1)
+               + 4 * sum(t_.numel() for t_ in ws_ if t_ is not None))
+        outb = 4 * n * (h + (3 if equivariant else 0))
+        fl = egcl_flops(f_, h, gp, equivariant, e_valid, n_valid)[0]
+        return tensor_core_bounds(inb + outb, fl)
 
     def pass_p(equivariant, f_, ins_, data_grads):
         """Pass P as one instantiation launches it (layer 0: no dx, no
@@ -1541,11 +1605,10 @@ def egcl_phase(torch, g, seed):
         return tensor_core_bounds(inb + 4 * n * f, fl)
     launches = {
         "egcl_block": (
-            lambda: em_.launch_egcl("egcl_block", True, x, geo, ws, send,
-                                    recv, perm, ptr_s),
+            fwd_launch(True, f, ins, 0),
             lambda: em_.egcl_block_reference(True, x, geo, em, *ins[2:],
                                              send, recv),
-            bound(edge_in + 4 * n * (h + 3), fwd_fl),
+            fwd_bound(True, f, ins),
             "hydragnn_tpu/ops/fused_block.py:495", ("agg", "psum")),
         "egcl_block_pass_p": (
             p_kern, lambda: em_.egcl_pass_p_plain(*plain_args), p_bnd,
@@ -1574,6 +1637,32 @@ def egcl_phase(torch, g, seed):
         })
         if len(bnd) == 3:
             results[-1]["bound_ms_cuda_cores"] = bnd[2]
+        if name == "egcl_block":
+            # route 1 and the first design at every instantiation the path
+            # launches: layers 1-2 (this row's ms) twice a train step,
+            # layer 3 and layer 0 once
+            results[-1]["fwd_route"] = em_.fwd_route(f, h, gp, True)
+            results[-1]["route2_ms"] = time_ms(
+                torch, fwd_launch(True, f, ins, 2), flush, lead=True)
+            by = {"layers_1_2": {"ms": results[-1]["ms"],
+                                 "route2_ms": results[-1]["route2_ms"]}}
+            for tag, (eq_, f_, ins_) in (("layer_3", (False, f, ins_last)),
+                                         ("layer_0", (True, 1, ins_l0))):
+                by[tag] = {
+                    "ms": time_ms(torch, fwd_launch(eq_, f_, ins_, 0),
+                                  flush, lead=True),
+                    "route2_ms": time_ms(torch, fwd_launch(eq_, f_, ins_, 2),
+                                         flush, lead=True)}
+            for tag, (eq_, f_, ins_) in (("layers_1_2", (True, f, ins)),
+                                         ("layer_3", (False, f, ins_last)),
+                                         ("layer_0", (True, 1, ins_l0))):
+                b_ = fwd_bound(eq_, f_, ins_)
+                by[tag].update(bound_ms=b_[0], bound_by=b_[1],
+                               bound_ms_cuda_cores=b_[2])
+            results[-1]["by_instantiation"] = by
+            results[-1]["ms_per_train_step"] = (
+                2 * by["layers_1_2"]["ms"] + by["layer_3"]["ms"]
+                + by["layer_0"]["ms"])
         if name == "egcl_block_pass_p":
             # every instantiation the path launches, each once a train
             # step: layers 1-2 (this row's ms), layer 3, layer 0
@@ -1618,6 +1707,7 @@ def egcl_phase(torch, g, seed):
     notes["last_layer_F48"] = worst_of(errs_last)
     notes["layer0_F1"] = worst_of(errs_l0)
     notes["pass_s_routes"] = pass_s_errs
+    notes["fwd_routes"] = fwd_errs
     notes["bias_entries_moved_off_kinks"] = moved + moved_last + moved_l0
     return results, notes
 
@@ -2679,9 +2769,14 @@ def dimenet_builder_phase(torch, g, seed, cfg):
     then at the path's widths with sbf without a gradient, as in training
     (pass S's route 1): d x_kj 1e-5 and within the float64 bound (twice
     the float32 plain version's error, or 1e-6 of the largest entry), a
-    second run bit-identical.  Then each kernel timed alone as the path
+    second run bit-identical.  Pass P alone at the path's widths: its route
+    at every width the plan's, route 1 (the forward's ring, each warp on its
+    own share of the ji rows, dk1 and dk2 in registers) and route 2 (the
+    first design) within 1e-4 of the plain version's largest entry, route 1
+    also within the float64 bound, bit-identical twice and exactly zero
+    with every triplet masked.  Then each kernel timed alone as the path
     launches it (pass S without d sbf), beside its plain version and its
-    bound."""
+    bound, pass P's first design beside its route 1 (``route2_ms``)."""
     from hydragnn_torch.models.dimenet import (
         distances_and_angles,
         spherical_basis,
@@ -2775,6 +2870,16 @@ def dimenet_builder_phase(torch, g, seed, cfg):
                        for w in (0, 1)} == {0: 1, 1: 2},
           f"dn_tri_builder pass S at {(sr, b, d)}: routes {s_routes} on the "
           "card (without d sbf, with it), (1, 2) planned")
+    # pass P's route at each width, the card's against the plan's (the
+    # path's widths take route 1)
+    p_routes = {}
+    for w in ((sr, b, d),) + BUILDER_WIDTHS:
+        p_routes[w] = lib.hg_dn_tri_builder_bwd_p_route(*w)
+        check(p_routes[w] == dt.builder_bwd_p_route(*w),
+              f"dn_tri_builder pass P at {w}: route {p_routes[w]} on the "
+              f"card, {dt.builder_bwd_p_route(*w)} planned")
+    check(p_routes[(sr, b, d)] == 1,
+          f"the path's widths {(sr, b, d)} left pass P's route 1")
     ins, ct = inputs(sbf, b, d)
     errs, _, _ = hold(f"dn_tri_builder ({sr}, {b}, {d})", ins, ct)
     notes = {k_: {"max_abs_err": a, "max_rel_err": r_}
@@ -2817,12 +2922,57 @@ def dimenet_builder_phase(torch, g, seed, cfg):
           "dn_tri_builder (all masked): an output or gradient is not zero")
     notes["all_masked"] = "zero"
 
-    # each kernel alone on its precomputed schedule, as the path launches it
     e_real = int((g.edge_mask != 0).sum())
     p_ = perm.long()
     ptr_ji = segment_offsets(ji, e, tm)
     ptr_kj = segment_offsets(kj[p_], e, tm[p_])
     x, _, k1, k2 = ins
+
+    def pass_p_launch(route, mask=tm):
+        ptr = ptr_ji if mask is tm else segment_offsets(ji, e, mask)
+        return lambda: dt.launch_dn_tri_builder(
+            "dimenet_tri_builder_bwd_p", x, sbf, k1, k2, kj, ji, None, ptr,
+            ct, route=route)
+
+    # pass P alone at the path's widths: both routes against the plain
+    # version (1e-4), route 1 also within the float64 bound (twice the
+    # float32 plain version's error, or 1e-6 of the largest entry) and
+    # bit-identical twice; every triplet masked, exact zeros
+    what = f"dn_tri_builder pass P ({sr}, {b}, {d})"
+    with torch.no_grad():
+        runs = [pass_p_launch(r)() for r in (1, 1, 2)]
+        dead = pass_p_launch(1, torch.zeros_like(tm))()
+        plain = dt.dimenet_tri_builder_pass_p_plain(x, sbf, tm, k1, k2, kj,
+                                                    ji, ct)
+        p64 = dt.dimenet_tri_builder_pass_p_plain(
+            x.double(), sbf.double(), tm, k1.double(), k2.double(), kj, ji,
+            ct.double())
+    torch.cuda.synchronize()
+    p_notes = {}
+    for i, name in enumerate(("dk1", "dk2")):
+        check(torch.equal(runs[0][i], runs[1][i]),
+              f"{what}: route 1's {name} differs on a second run")
+        check(float(dead[i].abs().max()) == 0,
+              f"{what}: route 1's {name} is not zero with every triplet "
+              "masked")
+        e32 = float((plain[i].double() - p64[i]).abs().max())
+        allowed = max(2 * e32, 1e-6 * float(p64[i].abs().max()))
+        for route, k_ in ((1, runs[0]), (2, runs[2])):
+            err = rel_err(torch, k_[i], plain[i])
+            check(err[1] <= REL_TOL_WGRAD, f"{what}: route {route}'s {name} "
+                  f"disagrees with its plain version: {err[1]}")
+            e64 = float((k_[i].double() - p64[i]).abs().max())
+            if route == 1:
+                check(e64 <= allowed, f"{what}: route 1's {name} {e64} from "
+                      f"the float64 run, over {allowed}")
+            p_notes[f"{name}_route{route}"] = {
+                "max_abs_err": err[0], "max_rel_err": err[1],
+                "vs_float64": e64}
+        p_notes[f"{name}_plain_float32_vs_float64"] = e32
+        p_notes[f"{name}_float64_allowed"] = allowed
+    notes["pass_p_routes"] = p_notes
+
+    # each kernel alone on its precomputed schedule, as the path launches it
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     fwd_fl, s_fl, p_fl = dimenet_builder_flops(sr, b, d, t_real)
     wt = 4 * (sr * b + b * d)
@@ -2854,11 +3004,11 @@ def dimenet_builder_phase(torch, g, seed, cfg):
                 s_fl),
             "hydragnn_tpu/ops/fused_block.py:599", ("dx_kj",)),
         "dimenet_tri_builder_bwd_p": (
-            lambda: dt.launch_dn_tri_builder(
-                "dimenet_tri_builder_bwd_p", x, sbf, k1, k2, kj, ji, None,
-                ptr_ji, ct),
+            pass_p_launch(0),
             lambda: dt.dimenet_tri_builder_pass_p_plain(*plain_args),
-            bound(tri_in + 4 * e * d + wt, p_fl),
+            # route 1 on the tensor cores
+            (tensor_core_bounds if p_routes[(sr, b, d)] == 1 else bound)(
+                tri_in + 4 * e * d + wt, p_fl),
             "hydragnn_tpu/ops/fused_block.py:561", ("dk1", "dk2")),
     }
     results = []
@@ -2887,8 +3037,14 @@ def dimenet_builder_phase(torch, g, seed, cfg):
                 results[-1]["forward_route"] = routes[(sr, b, d)]
             if name == "dimenet_tri_builder_bwd_s":
                 results[-1]["bwd_s_route"] = s_routes[0]
+            if name == "dimenet_tri_builder_bwd_p":
+                results[-1]["bwd_p_route"] = p_routes[(sr, b, d)]
+                results[-1]["route2_ms"] = time_ms(
+                    torch, pass_p_launch(2), flush, lead=True)
     notes["forward_routes"] = {f"SR{k[0]}_B{k[1]}_D{k[2]}": v
                                for k, v in routes.items()}
+    notes["pass_p_routes_by_width"] = {f"SR{k[0]}_B{k[1]}_D{k[2]}": v
+                                       for k, v in p_routes.items()}
     return results, notes
 
 

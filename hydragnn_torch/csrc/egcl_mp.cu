@@ -14,14 +14,30 @@
 //
 // One kernel template, three modes:
 //
-// egcl_kernel<kFwd>   — the forward.  Replaces
-//   hydragnn_tpu/ops/fused_block.py:_fused_fwd with the egcl spec
-//   (pl.pallas_call at :495).  Sender order: each block owns kRows sender
-//   rows and walks their CSR range of edge positions (mapped to edge ids
-//   through edge_perm_sender) TE edges at a time; it recomputes the chain
-//   per edge tile in shared memory and adds m (and the three translation
-//   lanes) into the block's rows in edge order.  No [E,H] tensor reaches
-//   device memory, no atomics.
+// The forward.  Replaces hydragnn_tpu/ops/fused_block.py:_fused_fwd with
+//   the egcl spec (pl.pallas_call at :495).  Sender order: positions of a
+//   sender CSR, mapped to edge ids through edge_perm_sender; the chain is
+//   recomputed per edge tile and m (and the three translation lanes) added
+//   into the sender rows in edge order.  No [E,H] tensor reaches device
+//   memory, no atomics.  Two routes, chosen by width (hg_egcl_fwd_route):
+// tc::fwd_tc_kernel — route 1: pass P's route-1 widths (F, H <= 48, gp <=
+//   15: md17's and oc22's layers), pass S's route 1 with the forward's
+//   roles.  Each of a block's 12 warps (one block per SM) owns one share of
+//   the sender rows (passp::share_range over all the warps) and walks its
+//   positions in 16-edge tiles: it gathers the tile's x[s], x[r] and
+//   geometry rows with cp.async (zero-filled off real edges) and runs the
+//   front of the chain on the tensor cores in 3xTF32 (each k step's large
+//   product summed apart from the two small ones: mma3_apart), each
+//   product's accumulators the next one's A fragments: t0, a, m and, when
+//   equivariant, v and c.  m goes to a slot of the warp's region, the
+//   three translation lanes clip(diff * c) beside it (columns Hp .. Hp +
+//   2), and each lane adds two columns of the tile's rows into their sender
+//   rows in position order, a row's sum carried from one tile into the
+//   next; every row of the share written once.  No block barrier after
+//   the weights are staged.
+// egcl_kernel<kFwd> — route 2, every other width up to the limits: the
+//   first design below (each block owns kRows sender rows and walks their
+//   positions TE edges at a time on the CUDA cores).
 // Backward pass P (+ egcl_reduce_partials_kernel).  Replaces :_fused_bwd
 //   pass P (pl.pallas_call at :561).  Sender order again: recompute the
 //   chain, take the cotangents dagg[s], dpsum[s], backpropagate through
@@ -103,9 +119,8 @@
 // thread computes EQ edges of one output column.  Where the weights (and,
 // for pass P, the partials) do not fit a block's shared memory (H = 128),
 // they are read from L2 and the partial lives in device memory; that path
-// is correct and slow.  The forward and the routes 2 of pass P and pass S
-// run on the CUDA cores; the routes 1 of pass P and pass S on the tensor
-// cores (above).
+// is correct and slow.  The routes 2 of the three kernels run on the CUDA
+// cores; their routes 1 on the tensor cores (above).
 //
 // Contract (collate guarantees it): positions are sorted by output row, so
 // each row owns one contiguous CSR range; masked edges sort last in both
@@ -792,9 +807,30 @@ __device__ __forceinline__ void load_c(float (&c)[NT][4], const float* T,
   }
 }
 
+// c += a * b, one k step in 3xTF32 with the large product apart: the two
+// small products from zero, the large one from zero, each sum added to c
+// with a float32 add.  The tensor cores truncate an mma's result toward
+// zero, and the large product added onto the small ones inside one mma
+// leaves a bias toward zero in long chains; kept apart, the forward's agg
+// had half that bias on the card (see PERF.md)
+__device__ __forceinline__ void mma3_apart(float (&c)[4],
+                                           const passp::FragA& a,
+                                           const passp::FragB& b) {
+  float d[4], e[4];
+  passp::mma_z(d, a.lo, b.hi);
+  passp::mma(d, a.hi, b.lo);
+  passp::mma_z(e, a.hi, b.hi);
+#pragma unroll
+  for (int v = 0; v < 4; ++v) {
+    c[v] += d[v];
+    c[v] += e[v];
+  }
+}
+
 // c += A . B for A [16 x K] from registers (an accumulator of the previous
-// product, [KT][4], k permuted) and B = W (TR: W^T) from shared memory
-template <int NT, int KT, bool TR>
+// product, [KT][4], k permuted) and B = W (TR: W^T) from shared memory;
+// APART: each k step as mma3_apart
+template <int NT, int KT, bool TR, bool APART = false>
 __device__ __forceinline__ void chain_regs(float (&c)[NT][4],
                                            const float (&a)[KT][4],
                                            const float* W, int ldw) {
@@ -809,13 +845,17 @@ __device__ __forceinline__ void chain_regs(float (&c)[NT][4],
         load_bt_perm(fb, W, ldw, 8 * j, 8 * n);
       else
         load_b_perm(fb, W, ldw, 8 * j, 8 * n);
-      passp::mma3(c[n], fa, fb);
+      if (APART)
+        mma3_apart(c[n], fa, fb);
+      else
+        passp::mma3(c[n], fa, fb);
     }
   }
 }
 
-// c += T . W (TR: W^T) for T [16 x 8 KS] a shared tile (row stride ld)
-template <int NT, bool TR>
+// c += T . W (TR: W^T) for T [16 x 8 KS] a shared tile (row stride ld);
+// APART as chain_regs
+template <int NT, bool TR, bool APART = false>
 __device__ __forceinline__ void chain_smem(float (&c)[NT][4], const float* T,
                                            int ld, int ks, const float* W,
                                            int ldw) {
@@ -829,7 +869,10 @@ __device__ __forceinline__ void chain_smem(float (&c)[NT][4], const float* T,
         load_bt_perm(fb, W, ldw, 8 * s, 8 * n);
       else
         load_b_perm(fb, W, ldw, 8 * s, 8 * n);
-      passp::mma3(c[n], fa, fb);
+      if (APART)
+        mma3_apart(c[n], fa, fb);
+      else
+        passp::mma3(c[n], fa, fb);
     }
   }
 }
@@ -1661,6 +1704,226 @@ pass_s_tc_kernel(const Params p) {
   for (int z = next; z < re; ++z) put(z, 0.f, 0.f);
 }
 
+// ---------------------------------------------------------------------------
+// the forward, route 1: the front half of the chain in sender order, each
+// warp on its own share of the rows
+// ---------------------------------------------------------------------------
+
+constexpr int kWarpsF = 12;             // warps a block of the forward
+constexpr int kThreadsF = 32 * kWarpsF;
+
+// the forward's shared layout: the weights as layout() stages them, then per
+// warp the gathered x[s] and x[r], a slot for m and the translation lanes,
+// its G' [16][kLdG], raw geo rows [16][kLdRaw] and the senders [16]
+__host__ __device__ inline Layout layout_f(int f, int h, bool equiv) {
+  Layout L = layout(f, h, equiv);
+  L.per_warp = 3 * M * L.ld + M * kLdG + M * kLdRaw + M;
+  L.total = L.warps + kWarpsF * L.per_warp;
+  return L;
+}
+
+// the forward's route 1 at these widths: pass P's F, H <= 48 and gp <= 15
+// (the slot's columns Hp .. Hp + 2, inside its row stride, hold the
+// translation lanes), the layout in `optin` bytes
+__host__ inline bool fits_f(int f, int h, int gp, bool equiv, int optin) {
+  return round16(f) <= kMaxW && round16(h) <= kMaxW && gp + 1 <= kGW &&
+         sizeof(float) * static_cast<size_t>(layout_f(f, h, equiv).total) <=
+             static_cast<size_t>(optin);
+}
+
+template <bool EQUIV, int NT>
+__global__ void __launch_bounds__(kThreadsF, 1)
+fwd_tc_kernel(const Params p) {
+  constexpr int HP = 8 * NT;
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const int f = p.f, h = p.h, gp = p.gp, geo_ld = 3 + p.gp;
+  const int n_rows = p.n_rows;
+  const Layout L = layout_f(f, h, EQUIV);
+  const int fp = L.fp, ld = L.ld, ldw = L.ldw;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const float* wst = sm + L.wst;
+  const float* w1s = sm + L.w1;
+  const float* wc0s = sm + L.wc0;
+  const float* b1s = sm + L.b1;
+  const float* bc0s = sm + L.bc0;
+  const float* wc1s = sm + L.wc1;
+  float* xs = sm + L.warps + warp * L.per_warp;
+  float* xr = xs + M * ld;
+  float* mt = xr + M * ld;              // [m (H) | pad | tr (3)] rows
+  float* gt = mt + M * ld;
+  float* graw = gt + M * kLdG;
+  int* s_ids = reinterpret_cast<int*>(graw + M * kLdRaw);
+
+  stage_weights<EQUIV, HP, kThreadsF>(p, L, sm);
+  // this warp's region zeroed: the slots' pad columns stay zero (the
+  // gathers write columns < F, m columns < Hp, the translation Hp .. Hp + 2)
+  for (int i = lane; i < L.per_warp; i += 32) xs[i] = 0.f;
+  // this warp's share of the sender rows (rows plus edges balanced)
+  int rb, re;
+  passp::share_range(p.row_ptr, n_rows, blockIdx.x * kWarpsF + warp,
+                     gridDim.x * kWarpsF, rb, re);
+  __syncthreads();   // the only block barrier
+  const int p_begin = __ldg(p.row_ptr + rb);
+  const int p_end = __ldg(p.row_ptr + re);
+
+  // the sums: lane holds the columns c0 = lane and c1 = lane + 32 of a row
+  // [m (H) | pad | tr (3)] of the slot; each row's edges summed in position
+  // order (a row goes on from one tile into the next), every row of the
+  // share written once, rows without edges as zeros
+  const int c0 = lane, c1 = lane + 32;
+  auto used = [&](int c) {
+    return c < h || (EQUIV && c >= HP && c < HP + 3);
+  };
+  const bool u0 = used(c0), u1 = used(c1);
+  int row = -1, next = rb;
+  float a0 = 0.f, a1 = 0.f;
+  auto put1 = [&](int r, int c, float v) {
+    if (c < h)
+      p.out[static_cast<size_t>(r) * h + c] = v;
+    else
+      p.psum[static_cast<size_t>(r) * 3 + c - HP] = v;
+  };
+  auto put = [&](int r, float v0, float v1) {
+    if (u0) put1(r, c0, v0);
+    if (u1) put1(r, c1, v1);
+  };
+
+  // lanes 0..15: the tile's edge ids (through the sender permutation) and
+  // their ends
+  auto load_eid = [&](int q) {
+    if (lane >= M || q + lane >= p_end) return -1;
+    return p.perm != nullptr ? __ldg(p.perm + q + lane) : q + lane;
+  };
+  int eid = load_eid(p_begin);
+  int snd = eid >= 0 ? __ldg(p.send + eid) : -1;
+  int rcv = eid >= 0 ? __ldg(p.recv + eid) : -1;
+
+  for (int q = p_begin; q < p_end; q += M) {
+    const bool ok = eid >= 0 && snd >= rb && snd < re &&
+                    static_cast<unsigned>(rcv) < static_cast<unsigned>(n_rows);
+    if (lane < M) s_ids[lane] = ok ? snd : -1;
+    const unsigned okm = __ballot_sync(kFull, ok);
+    // the gathers: x[s], x[r] and the geometry, zeros off real edges
+#pragma unroll 1
+    for (int e = 0; e < M; ++e) {
+      const bool ve = (okm >> e) & 1u;
+      const int se = ve ? __shfl_sync(kFull, snd, e) : 0;
+      const int rr = ve ? __shfl_sync(kFull, rcv, e) : 0;
+      const int ee = ve ? __shfl_sync(kFull, eid, e) : 0;
+      if ((f & 3) == 0) {
+        cp_row<true>(xs + e * ld, p.x + static_cast<size_t>(se) * f, f, ve,
+                     lane);
+        cp_row<true>(xr + e * ld, p.x + static_cast<size_t>(rr) * f, f, ve,
+                     lane);
+      } else {
+        cp_row<false>(xs + e * ld, p.x + static_cast<size_t>(se) * f, f, ve,
+                      lane);
+        cp_row<false>(xr + e * ld, p.x + static_cast<size_t>(rr) * f, f, ve,
+                      lane);
+      }
+      if (lane < geo_ld)
+        cp_async4(graw + e * kLdRaw + lane,
+                  p.geo + static_cast<size_t>(ee) * geo_ld + lane, ve);
+    }
+    // the next tile's ids, in flight while this one is computed
+    const int eid_next = load_eid(q + M);
+    const int snd_next = eid_next >= 0 ? __ldg(p.send + eid_next) : -1;
+    const int rcv_next = eid_next >= 0 ? __ldg(p.recv + eid_next) : -1;
+    cp_async_wait_all();
+    __syncwarp();
+    // G': the geometry lanes, the ones column (real edges), zeros
+    for (int i2 = lane; i2 < M * kGW; i2 += 32) {
+      const int e = i2 >> 4, k = i2 & 15;
+      gt[e * kLdG + k] = k < gp ? graw[e * kLdRaw + 3 + k]
+                                : (k == gp && s_ids[e] >= 0 ? 1.f : 0.f);
+    }
+    __syncwarp();
+
+    // ---- the chain: t0, a ----
+    float cc[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) cc[n][0] = cc[n][1] = cc[n][2] = cc[n][3] = 0.f;
+    chain_smem<NT, false, true>(cc, xs, ld, fp / 8, wst, ldw);
+    chain_smem<NT, false, true>(cc, xr, ld, fp / 8, wst + fp * ldw, ldw);
+    chain_smem<NT, false, true>(cc, gt, kLdG, 2, wst + 2 * fp * ldw, ldw);
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) cc[n][v] = fmaxf(cc[n][v], 0.f);
+    // m = relu(a . W1 + b1)
+    float mm[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const float2 bb = *reinterpret_cast<const float2*>(b1s + 8 * n + 2 * t);
+      mm[n][0] = bb.x; mm[n][1] = bb.y; mm[n][2] = bb.x; mm[n][3] = bb.y;
+    }
+    chain_regs<NT, NT, false, true>(mm, cc, w1s, ldw);
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) mm[n][v] = fmaxf(mm[n][v], 0.f);
+    store_c<NT>(mt, ld, mm);
+    if (EQUIV) {
+      // v = relu(m . Wc0 + bc0); c = tanh(v . wc1)
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const float2 bb =
+            *reinterpret_cast<const float2*>(bc0s + 8 * n + 2 * t);
+        cc[n][0] = bb.x; cc[n][1] = bb.y; cc[n][2] = bb.x; cc[n][3] = bb.y;
+      }
+      chain_regs<NT, NT, false, true>(cc, mm, wc0s, ldw);
+      float p0 = 0.f, p1 = 0.f;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const float2 wc = *reinterpret_cast<const float2*>(wc1s + 8 * n + 2 * t);
+        p0 += fmaxf(cc[n][0], 0.f) * wc.x + fmaxf(cc[n][1], 0.f) * wc.y;
+        p1 += fmaxf(cc[n][2], 0.f) * wc.x + fmaxf(cc[n][3], 0.f) * wc.y;
+      }
+      p0 += __shfl_xor_sync(kFull, p0, 1);
+      p1 += __shfl_xor_sync(kFull, p1, 1);
+      p0 += __shfl_xor_sync(kFull, p0, 2);
+      p1 += __shfl_xor_sync(kFull, p1, 2);
+      // tr = clip(diff . c), lane t < 3 its lane t of rows g and g + 8
+      if (t < 3) {
+        const float c0v = tanhf(p0), c1v = tanhf(p1);
+        mt[g * ld + HP + t] =
+            fminf(fmaxf(graw[g * kLdRaw + t] * c0v, -100.f), 100.f);
+        mt[(g + 8) * ld + HP + t] =
+            fminf(fmaxf(graw[(g + 8) * kLdRaw + t] * c1v, -100.f), 100.f);
+      }
+    }
+    __syncwarp();
+    // the tile's edges into their rows, in position order
+#pragma unroll 1
+    for (int e = 0; e < M; ++e) {
+      const int r = s_ids[e];
+      if (r < 0) continue;
+      if (r != row) {
+        if (row >= 0) {
+          put(row, a0, a1);
+          next = row + 1;
+        }
+        for (int z = next; z < r; ++z) put(z, 0.f, 0.f);
+        row = r;
+        a0 = a1 = 0.f;
+      }
+      if (u0) a0 += mt[e * ld + c0];
+      if (u1) a1 += mt[e * ld + c1];
+    }
+    __syncwarp();   // the slots are gathered into next
+    eid = eid_next;
+    snd = snd_next;
+    rcv = rcv_next;
+  }
+  if (row >= 0) {
+    put(row, a0, a1);
+    next = row + 1;
+  }
+  for (int z = next; z < re; ++z) put(z, 0.f, 0.f);
+}
+
 }  // namespace tc
 
 __global__ void egcl_reduce_partials_kernel(const float* __restrict__ partial,
@@ -1714,61 +1977,75 @@ int launch_tc(const Params& p, int grid, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// pass P's route at these widths on the current device: 1 (route 1, the
-// tensor-core kernel: F, H <= 48, gp <= 15), 2 (the first design), 0 when
-// the device cannot be asked
+// the device's opt-in shared memory per block in bytes, 0 when it cannot be
+// asked
+int optin_bytes() {
+  int dev = 0, optin = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return 0;
+  return optin;
+}
+
+// the routes at these widths on the current device: 1 (route 1, the
+// tensor-core kernel: F, H <= 48, gp <= 15, its layout in a block's shared
+// memory), 2 (the first design), 0 when the device cannot be asked.  Pass
+// P's; pass S's (in receiver order) and the forward's (in sender order),
+// each warp on its own share of the rows
 int pass_p_route(int f, int h, int gp, bool equiv) {
-  int dev = 0, optin = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             dev) != cudaSuccess)
-    return 0;
-  return tc::fits(f, h, gp, equiv, optin) ? 1 : 2;
+  const int optin = optin_bytes();
+  return optin == 0 ? 0 : tc::fits(f, h, gp, equiv, optin) ? 1 : 2;
 }
 
-// pass S's route at these widths on the current device: 1 (route 1, the
-// tensor-core kernel in receiver order: F, H <= 48, gp <= 15), 2 (the
-// first design), 0 when the device cannot be asked
 int pass_s_route(int f, int h, int gp, bool equiv) {
-  int dev = 0, optin = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             dev) != cudaSuccess)
-    return 0;
-  return tc::fits_s(f, h, gp, equiv, optin) ? 1 : 2;
+  const int optin = optin_bytes();
+  return optin == 0 ? 0 : tc::fits_s(f, h, gp, equiv, optin) ? 1 : 2;
 }
 
-template <bool EQUIV, int NT>
-int launch_tc_s(const Params& p, cudaStream_t st) {
+int fwd_route(int f, int h, int gp, bool equiv) {
+  const int optin = optin_bytes();
+  return optin == 0 ? 0 : tc::fits_f(f, h, gp, equiv, optin) ? 1 : 2;
+}
+
+// route 1 of the forward or pass S: one block a SM, each warp on its own
+// share of the rows
+template <int MODE, bool EQUIV, int NT>
+int launch_tc_rows(const Params& p, cudaStream_t st) {
+  constexpr bool kF = MODE == kFwd;
+  const auto kernel = kF ? tc::fwd_tc_kernel<EQUIV, NT>
+                         : tc::pass_s_tc_kernel<EQUIV, NT>;
+  const int threads = kF ? tc::kThreadsF : tc::kThreadsS;
+  const tc::Layout L = kF ? tc::layout_f(p.f, p.h, EQUIV)
+                          : tc::layout_s(p.f, p.h, EQUIV);
+  const size_t smem = sizeof(float) * static_cast<size_t>(L.total);
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = sizeof(float) *
-      static_cast<size_t>(tc::layout_s(p.f, p.h, EQUIV).total);
-  err = cudaFuncSetAttribute(tc::pass_s_tc_kernel<EQUIV, NT>,
+  err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  // one block a SM, each warp on its own share of the rows
-  tc::pass_s_tc_kernel<EQUIV, NT><<<sms, tc::kThreadsS, smem, st>>>(p);
+  kernel<<<sms, threads, smem, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-// pass S on `route` (0: the widths' own); route 1 where the widths do not
-// take it is refused
-template <bool EQUIV>
-int launch_pass_s(const Params& p, int route, int grid, cudaStream_t st) {
-  const int own = pass_s_route(p.f, p.h, p.gp, EQUIV);
+// the forward or pass S on `route` (0: the widths' own); route 1 where the
+// widths do not take it is refused
+template <int MODE, bool EQUIV>
+int launch_rows(const Params& p, int route, int grid, cudaStream_t st) {
+  const int own = MODE == kFwd ? fwd_route(p.f, p.h, p.gp, EQUIV)
+                               : pass_s_route(p.f, p.h, p.gp, EQUIV);
   if (own == 0) return static_cast<int>(cudaErrorInvalidValue);
   if (route == 0) route = own;
   if (route == 1 && own != 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (route == 2) return launch<kPassS, EQUIV>(p, grid, st);
+  if (route == 2) return launch<MODE, EQUIV>(p, grid, st);
   switch (tc::round16(p.h)) {
-    case 16: return launch_tc_s<EQUIV, 2>(p, st);
-    case 32: return launch_tc_s<EQUIV, 4>(p, st);
-    case 48: return launch_tc_s<EQUIV, 6>(p, st);
+    case 16: return launch_tc_rows<MODE, EQUIV, 2>(p, st);
+    case 32: return launch_tc_rows<MODE, EQUIV, 4>(p, st);
+    case 48: return launch_tc_rows<MODE, EQUIV, 6>(p, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1809,15 +2086,21 @@ extern "C" int hg_egcl_pass_s_route(int f, int h, int gp, int equivariant) {
   return pass_s_route(f, h, gp, equivariant != 0);
 }
 
+// The forward's route at these widths (fwd_route): 1, 2, or 0 when the
+// device cannot be asked.
+extern "C" int hg_egcl_fwd_route(int f, int h, int gp, int equivariant) {
+  return fwd_route(f, h, gp, equivariant != 0);
+}
+
 // One EGCL launch; returns the cudaError_t (0 = success).  mode 0: the
 // forward (out = agg [N,H], psum [N,3] when equivariant; rows are senders,
 // `perm` the sender permutation); mode 1: pass P (out = dx [N,F] or null,
 // `partial` scratch [n_parts, wgrad size], `wgrad` the reduced weight
 // gradients, `dgeo` [E,3+gp] zero-filled or null; same order as the
 // forward); mode 2: pass S (out = dx [N,F]; rows are receivers, `perm`
-// null).  `route` (pass S): 0 takes the widths' own (hg_egcl_pass_s_route),
-// 1 or 2 that one where the widths admit it; the forward and pass P take
-// route 0.  Pointers are device pointers; launches go on `stream` and do
+// null).  `route` (the forward and pass S): 0 takes the widths' own
+// (hg_egcl_fwd_route, hg_egcl_pass_s_route), 1 or 2 that one where the
+// widths admit it; pass P takes route 0.  Pointers are device pointers; launches go on `stream` and do
 // not synchronise.
 extern "C" int hg_egcl_f32(
     int mode, int equivariant, const void* x, const void* geo,
@@ -1830,7 +2113,7 @@ extern "C" int hg_egcl_f32(
   if (n_rows <= 0 || h <= 0) return 0;
   if (f < 1 || f > kMaxF || h > kMaxH || gp < 1 || gp > kMaxGp ||
       mode < kFwd || mode > kPassS || (mode == kPassP && n_parts < 1) ||
-      route < 0 || route > 2 || (mode != kPassS && route != 0))
+      route < 0 || route > 2 || (mode == kPassP && route != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   const bool equiv = equivariant != 0;
   Params p{};
@@ -1855,11 +2138,11 @@ extern "C" int hg_egcl_f32(
   p.n_chunks = (n_rows + kRows - 1) / kRows;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (mode == kFwd)
-    return equiv ? launch<kFwd, true>(p, p.n_chunks, st)
-                 : launch<kFwd, false>(p, p.n_chunks, st);
+    return equiv ? launch_rows<kFwd, true>(p, route, p.n_chunks, st)
+                 : launch_rows<kFwd, false>(p, route, p.n_chunks, st);
   if (mode == kPassS)
-    return equiv ? launch_pass_s<true>(p, route, p.n_chunks, st)
-                 : launch_pass_s<false>(p, route, p.n_chunks, st);
+    return equiv ? launch_rows<kPassS, true>(p, route, p.n_chunks, st)
+                 : launch_rows<kPassS, false>(p, route, p.n_chunks, st);
   const int grid = n_parts < p.n_chunks ? n_parts : p.n_chunks;
   const int rc = equiv ? launch_pass_p<true>(p, grid, st)
                        : launch_pass_p<false>(p, grid, st);

@@ -66,6 +66,7 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         "hg_egcl_wgrad_size": (_I,) * 4,
         "hg_egcl_pass_p_route": (_I,) * 4,
         "hg_egcl_pass_s_route": (_I,) * 4,
+        "hg_egcl_fwd_route": (_I,) * 4,
     },
     "gat_mp": {
         # mode, xl, xr, att, send, recv, perm, row_ptr, b, m, ga, gd, out,
@@ -108,11 +109,12 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     },
     "dn_tri_builder": {
         # mode, x, sbf, w1, w2, kj, ji, perm, row_ptr, gout, out, d_sbf,
-        # partial, wgrad, n_rows, sr, b, d, n_parts, stream
-        "hg_dn_tri_builder_f32": (_I,) + (_P,) * 13 + (_I,) * 5 + (_P,),
+        # partial, wgrad, n_rows, sr, b, d, n_parts, route, stream
+        "hg_dn_tri_builder_f32": (_I,) + (_P,) * 13 + (_I,) * 6 + (_P,),
         # sr, b, d
         "hg_dn_tri_builder_wgrad_size": (_I,) * 3,
         "hg_dn_tri_builder_fwd_route": (_I,) * 3,
+        "hg_dn_tri_builder_bwd_p_route": (_I,) * 3,
         # sr, b, d, want_sbf
         "hg_dn_tri_builder_bwd_s_route": (_I,) * 4,
     },

@@ -63,8 +63,11 @@ the first design); pass S in
 ``d_sbf`` goes to each triplet's own slot; two routes,
 :func:`builder_bwd_s_route`: the forward's route 1 in kj order when
 ``d_sbf`` is not asked for, or the first design); pass P in ``idx_ji`` order
-(``dk1``, ``dk2`` in per-block partials over slices of B, reduced in a
-fixed order).  Its backward written out
+(``dk1``, ``dk2`` in per-block partials reduced in a fixed order; two
+routes, :func:`builder_bwd_p_route`: the forward's ring and products with
+each warp on its own share of the rows and the weight gradients in
+registers, summed in warp then block order, or the first design over
+slices of B).  Its backward written out
 (:func:`dimenet_tri_builder_bwd_plain`), with ``g = dout[ji]``:
 
   d_emb2 = g * x_kj[kj];     d_x_kj[kj] += g * emb2
@@ -443,6 +446,17 @@ def builder_bwd_s_route(sr, b, d, want_sbf):
     return 2 if want_sbf else builder_fwd_route(sr, b, d)
 
 
+def builder_bwd_p_route(sr, b, d):
+    """Pass P's route: 1 (wgrad_tc_kernel: the forward's ring and
+    products, each warp on its own share of the ji rows, dK1 and dK2 in
+    registers) at the forward's route-1 widths, B <= 8, S*R <= 64 and D a
+    multiple of 8, DimeNet++'s QM9 widths (42, 8, 128) among them; 2 (the
+    first design, tri_wgrad_kernel) past that.  Mirrors
+    ``hg_dn_tri_builder_bwd_p_route``, which also checks that a block's
+    shared memory holds route 1; a card test holds the two together."""
+    return builder_fwd_route(sr, b, d)
+
+
 def check_builder_widths(sr, b, d):
     if not (1 <= sr <= TRI_SBF_LIMIT and 1 <= b <= TRI_EMB_LIMIT
             and 1 <= d <= TRI_EMB_LIMIT):
@@ -457,13 +471,16 @@ _BUILDER_MODES = {"dimenet_tri_builder": 0, "dimenet_tri_builder_bwd_s": 1,
 
 
 def launch_dn_tri_builder(op, x_kj, sbf, k1, k2, idx_kj, idx_ji, perm,
-                          row_ptr, gout=None, want=(True, True)):
+                          row_ptr, gout=None, want=(True, True), route=0):
     """One launch of a builder kernel on a precomputed CSR schedule
     ``row_ptr`` over positions: ``idx_ji`` order (``perm`` None) for the
     forward ``dimenet_tri_builder`` (returns ``out [E, D]``) and for pass P
     ``dimenet_tri_builder_bwd_p`` (returns ``(dk1, dk2)``); ``idx_kj``
     order through ``perm`` for pass S ``dimenet_tri_builder_bwd_s``
-    (returns ``(d_x_kj, d_sbf)``, each None where ``want`` says so)."""
+    (returns ``(d_x_kj, d_sbf)``, each None where ``want`` says so).
+    ``route`` (pass P): 0 takes the widths' own
+    (:func:`builder_bwd_p_route`), 1 or 2 asks for that one (the card
+    checks time the first design beside route 1)."""
     from hydragnn_torch.kernels.build import load_library
 
     dev = x_kj.device
@@ -472,6 +489,10 @@ def launch_dn_tri_builder(op, x_kj, sbf, k1, k2, idx_kj, idx_ji, perm,
     b = k1.shape[1]
     check_builder_widths(sr, b, d)
     mode = _BUILDER_MODES[op]
+    if route not in (0, 1, 2) or (route and mode != 2) or (
+            route == 1 and builder_bwd_p_route(sr, b, d) != 1):
+        raise ValueError(f"{op} takes route 0, or for pass P 2, or 1 at its "
+                         f"widths; got {route} at S*R={sr}, B={b}, D={d}")
     _require(x_kj, "x_kj", torch.float32, (e, d), dev)
     _require(sbf, "sbf", torch.float32, (t, sr), dev)
     _require(k1, "k1", torch.float32, (sr, b), dev)
@@ -502,7 +523,8 @@ def launch_dn_tri_builder(op, x_kj, sbf, k1, k2, idx_kj, idx_ji, perm,
             d_sbf = torch.zeros((t, sr), dtype=torch.float32, device=dev)
     else:
         size = lib.hg_dn_tri_builder_wgrad_size(sr, b, d)
-        # four blocks per SM in all, shared between the slices of B
+        # four blocks per SM in all (route 2: shared between the slices of
+        # B; route 1 runs one block per SM)
         n_parts = 4 * torch.cuda.get_device_properties(
             dev).multi_processor_count
         partial = torch.empty((n_parts, size), dtype=torch.float32,
@@ -516,7 +538,7 @@ def launch_dn_tri_builder(op, x_kj, sbf, k1, k2, idx_kj, idx_ji, perm,
                 k2.data_ptr(), idx_kj.data_ptr(), idx_ji.data_ptr(),
                 _ptr(perm), row_ptr.data_ptr(), _ptr(gout), _ptr(out),
                 _ptr(d_sbf), _ptr(partial), _ptr(wgrad), e, sr, b, d,
-                n_parts, stream)
+                n_parts, route, stream)
         _check_rc(rc, op)
         LAUNCHES[op] += 1
     elif wgrad is not None:

@@ -17,7 +17,11 @@ memory:
 
 - forward (the reference's ``_fused_fwd``): sender order through
   ``sender_perm``, recompute the chain per edge tile, sum ``m`` and the
-  three translation lanes into the sender rows;
+  three translation lanes into the sender rows.  Two routes by width
+  (:func:`fwd_route`): pass S's route 1 with the forward's roles (each warp
+  on one share of the sender rows in 16-edge tiles, :func:`pass_s_tiles`
+  over the sender CSR; the front of the chain on the tensor cores), or the
+  first design;
 - pass P (``_bwd_p_kernel``): sender order, recompute, backpropagate the
   cotangents ``dagg[s]``, ``dpsum[s]`` and write ``dx`` of the sender side,
   the per-edge ``dgeo`` and the weight gradients (one float32 partial per
@@ -275,16 +279,30 @@ def pass_s_route(f, h, gp, equivariant=True):
     return 2
 
 
-# pass S's route 1: warps a block (one block per SM) and edges a tile
+def fwd_route(f, h, gp, equivariant=True):
+    """The forward's route at these widths: 1 (pass S's route 1 with the
+    forward's roles: each warp on one share of the sender rows, the front
+    of the chain on the tensor cores) at pass P's route-1 widths, F, H <=
+    48 and gp <= 15, every instantiation md17's and oc22's paths launch; 2
+    (the first design) past that.  Mirrors ``hg_egcl_fwd_route``, which
+    also checks that a block's shared memory holds route 1; a card test
+    holds the two together."""
+    return pass_s_route(f, h, gp, equivariant)
+
+
+# the routes 1 of pass S and the forward: warps a block (one block per SM)
+# and edges a tile
 EGCL_PASS_S_WARPS = 12
 EGCL_PASS_S_TILE = 16
 
 
 def pass_s_tiles(row_ptr, n_warps):
-    """Pass S's route-1 plan over a receiver CSR: warp ``w`` of the
-    ``n_warps`` (blocks times 12) owns the rows ``[b[w], b[w + 1])`` of
+    """The route-1 plan of pass S over a receiver CSR, and of the forward
+    over a sender CSR: warp ``w`` of the ``n_warps`` (blocks times 12) owns
+    the rows ``[b[w], b[w + 1])`` of
     :func:`~hydragnn_torch.ops.aggregate.row_shares` and walks their
-    positions in 16-edge tiles.  Returns ``(bounds, tiles)``, ``tiles`` a
+    positions in 16-edge tiles (the forward maps a position to its edge
+    through ``sender_perm``).  Returns ``(bounds, tiles)``, ``tiles`` a
     list per warp of ``(begin, end)`` position ranges in walking order."""
     from hydragnn_torch.ops.aggregate import row_shares
 
@@ -327,9 +345,10 @@ def launch_egcl(op, equivariant, x, geo, weights, senders, receivers, perm,
     """One launch of the EGCL kernel in the mode ``op`` names, on a
     precomputed CSR schedule ``row_ptr`` over positions (sender order
     through ``perm`` for the forward and pass P; receiver order, ``perm``
-    None, for pass S).  ``route`` (pass S): 0 takes the widths' own
-    (:func:`pass_s_route`), 1 or 2 asks for that one (the card checks time
-    the first design beside route 1).  Returns:
+    None, for pass S).  ``route`` (the forward and pass S): 0 takes the
+    widths' own (:func:`fwd_route`, :func:`pass_s_route`), 1 or 2 asks for
+    that one (the card checks time the first design beside route 1).
+    Returns:
 
     - ``egcl_block``: ``(agg [N, H], psum [N, 3] or None)``;
     - ``egcl_block_pass_p``: ``(wgrad, dgeo or None, dx_sender or None)``,
@@ -353,10 +372,11 @@ def launch_egcl(op, equivariant, x, geo, weights, senders, receivers, perm,
         _require(perm, "sender_perm", torch.int32, (e,), dev)
     _require(row_ptr, "row_ptr", torch.int32, (n + 1,), dev)
     mode = _MODES[op]
-    if route not in (0, 1, 2) or (route and mode != 2) or (
+    if route not in (0, 1, 2) or (route and mode == 1) or (
             route == 1 and pass_s_route(f, h, gp, equivariant) != 1):
-        raise ValueError(f"{op} takes route 0, or for pass S 2, or 1 at its "
-                         f"widths; got {route} at F={f}, H={h}, gp={gp}")
+        raise ValueError(f"{op} takes route 0, or for the forward and pass S "
+                         f"2, or 1 at its widths; got {route} at F={f}, "
+                         f"H={h}, gp={gp}")
     lib = load_library("egcl_mp")
     agg = psum = partial = wgrad = dgeo = out = None
     n_parts = 0

@@ -828,6 +828,79 @@ def test_egcl_pass_s_routes_on_card(cuda, f, h, equivariant):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("f,h,equivariant", [(48, 48, True), (48, 48, False),
+                                             (1, 48, True), (32, 32, False),
+                                             (64, 48, True)],
+                         ids=["md17-layers-1-2", "md17-layer-3",
+                              "md17-layer-0", "oc22-layer-1",
+                              "past-route-1"])
+def test_egcl_fwd_routes_on_card(cuda, f, h, equivariant):
+    """The egcl forward alone, as the Function launches it: its route the
+    plan's (``hg_egcl_fwd_route`` equals ``egcl_mp.fwd_route``); route 1
+    (the front of pass P's tensor-core chain in sender order, a warp per
+    share of the sender rows, 16-edge tiles) at md17's and oc22's
+    instantiations; both routes within 1e-5 of the plain version's largest
+    entry (agg and psum) after the biases are moved off the ReLU kinks
+    (``chip_smoke.egcl_off_kinks``), bit-identical twice; rows without a
+    real outgoing edge exactly zero; all edges masked, every row exactly
+    zero; route 1 refused past its widths.  The batch is
+    ``_graph_batch``'s with senders and receivers swapped, so node 0 sends
+    200 extra edges and its row straddles thirteen 16-edge tiles."""
+    from chip_smoke import egcl_off_kinks
+    from hydragnn_torch.kernels.build import load_library
+    from hydragnn_torch.ops import egcl_mp
+
+    own = egcl_mp.fwd_route(f, h, 1, equivariant)
+    assert load_library("egcl_mp").hg_egcl_fwd_route(
+        f, h, 1, int(equivariant)) == own
+    assert own == (1 if f <= 48 and h <= 48 else 2)
+    b = _graph_batch(31 + f + h, hub=200)
+    ins, _ = _egcl_inputs(b, f, h, 0, equivariant, seed=8)
+    send, recv = _t(b["receivers"]), _t(b["senders"])
+    em = _t(b["edge_mask"]).to(torch.int32)
+    ins, _ = egcl_off_kinks(torch, equivariant, ins, send, recv, em)
+    ins = [t.to(cuda) for t in ins]
+    full = ins + [None] * (9 - len(ins))
+    send, recv, em = send.to(cuda), recv.to(cuda), em.to(cuda)
+    n = ins[0].shape[0]
+    ws = egcl_mp.kernel_weights(equivariant, *full[2:], f, h, ins[0].device)
+
+    def launch(route, mask=em):
+        key = send.long() + n * (mask == 0).long()
+        perm = torch.argsort(key, stable=True).to(torch.int32)
+        return egcl_mp.launch_egcl(
+            "egcl_block", equivariant, ins[0], ins[1], ws, send, recv, perm,
+            egcl_mp._sender_schedule(send, mask, perm, n), route=route)
+
+    with torch.no_grad():
+        agg, psum = egcl_mp.egcl_block_reference(
+            equivariant, ins[0], ins[1], em, *full[2:], send, recv)
+        if own == 2:
+            with pytest.raises(ValueError, match="route"):
+                launch(1)
+        no_out = ~torch.isin(torch.arange(n, device=cuda), send[em != 0])
+        assert bool(no_out.any())
+        for route in [2] + ([1] if own == 1 else []):
+            got = launch(route)
+            again = launch(route)
+            torch.cuda.synchronize()
+            assert (got[1] is None) == (not equivariant), route
+            for x_, y_, z_ in zip(got, again, (agg, psum)):
+                if z_ is None:
+                    continue
+                assert torch.equal(x_, y_), route
+                assert float((x_ - z_).abs().max()) <= 1e-5 * float(
+                    z_.abs().max()), route
+                assert bool((x_[no_out] == 0).all()), route
+            dead = launch(route, torch.zeros_like(em))
+            for x_ in dead:
+                if x_ is not None:
+                    assert float(x_.abs().max()) == 0, route
+        for x_, y_ in zip(launch(0), launch(own)):
+            assert (x_ is None and y_ is None) or torch.equal(x_, y_)
+
+
+@pytest.mark.gpu
 def test_egnn_train_steps_on_card_match_cpu(cuda, monkeypatch):
     """md17's EGNN widths (hidden 48, 4 convs, equivariant): three AdamW
     steps under fused from one init on the card (kernels) and on the CPU
@@ -1971,6 +2044,73 @@ def test_dn_tri_builder_pass_s_route1_on_card(cuda, sr, b, d):
         assert float((x_ - y_).abs().max()) <= rel * float(y_.abs().max()), \
             name
     _float64_yardstick("x_kj", k[0], p[0], p64[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sr,b,d", [(42, 8, 128), (21, 8, 96), (43, 5, 24),
+                                    (64, 8, 8), (70, 8, 64),
+                                    (126, 128, 128)])
+def test_dn_tri_builder_pass_p_routes_on_card(cuda, sr, b, d):
+    """The builder's pass P alone, as the backward launches it: its route
+    the plan's (``hg_dn_tri_builder_bwd_p_route`` equals
+    ``dn_tri.builder_bwd_p_route``); route 1 (the forward's ring, each warp
+    on its own share of the ji rows, dK1 and dK2 in registers) at the
+    forward's route-1 widths, dimenet_wide's (42, 8, 128) among them; both
+    routes' dk1 and dk2 within 1e-4 of the plain version's largest entry,
+    route 1 also within the float64 bound (:func:`_float64_yardstick`),
+    bit-identical twice; every triplet masked, exactly zero; route 1
+    refused past its widths.  The table leaves ji rows without triplets and
+    has a ~210-triplet ji row (several tiles of one warp)."""
+    from hydragnn_torch.kernels.build import load_library
+    from hydragnn_torch.ops import dn_tri
+    from hydragnn_torch.ops.aggregate import segment_offsets
+
+    own = dn_tri.builder_bwd_p_route(sr, b, d)
+    assert load_library("dn_tri_builder").hg_dn_tri_builder_bwd_p_route(
+        sr, b, d) == own
+    assert own == (1 if b <= 8 and sr <= 64 else 2)
+    e, t = 700, 6000
+    kj, ji, tm, _ = _dimenet_tables(e, t, 1, 13 + sr + d)
+    real = int(tm.sum())
+    ji[real // 2:real // 2 + 210] = ji[real // 2]   # still nondecreasing
+    kj, ji, tm = (_t(a).to(cuda) for a in (kj, ji, tm))
+    g = torch.Generator().manual_seed(6)
+    x, sbf, k1, k2, ct = (a.to(cuda) for a in (
+        torch.randn(e, d, generator=g), torch.randn(t, sr, generator=g) * 0.5,
+        torch.randn(sr, b, generator=g) / sr ** 0.5,
+        torch.randn(b, d, generator=g) / b ** 0.5,
+        torch.randn(e, d, generator=g)))
+    assert bool((torch.bincount(ji[tm != 0].long(), minlength=e) == 0).any())
+
+    def launch(route, mask=tm):
+        return dn_tri.launch_dn_tri_builder(
+            "dimenet_tri_builder_bwd_p", x, sbf, k1, k2, kj, ji, None,
+            segment_offsets(ji, e, mask), ct, route=route)
+
+    with torch.no_grad():
+        plain = dn_tri.dimenet_tri_builder_pass_p_plain(x, sbf, tm, k1, k2,
+                                                        kj, ji, ct)
+        p64 = dn_tri.dimenet_tri_builder_pass_p_plain(
+            x.double(), sbf.double(), tm, k1.double(), k2.double(), kj, ji,
+            ct.double())
+        if own == 2:
+            with pytest.raises(ValueError, match="route"):
+                launch(1)
+        for route in [2] + ([1] if own == 1 else []):
+            got = launch(route)
+            again = launch(route)
+            dead = launch(route, torch.zeros_like(tm))
+            torch.cuda.synchronize()
+            for name, x_, y_, z_, w_, q_ in zip(("k1", "k2"), got, again,
+                                                dead, plain, p64):
+                assert torch.equal(x_, y_), (route, name)
+                assert float(z_.abs().max()) == 0, (route, name)
+                assert float((x_ - w_).abs().max()) <= 1e-4 * float(
+                    w_.abs().max()), (route, name)
+                if route == 1:
+                    _float64_yardstick(name, x_, w_, q_)
+        for x_, y_ in zip(launch(0), launch(own)):
+            assert torch.equal(x_, y_)
 
 
 @pytest.mark.gpu
