@@ -15,7 +15,8 @@ and PyTorch built for CUDA.  Phases, each of which fails the run:
    with its node table; the row_mlp forward's and backward's two routes;
    the dn_tri backward; the builder forward's and pass P's routes 1;
    egcl's three routes 1; the scf filter-gather kernel's and the dn_tri
-   forward's routes 1; GAT pass R's and pass S's two routes)
+   forward's routes 1; GAT pass R's and pass S's two routes; the
+   gather-multiply's forward and fused backward, routes 1)
    beside the kernels that share their sources, and the dynamic shared
    memory of the pass-P kernels and the two new routes 1 at the main
    path's widths;
@@ -23,11 +24,16 @@ and PyTorch built for CUDA.  Phases, each of which fails the run:
    masked tail edges, empty segments), hold each kernel to its plain
    PyTorch version and time kernel, plain version and library call (CUDA
    events, median of 50 runs after warm-up, L2 flushed before each run,
-   no host gap inside a timed run): the gather-multiply forward (F=64),
-   its no-``w`` mode and the pool (max |kernel - plain| / max |plain| <=
-   1e-5), the dx pass of both backwards through the ops' autograd backward
-   against autograd through the plain versions (dx, and dw on real edges,
-   1e-5), and the three scf kernels of the wide
+   no host gap inside a timed run): the gather-multiply forward (F=64)
+   and its no-``w`` mode on both routes (route 1 held to route 2's bits
+   and bit-identical twice) and the pool (max |kernel - plain| / max
+   |plain| <= 1e-5), the backward of both through the ops' autograd
+   backward (route 1's fused launch) against autograd through the plain
+   versions (dx, and dw on real edges, 1e-5; dw bit-equal to x[senders] *
+   g[receivers] on real edges and zero on masked ones), the fused launch
+   against route 2 (the first design's dx pass on the sender-sorted w[p]:
+   dx bit for bit) and the whole backward through the Function on each
+   route, and the three scf kernels of the wide
    SchNet (F=256, G=50: forward, pass P, pass S) through their autograd
    Function against autograd through the composed plain version (1e-5;
    1e-4 for the weight grads, sums over ~1e5 edges in another order;
@@ -654,10 +660,12 @@ def pass_p_build_report():
     and backward's two routes, the dn_tri backward, the scf filter-gather
     kernel's and the dn_tri forward's routes 1, the builder's, cgcnn pass
     S, the GAT forward's, pass R's and pass S's routes 1, egcl's three
-    routes 1 and the builder's pass P's route 1) and, beside them, of the kernels that share
-    their sources (cgcnn's forward; the first designs of the three GAT
-    kernels and of egcl's; both first designs of the filter-gather kernel
-    and the dn_tri forward); and the
+    routes 1, the builder's pass P's route 1 and the gather-multiply's
+    forward and fused backward, routes 1) and, beside them, of the
+    kernels that share their sources (cgcnn's forward; the first designs
+    of the three GAT kernels and of egcl's; both first designs of the
+    filter-gather kernel and the dn_tri forward; the gather-multiply's
+    first design); and the
     dynamic shared memory of one block of scf pass P, cgcnn pass P, the
     scf filter-gather route 1 and the dn_tri forward's route 1 at the
     main path's widths (the kernels' own layouts).  Fails when a source's
@@ -682,7 +690,11 @@ def pass_p_build_report():
             "dn_tri_builder": ("fwd_tc_kernel", "wgrad_tc_kernel",
                                "tri_rows_kernel", "tri_wgrad_kernel"),
             "egcl_mp": ("pass_p_tc_kernel", "pass_s_tc_kernel",
-                        "fwd_tc_kernel", "egcl_kernel")}
+                        "fwd_tc_kernel", "egcl_kernel"),
+            # the gather-multiply's routes 1 (forward, fused backward) and
+            # its first design
+            "fused_mp": ("gm_fwd_kernel", "gm_bwd_kernel",
+                         "gather_mul_segment_sum_kernel")}
     kernels = []
     for src, names in keys.items():
         rep = ptxas_report(ptxas_log(src), names)
@@ -760,6 +772,31 @@ def kernel_phase(torch, g, seed):
     f = FEATURES
     results, notes = [], {}
 
+    def bits(a, b):
+        a, b = (t if isinstance(t, tuple) else (t,) for t in (a, b))
+        return len(a) == len(b) and all(
+            (u is None and v is None) or torch.equal(u, v)
+            for u, v in zip(a, b))
+
+    def hold_routes(name, launch, plain, same=bits):
+        """Route 1 (``launch(1)``) within REL_TOL_KERNEL of ``plain`` and
+        bit-identical twice, route 2's bits (``same``), both timed cold
+        and warm."""
+        r1, r1b, r2 = launch(1)(), launch(1)(), launch(2)()
+        torch.cuda.synchronize()
+        check(bits(r1, r1b), f"{name} route 1: two runs differ")
+        check(same(r1, r2), f"{name}: route 1 and route 2 differ")
+        first = r1[0] if isinstance(r1, tuple) else r1
+        want = plain[0] if isinstance(plain, tuple) else plain
+        rel_e = rel_err(torch, first, want)[1]
+        check(rel_e <= REL_TOL_KERNEL,
+              f"{name} route 1 disagrees with its plain version: {rel_e}")
+        return {"kernel_route": 1,
+                "ms": time_ms(torch, launch(1), flush, lead=True),
+                "warm_l2_ms": time_ms(torch, launch(1), lead=True),
+                "route2_ms": time_ms(torch, launch(2), flush, lead=True),
+                "route2_warm_l2_ms": time_ms(torch, launch(2), lead=True)}
+
     # -- gather_mul_segment_sum: CFConv aggregation, once per conv layer
     k = fm.gather_mul_segment_sum(x, w, send, recv, perm, edge_valid=mask)
     torch.cuda.synchronize()
@@ -769,6 +806,9 @@ def kernel_phase(torch, g, seed):
     check(rel_e <= REL_TOL_KERNEL,
           f"gather_mul_segment_sum disagrees with its plain version: {rel_e}")
     row_ptr = segment_offsets(recv, n, mask)
+    check(fm.fwd_route(f) == 1, f"the gather-multiply's route at F={f}")
+    routes = hold_routes("gather_mul_segment_sum", lambda r: lambda: (
+        fm.launch_gather_mul(x, w, None, send, row_ptr, route=r)), p)
     # what the timed launch reads, once each (x, the real rows of w, the
     # real senders, row_ptr), and its output written once; 2 flops per
     # real edge and feature
@@ -779,11 +819,7 @@ def kernel_phase(torch, g, seed):
         "name": "gather_mul_segment_sum", "route": "cuda",
         "source": "hydragnn_torch/csrc/fused_mp.cu",
         "replaces": "hydragnn_tpu/ops/fused_mp.py:171",
-        "max_abs_err": abs_e, "max_rel_err": rel_e,
-        "ms": time_ms(torch, lambda: fm.launch_gather_mul(
-            x, w, None, send, row_ptr), flush, lead=True),
-        "warm_l2_ms": time_ms(torch, lambda: fm.launch_gather_mul(
-            x, w, None, send, row_ptr), lead=True),
+        "max_abs_err": abs_e, "max_rel_err": rel_e, **routes,
         "wrapper_ms": time_ms(torch, lambda: fm.gather_mul_segment_sum(
             x, w, send, recv, perm, edge_valid=mask), flush),
         "plain_ms": time_ms(torch, lambda: fm.gather_mul_segment_sum_plain(
@@ -810,17 +846,14 @@ def kernel_phase(torch, g, seed):
         row_ptr.long(), send[:e_valid].long(), mask[:e_valid], size=(n, n))
     check(rel_err(torch, csr @ x, p)[1] <= REL_TOL_KERNEL,
           "the CSR product disagrees with the plain gather_segment_sum")
+    routes = hold_routes("gather_segment_sum", lambda r: lambda: (
+        fm.launch_gather_mul(x, None, mask, send, row_ptr,
+                             op="gather_segment_sum", route=r)), p)
     results.append({
         "name": "gather_segment_sum", "route": "cuda",
         "source": "hydragnn_torch/csrc/fused_mp.cu",
         "replaces": "hydragnn_tpu/ops/fused_mp.py:171",
-        "max_abs_err": abs_e, "max_rel_err": rel_e,
-        "ms": time_ms(torch, lambda: fm.launch_gather_mul(
-            x, None, mask, send, row_ptr, op="gather_segment_sum"), flush,
-            lead=True),
-        "warm_l2_ms": time_ms(torch, lambda: fm.launch_gather_mul(
-            x, None, mask, send, row_ptr, op="gather_segment_sum"),
-            lead=True),
+        "max_abs_err": abs_e, "max_rel_err": rel_e, **routes,
         "plain_ms": time_ms(torch, lambda: fm.gather_mul_segment_sum_plain(
             x, None, send, recv, edge_valid=mask, mask=mask), flush),
         "library_ms": time_ms(torch, lambda: csr @ x, flush),
@@ -828,10 +861,14 @@ def kernel_phase(torch, g, seed):
         "shape": {"N": n, "E": e, "E_valid": e_valid, "F": f},
     })
 
-    # -- the dx pass of both backwards (K1), held through the code the main
-    #    path runs: the ops' backward (autograd Function) against autograd
-    #    through the plain versions, dw on real edges; then the kernel timed
-    #    alone on the sender-sorted arrays that backward builds
+    # -- the backward of both (K1), held through the code the main path
+    #    runs: the ops' backward (autograd Function, grad mode off: route
+    #    1's fused launch) against autograd through the plain versions, dw
+    #    bit-equal to x[senders] * g[receivers] on real edges and zero on
+    #    masked ones; then the fused launch alone (dx and dw; dx in the
+    #    no-w mode) against route 2 (the first design's dx pass on the
+    #    sender-sorted w[p] the composition builds), and the whole backward
+    #    through the Function with each route
     ct = torch.randn(n, f, device=dev, generator=gen)
     real = mask != 0
 
@@ -862,8 +899,13 @@ def kernel_phase(torch, g, seed):
         check(rel_e <= REL_TOL_KERNEL,
               f"{what} disagrees with autograd through the plain version: "
               f"{rel_e}")
-    notes["gather_mul_segment_sum_dw"] = {"max_abs_err": dw_err[0],
-                                          "max_rel_err": dw_err[1]}
+    check(torch.equal(gk[1][real], (x[send.long()] * ct[recv.long()])[real])
+          and bool((gk[1][~real] == 0).all()),
+          "dw is not x[senders] * g[receivers] on real edges and zero on "
+          "masked ones")
+    notes["gather_mul_segment_sum_dw"] = {
+        "max_abs_err": dw_err[0], "max_rel_err": dw_err[1],
+        "bit_equal_on_real_edges": True, "zero_on_masked_edges": True}
     p_ = perm.long()
     w_s, m_s = w[p_].contiguous(), mask[p_].contiguous()
     send_s, recv_s = recv[p_].contiguous(), send[p_].contiguous()
@@ -874,39 +916,74 @@ def kernel_phase(torch, g, seed):
         ptr_s.long(), send_s[:e_valid].long(), m_s[:e_valid], size=(n, n))
     check(rel_err(torch, csr_s @ ct, sp)[1] <= REL_TOL_KERNEL,
           "the CSR product disagrees with the plain gather_segment_sum dx")
-    results.append({
-        "name": "gather_mul_segment_sum_dx", "route": "cuda",
-        "source": "hydragnn_torch/csrc/fused_mp.cu",
-        "replaces": "hydragnn_tpu/ops/fused_mp.py:171",
-        "max_abs_err": dx_err[0], "max_rel_err": dx_err[1],
-        "ms": time_ms(torch, lambda: fm.launch_gather_mul(
-            ct, w_s, None, send_s, ptr_s, op="gather_mul_segment_sum_dx"),
-            flush, lead=True),
-        "warm_l2_ms": time_ms(torch, lambda: fm.launch_gather_mul(
-            ct, w_s, None, send_s, ptr_s, op="gather_mul_segment_sum_dx"),
-            lead=True),
-        "plain_ms": time_ms(torch, lambda: fm.gather_mul_segment_sum_plain(
-            ct, w_s, send_s, recv_s, edge_valid=m_s), flush),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        "shape": {"N": n, "E": e, "E_valid": e_valid, "F": f},
-    })
-    results.append({
-        "name": "gather_segment_sum_dx", "route": "cuda",
-        "source": "hydragnn_torch/csrc/fused_mp.cu",
-        "replaces": "hydragnn_tpu/ops/fused_mp.py:171",
-        "max_abs_err": sdx_err[0], "max_rel_err": sdx_err[1],
-        "ms": time_ms(torch, lambda: fm.launch_gather_mul(
-            ct, None, m_s, send_s, ptr_s, op="gather_segment_sum_dx"), flush,
-            lead=True),
-        "warm_l2_ms": time_ms(torch, lambda: fm.launch_gather_mul(
-            ct, None, m_s, send_s, ptr_s, op="gather_segment_sum_dx"),
-            lead=True),
-        "plain_ms": time_ms(torch, lambda: fm.gather_mul_segment_sum_plain(
-            ct, None, send_s, recv_s, edge_valid=m_s, mask=m_s), flush),
-        "library_ms": time_ms(torch, lambda: csr_s @ ct, flush),
-        "bound_ms": nw_ms, "bound_by": nw_by,
-        "shape": {"N": n, "E": e, "E_valid": e_valid, "F": f},
-    })
+
+    def same_dx(a, b):
+        return torch.equal(a if torch.is_tensor(a) else a[0],
+                           b if torch.is_tensor(b) else b[0])
+
+    def bwd_launch(has_w):
+        op = "gather_mul_segment_sum_dx" if has_w else "gather_segment_sum_dx"
+
+        def launch(r):
+            if r == 1:
+                return lambda: fm.launch_gather_mul_bwd(
+                    ct, x, w if has_w else None, None if has_w else mask,
+                    perm, recv, ptr_s, op=op)
+            return lambda: fm.launch_gather_mul(
+                ct, w_s if has_w else None, None if has_w else m_s, send_s,
+                ptr_s, op=op, route=2)
+        return launch
+
+    def whole_backward(has_w, r):
+        """The backward as the path runs it, from g to (dx, dw), through
+        the op's Function with grad mode off, on route ``r``."""
+        xs = x.detach().clone().requires_grad_(True)
+        if has_w:
+            ws = w.detach().clone().requires_grad_(True)
+            out = fm._GatherMulSegmentSum.apply(
+                xs, ws, send, recv, perm, mask, "gather_mul_segment_sum", r)
+            leaves = (xs, ws)
+        else:
+            out = fm._GatherSegmentSum.apply(xs, send, recv, perm, mask,
+                                             "gather_segment_sum", r)
+            leaves = (xs,)
+        return time_ms(torch, lambda: torch.autograd.grad(
+            out, leaves, ct, retain_graph=True), flush)
+
+    # the fused launch reads g and x, the real rows of w (or mask values),
+    # p and recv on real positions and row_ptr, and writes dx and dw
+    # (3 flops a real edge and column: dx's fma, dw's product); the no-w
+    # mode reads g, p, recv and mask on real positions and writes dx
+    fb_ms, fb_by = bound(
+        4 * (2 * n * f + e_valid * f + 2 * e_valid + n + 1 + n * f
+             + e * f), 3 * e_valid * f)
+    nb_ms, nb_by = bound(4 * (n * f + 3 * e_valid + n + 1 + n * f),
+                         2 * e_valid * f)
+    for has_w, (err, b_ms_, b_by_) in ((True, (dx_err, fb_ms, fb_by)),
+                                       (False, (sdx_err, nb_ms, nb_by))):
+        name = ("gather_mul_segment_sum_dx" if has_w
+                else "gather_segment_sum_dx")
+        routes = hold_routes(name, bwd_launch(has_w), gp[0] if has_w else sp,
+                             same_dx)
+        row = {
+            "name": name, "route": "cuda",
+            "source": "hydragnn_torch/csrc/fused_mp.cu",
+            "replaces": ("hydragnn_tpu/ops/fused_mp.py:235" if has_w
+                         else "hydragnn_tpu/ops/fused_mp.py:270"),
+            "max_abs_err": err[0], "max_rel_err": err[1], **routes,
+            "backward_ms": whole_backward(has_w, 1),
+            "route2_backward_ms": whole_backward(has_w, 2),
+            "plain_ms": time_ms(torch, lambda: fm.gather_mul_segment_sum_plain(
+                ct, w_s if has_w else None, send_s, recv_s, edge_valid=m_s,
+                mask=None if has_w else m_s), flush),
+            "bound_ms": b_ms_, "bound_by": b_by_,
+            "library_ms": None if has_w else time_ms(
+                torch, lambda: csr_s @ ct, flush),
+            "shape": {"N": n, "E": e, "E_valid": e_valid, "F": f}}
+        if has_w:
+            # route 2's launch alone: the first design's bound (w[p] read)
+            row["route2_bound_ms"] = b_ms
+        results.append(row)
 
     # -- segment_sum_dense over edge rows: masked tail, empty segments
     k = fm.segment_sum_dense(w, recv, n, valid=mask)
@@ -3706,13 +3783,19 @@ def steady_epoch(torch, cfg, loader, seed, dev):
             if r.self_device_time_total > 0 and r.self_cpu_time_total == 0]
     kernel_s = sum(r.self_device_time_total for r in rows) / 1e6
     rows.sort(key=lambda r: r.self_device_time_total, reverse=True)
+    # torch's gather kernels (indexing by a tensor of ids), by name
+    gathers = {r.key[:90]: {"calls": r.count,
+                            "ms_per_epoch": r.self_device_time_total / 1e3}
+               for r in rows if "gather" in r.key and "hg_" not in r.key
+               and "gm_" not in r.key and "gather_mul" not in r.key}
     return {"graphs": graphs, "wall_s": wall, "graphs_per_s": graphs / wall,
             "steps": len(loader), "profiled_wall_s": wall_prof,
             "kernel_s_profiled_epoch": kernel_s,
             "device_idle_share": 1.0 - kernel_s / wall_prof,
             "top_kernels": [{"kernel": r.key[:90],
                              "ms_per_epoch": r.self_device_time_total / 1e3,
-                             "calls": r.count} for r in rows[:8]]}
+                             "calls": r.count} for r in rows[:8]],
+            "torch_gather_kernels": gathers}
 
 
 def memoize_dataset_loading():

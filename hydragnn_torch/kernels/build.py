@@ -37,9 +37,14 @@ _F = ctypes.c_float
 # c_float, every C function returns its launch's cudaError_t
 SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     "fused_mp": {
-        # x, w, mask, senders, row_ptr, out, n_rows, n_src, f, has_w, stream
-        "hg_gather_mul_segment_sum_f32":
-            (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+        # x, w, mask, senders, row_ptr, out, n_rows, n_src, f, has_w, route,
+        # stream
+        "hg_gather_mul_segment_sum_f32": (_P,) * 6 + (_I,) * 5 + (_P,),
+        # g, x, w, mask, perm, receivers, row_ptr, dx, dw, n_rows, n_src,
+        # n_edges, f, has_w, stream
+        "hg_gather_mul_bwd_f32": (_P,) * 9 + (_I,) * 5 + (_P,),
+        # f
+        "hg_gather_mul_route": (_I,),
         # data, perm, row_ptr, out, n_seg, f, max_rows, stream
         "hg_segment_sum_rows_f32": (_P, _P, _P, _P, _I, _I, _I, _P),
     },

@@ -30,9 +30,10 @@ custom VJP (``_spd_bwd``, ``_gps_bwd``), which needs no kernel of its own:
   carries no gradient; masked rows get exactly zero.
 - gather mode chains these through ``msgs = x[send] * mask`` and sums at
   senders over collate's sender-sorted permutation with
-  ``segment_sum_dense``; the sum-only case (SAGE, MFC) reruns the no-``w``
-  gather kernel of ops/fused_mp.py on that ordering, with no ``[E, F]``
-  intermediate, counted as ``gather_segment_sum_dx``.
+  ``segment_sum_dense``; the sum-only case (SAGE, MFC) takes the no-``w``
+  gather's backward of ops/fused_mp.py on that ordering
+  (``gather_sum_dx``), with no ``[E, F]`` intermediate, counted as
+  ``gather_segment_sum_dx``.
 
 At the leaves a CPU tensor takes the plain PyTorch version below (the CPU
 path and the tests' oracle) and a CUDA tensor the kernel; a CUDA input the
@@ -307,14 +308,11 @@ class _GatherPolySegment(torch.autograd.Function):
                         device=x.device) if mask is None else mask.float())
         if not need_msgs:
             # sum-only (cnt has no x-grad): dx[n] = sum_{e: send=n} m_e
-            # g_sum[recv_e] — the no-w gather Function on the sender-sorted
-            # ordering (differentiable in turn), no [E, F] intermediate
-            p, rp = fused_mp._reversed_schedule(senders, receivers,
-                                                sender_perm)
-            mp = m[p]
-            dx = fused_mp._GatherSegmentSum.apply(
-                moms["sum"].contiguous().float(), receivers[p], senders[p],
-                rp, mp, "gather_segment_sum_dx")
+            # g_sum[recv_e] — the no-w gather's backward (the fused launch,
+            # or under create_graph the no-w Function on the sender-sorted
+            # ordering), no [E, F] intermediate
+            dx = fused_mp.gather_sum_dx(moms["sum"], senders, receivers,
+                                        sender_perm, m)
             return (dx.to(x.dtype),) + none[1:]
 
         # sq/mxmn need the messages: recompute the gather

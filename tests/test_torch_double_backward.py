@@ -62,17 +62,26 @@ def _plain_gather_mul(x, w, s, r, mask):
 
 
 def _kernel_like(monkeypatch):
-    """Replace the kernel leaf by a stand-in whose output has no autograd
-    graph (as a CUDA kernel's does not); count its calls per op."""
-    real = tfm._gather_mul
+    """Replace the kernel leaves (the forward's, and the backward's fused
+    launch) by stand-ins whose outputs have no autograd graph (as a CUDA
+    kernel's do not); count their calls per op."""
+    real, real_bwd = tfm._gather_mul, tfm._gather_mul_bwd
     calls = {}
 
-    def leaf(x, w, mask, senders, receivers, edge_valid, op):
+    def leaf(x, w, mask, senders, receivers, edge_valid, op, route=0):
         calls[op] = calls.get(op, 0) + 1
         with torch.no_grad():
-            return real(x, w, mask, senders, receivers, edge_valid, op)
+            return real(x, w, mask, senders, receivers, edge_valid, op,
+                        route)
+
+    def leaf_bwd(*args):
+        op = args[-1]
+        calls[op] = calls.get(op, 0) + 1
+        with torch.no_grad():
+            return real_bwd(*args)
 
     monkeypatch.setattr(tfm, "_gather_mul", leaf)
+    monkeypatch.setattr(tfm, "_gather_mul_bwd", leaf_bwd)
     return calls
 
 

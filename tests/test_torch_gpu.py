@@ -183,6 +183,210 @@ def test_backward_on_card_matches_plain(cuda):
     assert tfm.LAUNCHES["segment_sum_dense"] == 1
 
 
+def _route_inputs(cuda, b, f, seed):
+    """x, w (pre-masked), a cotangent and the ids of ``b`` on the card."""
+    from hydragnn_torch.ops.aggregate import segment_offsets
+
+    n, e = len(b["node_gid"]), len(b["senders"])
+    g = torch.Generator().manual_seed(seed)
+    mask = _t(b["edge_mask"])
+    x = torch.randn(n, f, generator=g).to(cuda)
+    w = (torch.randn(e, f, generator=g) * mask[:, None]).to(cuda)
+    ct = torch.randn(n, f, generator=g).to(cuda)
+    send, recv = _t(b["senders"]).to(cuda), _t(b["receivers"]).to(cuda)
+    perm, mask = _t(b["perm"]).to(cuda), mask.to(cuda)
+    return x, w, ct, send, recv, perm, mask, segment_offsets(recv, n, mask)
+
+
+def _near_plain(got, want):
+    """Within 1e-5 of the plain version's largest entry (as chip_smoke
+    holds the kernels): the plain version's ``index_add_`` adds in an
+    order that changes from run to run on the card, so an entry near zero
+    in a long row can miss an entrywise tolerance."""
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def _poisoned(cuda, shape):
+    """Leave NaNs in the allocator's free block of ``shape``, which the
+    next ``torch.empty`` of that shape takes: an output row the kernel
+    does not write shows as NaN."""
+    t = torch.full(shape, float("nan"), device=cuda)
+    del t
+
+
+@pytest.mark.gpu
+def test_gather_mul_route_matches_plan_on_card(cuda):
+    """The C side's route by width is the plan's (``fwd_route``), and a
+    forced route 1 at an odd width is refused."""
+    from hydragnn_torch.kernels.build import load_library
+
+    lib = load_library("fused_mp")
+    for f in range(0, 300):
+        assert lib.hg_gather_mul_route(f) == tfm.fwd_route(f), f
+    b = _graph_batch(41, n_real=40, n_pad=48, e_pad=512)
+    x, w, _, send, _, _, _, ptr = _route_inputs(cuda, b, 5, 0)
+    with pytest.raises(ValueError):
+        tfm.launch_gather_mul(x, w, None, send, ptr, route=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hub", [0, 300])
+@pytest.mark.parametrize("f", [2, 64, 130, 256])
+def test_gather_mul_route1_matches_route2_on_card(cuda, f, hub):
+    """The forward's route 1, both modes, against route 2 bit for bit and
+    the plain version at 1e-5, bit-identical over two runs, every row
+    written (empty rows zero); ``hub`` gives one row that spans several
+    id batches and edge groups."""
+    b = _graph_batch(40 + f, hub=hub)
+    x, w, _, send, recv, _, mask, ptr = _route_inputs(cuda, b, f, 1)
+    n = x.shape[0]
+    tfm.reset_launches()
+    for ww, mm, op in ((w, None, "gather_mul_segment_sum"),
+                       (None, mask, "gather_segment_sum")):
+        _poisoned(cuda, (n, f))
+        r1 = tfm.launch_gather_mul(x, ww, mm, send, ptr, op=op, route=1)
+        r1b = tfm.launch_gather_mul(x, ww, mm, send, ptr, op=op, route=1)
+        r2 = tfm.launch_gather_mul(x, ww, mm, send, ptr, op=op, route=2)
+        own = tfm.launch_gather_mul(x, ww, mm, send, ptr, op=op)
+        p = tfm.gather_mul_segment_sum_plain(x, ww, send, recv,
+                                             edge_valid=mask, mask=mm)
+        torch.cuda.synchronize()
+        assert torch.equal(r1, r1b) and torch.equal(r1, r2)
+        assert torch.equal(own, r1)
+        _near_plain(r1, p)
+        empty = ptr.diff() == 0
+        assert bool(empty.any()) and bool((r1[empty] == 0).all())
+    assert tfm.LAUNCHES["gather_mul_segment_sum"] == 4
+    assert tfm.LAUNCHES["gather_segment_sum"] == 4
+
+
+def _composed_backward(x, w, ct, send, recv, perm, mask):
+    """The backward's route 2 as the composition runs it: dx by the first
+    design in sender order on w[p] (or mask[p]), dw by indexing."""
+    from hydragnn_torch.ops.aggregate import segment_offsets
+
+    n = x.shape[0]
+    p = perm.long()
+    ptr_s = segment_offsets(send[p], n, mask[p])
+    rs = recv[p].contiguous()
+    if w is None:
+        return tfm.launch_gather_mul(ct, None, mask[p].contiguous(), rs,
+                                     ptr_s, route=2), None
+    dx = tfm.launch_gather_mul(ct, w[p].contiguous(), None, rs, ptr_s,
+                               route=2)
+    return dx, x[send.long()] * ct[recv.long()]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hub", [0, 300])
+@pytest.mark.parametrize("f", [2, 64, 130])
+def test_gather_mul_fused_backward_on_card(cuda, f, hub):
+    """The backward's route 1: dx bit for bit the composition's (route 2)
+    and 1e-5 of the plain version's; dw bit-equal to x[s] * g[r] on real
+    edges and exactly zero on masked ones, every row written; dx alone
+    and dw alone the same bits; the no-``w`` mode's dx likewise; two runs
+    bit-identical."""
+    from hydragnn_torch.ops.aggregate import segment_offsets
+
+    b = _graph_batch(50 + f, hub=hub)
+    x, w, ct, send, recv, perm, mask, _ = _route_inputs(cuda, b, f, 2)
+    n, e = x.shape[0], w.shape[0]
+    real = mask != 0
+    ptr_s = segment_offsets(send[perm.long()], n, mask[perm.long()])
+    _poisoned(cuda, (e, f))
+    dx, dw = tfm.launch_gather_mul_bwd(ct, x, w, None, perm, recv, ptr_s)
+    dx2, dw2 = tfm.launch_gather_mul_bwd(ct, x, w, None, perm, recv, ptr_s)
+    dx_only, none_w = tfm.launch_gather_mul_bwd(ct, x, w, None, perm, recv,
+                                                ptr_s, want_dw=False)
+    none_x, dw_only = tfm.launch_gather_mul_bwd(ct, x, w, None, perm, recv,
+                                                ptr_s, want_dx=False)
+    cdx, cdw = _composed_backward(x, w, ct, send, recv, perm, mask)
+    pdx, pdw = tfm.gather_mul_segment_sum_bwd_plain(ct, x, w, send, recv,
+                                                    mask)
+    torch.cuda.synchronize()
+    assert none_w is None and none_x is None
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+    assert torch.equal(dx, cdx) and torch.equal(dx_only, dx)
+    assert torch.equal(dw_only, dw)
+    _near_plain(dx, pdx)
+    assert torch.equal(dw[real], cdw[real])
+    assert bool((dw[~real] == 0).all()) and bool((~real).any())
+    assert torch.equal(dw, pdw)
+    sdx, _ = tfm.launch_gather_mul_bwd(ct, None, None, mask, perm, recv,
+                                       ptr_s)
+    csdx, _ = _composed_backward(x, None, ct, send, recv, perm, mask)
+    psdx, _ = tfm.gather_mul_segment_sum_bwd_plain(ct, None, None, send,
+                                                   recv, mask, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(sdx, csdx)
+    _near_plain(sdx, psdx)
+
+
+@pytest.mark.gpu
+def test_gather_mul_route1_long_shares_on_card(cuda):
+    """Shares of more than 32 rows (the row-boundary window reloads):
+    200000 rows of which a few hold 4000 edges, a masked tail; the
+    forward's and the backward's route 1 against route 2 and the
+    composition, bit for bit, every row written."""
+    from hydragnn_torch.ops.aggregate import segment_offsets
+
+    n, e_real, e_pad, f = 200000, 4000, 4500, 64
+    rng = np.random.RandomState(3)
+    recv = np.full(e_pad, n - 1, np.int32)
+    send = np.full(e_pad, n - 1, np.int32)
+    recv[:e_real] = np.sort(rng.randint(0, n - 1, e_real))
+    send[:e_real] = rng.randint(0, n - 1, e_real)
+    mask = np.zeros(e_pad, np.float32)
+    mask[:e_real] = 1.0
+    perm = np.argsort(send, kind="stable").astype(np.int32)
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn(n, f, generator=g).to(cuda)
+    ct = torch.randn(n, f, generator=g).to(cuda)
+    m = _t(mask).to(cuda)
+    w = (torch.randn(e_pad, f, generator=g).to(cuda)) * m[:, None]
+    s, r, p = _t(send).to(cuda), _t(recv).to(cuda), _t(perm).to(cuda)
+    ptr = segment_offsets(r, n, m)
+    _poisoned(cuda, (n, f))
+    r1 = tfm.launch_gather_mul(x, w, None, s, ptr, route=1)
+    r2 = tfm.launch_gather_mul(x, w, None, s, ptr, route=2)
+    ptr_s = segment_offsets(s[p.long()], n, m[p.long()])
+    _poisoned(cuda, (n, f))
+    dx, dw = tfm.launch_gather_mul_bwd(ct, x, w, None, p, r, ptr_s)
+    cdx, cdw = _composed_backward(x, w, ct, s, r, p, m)
+    torch.cuda.synchronize()
+    assert torch.equal(r1, r2)
+    assert torch.equal(dx, cdx)
+    real = m != 0
+    assert torch.equal(dw[real], cdw[real]) and bool((dw[~real] == 0).all())
+
+
+@pytest.mark.gpu
+def test_gather_mul_function_backward_routes_on_card(cuda):
+    """Through the ops' autograd Functions: a plain backward takes the
+    fused launch (one ``*_dx`` launch, the composition's bits), a forced
+    route 2 (the Functions' last argument) the composition (one ``*_dx``
+    launch too), and both match."""
+    b = _graph_batch(60, hub=200)
+    x, w, ct, send, recv, perm, mask, _ = _route_inputs(cuda, b, 64, 3)
+    real = mask != 0
+    out = {}
+    for route in (0, 2):
+        tfm.reset_launches()
+        out[route] = _grads(lambda x_, w_: tfm._GatherMulSegmentSum.apply(
+            x_, w_, send, recv, perm, mask, "gather_mul_segment_sum", route),
+            (x, w), ct)
+        out[route] += _grads(lambda x_: tfm._GatherSegmentSum.apply(
+            x_, send, recv, perm, mask, "gather_segment_sum", route), (x,),
+            ct)
+        torch.cuda.synchronize()
+        assert tfm.LAUNCHES["gather_mul_segment_sum_dx"] == 1
+        assert tfm.LAUNCHES["gather_segment_sum_dx"] == 1
+    assert torch.equal(out[0][0], out[2][0])
+    assert torch.equal(out[0][1][real], out[2][1][real])
+    assert bool((out[0][1][~real] == 0).all())
+    assert torch.equal(out[0][2], out[2][2])
+
+
 def _scf_composed(h, rbf, cm, w0, b0, w1, b1, em, send, recv):
     """The composed edge pipeline in the inputs' dtype (the plain version
     computes in float32): the float64 yardstick of the scf kernels."""

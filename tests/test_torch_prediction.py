@@ -193,7 +193,8 @@ def test_port_imports_neither_jax_nor_the_reference():
     # and no port source imports them (not even lazily), nor do the
     # scripts that drive the port from the root of the checkout
     scripts = [os.path.join(REPO, n)
-               for n in ("chip_smoke.py", "backend_drift.py")]
+               for n in ("chip_smoke.py", "backend_drift.py",
+                         "fused_mp_variants.py")]
     for path in [p for p, _ in _port_modules()] + scripts:
         tree = ast.parse(open(path, encoding="utf-8").read())
         for node in ast.walk(tree):
