@@ -33,7 +33,9 @@ and PyTorch built for CUDA.  Phases, each of which fails the run:
    g[receivers] on real edges and zero on masked ones), the fused launch
    against route 2 (the first design's dx pass on the sender-sorted w[p]:
    dx bit for bit) and the whole backward through the Function on each
-   route, and the three scf kernels of the wide
+   route, the CSR segment sum at the pool's, the edge rows' and PNA's tie
+   counts' shapes (route 1 bit-identical twice and within 1e-5 of route
+   2, both timed), and the three scf kernels of the wide
    SchNet (F=256, G=50: forward, pass P, pass S) through their autograd
    Function against autograd through the composed plain version (1e-5;
    1e-4 for the weight grads, sums over ~1e5 edges in another order;
@@ -47,7 +49,8 @@ and PyTorch built for CUDA.  Phases, each of which fails the run:
    poly kernels (scatter mode with all moments at F=64 and F=256,
    gather mode with sum+cnt and with all moments at F=64: sums 1e-5,
    max/min and count exactly equal; through their autograd Functions
-   against autograd through the plain versions on data with ties), and
+   against autograd through the plain versions on data with ties; the
+   scatter mode's two routes bit for bit, both timed), and
    the three egcl kernels (forward, pass P, pass S) at the first
    egnn_md17 train batch in the three instantiations its path launches
    (F = H = 48 equivariant, the last layer's block with no coordinate
@@ -123,8 +126,11 @@ and PyTorch built for CUDA.  Phases, each of which fails the run:
    dispatch site fused, a finite falling loss, per-epoch
    losses within 1e-4 relative of the same run on the CPU, two card runs
    of the first three steps with bit-identical parameters, graphs/s of a
-   steady train epoch and the device's idle share in a profiled one; then
-   ``run_prediction`` on the checkpoint the run wrote, card vs CPU;
+   steady train epoch and the device's idle share in a profiled one (and
+   the segment sum's time a launch in that epoch on each route: here, in
+   PNA (the poly scatter's too) and in both DimeNet cells,
+   ``routes_on_path``); then ``run_prediction`` on the checkpoint the run
+   wrote, card vs CPU;
 6. wide training: the same at hidden = num_filters = 256 (the fused edge
    pipeline), capped at 2 batches per pass (``HYDRAGNN_MAX_NUM_BATCH``) so
    the CPU run stays short: 4 scf forward, 4 pass P and 4 pass S launches
@@ -145,7 +151,9 @@ and PyTorch built for CUDA.  Phases, each of which fails the run:
    lie within 1e-4 of its own largest entry of a float64 CPU gradient
    through the composed path (the batch without its sender permutation), or
    within five times the worst that the CPU's own float32 gradient does
-   on any parameter) and through ``run_prediction`` on the run's
+   on any parameter; that float64 run's ReLUs take the graded float32
+   run's branch where their input lies within float32's error of zero,
+   ``lockstep_step``) and through ``run_prediction`` on the run's
    checkpoint, card vs CPU, 1e-4;
 8. GIN, SAGE and MFC training at the same widths, 2 epochs capped at 2
    batches per pass: 4 no-``w`` gather (GIN) or 4 poly-gather (SAGE, MFC)
@@ -166,7 +174,7 @@ and PyTorch built for CUDA.  Phases, each of which fails the run:
    4 forward, 4 pass R and 4 pass S launches and 1 pool per train step (8,
    8, 8, 1 at hidden 256), every gat_attn dispatch fused; the lockstep
    (the dropout bits drawn on the CPU for both sides; hidden 256 on
-   batches of 32 graphs) and repeat checks of phase 7, and at hidden 64
+   batches of 64 graphs) and repeat checks of phase 7, and at hidden 64
    its checkpoint-prediction check;
 11. CGCNN training at the arch sweep's widths (input = hidden = 64: the
    set's node feature and 63 seeded columns this script writes, 4 convs,
@@ -318,6 +326,19 @@ REL_TOL_REMAT = 1e-6
 # no real edge's ReLU input within this of zero in the egcl kernel checks
 # (egcl_off_kinks): ~20x the float32 rounding of a 97-term dot product
 KINK_MARGIN = 2e-6
+# The lockstep's ReLU ties (``relu_yardstick``).  At one call of a ReLU the
+# float32 error of its input is what the CPU's float32 run shows against
+# the float64 run there, row by row (a row: the last axis, one node's or
+# edge's features): e = max |x32 - x64| over the row's elements (the
+# rounding of every product and sum upstream, at that row's own scale, so
+# a row of small entries is not given the error of the call's largest;
+# 1e-4 over the whole call at egnn_oc22's node_mlp.0, where one input lay
+# at 2.99e-6).  The card's float32 run sums in other orders and carries
+# an error of the same kind, which the lockstep already allows to be
+# LOCKSTEP_GRAD_SLACK times the CPU's; so an input within
+# TIE_MARGIN_SLACK * e of zero may fall on either side in a correct run,
+# and further out the sign is decided.
+TIE_MARGIN_SLACK = LOCKSTEP_GRAD_SLACK
 
 # kernel launches per train step and per eval batch of each path (4 conv
 # layers; the first layer's input needs no gradient, so its dx launch and
@@ -660,12 +681,13 @@ def pass_p_build_report():
     and backward's two routes, the dn_tri backward, the scf filter-gather
     kernel's and the dn_tri forward's routes 1, the builder's, cgcnn pass
     S, the GAT forward's, pass R's and pass S's routes 1, egcl's three
-    routes 1, the builder's pass P's route 1 and the gather-multiply's
-    forward and fused backward, routes 1) and, beside them, of the
+    routes 1, the builder's pass P's route 1, the gather-multiply's
+    forward and fused backward, routes 1, the CSR segment sum's and the
+    poly scatter's routes 1) and, beside them, of the
     kernels that share their sources (cgcnn's forward; the first designs
     of the three GAT kernels and of egcl's; both first designs of the
-    filter-gather kernel and the dn_tri forward; the gather-multiply's
-    first design); and the
+    filter-gather kernel and the dn_tri forward; the gather-multiply's,
+    the segment sum's and the poly kernel's first designs); and the
     dynamic shared memory of one block of scf pass P, cgcnn pass P, the
     scf filter-gather route 1 and the dn_tri forward's route 1 at the
     main path's widths (the kernels' own layouts).  Fails when a source's
@@ -692,9 +714,12 @@ def pass_p_build_report():
             "egcl_mp": ("pass_p_tc_kernel", "pass_s_tc_kernel",
                         "fwd_tc_kernel", "egcl_kernel"),
             # the gather-multiply's routes 1 (forward, fused backward) and
-            # its first design
+            # its first design; the segment sum's route 1 and first design
             "fused_mp": ("gm_fwd_kernel", "gm_bwd_kernel",
-                         "gather_mul_segment_sum_kernel")}
+                         "gather_mul_segment_sum_kernel", "seg_sum_kernel",
+                         "segment_sum_dense_kernel"),
+            # the poly scatter's route 1 and the first design
+            "poly_mp": ("poly_scatter_kernel", "poly_segment_kernel")}
     kernels = []
     for src, names in keys.items():
         rep = ptxas_report(ptxas_log(src), names)
@@ -985,54 +1010,66 @@ def kernel_phase(torch, g, seed):
             row["route2_bound_ms"] = b_ms
         results.append(row)
 
-    # -- segment_sum_dense over edge rows: masked tail, empty segments
-    k = fm.segment_sum_dense(w, recv, n, valid=mask)
-    torch.cuda.synchronize()
-    p = fm.segment_sum_dense_plain(w, recv, n, valid=mask)
-    torch.cuda.synchronize()
-    abs_e, rel_e = rel_err(torch, k, p)
-    check(rel_e <= REL_TOL_KERNEL,
-          f"segment_sum_dense (edges) disagrees with its plain version: "
-          f"{rel_e}")
-    empty = int((segment_offsets(recv, n, mask).diff() == 0).sum())
-    notes["segment_sum_dense_edges"] = {
-        "max_abs_err": abs_e, "max_rel_err": rel_e, "empty_segments": empty}
+    # -- segment_sum_dense (route 1 at every even F: an equal count of
+    #    segments a block, warp slices that may cut a segment), beside
+    #    route 2, at three shapes:
+    #    the mean pool ([N, F] over node_gid -> [G, F], whose padding graph
+    #    is one long segment), edge rows over the receivers (PNA's gather
+    #    backwards: a masked tail, empty segments) and PNA's tie counts
+    #    ([E, 2F] of zeros and ones over the receivers)
+    def close(a, b):
+        return rel_err(torch, a, b)[1] <= REL_TOL_KERNEL
 
-    # -- segment_sum_dense as the mean pool: [N, F] over node_gid -> [G, F]
     gid = g.node_gid
-    k = fm.segment_sum_dense(xn, gid, n_graphs)
-    torch.cuda.synchronize()
-    p = fm.segment_sum_dense_plain(xn, gid, n_graphs)
-    torch.cuda.synchronize()
-    abs_e, rel_e = rel_err(torch, k, p)
-    check(rel_e <= REL_TOL_KERNEL,
-          f"segment_sum_dense (pool) disagrees with its plain version: "
-          f"{rel_e}")
-    pool_ptr = segment_offsets(gid, n_graphs)
-    lengths = torch.bincount(gid.long(), minlength=n_graphs)
-    lib = torch.segment_reduce(xn, "sum", lengths=lengths, axis=0)
-    torch.cuda.synchronize()
-    check(rel_err(torch, lib, p)[1] <= REL_TOL_KERNEL,
-          "torch.segment_reduce disagrees with the plain segment sum")
-    b_ms, b_by = bound(4 * (n * f + n_graphs + 1 + n_graphs * f), n * f)
-    results.append({
-        "name": "segment_sum_dense", "route": "cuda",
-        "source": "hydragnn_torch/csrc/fused_mp.cu",
-        "replaces": "hydragnn_tpu/ops/fused_mp.py:340",
-        "max_abs_err": abs_e, "max_rel_err": rel_e,
-        "ms": time_ms(torch, lambda: fm.launch_segment_sum_rows(
-            xn, pool_ptr, n_graphs), flush, lead=True),
-        "warm_l2_ms": time_ms(torch, lambda: fm.launch_segment_sum_rows(
-            xn, pool_ptr, n_graphs), lead=True),
-        "wrapper_ms": time_ms(torch, lambda: fm.segment_sum_dense(
-            xn, gid, n_graphs), flush),
-        "plain_ms": time_ms(torch, lambda: fm.segment_sum_dense_plain(
-            xn, gid, n_graphs), flush),
-        "library_ms": time_ms(torch, lambda: torch.segment_reduce(
-            xn, "sum", lengths=lengths, axis=0), flush),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "shape": {"N": n, "G": n_graphs, "F": f},
-    })
+    ties = (torch.rand(e, 2 * f, device=dev, generator=gen) < 0.1).float()
+    seg_cases = (
+        ("segment_sum_dense", xn, gid, n_graphs, None),
+        ("segment_sum_dense_edges", w, recv, n, mask),
+        ("segment_sum_dense_pna_ties", ties, recv, n, mask))
+    for name, data, ids, n_seg, valid in seg_cases:
+        k = fm.segment_sum_dense(data, ids, n_seg, valid=valid)
+        torch.cuda.synchronize()
+        p = fm.segment_sum_dense_plain(data, ids, n_seg, valid=valid)
+        torch.cuda.synchronize()
+        abs_e, rel_e = rel_err(torch, k, p)
+        check(rel_e <= REL_TOL_KERNEL,
+              f"{name} disagrees with its plain version: {rel_e}")
+        ptr = segment_offsets(ids, n_seg, valid)
+        fw = data.shape[1]
+        check(fm.segment_sum_route(fw) == 1, f"{name}'s route at F={fw}")
+        routes = hold_routes(name, lambda r, d=data, q=ptr, s_=n_seg: (
+            lambda: fm.launch_segment_sum_rows(d, q, s_, route=r)), p,
+            close)
+        # the real rows lead (masked rows sort last), so the library call
+        # takes them with the segments' lengths
+        lengths = ptr.diff()
+        real = int(ptr[-1])
+        check(int(ptr[0]) == 0, f"{name}: rows before the first segment")
+        lib = torch.segment_reduce(data[:real], "sum", lengths=lengths,
+                                   axis=0)
+        torch.cuda.synchronize()
+        check(rel_err(torch, lib, p)[1] <= REL_TOL_KERNEL,
+              f"torch.segment_reduce disagrees with the plain {name}")
+        # read once: the summed rows and row_ptr; the output written once
+        b_ms, b_by = bound(4 * (real * fw + n_seg + 1 + n_seg * fw),
+                           real * fw)
+        longest = int(lengths.max())
+        results.append({
+            "name": name, "counter": "segment_sum_dense", "route": "cuda",
+            "source": "hydragnn_torch/csrc/fused_mp.cu",
+            "replaces": "hydragnn_tpu/ops/fused_mp.py:340",
+            "max_abs_err": abs_e, "max_rel_err": rel_e, **routes,
+            "wrapper_ms": time_ms(torch, lambda: fm.segment_sum_dense(
+                data, ids, n_seg, valid=valid), flush),
+            "plain_ms": time_ms(torch, lambda: fm.segment_sum_dense_plain(
+                data, ids, n_seg, valid=valid), flush),
+            "library_ms": time_ms(torch, lambda: torch.segment_reduce(
+                data[:real], "sum", lengths=lengths, axis=0), flush),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "shape": {"rows": data.shape[0], "rows_summed": real,
+                      "segments": n_seg, "F": fw, "longest_segment": longest,
+                      "empty_segments": int((lengths == 0).sum())},
+        })
     return results, notes
 
 
@@ -1325,8 +1362,9 @@ def poly_phase(torch, g, seed):
                                                    valid=mask)
             plain = lambda t: pm.segment_poly_dense_plain(t, recv, n,
                                                           moments, valid=mask)
-            launch = lambda: pm.launch_poly_segment(src, None, None, row_ptr,
-                                                    n, moments, op)
+            launch_r = lambda r: lambda: pm.launch_poly_segment(
+                src, None, None, row_ptr, n, moments, op, route=r)
+            launch = launch_r(0)
             lib = lambda: torch.segment_reduce(src[:e_valid], "sum",
                                                lengths=lengths, axis=0)
             nbytes = 4 * (e_valid * f + n + 1) + bytes_out(moments, f)
@@ -1363,6 +1401,25 @@ def poly_phase(torch, g, seed):
         want = {op: 2}    # the forward check and the backward's forward
         check({k_: v for k_, v in pm.LAUNCHES.items() if v} == want,
               f"{name}: poly launches {pm.LAUNCHES}")
+        routes = {}
+        if mode == "scatter":
+            # route 1 (the width's own up to F = 128, forced past it)
+            # gives route 2's bits, twice
+            r1, r1b, r2 = launch_r(1)(), launch_r(1)(), launch_r(2)()
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) and torch.equal(a, c)
+                      for a, b, c in zip(r1, r1b, r2)),
+                  f"{name}: route 1 differs from route 2 or from itself")
+            routes = {"kernel_route": pm.fwd_route(f, False),
+                      "route1_is_route2_bits": True,
+                      "route1_ms": time_ms(torch, launch_r(1), flush,
+                                           lead=True),
+                      "route1_warm_l2_ms": time_ms(torch, launch_r(1),
+                                                   lead=True),
+                      "route2_ms": time_ms(torch, launch_r(2), flush,
+                                           lead=True),
+                      "route2_warm_l2_ms": time_ms(torch, launch_r(2),
+                                                   lead=True)}
         worst = max(errs.values(), key=lambda v: v[1])
         b_ms, b_by = bound(nbytes, flops(moments, f))
         row = {
@@ -1377,7 +1434,7 @@ def poly_phase(torch, g, seed):
             "backward_launches": {k_: v for k_, v in fm.LAUNCHES.items()
                                   if v},
             "ms": time_ms(torch, launch, flush, lead=True),
-            "warm_l2_ms": time_ms(torch, launch, lead=True),
+            "warm_l2_ms": time_ms(torch, launch, lead=True), **routes,
             "wrapper_ms": time_ms(torch, lambda: kern(src), flush),
             "plain_ms": time_ms(torch, lambda: plain(src), flush),
             "library_ms": time_ms(torch, lib, flush),
@@ -3278,9 +3335,18 @@ def segment_sum_phase(torch, g, seed):
         check(rel_err(torch, lib(), p_out)[1] <= REL_TOL_KERNEL,
               f"the library call disagrees with the plain {name}")
         max_rows = cap if name == "segment_sum_sorted" else 2**31 - 1
-        kern = lambda: fm.launch_segment_sum_rows(
+        kern_r = lambda r: lambda: fm.launch_segment_sum_rows(
             data, ptr, n, op=name, perm=perm, max_rows=max_rows,
-            launches=ag.LAUNCHES)
+            launches=ag.LAUNCHES, route=r)
+        kern = kern_r(0)
+        # route 1 (the width's own) twice the same bits, and within
+        # REL_TOL_KERNEL of route 2 (a cut segment adds its warps'
+        # partials)
+        r1, r1b, r2 = kern_r(1)(), kern_r(1)(), kern_r(2)()
+        torch.cuda.synchronize()
+        check(torch.equal(r1, r1b), f"{name} route 1: two runs differ")
+        check(rel_err(torch, r1, r2)[1] <= REL_TOL_KERNEL,
+              f"{name}: route 1 and route 2 disagree")
         # read once: the summed rows, every id, the output written once
         b_ms, b_by = bound(4 * (rows_in * f + e + n * f), rows_in * f)
         results.append({
@@ -3288,8 +3354,11 @@ def segment_sum_phase(torch, g, seed):
             "source": "hydragnn_torch/csrc/fused_mp.cu",
             "replaces": replaces,
             "max_abs_err": fwd_err[0], "max_rel_err": fwd_err[1],
+            "kernel_route": fm.segment_sum_route(f),
             "ms": time_ms(torch, kern, flush, lead=True),
             "warm_l2_ms": time_ms(torch, kern, lead=True),
+            "route2_ms": time_ms(torch, kern_r(2), flush, lead=True),
+            "route2_warm_l2_ms": time_ms(torch, kern_r(2), lead=True),
             "wrapper_ms": time_ms(torch, wrapper, flush),
             "plain_ms": time_ms(torch, lambda: fm.segment_sum_dense_plain(
                 data, seg, n), flush),
@@ -3596,6 +3665,153 @@ def as_double(g):
                 if k not in ("edge_perm_sender", "dn_tri_ok")})
 
 
+def record_relus(torch, model, keep=False):
+    """Forward pre-hooks on every ``nn.ReLU`` of ``model`` that record, per
+    module (in ``model.modules()`` order) and call, the sign pattern of the
+    input (``x > 0``, on the CPU) and, with ``keep``, the input itself.
+    Returns ``(tape, handles)``; remove the handles after the run."""
+    mods = [m for m in model.modules() if isinstance(m, torch.nn.ReLU)]
+    tape = {"signs": [[] for _ in mods], "inputs": [[] for _ in mods]}
+
+    def hook(k):
+        def pre(_mod, args):
+            x = args[0].detach()
+            tape["signs"][k].append((x > 0).cpu())
+            if keep:
+                tape["inputs"][k].append(x.cpu().clone())
+        return pre
+
+    return tape, [m.register_forward_pre_hook(hook(k))
+                  for k, m in enumerate(mods)]
+
+
+def relu_yardstick(torch, model, tape, margins, cpu_inputs=None):
+    """Forward hooks on every ``nn.ReLU`` of the float64 ``model`` that
+    decide the ties as a float32 run did: at call c of module k, an element
+    whose float64 input x lies within ``margins[k][c]`` of zero takes the
+    branch that ``tape`` recorded there, and every other element its own.
+    With ``cpu_inputs`` (the CPU's float32 inputs) the margins are found
+    first: TIE_MARGIN_SLACK times the largest |x32 - x| of each row (the
+    last axis) of the call.  A
+    call that ``tape`` did not record (a ReLU that a kernel holds in the
+    float32 run) takes its own branch.  Returns ``(notes, handles)``:
+    notes["ties"] the elements decided against float64's own branch,
+    notes["tie_abs_max"] the largest |x| among them and
+    notes["tie_margin"] the margin of the row that held it (how far
+    from zero a decided tie lay, beside the band that let it),
+    notes["outside"] the elements where the tape's branch differs from
+    float64's beyond the margin."""
+    mods = [m for m in model.modules() if isinstance(m, torch.nn.ReLU)]
+    calls = [0] * len(mods)
+    notes = {"ties": 0, "tie_abs_max": None, "tie_margin": None,
+             "outside": 0}
+
+    def hook(k):
+        def post(_mod, args, _out):
+            c = calls[k]
+            calls[k] += 1
+            if c >= len(tape["signs"][k]):
+                return None
+            x = args[0]
+            rec = tape["signs"][k][c]
+            check(tuple(rec.shape) == tuple(x.shape),
+                  f"the float64 run's ReLU call {c} of module {k} has shape "
+                  f"{tuple(x.shape)}, the float32 run's {tuple(rec.shape)}")
+            if cpu_inputs is not None:
+                d = (cpu_inputs[k][c].double() - x.detach()).abs()
+                e = d.amax(dim=-1, keepdim=True) if d.dim() else d
+                margins[k].append(TIE_MARGIN_SLACK * e)
+            margin = margins[k][c].expand_as(x)
+            near = x.detach().abs() <= margin
+            own = x.detach() > 0
+            tied = near & (rec != own)
+            if bool(tied.any()):
+                notes["ties"] += int(tied.sum())
+                at = x.detach().abs()[tied]
+                top = float(at.max())
+                if notes["tie_abs_max"] is None or top > notes["tie_abs_max"]:
+                    notes["tie_abs_max"] = top
+                    notes["tie_margin"] = float(margin[tied][at.argmax()])
+            notes["outside"] += int((~near & (rec != own)).sum())
+            return torch.where(torch.where(near, rec, own), x,
+                               torch.zeros_like(x))
+        return post
+
+    return notes, [m.register_forward_hook(hook(k))
+                   for k, m in enumerate(mods)]
+
+
+def lockstep_step(torch, run, run_ref, cpu_model, card_model, ref_model, g,
+                  g_card, g_ref):
+    """One lockstep step's three runs: ``run(model, batch)`` -> (loss,
+    gradients, statistics) on the CPU and on the card, recording every
+    ReLU's branches, then ``run_ref`` on the float64 model with the ties
+    decided as the CPU took them (``relu_yardstick``): the CPU's yardstick.
+    Where the card took another branch than the CPU anywhere, a second
+    float64 run decides the ties as the card took them (the card's
+    yardstick; the margins are the first run's), and the card's branch
+    must be float64's at every element beyond the margin.  Returns (the
+    CPU's run, the card's run, the CPU's float64 gradients, the card's,
+    the notes: ties decided for each, the largest |x| among them and its
+    call's margin, whether a second run was made)."""
+    def taped(model, batch, keep):
+        tape, handles = record_relus(torch, model, keep)
+        try:
+            return run(model, batch), tape
+        finally:
+            for h in handles:
+                h.remove()
+
+    def yardstick(tape, margins, cpu_inputs=None):
+        notes, handles = relu_yardstick(torch, ref_model, tape, margins,
+                                        cpu_inputs)
+        try:
+            return run_ref(ref_model, g_ref)[1], notes
+        finally:
+            for h in handles:
+                h.remove()
+
+    t0 = time.perf_counter()
+    cpu, cpu_tape = taped(cpu_model, g, True)
+    card, card_tape = taped(card_model, g_card, False)
+    t1 = time.perf_counter()
+    check([len(c) for c in cpu_tape["signs"]]
+          == [len(c) for c in card_tape["signs"]],
+          "the card's run called its ReLUs another number of times")
+    margins = [[] for _ in cpu_tape["signs"]]
+    gr_cpu, cpu_notes = yardstick(cpu_tape, margins, cpu_tape["inputs"])
+    same = all(torch.equal(a, b)
+               for ka, kb in zip(cpu_tape["signs"], card_tape["signs"])
+               for a, b in zip(ka, kb))
+    t2 = time.perf_counter()
+    gr_card, card_notes = ((gr_cpu, cpu_notes) if same
+                           else yardstick(card_tape, margins))
+    check(card_notes["outside"] == 0,
+          f"the card took the other branch of a ReLU at "
+          f"{card_notes['outside']} elements beyond float32's margin")
+    return cpu, card, gr_cpu, gr_card, {
+        "ties_cpu": cpu_notes["ties"], "ties_card": card_notes["ties"],
+        "tie_abs_max_cpu": cpu_notes["tie_abs_max"],
+        "tie_margin_cpu": cpu_notes["tie_margin"],
+        "tie_abs_max_card": card_notes["tie_abs_max"],
+        "tie_margin_card": card_notes["tie_margin"],
+        "second_float64_run": not same, "float32_runs_s": t1 - t0,
+        "float64_runs_s": [t2 - t1] + ([] if same
+                                       else [time.perf_counter() - t2])}
+
+
+def step_leaves(step, names, gc, gg, gr_cpu, gr_card):
+    """The lockstep's per-parameter records of one step (``grade_leaves``):
+    the CPU's float32 gradients ``gc`` against their float64 yardstick
+    ``gr_cpu``, the card's ``gg`` against theirs ``gr_card``."""
+    top_all = max(float(r.abs().max()) for r in gr_cpu)
+    return [{"step": step, "name": name, "top_all": top_all,
+             "top": float(r.abs().max()),
+             "e_cpu": float((c.double() - r).abs().max()),
+             "e_card": float((k.double() - rk).abs().max())}
+            for name, c, k, r, rk in zip(names, gc, gg, gr_cpu, gr_card)]
+
+
 def grade_leaves(what, leaves):
     """Hold each parameter's card gradient on its own scale (the rule is
     in ``lockstep``).  ``leaves``: one record per step and parameter with
@@ -3640,7 +3856,14 @@ def lockstep(torch, cfg, batches, seed, dev):
     The yardstick of a gradient is a third run: the same weights in
     float64 on the CPU through the composed ``scatter`` path, on the batch
     without its sender permutation (``as_double``), which shares no code
-    with the kernels or their plain versions.  Every parameter's
+    with the kernels or their plain versions.  A ReLU input within
+    float32's error of zero may fall on either side in a correct float32
+    run, so the float64 run takes the branch that the float32 run it
+    grades took there (``lockstep_step``): the CPU's gradients are graded
+    against a float64 run with the CPU's branches, the card's against one
+    with the card's (made only at a step where the two differ), and the
+    card's branch must be float64's wherever the input lies further from
+    zero (``relu_ties`` counts the ties decided a step).  Every parameter's
     card gradient must lie within REL_TOL_LOCKSTEP_GRAD of that
     parameter's own largest float64 gradient entry.  Where float32 itself
     cannot do that (a max aggregator or a ReLU switches at a rounding
@@ -3685,29 +3908,29 @@ def lockstep(torch, cfg, batches, seed, dev):
 
     what = f"{cfg.model_type} in lockstep"
     worst = {"loss": 0.0, "grad_over_largest": 0.0, "stats": 0.0}
-    leaves = []
+    leaves, ties = [], []
     for i, g in enumerate(batches):
         weights = cpu_model.state_dict()
         card_model.load_state_dict(weights)
         ref_model.load_state_dict(weights)
-        lc, gc, sc = loss_grads_stats(cpu_model, g, i)
-        lg, gg, sg = loss_grads_stats(card_model, g.to(dev), i)
-        os.environ["HYDRAGNN_AGGR_BACKEND"] = "scatter"
-        try:
-            _, gr, _ = loss_grads_stats(ref_model, as_double(g), i)
-        finally:
-            os.environ["HYDRAGNN_AGGR_BACKEND"] = "fused"
+        def run_ref(model, batch, i=i):
+            os.environ["HYDRAGNN_AGGR_BACKEND"] = "scatter"
+            try:
+                return loss_grads_stats(model, batch, i)
+            finally:
+                os.environ["HYDRAGNN_AGGR_BACKEND"] = "fused"
+
+        (lc, gc, sc), (lg, gg, sg), gr, gr_card, tie = lockstep_step(
+            torch, lambda m, b, i=i: loss_grads_stats(m, b, i), run_ref,
+            cpu_model, card_model, ref_model, g, g.to(dev), as_double(g))
+        ties.append({"step": i, **tie})
         worst["loss"] = max(worst["loss"], abs(lg - lc) / abs(lc))
         top_all = max(float(r.abs().max()) for r in gr)
-        for name, c, k, r in zip(names, gc, gg, gr):
+        for c, k in zip(gc, gg):
             worst["grad_over_largest"] = max(
                 worst["grad_over_largest"],
                 float((c - k).abs().max()) / top_all)
-            leaves.append({
-                "step": i, "name": name, "top_all": top_all,
-                "top": float(r.abs().max()),
-                "e_cpu": float((c.double() - r).abs().max()),
-                "e_card": float((k.double() - r).abs().max())})
+        leaves += step_leaves(i, names, gc, gg, gr, gr_card)
         for a, b in zip(sc, sg):
             worst["stats"] = max(worst["stats"], float(
                 ((a - b).abs() / (a.abs() + 0.1)).max()))
@@ -3720,7 +3943,7 @@ def lockstep(torch, cfg, batches, seed, dev):
     check(worst["stats"] <= REL_TOL_LOCKSTEP_STATS,
           f"{what}: BatchNorm statistics differ by {worst['stats']}")
     return {"steps": len(batches), "parameters": len(names), **worst,
-            **grade_leaves(what, leaves)}
+            **grade_leaves(what, leaves), "relu_ties": ties}
 
 
 def own_checkpoint_prediction(torch, hydragnn_torch, config, logs_dir, seed,
@@ -3741,15 +3964,81 @@ def own_checkpoint_prediction(torch, hydragnn_torch, config, logs_dir, seed,
             "graphs": int(p_gpu[3][0].shape[0])}
 
 
-def steady_epoch(torch, cfg, loader, seed, dev):
+# the kernels that a profiled epoch on each route times on the path
+# (``first_design_on_path``): launcher -> (module, route 1's and route
+# 2's kernel names)
+ROUTED_ON_PATH = {
+    "segment_sum_dense": ("fused_mp", "launch_segment_sum_rows",
+                          ("seg_sum_kernel", "segment_sum_dense_kernel")),
+    "segment_poly_dense": ("poly_mp", "launch_poly_segment",
+                           ("poly_scatter_kernel", "poly_segment_kernel")),
+}
+
+
+@contextlib.contextmanager
+def first_design_on_path(name):
+    """Within the block, the launcher of ``ROUTED_ON_PATH[name]`` launches
+    route 2 (the first design) wherever its caller takes the width's own
+    route: a profiled epoch then times the first design on the path's own
+    launches, shapes and cache state.  A call that asks for a route keeps
+    it."""
+    import importlib
+
+    mod_name, launcher, _ = ROUTED_ON_PATH[name]
+    module = importlib.import_module(f"hydragnn_torch.ops.{mod_name}")
+    launch = getattr(module, launcher)
+
+    def first_design(*args, route=0, **kw):
+        return launch(*args, route=route or 2, **kw)
+
+    setattr(module, launcher, first_design)
+    try:
+        yield
+    finally:
+        setattr(module, launcher, launch)
+
+
+def profiled_epoch(torch, step, state, loader, dev, epoch):
+    """One train epoch (``loader``'s epoch ``epoch``) under torch.profiler:
+    (the new state, the profiler's device-kernel rows, the epoch's wall)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hydragnn_torch.train.trainer import _run_epoch
+
+    loader.set_epoch(epoch)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, acc = _run_epoch(step, state, loader, True, dev)
+        float(acc[2])
+        wall = time.perf_counter() - t0
+    rows = [r for r in prof.key_averages()
+            if r.self_device_time_total > 0 and r.self_cpu_time_total == 0]
+    return state, rows, wall
+
+
+def routed_kernels(rows, name):
+    """The rows of ``ROUTED_ON_PATH[name]``'s kernels: calls, device ms
+    over the epoch and microseconds a launch, by kernel name."""
+    keys = ROUTED_ON_PATH[name][2]
+    return {r.key[:90]: {"calls": r.count,
+                         "ms_per_epoch": r.self_device_time_total / 1e3,
+                         "us_per_launch": r.self_device_time_total / r.count}
+            for r in rows if any(k in r.key for k in keys)}
+
+
+def steady_epoch(torch, cfg, loader, seed, dev, routed=()):
     """Train graphs/s of a steady epoch on the card (epoch 0 warms up,
     epoch 1 is timed, host clock ending in a synchronize, batches collated
     on the fly as in run_training) and the device's idle share: epoch 2
     under torch.profiler, one minus its kernel time over its own wall (the
     profiler's host cost is inside that wall, so the share is an upper
-    bound; its wall is printed beside the unprofiled one)."""
-    from torch.profiler import ProfilerActivity, profile
-
+    bound; its wall is printed beside the unprofiled one).  For each name
+    of ``ROUTED_ON_PATH`` in ``routed``, epoch 2 again under the profiler
+    with that kernel's first design (``first_design_on_path``), then on
+    the width's own route once more: the kernel's time a launch on each
+    route, as the path launches it (``routes_on_path``)."""
     from hydragnn_torch.models.create import create_model
     from hydragnn_torch.train.optimizer import select_optimizer
     from hydragnn_torch.train.trainer import (
@@ -3771,17 +4060,18 @@ def steady_epoch(torch, cfg, loader, seed, dev):
     state, acc = _run_epoch(step, state, loader, True, dev)
     graphs = float(acc[2])
     wall = time.perf_counter() - t0
-    loader.set_epoch(2)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, acc = _run_epoch(step, state, loader, True, dev)
-        float(acc[2])
-        wall_prof = time.perf_counter() - t0
-    rows = [r for r in prof.key_averages()
-            if r.self_device_time_total > 0 and r.self_cpu_time_total == 0]
+    state, rows, wall_prof = profiled_epoch(torch, step, state, loader, dev,
+                                            2)
     kernel_s = sum(r.self_device_time_total for r in rows) / 1e6
+    on_path = {}
+    for name in routed:
+        with first_design_on_path(name):
+            state, rows2, _ = profiled_epoch(torch, step, state, loader,
+                                             dev, 2)
+        state, rows1, _ = profiled_epoch(torch, step, state, loader, dev, 2)
+        on_path[name] = {"route1": routed_kernels(rows, name),
+                         "route2": routed_kernels(rows2, name),
+                         "route1_again": routed_kernels(rows1, name)}
     rows.sort(key=lambda r: r.self_device_time_total, reverse=True)
     # torch's gather kernels (indexing by a tensor of ids), by name
     gathers = {r.key[:90]: {"calls": r.count,
@@ -3795,7 +4085,7 @@ def steady_epoch(torch, cfg, loader, seed, dev):
             "top_kernels": [{"kernel": r.key[:90],
                              "ms_per_epoch": r.self_device_time_total / 1e3,
                              "calls": r.count} for r in rows[:8]],
-            "torch_gather_kernels": gathers}
+            "torch_gather_kernels": gathers, "routes_on_path": on_path}
 
 
 def memoize_dataset_loading():
@@ -4084,7 +4374,8 @@ def main():
         first3 = [b.to(dev) for _, b in zip(range(REPEAT_STEPS),
                                             train_loader)]
         n_params = repeat_bits(torch, tcfg, first3, args.seed, dev)
-        steady = steady_epoch(torch, tcfg, train_loader, args.seed, dev)
+        steady = steady_epoch(torch, tcfg, train_loader, args.seed, dev,
+                              routed=("segment_sum_dense",))
         own = own_checkpoint_prediction(
             torch, hydragnn_torch, train_cfg, os.path.join(tlogs, "cuda"),
             args.seed, "flagship")
@@ -4151,7 +4442,8 @@ def main():
               == len(card[2]["NeuralNetwork"]["Architecture"]["pna_deg"]) - 1,
               "finalize wrote no degree histogram")
         n_pparams = repeat_bits(torch, pcfg, first3, args.seed, dev)
-        psteady = steady_epoch(torch, pcfg, train_loader, args.seed, dev)
+        psteady = steady_epoch(torch, pcfg, train_loader, args.seed, dev,
+                               routed=tuple(ROUTED_ON_PATH))
         train_loader.set_epoch(0)
         first3_cpu = [b for _, b in zip(range(REPEAT_STEPS), train_loader)]
         plock = lockstep(torch, pcfg, first3_cpu, args.seed, dev)
@@ -4419,7 +4711,8 @@ def main():
         dn_loaders[0].set_epoch(0)
         d3 = [b.to(dev) for _, b in zip(range(REPEAT_STEPS), dn_loaders[0])]
         n_dparams = repeat_bits(torch, dcfg, d3, args.seed, dev)
-        dsteady = steady_epoch(torch, dcfg, dn_loaders[0], args.seed, dev)
+        dsteady = steady_epoch(torch, dcfg, dn_loaders[0], args.seed, dev,
+                               routed=("segment_sum_dense",))
         t0 = time.perf_counter()
         vcard, vcpu, v_launches, vsplit, vdispatch, _, wall_vcpu = \
             train_phase(torch, hydragnn_torch,
@@ -4481,7 +4774,8 @@ def main():
         dn_loaders[0].set_epoch(0)
         w3 = [b.to(dev) for _, b in zip(range(REPEAT_STEPS), dn_loaders[0])]
         n_wparams = repeat_bits(torch, wcfg, w3, args.seed, dev)
-        wsteady = steady_epoch(torch, wcfg, dn_loaders[0], args.seed, dev)
+        wsteady = steady_epoch(torch, wcfg, dn_loaders[0], args.seed, dev,
+                               routed=("segment_sum_dense",))
         t0 = time.perf_counter()
         remat = remat_check(torch, wcfg, first_dn, args.seed, dev)
         remat_s = time.perf_counter() - t0
@@ -4531,7 +4825,9 @@ def main():
              "gather_segment_sum": ("GIN", arch_launches["GIN"],
                                     arch_per["GIN"]),
              "gather_segment_sum_dx": ("GIN", arch_launches["GIN"],
-                                       arch_per["GIN"])}
+                                       arch_per["GIN"]),
+             "segment_sum_dense_edges": ("PNA", pna_launches, pna_per),
+             "segment_sum_dense_pna_ties": ("PNA", pna_launches, pna_per)}
     for k in kernels:
         if k["name"].startswith("scf_"):
             path, n_by, per_by = "wide", wide_launches, wide_per

@@ -1,6 +1,7 @@
-"""Where the gather-multiply kernel's time goes, on the card.
+"""Where the gather-multiply kernel's time goes, on the card; and the
+alternatives to the poly scatter's and the CSR segment sum's routes 1.
 
-    python3 fused_mp_variants.py [--seed S]
+    python3 fused_mp_variants.py [--seed S] [--which gm|rows|path|all]
 
 Run from the root of a checkout on a machine with a CUDA device and
 ``nvcc``.  It stands beside ``chip_smoke.py``, whose timer (``time_ms``:
@@ -35,13 +36,34 @@ memset (L2 left dirty, so the timed launch writes its lines back), a
 read of 64 MB (L2 left clean) and none (warm).  Prints the card's name
 and power limit, the variants' registers and spills, and one JSON line
 of medians per case.
+
+``--which rows`` (also part of ``all``) times edited copies of
+``csrc/poly_mp.cu`` and of the segment sum in ``csrc/fused_mp.cu`` on
+chip_smoke.py's first flagship train batch (its synthetic set, made in a
+temporary directory), cold, beside the sources' routes 1 and 2, then the
+sources' routes after the other two flushes.  The poly scatter (all
+moments, F = 64 and 256; each copy held to route 2's bits): ``empty``
+and ``ret_search`` (route 1's launch alone; its share search alone),
+``r2_ldcs`` (route 2 with streaming loads in scatter mode).  The segment
+sum (the pool, the edge rows over the receivers at F = 64, PNA's tie
+counts at F = 128; held to the source within 1e-5 of the largest
+entry): ``ss_ldg`` (route 1 with plain loads in place of the streaming
+ones), ``ss_empty`` (its launch alone).
+
+``--which path`` (also part of ``all``) trains PNA on the flagship's set
+and the dimenet cell's DimeNet (chip_smoke.py's configurations) and
+times the poly scatter and the segment sum a launch in profiled epochs
+on each route, and the poly scatter with ``r2_ldcs``'s library in place
+of the source's.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -219,6 +241,303 @@ class ReadFlush:
         self.torch.sum(self.buf, dim=0, out=self.sink)
 
 
+POLY_SRC = Path(build.CSRC / "poly_mp.cu").read_text()
+SS_BOUNDS = "  const int q0 = __ldg(row_ptr + sb), q1 = __ldg(row_ptr + se);\n"
+
+
+# variants that compute nothing whole: timed, not held to the bits
+PARTIAL = ("empty", "ret_search", "ss_empty")
+# variants of route 2 (the others edit route 1)
+ON_ROUTE2 = ("r2_ldcs",)
+
+
+def row_variants():
+    """(poly_mp sources, fused_mp sources): name -> edited source."""
+    search = ("  walk::share_rows(row_ptr, n_rows, blockIdx.x * kWarps + "
+              "threadIdx.x / kWarp,\n                   gridDim.x * kWarps, "
+              "rb, re, p0, p1);\n")
+    poly = {"source": POLY_SRC}
+    for name, (a, b) in {
+            "empty": (search, "  if (n_rows > 0) return;\n" + search),
+            "ret_search": (search, search + "  if (rb > re || p0 > p1) "
+                           "o_cnt[0] = 1.f;\n  return;\n"),
+            "r2_ldcs": ("(MODE == kGather ? r[c] * m : r[c])",
+                        "(MODE == kGather ? r[c] * m : __ldcs(r + c))"),
+    }.items():
+        if a not in POLY_SRC:
+            raise RuntimeError(f"variant {name}: the source changed ({a!r})")
+        poly[name] = POLY_SRC.replace(a, b)
+    segs = {"source": SRC}
+    for name, (a, b) in {
+            "ss_ldg": ("v[u][j] = walk::ldcs2(data",
+                       "v[u][j] = walk::ldg2(data"),
+            "ss_empty": (SS_BOUNDS, SS_BOUNDS + "  if (n_seg > 0) return;\n"),
+    }.items():
+        if a not in SRC:
+            raise RuntimeError(f"variant {name}: the source changed ({a!r})")
+        segs[name] = SRC.replace(a, b)
+    return poly, segs
+
+
+def build_sources(kind, sources, kernel_keys):
+    """One nvcc per source of ``csrc/<kind>.cu``'s variants, all started
+    together: the loaded libraries and each kernel's registers and
+    spills."""
+    OUT.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, s in sources.items():
+        cu = OUT / f"{kind}_{name}.cu"
+        cu.write_text(s)
+        procs[name] = subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-I",
+             str(build.CSRC), "-o", str(OUT / f"lib{kind}_{name}.so"),
+             str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs, regs = {}, {}
+    for name, p in procs.items():
+        log, _ = p.communicate()
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc {kind} {name} failed:\n{log}")
+        regs[name] = [(r["kernel"][:60], r["registers"], r["spill_stores"])
+                      for r in cs.ptxas_report(log, kernel_keys)]
+        lib = ctypes.CDLL(str(OUT / f"lib{kind}_{name}.so"))
+        for fn, argtypes in build.SIGNATURES[kind].items():
+            getattr(lib, fn).argtypes = list(argtypes)
+            getattr(lib, fn).restype = ctypes.c_int
+        libs[name] = lib
+    return libs, regs
+
+
+def flagship_batch(seed):
+    """chip_smoke.py's first train batch of the flagship (its synthetic
+    BCC set and loader, made in a temporary directory), on the CPU."""
+    import copy
+    import os
+    import tempfile
+
+    from hydragnn_torch.data.load_data import dataset_loading_and_splitting
+    from hydragnn_torch.data.synthetic import deterministic_graph_data
+
+    here = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_variants_",
+                                     dir=cs.ROOT) as work:
+        os.chdir(work)
+        os.environ["SERIALIZED_DATA_PATH"] = work
+        try:
+            deterministic_graph_data(
+                "dataset/chip_smoke",
+                number_configurations=cs.N_CONFIGURATIONS,
+                unit_cell_x_range=(2, 4), unit_cell_y_range=(2, 4),
+                unit_cell_z_range=(1, 3), seed=seed)
+            loader = dataset_loading_and_splitting(copy.deepcopy(
+                cs.flagship_config(perc_train=0.5,
+                                   epochs=cs.TRAIN_EPOCHS)), seed=seed)[0]
+            loader.set_epoch(0)
+            return next(iter(loader))
+        finally:
+            os.chdir(here)
+
+
+def rows_main(torch, dev, seed, flush):
+    """The poly scatter's and the segment sum's variants (``--which
+    rows``)."""
+    from hydragnn_torch.ops.aggregate import segment_offsets
+
+    poly_src, seg_src = row_variants()
+    plibs, pregs = build_sources("poly_mp", poly_src, ("poly_scatter",))
+    slibs, sregs = build_sources("fused_mp", seg_src, ("seg_sum_kernel",))
+    print(json.dumps({"registers_spills": {"poly_mp": pregs,
+                                           "fused_mp": sregs}}), flush=True)
+    g = flagship_batch(seed)
+    n, n_graphs = g.num_nodes, g.num_graphs
+    r = g.receivers.numpy()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    recv, mask = g.receivers.to(dev), g.edge_mask.to(dev)
+    gid = g.node_gid.to(dev)
+    ptr = segment_offsets(recv, n, mask)
+    pool_ptr = segment_offsets(gid, n_graphs)
+    st = torch.cuda.current_stream().cuda_stream
+    times = {}
+
+    def rec(key, fn, fl=flush):
+        times.setdefault(key, []).append(cs.time_ms(torch, fn, fl,
+                                                    lead=True))
+
+    # the sources' routes after a read of 64 MB (L2 left clean) and warm
+    others = (("read", ReadFlush(torch, dev)), ("warm", None))
+
+    # the poly scatter, all moments, route 1 of each source and route 2
+    for f in (64, 256):
+        data = (torch.randn(len(r), f, device=dev, generator=gen) * 2
+                ).round() / 2
+        outs = [torch.empty(len(ptr) - 1, w_, device=dev)
+                for w_ in (f, f, 2 * f)] + [torch.empty(len(ptr) - 1,
+                                                        device=dev)]
+
+        def call(lib, route, data=data, outs=outs, f=f):
+            return lambda: lib.hg_poly_segment_f32(
+                data.data_ptr(), None, None, ptr.data_ptr(),
+                *[o.data_ptr() for o in outs], n, len(r), f, 0, route, st)
+
+        call(plibs["source"], 2)()
+        torch.cuda.synchronize()
+        want = [o.clone() for o in outs]
+        for _ in range(2):
+            for name, lib in plibs.items():
+                route = 2 if name in ON_ROUTE2 else 1
+                call(lib, route)()
+                torch.cuda.synchronize()
+                cs.check(name in PARTIAL or all(
+                    torch.equal(a, b) for a, b in zip(outs, want)),
+                    f"poly variant {name} is not route 2's bits")
+                rec(f"poly_F{f}/{name}", call(lib, route))
+            rec(f"poly_F{f}/route2", call(plibs["source"], 2))
+            for fl_name, fl in others:
+                for route in (1, 2):
+                    rec(f"poly_F{f}/route{route}/{fl_name}",
+                        call(plibs["source"], route), fl)
+    # the segment sum at three shapes
+    x = torch.randn(len(gid), 64, device=dev, generator=gen)
+    w = torch.randn(len(r), 64, device=dev, generator=gen) * mask[:, None]
+    ties = (torch.rand(len(r), 128, device=dev, generator=gen) < 0.1
+            ).float()
+    for shape, data, rp in (("pool", x, pool_ptr), ("edges", w, ptr),
+                            ("pna_ties", ties, ptr)):
+        out = torch.empty(len(rp) - 1, data.shape[1], device=dev)
+
+        def call(lib, route, data=data, rp=rp, out=out):
+            return lambda: lib.hg_segment_sum_rows_f32(
+                data.data_ptr(), None, rp.data_ptr(), out.data_ptr(),
+                data.shape[0], len(rp) - 1, data.shape[1], 2**31 - 1, route,
+                st)
+
+        call(slibs["source"], 1)()
+        torch.cuda.synchronize()
+        want = out.clone()
+        for _ in range(2):
+            for name, lib in slibs.items():
+                route = 2 if name in ON_ROUTE2 else 1
+                call(lib, route)()
+                torch.cuda.synchronize()
+                err = float((out - want).abs().max()) / float(
+                    want.abs().max())
+                cs.check(name in PARTIAL or err <= 1e-5,
+                         f"segment-sum variant {name}: {err}")
+                rec(f"seg_{shape}/{name}", call(lib, route))
+            rec(f"seg_{shape}/route2", call(slibs["source"], 2))
+            for fl_name, fl in others:
+                for route in (1, 2):
+                    rec(f"seg_{shape}/route{route}/{fl_name}",
+                        call(slibs["source"], route), fl)
+    print(json.dumps({"row_variants_ms": {
+        k: statistics.median(v) for k, v in times.items()},
+        "N": n, "E": len(r), "E_valid": int(g.edge_mask.sum()),
+        "G": n_graphs}), flush=True)
+
+
+def path_cells(seed, work):
+    """PNA on chip_smoke.py's flagship set and its dimenet cell, in the
+    directory ``work``: name -> (model config, train loader)."""
+    import copy
+    import os
+
+    from hydragnn_torch.data.load_data import dataset_loading_and_splitting
+    from hydragnn_torch.data.synthetic import deterministic_graph_data
+    from hydragnn_torch.models.base import ModelConfig
+
+    os.chdir(work)
+    os.environ["SERIALIZED_DATA_PATH"] = work
+    os.environ["HYDRAGNN_AGGR_BACKEND"] = "fused"
+    deterministic_graph_data(
+        "dataset/chip_smoke", number_configurations=cs.N_CONFIGURATIONS,
+        unit_cell_x_range=(2, 4), unit_cell_y_range=(2, 4),
+        unit_cell_z_range=(1, 3), seed=seed)
+    cs.write_dimenet_data(seed)
+    cells = {}
+    for name, cfg in (
+            ("pna", cs.flagship_config(perc_train=0.5, epochs=cs.TRAIN_EPOCHS,
+                                       model_type="PNA")),
+            ("dimenet", cs.dimenet_config()),
+            ("dimenet_wide", cs.dimenet_wide_config())):
+        loaders = dataset_loading_and_splitting(copy.deepcopy(cfg), seed=seed)
+        cells[name] = (ModelConfig.from_config(loaders[3]), loaders[0])
+    return cells
+
+
+def path_main(torch, dev, seed):
+    """The poly scatter's and the segment sum's time a launch in profiled
+    train epochs of PNA and DimeNet (``--which path``): each kernel
+    library swapped for an edited copy, or route 2 forced on the path's
+    launches (chip_smoke.first_design_on_path), in the order A B C C B A
+    over the same epoch's batches."""
+    import tempfile
+
+    from hydragnn_torch.models.create import create_model
+    from hydragnn_torch.train.optimizer import select_optimizer
+    from hydragnn_torch.train.trainer import (
+        _run_epoch,
+        create_train_state,
+        make_train_step,
+    )
+
+    poly_src, seg_src = row_variants()
+    plibs, _ = build_sources("poly_mp", {k: poly_src[k] for k in (
+        "source", "r2_ldcs")}, ("poly_",))
+    slib = build_sources("fused_mp", {"source": seg_src["source"]},
+                         ("seg_sum_kernel",))[0]["source"]
+    build.load_library("fused_mp")   # every library built and loaded
+    # (kernel, case) -> (library name, library, route 2 forced)
+    cases = {
+        ("segment_poly_dense", "route1"): ("poly_mp", plibs["source"], False),
+        ("segment_poly_dense", "route2"): ("poly_mp", plibs["source"], True),
+        ("segment_poly_dense", "r2_ldcs"): ("poly_mp", plibs["r2_ldcs"],
+                                            True),
+        ("segment_sum_dense", "route1"): ("fused_mp", slib, False),
+        ("segment_sum_dense", "route2"): ("fused_mp", slib, True),
+    }
+    here = os.getcwd()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_variants_",
+                                     dir=cs.ROOT) as work:
+        try:
+            cells = path_cells(seed, work)
+            for cell, (cfg, loader) in cells.items():
+                model = create_model(cfg, seed=seed).to(dev)
+                spec = select_optimizer({"type": "AdamW",
+                                         "learning_rate": 1e-3})
+                state = create_train_state(model, spec)
+                step = make_train_step(model, cfg, spec)
+                for epoch in (0, 1):
+                    loader.set_epoch(epoch)
+                    state, acc = _run_epoch(step, state, loader, True, dev)
+                    float(acc[2])
+                keys = [k for k in cases
+                        if cell == "pna" or k[0] == "segment_sum_dense"]
+                for key in keys + keys[::-1]:
+                    kernel, _ = key
+                    lib_name, lib, forced = cases[key]
+                    own = build._loaded[lib_name]
+                    build._loaded[lib_name] = lib
+                    try:
+                        with (cs.first_design_on_path(kernel) if forced
+                              else contextlib.nullcontext()):
+                            state, rows, _ = cs.profiled_epoch(
+                                torch, step, state, loader, dev, 2)
+                    finally:
+                        build._loaded[lib_name] = own
+                    got = cs.routed_kernels(rows, kernel)
+                    rec = out.setdefault(f"{cell}/{kernel}/{key[1]}", {})
+                    rec.setdefault("ms_per_epoch", []).append(
+                        sum(v["ms_per_epoch"] for v in got.values()))
+                    for name, v in got.items():
+                        rec.setdefault(name, []).append(v["us_per_launch"])
+        finally:
+            os.chdir(here)
+    print(json.dumps({"path_ms_per_epoch_and_us_per_launch": {
+        k: {c: statistics.median(v) for c, v in rec.items()}
+        for k, rec in out.items()}}), flush=True)
+
+
 def main():
     import torch
 
@@ -227,10 +546,19 @@ def main():
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--which", choices=("gm", "rows", "path", "all"),
+                    default="all")
     args = ap.parse_args()
     cs.check(torch.cuda.is_available(), "no CUDA device")
     dev = torch.device("cuda")
     print(cs.smi_line(), flush=True)
+    if args.which in ("rows", "all"):
+        rows_main(torch, dev, args.seed,
+                  torch.empty(64 << 20, dtype=torch.uint8, device=dev))
+    if args.which in ("path", "all"):
+        path_main(torch, dev, args.seed)
+    if args.which in ("rows", "path"):
+        return
     libs, regs = build_variants(variants())
     print(json.dumps({"registers_spills": regs}), flush=True)
 

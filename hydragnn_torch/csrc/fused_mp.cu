@@ -73,14 +73,13 @@
 //   (grad mode on in the backward) keeps the route-2 composition, which
 //   is differentiable; the no-w mode has no dw.
 //
-// segment_sum_dense_kernel
+// ss::seg_sum_kernel (route 1) and segment_sum_dense_kernel (route 2)
 //   out[s, f] = sum_{r in [row_ptr[s], row_ptr[s+1])} data[perm[r], f]
 //   (perm null: data[r, f]), over at most the first max_rows rows of each
 //   segment (the reference's max_per_segment contract; INT_MAX otherwise).
 //   Replaces hydragnn_tpu/ops/fused_mp.py:_scatter_impl (pl.pallas_call at
 //   :340; public op segment_sum_dense :350).  Bound: bytes (read the valid
-//   rows of data once, write out once; 1 flop per 4-byte element).  One
-//   warp per segment: contiguous rows, coalesced across lanes.
+//   rows of data once, write out once; 1 flop per 4-byte element).
 //   With a row permutation it also replaces the two kernels of the
 //   reference's `pallas` aggregation backend, both plain segment sums:
 //   hydragnn_tpu/ops/aggregate.py:_pallas_segment_sum_impl (pl.pallas_call
@@ -88,12 +87,59 @@
 //   :_sorted_impl (:244, nondecreasing ids).  On Hopper the one-hot tile
 //   is wasted work: the wrapper's stable sort of the ids is the schedule
 //   (perm, CSR offsets, out-of-range ids parked past the last segment) and
-//   each warp sums its segment's rows in id-then-edge order through perm.
-//   Same bound (bytes), plus the 4-byte perm entry per row.  The sorted
-//   function's cap keeps collate's padding segment (every padding edge on
-//   node N-1, pre-masked to zeros) from holding one warp for thousands of
-//   rows, as the reference's cap drops those rows.
-//
+//   the rows are summed in id-then-edge order through perm.  Same bound
+//   (bytes), plus the 4-byte perm entry per row.  The sorted function's
+//   cap keeps collate's padding segment (every padding edge on node N-1,
+//   pre-masked to zeros) from costing thousands of rows, as the
+//   reference's cap drops those rows.
+//   Route 2 (the first design; hg_segment_sum_route: odd F, such as
+//   EGNN's position gathers at 3): one warp per segment in blocks of 8,
+//   lanes on columns lane + 32 j of 128 a pass.  At the pool (513
+//   segments) that fills 65 blocks on 132 SMs, and the padding graph's
+//   220-row segment, walked by one warp one row at a time, sets the time
+//   (0.050 ms cold against a bound of 0.0008).  PERM is a template
+//   parameter so that the dense sum keeps a loop whose row addresses the
+//   compiler can run ahead of: a run-time "perm or not" inside the row
+//   loop halved the pool's speed on its long padding segment.
+//   Route 1 (every even F: the pool, PNA's gather backwards at 64 and tie
+//   counts at 128, the pallas backend) splits rows, not only segments:
+//   - the grid is sized to the blocks the card holds (16 warps a block);
+//     each block takes an equal count of the segments (so no segment
+//     crosses a block) and its warps equal slices of their positions,
+//     which may cut a segment.  Equal counts, not a share search: a
+//     search (walk::share_rows) puts ~0.003 ms of dependent loads before
+//     every block's first row, which lost to route 2 on DimeNet's short
+//     segment sums; the warp slices already split a long segment, so the
+//     block's rows need no balance across blocks on the paths' segments
+//     (see the measurements below);
+//   - each warp sums its slice in position order, a float2 a lane (two
+//     64-column chunks a walk past 64 columns), 8 rows in flight, loads
+//     running on across segment boundaries (perm ids 32 at a time, the
+//     next 32 in flight), rows read cache-streaming (walk::ldcs2);
+//   - it writes each segment that lies wholly in its slice straight to
+//     out, with route 2's bits, and leaves the partial sums of the (at
+//     most two) segments that its slice cuts in shared memory; after one
+//     __syncthreads the warp that holds a cut segment's last position
+//     adds the partials in warp order (the first slice's tail partial,
+//     then the head partials after it) and writes the segment;
+//   - positions past a segment's cap are not added: the walk jumps from
+//     the cap to the segment's end (a group of 8 rows that crosses a
+//     segment boundary may still load a few), and the block's empty
+//     segments are written as zeros first.
+//   One launch, no atomics, no global scratch, deterministic.
+//   ops/aggregate.py:segment_sum_plan writes the plan out for the tests.
+//   Measured (NVIDIA H100 80GB HBM3, 700 W; python3 fused_mp_variants.py
+//   --which rows, cold after chip_smoke's memset flush, and --which path,
+//   device time a launch in profiled train epochs): against block shares
+//   found by walk::share_rows (rows plus segments balanced), equal counts
+//   take the pool from 0.0108 to 0.0102 ms, edge rows [E, 64] from 0.0243
+//   to 0.0221 (route 2 0.0244), DimeNet's sums from 7.18 to 6.49 us a
+//   launch (route 2 6.63) and PNA's from 1.090 to 1.054 ms an epoch
+//   (route 2 1.438).  dimenet_wide's sums (F = 128) take 10.15 us a
+//   launch against route 2's 11.90.  Plain loads in place of the
+//   streaming ones: edge rows 0.0241 against 0.0221, tie counts 0.0383
+//   against 0.0346 (the pool ties).
+
 // Contract shared with the reference kernels (collate guarantees it):
 // rows/edges are sorted by output id, so each output row owns one
 // contiguous CSR range; masked rows sort last and are parked out of range
@@ -104,14 +150,17 @@
 // same answer.  Senders (in the backward: receivers) outside [0, n_src)
 // contribute nothing.
 //
-// Determinism: one warp owns each output row and adds its edges in edge
-// (position) order into float32 registers.  No atomics, no [E,F]
-// intermediate; the result is bit-identical from run to run.  Every
-// output row is written, empty rows (zero-length ranges) as zeros.
+// Determinism: every output row is added up in a fixed order in float32
+// registers (one warp a row in edge or position order; route 1 of the
+// segment sum adds a cut segment's warp partials in warp order).  No
+// atomics, no [E,F] intermediate; the result is bit-identical from run to
+// run.  Every output row is written, empty rows (zero-length ranges) as
+// zeros.
 
 #include <cuda_runtime.h>
 
 #include "pass_p.cuh"
+#include "row_walk.cuh"
 
 namespace {
 
@@ -168,10 +217,7 @@ gather_mul_segment_sum_kernel(const float* __restrict__ x,
   }
 }
 
-// PERM is a template parameter so that the dense sum (the pool) keeps a
-// loop whose row addresses the compiler can run ahead of: a run-time
-// "perm or not" inside the row loop halved the pool's speed on its long
-// padding segment.
+// PERM is a template parameter: see the header (route 2)
 template <bool PERM>
 __global__ void __launch_bounds__(kWarp * kRowsPerBlock)
 segment_sum_dense_kernel(const float* __restrict__ data,
@@ -215,89 +261,11 @@ namespace gm {
 constexpr int kWarps = 8;        // warps a block
 constexpr int kU = 8;            // edges whose rows are in flight a warp
 constexpr int kCols = 2 * kWarp; // columns a pass: a float2 a lane
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float2 ldg2(const float* p) {
-  return __ldg(reinterpret_cast<const float2*>(p));
-}
-
-__device__ __forceinline__ void st2(float* p, float2 v) {
-  *reinterpret_cast<float2*>(p) = v;
-}
-
-// A warp's walk over its rows of a CSR schedule: `row` the current row,
-// `end` = row_ptr[row + 1].  Lane l holds row_ptr[base + 1 + l], so a row
-// boundary costs a shuffle, and a load only every 32 rows.
-struct Cursor {
-  const int* row_ptr;
-  int n_rows, row, base, mine, end;
-
-  __device__ __forceinline__ void init(const int* rp, int n, int r) {
-    row_ptr = rp;
-    n_rows = n;
-    row = r;
-    load();
-  }
-  __device__ __forceinline__ void load() {
-    base = row;
-    mine = __ldg(row_ptr + min(base + 1 + static_cast<int>(threadIdx.x & 31),
-                               n_rows));
-    end = __shfl_sync(kFull, mine, 0);
-  }
-  // to the next row (called only while a position of the share lies past
-  // `end`, so the new row is still the share's)
-  __device__ __forceinline__ void next() {
-    ++row;
-    if (row - base == kWarp)
-      load();
-    else
-      end = __shfl_sync(kFull, mine, row - base);
-  }
-};
-
-// passp::share_range's rows [rb, re) of share `part` (the same search:
-// each half-warp one bound, 16 probes a round) and their offsets p0 =
-// row_ptr[rb], p1 = row_ptr[re], with two loads fewer on the path before
-// a warp's first edge: row_ptr[n] is loaded beside the first round's
-// probes (which do not depend on the target), and the offsets come from
-// the probes that found the rows.
-__device__ __forceinline__ void share_rows(const int* row_ptr, int n,
-                                           int part, int n_parts, int& rb,
-                                           int& re, int& p0, int& p1) {
-  const int lane = threadIdx.x & 31, half = lane >> 4, hl = lane & 15;
-  int lo = 0, hi = n;  // this half's row lies in [lo, hi]; key(hi) >= target
-  int step = (n + 15) >> 4;
-  int r = min(hl * step, n);
-  int v = __ldg(row_ptr + r);
-  int v_hi = __ldg(row_ptr + n);  // row_ptr[hi]
-  const long long target =
-      (static_cast<long long>(v_hi) + n) * (part + half) / n_parts;
-  for (bool first = true; __any_sync(kFull, lo < hi); first = false) {
-    if (!first) {
-      step = (hi - lo + 15) >> 4;
-      r = min(lo + hl * step, hi);
-      v = __ldg(row_ptr + r);
-    }
-    const bool ok = static_cast<long long>(v) + r >= target;
-    const unsigned m = (__ballot_sync(kFull, ok) >> (16 * half)) & 0xffffu;
-    const int j = m == 0u ? 0 : __ffs(m) - 1;
-    const int vj = __shfl_sync(kFull, v, 16 * half + j);
-    if (lo < hi) {
-      if (m == 0u) {
-        lo = min(lo + 15 * step, hi) + 1;  // past the last probe
-      } else {
-        const int rj = min(lo + j * step, hi);
-        lo = j == 0 ? rj : min(lo + (j - 1) * step, hi) + 1;
-        hi = rj;
-        v_hi = vj;
-      }
-    }
-  }
-  rb = __shfl_sync(kFull, lo, 0);
-  re = __shfl_sync(kFull, lo, 16);
-  p0 = __shfl_sync(kFull, v_hi, 0);
-  p1 = __shfl_sync(kFull, v_hi, 16);
-}
+using walk::Cursor;
+using walk::kFull;
+using walk::ldg2;
+using walk::share_rows;
+using walk::st2;
 
 // Forward: out[n] = sum over row n's positions of x[send[k]] * (w[k] or
 // mask[k]), each warp on its share of the rows.
@@ -498,26 +466,226 @@ gm_bwd_kernel(const float* __restrict__ g, const float* __restrict__ x,
   }
 }
 
-// Blocks of `kernel` the card holds at once (its SMs times the blocks a
-// SM takes), at most one for every kWarps rows and at least one.
-template <typename Kernel>
-cudaError_t persistent_grid(Kernel kernel, int rows, int* grid) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kWarp * kWarps, 0);
-  if (err != cudaSuccess) return err;
-  const int need = (rows + kWarps - 1) / kWarps;
-  const int held = (per_sm > 0 ? per_sm : 1) * sms;
-  *grid = held < need ? held : need;
-  if (*grid < 1) *grid = 1;
-  return cudaSuccess;
+}  // namespace gm
+
+// ---------------------------------------------------------------------------
+// route 1 of the CSR segment sum (see above)
+// ---------------------------------------------------------------------------
+namespace ss {
+
+using walk::Cursor;
+using walk::kFull;
+using walk::st2;
+
+constexpr int kWarps = 16;       // warps a block: the slices of its rows
+constexpr int kRowsInFlight = 8;  // rows in flight a warp at NC = 1
+constexpr int kCols = 2 * kWarp; // columns a chunk: a float2 a lane
+
+// the first position of warp w's slice of its block's positions [q0, q1)
+// (w = kWarps: q1)
+__device__ __forceinline__ int slice_begin(int q0, int q1, int w) {
+  return q0 + static_cast<int>(static_cast<long long>(q1 - q0) * w / kWarps);
 }
 
-}  // namespace gm
+// the largest segment r in [lo, hi) with row_ptr[r] <= a, given
+// row_ptr[lo] <= a: the segment that holds position a when a <
+// row_ptr[hi].  Found by the whole warp, 32 probes a round.
+__device__ __forceinline__ int segment_at(const int* row_ptr, int lo, int hi,
+                                          int a) {
+  const int lane = threadIdx.x & 31;
+  while (hi - lo > 1) {
+    const int step = (hi - lo + 31) >> 5;
+    const int r = lo + lane * step;
+    const bool ok = r < hi && __ldg(row_ptr + r) <= a;
+    const int j = 31 - __clz(__ballot_sync(kFull, ok));  // lane 0 is ok
+    lo += j * step;
+    hi = min(lo + step, hi);
+  }
+  return lo;
+}
+
+__device__ __forceinline__ void add2(float2& acc, float2 v) {
+  acc.x += v.x;
+  acc.y += v.y;
+}
+
+// out[s] = sum of data[perm[r]] (PERM; data[r] otherwise) over the first
+// max_rows positions r of segment s, NC chunks of 64 columns a walk (lane
+// l holds columns c0 + 64 j + 2 l).  Each block takes an equal count of
+// the segments (no segment split), its warps equal slices of their
+// positions; a warp writes the segments that
+// lie wholly in its slice and leaves the partial sums of the (at most
+// two) that its slice cuts in shared memory, which the warp holding a cut
+// segment's last position adds in warp order after one barrier.
+template <bool PERM, int NC>
+__global__ void __launch_bounds__(kWarp * kWarps)
+seg_sum_kernel(const float* __restrict__ data, const int* __restrict__ perm,
+               const int* __restrict__ row_ptr, float* __restrict__ out,
+               int n_seg, int f, int max_rows) {
+  // per walk: each warp's partial of its first segment when an earlier
+  // slice holds that segment's head ([0]), and of its last segment when a
+  // later slice holds that segment's tail ([1])
+  __shared__ float2 part[2][kWarps][NC][kWarp];
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  // rows in flight: kRowsInFlight float2s a lane whatever NC
+  constexpr int U = kRowsInFlight / NC;
+  // the block's segments [sb, se): an equal count a block (no search
+  // before the first row; the warp slices balance the rows inside it)
+  const int sb = static_cast<int>(static_cast<long long>(n_seg) * blockIdx.x /
+                                  gridDim.x);
+  const int se = static_cast<int>(static_cast<long long>(n_seg) *
+                                  (blockIdx.x + 1) / gridDim.x);
+  const int q0 = __ldg(row_ptr + sb), q1 = __ldg(row_ptr + se);
+  // the block's empty segments: zeros (the walks write the others)
+  for (int s = sb + wid; s < se; s += kWarps)
+    if (__ldg(row_ptr + s) == __ldg(row_ptr + s + 1))
+      for (int c = 2 * lane; c < f; c += kCols)
+        st2(out + static_cast<size_t>(s) * f + c, make_float2(0.f, 0.f));
+  const int a = slice_begin(q0, q1, wid), b = slice_begin(q0, q1, wid + 1);
+  // the segment of the slice's first position, its first and end positions
+  int s0 = sb, start0 = q0, end0 = q0;
+  if (a < b) {
+    s0 = segment_at(row_ptr, sb, se, a);
+    start0 = __ldg(row_ptr + s0);
+    end0 = __ldg(row_ptr + s0 + 1);
+  }
+  auto ldp = [&](int q) { return PERM && q < b ? __ldg(perm + q) : 0; };
+  for (int c0 = 0; c0 < f; c0 += NC * kCols) {
+    bool on[NC];  // f even: col + 1 < f too
+#pragma unroll
+    for (int j = 0; j < NC; ++j) on[j] = c0 + j * kCols + 2 * lane < f;
+    auto store = [&](int row, const float2 (&v)[NC]) {
+#pragma unroll
+      for (int j = 0; j < NC; ++j)
+        if (on[j])
+          st2(out + static_cast<size_t>(row) * f + c0 + j * kCols + 2 * lane,
+              v[j]);
+    };
+    auto keep = [&](int slot, const float2 (&v)[NC]) {
+#pragma unroll
+      for (int j = 0; j < NC; ++j) part[slot][wid][j][lane] = v[j];
+    };
+    if (a < b) {
+      Cursor cur;
+      cur.init(row_ptr, n_seg, s0);
+      int start = start0;  // the current segment's first position
+      float2 acc[NC];
+#pragma unroll
+      for (int j = 0; j < NC; ++j) acc[j] = make_float2(0.f, 0.f);
+      // the current segment ends inside the slice: written, or (its head
+      // in earlier slices) left for the combine; then the next segment
+      auto finish = [&]() {
+        if (start < a)
+          keep(0, acc);
+        else if (start < cur.end)
+          store(cur.row, acc);
+#pragma unroll
+        for (int j = 0; j < NC; ++j) acc[j] = make_float2(0.f, 0.f);
+        start = cur.end;
+        cur.next();
+      };
+      // PERM: the data rows of 32 positions from idb one a lane, and of
+      // the 32 after them
+      int idb = a, id_l = ldp(a + lane), nx_l = ldp(a + kWarp + lane);
+      int p = a;
+      while (p < b) {
+        while (p >= cur.end) finish();
+        if (p - start >= max_rows) {  // the rest of the segment is capped
+          p = min(cur.end, b);
+          continue;
+        }
+        const int n_u = min(U, b - p);
+        if (PERM && p + n_u > idb + kWarp) {
+          id_l = p == idb + kWarp ? nx_l : ldp(p + lane);
+          idb = p;
+          nx_l = ldp(idb + kWarp + lane);
+        }
+        float2 v[U][NC];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int row = PERM ? __shfl_sync(kFull, id_l, (p - idb + u) & 31)
+                               : p + u;
+#pragma unroll
+          for (int j = 0; j < NC; ++j) {
+            v[u][j] = make_float2(0.f, 0.f);
+            if (u < n_u && on[j])
+              v[u][j] = walk::ldcs2(data + static_cast<size_t>(row) * f + c0 +
+                             j * kCols + 2 * lane);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          if (u >= n_u) break;
+          while (p + u >= cur.end) finish();
+          if (p + u - start < max_rows) {
+#pragma unroll
+            for (int j = 0; j < NC; ++j) add2(acc[j], v[u][j]);
+          }
+        }
+        p += n_u;
+      }
+      // the segment of the slice's last position
+      if (cur.end > b)
+        keep(start < a ? 0 : 1, acc);
+      else if (start < a)
+        keep(0, acc);
+      else
+        store(cur.row, acc);
+    }
+    __syncthreads();
+    // the combine: the segment whose head lies in earlier slices and whose
+    // end lies in this one is the tail partial of the slice that holds its
+    // first position plus the head partials after it, in warp order
+    if (a < b && start0 < a && end0 <= b) {
+      int w0 = wid - 1;
+      while (slice_begin(q0, q1, w0) > start0) --w0;
+      float2 acc[NC];
+#pragma unroll
+      for (int j = 0; j < NC; ++j) acc[j] = part[1][w0][j][lane];
+      for (int v = w0 + 1; v <= wid; ++v)
+        if (slice_begin(q0, q1, v) < slice_begin(q0, q1, v + 1)) {
+#pragma unroll
+          for (int j = 0; j < NC; ++j) add2(acc[j], part[0][v][j][lane]);
+        }
+      store(s0, acc);
+    }
+    __syncthreads();
+  }
+}
+
+// the kernel at NC chunks a walk: one at 64 columns or fewer, else two
+template <bool PERM, int NC>
+cudaError_t launch(const float* data, const int* perm, const int* row_ptr,
+                   float* out, int n_seg, int n_data, int f, int max_rows,
+                   cudaStream_t st) {
+  // at most one block for every kWarps units of work (rows + segments)
+  int grid = 0;
+  const cudaError_t err = walk::persistent_grid(
+      seg_sum_kernel<PERM, NC>, kWarps, static_cast<long long>(n_data) + n_seg,
+      kWarps, &grid);
+  if (err != cudaSuccess) return err;
+  seg_sum_kernel<PERM, NC><<<grid, kWarp * kWarps, 0, st>>>(
+      data, perm, row_ptr, out, n_seg, f, max_rows);
+  return cudaGetLastError();
+}
+
+template <bool PERM>
+cudaError_t launch_by_width(const float* data, const int* perm,
+                            const int* row_ptr, float* out, int n_seg,
+                            int n_data, int f, int max_rows,
+                            cudaStream_t st) {
+  return f <= kCols
+             ? launch<PERM, 1>(data, perm, row_ptr, out, n_seg, n_data, f,
+                               max_rows, st)
+             : launch<PERM, 2>(data, perm, row_ptr, out, n_seg, n_data, f,
+                               max_rows, st);
+}
+
+}  // namespace ss
+
+// the route of the CSR segment sum at width f: 1 for even f (a float2 a
+// lane), 2 (the first design) for odd f
+inline int segment_sum_route(int f) { return f > 0 && f % 2 == 0 ? 1 : 2; }
 
 // the route of the gather-multiply kernel and its backward at width f:
 // 1 for even f (a float2 a lane), 2 (the first design) for odd f
@@ -554,12 +722,14 @@ extern "C" int hg_gather_mul_segment_sum_f32(
     int grid = 0;
     cudaError_t err;
     if (has_w) {
-      err = gm::persistent_grid(gm::gm_fwd_kernel<kMulW>, n_rows, &grid);
+      err = walk::persistent_grid(gm::gm_fwd_kernel<kMulW>, gm::kWarps,
+                                  n_rows, gm::kWarps, &grid);
       if (err != cudaSuccess) return static_cast<int>(err);
       gm::gm_fwd_kernel<kMulW><<<grid, kWarp * gm::kWarps, 0, st>>>(
           xf, wf, nullptr, sp, rp, of, n_rows, n_src, f);
     } else {
-      err = gm::persistent_grid(gm::gm_fwd_kernel<kMask>, n_rows, &grid);
+      err = walk::persistent_grid(gm::gm_fwd_kernel<kMask>, gm::kWarps,
+                                  n_rows, gm::kWarps, &grid);
       if (err != cudaSuccess) return static_cast<int>(err);
       gm::gm_fwd_kernel<kMask><<<grid, kWarp * gm::kWarps, 0, st>>>(
           xf, nullptr, mf, sp, rp, of, n_rows, n_src, f);
@@ -602,13 +772,15 @@ extern "C" int hg_gather_mul_bwd_f32(
   int grid = 0;
   cudaError_t err;
   if (has_w) {
-    err = gm::persistent_grid(gm::gm_bwd_kernel<kMulW>, n_rows, &grid);
+    err = walk::persistent_grid(gm::gm_bwd_kernel<kMulW>, gm::kWarps, n_rows,
+                                gm::kWarps, &grid);
     if (err != cudaSuccess) return static_cast<int>(err);
     gm::gm_bwd_kernel<kMulW><<<grid, kWarp * gm::kWarps, 0, st>>>(
         gf, xf, wf, nullptr, pp, rv, rp, dxf, dwf, n_rows, n_src, n_edges,
         f);
   } else {
-    err = gm::persistent_grid(gm::gm_bwd_kernel<kMask>, n_rows, &grid);
+    err = walk::persistent_grid(gm::gm_bwd_kernel<kMask>, gm::kWarps, n_rows,
+                                gm::kWarps, &grid);
     if (err != cudaSuccess) return static_cast<int>(err);
     gm::gm_bwd_kernel<kMask><<<grid, kWarp * gm::kWarps, 0, st>>>(
         gf, nullptr, nullptr, mf, pp, rv, rp, dxf, nullptr, n_rows, n_src,
@@ -617,26 +789,41 @@ extern "C" int hg_gather_mul_bwd_f32(
   return static_cast<int>(cudaGetLastError());
 }
 
-// `perm` (may be null) maps a CSR position to its data row; each segment
-// sums at most its first `max_rows` rows.
+extern "C" int hg_segment_sum_route(int f) { return segment_sum_route(f); }
+
+// `perm` (may be null) maps a CSR position to its data row (of `n_rows`);
+// each segment sums at most its first `max_rows` positions.  `route`: 0
+// the width's own (hg_segment_sum_route), 1 or 2 that one (1 only at an
+// even f); data and out 8-byte aligned on route 1.
 extern "C" int hg_segment_sum_rows_f32(const void* data, const void* perm,
                                        const void* row_ptr, void* out,
-                                       int n_seg, int f, int max_rows,
+                                       int n_rows, int n_seg, int f,
+                                       int max_rows, int route,
                                        void* stream) {
+  if (route == 0) route = segment_sum_route(f);
+  if (route < 1 || route > 2 || (route == 1 && segment_sum_route(f) != 1) ||
+      max_rows < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n_seg <= 0 || f <= 0) return 0;
-  if (max_rows < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 block(kWarp * kRowsPerBlock);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (perm != nullptr) {
+  const float* df = static_cast<const float*>(data);
+  const int* pp = static_cast<const int*>(perm);
+  const int* rp = static_cast<const int*>(row_ptr);
+  float* of = static_cast<float*>(out);
+  if (route == 1)
+    return static_cast<int>(
+        pp != nullptr
+            ? ss::launch_by_width<true>(df, pp, rp, of, n_seg, n_rows, f,
+                                        max_rows, st)
+            : ss::launch_by_width<false>(df, nullptr, rp, of, n_seg, n_rows,
+                                         f, max_rows, st));
+  const dim3 block(kWarp * kRowsPerBlock);
+  if (pp != nullptr) {
     segment_sum_dense_kernel<true><<<grid_for(n_seg), block, 0, st>>>(
-        static_cast<const float*>(data), static_cast<const int*>(perm),
-        static_cast<const int*>(row_ptr), static_cast<float*>(out), n_seg, f,
-        max_rows);
+        df, pp, rp, of, n_seg, f, max_rows);
   } else {
     segment_sum_dense_kernel<false><<<grid_for(n_seg), block, 0, st>>>(
-        static_cast<const float*>(data), nullptr,
-        static_cast<const int*>(row_ptr), static_cast<float*>(out), n_seg, f,
-        max_rows);
+        df, nullptr, rp, of, n_seg, f, max_rows);
   }
   return static_cast<int>(cudaGetLastError());
 }

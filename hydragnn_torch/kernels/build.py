@@ -45,8 +45,11 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         "hg_gather_mul_bwd_f32": (_P,) * 9 + (_I,) * 5 + (_P,),
         # f
         "hg_gather_mul_route": (_I,),
-        # data, perm, row_ptr, out, n_seg, f, max_rows, stream
-        "hg_segment_sum_rows_f32": (_P, _P, _P, _P, _I, _I, _I, _P),
+        # data, perm, row_ptr, out, n_rows, n_seg, f, max_rows, route,
+        # stream
+        "hg_segment_sum_rows_f32": (_P,) * 4 + (_I,) * 5 + (_P,),
+        # f
+        "hg_segment_sum_route": (_I,),
     },
     "scf_mp": {
         # x, rbf, cm, gidx, rowid, perm, row_ptr, w0, b0, w1, b1, out,
@@ -134,8 +137,10 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     },
     "poly_mp": {
         # src, senders, mask, row_ptr, o_sum, o_sq, o_mxmn, o_cnt,
-        # n_rows, n_src, f, gather, stream
-        "hg_poly_segment_f32": (_P,) * 8 + (_I,) * 4 + (_P,),
+        # n_rows, n_src, f, gather, route, stream
+        "hg_poly_segment_f32": (_P,) * 8 + (_I,) * 5 + (_P,),
+        # f, gather
+        "hg_poly_segment_route": (_I,) * 2,
     },
 }
 

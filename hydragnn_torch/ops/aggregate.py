@@ -20,11 +20,14 @@ each output row then owns the contiguous row range
 
 The ``pallas`` backend's two segment sums (:func:`segment_sum_pallas`, any
 id order, and :func:`segment_sum_sorted`, nondecreasing ids) reach one
-kernel: the rows of each segment summed in float32, in order, by one warp
-(no atomics).  For unsorted ids a stable ``torch.sort`` of the ids, with
-out-of-range ids parked past the last segment, is the schedule; the sum
-through its permutation is the kernel's, launched and checked as the pool's
-(ops/fused_mp.py ``launch_segment_sum_rows``).  A CPU tensor takes the
+kernel, the pool's CSR segment sum: the rows of each segment summed in
+float32 in a fixed order (no atomics), on route 1 at even widths
+(:func:`segment_sum_plan`: equal segment counts a block, warp slices,
+cut segments' partials added in warp order).  For unsorted ids a stable
+``torch.sort`` of the ids, with out-of-range ids parked past the last
+segment, is the schedule; the sum through its permutation is the
+kernel's, launched and checked as the pool's (ops/fused_mp.py
+``launch_segment_sum_rows``).  A CPU tensor takes the
 pool's plain version (``segment_sum_dense_plain``, ``index_add_``), a CUDA
 tensor the kernel.  Their VJP is a gather
 with zeros where the forward dropped the row (plain PyTorch, so
@@ -34,6 +37,7 @@ function.
 
 from __future__ import annotations
 
+import bisect
 import os
 import warnings
 from typing import Dict, Optional
@@ -96,6 +100,111 @@ def row_shares(row_ptr: torch.Tensor, n_parts: int) -> torch.Tensor:
     targets = torch.tensor([total * i // n_parts for i in range(n_parts + 1)],
                            dtype=torch.int64)
     return torch.searchsorted(key, targets)
+
+
+# route 1 of the CSR segment sum (csrc/fused_mp.cu ``ss::``): warps a
+# block, each summing one slice of the block's rows
+SEG_SUM_WARPS = 16
+
+
+def segment_sum_plan(row_ptr: torch.Tensor, n_blocks: int,
+                     max_rows: Optional[int] = None,
+                     n_warps: int = SEG_SUM_WARPS):
+    """Route 1's plan of the CSR segment sum, as the card's ``n_blocks``
+    blocks of ``n_warps`` warps run it.
+
+    Block ``k`` takes an equal count of the segments, ``[sb, se) =
+    [S k // n_blocks, S (k + 1) // n_blocks)`` (no segment split), and
+    their positions ``[q0, q1) = [row_ptr[sb], row_ptr[se])``; warp ``w``
+    the equal slice ``[a, b)`` of them, ``a = q0 + (q1 - q0) w //
+    n_warps``.  A warp sums, in position order, the positions of its slice
+    that lie within their segment's first ``max_rows`` (``rows``); it writes
+    the segments that lie wholly in its slice (``whole``) and leaves the
+    partial sums of its first segment when an earlier slice holds that
+    segment's head (``head``) and of its last when a later slice holds its
+    tail (``tail``; a segment through the whole slice is its head).  After
+    the block's barrier each cut segment is its first slice's tail partial
+    plus the head partials after it, in warp order (``combine``: segment ->
+    ``[(warp, "tail"), (warp, "head"), ...]``); the block's empty segments
+    are written as zeros (``zeros``).  Returns one dict a block."""
+    ptr = [int(v) for v in row_ptr.long().cpu()]
+    cap = 2**31 - 1 if max_rows is None else int(max_rows)
+    n_seg = len(ptr) - 1
+    bounds = [n_seg * k // n_blocks for k in range(n_blocks + 1)]
+    blocks = []
+    for k in range(n_blocks):
+        sb, se = bounds[k], bounds[k + 1]
+        q0, q1 = ptr[sb], ptr[se]
+        cuts = [q0 + (q1 - q0) * w // n_warps for w in range(n_warps + 1)]
+        warps, combine = [], {}
+        s = sb
+        for w in range(n_warps):
+            a, b = cuts[w], cuts[w + 1]
+            rec = {"slice": (a, b), "rows": [], "whole": [], "head": None,
+                   "tail": None}
+            warps.append(rec)
+            if a == b:
+                continue
+            while ptr[s + 1] <= a:   # the segment of position a
+                s += 1
+            t = s
+            while True:
+                lo, hi = ptr[t], ptr[t + 1]
+                rec["rows"] += [q for q in range(max(lo, a), min(hi, b))
+                                if q - lo < cap]
+                if lo < a:
+                    rec["head"] = t
+                elif hi > b:
+                    rec["tail"] = t
+                elif lo < hi:
+                    rec["whole"].append(t)
+                if lo < a or hi > b:
+                    combine.setdefault(t, []).append(
+                        (w, "head" if lo < a else "tail"))
+                if hi >= b:
+                    break
+                t += 1
+        blocks.append({
+            "segments": (sb, se), "positions": (q0, q1), "warps": warps,
+            "combine": combine,
+            "zeros": [t for t in range(sb, se) if ptr[t] == ptr[t + 1]]})
+    return blocks
+
+
+def segment_sum_route1(data2d, row_ptr, n_blocks, perm=None,
+                       max_rows=None, n_warps=SEG_SUM_WARPS):
+    """The CSR segment sum as route 1 computes it from
+    :func:`segment_sum_plan`: each warp's sums in float32, row by row in
+    position order (``data2d[perm[q]]``, or ``data2d[q]``), the cut
+    segments' partials added in warp order.  For the tests: the card's
+    kernel cannot run here."""
+    n_seg = row_ptr.shape[0] - 1
+    f = data2d.shape[1]
+    ptr = [int(v) for v in row_ptr.long().cpu()]
+    out = torch.full((n_seg, f), float("nan"), dtype=torch.float32)
+    rows = data2d.float() if perm is None else data2d.float()[perm.long()]
+    for blk in segment_sum_plan(row_ptr, n_blocks, max_rows, n_warps):
+        part = {}
+        for w, rec in enumerate(blk["warps"]):
+            sums = {}
+            for q in rec["rows"]:
+                t = bisect.bisect_right(ptr, q) - 1
+                acc = sums.get(t, torch.zeros(f, dtype=torch.float32))
+                sums[t] = acc + rows[q]
+            for t in rec["whole"]:
+                out[t] = sums.get(t, torch.zeros(f))
+            for slot in ("head", "tail"):
+                t = rec[slot]
+                if t is not None:
+                    part[(w, slot)] = sums.get(t, torch.zeros(f))
+        for t, order in blk["combine"].items():
+            acc = part[order[0]]
+            for key in order[1:]:
+                acc = acc + part[key]
+            out[t] = acc
+        for t in blk["zeros"]:
+            out[t] = 0.0
+    return out
 
 
 def segment_sum_onehot(data, segment_ids, num_segments):

@@ -25,6 +25,14 @@ first design, one warp per row) at odd F.  The launchers' ``route`` and
 the Functions' last argument (0: the width's own) force route 1 or 2, so
 that the card checks time the first design beside route 1.
 
+The CSR segment sum takes two routes the same way
+(:func:`segment_sum_route`, ``hg_segment_sum_route``): route 1 at every
+even F, where each block sums an equal count of the segments and its
+warps equal slices of their rows (a slice may cut a segment, whose
+partials the block adds in warp order: ``aggregate.segment_sum_plan``
+writes it out), route 2 (one warp per segment) at odd F;
+:func:`launch_segment_sum_rows` takes a ``route`` as well.
+
 Each public op is a ``torch.autograd.Function`` with the reference's
 custom VJP (hydragnn_tpu/ops/fused_mp.py ``_vjp_bwd``, ``_gss_bwd``,
 ``_ssd_bwd``):
@@ -346,14 +354,27 @@ def launch_gather_mul_bwd(g, x, w, mask, perm, receivers, row_ptr,
     return dx, dw
 
 
+def segment_sum_route(f):
+    """The CSR segment sum's route at width ``f``: 1 (each block on an
+    equal count of the segments, its warps on equal slices of their rows,
+    a float2 a lane) at every even ``f``, the pool's 64 among them; 2 (the
+    first design, one warp per segment) at odd ``f``, such as EGNN's
+    position gathers at 3.  Mirrors ``hg_segment_sum_route``; a card test
+    holds the two together."""
+    return 1 if f > 0 and f % 2 == 0 else 2
+
+
 def launch_segment_sum_rows(data2d, row_ptr, num_segments,
                             op="segment_sum_dense", perm=None, max_rows=None,
-                            launches=None):
+                            launches=None, route=0):
     """Launch the CSR segment-sum kernel: segment ``s`` sums the data rows
     ``perm[r]`` (``r`` itself when ``perm`` is None) for the first at most
-    ``max_rows`` ``r`` of ``[row_ptr[s], row_ptr[s+1])``.  Counts one launch
-    under ``op`` in ``launches`` (this module's ``LAUNCHES`` unless given).
-    Returns a new float32 [num_segments, F] tensor."""
+    ``max_rows`` ``r`` of ``[row_ptr[s], row_ptr[s+1])``.  ``route``: 0
+    takes the width's own (:func:`segment_sum_route`), 1 or 2 asks for
+    that one (the card checks time the first design beside route 1).
+    Counts one launch under ``op`` in ``launches`` (this module's
+    ``LAUNCHES`` unless given).  Returns a new float32 [num_segments, F]
+    tensor."""
     from hydragnn_torch.kernels.build import load_library
 
     dev = data2d.device
@@ -364,17 +385,21 @@ def launch_segment_sum_rows(data2d, row_ptr, num_segments,
     _require(row_ptr, "row_ptr", torch.int32, (num_segments + 1,), dev)
     if r >= 2**31 or num_segments >= 2**31:
         raise ValueError("the kernel indexes rows and segments with int32")
+    if route not in (0, 1, 2) or (route == 1 and segment_sum_route(f) != 1):
+        raise ValueError(f"{op} takes route 0, 2, or 1 at an even width; "
+                         f"got {route} at F={f}")
     out = torch.empty((num_segments, f), dtype=torch.float32, device=dev)
     if num_segments == 0 or f == 0:
         return out
+    data2d = _aligned(data2d)   # route 1 reads float2s
     lib = load_library("fused_mp")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.hg_segment_sum_rows_f32(
             data2d.data_ptr(), None if perm is None else perm.data_ptr(),
-            row_ptr.data_ptr(), out.data_ptr(), num_segments, f,
+            row_ptr.data_ptr(), out.data_ptr(), r, num_segments, f,
             2**31 - 1 if max_rows is None else min(int(max_rows), 2**31 - 1),
-            stream)
+            route, stream)
     _check_rc(rc, op)
     (LAUNCHES if launches is None else launches)[op] += 1
     return out

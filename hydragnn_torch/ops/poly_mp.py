@@ -14,6 +14,15 @@ kernels/build.py):
   ``x[senders] * mask`` with no ``[E, F]`` tensor in memory — SAGE's and
   MFC's neighbour sum and degree.
 
+The scatter mode takes one of two routes by width (:func:`fwd_route`,
+the C side's ``hg_poly_segment_route``): route 1 at even F up to 128 (each
+warp on a share of the rows, the rows of 8 edges in flight across row
+boundaries, a float2 a lane: :func:`scatter_route1_walk` writes the walk
+out), route 2 (the first design, one warp per row) at odd F and past
+128; the gather mode keeps route 2.  Both give the same bits.
+``launch_poly_segment``'s ``route`` (0: the width's own) lets the card
+checks time either beside the other.
+
 The reference contract is kept: the result is a tuple in kernel-moment
 order (the requested subset of ``MOMENT_ORDER``): ``sum`` [N, F], ``sq``
 [N, F], ``mxmn`` [N, 2F] (max of ``[v, -v]``; ``-1e9`` on empty segments,
@@ -158,13 +167,58 @@ def gather_poly_segment_plain(x, senders, receivers, moments, mask=None):
 # kernel launch (CUDA tensors only)
 # ---------------------------------------------------------------------------
 
+def route1_takes(f, gather):
+    """Whether route 1 takes width ``f`` at all (scatter mode, ``f``
+    even: a float2 a lane); a forced route 1 elsewhere is refused."""
+    return not gather and f > 0 and f % 2 == 0
+
+
+def fwd_route(f, gather):
+    """The poly kernel's route at width ``f``: 1 in scatter mode at even
+    ``f`` up to 128 (each warp on a share of the rows, a float2 a lane,
+    the rows of 8 edges in flight across row boundaries), PNA's 64 among
+    them; 2 (the first design, one warp per row) at odd ``f``, past 128
+    (where it measured faster on the card) and in gather mode.  Mirrors
+    ``hg_poly_segment_route``; a card test holds the two together."""
+    return 1 if route1_takes(f, gather) and f <= 128 else 2
+
+
+# route 1 of the scatter mode (csrc/poly_mp.cu ``r1::``): edge rows in
+# flight a warp
+POLY_ROWS_IN_FLIGHT = 8
+
+
+def scatter_route1_walk(row_ptr, n_warps):
+    """Route 1's plan of the scatter mode over a CSR schedule, as the
+    card's ``n_warps`` warps walk it: warp ``w`` owns the rows ``[b[w],
+    b[w + 1])`` of :func:`~hydragnn_torch.ops.aggregate.row_shares` (rows
+    plus edges balanced, no row split) and walks their edges in order, in
+    groups of at most 8 whose rows are loaded before any is added, across
+    row boundaries; a row's moments are written when the walk passes its
+    end, the share's rows past its last edge as empty rows.  Returns
+    ``(bounds, groups)``: ``groups[w]`` the ``(begin, end)`` edge ranges of
+    warp ``w`` in walking order."""
+    from hydragnn_torch.ops.aggregate import row_shares
+
+    bounds = row_shares(row_ptr, n_warps)
+    ptr = row_ptr.long().cpu()
+    groups = []
+    for w in range(n_warps):
+        p0, p1 = int(ptr[int(bounds[w])]), int(ptr[int(bounds[w + 1])])
+        groups.append([(q, min(q + POLY_ROWS_IN_FLIGHT, p1))
+                       for q in range(p0, p1, POLY_ROWS_IN_FLIGHT)])
+    return bounds, groups
+
+
 def launch_poly_segment(src, senders, mask, row_ptr, num_segments, moments,
-                        op):
+                        op, route=0):
     """Launch the poly kernel on a precomputed CSR schedule (``row_ptr``
     from :func:`segment_offsets`).  Scatter mode (``senders is None``):
     ``src`` is data [E, F].  Gather mode: ``src`` is x [N, F] with
-    ``senders`` [E] int32 and ``mask`` [E] float32.  Returns new float32
-    tensors in the order of ``moments``."""
+    ``senders`` [E] int32 and ``mask`` [E] float32.  ``route``: 0 takes
+    the width's own (:func:`fwd_route`), 1 or 2 asks for that one (the
+    card checks time the first design beside route 1).  Returns new
+    float32 tensors in the order of ``moments``."""
     from hydragnn_torch.kernels.build import load_library
 
     dev = src.device
@@ -183,6 +237,11 @@ def launch_poly_segment(src, senders, mask, row_ptr, num_segments, moments,
         rows = e
     if rows >= 2**31 or n >= 2**31:
         raise ValueError("the kernel indexes rows and segments with int32")
+    gather = senders is not None
+    if route not in (0, 1, 2) or (route == 1
+                                  and not route1_takes(f, gather)):
+        raise ValueError(f"{op} takes route 0, 2, or 1 in scatter mode at "
+                         f"an even width; got {route} at F={f}")
     outs = {}
     for m in moments:
         shape = {"sum": (n, f), "sq": (n, f), "mxmn": (n, 2 * f),
@@ -196,6 +255,7 @@ def launch_poly_segment(src, senders, mask, row_ptr, num_segments, moments,
     def ptr(name):
         return outs[name].data_ptr() if name in outs else None
 
+    src = fused_mp._aligned(src)   # route 1 reads float2s
     lib = load_library("poly_mp")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -204,7 +264,7 @@ def launch_poly_segment(src, senders, mask, row_ptr, num_segments, moments,
             None if senders is None else senders.data_ptr(),
             None if mask is None else mask.data_ptr(),
             row_ptr.data_ptr(), ptr("sum"), ptr("sq"), ptr("mxmn"),
-            ptr("cnt"), n, n_src, f, 0 if senders is None else 1, stream)
+            ptr("cnt"), n, n_src, f, int(gather), route, stream)
     fused_mp._check_rc(rc, op)
     LAUNCHES[op] += 1
     return tuple(outs[m] for m in moments)

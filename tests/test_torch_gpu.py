@@ -735,6 +735,172 @@ def test_poly_kernels_refuse_what_they_do_not_take(cuda):
                                     recv, None, ("sum",), mask=mask.double())
 
 
+_MOMENT_SUBSETS = [
+    tuple(m for i, m in enumerate(("sum", "sq", "mxmn", "cnt")) if k >> i & 1)
+    for k in range(1, 16)]
+
+
+@pytest.mark.gpu
+def test_poly_route_matches_plan_on_card(cuda):
+    """The C side's route by width and mode is the plan's (``fwd_route``),
+    a forced route 1 in gather mode or at an odd width is refused, and at
+    256 columns (route 2's width) a forced route 1 gives its bits."""
+    from hydragnn_torch.kernels.build import load_library
+    from hydragnn_torch.ops import poly_mp
+    from hydragnn_torch.ops.aggregate import segment_offsets
+
+    lib = load_library("poly_mp")
+    for f in range(0, 300):
+        for gather in (0, 1):
+            assert lib.hg_poly_segment_route(f, gather) == \
+                poly_mp.fwd_route(f, bool(gather)), (f, gather)
+    send, recv, mask, _, _ = _degree_batch(40)
+    send, recv, mask = (_t(a).to(cuda) for a in (send, recv, mask))
+    ptr = segment_offsets(recv, 40, mask)
+    with pytest.raises(ValueError):
+        poly_mp.launch_poly_segment(torch.randn(len(send), 5, device=cuda),
+                                    None, None, ptr, 40, ("sum",),
+                                    "segment_poly_dense", route=1)
+    # past 128 columns route 2 is the width's own, route 1 taken when asked
+    assert poly_mp.fwd_route(256, False) == 2
+    wide = torch.randn(len(send), 256, device=cuda)
+    a = poly_mp.launch_poly_segment(wide, None, None, ptr, 40, ("sum",),
+                                    "segment_poly_dense", route=1)[0]
+    b = poly_mp.launch_poly_segment(wide, None, None, ptr, 40, ("sum",),
+                                    "segment_poly_dense")[0]
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    with pytest.raises(ValueError):
+        poly_mp.launch_poly_segment(torch.randn(40, 8, device=cuda), send,
+                                    mask, ptr, 40, ("sum",),
+                                    "gather_poly_segment", route=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hub", [0, 300])
+@pytest.mark.parametrize("f", [64, 256])
+def test_poly_scatter_route1_matches_route2_on_card(cuda, f, hub):
+    """The scatter mode's route 1 against route 2 bit for bit for every
+    moment subset, bit-identical over two runs, every row written (empty
+    rows 0, 0, -1e9, 0), and against the plain version (sums 1e-5 of the
+    largest entry, max/min and the count exactly); ``hub`` gives one row
+    of 300 edges more."""
+    from hydragnn_torch.ops import poly_mp
+    from hydragnn_torch.ops.aggregate import segment_offsets
+
+    b = _graph_batch(70 + f, hub=hub)
+    n, e = len(b["node_gid"]), len(b["senders"])
+    g = torch.Generator().manual_seed(f + hub)
+    # a coarse grid: ties within a segment
+    data = (torch.randn(e, f, generator=g) * 2).round().div(2).to(cuda)
+    recv = _t(b["receivers"]).to(cuda)
+    mask = _t(b["edge_mask"]).to(cuda)
+    ptr = segment_offsets(recv, n, mask)
+    empty = ptr.diff() == 0
+    assert bool(empty.any())
+    op = "segment_poly_dense"
+    for moments in _MOMENT_SUBSETS:
+        for m in moments:
+            _poisoned(cuda, (n, 2 * f) if m == "mxmn" else
+                      (n,) if m == "cnt" else (n, f))
+        r1 = poly_mp.launch_poly_segment(data, None, None, ptr, n, moments,
+                                         op, route=1)
+        r1b = poly_mp.launch_poly_segment(data, None, None, ptr, n, moments,
+                                          op, route=1)
+        r2 = poly_mp.launch_poly_segment(data, None, None, ptr, n, moments,
+                                         op, route=2)
+        p = poly_mp.segment_poly_dense_plain(data, recv, n, moments,
+                                             valid=mask)
+        torch.cuda.synchronize()
+        for m, a, a2, c, want in zip(moments, r1, r1b, r2, p):
+            assert torch.equal(a, a2) and torch.equal(a, c), (moments, m)
+            if m in ("mxmn", "cnt"):
+                assert torch.equal(a, want), (moments, m)
+            else:
+                _near_plain(a, want)
+            blank = {"mxmn": -1e9}.get(m, 0.0)
+            assert bool((a[empty] == blank).all()), (moments, m)
+
+
+@pytest.mark.gpu
+def test_segment_sum_route_matches_plan_on_card(cuda):
+    """The C side's route by width is the plan's (``segment_sum_route``),
+    and a forced route 1 at an odd width is refused."""
+    from hydragnn_torch.kernels.build import load_library
+    from hydragnn_torch.ops.aggregate import segment_offsets
+
+    lib = load_library("fused_mp")
+    for f in range(0, 300):
+        assert lib.hg_segment_sum_route(f) == tfm.segment_sum_route(f), f
+    ids = torch.arange(10, device=cuda, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        tfm.launch_segment_sum_rows(torch.randn(10, 3, device=cuda),
+                                    segment_offsets(ids, 10), 10, route=1)
+
+
+def _segment_case(cuda, name, f):
+    """(data, ids, num_segments, valid, perm, row_ptr, max_rows) on the
+    card: the pool's ids (a 220-node padding graph), edge ids over the
+    receivers with a masked tail and empty segments (``hub``: one of 2000
+    rows more), unsorted ids through a permutation, a cap."""
+    from hydragnn_torch.ops import aggregate as ag
+
+    g = torch.Generator().manual_seed(f)
+    if name == "pool":
+        b = _graph_batch(11, n_real=290, n_pad=510)
+        ids = _t(b["node_gid"]).to(cuda)
+        data = (torch.randn(len(ids), f, generator=g).to(cuda)
+                * _t(b["node_mask"]).to(cuda)[:, None])
+        n = b["n_graphs"]
+        return data, ids, n, None, None, ag.segment_offsets(ids, n), None
+    b = _graph_batch(12, hub=2000 if name == "hub" else 0, e_pad=6000)
+    n = len(b["node_gid"])
+    mask = _t(b["edge_mask"]).to(cuda)
+    data = torch.randn(len(mask), f, generator=g).to(cuda) * mask[:, None]
+    recv = _t(b["receivers"]).to(cuda)
+    if name in ("edges", "hub"):
+        return (data, recv, n, mask, None, ag.segment_offsets(recv, n, mask),
+                None)
+    if name == "cap":
+        return data, recv, n, None, None, ag.segment_offsets(recv, n), 7
+    ids = torch.where(mask != 0, _t(b["senders"]).to(cuda), n + 1)
+    perm, ptr = ag.sort_schedule(ids, n)
+    return data, ids, n, None, perm, ptr, None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f", [64, 128, 2, 6, 3])
+@pytest.mark.parametrize("name", ["pool", "edges", "hub", "cap", "perm"])
+def test_segment_sum_route1_on_card(cuda, name, f):
+    """The CSR segment sum's route 1 (route 2 at odd F) against the plain
+    version at 1e-5 of the largest entry and route 2 to float32 rounding,
+    bit-identical over two runs, every segment written (empty ones zero):
+    the pool's shape with its 220-row padding segment, edge rows with a
+    masked tail, a 2000-row segment, a cap, unsorted ids in ``perm``
+    mode; and through the op (``segment_sum_dense``) the same bits."""
+    data, ids, n, valid, perm, ptr, cap = _segment_case(cuda, name, f)
+    _poisoned(cuda, (n, f))
+    r1 = tfm.launch_segment_sum_rows(data, ptr, n, perm=perm, max_rows=cap)
+    r1b = tfm.launch_segment_sum_rows(data, ptr, n, perm=perm, max_rows=cap)
+    r2 = tfm.launch_segment_sum_rows(data, ptr, n, perm=perm, max_rows=cap,
+                                     route=2)
+    if perm is None:
+        want = tfm.segment_sum_dense_plain(data, ids, n, valid=valid,
+                                           max_per_segment=cap)
+    else:
+        want = tfm.segment_sum_dense_plain(data, ids, n)
+    torch.cuda.synchronize()
+    assert torch.equal(r1, r1b)
+    _near_plain(r1, want)
+    _near_plain(r1, r2)
+    empty = ptr.diff() == 0
+    assert bool((r1[empty] == 0).all())
+    if name in ("edges", "pool"):
+        op = tfm.segment_sum_dense(data, ids, n, valid=valid)
+        torch.cuda.synchronize()
+        assert torch.equal(op, r1)
+
+
 def _arch(model_type, seed=0):
     from hydragnn_torch.models.base import GraphHeadCfg, ModelConfig
     from hydragnn_torch.models.create import create_model
