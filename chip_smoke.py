@@ -80,7 +80,10 @@ and PyTorch built for CUDA.  Phases, each of which fails the run:
    within a float64 run's bound and bit-identical twice), and the pallas
    backend's two segment sums
    (unsorted ids with an out-of-range tail; sorted receivers, pre-masked)
-   and their VJPs (1e-5),
+   and their VJPs (1e-5), the unsorted one's route 1 (its schedule built
+   in each block's shared memory) bit for bit the CSR kernel's on the
+   stable sort's permutation, its blocks' schedule the sort's on shuffled
+   ids, both routes timed whole on its ids and on the receivers,
    timed beside ``index_add_`` and ``torch.segment_reduce``, and the four
    DimeNet kernels at the first dimenet train batch (its own triplet table
    and spherical basis): the triplet op forward and backward and the
@@ -128,9 +131,11 @@ and PyTorch built for CUDA.  Phases, each of which fails the run:
    of the first three steps with bit-identical parameters, graphs/s of a
    steady train epoch and the device's idle share in a profiled one (and
    the segment sum's time a launch in that epoch on each route: here, in
-   PNA (the poly scatter's too) and in both DimeNet cells,
-   ``routes_on_path``); then ``run_prediction`` on the checkpoint the run
-   wrote, card vs CPU;
+   PNA (the poly scatter's too) and in both DimeNet cells (dimenet_wide's
+   read three times in turns), the poly gather's in SAGE, the unsorted
+   segment sum's in the ``pallas`` cell, each call's device time whole
+   beside it, ``routes_on_path``); then ``run_prediction`` on the
+   checkpoint the run wrote, card vs CPU;
 6. wide training: the same at hidden = num_filters = 256 (the fused edge
    pipeline), capped at 2 batches per pass (``HYDRAGNN_MAX_NUM_BATCH``) so
    the CPU run stays short: 4 scf forward, 4 pass P and 4 pass S launches
@@ -158,7 +163,8 @@ and PyTorch built for CUDA.  Phases, each of which fails the run:
 8. GIN, SAGE and MFC training at the same widths, 2 epochs capped at 2
    batches per pass: 4 no-``w`` gather (GIN) or 4 poly-gather (SAGE, MFC)
    launches and 3 no-``w`` dx launches per train step, 1 pool; the same
-   lockstep and checkpoint-prediction checks;
+   lockstep and checkpoint-prediction checks; SAGE's steady epoch with
+   its poly gathers on each route;
 9. EGNN training: egnn_md17 (the architecture of examples/md17, hidden
    48, 4 convs, 3 epochs) and egnn_oc22 (that of
    examples/open_catalyst_2022, hidden 32, 2 convs, capped as phase 8),
@@ -185,7 +191,8 @@ and PyTorch built for CUDA.  Phases, each of which fails the run:
 12. the flagship SchNet under ``HYDRAGNN_AGGR_BACKEND=pallas``, capped as
    phase 6, on the card and on the CPU: 5 ``segment_sum_pallas`` launches
    per train step and per eval batch (4 convs and the pool), no other
-   kernel, losses within 1e-4 relative of the CPU's;
+   kernel, losses within 1e-4 relative of the CPU's; a steady epoch with
+   the unsorted segment sum on each route;
 13. DimeNet training at the arch sweep's widths (hidden 64, 4 convs,
    num_radial 6, num_spherical 7, basis_emb 8, int_emb = out_emb = 64,
    one residual layer before the skip and two after) on its own set of
@@ -1287,7 +1294,8 @@ def poly_phase(torch, g, seed):
     F = 64.  Forward: sums within 1e-5, max/min and the count exactly
     equal.  Backward: the autograd Functions against autograd through the
     plain versions, on data with ties (a coarse grid), masked rows exactly
-    zero.  Each kernel timed alone on its precomputed schedule; the library
+    zero.  Each kernel timed alone on its precomputed schedule, route 1
+    beside route 2 (both modes: route 1 gives route 2's bits); the library
     call is the one that gives the sum moment (``torch.segment_reduce``
     over the real rows; a CSR sparse product for the gather)."""
     from hydragnn_torch.ops import fused_mp as fm
@@ -1375,8 +1383,9 @@ def poly_phase(torch, g, seed):
                                                     moments, mask=mask)
             plain = lambda t: pm.gather_poly_segment_plain(t, send, recv,
                                                            moments, mask=mask)
-            launch = lambda: pm.launch_poly_segment(src, send, mask, row_ptr,
-                                                    n, moments, op)
+            launch_r = lambda r: lambda: pm.launch_poly_segment(
+                src, send, mask, row_ptr, n, moments, op, route=r)
+            launch = launch_r(0)
             csr = torch.sparse_csr_tensor(
                 row_ptr.long(), send[:e_valid].long(), mask[:e_valid],
                 size=(n, n))
@@ -1401,25 +1410,21 @@ def poly_phase(torch, g, seed):
         want = {op: 2}    # the forward check and the backward's forward
         check({k_: v for k_, v in pm.LAUNCHES.items() if v} == want,
               f"{name}: poly launches {pm.LAUNCHES}")
-        routes = {}
-        if mode == "scatter":
-            # route 1 (the width's own up to F = 128, forced past it)
-            # gives route 2's bits, twice
-            r1, r1b, r2 = launch_r(1)(), launch_r(1)(), launch_r(2)()
-            torch.cuda.synchronize()
-            check(all(torch.equal(a, b) and torch.equal(a, c)
-                      for a, b, c in zip(r1, r1b, r2)),
-                  f"{name}: route 1 differs from route 2 or from itself")
-            routes = {"kernel_route": pm.fwd_route(f, False),
-                      "route1_is_route2_bits": True,
-                      "route1_ms": time_ms(torch, launch_r(1), flush,
-                                           lead=True),
-                      "route1_warm_l2_ms": time_ms(torch, launch_r(1),
-                                                   lead=True),
-                      "route2_ms": time_ms(torch, launch_r(2), flush,
-                                           lead=True),
-                      "route2_warm_l2_ms": time_ms(torch, launch_r(2),
-                                                   lead=True)}
+        # route 1 (the width's own up to F = 128, forced past it) gives
+        # route 2's bits, twice
+        r1, r1b, r2 = launch_r(1)(), launch_r(1)(), launch_r(2)()
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) and torch.equal(a, c)
+                  for a, b, c in zip(r1, r1b, r2)),
+              f"{name}: route 1 differs from route 2 or from itself")
+        routes = {"kernel_route": pm.fwd_route(f, mode == "gather"),
+                  "route1_is_route2_bits": True,
+                  "route1_ms": time_ms(torch, launch_r(1), flush, lead=True),
+                  "route1_warm_l2_ms": time_ms(torch, launch_r(1),
+                                               lead=True),
+                  "route2_ms": time_ms(torch, launch_r(2), flush, lead=True),
+                  "route2_warm_l2_ms": time_ms(torch, launch_r(2),
+                                               lead=True)}
         worst = max(errs.values(), key=lambda v: v[1])
         b_ms, b_by = bound(nbytes, flops(moments, f))
         row = {
@@ -3263,10 +3268,18 @@ def segment_sum_phase(torch, g, seed):
     real in-degree).  Each against its plain
     version (1e-5 of the largest entry) and, through autograd, its VJP
     (a gather, zero where the forward dropped the row) against autograd
-    through the plain version.  Then each kernel timed alone on its
-    precomputed schedule (the unsorted one's stable sort is the wrapper's,
-    timed with it as ``wrapper_ms``), beside the library call:
-    ``Tensor.index_add_`` (atomics) and ``torch.segment_reduce``."""
+    through the plain version.  Then each kernel timed beside the library
+    call: ``Tensor.index_add_`` (atomics) and ``torch.segment_reduce``.
+    ``segment_sum_pallas`` is timed as whole calls: route 1 (one launch,
+    its schedule built in shared memory) and route 2 (a stable sort of the
+    ids, then the CSR kernel), each launched and through the public op;
+    the CSR kernel alone on the sort's schedule beside them; on the
+    unsorted ids and on the path's own (the receivers, the padded tail on
+    node N-1).  Route 1 is held bit for bit to the CSR kernel on the
+    stable sort's permutation at route 1's block count and to itself over
+    two runs, and within REL_TOL_KERNEL to route 2; on a shuffled copy of
+    the ids the schedule its blocks build (the launch's debug output) is
+    the stable sort's permutation and offsets."""
     from hydragnn_torch.ops import aggregate as ag
     from hydragnn_torch.ops import fused_mp as fm
 
@@ -3288,6 +3301,57 @@ def segment_sum_phase(torch, g, seed):
     ct = torch.randn(n, f, device=dev, generator=gen)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     results, notes = [], {}
+
+    def unsorted_times(data, seg):
+        """The unsorted sum's checks and times on ids ``seg``."""
+        ok = (seg >= 0) & (seg < n)
+        rows_in = int(ok.sum())
+        perm, ptr = ag.sort_schedule(seg, n)
+        nb = fm.unsorted_sum_blocks(e, n, f)
+        run_r = lambda r: lambda: fm.launch_unsorted_sum(
+            data, seg, n, launches=ag.LAUNCHES, route=r)
+        csr = lambda blocks=0: fm.launch_segment_sum_rows(
+            data, ptr, n, op="segment_sum_pallas", perm=perm,
+            launches=ag.LAUNCHES, route=1, n_blocks=blocks)
+        r1, r1b, r2, c = run_r(1)(), run_r(1)(), run_r(2)(), csr(nb)
+        torch.cuda.synchronize()
+        check(torch.equal(r1, r1b), "segment_sum_pallas route 1: two runs "
+              "differ")
+        check(torch.equal(r1, c), "segment_sum_pallas route 1 is not the "
+              f"CSR kernel's bits on the sort's permutation at {nb} blocks")
+        check(rel_err(torch, r1, r2)[1] <= REL_TOL_KERNEL,
+              "segment_sum_pallas: route 1 and route 2 disagree")
+        # the one PyTorch call for the same sums: index_add_ over the
+        # in-range rows (atomics; the rows and ids selected beforehand)
+        lib_data, lib_ids = data[ok].contiguous(), seg[ok].long()
+        lib = lambda: torch.zeros(n, f, device=dev).index_add_(
+            0, lib_ids, lib_data)
+        public = lambda: ag.segment_sum_pallas(data, seg, n)
+
+        def public2():
+            with first_design_on_path("segment_sum_pallas"):
+                return public()
+
+        check(rel_err(torch, lib(), r2)[1] <= REL_TOL_KERNEL,
+              "the library call disagrees with segment_sum_pallas")
+        b_ms, b_by = bound(4 * (rows_in * f + e + n * f), rows_in * f)
+        return {
+            "kernel_route": fm.unsorted_sum_route(e, n, f),
+            "route1_blocks": nb, "route1_is_csr_bits": True,
+            "ms": time_ms(torch, run_r(1), flush, lead=True),
+            "warm_l2_ms": time_ms(torch, run_r(1), lead=True),
+            "route2_ms": time_ms(torch, run_r(2), flush),
+            "route2_warm_l2_ms": time_ms(torch, run_r(2)),
+            "csr_kernel_ms": time_ms(torch, csr, flush, lead=True),
+            "wrapper_ms": time_ms(torch, public, flush),
+            "route2_wrapper_ms": time_ms(torch, public2, flush),
+            "plain_ms": time_ms(torch, lambda: fm.segment_sum_dense_plain(
+                data, seg, n), flush),
+            "library_ms": time_ms(torch, lib, flush),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "shape": {"N": n, "E": e, "rows_summed": rows_in, "F": f},
+        }
+
     cases = (("segment_sum_pallas", ag.segment_sum_pallas, msgs, ids,
               "hydragnn_tpu/ops/aggregate.py:157"),
              ("segment_sum_sorted",
@@ -3314,30 +3378,44 @@ def segment_sum_phase(torch, g, seed):
         ok = (seg >= 0) & (seg < n)
         check(bool((k_grad[~ok] == 0).all()),
               f"{name}: the VJP is not zero on dropped rows")
-        # the rows the function sums: in range (and, sorted, within the cap)
-        rows_in = (int(ok.sum()) if name == "segment_sum_pallas" else int(
-            torch.bincount(seg.long(), minlength=n).clamp(max=cap).sum()))
+        row = {"name": name, "route": "cuda",
+               "source": "hydragnn_torch/csrc/fused_mp.cu",
+               "replaces": replaces,
+               "max_abs_err": fwd_err[0], "max_rel_err": fwd_err[1]}
+        notes[name] = {"vjp_max_abs_err": vjp_err[0],
+                       "vjp_max_rel_err": vjp_err[1]}
         if name == "segment_sum_pallas":
-            perm, ptr = ag.sort_schedule(seg, n)
-            # the one PyTorch call for the same sums: index_add_ over the
-            # in-range rows (atomics; the rows and ids selected beforehand)
-            lib_data = data[ok].contiguous()
-            lib_ids = seg[ok].long()
-            lib = lambda: torch.zeros(n, f, device=dev).index_add_(
-                0, lib_ids, lib_data)
-            wrapper = lambda: ag.segment_sum_pallas(data, seg, n)
-        else:
-            perm, ptr = None, ag.segment_offsets(seg, n)
-            lengths = torch.bincount(seg.long(), minlength=n)
-            lib = lambda: torch.segment_reduce(data, "sum", lengths=lengths,
-                                               axis=0)
-            wrapper = lambda: ag.segment_sum_sorted(data, seg, n, cap)
+            row.update(unsorted_times(data, seg))
+            # the path's own ids: the receivers, the padded tail on N-1
+            notes["segment_sum_pallas_on_receivers"] = unsorted_times(
+                msgs, recv)
+            # the schedule the blocks build, on a shuffled copy of the ids
+            shuffled = ids[torch.randperm(e, device=dev, generator=gen)]
+            perm, ptr = ag.sort_schedule(shuffled, n)
+            _, p_dbg, rp_dbg = fm.launch_unsorted_sum(
+                msgs, shuffled, n, launches={name: 0}, debug=True)
+            torch.cuda.synchronize()
+            q = int(ptr[-1])
+            check(torch.equal(rp_dbg, ptr) and torch.equal(p_dbg[:q],
+                                                           perm[:q]),
+                  "segment_sum_pallas route 1: the blocks' schedule is not "
+                  "the stable sort's")
+            notes[name]["shuffled_schedule_is_the_sort"] = True
+            results.append(row)
+            continue
+        # the rows the function sums: within the cap
+        rows_in = int(torch.bincount(seg.long(), minlength=n).clamp(
+            max=cap).sum())
+        ptr = ag.segment_offsets(seg, n)
+        lengths = torch.bincount(seg.long(), minlength=n)
+        lib = lambda: torch.segment_reduce(data, "sum", lengths=lengths,
+                                           axis=0)
+        wrapper = lambda: ag.segment_sum_sorted(data, seg, n, cap)
         check(rel_err(torch, lib(), p_out)[1] <= REL_TOL_KERNEL,
               f"the library call disagrees with the plain {name}")
-        max_rows = cap if name == "segment_sum_sorted" else 2**31 - 1
         kern_r = lambda r: lambda: fm.launch_segment_sum_rows(
-            data, ptr, n, op=name, perm=perm, max_rows=max_rows,
-            launches=ag.LAUNCHES, route=r)
+            data, ptr, n, op=name, max_rows=cap, launches=ag.LAUNCHES,
+            route=r)
         kern = kern_r(0)
         # route 1 (the width's own) twice the same bits, and within
         # REL_TOL_KERNEL of route 2 (a cut segment adds its warps'
@@ -3349,11 +3427,7 @@ def segment_sum_phase(torch, g, seed):
               f"{name}: route 1 and route 2 disagree")
         # read once: the summed rows, every id, the output written once
         b_ms, b_by = bound(4 * (rows_in * f + e + n * f), rows_in * f)
-        results.append({
-            "name": name, "route": "cuda",
-            "source": "hydragnn_torch/csrc/fused_mp.cu",
-            "replaces": replaces,
-            "max_abs_err": fwd_err[0], "max_rel_err": fwd_err[1],
+        row.update({
             "kernel_route": fm.segment_sum_route(f),
             "ms": time_ms(torch, kern, flush, lead=True),
             "warm_l2_ms": time_ms(torch, kern, lead=True),
@@ -3366,8 +3440,7 @@ def segment_sum_phase(torch, g, seed):
             "bound_ms": b_ms, "bound_by": b_by,
             "shape": {"N": n, "E": e, "rows_summed": rows_in, "F": f},
         })
-        notes[name] = {"vjp_max_abs_err": vjp_err[0],
-                       "vjp_max_rel_err": vjp_err[1]}
+        results.append(row)
     return results, notes
 
 
@@ -3972,7 +4045,18 @@ ROUTED_ON_PATH = {
                           ("seg_sum_kernel", "segment_sum_dense_kernel")),
     "segment_poly_dense": ("poly_mp", "launch_poly_segment",
                            ("poly_scatter_kernel", "poly_segment_kernel")),
+    # route 2 is several launches (the ids' stable sort, then the CSR
+    # kernel): its calls are read whole, as profiler ranges
+    "segment_sum_pallas": ("fused_mp", "launch_unsorted_sum",
+                           ("us_sum_kernel", "seg_sum_kernel",
+                            "segment_sum_dense_kernel")),
+    "gather_poly_segment": ("poly_mp", "launch_poly_segment",
+                            ("poly_gather_kernel", "poly_segment_kernel")),
 }
+CALL_RANGE = "path_call:"
+# the names whose calls are read whole (``calls_on_path``): those whose
+# route 2 is more than one launch
+CALLS_READ_WHOLE = ("segment_sum_pallas",)
 
 
 @contextlib.contextmanager
@@ -3998,9 +4082,39 @@ def first_design_on_path(name):
         setattr(module, launcher, launch)
 
 
-def profiled_epoch(torch, step, state, loader, dev, epoch):
+@contextlib.contextmanager
+def calls_on_path(names):
+    """Within the block, each call of ``ROUTED_ON_PATH[name]``'s launcher
+    is a profiler range ``CALL_RANGE + name``: a profiled epoch then reads
+    each call's device time whole, whatever kernels it launches."""
+    import importlib
+
+    from torch.profiler import record_function
+
+    undo = []
+    for name in names:
+        mod_name, launcher, _ = ROUTED_ON_PATH[name]
+        module = importlib.import_module(f"hydragnn_torch.ops.{mod_name}")
+        launch = getattr(module, launcher)
+
+        def ranged(*args, _launch=launch, _tag=CALL_RANGE + name, **kw):
+            with record_function(_tag):
+                return _launch(*args, **kw)
+
+        setattr(module, launcher, ranged)
+        undo.append((module, launcher, launch))
+    try:
+        yield
+    finally:
+        for module, launcher, launch in reversed(undo):
+            setattr(module, launcher, launch)
+
+
+def profiled_epoch(torch, step, state, loader, dev, epoch, calls=None):
     """One train epoch (``loader``'s epoch ``epoch``) under torch.profiler:
-    (the new state, the profiler's device-kernel rows, the epoch's wall)."""
+    (the new state, the profiler's device-kernel rows, the epoch's wall).
+    ``calls`` (a dict), when given, gets the ``calls_on_path`` ranges'
+    calls and device time (``call_times``)."""
     from torch.profiler import ProfilerActivity, profile
 
     from hydragnn_torch.train.trainer import _run_epoch
@@ -4013,9 +4127,54 @@ def profiled_epoch(torch, step, state, loader, dev, epoch):
         state, acc = _run_epoch(step, state, loader, True, dev)
         float(acc[2])
         wall = time.perf_counter() - t0
-    rows = [r for r in prof.key_averages()
+    every = prof.key_averages()
+    rows = [r for r in every
             if r.self_device_time_total > 0 and r.self_cpu_time_total == 0]
+    if calls is not None:
+        call_times(prof, calls)
     return state, rows, wall
+
+
+def call_times(prof, calls):
+    """Each ``calls_on_path`` range's calls and device time: the profiler
+    mirrors a range on the device's timeline (its span from the first of
+    its kernels to the end of the last), and the device events (kernels,
+    memsets, copies) that start inside that span are the call's, on the
+    one stream the path runs on, whatever library launched them.
+    ``device_us`` sums their durations, ``span_us`` the spans (gaps
+    between the call's kernels included)."""
+    import bisect
+
+    from torch.autograd import DeviceType
+
+    evs = prof.profiler.kineto_results.events()
+    spans, host = [], {}
+    for e in evs:
+        if not e.name().startswith(CALL_RANGE):
+            continue
+        name = e.name()[len(CALL_RANGE):]
+        if e.device_type() == DeviceType.CUDA:
+            spans.append((e.start_ns(), e.end_ns(), name))
+        else:
+            host[name] = host.get(name, 0) + 1
+    spans.sort()
+    starts = [sp[0] for sp in spans]
+    for name, n in host.items():
+        calls[name] = {"calls": n, "device_events": 0, "device_us": 0.0,
+                       "span_us": 0.0}
+    for t0, t1, name in spans:
+        calls[name]["span_us"] += (t1 - t0) / 1e3
+    for e in evs:
+        if (e.device_type() != DeviceType.CUDA
+                or e.name().startswith(CALL_RANGE)):
+            continue
+        i = bisect.bisect_right(starts, e.start_ns()) - 1
+        if i >= 0 and e.start_ns() < spans[i][1]:
+            rec = calls[spans[i][2]]
+            rec["device_events"] += 1
+            rec["device_us"] += e.duration_ns() / 1e3
+    for rec in calls.values():
+        rec["us_per_call"] = rec["device_us"] / max(rec["calls"], 1)
 
 
 def routed_kernels(rows, name):
@@ -4028,7 +4187,7 @@ def routed_kernels(rows, name):
             for r in rows if any(k in r.key for k in keys)}
 
 
-def steady_epoch(torch, cfg, loader, seed, dev, routed=()):
+def steady_epoch(torch, cfg, loader, seed, dev, routed=(), repeats=1):
     """Train graphs/s of a steady epoch on the card (epoch 0 warms up,
     epoch 1 is timed, host clock ending in a synchronize, batches collated
     on the fly as in run_training) and the device's idle share: epoch 2
@@ -4038,7 +4197,10 @@ def steady_epoch(torch, cfg, loader, seed, dev, routed=()):
     of ``ROUTED_ON_PATH`` in ``routed``, epoch 2 again under the profiler
     with that kernel's first design (``first_design_on_path``), then on
     the width's own route once more: the kernel's time a launch on each
-    route, as the path launches it (``routes_on_path``)."""
+    route, as the path launches it (``routes_on_path``), and for the
+    names in ``CALLS_READ_WHOLE`` each call's device time whole
+    (``calls_on_path``, ``call_times``).  ``repeats`` > 1 reads route 2
+    and route 1 again that many times, in turns."""
     from hydragnn_torch.models.create import create_model
     from hydragnn_torch.train.optimizer import select_optimizer
     from hydragnn_torch.train.trainer import (
@@ -4060,18 +4222,35 @@ def steady_epoch(torch, cfg, loader, seed, dev, routed=()):
     state, acc = _run_epoch(step, state, loader, True, dev)
     graphs = float(acc[2])
     wall = time.perf_counter() - t0
-    state, rows, wall_prof = profiled_epoch(torch, step, state, loader, dev,
-                                            2)
+    calls = {}
+    whole = tuple(n for n in routed if n in CALLS_READ_WHOLE)
+    with calls_on_path(whole):
+        state, rows, wall_prof = profiled_epoch(
+            torch, step, state, loader, dev, 2, calls if whole else None)
     kernel_s = sum(r.self_device_time_total for r in rows) / 1e6
     on_path = {}
     for name in routed:
-        with first_design_on_path(name):
-            state, rows2, _ = profiled_epoch(torch, step, state, loader,
-                                             dev, 2)
-        state, rows1, _ = profiled_epoch(torch, step, state, loader, dev, 2)
-        on_path[name] = {"route1": routed_kernels(rows, name),
-                         "route2": routed_kernels(rows2, name),
-                         "route1_again": routed_kernels(rows1, name)}
+        one = (name,) if name in CALLS_READ_WHOLE else ()
+        read = {"route1": routed_kernels(rows, name)}
+        if one:
+            read["route1_calls"] = calls.get(name)
+        for i in range(repeats):
+            tag = "" if repeats == 1 else f"_{i + 1}"
+            calls2, calls1 = {}, {}
+            with calls_on_path(one), first_design_on_path(name):
+                state, rows2, _ = profiled_epoch(
+                    torch, step, state, loader, dev, 2,
+                    calls2 if one else None)
+            with calls_on_path(one):
+                state, rows1, _ = profiled_epoch(
+                    torch, step, state, loader, dev, 2,
+                    calls1 if one else None)
+            read[f"route2{tag}"] = routed_kernels(rows2, name)
+            read[f"route1_again{tag}"] = routed_kernels(rows1, name)
+            if one:
+                read[f"route2_calls{tag}"] = calls2.get(name)
+                read[f"route1_again_calls{tag}"] = calls1.get(name)
+        on_path[name] = read
     rows.sort(key=lambda r: r.self_device_time_total, reverse=True)
     # torch's gather kernels (indexing by a tensor of ids), by name
     gathers = {r.key[:90]: {"calls": r.count,
@@ -4443,7 +4622,8 @@ def main():
               "finalize wrote no degree histogram")
         n_pparams = repeat_bits(torch, pcfg, first3, args.seed, dev)
         psteady = steady_epoch(torch, pcfg, train_loader, args.seed, dev,
-                               routed=tuple(ROUTED_ON_PATH))
+                               routed=("segment_sum_dense",
+                                       "segment_poly_dense"))
         train_loader.set_epoch(0)
         first3_cpu = [b for _, b in zip(range(REPEAT_STEPS), train_loader)]
         plock = lockstep(torch, pcfg, first3_cpu, args.seed, dev)
@@ -4484,6 +4664,11 @@ def main():
                 dispatch, loaders, ARCH_CAP, arch)
             alock = lockstep(torch, ModelConfig.from_config(card[2]),
                              first3_cpu, args.seed, dev)
+            # SAGE's poly gathers on each route, as its path launches them
+            asteady = (steady_epoch(torch, ModelConfig.from_config(card[2]),
+                                    train_loader, args.seed, dev,
+                                    routed=("gather_poly_segment",))
+                       if arch == "SAGE" else None)
             own = own_checkpoint_prediction(
                 torch, hydragnn_torch, acfg,
                 os.path.join(logs, arch.lower(), "cuda"), args.seed, arch)
@@ -4495,6 +4680,7 @@ def main():
                   "epochs": len(hist["train"]), "train_steps": asteps,
                   "eval_batches": aevals, "train_loss": hist["train"],
                   "val_loss": hist["val"], "lockstep_vs_cpu": alock,
+                  "steady_train_epoch_cuda": asteady,
                   "prediction_from_own_checkpoint": own,
                   "wall_s_cuda": wall_card,
                   "launches": arch_launches[arch], "launches_split": asplit,
@@ -4676,6 +4862,10 @@ def main():
                 train_phase(torch, hydragnn_torch, pallas_cfg,
                             os.path.join(logs, "pallas"), args.seed,
                             cap=WIDE_CAP)
+            # the unsorted sum on each route, as the path launches it
+            ssteady = steady_epoch(torch, ModelConfig.from_config(card[2]),
+                                   train_loader, args.seed, dev,
+                                   routed=("segment_sum_pallas",))
         finally:
             os.environ["HYDRAGNN_AGGR_BACKEND"] = "fused"
         ssteps, sevals, s_per, sloss_rel = check_training(
@@ -4691,6 +4881,7 @@ def main():
               "val_loss": hist["val"], "train_loss_cpu": cpu[1]["train"],
               "loss_max_rel_err_vs_cpu": sloss_rel,
               "wall_s_cuda": wall_card, "wall_s_cpu": wall_cpu,
+              "steady_train_epoch_cuda": ssteady,
               "launches": s_launches, "launches_split": ssplit,
               "dispatch": dispatch})
 
@@ -4774,8 +4965,9 @@ def main():
         dn_loaders[0].set_epoch(0)
         w3 = [b.to(dev) for _, b in zip(range(REPEAT_STEPS), dn_loaders[0])]
         n_wparams = repeat_bits(torch, wcfg, w3, args.seed, dev)
+        # route 2 of its sums (F = 128) read three times against route 1
         wsteady = steady_epoch(torch, wcfg, dn_loaders[0], args.seed, dev,
-                               routed=("segment_sum_dense",))
+                               routed=("segment_sum_dense",), repeats=3)
         t0 = time.perf_counter()
         remat = remat_check(torch, wcfg, first_dn, args.seed, dev)
         remat_s = time.perf_counter() - t0

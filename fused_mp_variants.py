@@ -1,7 +1,7 @@
 """Where the gather-multiply kernel's time goes, on the card; and the
 alternatives to the poly scatter's and the CSR segment sum's routes 1.
 
-    python3 fused_mp_variants.py [--seed S] [--which gm|rows|path|all]
+    python3 fused_mp_variants.py [--seed S] [--which gm|rows|path|staged|all]
 
 Run from the root of a checkout on a machine with a CUDA device and
 ``nvcc``.  It stands beside ``chip_smoke.py``, whose timer (``time_ms``:
@@ -55,6 +55,35 @@ and the dimenet cell's DimeNet (chip_smoke.py's configurations) and
 times the poly scatter and the segment sum a launch in profiled epochs
 on each route, and the poly scatter with ``r2_ldcs``'s library in place
 of the source's.
+
+``--which staged`` (also part of ``all``) holds and times the two
+kernels that stage their inputs in shared memory, on chip_smoke.py's
+first flagship train batch at F = 64: the unsorted segment sum
+(``launch_unsorted_sum``) over three id orders (the senders with the
+masked tail out of range, as chip_smoke times it; the receivers with the
+padded tail on node N-1, as the ``pallas`` path gives them; a shuffle of
+those), its route 1 at its own block count, at the least it takes
+(each block owns at most 128 segments), halfway between and at twice
+its own, its route 2 (the stable sort and the CSR kernel), the CSR
+kernel alone on the sort's schedule and ``index_add_``; and the poly
+gather's two routes (``("sum", "cnt")`` and all moments at F = 64, all
+moments at F = 128).  Each route 1 is first held to its checks' bits.
+Then edited copies of each, timed between the source's runs (held to
+the source's bits unless they stop early): ``us_empty``, ``us_ret_span``
+and ``us_ret_prefix`` (the unsorted sum's launch alone, and stopped
+after its span pass or its prefix), ``us_u8`` (8 rows in flight a warp
+in place of 16), ``us_loads1`` (one load of 32 ids at a time in the
+counting and placing walks, in place of 8); ``pg_empty`` and
+``pg_ret_stage`` (the poly gather's launch alone, and stopped once x's
+window is staged), ``pg_ret_codes`` and ``pg_ret_wait`` (stopped once
+its edges' read codes are staged, and once the window has landed too,
+each kept observable), ``pg_nowalk`` (no edge walked), ``pg_nostore``
+(the sum's rows not stored), ``pg_noread`` (no read of the window),
+``pg_nocode`` (a constant read code), ``pg_onecol`` (one column's sum
+of the four a lane), ``pg_nowin`` (no window: every
+sender row read from global memory), ``pg_w40`` (a 40 KB window in place
+of 96 KB), ``pg_warps16`` (16 warps a block in place of 32);
+``us_u32`` (32 rows in flight).  Prints each kernel's SASS size.
 """
 
 from __future__ import annotations
@@ -261,8 +290,9 @@ def row_variants():
             "empty": (search, "  if (n_rows > 0) return;\n" + search),
             "ret_search": (search, search + "  if (rb > re || p0 > p1) "
                            "o_cnt[0] = 1.f;\n  return;\n"),
-            "r2_ldcs": ("(MODE == kGather ? r[c] * m : r[c])",
-                        "(MODE == kGather ? r[c] * m : __ldcs(r + c))"),
+            "r2_ldcs": ("(MODE == kGather ? __fmul_rn(r[c], m) : r[c])",
+                        "(MODE == kGather ? __fmul_rn(r[c], m)\n"
+                        "                                : __ldcs(r + c))"),
     }.items():
         if a not in POLY_SRC:
             raise RuntimeError(f"variant {name}: the source changed ({a!r})")
@@ -377,7 +407,8 @@ def rows_main(torch, dev, seed, flush):
         def call(lib, route, data=data, outs=outs, f=f):
             return lambda: lib.hg_poly_segment_f32(
                 data.data_ptr(), None, None, ptr.data_ptr(),
-                *[o.data_ptr() for o in outs], n, len(r), f, 0, route, st)
+                *[o.data_ptr() for o in outs], n, len(r), f, 0, route, 0,
+                st)
 
         call(plibs["source"], 2)()
         torch.cuda.synchronize()
@@ -409,7 +440,7 @@ def rows_main(torch, dev, seed, flush):
             return lambda: lib.hg_segment_sum_rows_f32(
                 data.data_ptr(), None, rp.data_ptr(), out.data_ptr(),
                 data.shape[0], len(rp) - 1, data.shape[1], 2**31 - 1, route,
-                st)
+                0, st)
 
         call(slibs["source"], 1)()
         torch.cuda.synchronize()
@@ -433,6 +464,235 @@ def rows_main(torch, dev, seed, flush):
         k: statistics.median(v) for k, v in times.items()},
         "N": n, "E": len(r), "E_valid": int(g.edge_mask.sum()),
         "G": n_graphs}), flush=True)
+
+
+def staged_variants():
+    """(poly_mp sources, fused_mp sources) of ``--which staged``: name ->
+    edited source.  Names in ``PARTIAL_STAGED`` stop early and are timed,
+    not held to the bits."""
+    us_zero = ("  for (int i = threadIdx.x; i < kSegs * kWarps; i += kThreads)"
+               " base[i] = 0;\n")
+    us_parts = "  // the warps' equal parts of [lo, hi]: where each counts"
+    us_zeros = ("  // the block's empty segments: zeros (the walks write the "
+                "others)\n  for (int t = wid;")
+    pg_top = "  const int nr = r1 - r0;  // <= kRows\n"
+    pg_staged = "  window_wait(&bar);\n  __syncthreads();\n"
+    pg_cnt = ("  if (o_cnt != nullptr)\n    for (int r = threadIdx.x; r < nr; "
+              "r += kThreads)\n")
+    # stop, but keep what was staged observable (a store that never runs)
+    pg_codes_seen = ("  if (n_rows > 0) {\n    if (code_s[threadIdx.x].x == "
+                     "0x7fffffff) o_cnt[0] = 0.f;\n    return;\n  }\n")
+    pg_window_seen = ("  if (n_rows > 0) {\n    if (code_s[threadIdx.x].x == "
+                      "0x7fffffff || xs[threadIdx.x].x == 1.2345e-30f)\n"
+                      "      o_cnt[0] = 0.f;\n    return;\n  }\n")
+    ret = "  if (n_rows > 0) return;\n"
+    poly = {"source": POLY_SRC}
+    for name, (a, b) in {
+            "pg_empty": (pg_top, pg_top + ret),
+            "pg_ret_stage": (pg_staged, pg_staged + ret),
+            "pg_nowin": ("constexpr int kXBytes = 96 * 1024;",
+                         "constexpr int kXBytes = 0;"),
+            "pg_w40": ("constexpr int kXBytes = 96 * 1024;",
+                       "constexpr int kXBytes = 40 * 1024;"),
+            "pg_ret_codes": (pg_cnt, pg_codes_seen + pg_cnt),
+            "pg_ret_wait": (pg_staged, pg_staged + pg_window_seen),
+            "pg_nostore": ("      if (M & kSum) *reinterpret_cast<float4*>("
+                           "o_sum",
+                           "      if ((M & kSum) && s.x == 1.2345e-30f) "
+                           "*reinterpret_cast<float4*>(o_sum"),
+            "pg_noread": ("cm.x >= 0 ? xs[cm.x + (col >> 2)]",
+                          "cm.x >= 0 ? make_float4(__int_as_float(cm.x), 0.f,"
+                          " 0.f, 0.f)"),
+            "pg_nowalk": ("  const int ea = rp_s[ra], eb = rp_s[rb];",
+                          "  const int ea = rp_s[ra], eb = ea;"),
+            "pg_nocode": ("    return k < kEdgeCap ? code_s[k]\n",
+                          "    return k < kEdgeCap ? make_int2(0, 0x3f800000)"
+                          "\n"),
+            "pg_onecol": ("        s.y += v.y;\n        s.z += v.z;\n"
+                          "        s.w += v.w;\n", ""),
+            "pg_warps16": ("constexpr int kWarps = 32;                // "
+                           "warps a block",
+                           "constexpr int kWarps = 16;"),
+    }.items():
+        if a not in POLY_SRC:
+            raise RuntimeError(f"variant {name}: the source changed ({a!r})")
+        poly[name] = POLY_SRC.replace(a, b)
+    segs = {"source": SRC}
+    ret = "  if (n_seg > 0) return;\n"
+    for name, (a, b) in {
+            "us_empty": (us_zero, ret + us_zero),
+            "us_ret_span": (us_parts, ret + us_parts),
+            "us_ret_prefix": (us_zeros, ret + us_zeros),
+            "us_u8": ("constexpr int kRowsInFlight = 16; ",
+                      "constexpr int kRowsInFlight = 8;  "),
+            "us_loads1": ("constexpr int kIdLoads = 8; ",
+                          "constexpr int kIdLoads = 1; "),
+            "us_u32": ("constexpr int kRowsInFlight = 16; ",
+                       "constexpr int kRowsInFlight = 32; "),
+    }.items():
+        if SRC.count(a) != 1:
+            raise RuntimeError(f"variant {name}: the source changed ({a!r})")
+        segs[name] = SRC.replace(a, b)
+    return poly, segs
+
+
+def sass_sizes(lib, keys):
+    """Instructions of each kernel in ``lib`` whose name holds one of
+    ``keys`` (``cuobjdump -sass``), by mangled name."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    out = subprocess.run(
+        [os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass", str(lib)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True).stdout
+    sizes, cur = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = m.group(1) if any(k in m.group(1) for k in keys) else None
+            if cur:
+                sizes[cur[-60:]] = 0
+        elif cur and re.match(r"\s+/\*[0-9a-f]{4,}\*/", line):
+            sizes[cur[-60:]] += 1
+    return sizes
+
+
+PARTIAL_STAGED = ("pg_empty", "pg_ret_stage", "pg_ret_codes", "pg_ret_wait",
+                  "pg_nostore", "pg_noread", "pg_nowalk", "pg_nocode",
+                  "pg_onecol", "us_empty", "us_ret_span", "us_ret_prefix")
+
+
+def staged_main(torch, dev, seed, flush):
+    """The unsorted segment sum's and the poly gather's routes
+    (``--which staged``) on the flagship's first train batch, F = 64:
+    each route 1 held to its checks' bits, then timed cold (memset flush)
+    and warm beside route 2, in the order 1 2 2 1."""
+    from hydragnn_torch.ops import aggregate as ag
+    from hydragnn_torch.ops import fused_mp as fm
+    from hydragnn_torch.ops import poly_mp as pm
+
+    poly_src, seg_src = staged_variants()
+    plibs, pregs = build_sources("poly_mp", poly_src, ("poly_gather_kernel",))
+    slibs, sregs = build_sources("fused_mp", seg_src, ("us_sum_kernel",))
+    print(json.dumps({"registers_spills": {"poly_mp": pregs,
+                                           "fused_mp": sregs}}), flush=True)
+    print(json.dumps({"sass_instructions": {
+        kind: sass_sizes(OUT / f"lib{kind}_source.so", keys)
+        for kind, keys in (("poly_mp", ("poly_gather_kernel",
+                                        "poly_segment_kernel")),
+                           ("fused_mp", ("us_sum_kernel",
+                                         "seg_sum_kernel")))}}),
+          flush=True)
+    st = torch.cuda.current_stream().cuda_stream
+    g = flagship_batch(seed)
+    n, e, f = g.num_nodes, g.num_edges, 64
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    send, recv = g.senders.to(dev), g.receivers.to(dev)
+    mask = g.edge_mask.to(dev)
+    real = mask != 0
+    times, shapes = {}, {}
+
+    def rec(key, fn, fl=flush, lead=True):
+        times.setdefault(key, []).append(cs.time_ms(torch, fn, fl,
+                                                    lead=lead))
+
+    # the unsorted sum over three id orders: chip_smoke's timed row (the
+    # senders, the masked tail out of range), the path's own (the
+    # receivers, the padded tail on node N-1) and a shuffle of those
+    data = torch.randn(e, f, device=dev, generator=gen)
+    order = torch.randperm(e, device=dev, generator=gen)
+    for name, ids in (
+            ("senders", torch.where(real, send, n + torch.arange(
+                e, device=dev, dtype=torch.int32) % 3)),
+            ("receivers", recv), ("shuffled", recv[order].contiguous())):
+        perm, ptr = ag.sort_schedule(ids, n)
+        nb = fm.unsorted_sum_blocks(e, n, f)
+        r1, p_dbg, rp_dbg = fm.launch_unsorted_sum(data, ids, n,
+                                                   debug=True)
+        csr = fm.launch_segment_sum_rows(data, ptr, n, perm=perm, route=1,
+                                         n_blocks=nb)
+        torch.cuda.synchronize()
+        q = int(ptr[-1])
+        cs.check(torch.equal(rp_dbg, ptr) and torch.equal(p_dbg[:q],
+                                                          perm[:q]),
+                 f"unsorted sum {name}: the schedule is not the sort's")
+        cs.check(torch.equal(r1, csr), f"unsorted sum {name}: route 1 is "
+                 "not the CSR kernel's bits at its block count")
+        ok = (ids >= 0) & (ids < n)
+        lib_data, lib_ids = data[ok].contiguous(), ids[ok].long()
+        cases = {
+            "route1": lambda ids=ids: fm.launch_unsorted_sum(data, ids, n),
+            "route2": lambda ids=ids: fm.launch_unsorted_sum(data, ids, n,
+                                                             route=2),
+            "csr_kernel": lambda perm=perm, ptr=ptr: (
+                fm.launch_segment_sum_rows(data, ptr, n, perm=perm)),
+            "index_add": lambda a=lib_data, b=lib_ids: torch.zeros(
+                n, f, device=dev).index_add_(0, b, a)}
+        # fewer blocks read the ids fewer times, more fill the card twice
+        least = -(-n // ag.UNSORTED_SEGS_PER_BLOCK)
+        for blocks in sorted({least, max(least, (nb + least) // 2),
+                              2 * nb} - {nb}):
+            cases[f"route1_blocks{blocks}"] = (
+                lambda ids=ids, blocks=blocks: fm.launch_unsorted_sum(
+                    data, ids, n, n_blocks=blocks))
+        # route 2 and index_add_ are several launches each: the host's
+        # enqueueing may fall inside their timed intervals
+        several = ("route2", "index_add")
+        for key in list(cases) + list(cases)[::-1]:
+            rec(f"us_{name}/{key}", cases[key], lead=key not in several)
+        for key in ("route1", "route2"):
+            rec(f"us_{name}/{key}/warm", cases[key], None,
+                lead=key not in several)
+        shapes[f"us_{name}"] = {"rows_summed": q, "blocks": nb}
+        # the edited copies, each between the source's runs
+        out = torch.empty(n, f, device=dev)
+        for var, lib in list(slibs.items()) + [("source", slibs["source"])]:
+            call = (lambda lib=lib, ids=ids: lib.hg_unsorted_sum_f32(
+                data.data_ptr(), ids.data_ptr(), out.data_ptr(), None, None,
+                e, n, f, 0, st))
+            call()
+            torch.cuda.synchronize()
+            cs.check(var in PARTIAL_STAGED or torch.equal(out, r1),
+                     f"unsorted sum {name}: variant {var} changed the bits")
+            rec(f"us_{name}/variant/{var}", call)
+    # the poly gather: SAGE's sum + cnt and all moments at F = 64, and
+    # all moments at F = 128
+    ptr = ag.segment_offsets(recv, n, mask)
+    for fw, moments in ((64, ("sum", "cnt")), (64, pm.MOMENT_ORDER),
+                        (128, pm.MOMENT_ORDER)):
+        x = (torch.randn(n, fw, device=dev, generator=gen) * 2).round() / 2
+        launch = {r: (lambda r=r, x=x, moments=moments:
+                      pm.launch_poly_segment(x, send, mask, ptr, n, moments,
+                                             "gather_poly_segment", route=r))
+                  for r in (1, 2)}
+        a, b = launch[1](), launch[2]()
+        torch.cuda.synchronize()
+        key = f"pg_F{fw}_{'_'.join(moments)}"
+        cs.check(all(torch.equal(u, v) for u, v in zip(a, b)),
+                 f"{key}: route 1 is not route 2's bits")
+        for r in (1, 2, 2, 1):
+            rec(f"{key}/route{r}", launch[r])
+        for r in (1, 2):
+            rec(f"{key}/route{r}/warm", launch[r], None)
+        outs = [torch.empty(n, w_, device=dev) for w_ in (fw, fw, 2 * fw)]
+        outs.append(torch.empty(n, device=dev))
+        want = dict(zip(pm.MOMENT_ORDER, outs))
+        ptrs = [want[m].data_ptr() if m in moments else None
+                for m in pm.MOMENT_ORDER]
+        for var, lib in list(plibs.items()) + [("source", plibs["source"])]:
+            call = (lambda lib=lib, x=x, ptrs=ptrs, fw=fw: (
+                lib.hg_poly_segment_f32(
+                    x.data_ptr(), send.data_ptr(), mask.data_ptr(),
+                    ptr.data_ptr(), *ptrs, n, n, fw, 1, 1, 0, st)))
+            call()
+            torch.cuda.synchronize()
+            cs.check(var in PARTIAL_STAGED or all(
+                torch.equal(want[m], u) for m, u in zip(moments, a)),
+                f"{key}: variant {var} changed the bits")
+            rec(f"{key}/variant/{var}", call)
+    print(json.dumps({"staged_ms": {
+        k: statistics.median(v) for k, v in times.items()},
+        "N": n, "E": e, "E_valid": int(real.sum()), "shapes": shapes}),
+        flush=True)
 
 
 def path_cells(seed, work):
@@ -546,7 +806,8 @@ def main():
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--which", choices=("gm", "rows", "path", "all"),
+    ap.add_argument("--which", choices=("gm", "rows", "path", "staged",
+                                        "all"),
                     default="all")
     args = ap.parse_args()
     cs.check(torch.cuda.is_available(), "no CUDA device")
@@ -557,7 +818,10 @@ def main():
                   torch.empty(64 << 20, dtype=torch.uint8, device=dev))
     if args.which in ("path", "all"):
         path_main(torch, dev, args.seed)
-    if args.which in ("rows", "path"):
+    if args.which in ("staged", "all"):
+        staged_main(torch, dev, args.seed,
+                    torch.empty(64 << 20, dtype=torch.uint8, device=dev))
+    if args.which in ("rows", "path", "staged"):
         return
     libs, regs = build_variants(variants())
     print(json.dumps({"registers_spills": regs}), flush=True)

@@ -1,7 +1,8 @@
-// Hand-written Hopper (sm_90a) kernels for the two sorted-segment
-// reductions on the SchNet prediction path.  Plain C interface, loaded with
-// ctypes by hydragnn_torch/kernels/build.py; wrappers, plain PyTorch
-// versions and launch counters live in hydragnn_torch/ops/fused_mp.py.
+// Hand-written Hopper (sm_90a) kernels for the sorted-segment reductions
+// of the SchNet path and the `pallas` backend's unsorted segment sum.
+// Plain C interface, loaded with ctypes by hydragnn_torch/kernels/build.py;
+// wrappers, plain PyTorch versions and launch counters live in
+// hydragnn_torch/ops/fused_mp.py.
 //
 // gm_fwd_kernel (route 1) and gather_mul_segment_sum_kernel (route 2)
 //   out[n, f] = sum_{e in [row_ptr[n], row_ptr[n+1])} x[send[e], f] * w[e, f]
@@ -80,18 +81,13 @@
 //   Replaces hydragnn_tpu/ops/fused_mp.py:_scatter_impl (pl.pallas_call at
 //   :340; public op segment_sum_dense :350).  Bound: bytes (read the valid
 //   rows of data once, write out once; 1 flop per 4-byte element).
-//   With a row permutation it also replaces the two kernels of the
-//   reference's `pallas` aggregation backend, both plain segment sums:
-//   hydragnn_tpu/ops/aggregate.py:_pallas_segment_sum_impl (pl.pallas_call
-//   at :157, any id order: a blocked one-hot contraction on the MXU) and
-//   :_sorted_impl (:244, nondecreasing ids).  On Hopper the one-hot tile
-//   is wasted work: the wrapper's stable sort of the ids is the schedule
-//   (perm, CSR offsets, out-of-range ids parked past the last segment) and
-//   the rows are summed in id-then-edge order through perm.  Same bound
-//   (bytes), plus the 4-byte perm entry per row.  The sorted function's
-//   cap keeps collate's padding segment (every padding edge on node N-1,
-//   pre-masked to zeros) from costing thousands of rows, as the
-//   reference's cap drops those rows.
+//   It also replaces the reference's `pallas` aggregation backend's
+//   sorted segment sum, hydragnn_tpu/ops/aggregate.py:_sorted_impl
+//   (pl.pallas_call at :244, nondecreasing ids), whose cap keeps collate's
+//   padding segment (every padding edge on node N-1, pre-masked to zeros)
+//   from costing thousands of rows, as the reference's cap drops those
+//   rows; and, through a row permutation, it is route 2 of the unsorted
+//   sum below.
 //   Route 2 (the first design; hg_segment_sum_route: odd F, such as
 //   EGNN's position gathers at 3): one warp per segment in blocks of 8,
 //   lanes on columns lane + 32 j of 128 a pass.  At the pool (513
@@ -136,9 +132,74 @@
 //   to 0.0221 (route 2 0.0244), DimeNet's sums from 7.18 to 6.49 us a
 //   launch (route 2 6.63) and PNA's from 1.090 to 1.054 ms an epoch
 //   (route 2 1.438).  dimenet_wide's sums (F = 128) take 10.15 us a
-//   launch against route 2's 11.90.  Plain loads in place of the
+//   launch against route 2's 11.90; chip_smoke's routes_on_path, read
+//   three times in turns in one run, 9.93-10.14 against 11.83-11.88, so
+//   route 1 keeps F = 128.  Plain loads in place of the
 //   streaming ones: edge rows 0.0241 against 0.0221, tie counts 0.0383
 //   against 0.0346 (the pool ties).
+
+// us::us_sum_kernel (route 1 of the unsorted segment sum)
+//   out[t, f] = sum of data[e, f] over the edges e with ids[e] = t, in
+//   edge order; ids in any order, those outside [0, S) dropped.
+//   Replaces hydragnn_tpu/ops/aggregate.py:_pallas_segment_sum_impl
+//   (pl.pallas_call at :157; public op segment_sum_pallas :310), which
+//   accumulates a blocked one-hot contraction over edge blocks on the MXU
+//   with no sort.  On Hopper the one-hot tile is wasted work and the sum
+//   needs a schedule: route 2 (the first design) makes it with library
+//   launches in the wrapper (a stable torch.sort of the parked ids,
+//   segment_offsets' arange and searchsorted: ~0.085 ms, 3.6x the CSR
+//   kernel after it) and then runs the CSR kernel through the sort's
+//   permutation.  Route 1 builds the same schedule inside one launch:
+//   - block k owns the CSR kernel's equal count of segments [sb, se) (at
+//     most kSegs = 128); its threads read every id once (int4 loads,
+//     4 in flight) for the first and last edge it owns, its span;
+//   - its 16 warps take equal contiguous parts of the span and count, 8
+//     loads of 32 ids in flight, the edges of each owned segment (a key's
+//     lanes add once, through __match_any_sync);
+//   - an exclusive prefix over (segment, warp) order gives the block's
+//     CSR offsets and each warp's first position in each segment; the
+//     warps walk their parts again and place each edge at that start plus
+//     its rank (lanes below it with the same key, and a running count
+//     across loads), so each segment's edges keep edge order: position
+//     for position the slice of the stable sort's permutation that the
+//     CSR kernel's block k walks;
+//   - the positions live in shared memory, kWindow = 16384 a round: a
+//     block whose list is longer places and sums it in rounds, walking its
+//     span again each round.  The budget is per round, not per call, so
+//     no id order is refused and nothing is decided on the host (the
+//     block count and route come from E, S and F alone, with no sync);
+//   - the sum is the CSR kernel's route 1 over those positions, with the
+//     permutation read from shared memory: the same warp slices, order,
+//     cut-segment combine and empty-segment zeros, 16 rows in flight a
+//     warp.  Launched at the same block count, route 1 gives the CSR
+//     kernel's bits through the sort's permutation.
+//   One launch, no atomics on floats and no integer atomics either (each
+//   count has one writer: a key's first lane, its warp's own slot), no
+//   global scratch beyond the output, deterministic.  Bound: bytes, as
+//   the CSR kernel's (the rows summed, every id once, the output once).
+//   Every block reads all E ids for its span, 132 x 0.54 MB from L2 at
+//   the flagship's batch: what bounds route 1 below the CSR kernel.
+//   Route 1 takes even F up to 128 and S up to kSegs * 256 segments
+//   (hg_unsorted_sum_route); route 2 stays past that and as the timing
+//   beside it.
+//   Measured (NVIDIA H100 80GB HBM3, 700 W; python3 fused_mp_variants.py
+//   --which staged: the flagship's first train batch, E = 135744, S =
+//   9680, F = 64, cold after chip_smoke's memset flush): on the senders
+//   with the masked tail out of range the whole call takes 0.0388 ms on
+//   route 1, 0.1104 on route 2 (the CSR kernel alone 0.0242, index_add_
+//   0.0742); on the receivers with the padded tail on node N-1, the
+//   path's ids, 0.0587 against 0.1552: the block that owns N-1 sums its
+//   4342 padding rows alone, as the CSR kernel's block does (0.0692); on
+//   shuffled receivers, where every block's span is the whole id array,
+//   0.1299 against 0.1584.  Of route 1's 0.0388 the launch takes 0.0054,
+//   the span pass 0.0115 (every block reads all E ids from L2, ~72 MB
+//   at ~6 TB/s) and the counts and prefix 0.0029.  16 rows in flight a
+//   warp against 8: 0.0583 against 0.0650 on the receivers (32: 0.0601);
+//   8 loads of 32 ids in flight against 1: 0.1294 against 0.2018 on
+//   shuffled ids; one block a SM against the least the segments take
+//   (76) and twice as many: 0.0388, 0.0432, 0.0394.  ops/aggregate.py:unsorted_sum_plan writes the schedule
+//   out for the tests; the launch's debug output (the checks only)
+//   writes the blocks' permutation and offsets.
 
 // Contract shared with the reference kernels (collate guarantees it):
 // rows/edges are sorted by output id, so each output row owns one
@@ -158,6 +219,8 @@
 // zeros.
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 #include "pass_p.cuh"
 #include "row_walk.cuh"
@@ -653,17 +716,21 @@ seg_sum_kernel(const float* __restrict__ data, const int* __restrict__ perm,
   }
 }
 
-// the kernel at NC chunks a walk: one at 64 columns or fewer, else two
+// the kernel at NC chunks a walk: one at 64 columns or fewer, else two;
+// n_blocks > 0 asks for that many blocks (the unsorted sum's checks hold
+// it to this kernel at its own block count), 0 takes the card's
 template <bool PERM, int NC>
 cudaError_t launch(const float* data, const int* perm, const int* row_ptr,
                    float* out, int n_seg, int n_data, int f, int max_rows,
-                   cudaStream_t st) {
+                   int n_blocks, cudaStream_t st) {
   // at most one block for every kWarps units of work (rows + segments)
-  int grid = 0;
-  const cudaError_t err = walk::persistent_grid(
-      seg_sum_kernel<PERM, NC>, kWarps, static_cast<long long>(n_data) + n_seg,
-      kWarps, &grid);
-  if (err != cudaSuccess) return err;
+  int grid = n_blocks;
+  if (grid <= 0) {
+    const cudaError_t err = walk::persistent_grid(
+        seg_sum_kernel<PERM, NC>, kWarps,
+        static_cast<long long>(n_data) + n_seg, kWarps, &grid);
+    if (err != cudaSuccess) return err;
+  }
   seg_sum_kernel<PERM, NC><<<grid, kWarp * kWarps, 0, st>>>(
       data, perm, row_ptr, out, n_seg, f, max_rows);
   return cudaGetLastError();
@@ -672,20 +739,388 @@ cudaError_t launch(const float* data, const int* perm, const int* row_ptr,
 template <bool PERM>
 cudaError_t launch_by_width(const float* data, const int* perm,
                             const int* row_ptr, float* out, int n_seg,
-                            int n_data, int f, int max_rows,
+                            int n_data, int f, int max_rows, int n_blocks,
                             cudaStream_t st) {
   return f <= kCols
              ? launch<PERM, 1>(data, perm, row_ptr, out, n_seg, n_data, f,
-                               max_rows, st)
+                               max_rows, n_blocks, st)
              : launch<PERM, 2>(data, perm, row_ptr, out, n_seg, n_data, f,
-                               max_rows, st);
+                               max_rows, n_blocks, st);
 }
 
 }  // namespace ss
 
+// ---------------------------------------------------------------------------
+// route 1 of the unsorted segment sum: the schedule built in each block's
+// shared memory, then route 1 of the CSR segment sum over it (see above)
+// ---------------------------------------------------------------------------
+namespace us {
+
+using walk::kFull;
+using walk::st2;
+
+constexpr int kWarps = ss::kWarps;        // 16: the CSR kernel's warp slices
+constexpr int kThreads = kWarp * kWarps;
+constexpr int kSegs = 128;                // segments a block owns at most
+constexpr int kWindow = 16384;            // positions a round places
+constexpr int kMaxSegments = kSegs * 256; // route 1's segment limit
+constexpr int kRowsInFlight = 16;         // rows in flight a warp at NC = 1
+constexpr int kIdLoads = 8;               // id loads of 32 in flight a warp
+constexpr int kCols = ss::kCols;
+// dynamic shared memory: base and run [kSegs][kWarps], rp [kSegs + 1],
+// the window of the permutation [kWindow]
+constexpr size_t kSmemBytes =
+    sizeof(int) * (2 * kSegs * kWarps + kSegs + 1 + kWindow);
+
+// the blocks route 1 launches for e ids over s segments: one a SM (each
+// block reads every id once), at most one for every kThreads ids and
+// segments and one a segment, at least one for every kSegs segments
+inline int blocks(int e, int s, int sms) {
+  long long g = (static_cast<long long>(e) + s + kThreads - 1) / kThreads;
+  if (g > sms) g = sms;
+  if (g > s) g = s;  // no block without a segment
+  const long long need = (static_cast<long long>(s) + kSegs - 1) / kSegs;
+  if (g < need) g = need;
+  return static_cast<int>(g < 1 ? 1 : g);
+}
+
+// out[t] = sum of data[e] over the edges e with ids[e] = t, in edge order,
+// for the segments [sb, se) of this block (an equal count a block, as the
+// CSR kernel's), with the CSR kernel's warp slices, order and combine over
+// the block's positions.  DBG also writes the block's slice of the
+// permutation (perm_dbg, global positions) and its row_ptr entries.
+template <int NC, bool DBG>
+__global__ void __launch_bounds__(kThreads)
+us_sum_kernel(const float* __restrict__ data, const int* __restrict__ ids,
+              float* __restrict__ out, int n_edges, int n_seg, int f,
+              int* __restrict__ perm_dbg, int* __restrict__ rp_dbg) {
+  extern __shared__ int smem[];
+  int* base = smem;                   // [t * kWarps + w]: (segment, warp)
+  int* run = base + kSegs * kWarps;   // running positions of a round
+  int* rp = run + kSegs * kWarps;     // the block's row_ptr, from 0
+  int* pw = rp + kSegs + 1;           // positions [R, R + kWindow) -> edge
+  __shared__ float2 part[2][kWarps][NC][kWarp];
+  __shared__ int red[3][kWarps];
+  __shared__ int tot[kWarps];
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int sb = static_cast<int>(static_cast<long long>(n_seg) * blockIdx.x /
+                                  gridDim.x);
+  const int se = static_cast<int>(static_cast<long long>(n_seg) *
+                                  (blockIdx.x + 1) / gridDim.x);
+  const unsigned ns = static_cast<unsigned>(se - sb);  // <= kSegs
+  auto key_of = [&](int id) {  // the owned segment of an id, or -1
+    const unsigned k = static_cast<unsigned>(id) - static_cast<unsigned>(sb);
+    return k < ns ? static_cast<int>(k) : -1;
+  };
+  for (int i = threadIdx.x; i < kSegs * kWarps; i += kThreads) base[i] = 0;
+
+  // 1. the span: the first and last edge whose id the block owns (and,
+  //    DBG, the in-range ids below sb: the block's first global position)
+  int lo = 0x7fffffff, hi = -1, below = 0;
+  auto test = [&](int id, int e) {
+    if (key_of(id) >= 0) {
+      lo = min(lo, e);
+      hi = max(hi, e);
+    }
+    if (DBG && id >= 0 && id < sb) ++below;
+  };
+  {
+    const int n4 = n_edges >> 2;
+    const int4* ids4 = reinterpret_cast<const int4*>(ids);
+    int i = threadIdx.x;
+    for (; i + 3 * kThreads < n4; i += 4 * kThreads) {
+      int4 v[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) v[u] = __ldg(ids4 + i + u * kThreads);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int e = 4 * (i + u * kThreads);
+        test(v[u].x, e);
+        test(v[u].y, e + 1);
+        test(v[u].z, e + 2);
+        test(v[u].w, e + 3);
+      }
+    }
+    for (; i < n4; i += kThreads) {
+      const int4 v = __ldg(ids4 + i);
+      test(v.x, 4 * i);
+      test(v.y, 4 * i + 1);
+      test(v.z, 4 * i + 2);
+      test(v.w, 4 * i + 3);
+    }
+    for (int e = 4 * n4 + threadIdx.x; e < n_edges; e += kThreads)
+      test(__ldg(ids + e), e);
+  }
+  lo = __reduce_min_sync(kFull, lo);
+  hi = __reduce_max_sync(kFull, hi);
+  if (DBG) below = __reduce_add_sync(kFull, below);
+  if (lane == 0) {
+    red[0][wid] = lo;
+    red[1][wid] = hi;
+    red[2][wid] = below;
+  }
+  __syncthreads();
+  lo = red[0][0];
+  hi = red[1][0];
+  int q0 = red[2][0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) {
+    lo = min(lo, red[0][w]);
+    hi = max(hi, red[1][w]);
+    if (DBG) q0 += red[2][w];
+  }
+  // the warps' equal parts of [lo, hi]: where each counts and places
+  if (hi < lo) lo = hi = -1;  // no owned id: empty parts
+  const int len = hi - lo + (hi >= 0 ? 1 : 0);
+  const int ca = lo + static_cast<int>(static_cast<long long>(len) * wid /
+                                       kWarps);
+  const int cb = lo + static_cast<int>(static_cast<long long>(len) *
+                                       (wid + 1) / kWarps);
+
+  // the keys of kIdLoads loads of 32 ids of the warp's part from e0, all
+  // in flight at once (-1 past the part)
+  auto load_keys = [&](int e0, int (&key)[kIdLoads]) {
+    int id[kIdLoads];
+#pragma unroll
+    for (int j = 0; j < kIdLoads; ++j) {
+      const int e = e0 + j * kWarp + lane;
+      id[j] = e < cb ? __ldg(ids + e) : -1;
+    }
+#pragma unroll
+    for (int j = 0; j < kIdLoads; ++j)
+      key[j] = e0 + j * kWarp + lane < cb ? key_of(id[j]) : -1;
+  };
+
+  // 2. counts per (owned segment, warp part), 32 ids a step; a key's
+  //    lanes add once (__match_any_sync), no atomics
+  for (int e0 = ca; e0 < cb; e0 += kIdLoads * kWarp) {
+    int key[kIdLoads];
+    load_keys(e0, key);
+#pragma unroll
+    for (int j = 0; j < kIdLoads; ++j) {
+      if (__ballot_sync(kFull, key[j] >= 0) == 0) continue;
+      const unsigned m = __match_any_sync(kFull, key[j]);
+      if (key[j] >= 0 && lane == __ffs(m) - 1)
+        base[key[j] * kWarps + wid] += __popc(m);
+      __syncwarp();
+    }
+  }
+  __syncthreads();
+
+  // 3. exclusive prefix over (segment, warp) order: kSegs * kWarps =
+  //    4 * kThreads entries, 4 consecutive a thread
+  {
+    int v[4], s = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      v[j] = base[4 * threadIdx.x + j];
+      s += v[j];
+    }
+    int inc = s;  // inclusive scan of the threads' sums within the warp
+#pragma unroll
+    for (int d = 1; d < kWarp; d <<= 1) {
+      const int t = __shfl_up_sync(kFull, inc, d);
+      if (lane >= d) inc += t;
+    }
+    if (lane == kWarp - 1) tot[wid] = inc;
+    __syncthreads();
+    int before = inc - s;
+    for (int w = 0; w < wid; ++w) before += tot[w];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      base[4 * threadIdx.x + j] = before;
+      run[4 * threadIdx.x + j] = before;
+      before += v[j];
+    }
+  }
+  __syncthreads();
+  int n_in = 0;  // the block's positions
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) n_in += tot[w];
+  for (int t = threadIdx.x; t < static_cast<int>(ns); t += kThreads)
+    rp[t] = base[t * kWarps];
+  if (threadIdx.x == 0) rp[ns] = n_in;
+  __syncthreads();
+  if (DBG) {
+    for (int t = threadIdx.x; t < static_cast<int>(ns); t += kThreads)
+      rp_dbg[sb + t] = q0 + rp[t];
+    if (se == n_seg && threadIdx.x == 0) rp_dbg[n_seg] = q0 + n_in;
+  }
+  // the block's empty segments: zeros (the walks write the others)
+  for (int t = wid; t < static_cast<int>(ns); t += kWarps)
+    if (rp[t] == rp[t + 1])
+      for (int c = 2 * lane; c < f; c += kCols)
+        st2(out + static_cast<size_t>(sb + t) * f + c, make_float2(0.f, 0.f));
+
+  // 4. the sum: route 1 of the CSR kernel over positions [0, n_in), in
+  //    rounds of kWindow positions placed in shared memory
+  const int a = ss::slice_begin(0, n_in, wid);
+  const int b = ss::slice_begin(0, n_in, wid + 1);
+  bool on[NC];  // f even: col + 1 < f too
+#pragma unroll
+  for (int j = 0; j < NC; ++j) on[j] = j * kCols + 2 * lane < f;
+  auto store = [&](int t, const float2 (&v)[NC]) {
+#pragma unroll
+    for (int j = 0; j < NC; ++j)
+      if (on[j])
+        st2(out + static_cast<size_t>(sb + t) * f + j * kCols + 2 * lane,
+            v[j]);
+  };
+  auto keep = [&](int slot, const float2 (&v)[NC]) {
+#pragma unroll
+    for (int j = 0; j < NC; ++j) part[slot][wid][j][lane] = v[j];
+  };
+  // the segment of position a (the largest t with rp[t] <= a), its first
+  // and end positions
+  int t0 = 0;
+  if (a < b) {
+    int l = 0, h = static_cast<int>(ns) - 1;
+    while (l < h) {
+      const int mid = (l + h + 1) >> 1;
+      if (rp[mid] <= a) l = mid; else h = mid - 1;
+    }
+    t0 = l;
+  }
+  const int start0 = rp[t0], end0 = rp[t0 + 1];
+  int t = t0, start = start0, end = end0, p = a;
+  float2 acc[NC];
+#pragma unroll
+  for (int j = 0; j < NC; ++j) acc[j] = make_float2(0.f, 0.f);
+  auto finish = [&]() {
+    if (start < a)
+      keep(0, acc);
+    else if (start < end)
+      store(t, acc);
+#pragma unroll
+    for (int j = 0; j < NC; ++j) acc[j] = make_float2(0.f, 0.f);
+    start = end;
+    ++t;
+    end = rp[t + 1];
+  };
+  constexpr int U = kRowsInFlight / NC;
+  for (int r0 = 0; r0 < n_in; r0 += kWindow) {
+    if (r0 > 0) {
+      for (int i = threadIdx.x; i < kSegs * kWarps; i += kThreads)
+        run[i] = base[i];
+      __syncthreads();
+    }
+    // placement: each owned id's position is its (segment, warp) start
+    // plus its rank among them, in edge order
+    for (int e0 = ca; e0 < cb; e0 += kIdLoads * kWarp) {
+      int key[kIdLoads];
+      load_keys(e0, key);
+#pragma unroll
+      for (int j = 0; j < kIdLoads; ++j) {
+        if (__ballot_sync(kFull, key[j] >= 0) == 0) continue;
+        const unsigned m = __match_any_sync(kFull, key[j]);
+        if (key[j] >= 0) {
+          const int pos = run[key[j] * kWarps + wid] +
+                          __popc(m & ((1u << lane) - 1u));
+          if (pos >= r0 && pos < r0 + kWindow) {
+            const int e = e0 + j * kWarp + lane;
+            pw[pos - r0] = e;
+            if (DBG) perm_dbg[q0 + pos] = e;
+          }
+        }
+        __syncwarp();
+        if (key[j] >= 0 && lane == __ffs(m) - 1)
+          run[key[j] * kWarps + wid] += __popc(m);
+        __syncwarp();
+      }
+    }
+    __syncthreads();
+    // this warp's slice within the round's window, in position order
+    const int wend = min(b, r0 + kWindow);
+    while (p < wend) {
+      while (p >= end) finish();
+      const int n_u = min(U, wend - p);
+      float2 v[U][NC];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int row = u < n_u ? pw[p - r0 + u] : 0;
+#pragma unroll
+        for (int j = 0; j < NC; ++j) {
+          v[u][j] = make_float2(0.f, 0.f);
+          if (u < n_u && on[j])
+            v[u][j] = walk::ldcs2(data + static_cast<size_t>(row) * f +
+                                  j * kCols + 2 * lane);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (u >= n_u) break;
+        while (p + u >= end) finish();
+#pragma unroll
+        for (int j = 0; j < NC; ++j) ss::add2(acc[j], v[u][j]);
+      }
+      p += n_u;
+    }
+    __syncthreads();  // before the next round overwrites the window
+  }
+  // the segment of the slice's last position
+  if (a < b) {
+    if (end > b)
+      keep(start < a ? 0 : 1, acc);
+    else if (start < a)
+      keep(0, acc);
+    else
+      store(t, acc);
+  }
+  __syncthreads();
+  // the combine, as the CSR kernel's: the tail partial of the slice that
+  // holds the segment's first position, then the head partials after it
+  if (a < b && start0 < a && end0 <= b) {
+    int w0 = wid - 1;
+    while (ss::slice_begin(0, n_in, w0) > start0) --w0;
+    float2 s[NC];
+#pragma unroll
+    for (int j = 0; j < NC; ++j) s[j] = part[1][w0][j][lane];
+    for (int v = w0 + 1; v <= wid; ++v)
+      if (ss::slice_begin(0, n_in, v) < ss::slice_begin(0, n_in, v + 1)) {
+#pragma unroll
+        for (int j = 0; j < NC; ++j) ss::add2(s[j], part[0][v][j][lane]);
+      }
+    store(t0, s);
+  }
+}
+
+template <int NC, bool DBG>
+cudaError_t launch(const float* data, const int* ids, float* out, int n_edges,
+                   int n_seg, int f, int grid, int* perm_dbg, int* rp_dbg,
+                   cudaStream_t st) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      us_sum_kernel<NC, DBG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kSmemBytes));
+  if (err != cudaSuccess) return err;
+  us_sum_kernel<NC, DBG><<<grid, kThreads, kSmemBytes, st>>>(
+      data, ids, out, n_edges, n_seg, f, perm_dbg, rp_dbg);
+  return cudaGetLastError();
+}
+
+}  // namespace us
+
 // the route of the CSR segment sum at width f: 1 for even f (a float2 a
 // lane), 2 (the first design) for odd f
 inline int segment_sum_route(int f) { return f > 0 && f % 2 == 0 ? 1 : 2; }
+
+// the route of the unsorted segment sum (e ids, s segments, width f): 1
+// (the schedule in each block's shared memory, one launch) at even f up
+// to 128 and s up to us::kMaxSegments (which bounds the blocks, each of
+// which reads all e ids); 2 (a stable torch.sort of the ids, then the
+// CSR kernel) past that.  e only has to fit an int, as everywhere here.
+inline int unsorted_sum_route(int e, int s, int f) {
+  return e >= 0 && s >= 0 && s <= us::kMaxSegments && f > 0 && f % 2 == 0 &&
+                 f <= 2 * us::kCols
+             ? 1
+             : 2;
+}
+
+inline cudaError_t sm_count(int* sms) {
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+}
 
 // the route of the gather-multiply kernel and its backward at width f:
 // 1 for even f (a float2 a lane), 2 (the first design) for odd f
@@ -794,15 +1229,16 @@ extern "C" int hg_segment_sum_route(int f) { return segment_sum_route(f); }
 // `perm` (may be null) maps a CSR position to its data row (of `n_rows`);
 // each segment sums at most its first `max_rows` positions.  `route`: 0
 // the width's own (hg_segment_sum_route), 1 or 2 that one (1 only at an
-// even f); data and out 8-byte aligned on route 1.
+// even f); data and out 8-byte aligned on route 1.  `n_blocks` > 0 runs
+// route 1 on that many blocks (the unsorted sum's checks), 0 on its own.
 extern "C" int hg_segment_sum_rows_f32(const void* data, const void* perm,
                                        const void* row_ptr, void* out,
                                        int n_rows, int n_seg, int f,
-                                       int max_rows, int route,
+                                       int max_rows, int route, int n_blocks,
                                        void* stream) {
   if (route == 0) route = segment_sum_route(f);
   if (route < 1 || route > 2 || (route == 1 && segment_sum_route(f) != 1) ||
-      max_rows < 0)
+      max_rows < 0 || n_blocks < 0 || (route == 2 && n_blocks != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_seg <= 0 || f <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -814,9 +1250,9 @@ extern "C" int hg_segment_sum_rows_f32(const void* data, const void* perm,
     return static_cast<int>(
         pp != nullptr
             ? ss::launch_by_width<true>(df, pp, rp, of, n_seg, n_rows, f,
-                                        max_rows, st)
+                                        max_rows, n_blocks, st)
             : ss::launch_by_width<false>(df, nullptr, rp, of, n_seg, n_rows,
-                                         f, max_rows, st));
+                                         f, max_rows, n_blocks, st));
   const dim3 block(kWarp * kRowsPerBlock);
   if (pp != nullptr) {
     segment_sum_dense_kernel<true><<<grid_for(n_seg), block, 0, st>>>(
@@ -826,4 +1262,69 @@ extern "C" int hg_segment_sum_rows_f32(const void* data, const void* perm,
         df, nullptr, rp, of, n_seg, f, max_rows);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int hg_unsorted_sum_route(int e, int s, int f) {
+  return unsorted_sum_route(e, s, f);
+}
+
+// The blocks route 1 of the unsorted sum launches for e ids over s
+// segments on this card (a cudaError_t, negated, on failure).
+extern "C" int hg_unsorted_sum_blocks(int e, int s, int f) {
+  if (unsorted_sum_route(e, s, f) != 1 || s == 0)
+    return -static_cast<int>(cudaErrorInvalidValue);
+  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  return us::blocks(e, s, sms);
+}
+
+// Route 1 of the unsorted segment sum: out [n_seg, f] (every row written)
+// = the sum of data [n_edges, f] rows by ids [n_edges] (int32, any order;
+// ids outside [0, n_seg) dropped), in one launch.  `n_blocks` 0 takes
+// hg_unsorted_sum_blocks', else that many (at least one for every
+// us::kSegs segments).  With `rp_dbg` [n_seg + 1] and `perm_dbg` [n_edges]
+// (null only when n_edges is 0) the blocks also write the schedule they
+// built: the
+// stable sort's permutation of the in-range ids and its CSR offsets.
+// data and out 8-byte aligned, ids 16-byte aligned.
+extern "C" int hg_unsorted_sum_f32(const void* data, const void* ids,
+                                   void* out, void* perm_dbg, void* rp_dbg,
+                                   int n_edges, int n_seg, int f,
+                                   int n_blocks, void* stream) {
+  if (unsorted_sum_route(n_edges, n_seg, f) != 1 || n_blocks < 0 ||
+      (perm_dbg != nullptr && rp_dbg == nullptr) ||
+      (rp_dbg != nullptr && perm_dbg == nullptr && n_edges > 0) ||
+      reinterpret_cast<uintptr_t>(ids) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(data) % 8 != 0 ||
+      reinterpret_cast<uintptr_t>(out) % 8 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_seg == 0) return 0;
+  int grid = n_blocks;
+  if (grid == 0) {
+    int sms = 0;
+    const cudaError_t err = sm_count(&sms);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    grid = us::blocks(n_edges, n_seg, sms);
+  }
+  if ((static_cast<long long>(n_seg) + grid - 1) / grid > us::kSegs)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* df = static_cast<const float*>(data);
+  const int* ip = static_cast<const int*>(ids);
+  float* of = static_cast<float*>(out);
+  int* pd = static_cast<int*>(perm_dbg);
+  int* rd = static_cast<int*>(rp_dbg);
+  cudaError_t err;
+  if (f <= us::kCols)
+    err = rd ? us::launch<1, true>(df, ip, of, n_edges, n_seg, f, grid, pd,
+                                   rd, st)
+             : us::launch<1, false>(df, ip, of, n_edges, n_seg, f, grid,
+                                    nullptr, nullptr, st);
+  else
+    err = rd ? us::launch<2, true>(df, ip, of, n_edges, n_seg, f, grid, pd,
+                                   rd, st)
+             : us::launch<2, false>(df, ip, of, n_edges, n_seg, f, grid,
+                                    nullptr, nullptr, st);
+  return static_cast<int>(err);
 }

@@ -46,10 +46,16 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         # f
         "hg_gather_mul_route": (_I,),
         # data, perm, row_ptr, out, n_rows, n_seg, f, max_rows, route,
-        # stream
-        "hg_segment_sum_rows_f32": (_P,) * 4 + (_I,) * 5 + (_P,),
+        # n_blocks, stream
+        "hg_segment_sum_rows_f32": (_P,) * 4 + (_I,) * 6 + (_P,),
         # f
         "hg_segment_sum_route": (_I,),
+        # data, ids, out, perm_dbg, rp_dbg, n_edges, n_seg, f, n_blocks,
+        # stream
+        "hg_unsorted_sum_f32": (_P,) * 5 + (_I,) * 4 + (_P,),
+        # e, s, f
+        "hg_unsorted_sum_route": (_I,) * 3,
+        "hg_unsorted_sum_blocks": (_I,) * 3,
     },
     "scf_mp": {
         # x, rbf, cm, gidx, rowid, perm, row_ptr, w0, b0, w1, b1, out,
@@ -137,10 +143,12 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     },
     "poly_mp": {
         # src, senders, mask, row_ptr, o_sum, o_sq, o_mxmn, o_cnt,
-        # n_rows, n_src, f, gather, route, stream
-        "hg_poly_segment_f32": (_P,) * 8 + (_I,) * 5 + (_P,),
+        # n_rows, n_src, f, gather, route, stage_rows, stream
+        "hg_poly_segment_f32": (_P,) * 8 + (_I,) * 6 + (_P,),
         # f, gather
         "hg_poly_segment_route": (_I,) * 2,
+        # f, stage_rows
+        "hg_poly_gather_window": (_I,) * 2,
     },
 }
 

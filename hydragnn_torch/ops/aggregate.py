@@ -18,30 +18,37 @@ schedule becomes per-segment CSR offsets: :func:`segment_offsets` gives
 each output row then owns the contiguous row range
 ``[row_ptr[s], row_ptr[s+1])``.
 
-The ``pallas`` backend's two segment sums (:func:`segment_sum_pallas`, any
-id order, and :func:`segment_sum_sorted`, nondecreasing ids) reach one
-kernel, the pool's CSR segment sum: the rows of each segment summed in
-float32 in a fixed order (no atomics), on route 1 at even widths
-(:func:`segment_sum_plan`: equal segment counts a block, warp slices,
-cut segments' partials added in warp order).  For unsorted ids a stable
-``torch.sort`` of the ids, with out-of-range ids parked past the last
-segment, is the schedule; the sum through its permutation is the
-kernel's, launched and checked as the pool's (ops/fused_mp.py
-``launch_segment_sum_rows``).  A CPU tensor takes the
-pool's plain version (``segment_sum_dense_plain``, ``index_add_``), a CUDA
-tensor the kernel.  Their VJP is a gather
-with zeros where the forward dropped the row (plain PyTorch, so
-differentiable in turn).  ``LAUNCHES`` counts the kernel's launches per
-function.
+The ``pallas`` backend's two segment sums sum the rows of each segment in
+float32 in a fixed order (no atomics), each segment's rows in edge order:
+
+- :func:`segment_sum_sorted` (nondecreasing ids) launches the pool's CSR
+  segment sum (ops/fused_mp.py ``launch_segment_sum_rows``), on route 1 at
+  even widths (:func:`segment_sum_plan`: equal segment counts a block,
+  warp slices, cut segments' partials added in warp order);
+- :func:`segment_sum_pallas` (ids in any order) launches the unsorted sum
+  (``launch_unsorted_sum``).  Its route 1 is one launch with no library
+  sort: each block finds the edges of its own segments, places them in the
+  stable order in its shared memory (:func:`unsorted_sum_plan` writes the
+  schedule out) and sums them as the CSR kernel's route 1 does.  Route 2,
+  past route 1's widths and segment counts, is :func:`sort_schedule` (a
+  stable ``torch.sort`` of the ids, out-of-range ids parked past the last
+  segment) and the CSR kernel through its permutation.
+
+A CPU tensor takes the pool's plain version (``segment_sum_dense_plain``,
+``index_add_``), a CUDA tensor the kernels.  Their VJP is a gather with
+zeros where the forward dropped the row (plain PyTorch, so differentiable
+in turn).  ``LAUNCHES`` counts the kernels' launches per function.
 """
 
 from __future__ import annotations
 
 import bisect
+import math
 import os
 import warnings
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 # THE backend vocabulary (same values as the reference)
@@ -207,6 +214,122 @@ def segment_sum_route1(data2d, row_ptr, n_blocks, perm=None,
     return out
 
 
+# route 1 of the unsorted segment sum (csrc/fused_mp.cu ``us::``): ids a
+# load of the counting and placing walks, segments a block owns at most,
+# positions a round places in shared memory, and the segment count past
+# which route 2 takes the call
+UNSORTED_ID_LOAD = 32
+UNSORTED_SEGS_PER_BLOCK = 128
+UNSORTED_WINDOW = 16384
+UNSORTED_MAX_SEGMENTS = UNSORTED_SEGS_PER_BLOCK * 256
+
+
+def unsorted_sum_plan(ids, num_segments, n_blocks, n_warps=SEG_SUM_WARPS,
+                      window=None):
+    """Route 1's schedule of the unsorted segment sum, as the card's
+    ``n_blocks`` blocks of ``n_warps`` warps build it in shared memory.
+
+    Block ``k`` owns the segments ``[sb, se) = [S k // n_blocks, S (k + 1)
+    // n_blocks)`` (the CSR kernel's).  (1) Its threads read every id once
+    and keep the first and last edge whose id it owns, its span ``[lo,
+    hi]``.  (2) Warp ``w`` takes the equal part ``[lo + L w // n_warps, lo
+    + L (w + 1) // n_warps)`` of the span (``L = hi - lo + 1``) and counts,
+    32 ids a load, the edges of each owned segment (``counts[t][w]``: a
+    key's lanes add once).  (3) An exclusive prefix of the counts in
+    (segment, warp) order gives ``base[t][w]``, the first position of warp
+    ``w``'s edges of segment ``sb + t``, and the block's offsets
+    ``row_ptr[t] = base[t][0]`` (``row_ptr[se - sb]`` the block's
+    positions).  (4) In rounds of ``window`` positions, each warp walks
+    its part again and places each owned edge at its (segment, warp) start
+    plus its rank among them so far (lanes in order within a load, a
+    running count across loads), keeping the round's positions.  The
+    result is the slice of the stable sort's permutation that the CSR
+    kernel's block ``k`` would walk.  Returns one dict a block:
+    ``segments``, ``span`` (None when the block owns no edge), ``parts``,
+    ``counts``, ``row_ptr`` (from 0), ``positions`` (edge indices in
+    position order), ``q0`` (the in-range ids below ``sb``: the block's
+    first global position) and ``rounds``."""
+    ids = np.asarray(ids.cpu() if torch.is_tensor(ids) else ids,
+                     dtype=np.int64)
+    window = UNSORTED_WINDOW if window is None else int(window)
+    e, n_seg = len(ids), int(num_segments)
+    blocks = []
+    for k in range(n_blocks):
+        sb, se = n_seg * k // n_blocks, n_seg * (k + 1) // n_blocks
+        ns = se - sb
+        owned = np.nonzero((ids >= sb) & (ids < se))[0]
+        q0 = int(((ids >= 0) & (ids < sb)).sum())
+        span = (int(owned[0]), int(owned[-1])) if len(owned) else None
+        lo, length = (span[0], span[1] - span[0] + 1) if span else (0, 0)
+        parts = [(lo + length * w // n_warps, lo + length * (w + 1) // n_warps)
+                 for w in range(n_warps)]
+
+        def loads(w):   # (edge, key or -1) a lane, 32 ids a load
+            a, b = parts[w]
+            for e0 in range(a, b, UNSORTED_ID_LOAD):
+                es = range(e0, min(e0 + UNSORTED_ID_LOAD, b))
+                yield [(q, int(ids[q]) - sb if sb <= ids[q] < se else -1)
+                       for q in es]
+
+        counts = [[0] * n_warps for _ in range(ns)]
+        for w in range(n_warps):
+            for load in loads(w):
+                for key in {key for _, key in load if key >= 0}:
+                    counts[key][w] += sum(1 for _, k_ in load if k_ == key)
+        base, acc = [[0] * n_warps for _ in range(ns)], 0
+        for t in range(ns):
+            for w in range(n_warps):
+                base[t][w], acc = acc, acc + counts[t][w]
+        n_in = acc
+        row_ptr = [base[t][0] for t in range(ns)] + [n_in]
+        positions = [None] * n_in
+        rounds = 0
+        for r0 in range(0, n_in, window):
+            rounds += 1
+            run = [row[:] for row in base]
+            for w in range(n_warps):
+                for load in loads(w):
+                    for lane, (q, key) in enumerate(load):
+                        if key < 0:
+                            continue
+                        rank = sum(1 for _, k_ in load[:lane] if k_ == key)
+                        pos = run[key][w] + rank
+                        if r0 <= pos < r0 + window:
+                            assert positions[pos] is None
+                            positions[pos] = q
+                    for key in {key for _, key in load if key >= 0}:
+                        run[key][w] += sum(1 for _, k_ in load if k_ == key)
+        blocks.append({"segments": (sb, se), "span": span, "parts": parts,
+                       "counts": counts, "row_ptr": row_ptr,
+                       "positions": positions, "q0": q0, "rounds": rounds})
+    return blocks
+
+
+def unsorted_sum_schedule(plan, num_segments):
+    """The blocks' schedules of :func:`unsorted_sum_plan` joined: ``(perm,
+    row_ptr)`` in global positions (int32), as ``sort_schedule`` gives them
+    for the in-range ids."""
+    perm, row_ptr = [], [0] * (num_segments + 1)
+    for blk in plan:
+        sb, se = blk["segments"]
+        for t in range(se - sb + 1):
+            row_ptr[sb + t] = blk["q0"] + blk["row_ptr"][t]
+        perm += blk["positions"]
+    return (torch.tensor(perm, dtype=torch.int32),
+            torch.tensor(row_ptr, dtype=torch.int32))
+
+
+def unsorted_sum_route1(data2d, ids, num_segments, n_blocks,
+                        n_warps=SEG_SUM_WARPS, window=None):
+    """The unsorted segment sum as route 1 computes it: the CSR kernel's
+    route 1 (:func:`segment_sum_route1`, same blocks and warps) over the
+    schedule that :func:`unsorted_sum_plan` builds.  For the tests."""
+    perm, row_ptr = unsorted_sum_schedule(
+        unsorted_sum_plan(ids, num_segments, n_blocks, n_warps, window),
+        num_segments)
+    return segment_sum_route1(data2d, row_ptr, n_blocks, perm, None, n_warps)
+
+
 def segment_sum_onehot(data, segment_ids, num_segments):
     """``onehot[e, n]^T @ data`` in full float32."""
     shape = data.shape
@@ -248,13 +371,14 @@ class _SegmentSumRows(torch.autograd.Function):
             return fused_mp.segment_sum_dense_plain(
                 data2d, segment_ids, num_segments,
                 max_per_segment=max_per_segment)
-        if op == "segment_sum_sorted":
-            perm, row_ptr = None, segment_offsets(segment_ids, num_segments)
-        else:
-            perm, row_ptr = sort_schedule(segment_ids, num_segments)
+        if op == "segment_sum_pallas":
+            return fused_mp.launch_unsorted_sum(
+                data2d.contiguous(), segment_ids, num_segments, op=op,
+                launches=LAUNCHES).to(data2d.dtype)
         return fused_mp.launch_segment_sum_rows(
-            data2d.contiguous(), row_ptr, num_segments, op=op, perm=perm,
-            max_rows=max_per_segment, launches=LAUNCHES).to(data2d.dtype)
+            data2d.contiguous(), segment_offsets(segment_ids, num_segments),
+            num_segments, op=op, max_rows=max_per_segment,
+            launches=LAUNCHES).to(data2d.dtype)
 
     @staticmethod
     def backward(ctx, g):
@@ -272,8 +396,10 @@ class _SegmentSumRows(torch.autograd.Function):
 def _segment_sum_2d(data, segment_ids, num_segments, op,
                     max_per_segment=None):
     shape = data.shape
-    out = _SegmentSumRows.apply(data.reshape(shape[0], -1), segment_ids,
-                                num_segments, op, max_per_segment)
+    # the columns named: a reshape to -1 is ambiguous with no rows
+    out = _SegmentSumRows.apply(
+        data.reshape(shape[0], math.prod(shape[1:])), segment_ids,
+        num_segments, op, max_per_segment)
     return out.reshape((num_segments,) + tuple(shape[1:]))
 
 

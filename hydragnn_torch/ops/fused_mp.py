@@ -33,6 +33,14 @@ partials the block adds in warp order: ``aggregate.segment_sum_plan``
 writes it out), route 2 (one warp per segment) at odd F;
 :func:`launch_segment_sum_rows` takes a ``route`` as well.
 
+The unsorted segment sum of the ``pallas`` backend
+(:func:`launch_unsorted_sum`) takes two routes by ids, segments and width
+(:func:`unsorted_sum_route`, ``hg_unsorted_sum_route``): route 1, one
+launch in which each block builds the stable schedule of its own segments
+in shared memory and sums it as the CSR kernel's route 1 does
+(``aggregate.unsorted_sum_plan`` writes it out), at even F up to 128;
+route 2, a stable ``torch.sort`` of the ids and the CSR kernel, past that.
+
 Each public op is a ``torch.autograd.Function`` with the reference's
 custom VJP (hydragnn_tpu/ops/fused_mp.py ``_vjp_bwd``, ``_gss_bwd``,
 ``_ssd_bwd``):
@@ -68,9 +76,12 @@ from __future__ import annotations
 
 from typing import Dict
 
+import math
+
 import torch
 
-from hydragnn_torch.ops.aggregate import segment_offsets
+from hydragnn_torch.ops.aggregate import (UNSORTED_MAX_SEGMENTS,
+                                          segment_offsets)
 
 LAUNCHES: Dict[str, int] = {
     "gather_mul_segment_sum": 0,
@@ -204,7 +215,7 @@ def segment_sum_dense_plain(data, sorted_ids, num_segments, valid=None,
     the ids sorted, so this is also the plain version of both ``pallas``
     backend segment sums (ops/aggregate.py)."""
     shape = data.shape
-    d2 = data.reshape(shape[0], -1).float()
+    d2 = data.reshape(shape[0], math.prod(shape[1:])).float()
     ok = (sorted_ids >= 0) & (sorted_ids < num_segments)
     if valid is not None:
         ok = ok & (valid != 0)
@@ -366,12 +377,14 @@ def segment_sum_route(f):
 
 def launch_segment_sum_rows(data2d, row_ptr, num_segments,
                             op="segment_sum_dense", perm=None, max_rows=None,
-                            launches=None, route=0):
+                            launches=None, route=0, n_blocks=0):
     """Launch the CSR segment-sum kernel: segment ``s`` sums the data rows
     ``perm[r]`` (``r`` itself when ``perm`` is None) for the first at most
     ``max_rows`` ``r`` of ``[row_ptr[s], row_ptr[s+1])``.  ``route``: 0
     takes the width's own (:func:`segment_sum_route`), 1 or 2 asks for
     that one (the card checks time the first design beside route 1).
+    ``n_blocks`` > 0 runs route 1 on that many blocks (the unsorted sum's
+    checks hold it to this kernel at the same block count), 0 on its own.
     Counts one launch under ``op`` in ``launches`` (this module's
     ``LAUNCHES`` unless given).  Returns a new float32 [num_segments, F]
     tensor."""
@@ -388,6 +401,8 @@ def launch_segment_sum_rows(data2d, row_ptr, num_segments,
     if route not in (0, 1, 2) or (route == 1 and segment_sum_route(f) != 1):
         raise ValueError(f"{op} takes route 0, 2, or 1 at an even width; "
                          f"got {route} at F={f}")
+    if n_blocks < 0 or (n_blocks and (route or segment_sum_route(f)) != 1):
+        raise ValueError(f"{op}: a block count is route 1's; got {n_blocks}")
     out = torch.empty((num_segments, f), dtype=torch.float32, device=dev)
     if num_segments == 0 or f == 0:
         return out
@@ -399,10 +414,99 @@ def launch_segment_sum_rows(data2d, row_ptr, num_segments,
             data2d.data_ptr(), None if perm is None else perm.data_ptr(),
             row_ptr.data_ptr(), out.data_ptr(), r, num_segments, f,
             2**31 - 1 if max_rows is None else min(int(max_rows), 2**31 - 1),
-            route, stream)
+            route, n_blocks, stream)
     _check_rc(rc, op)
     (LAUNCHES if launches is None else launches)[op] += 1
     return out
+
+
+def unsorted_sum_route(e, s, f):
+    """The unsorted segment sum's route for ``e`` ids over ``s`` segments
+    at width ``f``: 1 (one launch: each block builds the stable schedule
+    of its own segments in shared memory, then sums it as the CSR kernel's
+    route 1 does) at even ``f`` up to 128 and ``s`` up to
+    ``aggregate.UNSORTED_MAX_SEGMENTS`` (which bounds the blocks, each
+    of which reads all ``e`` ids); 2 (a stable ``torch.sort`` of the ids, then the
+    CSR kernel) past that.  Mirrors ``hg_unsorted_sum_route``; a card test
+    holds the two together."""
+    ok = (e >= 0 and 0 <= s <= UNSORTED_MAX_SEGMENTS and 0 < f <= 128
+          and f % 2 == 0)
+    return 1 if ok else 2
+
+
+def unsorted_sum_blocks(e, s, f):
+    """The blocks route 1 of the unsorted sum launches on this card (one
+    a SM, at most one for every 512 ids and segments and one a segment, at
+    least one for every ``aggregate.UNSORTED_SEGS_PER_BLOCK`` segments)."""
+    from hydragnn_torch.kernels.build import load_library
+
+    n = load_library("fused_mp").hg_unsorted_sum_blocks(e, s, f)
+    if n <= 0:
+        raise ValueError(f"no route-1 block count at E={e}, S={s}, F={f}")
+    return n
+
+
+def launch_unsorted_sum(data2d, ids, num_segments, op="segment_sum_pallas",
+                        launches=None, route=0, n_blocks=0, debug=False):
+    """The segment sum of ``data2d`` [E, F] rows by ``ids`` [E] in any
+    order (ids outside ``[0, num_segments)`` dropped), each segment's rows
+    in edge order.  ``route`` 0 takes :func:`unsorted_sum_route`'s; route
+    1 is one launch of ``hg_unsorted_sum_f32`` (``n_blocks`` > 0: that
+    many blocks, for the checks); route 2 the wrapper's stable sort of the
+    ids (:func:`~hydragnn_torch.ops.aggregate.sort_schedule`) and the CSR
+    kernel.  Neither synchronises with the host.  ``debug`` (route 1, the
+    checks only) also returns the schedule the blocks built: ``(out,
+    perm, row_ptr)``, the stable sort's permutation of the in-range ids
+    and its offsets.  Counts one launch under ``op`` in ``launches``
+    (``aggregate.LAUNCHES`` unless given).  Returns a new float32
+    [num_segments, F] tensor."""
+    from hydragnn_torch.kernels.build import load_library
+    from hydragnn_torch.ops import aggregate
+
+    dev = data2d.device
+    e, f = data2d.shape
+    s = num_segments
+    launches = aggregate.LAUNCHES if launches is None else launches
+    _require(data2d, "data", torch.float32, (e, f), dev)
+    if ids.device != dev or ids.dtype not in (torch.int32, torch.int64) \
+            or tuple(ids.shape) != (e,):
+        raise ValueError(f"{op}: ids must be int32 or int64 [{e}] on {dev}")
+    if e >= 2**31 or s >= 2**31:
+        raise ValueError("the kernel indexes rows and segments with int32")
+    own = unsorted_sum_route(e, s, f)
+    if route not in (0, 1, 2) or (route == 1 and own != 1):
+        raise ValueError(f"{op} takes route 0, 2, or 1 at E={e}, S={s}, "
+                         f"F={f}; got {route}")
+    if (route or own) == 2:
+        if n_blocks or debug:
+            raise ValueError(f"{op}: a block count or the schedule is "
+                             "route 1's")
+        perm, row_ptr = aggregate.sort_schedule(ids, s)
+        return launch_segment_sum_rows(data2d, row_ptr, s, op=op, perm=perm,
+                                       launches=launches)
+    ids = ids.to(torch.int32).contiguous()   # one cast of int64 ids
+    out = torch.empty((s, f), dtype=torch.float32, device=dev)
+    perm_dbg = rp_dbg = None
+    if debug:
+        perm_dbg = torch.full((e,), -1, dtype=torch.int32, device=dev)
+        rp_dbg = torch.full((s + 1,), -1, dtype=torch.int32, device=dev)
+    if s > 0:
+        data2d = _aligned(data2d)   # float2 rows
+        if ids.data_ptr() % 16:     # int4 id loads
+            ids = ids.clone()
+        lib = load_library("fused_mp")
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = lib.hg_unsorted_sum_f32(
+                data2d.data_ptr(), ids.data_ptr(), out.data_ptr(),
+                None if perm_dbg is None else perm_dbg.data_ptr(),
+                None if rp_dbg is None else rp_dbg.data_ptr(), e, s, f,
+                n_blocks, stream)
+        _check_rc(rc, op)
+        launches[op] += 1
+    elif rp_dbg is not None:
+        rp_dbg.zero_()
+    return (out, perm_dbg, rp_dbg) if debug else out
 
 
 # ---------------------------------------------------------------------------

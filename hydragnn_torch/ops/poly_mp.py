@@ -14,14 +14,20 @@ kernels/build.py):
   ``x[senders] * mask`` with no ``[E, F]`` tensor in memory — SAGE's and
   MFC's neighbour sum and degree.
 
-The scatter mode takes one of two routes by width (:func:`fwd_route`,
-the C side's ``hg_poly_segment_route``): route 1 at even F up to 128 (each
-warp on a share of the rows, the rows of 8 edges in flight across row
-boundaries, a float2 a lane: :func:`scatter_route1_walk` writes the walk
-out), route 2 (the first design, one warp per row) at odd F and past
-128; the gather mode keeps route 2.  Both give the same bits.
-``launch_poly_segment``'s ``route`` (0: the width's own) lets the card
-checks time either beside the other.
+Both modes take one of two routes by width (:func:`fwd_route`, the C
+side's ``hg_poly_segment_route``): route 1 at even F up to 128, route 2
+(the first design, one warp per row) at odd F and past 128.  The scatter
+mode's route 1 puts each warp on a share of the rows, the rows of 8 edges
+in flight across row boundaries, a float2 a lane
+(:func:`scatter_route1_walk` writes the walk out).  The gather mode's
+route 1 gives each block a contiguous range of receiver rows and stages
+the rows of x around them (the block's rows and up to 127 either side,
+where a collated batch's senders lie) in shared memory by one bulk copy,
+so that no edge gathers its sender's row from L2; a sender outside the
+window is read from global memory (:func:`gather_route1_plan` writes it
+out).  Both routes give the same bits.  ``launch_poly_segment``'s
+``route`` (0: the width's own) lets the card checks time either beside
+the other.
 
 The reference contract is kept: the result is a tuple in kernel-moment
 order (the requested subset of ``MOMENT_ORDER``): ``sum`` [N, F], ``sq``
@@ -168,19 +174,22 @@ def gather_poly_segment_plain(x, senders, receivers, moments, mask=None):
 # ---------------------------------------------------------------------------
 
 def route1_takes(f, gather):
-    """Whether route 1 takes width ``f`` at all (scatter mode, ``f``
-    even: a float2 a lane); a forced route 1 elsewhere is refused."""
-    return not gather and f > 0 and f % 2 == 0
+    """Whether route 1 takes width ``f`` at all: in scatter mode ``f``
+    even (a float2 a lane), in gather mode a multiple of 4 (a float4 a
+    lane); a forced route 1 elsewhere is refused."""
+    return f > 0 and f % (4 if gather else 2) == 0
 
 
 def fwd_route(f, gather):
-    """The poly kernel's route at width ``f``: 1 in scatter mode at even
-    ``f`` up to 128 (each warp on a share of the rows, a float2 a lane,
-    the rows of 8 edges in flight across row boundaries), PNA's 64 among
-    them; 2 (the first design, one warp per row) at odd ``f``, past 128
-    (where it measured faster on the card) and in gather mode.  Mirrors
+    """The poly kernel's route at width ``f``: 1 at the widths
+    :func:`route1_takes` up to 128 in scatter mode and up to 64 in gather
+    mode (PNA's, SAGE's and MFC's 64 among them); 2 (the first design, one
+    warp per row) elsewhere: odd ``f`` (gathering, ``f`` not a multiple of
+    4) and past those widths, where route 2 measured faster (the scatter
+    at 256, the gather at 128, whose window holds fewer rows).  Mirrors
     ``hg_poly_segment_route``; a card test holds the two together."""
-    return 1 if route1_takes(f, gather) and f <= 128 else 2
+    return 1 if route1_takes(f, gather) and f <= (64 if gather else 128) \
+        else 2
 
 
 # route 1 of the scatter mode (csrc/poly_mp.cu ``r1::``): edge rows in
@@ -210,15 +219,140 @@ def scatter_route1_walk(row_ptr, n_warps):
     return bounds, groups
 
 
+# route 1 of the gather mode (csrc/poly_mp.cu ``pg::``): warps a block,
+# receiver rows a block owns at most, the bytes of x's node window and
+# the rows it reaches either side of the block's own
+GATHER_WARPS = 32
+GATHER_ROWS_PER_BLOCK = 128
+GATHER_X_BYTES = 96 * 1024
+GATHER_REACH = 127
+
+
+def gather_window_rows(f, stage_rows=0):
+    """The rows of x that gather route 1's window holds at width ``f``
+    (``stage_rows`` > 0: at most that many, as the checks ask).  Mirrors
+    ``hg_poly_gather_window``."""
+    cap = GATHER_X_BYTES // (4 * f)
+    return stage_rows if 0 < stage_rows < cap else cap
+
+
+def gather_window(r0, r1, n_src, win):
+    """The rows of x that block rows ``[r0, r1)`` stage in a window of
+    ``win`` rows: ``(lo, n_st)``, the block's rows with an equal reach
+    either side (``GATHER_REACH`` at most: a sender of a collated batch
+    lies in its receiver's graph of at most 128 nodes) inside ``[0,
+    n_src)``.  Mirrors the kernel's ``window_of``."""
+    nr = r1 - r0
+    reach = min((win - nr) // 2, GATHER_REACH) if win > nr else 0
+    a = max(r0 - reach, 0)
+    b = min(max(r1 + reach, a), n_src, a + win)
+    return a, b - a
+
+
+def gather_route1_plan(row_ptr, senders, n_src, n_blocks, f, stage_rows=0,
+                       n_warps=GATHER_WARPS):
+    """Route 1's plan of the gather mode, as the card's ``n_blocks``
+    blocks of ``n_warps`` warps run it, each half-warp a walker.
+
+    Block ``k`` owns the receiver rows ``[r0, r1) = [n k // n_blocks, n (k
+    + 1) // n_blocks)`` and their edges ``[p0, p1) = [row_ptr[r0],
+    row_ptr[r1])``; it stages read codes for the first 4096 of them
+    (the walk codes the rest itself), and x's rows ``[lo, lo + n_st)``
+    (:func:`gather_window` with ``gather_window_rows(f, stage_rows)``
+    rows) by one bulk copy issued before anything else.  Walker ``w`` of
+    its ``2 n_warps`` half-warps walks an equal count of the block's rows,
+    ``[r0 + nr w // (2 n_warps), r0 + nr (w + 1) // (2 n_warps))``, in
+    edge order, a float4 a lane.  An edge reads its sender's row
+    from the window (``"staged"``), from global memory when it lies
+    outside it (``"global"``), or sends zero when its sender lies outside
+    ``[0, n_src)`` (``"dead"``).  Returns one dict a block: ``rows``,
+    ``edges``, ``span`` (the live senders' least and greatest, None
+    without one), ``staged`` (the window's rows), ``walkers`` (each
+    half-warp's
+    rows) and ``reads`` (edge -> how it reads its sender)."""
+    ptr = [int(v) for v in row_ptr.long().cpu()]
+    send = [int(v) for v in senders.long().cpu()]
+    n = len(ptr) - 1
+    win = gather_window_rows(f, stage_rows)
+    blocks = []
+    for k in range(n_blocks):
+        r0, r1 = n * k // n_blocks, n * (k + 1) // n_blocks
+        p0, p1 = ptr[r0], ptr[r1]
+        live = [send[e] for e in range(p0, p1) if 0 <= send[e] < n_src]
+        span = (min(live), max(live)) if live else None
+        lo, n_st = gather_window(r0, r1, n_src, win)
+        reads = {}
+        for e in range(p0, p1):
+            s = send[e]
+            reads[e] = ("dead" if not 0 <= s < n_src else
+                        "staged" if 0 <= s - lo < n_st else "global")
+        nr = r1 - r0
+        blocks.append({
+            "rows": (r0, r1), "edges": (p0, p1), "span": span,
+            "staged": (lo, lo + n_st),
+            "walkers": [(r0 + nr * w // (2 * n_warps),
+                         r0 + nr * (w + 1) // (2 * n_warps))
+                        for w in range(2 * n_warps)],
+            "reads": reads})
+    return blocks
+
+
+def gather_route1_moments(x, senders, mask, row_ptr, moments, n_blocks,
+                          stage_rows=0, n_warps=GATHER_WARPS):
+    """The gather mode's moments as route 1 computes them from
+    :func:`gather_route1_plan`: each walker's rows in edge order, ``v =
+    x[s] * mask[e]`` (one float32 product; zero from a dead sender) read
+    from the window or from x, ``s += v``, ``q += v * v``, max and min
+    selected; the count from ``row_ptr``.  For the tests: the card's
+    kernel cannot run here.  Returns float32 tensors in the order of
+    ``moments``."""
+    moments = _norm_moments(moments)
+    n, f = x.shape
+    x32 = x.float()
+    m32 = mask.float()
+    ptr = [int(v) for v in row_ptr.long().cpu()]
+    out = {"sum": torch.full((n, f), float("nan")),
+           "sq": torch.full((n, f), float("nan")),
+           "mxmn": torch.full((n, 2 * f), float("nan")),
+           "cnt": torch.full((n,), float("nan"))}
+    plan = gather_route1_plan(row_ptr, senders, n, n_blocks, f, stage_rows,
+                              n_warps)
+    for blk in plan:
+        lo, hi = blk["staged"]
+        window = x32[lo:hi]
+        for ra, rb in blk["walkers"]:
+            for r in range(ra, rb):
+                s = torch.zeros(f)
+                q = torch.zeros(f)
+                mx = torch.full((2 * f,), _NEG)
+                for e in range(ptr[r], ptr[r + 1]):
+                    how = blk["reads"][e]
+                    if how == "dead":
+                        v = torch.zeros(f)
+                    else:
+                        src = int(senders[e])
+                        row = (window[src - lo] if how == "staged"
+                               else x32[src])
+                        v = row * m32[e]
+                    s = s + v
+                    q = q + v * v
+                    mx = torch.maximum(mx, torch.cat([v, -v]))
+                out["sum"][r], out["sq"][r], out["mxmn"][r] = s, q, mx
+                out["cnt"][r] = float(ptr[r + 1] - ptr[r])
+    return tuple(out[m] for m in moments)
+
+
 def launch_poly_segment(src, senders, mask, row_ptr, num_segments, moments,
-                        op, route=0):
+                        op, route=0, stage_rows=0):
     """Launch the poly kernel on a precomputed CSR schedule (``row_ptr``
     from :func:`segment_offsets`).  Scatter mode (``senders is None``):
     ``src`` is data [E, F].  Gather mode: ``src`` is x [N, F] with
     ``senders`` [E] int32 and ``mask`` [E] float32.  ``route``: 0 takes
     the width's own (:func:`fwd_route`), 1 or 2 asks for that one (the
-    card checks time the first design beside route 1).  Returns new
-    float32 tensors in the order of ``moments``."""
+    card checks time the first design beside route 1).  ``stage_rows`` >
+    0 (gather route 1, the checks) caps the rows of x staged, so that
+    senders fall outside the window.  Returns new float32 tensors in the
+    order of ``moments``."""
     from hydragnn_torch.kernels.build import load_library
 
     dev = src.device
@@ -240,8 +374,12 @@ def launch_poly_segment(src, senders, mask, row_ptr, num_segments, moments,
     gather = senders is not None
     if route not in (0, 1, 2) or (route == 1
                                   and not route1_takes(f, gather)):
-        raise ValueError(f"{op} takes route 0, 2, or 1 in scatter mode at "
-                         f"an even width; got {route} at F={f}")
+        raise ValueError(f"{op} takes route 0, 2, or 1 at an even width; "
+                         f"got {route} at F={f}")
+    if stage_rows < 0 or (stage_rows and not (
+            gather and (route or fwd_route(f, gather)) == 1)):
+        raise ValueError(f"{op}: staged rows are gather route 1's; got "
+                         f"{stage_rows}")
     outs = {}
     for m in moments:
         shape = {"sum": (n, f), "sq": (n, f), "mxmn": (n, 2 * f),
@@ -264,7 +402,8 @@ def launch_poly_segment(src, senders, mask, row_ptr, num_segments, moments,
             None if senders is None else senders.data_ptr(),
             None if mask is None else mask.data_ptr(),
             row_ptr.data_ptr(), ptr("sum"), ptr("sq"), ptr("mxmn"),
-            ptr("cnt"), n, n_src, f, int(gather), route, stream)
+            ptr("cnt"), n, n_src, f, int(gather), route, stage_rows,
+            stream)
     fused_mp._check_rc(rc, op)
     LAUNCHES[op] += 1
     return tuple(outs[m] for m in moments)

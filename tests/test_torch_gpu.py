@@ -86,6 +86,40 @@ def _graph_batch(seed, n_real=290, n_pad=304, e_pad=2560, hub=0):
 
 
 
+# the id patterns the unsorted segment sum is held on (here and in
+# tests/test_torch_unsorted_sum_plan.py)
+ID_PATTERNS = ("sorted", "padded_tail", "shuffled", "graph_blocked",
+               "out_of_range_tail", "all_out_of_range", "empty_segments",
+               "no_ids")
+
+
+def _id_pattern(name, seed=0):
+    """(ids int32 [E], num_segments) of a collate-shaped batch: its
+    receivers (sorted; ``padded_tail``: the masked tail on node N-1, as
+    collate parks it), a shuffled copy, its senders (blocked by graph,
+    unsorted within one), senders with an out-of-range tail, ids all
+    outside ``[0, N)``, receivers over every third node only (empty
+    segments), and no ids at all."""
+    b = _graph_batch(40 + seed)
+    n = len(b["node_gid"])
+    rng = np.random.RandomState(seed)
+    recv, send, mask = b["receivers"], b["senders"], b["edge_mask"]
+    real = recv[mask != 0]
+    ids = {
+        "sorted": lambda: real,
+        "padded_tail": lambda: recv,
+        "shuffled": lambda: rng.permutation(recv),
+        "graph_blocked": lambda: send[mask != 0],
+        "out_of_range_tail": lambda: np.where(
+            mask != 0, send, n + np.arange(len(send)) % 3),
+        "all_out_of_range": lambda: np.where(
+            rng.rand(len(recv)) < 0.5, -1 - recv, n + recv),
+        "empty_segments": lambda: (real // 3) * 3,
+        "no_ids": lambda: np.zeros(0, np.int64),
+    }[name]()
+    return np.asarray(ids, np.int32), n
+
+
 def _t(a):
     return torch.from_numpy(np.asarray(a))
 
@@ -771,9 +805,13 @@ def test_poly_route_matches_plan_on_card(cuda):
     torch.cuda.synchronize()
     assert torch.equal(a, b)
     with pytest.raises(ValueError):
-        poly_mp.launch_poly_segment(torch.randn(40, 8, device=cuda), send,
+        poly_mp.launch_poly_segment(torch.randn(40, 5, device=cuda), send,
                                     mask, ptr, 40, ("sum",),
                                     "gather_poly_segment", route=1)
+    for f in (1, 2, 64, 128, 256):
+        for stage in (0, 3, 10**6):
+            assert lib.hg_poly_gather_window(f, stage) == \
+                poly_mp.gather_window_rows(f, stage), (f, stage)
 
 
 @pytest.mark.gpu
@@ -820,6 +858,134 @@ def test_poly_scatter_route1_matches_route2_on_card(cuda, f, hub):
                 _near_plain(a, want)
             blank = {"mxmn": -1e9}.get(m, 0.0)
             assert bool((a[empty] == blank).all()), (moments, m)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stage", [0, 3])
+@pytest.mark.parametrize("hub", [0, 300])
+@pytest.mark.parametrize("f", [64, 128])
+def test_poly_gather_route1_matches_route2_on_card(cuda, f, hub, stage):
+    """The gather mode's route 1 (x's node window in shared memory)
+    against route 2 bit for bit for every moment subset, bit-identical
+    over two runs, on a mask with fractions and senders outside ``[0,
+    N)``; ``stage`` 3 stages at most 3 rows of x, so that most senders
+    lie past the window and are read from global memory."""
+    from hydragnn_torch.ops import poly_mp
+    from hydragnn_torch.ops.aggregate import segment_offsets
+
+    b = _graph_batch(90 + f, hub=hub)
+    n, e = len(b["node_gid"]), len(b["senders"])
+    g = torch.Generator().manual_seed(f + hub + stage)
+    x = ((torch.randn(n, f, generator=g) * 2).round() / 2).to(cuda)
+    send = _t(b["senders"]).clone()
+    send[::7] = torch.where(torch.arange(e)[::7] % 2 == 0, n + 3, -2).int()
+    send = send.to(cuda)
+    recv = _t(b["receivers"]).to(cuda)
+    mask = (_t(b["edge_mask"]) * (torch.rand(e, generator=g) + 0.5)).to(cuda)
+    ptr = segment_offsets(recv, n, mask)
+    op = "gather_poly_segment"
+    # the width's own route: 1 up to 64, 2 at 128 (a forced route 1 there)
+    assert poly_mp.fwd_route(f, True) == (1 if f <= 64 else 2)
+    for moments in _MOMENT_SUBSETS:
+        r1 = poly_mp.launch_poly_segment(x, send, mask, ptr, n, moments, op,
+                                         route=1, stage_rows=stage)
+        r1b = poly_mp.launch_poly_segment(x, send, mask, ptr, n, moments, op,
+                                          route=1, stage_rows=stage)
+        r2 = poly_mp.launch_poly_segment(x, send, mask, ptr, n, moments, op,
+                                         route=2)
+        p = poly_mp.gather_poly_segment_plain(x, send, recv, moments,
+                                              mask=mask)
+        torch.cuda.synchronize()
+        for m, a, a2, c, want in zip(moments, r1, r1b, r2, p):
+            assert torch.equal(a, a2) and torch.equal(a, c), (moments, m)
+            if m in ("mxmn", "cnt"):
+                assert torch.equal(a, want), (moments, m)
+            else:
+                _near_plain(a, want)
+
+
+@pytest.mark.gpu
+def test_unsorted_sum_route_matches_plan_on_card(cuda):
+    """The C side's route of the unsorted sum is the plan's
+    (``unsorted_sum_route``), its block count covers the segments, and a
+    forced route 1 it does not take is refused."""
+    from hydragnn_torch.kernels.build import load_library
+    from hydragnn_torch.ops import aggregate as ag
+
+    lib = load_library("fused_mp")
+    for e in (0, 1, 5000):
+        for s in (0, 1, 513, ag.UNSORTED_MAX_SEGMENTS,
+                  ag.UNSORTED_MAX_SEGMENTS + 1):
+            for f in range(0, 140):
+                assert lib.hg_unsorted_sum_route(e, s, f) == \
+                    tfm.unsorted_sum_route(e, s, f), (e, s, f)
+            if s and tfm.unsorted_sum_route(e, s, 64) == 1:
+                nb = tfm.unsorted_sum_blocks(e, s, 64)
+                assert -(-s // nb) <= ag.UNSORTED_SEGS_PER_BLOCK
+    ids = torch.arange(10, device=cuda, dtype=torch.int32)
+    for f in (3, 130):
+        with pytest.raises(ValueError):
+            tfm.launch_unsorted_sum(torch.randn(10, f, device=cuda), ids, 10,
+                                    route=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f", [64, 128, 2, 6])
+@pytest.mark.parametrize("name", ID_PATTERNS)
+def test_unsorted_sum_route1_on_card(cuda, name, f):
+    """Route 1 of the unsorted sum (one launch, the schedule built in each
+    block's shared memory) bit for bit against the CSR kernel on the
+    stable sort's permutation at the same block count, and against itself
+    over two runs; its schedule (the debug output) the stable sort's
+    permutation and offsets; within 1e-5 of the plain version and of
+    route 2; every segment written, empty ones zero; int64 ids the same,
+    with no host synchronisation; at the least block count it takes (128
+    segments a block) and at 3x its own too."""
+    from hydragnn_torch.ops import aggregate as ag
+
+    ids_np, n = _id_pattern(name)
+    ids = _t(ids_np).to(cuda)
+    e = len(ids_np)
+    g = torch.Generator().manual_seed(f + e)
+    data = torch.randn(e, f, generator=g).to(cuda)
+    perm, ptr = ag.sort_schedule(ids, n)
+    nb = tfm.unsorted_sum_blocks(e, n, f)
+    least = -(-n // ag.UNSORTED_SEGS_PER_BLOCK)   # 128 segments a block
+    for blocks in (0, least, 3 * nb):
+        _poisoned(cuda, (n, f))
+        r1 = tfm.launch_unsorted_sum(data, ids, n, n_blocks=blocks)
+        r1b, p_dbg, rp_dbg = tfm.launch_unsorted_sum(data, ids, n,
+                                                     n_blocks=blocks,
+                                                     debug=True)
+        csr = tfm.launch_segment_sum_rows(data, ptr, n, perm=perm, route=1,
+                                          n_blocks=blocks or nb)
+        torch.cuda.synchronize()
+        q = int(ptr[-1])
+        assert torch.equal(rp_dbg, ptr), blocks
+        assert torch.equal(p_dbg[:q], perm[:q]), blocks
+        assert bool((p_dbg[q:] == -1).all()), blocks
+        assert torch.equal(r1, csr) and torch.equal(r1, r1b), blocks
+        if blocks == 0:
+            own = r1
+    r1 = own    # at its own block count, as the path launches it
+    want = tfm.segment_sum_dense_plain(data, ids, n)
+    r2 = tfm.launch_unsorted_sum(data, ids, n, route=2)
+    # no host synchronisation in the wrapper, whatever the ids' type
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        r64 = tfm.launch_unsorted_sum(data, ids.long(), n)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    if e:
+        _near_plain(r1, want)
+        _near_plain(r1, r2)
+    assert torch.equal(r64, r1)
+    empty = ptr.diff() == 0
+    assert bool((r1[empty] == 0).all())
+    op = ag.segment_sum_pallas(data, ids, n)
+    torch.cuda.synchronize()
+    assert torch.equal(op, r1)
 
 
 @pytest.mark.gpu

@@ -28,6 +28,7 @@ from hydragnn_tpu.graph import segment as jseg
 from hydragnn_tpu.ops import poly_mp as jpm
 from hydragnn_torch.graph import segment as tseg
 from hydragnn_torch.ops import fused_mp as tfm
+from hydragnn_torch.ops.aggregate import segment_offsets as tagg_offsets
 from hydragnn_torch.ops import poly_mp as tpm
 from hydragnn_torch.telemetry import pipeline
 from test_torch_gpu import _graph_batch
@@ -250,6 +251,96 @@ def test_gather_sum_cnt_gives_the_neighbour_mean():
         tseg._mean_divide(su, cnt),
         tseg.segment_mean(x[s.long()], r, n, m), **TOL)
     torch.testing.assert_close(cnt, tseg.degree(r, n, m), rtol=0, atol=0)
+
+
+# --- gather mode, route 1 (x's window in shared memory) ---------------------
+
+
+@pytest.mark.parametrize("f,route", [(64, 1), (128, 2), (4, 1), (6, 2),
+                                     (68, 2), (256, 2), (63, 2), (2, 2)])
+def test_gather_routes_by_width(f, route):
+    """Gather route 1 at F a multiple of 4 up to 64 (SAGE's and MFC's 64),
+    route 2 (the first design) elsewhere; a forced route 1 takes every
+    multiple of 4."""
+    assert tpm.fwd_route(f, True) == route
+    assert tpm.route1_takes(f, True) == (f % 4 == 0)
+
+
+@pytest.mark.parametrize("stage", [0, 3, 40])
+@pytest.mark.parametrize("f", [64, 128, 4])
+@pytest.mark.parametrize("n_blocks", [3, 20])
+@pytest.mark.parametrize("hub", [0, 300])
+def test_gather_route1_plan(hub, n_blocks, f, stage):
+    """Block rows tile the receivers (at most 128 a block), the walkers'
+    (half-warps') rows tile each block's; the window lies in ``[0, N)``
+    and holds at most the budget's rows (``stage`` > 0: that many); each
+    live sender is read from the window exactly when it lies in it.  On a
+    collated batch with the whole budget every live sender is staged
+    (each graph fits one 128-node block); a small window sends some past
+    it, to global memory; senders outside ``[0, N)`` send zero."""
+    b = _graph_batch(50 + hub, hub=hub)
+    n = len(b["node_gid"])
+    send = _t(b["senders"]).clone()
+    send[::11] = torch.where(torch.arange(len(send))[::11] % 2 == 0,
+                             n + 2, -1).int()
+    ptr = tagg_offsets(_t(b["receivers"]), n, _t(b["edge_mask"]))
+    plan = tpm.gather_route1_plan(ptr, send, n, n_blocks, f, stage)
+    win = tpm.gather_window_rows(f, stage)
+    assert win == (min(stage, tpm.GATHER_X_BYTES // (4 * f)) if stage
+                   else tpm.GATHER_X_BYTES // (4 * f))
+    assert [blk["rows"][0] for blk in plan] + [n] == [
+        n * k // n_blocks for k in range(n_blocks + 1)]
+    reads = {}
+    for blk in plan:
+        r0, r1 = blk["rows"]
+        assert r1 - r0 <= tpm.GATHER_ROWS_PER_BLOCK
+        walkers = blk["walkers"]
+        assert len(walkers) == 2 * tpm.GATHER_WARPS
+        assert walkers[0][0] == r0 and walkers[-1][1] == r1
+        assert all(a[1] == c[0] for a, c in zip(walkers, walkers[1:]))
+        lo, hi = blk["staged"]
+        assert 0 <= lo <= hi <= n and hi - lo <= win
+        for e, how in blk["reads"].items():
+            s_ = int(send[e])
+            want = ("dead" if not 0 <= s_ < n else
+                    "staged" if lo <= s_ < hi else "global")
+            assert how == want
+        reads.update(blk["reads"])
+        if stage == 0 and f == 64 and blk["span"] is not None:
+            assert lo <= blk["span"][0] and blk["span"][1] < hi
+    assert sorted(reads) == list(range(int(ptr[-1])))
+    kinds = set(reads.values())
+    assert "dead" in kinds and "staged" in kinds
+    if stage == 0 and f == 64:
+        assert "global" not in kinds
+    if stage == 3:
+        assert "global" in kinds
+
+
+@pytest.mark.parametrize("stage", [0, 3])
+@pytest.mark.parametrize("moments", [ALL, ("sum", "cnt"), ("sq", "mxmn")],
+                         ids=["all", "sum-cnt", "sq-mxmn"])
+def test_gather_route1_moments_match_jax(moments, stage):
+    """Route 1's moments as its plan computes them (each warp's rows in
+    edge order, every sender read from the window or from x) against the
+    JAX ``gather_poly_segment`` (interpret mode) and the plain version:
+    sums within 1e-5, max/min and the count exactly."""
+    b = _graph_batch(61, hub=300)
+    n, f = len(b["node_gid"]), 8
+    x = np.round(b["rng"].randn(n, f).astype(np.float32) * 2.0) / 2.0
+    s, r, perm = b["senders"], b["receivers"], b["perm"]
+    mask = b["edge_mask"] * (b["rng"].rand(len(s)) + 0.5).astype(np.float32)
+    order = tpm._norm_moments(moments)
+    ptr = tagg_offsets(_t(r), n, _t(mask))
+    got = tpm.gather_route1_moments(_t(x), _t(s), _t(mask), ptr, order, 3,
+                                    stage)
+    want = jpm.gather_poly_segment(jnp.asarray(x), jnp.asarray(s),
+                                   jnp.asarray(r), jnp.asarray(perm),
+                                   moments, mask=jnp.asarray(mask))
+    _close(list(got), want, order)
+    plain = tpm.gather_poly_segment_plain(_t(x), _t(s), _t(r), order,
+                                          mask=_t(mask))
+    _close(list(got), [p.numpy() for p in plain], order)
 
 
 # --- composed segment ops ---------------------------------------------------

@@ -42,13 +42,14 @@ def test_segment_sum_routes_by_width(f, route):
 
 @pytest.mark.parametrize("f,gather,route", [
     (64, False, 1), (128, False, 1), (2, False, 1), (130, False, 2),
-    (256, False, 2), (63, False, 2), (1, False, 2), (64, True, 2),
+    (256, False, 2), (63, False, 2), (1, False, 2), (64, True, 1),
     (1, True, 2), (0, False, 2)])
 def test_poly_routes_by_width(f, gather, route):
     assert tpm.fwd_route(f, gather) == route
-    # a forced route 1 takes every even width in scatter mode
-    assert tpm.route1_takes(f, gather) == (not gather and f > 0
-                                           and f % 2 == 0)
+    # a forced route 1 takes every even width in scatter mode, every
+    # multiple of 4 in gather mode
+    assert tpm.route1_takes(f, gather) == (f > 0
+                                           and f % (4 if gather else 2) == 0)
 
 
 def _case(name):
